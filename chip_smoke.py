@@ -1,0 +1,519 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA H100 and check it.
+
+Phases, each printing its own line; any failure raises and exits
+non-zero (nothing is caught and carried on):
+
+  1. device  — needs a CUDA card; prints its name and power limit; turns
+               TF32 off for f32 matmuls and convolutions.
+  2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
+  3. parity  — each kernel against its plain PyTorch version on the card,
+               bit for bit: K1 (fused quantize+encode) on [4096, 1024] f32
+               and bf16 with adversarial values mixed in; K2 (fused
+               decode+dequantize) in f32, bf16 and accumulate form with
+               two schemes interleaved by scheme id. Times each (median
+               of CUDA-event timings, L2 flushed before each launch)
+               beside its HBM bound.
+  4. small   — reduced phi3-mini-3.8b (d_model 128, f32) served from the
+               QLC wire on the card and on the CPU: the wire and the
+               opened params must be bit-equal, one decode step's logits
+               equal to rtol 1e-4 / atol 1e-5 (f32 summation order).
+  5. slice   — phi3-mini-3.8b at full width and depth, random weights
+               from a seed: calibrate (K1 histogram), compress (K1), open
+               (K2), serve 6 requests (batch 4, prompt 16, 16 new tokens)
+               through ``Engine``; a sampled leaf must equal the plain
+               dequantize of the plain quantize; K1 and K2 are held bit
+               for bit against their plain versions at the shapes the
+               path gave them (K1 with its histogram on the whole
+               stacked ``w_in`` leaf, in row blocks; K2 on the first and
+               last 4096 chunk rows of every wired leaf); and one
+               ``decode_step(weight_codec=...)`` must equal the
+               opened-params step. K1/K2 launch counts are zeroed right
+               before the served run and read right after. One decode
+               step runs first as warm-up, and one more, on the opened
+               params, under torch.profiler.
+
+Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
+line, and, last, ``{"ok": true, "device": {...}}``.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(phase: str, msg: str):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, each after an
+    L2 flush (the main path finds its operands cold)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"kernel/plain mismatch in dtype or shape: "
+                             f"{a.dtype}{tuple(a.shape)} vs "
+                             f"{b.dtype}{tuple(b.shape)}")
+    if a.is_floating_point():
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return math.inf
+        return float((a.float() - b.float()).nan_to_num().abs().max())
+    return float((a.long() - b.long()).abs().max())
+
+
+def require_equal(what: str, a, b) -> float:
+    err = max(max_abs_err(x, y) for x, y in zip(a, b))
+    if err != 0 or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: kernel differs from plain version "
+                             f"(max abs err {err})")
+    return err
+
+
+def phase_parity(qf, ops, ref, lut, schemes, flush):
+    rng = np.random.default_rng(0)
+    c1 = rng.integers(1, 1000, 256).astype(np.float64)
+    c1[0] = 1e6
+    t1 = lut.build_tables(c1, schemes.TABLE1)
+    t2 = lut.build_tables(c1[::-1].copy(), schemes.TABLE2)
+    n, k = 4096, 1024
+    x = (rng.standard_normal((n, k)) * 3).astype(np.float32)
+    adv = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1e30, -1e30,
+                    480.0, 2.0 ** -9, 2.0 ** -10, 3 * 2.0 ** -10, 1e-40,
+                    -1e-40, 464.0, 1.0625], np.float32)
+    x[::7, :16] = adv
+    x[5, 32:64] = 0.0
+    wc = 353                                   # worst_case_words(1024)
+    res = {"K1": {"err": 0.0}, "K2": {"err": 0.0}}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = torch.from_numpy(x).cuda().to(dt)
+        a = ops.quantize_encode(xd, t1, wc, emit_codes=True, emit_hist=True)
+        b = ref.quantize_encode_ref(xd, t1, wc, emit_codes=True,
+                                    emit_hist=True)
+        torch.cuda.synchronize()
+        res["K1"]["err"] = max(res["K1"]["err"],
+                               require_equal(f"K1 {dt}", a, b))
+        a = ops.quantize_encode(xd, t1, 20)
+        b = ref.quantize_encode_ref(xd, t1, 20)
+        res["K1"]["err"] = max(res["K1"]["err"],
+                               require_equal(f"K1 {dt} over capacity", a, b))
+        log("parity", f"K1 {str(dt)[6:]} [{n}, {k}]: bit-equal (words, "
+                      "nbits, scales, codes, hist; also at 20-word slots)")
+
+    xf = torch.from_numpy(x).cuda()
+    enc = lambda: ops.quantize_encode(xf, t1, wc)          # noqa: E731
+    words, nb, sc = enc()
+    res["K1"]["ms"] = time_ms(enc, 20, flush)
+    res["K1"]["plain_ms"] = time_ms(
+        lambda: ref.quantize_encode_ref(xf, t1, wc), 3, flush)
+    res["K1"]["bound_ms"] = bound_ms(nbytes(xf, words, nb, sc))
+    log("parity", f"K1 f32 [{n}, {k}] cap {wc}: {res['K1']['ms']:.4f} ms, "
+                  f"plain {res['K1']['plain_ms']:.2f} ms, HBM bound "
+                  f"{res['K1']['bound_ms']:.4f} ms")
+
+    # Two schemes interleaved by chunk: even rows under t1, odd under t2,
+    # cut to the exact capacity as the weight wire does.
+    sid = torch.from_numpy((np.arange(n) % 2).astype(np.int32)).cuda()
+    w1, n1, s1 = ops.quantize_encode(xf, t1, wc)
+    w2, n2, _ = ops.quantize_encode(xf, t2, wc)
+    cap = -(-int(torch.maximum(n1, n2).max()) // 32)
+    mix = torch.where((sid == 1)[:, None], w2, w1)[:, :cap].contiguous()
+    acc = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
+                           ).cuda()
+    forms = {
+        "f32": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
+                                              scheme_ids=sid),
+                lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k),
+                4),
+        "bf16": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
+                                               scheme_ids=sid,
+                                               out_dtype=torch.bfloat16),
+                 lambda: ref.decode_dequantize_ref(
+                     mix, s1, [t1, t2], sid, k, out_dtype=torch.bfloat16),
+                 2),
+        "acc": (lambda: ops.decode_dequantize_accumulate(
+                    acc, mix, s1, [t1, t2], k, scheme_ids=sid),
+                lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k,
+                                                  acc=acc),
+                8),
+    }
+    res["K2"]["forms"] = {}
+    in_bytes = nbytes(mix, s1, sid)
+    for name, (kern, plain, out_b) in forms.items():
+        a, b = kern(), plain()
+        torch.cuda.synchronize()
+        res["K2"]["err"] = max(res["K2"]["err"],
+                               require_equal(f"K2 {name}", [a], [b]))
+        f = {"ms": time_ms(kern, 20, flush),
+             "plain_ms": time_ms(plain, 3, flush),
+             "bound_ms": bound_ms(in_bytes + n * k * out_b)}
+        res["K2"]["forms"][name] = f
+        log("parity", f"K2 {name} [{n}, {k}] cap {cap}, 2 schemes: "
+                      f"bit-equal; {f['ms']:.4f} ms, plain "
+                      f"{f['plain_ms']:.2f} ms, HBM bound "
+                      f"{f['bound_ms']:.4f} ms")
+    a = ops.decode_dequantize(w1[:, :20].contiguous(), s1, t1, k)
+    b = ref.decode_dequantize_ref(w1[:, :20].contiguous(), s1, [t1], 0, k)
+    res["K2"]["err"] = max(res["K2"]["err"],
+                           require_equal("K2 over capacity", [a], [b]))
+    res["K2"].update(res["K2"]["forms"]["f32"])
+    return res
+
+
+def phase_small(serve_mod, reduced, get_config):
+    """The wire and opened params bit-equal between the card (kernels)
+    and the CPU (plain versions); decode-step logits within f32
+    summation-order tolerance."""
+    from repro_torch.models import decode_step, init_decode_states
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    cfg = reduced(get_config("phi3-mini-3.8b"), d_model=128, d_ff=512,
+                  dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    from repro_torch.models import init_params
+    p_cpu = init_params(cfg, gen, "cpu")
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    kw = dict(batch=2, requests=2, prompt_len=4, new_tokens=2, wire="qlc")
+    r_cpu = serve_mod.serve(cfg, device="cpu", params=p_cpu, **kw)
+    r_gpu = serve_mod.serve(cfg, device="cuda", params=p_gpu, **kw)
+    for what in ("wired", "params"):
+        for a, b in zip(tree_leaves(r_gpu[what]), tree_leaves(r_cpu[what])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"small: {what} differ card vs CPU")
+    if r_gpu["wire_codec"].meta != r_cpu["wire_codec"].meta:
+        raise AssertionError("small: wire geometry differs card vs CPU")
+    tok = torch.tensor([[5], [9]], dtype=torch.int32)
+    pos = torch.zeros((2, 1), dtype=torch.int32)
+    lg_c, _ = decode_step(r_cpu["params"], cfg, tok,
+                          init_decode_states(cfg, 2, 8, "cpu"), pos)
+    lg_g, _ = decode_step(r_gpu["params"], cfg, tok.cuda(),
+                          init_decode_states(cfg, 2, 8, "cuda"), pos.cuda())
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=1e-4, atol=1e-5)
+    log("small", f"reduced phi3 (d_model 128, f32): "
+                 f"{len(r_gpu['wire_codec'].meta)} wired leaves and opened "
+                 "params bit-equal card vs CPU; logits max abs diff "
+                 f"{float((lg_g.cpu() - lg_c).abs().max()):.3e}")
+
+
+def _node(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def check_main_path(ops, ref, wc, wired, opened, params):
+    """K1 and K2 against their plain versions, bit for bit, at the shapes
+    the main path gave them. K2: the first and last 4096 chunk rows of
+    every wired leaf, plain decode of its wire against the opened leaf
+    (K2's output on the served run). K1: the whole stacked ``w_in`` leaf
+    at worst-case slots with its histogram (calibration's shape), plain
+    in row blocks; the wire must be those words cut to the leaf's
+    capacity and those scales in bf16. Returns the max abs errors."""
+    rows, k = 4096, 1024
+    k2_err = 0.0
+    for key, m in wc.meta.items():
+        if m.n_symbols != m.n_chunks * k:
+            raise AssertionError(f"{key}: padded leaf, rows do not align")
+        node, tables = _node(wired, key), wc.registry.by_id(m.scheme_id).tables
+        w = node["words"].reshape(-1, m.capacity_words)
+        s = node["scales"].float().reshape(-1, k // 32)
+        got = _node(opened, key).reshape(-1, k)
+        for r0 in sorted({0, max(0, w.shape[0] - rows)}):
+            sl = slice(r0, r0 + rows)
+            want = ref.decode_dequantize_ref(w[sl], s[sl], [tables], 0, k,
+                                             out_dtype=got.dtype)
+            k2_err = max(k2_err, require_equal(
+                f"K2 main path {key} rows {r0}:{r0 + rows}", [got[sl]],
+                [want]))
+    log("slice", f"K2 on the main path: {len(wc.meta)} wired leaves, first "
+                 f"and last {rows} chunk rows each, opened == plain decode, "
+                 "bit-equal")
+
+    key = "groups/l0/ffn/w_in"
+    m = wc.meta[key]
+    tables = wc.registry.by_id(m.scheme_id).tables
+    xw = _node(params, key).reshape(-1, k)
+    node = _node(wired, key)
+    ww = node["words"].reshape(-1, m.capacity_words)
+    ws = node["scales"].reshape(-1, k // 32)
+    words, nb, sc, hist = ops.quantize_encode(xw, tables, 353,
+                                              emit_hist=True)
+    hist_plain = torch.zeros(256, dtype=torch.int64, device=xw.device)
+    k1_err = 0.0
+    block = 65536
+    for r0 in range(0, xw.shape[0], block):
+        sl = slice(r0, r0 + block)
+        pw, pn, ps, ph = ref.quantize_encode_ref(xw[sl], tables, 353,
+                                                 emit_hist=True)
+        k1_err = max(k1_err, require_equal(
+            f"K1 main path w_in rows {r0}:{r0 + block}",
+            [words[sl], nb[sl], sc[sl]], [pw, pn, ps]))
+        require_equal(f"wire of w_in rows {r0}:{r0 + block}",
+                      [ww[sl], ws[sl]],
+                      [pw[:, :m.capacity_words].contiguous(),
+                       ps.to(torch.bfloat16)])
+        hist_plain += ph.long()
+    k1_err = max(k1_err, require_equal("K1 main path w_in hist", [hist],
+                                       [hist_plain.to(torch.int32)]))
+    log("slice", f"K1 on the main path: w_in {list(xw.shape)} at 353-word "
+                 "slots with hist, words/nbits/scales/hist bit-equal to the "
+                 f"plain version; wire = words cut to {m.capacity_words} "
+                 "words + bf16 scales")
+    return k1_err, k2_err
+
+
+def phase_slice(qf, serve_mod, e4m3, ref, flush):
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_decode_states, \
+        init_params
+    from repro_torch.serving import compress_params_for_serving
+    cfg = get_config("phi3-mini-3.8b")
+    log("slice", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                 f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+                 f"compute {cfg.dtype}, params {cfg.param_dtype}; no cut")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log("slice", f"init {n_params} params on the card in "
+                 f"{time.perf_counter() - t0:.2f} s")
+
+    # Warm-up: one dense decode step initializes cuBLAS, so the served
+    # run's ms/token is steady state rather than first-call set-up.
+    tok = torch.tensor([[11], [22], [33], [44]], dtype=torch.int32,
+                       device="cuda")
+    pos = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    decode_step(params, cfg, tok, init_decode_states(cfg, 4, 8, "cuda"), pos)
+    torch.cuda.synchronize()
+
+    qf.fused_encode.launches = 0
+    qf.fused_decode.launches = 0
+    res = serve_mod.serve(cfg, batch=4, requests=6, prompt_len=16,
+                          new_tokens=16, wire="qlc", device="cuda",
+                          params=params)
+    launches = {"K1": qf.fused_encode.launches,
+                "K2": qf.fused_decode.launches}
+    outs, st = res["outs"], res["stats"]
+    if not all(s.state == "finished" and len(s.tokens) == 16 for s in outs):
+        raise AssertionError([(s.request_id, s.state) for s in outs])
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the main path")
+    wc, wired = res["wire_codec"], res["wired"]
+    wire_b = sym = 0
+    for key, m in wc.meta.items():
+        node = _node(wired, key)
+        wire_b += nbytes(node["words"], node["scales"])
+        sym += m.n_symbols * node["words"].shape[0]
+    log("slice", f"calibrate {res['calibrate_s'] * 1e3:.1f} ms, compress "
+                 f"{res['compress_s'] * 1e3:.1f} ms, open "
+                 f"{res['open_s'] * 1e3:.1f} ms; {len(wc.meta)} leaves, "
+                 f"{sym} symbols, wire {wire_b} B = "
+                 f"{wire_b / sym:.4f} B/symbol (words + bf16 scales)")
+    log("slice", f"served {len(outs)} requests: "
+                 f"{st['ms_per_token_prefill']:.3f} ms/token prefill, "
+                 f"{st['ms_per_token_decode']:.3f} ms/token decode; "
+                 f"launches K1 {launches['K1']}, K2 {launches['K2']}")
+
+    # A sampled leaf: opened == plain dequantize(plain quantize), with the
+    # scales through bf16 as the wire stores them.
+    opened = res["params"]
+    for g in (0, cfg.num_layers - 1):
+        leaf = params["groups"]["l0"]["ffn"]["w_in"][g]
+        codes, scales = e4m3.quantize_block32(leaf.reshape(1, -1))
+        want = e4m3.dequantize_block32(
+            codes, scales.to(torch.bfloat16).float()).reshape(leaf.shape)
+        if not torch.equal(opened["groups"]["l0"]["ffn"]["w_in"][g], want):
+            raise AssertionError(f"opened w_in[{g}] != plain round trip")
+        del codes, scales, want
+    log("slice", "sampled leaf w_in groups 0 and 31: opened == plain "
+                 "dequantize(quantize), bit-equal")
+    from repro_torch.kernels import ops
+    k1_err, k2_err = check_main_path(ops, ref, wc, wired, opened, params)
+
+    profile_step(decode_step, opened, cfg,
+                 init_decode_states(cfg, 4, 40, "cuda"), tok, pos)
+
+    # decode_step opening each group's wire inside the layer loop.
+    wired_g, wc_g = compress_params_for_serving(params["groups"],
+                                                wc.registry)
+    lg_w, _ = decode_step({**params, "groups": wired_g}, cfg, tok,
+                          init_decode_states(cfg, 4, 8, "cuda"), pos,
+                          weight_codec=wc_g)
+    lg_o, _ = decode_step(opened, cfg, tok,
+                          init_decode_states(cfg, 4, 8, "cuda"), pos)
+    if not torch.isfinite(lg_o).all() or not torch.equal(lg_w, lg_o):
+        raise AssertionError("decode_step(weight_codec) != opened step")
+    log("slice", f"decode_step(weight_codec=...) == opened-params step, "
+                 f"logits {tuple(lg_o.shape)} finite")
+    del wired_g, lg_w, lg_o, opened
+
+    # K1 and K2 at the main path's largest shape (the stacked w_in leaf).
+    key = "groups/l0/ffn/w_in"
+    xw = _node(params, key).reshape(-1, 1024)
+    m = wc.meta[key]
+    node = _node(wired, key)
+    tables = wc.registry.by_id(m.scheme_id).tables
+    enc = lambda: ops.quantize_encode(xw, tables, 353)     # noqa: E731
+    words, nb, sc = enc()
+    main = {"K1": {"shape": list(xw.shape), "ms": time_ms(enc, 3, flush),
+                   "bound_ms": bound_ms(nbytes(xw, words, nb, sc)),
+                   "max_abs_err": k1_err}}
+    del words, nb, sc
+    w = node["words"].reshape(-1, m.capacity_words)
+    s = node["scales"].float().reshape(-1, 32)
+    dec = lambda: ops.decode_dequantize(w, s, tables, 1024)  # noqa: E731
+    main["K2"] = {"shape": list(w.shape), "cap": m.capacity_words,
+                  "ms": time_ms(dec, 3, flush),
+                  "bound_ms": bound_ms(nbytes(w, s) + 4 * w.shape[0]
+                                       + xw.numel() * 4),
+                  "max_abs_err": k2_err}
+    for kname, v in main.items():
+        log("slice", f"{kname} at the main path's w_in shape {v['shape']}: "
+                     f"{v['ms']:.3f} ms, HBM bound {v['bound_ms']:.3f} ms")
+    log("slice", f"peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, main
+
+
+def profile_step(decode_step, params, cfg, states, tok, pos):
+    """One engine-shaped decode step (batch 4): its wall time without the
+    profiler, then under torch.profiler the summed time of the kernels
+    it ran (one stream, so their sum is the device's busy time), the
+    device idle share, and the kernels that took the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_step(params, cfg, tok, states, pos)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_step(params, cfg, tok, states, pos)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kernels:
+        log("profile", f"one decode step, batch 4: wall {wall_ms:.3f} ms; "
+                       "device time not measured (the profiler recorded "
+                       "no kernels)")
+        return
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    log("profile", f"one decode step, batch 4: wall {wall_ms:.3f} ms, "
+                   f"kernel time {busy_ms:.3f} ms in "
+                   f"{sum(e.count for e in kernels)} launches, device idle "
+                   f"share {max(0.0, 1 - busy_ms / wall_ms):.3f}; top "
+                   "kernels: " + "; ".join(
+                       f"{e.key[:72]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                       for e in top))
+
+
+def _leaves(tree):
+    from repro_torch.models.transformer import tree_leaves
+    return tree_leaves(tree)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import lut, schemes
+    from repro_torch.kernels import ops, qlc_fused as qf, ref
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.quant import e4m3
+
+    smi = smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("device", f"{torch.cuda.get_device_name(0)} | {smi} | torch "
+                  f"{torch.__version__} cuda {torch.version.cuda} | "
+                  f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+                  f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    build_s, build_log = qf.build_kernels()
+    regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
+    log("build", f"{build_s:.2f} s (nvcc, sources built in parallel); "
+                 + " | ".join(regs))
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    par = phase_parity(qf, ops, ref, lut, schemes, flush)
+    phase_small(serve_mod, reduced, get_config)
+    launches, main_shape = phase_slice(qf, serve_mod, e4m3, ref, flush)
+
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = []
+    for kname, fn, line, cu in (
+            ("K1", "fused_encode", 169, "qlc_fused_encode.cu"),
+            ("K2", "fused_decode", 294, "qlc_fused_decode.cu")):
+        p = par[kname]
+        entry = {"name": f"{kname} {fn}", "route": "cuda",
+                 "source": src + cu,
+                 "replaces": f"src/repro/kernels/qlc_fused.py:{line}",
+                 "launches": launches[kname],
+                 "max_abs_err": max(p["err"],
+                                    main_shape[kname]["max_abs_err"]),
+                 "ms": p["ms"], "plain_ms": p["plain_ms"],
+                 "bound_ms": p["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None, "shape": [4096, 1024],
+                 "main_path": main_shape[kname]}
+        if "forms" in p:
+            entry["forms"] = p["forms"]
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

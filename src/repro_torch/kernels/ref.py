@@ -1,0 +1,47 @@
+"""Plain PyTorch versions of the fused kernels K1 and K2.
+
+They compose the pure codec with the e4m3 quantizer, op for op, and are
+what ``kernels.ops`` runs for a tensor on the CPU. On the card they are
+used only by tests and ``chip_smoke.py``, to hold the CUDA kernels
+against.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core.lut import CodecTables
+from repro_torch.quant import e4m3
+
+
+def quantize_encode_ref(x: torch.Tensor, tables: CodecTables,
+                        capacity_words: int, *, emit_codes: bool = False,
+                        emit_hist: bool = False):
+    """Plain K1: float [n, K] -> (words int32 [n, CW], nbits int32 [n],
+    scales f32 [n, K/32] [, codes u8 [n, K]] [, hist int32 [256]])."""
+    codes, scales = e4m3.quantize_block32(x.float())
+    words, nbits = codec.encode_chunks(codes, tables, capacity_words)
+    out = [words, nbits, scales]
+    if emit_codes:
+        out.append(codes)
+    if emit_hist:
+        out.append(torch.bincount(codes.reshape(-1).long(), minlength=256)
+                   .to(torch.int32))
+    return tuple(out)
+
+
+def decode_dequantize_ref(words: torch.Tensor, scales: torch.Tensor,
+                          tables_list: Sequence[CodecTables],
+                          scheme_ids, chunk_symbols: int,
+                          out_dtype=torch.float32,
+                          acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K2: decode, dequantize, then ``acc +`` (f32) or the cast to
+    ``out_dtype`` (round-to-nearest-even for bf16)."""
+    sym = codec.decode_chunks_multi(words, tables_list, scheme_ids,
+                                    chunk_symbols)
+    vals = e4m3.dequantize_block32(sym, scales.float())
+    if acc is not None:
+        return acc.float() + vals
+    return vals.to(out_dtype)

@@ -1,0 +1,66 @@
+"""Shared model layers: RMS norm, rotary embeddings, MLPs, embeddings.
+
+Same math and parameter layout as the reference package's
+``models/layers.py``; einsum strings are kept so the two read alike.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
+               device=None):
+    """Inverse frequencies for the rotated sub-dimension."""
+    rot = int(head_dim * fraction) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps), rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: [B, S, N, H]; positions: [B, S] int. Rotates the first
+    ``fraction`` of head dims; the rest pass through."""
+    b, s, n, h = x.shape
+    inv, rot = rope_freqs(h, theta, fraction, device=x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., None].float() * inv               # [B, S, rot/2]
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(b, s, n, rot)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """SwiGLU MLP. x: [B, S, D] -> [B, S, D]."""
+    if activation != "swiglu":
+        raise NotImplementedError(f"activation {activation!r} is not ported")
+    h = torch.einsum("bsd,df->bsf", x, params["w_in"].to(x.dtype))
+    g = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
+    h = F.silu(g) * h
+    return torch.einsum("bsf,fd->bsd", h, params["w_out"].to(x.dtype))
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor, tied: bool
+            ) -> torch.Tensor:
+    if tied:
+        return torch.einsum("bsd,vd->bsv", x, table_or_head.to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, table_or_head.to(x.dtype))

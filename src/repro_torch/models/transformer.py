@@ -1,0 +1,195 @@
+"""Model assembly for serving: parameter init, decode states and the
+one-token decode step over the layer-group stack.
+
+Parameters are a plain dict tree in the reference's layout: layer
+groups are stacked along a leading group dim, e.g.
+``params["groups"]["l0"]["mixer"]["wq"]`` has shape ``[G, d, h, hd]``.
+That stacked leaf is the weight wire's unit. Only attention blocks with
+a dense FFN are ported; other block kinds raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+
+_NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP queue 1, item 11: "
+               "MoE, SSM, multimodal)")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point allocates on. ``"cuda"`` without a card
+    raises: entry points never fall back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but no CUDA device is available; pass "
+            "device='cpu' explicitly to run the plain versions on the CPU")
+    return dev
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map over dict / NamedTuple / tuple trees with tensor leaves."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else tuple(vals)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+def _normal(gen, shape, scale, dtype, device):
+    t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    return t.mul_(scale)
+
+
+def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
+                g: int, dtype, device) -> Dict[str, Any]:
+    if kind != "attention":
+        raise NotImplementedError(_NOT_PORTED.format(kind))
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    s = 1.0 / d ** 0.5
+    so = 1.0 / (h * hd) ** 0.5
+    p: Dict[str, Any] = {
+        "norm1": torch.ones((g, d), dtype=dtype, device=device),
+        "mixer": {
+            "wq": _normal(gen, (g, d, h, hd), s, dtype, device),
+            "wk": _normal(gen, (g, d, kv, hd), s, dtype, device),
+            "wv": _normal(gen, (g, d, kv, hd), s, dtype, device),
+            "wo": _normal(gen, (g, h, hd, d), so, dtype, device),
+        },
+    }
+    fk = cfg.ffn_kind(idx_in_group)
+    if fk == "moe":
+        raise NotImplementedError(_NOT_PORTED.format("moe"))
+    if fk == "dense":
+        if cfg.activation != "swiglu":
+            raise NotImplementedError(
+                f"activation {cfg.activation!r} is not ported")
+        ff = cfg.d_ff
+        p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
+        p["ffn"] = {
+            "w_in": _normal(gen, (g, d, ff), 1.0 / d ** 0.5, dtype, device),
+            "w_out": _normal(gen, (g, ff, d), 1.0 / ff ** 0.5, dtype,
+                             device),
+            "w_gate": _normal(gen, (g, d, ff), 1.0 / d ** 0.5, dtype,
+                              device),
+        }
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Dict[str, Any]:
+    """Random parameters on ``device`` from ``generator`` (which must
+    live on that device), in the reference's tree layout."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    kinds = cfg.layer_kinds()
+    n_groups = cfg.num_layers // len(kinds)
+    if n_groups * len(kinds) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} not "
+                         f"divisible by period {len(kinds)}")
+    d, v = cfg.d_model, cfg.vocab_size
+    params = {
+        "embed": _normal(generator, (v, d), 1.0 / d ** 0.5, dtype, dev),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+        "groups": {f"l{i}": _init_block(generator, kind, cfg, i, n_groups,
+                                        dtype, dev)
+                   for i, kind in enumerate(kinds)},
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = _normal(generator, (d, v), d ** -0.5, dtype, dev)
+    return params
+
+
+# --------------------------------------------------------------------------
+# Decode
+# --------------------------------------------------------------------------
+
+def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
+                       device="cuda"):
+    """Fresh per-layer decode states, stacked over groups."""
+    dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
+    n_groups = cfg.num_layers // len(kinds)
+    dtype = getattr(torch, cfg.dtype)
+    group = {}
+    for i, kind in enumerate(kinds):
+        if kind != "attention":
+            raise NotImplementedError(_NOT_PORTED.format(kind))
+        group[f"l{i}"] = attn.KVCache.init(
+            batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim, dtype,
+            dev)
+    return tree_map(
+        lambda a: a[None].expand((n_groups,) + tuple(a.shape)).clone(),
+        group)
+
+
+def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state):
+    if kind != "attention":
+        raise NotImplementedError(_NOT_PORTED.format(kind))
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
+                                          cache=state)
+    x = x + out
+    if "ffn" in p:
+        if "router" in p["ffn"]:
+            raise NotImplementedError(_NOT_PORTED.format("moe"))
+        h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + layers.mlp(p["ffn"], h2, cfg.activation)
+    return x, new_state
+
+
+def apply_stack(params, x, positions, cfg: ModelConfig, states,
+                weight_codec=None):
+    """Run every layer group in order against its decode states. With
+    ``weight_codec`` the group params arrive in wire form and each
+    group's wire is opened inside the loop, right before its layers."""
+    groups = params["groups"]
+    kinds = cfg.layer_kinds()
+    n_groups = tree_leaves(groups)[0].shape[0]
+    outs = []
+    for g in range(n_groups):
+        pg = tree_map(lambda a: a[g], groups)
+        if weight_codec is not None:
+            pg = weight_codec.open_group(pg)
+        sg = tree_map(lambda a: a[g], states)
+        new_sg = {}
+        for i, kind in enumerate(kinds):
+            x, new_sg[f"l{i}"] = _apply_block(pg[f"l{i}"], kind, x,
+                                              positions, cfg, sg[f"l{i}"])
+        outs.append(new_sg)
+    new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
+    return x, new_states
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,
+                positions: torch.Tensor, weight_codec=None):
+    """One-token decode. tokens: [B, 1]; positions: [B, 1] absolute.
+
+    Returns (logits [B, 1, V], new_states).
+    """
+    dtype = getattr(torch, cfg.dtype)
+    x = layers.embed(params["embed"], tokens).to(dtype)
+    x, new_states = apply_stack(params, x, positions, cfg, states,
+                                weight_codec=weight_codec)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return layers.unembed(head, x, cfg.tie_embeddings), new_states
