@@ -10,9 +10,12 @@ non-zero (nothing is caught and carried on):
                bit for bit: K1 (fused quantize+encode) on [4096, 1024] f32
                and bf16 with adversarial values mixed in; K2 (fused
                decode+dequantize) in f32, bf16 and accumulate form with
-               two schemes interleaved by scheme id. Times each (median
-               of CUDA-event timings, L2 flushed before each launch)
-               beside its HBM bound.
+               two schemes interleaved by scheme id; K3 (encode), K4
+               (decode) and K5 (prefetch decode) on [4096, 256] u8 chunks
+               with two schemes interleaved, at a slot that fits and at
+               one that the longest chunks overrun. Times each (median of
+               CUDA-event timings, L2 flushed before each launch) beside
+               its HBM bound.
   4. small   — reduced phi3-mini-3.8b (d_model 128, f32) served from the
                QLC wire on the card and on the CPU: the wire and the
                opened params must be bit-equal, one decode step's logits
@@ -31,6 +34,19 @@ non-zero (nothing is caught and carried on):
                before the served run and read right after. One decode
                step runs first as warm-up, and one more, on the opened
                params, under torch.profiler.
+  6. kv      — the paged compressed KV cache on the slice's opened params
+               (``--kv-cache qlc --kv-block 16``): 6 requests at batch 4,
+               prompt 32, 32 new tokens, with ``--kv-paging`` sync,
+               async, async, sync (in turns, so the two compare inside
+               one call). Every request finishes, request 0's tokens
+               equal a dense solo run (inside ``serve``), and K3, K4 and
+               K5 launch on the path: counts zeroed right before each
+               run and read right after. Then, at the path's
+               own shapes (one boundary of request 0: 2 byte planes x
+               12,288 chunks of 256), K3/K4/K5 against their plain
+               versions, the block through the host path (K3 + K4) and
+               the device path (K3 + K5) back to its K/V, and the
+               device-framed words equal to the host container.
 
 Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
 line, and, last, ``{"ok": true, "device": {...}}``.
@@ -50,6 +66,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+DEVICE = "cuda"                  # where the KV phase and codes checks run
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -197,6 +214,89 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
     res["K2"]["err"] = max(res["K2"]["err"],
                            require_equal("K2 over capacity", [a], [b]))
     res["K2"].update(res["K2"]["forms"]["f32"])
+    return res
+
+
+def _skewed_symbols(rows: int, k: int, seed: int) -> torch.Tensor:
+    """u8 chunks on the card: skewed rows (they code below 8 bits per
+    symbol) and every fourth row uniform (it overruns a tight slot)."""
+    rng = np.random.default_rng(seed)
+    sym = np.minimum(rng.geometric(0.08, (rows, k)), 255).astype(np.uint8)
+    sym[::4] = rng.integers(0, 256, (len(sym[::4]), k), dtype=np.uint8)
+    return torch.from_numpy(sym).to(DEVICE)
+
+
+def codes_checks(ops, ref, sym, tables, caps, sid=None):
+    """K3 at each cap, then K4 and K5 on the (scheme-interleaved) words,
+    each against its plain version on the card, bit for bit. Returns
+    {kernel: max abs err} and the words at the first cap."""
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    tl = tables if isinstance(tables, list) else [tables]
+    first = None
+    for cap in caps:
+        outs = [ops.encode(sym, t, cap) for t in tl]
+        for t, o in zip(tl, outs):
+            err["K3"] = max(err["K3"], require_equal(
+                f"K3 cap {cap}", o, ref.encode_ref(sym, t, cap)))
+        w = outs[0][0] if sid is None else torch.where(
+            (sid == 1)[:, None], outs[1][0], outs[0][0])
+        s = torch.zeros(w.shape[0], dtype=torch.int32, device=w.device) \
+            if sid is None else sid
+        want = ref.decode_ref(w, tl, s, sym.shape[1])
+        for name, fn in (("K4", ops.decode), ("K5", ops.decode_block_async)):
+            err[name] = max(err[name], require_equal(
+                f"{name} cap {cap}", [fn(w, tl, sym.shape[1], scheme_ids=s)],
+                [want]))
+        if first is None:
+            first = (w, s)
+    return err, first
+
+
+def time_codes(ops, ref, sym, tables, cap, words, sid, flush, reps=20):
+    """ms, plain ms and HBM bound of K3 at ``cap`` and of K4/K5 on
+    ``words``: each input read once, each output written once."""
+    n, k = sym.shape
+    tl = tables if isinstance(tables, list) else [tables]
+    out = {}
+    for name, fn, plain, nb in (
+            ("K3", lambda: ops.encode(sym, tl[0], cap),
+             lambda: ref.encode_ref(sym, tl[0], cap),
+             n * k + n * cap * 4 + n * 4),
+            ("K4", lambda: ops.decode(words, tl, k, scheme_ids=sid),
+             lambda: ref.decode_ref(words, tl, sid, k),
+             nbytes(words, sid) + n * k),
+            ("K5", lambda: ops.decode_block_async(words, tl, k,
+                                                  scheme_ids=sid),
+             lambda: ref.decode_block_async_ref(words, tl, sid, k),
+             nbytes(words, sid) + n * k)):
+        out[name] = {"ms": time_ms(fn, reps, flush),
+                     "plain_ms": time_ms(plain, 3, flush),
+                     "bound_ms": bound_ms(nb), "shape": [n, k], "cap": cap}
+    return out
+
+
+def phase_codes_parity(ops, ref, lut, schemes, flush):
+    """K3/K4/K5 at the parity shape: [4096, 256] chunks, two schemes
+    interleaved, at the slot of the longest chunk and at the first
+    quartile's (three quarters of the chunks over capacity)."""
+    n, k = 4096, 256
+    sym = _skewed_symbols(n, k, 0)
+    counts = np.bincount(sym.cpu().numpy().reshape(-1),
+                         minlength=256).astype(np.float64) + 1
+    tl = [lut.build_tables(counts, schemes.TABLE1),
+          lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+    nb = torch.maximum(*(ops.encode(sym, t, 89)[1] for t in tl))
+    fit = -(-int(nb.max()) // 32) | 1
+    over = int(nb.float().quantile(0.25)) // 32
+    sid = (torch.arange(n, device=DEVICE) % 2).to(torch.int32)
+    err, (w, s) = codes_checks(ops, ref, sym, tl, (fit, over), sid)
+    res = time_codes(ops, ref, sym, tl, fit, w, s, flush)
+    for name, r in res.items():
+        r["err"] = err[name]
+        log("parity", f"{name} [{n}, {k}] cap {r['cap']}, 2 schemes "
+                      f"(also bit-equal at {over} words, over capacity): "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+                      f"HBM bound {r['bound_ms']:.4f} ms")
     return res
 
 
@@ -387,7 +487,7 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
         raise AssertionError("decode_step(weight_codec) != opened step")
     log("slice", f"decode_step(weight_codec=...) == opened-params step, "
                  f"logits {tuple(lg_o.shape)} finite")
-    del wired_g, lg_w, lg_o, opened
+    del wired_g, lg_w, lg_o
 
     # K1 and K2 at the main path's largest shape (the stacked w_in leaf).
     key = "groups/l0/ffn/w_in"
@@ -414,7 +514,151 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
                      f"{v['ms']:.3f} ms, HBM bound {v['bound_ms']:.3f} ms")
     log("slice", f"peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, main
+    return launches, main, opened, cfg
+
+
+def check_kv_path(ops, ref, cfg, opened, prompt, flush):
+    """K3/K4/K5 at the KV path's own shapes and data: request 0's prompt
+    prefilled on the opened params, its first 16-token block (2 byte
+    planes x 12,288 chunks of 256), codecs calibrated as the engine
+    does. Each kernel against its plain version; the block through the
+    host path (K3 + K4) and the device path (K3 + K5) back to its K/V;
+    the device-framed words equal to the host container. Returns the
+    errors and the timings of the coded plane."""
+    from repro_torch.comm.calibrate import byte_planes
+    from repro_torch.comm.container import stream_headers
+    from repro_torch.core import CodecRegistry
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_decode_states
+    from repro_torch.serving import (KVCacheSpec, PagedKVCache,
+                                     calibrate_cache, prefill)
+    p = torch.from_numpy(np.asarray(prompt)[None, :]).to(DEVICE)
+    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, DEVICE))
+    reg = CodecRegistry()
+    spec = KVCacheSpec(block_tokens=16, exact_capacity=False)
+    calibrate_cache(reg, cfg, st, p.shape[1], spec)
+    kv = attn.kv_block_slice(st["l0"], 0, 16)
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    coded = None
+    for (isz, j), plane in byte_planes(kv).items():
+        entry = reg[f"kv/layer0/w{isz}b{j}"]
+        sym = plane.reshape(-1, 256)
+        e, (w, s) = codes_checks(ops, ref, sym, entry.tables,
+                                 (entry.plan.capacity_words,))
+        for name in err:
+            err[name] = max(err[name], e[name])
+        log("kv", f"plane w{isz}b{j} {list(sym.shape)} at the plan's "
+                  f"{entry.plan.capacity_words}-word slots, "
+                  f"{entry.plan.expected_bits_per_symbol:.3f} expected "
+                  "bits/symbol: K3, K4, K5 bit-equal to plain")
+        if coded is None or entry.plan.capacity_words < coded[3]:
+            coded = (sym, entry.tables, (w, s), entry.plan.capacity_words)
+    cache = PagedKVCache(spec, cfg, reg, device=DEVICE)
+    host = cache.encode_block_arrays("kv/layer0", "l0", kv, start=0,
+                                     tokens=16)
+    dev = cache.encode_block_device("kv/layer0", "l0", kv, start=0,
+                                    tokens=16)
+    if dev is None or not np.array_equal(
+            host.container, dev.words.cpu().numpy().view(np.uint32)):
+        raise AssertionError("kv: device framing != host container")
+    for what, got in (("host path (K3+K4)", cache.decode_block_arrays(host)),
+                      ("device path (K3+K5)",
+                       cache.decode_block_device(dev.plan, dev.words)[0])):
+        if not all(torch.equal(a, b) for a, b in zip(got, kv)):
+            raise AssertionError(f"kv: block through the {what} != K/V")
+    sections = [(h.coded, h.capacity_words)
+                for _, h in stream_headers(host.container)]
+    log("kv", f"block [0, 16) of request 0: {host.wire_bytes} B container "
+              f"for {host.dense_bytes} B of K/V (sections coded/cap "
+              f"{sections}); host path and device path give back the K/V "
+              "bit for bit, device-framed words == host container")
+    sym, tables, (w, s), cap = coded
+    times = time_codes(ops, ref, sym, tables, cap, w, s, flush, reps=10)
+    for name, r in times.items():
+        r["err"] = err[name]
+        log("kv", f"{name} at the KV shape {r['shape']} cap {cap}: "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, HBM "
+                  f"bound {r['bound_ms']:.4f} ms")
+    return times
+
+
+def phase_kv(qf, qc, serve_mod, cfg, opened, ops, ref, flush):
+    """The paged compressed KV cache on the opened params, in turns:
+    sync, async, async, sync (two versions compared inside one call);
+    each run's kernel launches counted from zero."""
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode}
+    runs = []
+    prompt0 = None
+    for paging in ("sync", "async", "async", "sync"):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = serve_mod.serve(cfg, batch=4, requests=6, prompt_len=32,
+                              new_tokens=32, kv_cache="qlc", kv_block=16,
+                              kv_paging=paging, device=DEVICE, params=opened)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        outs, st = res["outs"], res["stats"]
+        if not all(o.state == "finished" and len(o.tokens) == 32
+                   for o in outs):
+            raise AssertionError([(o.request_id, o.state, o.error)
+                                  for o in outs])
+        need = ("K3", "K4") if paging == "sync" else ("K3", "K5")
+        for kname in need:
+            if launches[kname] <= 0:
+                raise AssertionError(f"{kname} was not launched on the "
+                                     f"{paging} KV path")
+        ps = st["pool"]
+        line = (f"{paging}: 6 requests x 32 tokens finished, request 0 == "
+                f"dense solo run; {st['ms_per_token_prefill']:.3f} ms/token "
+                f"prefill, {st['ms_per_token_decode']:.3f} ms/token decode, "
+                f"{wall:.2f} s with the solo run; {ps['unique_blocks']} "
+                f"blocks, {ps['peak_referenced_bytes']} compressed B pinned "
+                f"vs {st['peak_dense_logical_bytes']} dense B "
+                f"({ps['peak_referenced_bytes'] / st['peak_dense_logical_bytes']:.4f}); "
+                f"launches {launches}")
+        if paging == "async":
+            a, pf = st["async"], st["prefetch"]
+            line += (f"; {a['windows']} windows, {a['h2d_per_window']:.1f} "
+                     f"up / {a['d2h_per_window']:.1f} down per window; "
+                     f"prefetch {pf['hits']}/{pf['scheduled']} hits, "
+                     f"{pf['stalled']} stalled, {pf['misses']} misses, "
+                     f"stall {pf['stall_ms']:.3f} ms, hidden "
+                     f"{pf['hidden_ms']:.3f} ms")
+            if pf["hits"] <= 0 or pf["scheduled"] <= 0:
+                raise AssertionError("async: no prefetch was scheduled")
+        log("kv", line)
+        runs.append((paging, launches))
+        prompt0 = res["prompts"][0]
+    times = check_kv_path(ops, ref, cfg, opened, prompt0, flush)
+    return runs, times
+
+
+def codes_kernel_entries(src, codes_par, kv_runs, kv_times):
+    """The kernels-line entries of K3-K5: parity-shape times, KV-path
+    times, and launches summed over the KV runs that use each kernel."""
+    run_of = {"K3": ("sync", "async"), "K4": ("sync",), "K5": ("async",)}
+    out = []
+    for kname, fn, cu, replaces in (
+            ("K3", "encode", "qlc_encode.cu", "qlc_encode.py:56"),
+            ("K4", "decode", "qlc_decode.cu", "qlc_decode.py:75"),
+            ("K5", "prefetch_decode", "qlc_prefetch.cu",
+             "qlc_prefetch.py:102")):
+        p, kv = codes_par[kname], kv_times[kname]
+        out.append({
+            "name": f"{kname} {fn}", "route": "cuda", "source": src + cu,
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": sum(n[kname] for paging, n in kv_runs
+                            if paging in run_of[kname]),
+            "launches_by_run": [[paging, n[kname]] for paging, n in kv_runs],
+            "max_abs_err": max(p["err"], kv["err"]),
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": p["shape"], "cap": p["cap"],
+            "kv_path": {k: kv[k] for k in ("shape", "cap", "ms", "plain_ms",
+                                           "bound_ms")}})
+    return out
 
 
 def profile_step(decode_step, params, cfg, states, tok, pos):
@@ -468,7 +712,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import lut, schemes
-    from repro_torch.kernels import ops, qlc_fused as qf, ref
+    from repro_torch.kernels import ops, qlc_codes as qc, qlc_fused as qf
+    from repro_torch.kernels import ref
     from repro_torch.launch import serve as serve_mod
     from repro_torch.quant import e4m3
 
@@ -486,8 +731,13 @@ def main():
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
+    codes_par = phase_codes_parity(ops, ref, lut, schemes, flush)
     phase_small(serve_mod, reduced, get_config)
-    launches, main_shape = phase_slice(qf, serve_mod, e4m3, ref, flush)
+    launches, main_shape, opened, cfg = phase_slice(qf, serve_mod, e4m3,
+                                                    ref, flush)
+    kv_runs, kv_times = phase_kv(qf, qc, serve_mod, cfg, opened, ops, ref,
+                                 flush)
+    del opened
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -508,6 +758,7 @@ def main():
         if "forms" in p:
             entry["forms"] = p["forms"]
         kernels.append(entry)
+    kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

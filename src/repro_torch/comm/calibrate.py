@@ -1,18 +1,26 @@
 """Per-tensor-type codec calibration (paper §7: one LUT per tensor type,
 derived apriori from a histogram of the quantized data).
 
-The symbol histograms come out of K1's ``emit_hist`` side output, so on
-the card no plain quantizer runs: block-32 symbols do not depend on how
-the flat tensor is cut into chunk rows, so the bulk goes through K1 in
-rows of 1024 and a ragged tail in rows of 32.
+Weights: the symbol histograms come out of K1's ``emit_hist`` side
+output, so on the card no plain quantizer runs: block-32 symbols do not
+depend on how the flat tensor is cut into chunk rows, so the bulk goes
+through K1 in rows of 1024 and a ragged tail in rows of 32.
+
+KV / decode states (:func:`calibrate_kv_entries`): the lossless mode's
+symbols are the states' bytes, split into byte planes by a little-endian
+``view(torch.uint8)`` on the states' device; the histograms and the
+empirical slot sizing run on the host with numpy, as in the reference.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import codec
-from repro_torch.core.lut import identity_tables
+from repro_torch.comm.planner import CommPlan, plan_for_tables
+from repro_torch.core import adapt, codec
+from repro_torch.core.lut import CodecTables, identity_tables
 from repro_torch.core.schemes import TABLE1
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import tree_leaves
@@ -48,3 +56,176 @@ def histogram_of_tree(tree) -> np.ndarray:
     for leaf in tree_leaves(tree):
         counts += histogram_of_quantized(leaf)
     return counts
+
+
+def empirical_plan(tables: CodecTables, syms: np.ndarray, plan: CommPlan,
+                   *, chunk_symbols: int = 1024,
+                   target_escape_prob: float = 1e-6,
+                   max_pool_slots_per_1k: Optional[int] = None,
+                   drift_margin_bits: Optional[float] = None) -> CommPlan:
+    """Re-size a plan's chunk slot from the *measured* per-chunk bit-count
+    distribution of a representative symbol stream: the 99.9th
+    percentile plus ``drift_margin_bits`` per symbol (default: the
+    plan's own). Streams shorter than 8 chunks keep the plan.
+    ``max_pool_slots_per_1k`` caps the escape pool for callers with a
+    raw fallback for incompressible streams (the paged KV cache)."""
+    if drift_margin_bits is None:
+        drift_margin_bits = plan.drift_margin_bits
+    syms = np.asarray(syms).reshape(-1)
+    lens = tables.enc_len[syms].astype(np.int64)
+    n_chunks = len(lens) // chunk_symbols
+    if n_chunks < 8:
+        return plan
+    sums = lens[:n_chunks * chunk_symbols].reshape(
+        n_chunks, chunk_symbols).sum(axis=1)
+    q = float(np.quantile(sums, 0.999))
+    bits = min(8.0 * chunk_symbols, q + drift_margin_bits * chunk_symbols)
+    cap_words = max(1, int(np.ceil(bits / 32)))
+    emp_escape = float((sums > cap_words * 32).mean())
+    pool = max(8, int(np.ceil(emp_escape * 1024 * 8)) + 8)
+    if max_pool_slots_per_1k is not None:
+        pool = min(max_pool_slots_per_1k, pool)
+    return CommPlan(
+        chunk_symbols=chunk_symbols,
+        capacity_words=cap_words,
+        pool_slots_per_1k=pool,
+        expected_bits_per_symbol=plan.expected_bits_per_symbol,
+        escape_prob_bound=max(emp_escape, target_escape_prob),
+        drift_margin_bits=drift_margin_bits,
+    )
+
+
+# --------------------------------------------------------------------------
+# Per-layer KV codecs (serving paged cache)
+# --------------------------------------------------------------------------
+
+def _value_bytes(a: torch.Tensor) -> torch.Tensor:
+    """u8 [n_values, itemsize]: the little-endian bytes of a tensor."""
+    return a.contiguous().reshape(-1).view(torch.uint8).reshape(
+        -1, a.element_size())
+
+
+def kv_symbol_stream(arrays, mode: str = "qlc") -> torch.Tensor:
+    """Decode-state tensors -> the u8 symbol stream the KV codec sees, on
+    their device. ``"qlc"`` (lossless): their bytes, concatenated.
+    ``"e4m3"``: block-32 e4m3 symbols of their values (a trailing
+    partial block is left out)."""
+    if mode == "e4m3":
+        parts = []
+        for a in arrays:
+            flat = a.float().reshape(-1)
+            n = (flat.shape[0] // e4m3.BLOCK) * e4m3.BLOCK
+            if n:
+                parts.append(e4m3.quantize_block32(flat[:n])[0])
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8)
+    if not arrays:
+        return torch.zeros(0, dtype=torch.uint8)
+    return torch.cat([_value_bytes(a).reshape(-1) for a in arrays])
+
+
+def byte_planes(arrays) -> Dict[Tuple[int, int], torch.Tensor]:
+    """Byte-plane decomposition of state tensors (the lossless mode's
+    symbol streams): little-endian byte *j* of every ``itemsize``-wide
+    value, pooled across tensors in order, ``{(itemsize, j): u8
+    stream}``. Sign/exponent planes code to a few bits while mantissa
+    planes are near-uniform, so each plane gets its own codec."""
+    groups: Dict[int, list] = {}
+    for a in arrays:
+        b = _value_bytes(a)
+        groups.setdefault(b.shape[1], []).append(b)
+    out: Dict[Tuple[int, int], torch.Tensor] = {}
+    for isz in sorted(groups):
+        mat = torch.cat(groups[isz]) if len(groups[isz]) > 1 \
+            else groups[isz][0]
+        for j in range(isz):
+            out[(isz, j)] = mat[:, j].contiguous()
+    return out
+
+
+def _layer_index(key) -> int:
+    if isinstance(key, int):
+        return key
+    s = str(key)
+    return int(s[1:] if s.startswith("l") else s)
+
+
+def calibrate_kv_entries(registry, layer_arrays, *, mode: str = "qlc",
+                         chunk_symbols: int = 1024,
+                         target_escape_prob: float = 1e-4,
+                         prefix: str = "kv",
+                         plane_split_min_symbols: Optional[int] = None,
+                         merge_tol: float = 0.05,
+                         allow_search: bool = False) -> Dict[str, object]:
+    """Calibrate per-layer KV codecs into ``registry``.
+
+    ``layer_arrays`` maps layer keys (``"l0"``/``0``/...) to the state
+    tensors that layer's cache blocks carry. ``"e4m3"`` mode registers
+    one codec per layer under ``f"{prefix}/layer{i}"``; the lossless
+    ``"qlc"`` mode one per byte plane under
+    ``f"{prefix}/layer{i}/w{itemsize}b{j}"``, or one interleaved codec
+    under the base name for layers whose planes are shorter than
+    ``plane_split_min_symbols`` (default ``2 * chunk_symbols``). The
+    layout is recorded by which names exist.
+
+    Streams whose normalized histograms lie within total-variation
+    distance ``merge_tol`` of a group's first member share one set of
+    tables built from the group's summed counts (one scheme-id); each
+    stream keeps its own empirically sized plan. Returns ``{name:
+    CodecEntry}`` in layer order.
+    """
+    if plane_split_min_symbols is None:
+        plane_split_min_symbols = 2 * chunk_symbols
+
+    pending = []                      # [(name, syms)]
+    layout: list = []                 # names in output order
+    for key in sorted(layer_arrays, key=_layer_index):
+        base = f"{prefix}/layer{_layer_index(key)}"
+        if mode == "e4m3":
+            streams = [(base, kv_symbol_stream(layer_arrays[key], mode))]
+        else:
+            planes = byte_planes(layer_arrays[key])
+            if min((p.numel() for p in planes.values()), default=0) \
+                    >= plane_split_min_symbols:
+                streams = [(f"{base}/w{isz}b{j}", plane)
+                           for (isz, j), plane in planes.items()]
+            else:
+                streams = [(base,
+                            kv_symbol_stream(layer_arrays[key], "qlc"))]
+        for name, syms in streams:
+            layout.append(name)
+            if name not in registry:
+                pending.append((name, syms.cpu().numpy()))
+
+    groups = []   # [{pmf, counts, members: [(name, syms, counts)]}]
+    for name, syms in pending:
+        counts = np.maximum(
+            np.bincount(syms, minlength=256).astype(np.float64), 1e-6)
+        pmf = counts / counts.sum()
+        for g in groups:
+            if merge_tol > 0 and \
+                    0.5 * float(np.abs(pmf - g["pmf"]).sum()) <= merge_tol:
+                g["counts"] += counts
+                g["members"].append((name, syms, counts))
+                break
+        else:
+            groups.append({"pmf": pmf, "counts": counts.copy(),
+                           "members": [(name, syms, counts)]})
+
+    entries = {}
+    for g in groups:
+        tables = adapt.calibrate_tables(g["counts"],
+                                        allow_search=allow_search)
+        for name, syms, counts in g["members"]:
+            plan = plan_for_tables(tables, counts,
+                                   chunk_symbols=chunk_symbols,
+                                   target_escape_prob=target_escape_prob)
+            # Capped pool: the paged cache wires incompressible streams
+            # raw (codec_wins), so the pool never covers a pathological
+            # escape rate here.
+            plan = empirical_plan(tables, syms, plan,
+                                  chunk_symbols=chunk_symbols,
+                                  target_escape_prob=target_escape_prob,
+                                  max_pool_slots_per_1k=64)
+            entries[name] = registry.register_tables(name, tables, plan,
+                                                     counts=counts)
+    return {name: entries.get(name, registry[name]) for name in layout}

@@ -1,0 +1,256 @@
+"""The QLC wire payload and its local transforms, codes path: the part
+of the reference's ``comm/compressed.py`` that paged KV serving and the
+container format run on.
+
+Each ``chunk_symbols``-symbol chunk gets a fixed slot of
+``capacity_words`` 32-bit words, a 1-byte escape flag, and escaped
+chunks (whose code does not fit) ride raw in a small overflow pool. If
+the pool itself overflows, ``ok`` is False and the caller falls back
+(the paged KV cache re-wires the block raw). Lossless semantics never
+depend on statistics.
+
+Tensors follow the port's convention: words and pool rows are int32
+tensors holding u32 bit patterns, flags uint8, pool_count int32. Raw
+chunks become words by a little-endian byte view, as the reference's
+``bitcast_convert_type`` does.
+
+``_encode`` / ``_decode`` route by the device of their input through
+``kernels.ops``: K3 and K4 on the card, their plain versions on the
+CPU. ``CommConfig.use_kernels`` is kept so that configs, manifests and
+registry JSON round-trip with the reference, but it does not pick the
+route: the reference leaves it False on its serving path and so runs
+its pure codec, while on the card the port must run its kernels.
+
+The value transforms (quantize-encode, fused decode) and the
+collectives come with the gradient-wire slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.comm.planner import CommPlan
+from repro_torch.core.lut import CodecTables
+from repro_torch.kernels import ops
+from repro_torch.quant import e4m3
+
+
+@dataclasses.dataclass(frozen=True)
+class CommConfig:
+    """Static configuration of the compressed wire format."""
+    enabled: bool = True          # False => raw e4m3 codes on the wire
+    chunk_symbols: int = 1024
+    capacity_words: int = 240     # 7.5 bits/symbol default
+    pool_slots_per_1k: int = 8
+    scale_dtype: str = "bfloat16"
+    #: kept for JSON/manifest compatibility with the reference; the route
+    #: follows the tensor's device (see the module docstring).
+    use_kernels: bool = False
+
+    @classmethod
+    def from_plan(cls, plan: CommPlan, **kw) -> "CommConfig":
+        base = dict(chunk_symbols=plan.chunk_symbols,
+                    capacity_words=plan.capacity_words,
+                    pool_slots_per_1k=plan.pool_slots_per_1k)
+        base.update(kw)          # explicit overrides win over the plan
+        return cls(**base)
+
+    def pool_slots(self, n_chunks: int) -> int:
+        return max(1, math.ceil(n_chunks * self.pool_slots_per_1k / 1024))
+
+    def raw_words(self) -> int:
+        return self.chunk_symbols // 4
+
+
+class WirePayload(NamedTuple):
+    """Static-shape compressed payload for one transfer."""
+    words: torch.Tensor       # int32 [..., n_chunks, capacity_words]
+    flags: torch.Tensor       # uint8 [..., n_chunks] 1 = escaped-to-pool
+    pool: torch.Tensor        # int32 [..., pool_slots, K/4] raw escapes
+    pool_count: torch.Tensor  # int32 [..., 1] number of escapes
+
+
+def wire_bytes(payload: WirePayload,
+               scales: Optional[torch.Tensor] = None) -> int:
+    """Static wire footprint in bytes (for accounting)."""
+    total = sum(t.numel() * t.element_size() for t in payload)
+    if scales is not None:
+        total += scales.numel() * scales.element_size()
+    return total
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int
+                    ) -> Tuple[torch.Tensor, int]:
+    """Flatten and zero-pad to a multiple; returns (padded, true length)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % multiple
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat, n
+
+
+def _as_words(chunks: torch.Tensor) -> torch.Tensor:
+    """u8 [..., K] -> int32 [..., K/4], little-endian (a byte view)."""
+    return chunks.contiguous().view(torch.int32)
+
+
+def _encode(chunks: torch.Tensor, tables: CodecTables, cfg: CommConfig):
+    """u8 [..., n_chunks, K] -> (words [..., n_chunks, CW], nbits
+    [..., n_chunks]): K3 for a CUDA tensor."""
+    flat = chunks.reshape(-1, cfg.chunk_symbols)
+    words, nbits = ops.encode(flat, tables, cfg.capacity_words)
+    lead = chunks.shape[:-1]
+    return (words.reshape(lead + (cfg.capacity_words,)),
+            nbits.reshape(lead))
+
+
+def _decode(words: torch.Tensor, tables: CodecTables, cfg: CommConfig):
+    """words [..., n_chunks, CW] -> u8 [..., n_chunks, K]: K4 for a CUDA
+    tensor."""
+    flat = words.reshape(-1, words.shape[-1])
+    out = ops.decode(flat, tables, cfg.chunk_symbols)
+    return out.reshape(words.shape[:-1] + (cfg.chunk_symbols,))
+
+
+def _raw_payload(chunks: torch.Tensor) -> WirePayload:
+    """Raw e4m3 wire: u8 chunks viewed as u32 words, no escapes."""
+    *lead, n_chunks, k = chunks.shape
+    dev = chunks.device
+    return WirePayload(
+        words=_as_words(chunks),
+        flags=torch.zeros((*lead, n_chunks), dtype=torch.uint8, device=dev),
+        pool=torch.zeros((*lead, 1, k // 4), dtype=torch.int32, device=dev),
+        pool_count=torch.zeros((*lead, 1), dtype=torch.int32, device=dev),
+    )
+
+
+# --- escape-pool machinery (shared by wire assembly and decode; the
+# --- slot/gather invariants live ONLY here) -------------------------------
+
+def _escape_slots(escape: torch.Tensor, pool_slots: int):
+    """Per-chunk pool slot assignment from escape flags.
+
+    Returns ``(esc_idx, slot)``: running escape index, and the scatter
+    slot (``pool_slots`` — i.e. dropped — for non-escaped and
+    pool-overflowing chunks).
+    """
+    esc_i = escape.to(torch.int64)
+    esc_idx = torch.cumsum(esc_i, dim=-1) - esc_i
+    slot = torch.where(escape.bool(), esc_idx,
+                       torch.full_like(esc_idx, pool_slots))
+    return esc_idx, slot
+
+
+def _flat_lead(t: torch.Tensor, keep: int) -> torch.Tensor:
+    return t.reshape((-1,) + tuple(t.shape[t.dim() - keep:]))
+
+
+def _scatter_pool_rows(rows: torch.Tensor, slot: torch.Tensor,
+                       pool_slots: int) -> torch.Tensor:
+    """[..., n_chunks, W] rows -> [..., pool_slots, W]; rows whose slot is
+    out of range (>= pool_slots) are dropped."""
+    *lead, n_chunks, w = rows.shape
+    r = _flat_lead(rows, 2)
+    s = _flat_lead(slot, 1)
+    out = torch.zeros((r.shape[0], pool_slots, w), dtype=rows.dtype,
+                      device=rows.device)
+    keep = s < pool_slots
+    b = torch.arange(r.shape[0], device=rows.device)[:, None].expand_as(s)
+    out[b[keep], s[keep]] = r[keep]
+    return out.reshape(*lead, pool_slots, w)
+
+
+def _gather_pool_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[..., pool_slots, W] pool + [..., n_chunks] idx -> [..., n_chunks, W]."""
+    *lead, _, w = pool.shape
+    p = _flat_lead(pool, 2)
+    i = _flat_lead(idx, 1)
+    b = torch.arange(p.shape[0], device=pool.device)[:, None].expand_as(i)
+    return p[b, i].reshape(*lead, i.shape[-1], w)
+
+
+def _assemble_payload(chunks: torch.Tensor, words: torch.Tensor,
+                      nbits: torch.Tensor, cfg: CommConfig) -> WirePayload:
+    """Build the escape-flag/pool wire format around encoded slots."""
+    n_chunks = chunks.shape[-2]
+    escape = nbits > cfg.capacity_words * 32
+    pool_slots = cfg.pool_slots(n_chunks)
+    # Escaped chunks scatter their raw form into the pool; non-escaped
+    # and pool-overflowing chunks are dropped.
+    _, slot = _escape_slots(escape, pool_slots)
+    pool = _scatter_pool_rows(_as_words(chunks), slot, pool_slots)
+    pool_count = escape.to(torch.int32).sum(dim=-1, keepdim=True,
+                                            dtype=torch.int32)
+    return WirePayload(words=words, flags=escape.to(torch.uint8),
+                       pool=pool, pool_count=pool_count)
+
+
+def _compress_codes(codes: torch.Tensor, tables: CodecTables,
+                    cfg: CommConfig) -> WirePayload:
+    """uint8 [..., M] (M % chunk_symbols == 0) -> WirePayload."""
+    k = cfg.chunk_symbols
+    *lead, m = codes.shape
+    if m % k:
+        raise ValueError(f"{m} symbols are not a multiple of {k}")
+    chunks = codes.reshape(*lead, m // k, k)
+    if not cfg.enabled:
+        return _raw_payload(chunks)
+    words, nbits = _encode(chunks, tables, cfg)
+    return _assemble_payload(chunks, words, nbits, cfg)
+
+
+def _gather_pool_raw(payload: WirePayload, cfg: CommConfig) -> torch.Tensor:
+    """Gather each chunk's escape-pool raw form -> u8 [..., n_chunks, K].
+
+    Rows whose chunk did not escape hold arbitrary pool data; callers
+    select with the escape flags.
+    """
+    *lead, n_chunks, _ = payload.words.shape
+    pool_slots = payload.pool.shape[-2]
+    esc_idx, _ = _escape_slots(payload.flags, pool_slots)
+    raw_words = _gather_pool_rows(payload.pool,
+                                  esc_idx.clamp(max=pool_slots - 1))
+    return raw_words.contiguous().view(torch.uint8).reshape(
+        *lead, n_chunks, cfg.chunk_symbols)
+
+
+def _decompress_codes(payload: WirePayload, tables: Optional[CodecTables],
+                      cfg: CommConfig, *,
+                      decode_fn: Optional[Callable] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WirePayload -> (uint8 codes [..., M], ok bool [...]).
+
+    ``tables`` may be ``None`` only for a raw (``cfg.enabled=False``)
+    wire. ``decode_fn(words, tables, cfg)`` overrides the slot decode —
+    the async KV paging path routes it through K5
+    (``kernels.ops.decode_block_async``) while reusing this escape merge
+    unchanged."""
+    k = cfg.chunk_symbols
+    *lead, n_chunks, _ = payload.words.shape
+    dev = payload.words.device
+    if not cfg.enabled:
+        codes = payload.words.contiguous().view(torch.uint8)
+        return (codes.reshape(*lead, n_chunks * k),
+                torch.ones(tuple(lead), dtype=torch.bool, device=dev))
+    dec = (_decode if decode_fn is None else decode_fn)(
+        payload.words, tables, cfg)                    # [..., n_chunks, K]
+    escape = payload.flags.bool()
+    out = torch.where(escape[..., None], _gather_pool_raw(payload, cfg), dec)
+    ok = payload.pool_count[..., 0] <= payload.pool.shape[-2]
+    return out.reshape(*lead, n_chunks * k), ok
+
+
+def _quantize(x: torch.Tensor, cfg: CommConfig):
+    """float [..., M] -> (codes u8 [..., M], scales [..., M/32] in
+    ``cfg.scale_dtype``, cast with round-to-nearest-even)."""
+    codes, scales = e4m3.quantize_block32(x.float())
+    return codes, scales.to(getattr(torch, cfg.scale_dtype))
+
+
+def _dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return e4m3.dequantize_block32(codes, scales.float())

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -51,6 +51,11 @@ class CodecEntry:
     @property
     def scheme(self) -> QLCScheme:
         return self.tables.scheme
+
+    def config(self, **overrides) -> "CommConfig":
+        """The entry's wire format as a ``CommConfig`` (kwargs override)."""
+        from repro_torch.comm.compressed import CommConfig
+        return CommConfig.from_plan(self.plan, **overrides)
 
 
 def _tables_digest(tables: CodecTables) -> str:
@@ -195,6 +200,26 @@ class CodecRegistry:
     def entries(self) -> List[CodecEntry]:
         """Distinct entries, ordered by scheme-id."""
         return [self._by_id[i] for i in sorted(self._by_id)]
+
+    # ---- multi-LUT batched decode operands -------------------------------
+
+    def stacked_decode_tables(
+            self, scheme_ids: Optional[Sequence[int]] = None
+            ) -> Tuple[List[CodecTables], np.ndarray]:
+        """Decode-LUT operand set for multi-scheme batched decode.
+
+        Returns ``(tables_list, id_map)``: ``tables_list[j]`` is the
+        tables stacked at slot ``j`` and ``id_map[scheme_id] = j`` maps
+        wire scheme-ids to slots (-1 for absent ids). With ``scheme_ids``
+        given, only those schemes are stacked.
+        """
+        ids = sorted(self._by_id) if scheme_ids is None \
+            else sorted(set(int(s) for s in scheme_ids))
+        tables_list = [self._by_id[i].tables for i in ids]
+        id_map = np.full(max(ids, default=0) + 1, -1, dtype=np.int32)
+        for j, i in enumerate(ids):
+            id_map[i] = j
+        return tables_list, id_map
 
     # ---- (de)serialization ----------------------------------------------
 

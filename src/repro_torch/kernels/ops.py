@@ -10,24 +10,29 @@ fallback from the kernel to the plain version.
   decode_dequantize             — words + scales -> float (f32 / bf16): K2.
   decode_dequantize_accumulate  — acc + decode_dequantize, f32, one
                                   launch: K2's accumulate form.
+  encode                        — u8 symbols -> (words, nbits): K3.
+  decode                        — words -> u8 symbols: K4.
+  decode_block_async            — ``decode`` with the words staged through
+                                  a double-buffered copy: K5.
 
-Both decode entry points take one ``CodecTables`` or a sequence of them
+Every decode entry point takes one ``CodecTables`` or a sequence of them
 with ``scheme_ids`` (int [n_chunks]) naming each chunk's scheme: stacked
 multi-LUT operands, as in the reference. The CUDA kernels need no row
 padding, so the reference's TPU tile table has no counterpart here; the
 histogram counts exactly the symbols of the n input rows, which is what
 the reference returns after it takes its padding rows back out of bin 0.
+Words are int32 tensors holding u32 bit patterns, and bit counts int32.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import codec
 from repro_torch.core.lut import CodecTables
-from repro_torch.kernels import qlc_fused, ref
+from repro_torch.kernels import qlc_codes, qlc_fused, ref
 from repro_torch.quant import e4m3
 
 Tables = Union[CodecTables, Sequence[CodecTables]]
@@ -45,6 +50,40 @@ def _route(t: torch.Tensor) -> str:
 
 def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+
+_LUT_CACHE: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _device_luts(arrays, device) -> Tuple[torch.Tensor, ...]:
+    """int32 copies of small host tables on ``device``, kept per content:
+    a decode issued on a side stream then uploads nothing (a pageable
+    upload would wait for the stream's earlier work)."""
+    arrays = [np.ascontiguousarray(np.asarray(a, np.int32)) for a in arrays]
+    key = (str(device),) + tuple((a.shape, a.tobytes()) for a in arrays)
+    hit = _LUT_CACHE.get(key)
+    if hit is None:
+        hit = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        # Entries are never dropped: a kernel queued on another stream
+        # may still read them.
+        if len(_LUT_CACHE) < 256:
+            _LUT_CACHE[key] = hit
+    return hit
+
+
+def _scheme_slots(tables: Tables, n: int, scheme_ids, device):
+    """(tables list, int32 [n] scheme slot per chunk), validated."""
+    tables_list = _tables_list(tables)
+    if scheme_ids is None:
+        return tables_list, torch.zeros(n, dtype=torch.int32, device=device)
+    sid = torch.as_tensor(scheme_ids, device=device).to(torch.int32
+                                                        ).reshape(-1)
+    if sid.shape[0] != n:
+        raise ValueError(f"{sid.shape[0]} scheme ids for {n} chunks")
+    # The kernels index their shared-memory LUTs with these slots.
+    if n and not 0 <= int(sid.min()) <= int(sid.max()) < len(tables_list):
+        raise ValueError(f"scheme ids must lie in [0, {len(tables_list)})")
+    return tables_list, sid
 
 
 def quantize_encode(x: torch.Tensor, tables: CodecTables,
@@ -67,18 +106,8 @@ def quantize_encode(x: torch.Tensor, tables: CodecTables,
 
 def _decode(words, scales, tables: Tables, chunk_symbols: int, scheme_ids,
             out_dtype, acc):
-    tables_list = _tables_list(tables)
-    n = words.shape[0]
-    if scheme_ids is None:
-        sid = torch.zeros(n, dtype=torch.int32, device=words.device)
-    else:
-        sid = torch.as_tensor(scheme_ids, device=words.device
-                              ).to(torch.int32).reshape(-1)
-        if sid.shape[0] != n:
-            raise ValueError(f"{sid.shape[0]} scheme ids for {n} chunks")
-        # The kernel indexes its shared-memory LUTs with these slots.
-        if n and not 0 <= int(sid.min()) <= int(sid.max()) < len(tables_list):
-            raise ValueError(f"scheme ids must lie in [0, {len(tables_list)})")
+    tables_list, sid = _scheme_slots(tables, words.shape[0], scheme_ids,
+                                     words.device)
     if _route(words) == "cpu":
         return ref.decode_dequantize_ref(words, scales, tables_list, sid,
                                          chunk_symbols, out_dtype=out_dtype,
@@ -115,3 +144,48 @@ def decode_dequantize_accumulate(acc: torch.Tensor, words: torch.Tensor,
                          f"{(words.shape[0], chunk_symbols)}")
     return _decode(words, scales, tables, chunk_symbols, scheme_ids,
                    torch.float32, acc)
+
+
+def encode(symbols: torch.Tensor, tables: CodecTables, capacity_words: int):
+    """QLC-encode u8 chunks [n, K] -> (words int32 [n, CW] (u32 bit
+    patterns), nbits int32 [n]), through K3 on the card."""
+    if symbols.dtype != torch.uint8 or symbols.dim() != 2:
+        raise TypeError(f"symbols must be u8 [n, K], got {symbols.dtype}"
+                        f"{tuple(symbols.shape)}")
+    if _route(symbols) == "cpu":
+        return ref.encode_ref(symbols, tables, capacity_words)
+    enc_code, enc_len = _device_luts((tables.enc_code, tables.enc_len),
+                                     symbols.device)
+    return qlc_codes.encode(symbols.contiguous(), enc_code, enc_len,
+                            capacity_words)
+
+
+def _codes_decode(kernel, plain, words, tables: Tables, chunk_symbols: int,
+                  scheme_ids):
+    tables_list, sid = _scheme_slots(tables, words.shape[0], scheme_ids,
+                                     words.device)
+    if _route(words) == "cpu":
+        return plain(words, tables_list, sid, chunk_symbols)
+    dec, sb, st, prefix_bits = codec.stack_decode_tables(tables_list)
+    return kernel(words.contiguous(), sid,
+                  *_device_luts((dec, sb, st), words.device), chunk_symbols,
+                  prefix_bits=prefix_bits)
+
+
+def decode(words: torch.Tensor, tables: Tables, chunk_symbols: int, *,
+           scheme_ids=None) -> torch.Tensor:
+    """QLC-decode words int32 [n, CW] -> u8 [n, K], multi-LUT by
+    ``scheme_ids``, through K4 on the card."""
+    return _codes_decode(qlc_codes.decode, ref.decode_ref, words, tables,
+                         chunk_symbols, scheme_ids)
+
+
+def decode_block_async(words: torch.Tensor, tables: Tables,
+                       chunk_symbols: int, *, scheme_ids=None
+                       ) -> torch.Tensor:
+    """:func:`decode`, bit for bit, with the words streamed tile by tile
+    through K5's double-buffered shared-memory copy: the decode the async
+    KV paging path issues ahead of a block's use."""
+    return _codes_decode(qlc_codes.prefetch_decode,
+                         ref.decode_block_async_ref, words, tables,
+                         chunk_symbols, scheme_ids)

@@ -1,4 +1,5 @@
-"""Wrappers of the two hand-written CUDA kernels for Hopper (sm_90a).
+"""Wrappers of the fused CUDA kernels for Hopper (sm_90a), and the
+builder of every kernel of the port.
 
   K1 ``fused_encode``  — block-32 e4m3 quantize + QLC encode
                          (``csrc/qlc_fused_encode.cu``; replaces
@@ -7,11 +8,13 @@
                          (``csrc/qlc_fused_decode.cu``; replaces
                          ``repro/kernels/qlc_fused.py::fused_decode_pallas``).
 
-Each source has a plain C interface and is compiled at first use by
-``nvcc`` into its own shared library under ``build/torch_kernels/`` in
-the checkout, named by a digest of the source and flags, and loaded with
-``ctypes``. Both sources build in parallel. Nothing is compiled or
-loaded when this module is imported.
+The codes kernels K3-K5 have their wrappers in ``kernels.qlc_codes``
+and build here too. Each source has a plain C interface and is compiled
+at first use by ``nvcc`` into its own shared library under
+``build/torch_kernels/`` in the checkout, named by a digest of the
+source, the shared headers and the flags, and loaded with ``ctypes``.
+All sources build in parallel. Nothing is compiled or loaded when this
+module is imported.
 
 The wrappers take CUDA tensors only: the CPU route to the plain versions
 lives in ``kernels.ops``. Each wrapper counts its launches in a plain
@@ -33,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("qlc_fused_encode", "qlc_fused_decode")
+SOURCES = ("qlc_fused_encode", "qlc_fused_decode", "qlc_encode",
+           "qlc_decode", "qlc_prefetch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_SMEM = 48 * 1024
@@ -47,6 +51,9 @@ _ARGTYPES = {
                          _P],
     "qlc_fused_decode": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _L,
                          _P, _P, _I, _P],
+    "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P],
+    "qlc_decode": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "qlc_prefetch": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P],
 }
 
 
@@ -64,6 +71,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the fused kernels K1 and K2.
+"""Plain PyTorch versions of the kernels K1-K5.
 
-They compose the pure codec with the e4m3 quantizer, op for op, and are
-what ``kernels.ops`` runs for a tensor on the CPU. On the card they are
-used only by tests and ``chip_smoke.py``, to hold the CUDA kernels
-against.
+They compose the pure codec (and, for K1/K2, the e4m3 quantizer), op for
+op, and are what ``kernels.ops`` runs for a tensor on the CPU. On the
+card they are used only by tests and ``chip_smoke.py``, to hold the CUDA
+kernels against.
 """
 from __future__ import annotations
 
@@ -45,3 +45,20 @@ def decode_dequantize_ref(words: torch.Tensor, scales: torch.Tensor,
     if acc is not None:
         return acc.float() + vals
     return vals.to(out_dtype)
+
+
+def encode_ref(symbols: torch.Tensor, tables: CodecTables,
+               capacity_words: int):
+    """Plain K3: u8 [n, K] -> (words int32 [n, CW], nbits int32 [n])."""
+    return codec.encode_chunks(symbols, tables, capacity_words)
+
+
+def decode_ref(words: torch.Tensor, tables_list: Sequence[CodecTables],
+               scheme_ids, chunk_symbols: int) -> torch.Tensor:
+    """Plain K4: words int32 [n, CW] + scheme slots [n] -> u8 [n, K]."""
+    return codec.decode_chunks_multi(words, tables_list, scheme_ids,
+                                     chunk_symbols)
+
+
+#: Plain K5. K5 differs from K4 only in how the words reach the cursor.
+decode_block_async_ref = decode_ref

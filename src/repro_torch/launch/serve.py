@@ -1,5 +1,5 @@
 """Serving launcher: continuous-batching engine, optionally from
-QLC-compressed weights.
+QLC-compressed weights and with a compressed paged KV cache.
 
 ``--wire qlc`` calibrates a codec from the parameters' e4m3 symbol
 histogram (K1's histogram output), compresses every large layer-stack
@@ -7,12 +7,24 @@ leaf to block-32 e4m3 + QLC words (K1), opens them again through the
 fused decode (K2) and serves the opened parameters through ``Engine``.
 Weights are random, from ``--seed``.
 
+``--kv-cache qlc`` pages every resident sequence's KV cache, a block of
+``--kv-block`` tokens at a time, through ONE shared compressed
+``BlockPool``: per-layer codecs calibrated from the first prefill, blocks
+encoded to QLC containers (K3) and decoded from the pooled bytes on
+access — ``--kv-paging sync`` through K4 at the step that completes a
+block, ``--kv-paging async`` (qlc only) from a device arena through K5 on
+a side stream behind the next decode window. Lossless, so the launcher
+checks that request 0's tokens equal a dense run of it alone (at the same
+batch width, so that every matmul has the shapes of the paged run).
+``--kv-cache e4m3`` quantizes blocks on eviction (lossy).
+
 Example (one H100):
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
-      --batch 4 --requests 6 --prompt-len 16 --new-tokens 16 --wire qlc
+      --batch 4 --requests 6 --prompt-len 32 --new-tokens 32 --wire qlc \\
+      --kv-cache qlc --kv-block 16 --kv-paging async
 On the CPU, with the plain versions of the kernels:
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b --reduced \\
-      --device cpu --wire qlc
+      --device cpu --wire qlc --kv-cache qlc --kv-block 4 --kv-paging sync
 """
 from __future__ import annotations
 
@@ -27,7 +39,8 @@ from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import init_params
 from repro_torch.models.transformer import resolve_device
-from repro_torch.serving import Engine, GenerationRequest
+from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
+                                 KVCacheSpec)
 
 
 def _sync(dev: torch.device):
@@ -37,10 +50,16 @@ def _sync(dev: torch.device):
 
 def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
           prompt_len: int = 16, new_tokens: int = 32, wire: str = "none",
-          device="cuda", seed: int = 0, params=None) -> Dict[str, Any]:
+          kv_cache: str = "none", kv_block: int = 128,
+          kv_paging: str = "sync", device="cuda", seed: int = 0,
+          params=None) -> Dict[str, Any]:
     """Run the launcher's path and return what it produced: the request
-    statuses, engine stats, the served params and, with ``wire="qlc"``,
-    the wire, its codec and the calibrate/compress/open seconds."""
+    statuses, engine stats, the served params, with ``wire="qlc"`` the
+    wire, its codec and the calibrate/compress/open seconds, and with
+    ``kv_cache="qlc"`` the dense solo run's tokens (``solo_tokens``),
+    which must equal request 0's or this raises."""
+    if kv_paging == "async" and kv_cache != "qlc":
+        raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
     n_req = requests or batch + 2
     if params is None:
@@ -67,8 +86,15 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     elif wire != "none":
         raise ValueError(f"wire must be 'none' or 'qlc', got {wire!r}")
 
-    eng = Engine(params, cfg, max_seq_len=prompt_len + new_tokens + 8,
-                 max_batch=batch)
+    kv_spec = pool = None
+    if kv_cache != "none":
+        # async paging frames blocks on the card: fixed plan geometry
+        kv_spec = KVCacheSpec(block_tokens=kv_block, mode=kv_cache,
+                              exact_capacity=kv_paging != "async")
+        pool = BlockPool(1 << 30)
+    max_seq_len = prompt_len + new_tokens + 8
+    eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
+                 kv_spec=kv_spec, pool=pool, kv_paging=kv_paging)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()
@@ -76,9 +102,22 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
                                             max_new_tokens=new_tokens))
                for p in prompts]
     eng.run()
-    out.update(serve_s=time.perf_counter() - t0,
-               outs=[eng.poll(h) for h in handles], stats=eng.stats(),
-               params=params, prompts=prompts)
+    outs = [eng.poll(h) for h in handles]
+    out.update(serve_s=time.perf_counter() - t0, outs=outs,
+               stats=eng.stats(), params=params, prompts=prompts)
+    if kv_cache == "qlc":
+        # The lossless contract: pooled compressed paging is
+        # token-identical to a dense run of the request alone.
+        solo = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch)
+        h = solo.submit(GenerationRequest(prompt=prompts[0],
+                                          max_new_tokens=new_tokens))
+        solo.run()
+        out["solo_tokens"] = solo.poll(h).tokens
+        if not np.array_equal(outs[0].tokens, out["solo_tokens"]):
+            raise RuntimeError(
+                f"qlc KV cache must be token-identical to the dense solo "
+                f"run: {outs[0].tokens.tolist()} vs "
+                f"{out['solo_tokens'].tolist()}")
     return out
 
 
@@ -95,24 +134,50 @@ def main(argv=None):
     ap.add_argument("--wire", default="none", choices=["none", "qlc"],
                     help="'qlc' stores weights as QLC wire and opens them "
                          "through the fused decode kernel")
+    ap.add_argument("--kv-cache", default="none",
+                    choices=["none", "qlc", "e4m3"],
+                    help="page decode states through a shared compressed "
+                         "block pool ('qlc' lossless, 'e4m3' quantized)")
+    ap.add_argument("--kv-block", type=int, default=128,
+                    help="tokens per paged-cache block")
+    ap.add_argument("--kv-paging", default="sync", choices=["sync", "async"],
+                    help="'async' keeps evicted blocks in a device arena "
+                         "and decodes them through the prefetch kernel on "
+                         "a side stream behind each decode window "
+                         "(requires --kv-cache qlc)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.kv_paging == "async" and args.kv_cache != "qlc":
+        ap.error("--kv-paging async requires --kv-cache qlc")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg, frontend=None, frontend_prefix_len=0)
     res = serve(cfg, batch=args.batch, requests=args.requests,
                 prompt_len=args.prompt_len, new_tokens=args.new_tokens,
-                wire=args.wire, device=args.device, seed=args.seed)
+                wire=args.wire, kv_cache=args.kv_cache, kv_block=args.kv_block,
+                kv_paging=args.kv_paging, device=args.device, seed=args.seed)
     outs = res["outs"]
     if not all(s.state == "finished" for s in outs):
-        raise RuntimeError([(s.request_id, s.state) for s in outs])
+        raise RuntimeError([(s.request_id, s.state, s.error) for s in outs])
     if args.wire == "qlc":
         print(f"weight wire: {len(res['wire_codec'].meta)} compressed "
               f"leaves, compress {res['compress_s'] * 1e3:.1f} ms, open "
               f"{res['open_s'] * 1e3:.1f} ms")
     st = res["stats"]
+    if args.kv_cache != "none":
+        ps = st["pool"]
+        print(f"kv-cache={args.kv_cache}: peak "
+              f"{ps['peak_referenced_bytes']} compressed B pinned vs "
+              f"{st['peak_dense_logical_bytes']} dense B, "
+              f"{ps['dedup_hits']} dedup hits")
+        if args.kv_paging == "async":
+            pf = st["prefetch"]
+            print(f"async paging: {st['async']['windows']} windows, "
+                  f"prefetch {pf['hits']}/{pf['scheduled']} hits, "
+                  f"{pf['stalled']} stalled, "
+                  f"overlap {pf['overlap_fraction']:.3f}")
     toks = sum(len(s.tokens) for s in outs)
     print(f"{len(outs)} requests / {toks} tokens in "
           f"{res['serve_s'] * 1e3:.0f}ms "

@@ -7,7 +7,7 @@ decode branch, as the reference's ``serving.engine.prefill`` does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +32,31 @@ class KVCache(NamedTuple):
                           device=device),
             length=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
+
+
+#: seq axis of the K/V tensors counted from the END (leading dims vary:
+#: [B, S, KV, H] per layer, [G, B, S, KV, H] stacked over groups).
+KV_SEQ_AXIS = -3
+
+
+def kv_block_slice(cache: KVCache, t0: int, t1: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token block ``[t0, t1)`` of a cache (views) — the unit the paged
+    serving cache evicts and encodes. Works on a per-layer cache or the
+    group-stacked decode-states leaf."""
+    return (cache.k.narrow(KV_SEQ_AXIS, t0, t1 - t0),
+            cache.v.narrow(KV_SEQ_AXIS, t0, t1 - t0))
+
+
+def kv_block_restore(cache: KVCache, t0: int, t1: int, k: torch.Tensor,
+                     v: torch.Tensor) -> KVCache:
+    """Write block ``[t0, t1)`` back into the cache — the inverse of
+    :func:`kv_block_slice`. Unlike the reference's functional update it
+    writes in place (the block's rows of ``cache.k`` / ``cache.v``, which
+    may be views of the engine's states) and returns ``cache``."""
+    cache.k.narrow(KV_SEQ_AXIS, t0, t1 - t0).copy_(k)
+    cache.v.narrow(KV_SEQ_AXIS, t0, t1 - t0).copy_(v)
+    return cache
 
 
 def attention_block(params, x, cfg: ModelConfig, positions,

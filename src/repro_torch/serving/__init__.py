@@ -1,5 +1,12 @@
-"""Serving: continuous-batching engine and the compressed weight wire."""
+"""Serving: continuous-batching engine, the compressed weight wire and
+the compressed paged KV cache."""
+from repro_torch.comm.blockpool import (  # noqa: F401
+    ArenaExhausted, ArenaStale, BlockArena, BlockPool, PoolExhausted)
 from repro_torch.serving.engine import (  # noqa: F401
-    ServeConfig, compress_params_for_serving, open_params, prefill)
+    ServeConfig, compress_params_for_serving, open_params, prefill,
+    window_step)
+from repro_torch.serving.kv_cache import (  # noqa: F401
+    KVBlock, KVCacheOverflowError, KVCacheSpec, PagedKVCache,
+    calibrate_cache, kv_cache_manifest, kv_spec_from_manifest)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Engine, GenerationRequest, RequestStatus)

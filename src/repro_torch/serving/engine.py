@@ -1,5 +1,15 @@
-"""Serving helpers: token-by-token prefill and the compressed-weight
-wire (``compress_params_for_serving`` / ``open_params``).
+"""Serving helpers: token-by-token prefill, the greedy window step, and
+the compressed-weight wire (``compress_params_for_serving`` /
+``open_params``).
+
+``prefill(..., start_pos=)`` feeds a prompt segment at absolute
+positions from ``start_pos``, so a prompt fed in segments gives the
+states of one whole-prompt call. :func:`window_step` runs ``window``
+greedy decode steps with each argmax fed back on the device and returns
+the window's tokens as one tensor: the async paging engine uploads a
+seed token and position per slot, runs the window, and reads the tokens
+back once (the counterpart of the reference's jitted window scan; no
+CUDA graph yet).
 
 Compressed-weight serving stores the layer stack as block-32 e4m3 + QLC
 words (``repro_torch.comm.weights``), compressed through K1, and opens
@@ -23,20 +33,38 @@ class ServeConfig:
     greedy: bool = True
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states):
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
+            start_pos: int = 0):
     """Feed a prompt through the decode path token by token (the
-    reference's implementation, correct for every block kind).
+    reference's implementation, correct for every block kind), token
+    ``t`` at position ``start_pos + t``.
 
     tokens: [B, S]. Returns (last_logits [B, V], states).
     """
     b, s = tokens.shape
     logits = None
     for t in range(s):
-        pos = torch.full((b, 1), t, dtype=torch.int32,
+        pos = torch.full((b, 1), start_pos + t, dtype=torch.int32,
                          device=tokens.device)
         logits, states = decode_step(params, cfg, tokens[:, t:t + 1], states,
                                      pos)
     return logits[:, 0], states
+
+
+def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                positions: torch.Tensor, states, window: int):
+    """``window`` greedy decode steps from seed ``tokens`` [B, 1] at
+    ``positions`` [B, 1]: each step's argmax is the next step's token,
+    on the device. Returns (generated tokens int32 [B, window], states);
+    column t is the token step t produced."""
+    gen = []
+    tok, pos = tokens, positions
+    for _ in range(window):
+        lg, states = decode_step(params, cfg, tok, states, pos)
+        tok = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
+        gen.append(tok)
+        pos = pos + 1
+    return torch.cat(gen, dim=1), states
 
 
 def compress_params_for_serving(params, tables):

@@ -1,21 +1,37 @@
-"""Continuous-batching serving engine (dense decode states).
+"""Continuous-batching serving engine over a shared compressed block pool.
 
 The engine owns one padded active set of ``max_batch`` slots and drives
 it step by step:
 
     Engine.submit(GenerationRequest) -> handle     (enqueue, no compute)
     Engine.step()                                  (admit + one batched
-                                                    decode step)
+                                                    decode step + paging)
     Engine.poll(handle) -> RequestStatus           (tokens so far)
 
-Waiting requests claim free slots in submit order; each admitted prompt
-prefills at batch 1 on fresh states and is scattered into its slot row.
-Every step runs ONE ``decode_step`` over all slots (free slots feed token 0 at position 0;
-every per-row op is row-independent, so padding rows do not perturb
-active rows). This is the reference's ``kv_paging="sync"`` path with
-``kv_spec=None``; block paging through the compressed pool, the async
-window scan, the prefetch kernel and per-tenant fairness caps are not
-ported yet.
+* **Admission** — waiting requests claim free slots in submit order;
+  under a bounded ``BlockPool`` with host spill disabled, a
+  projected-bytes check rejects a request with a typed ``PoolExhausted``
+  instead of running out of memory mid-decode. Each admitted prompt
+  prefills at batch 1 on fresh states and is copied into its slot row.
+* **Decode** — ONE ``decode_step`` over all slots per engine step (free
+  slots feed token 0 at position 0; every per-row op is row-independent,
+  so padding rows do not perturb active rows).
+* **Paging** (``kv_spec`` given) — each slot pages its completed blocks
+  through the shared :class:`~repro_torch.serving.kv_cache.PagedKVCache`
+  codec into the global :class:`~repro_torch.comm.blockpool.BlockPool`,
+  whose capacity is compressed bytes; identical blocks dedup by
+  container digest. ``kv_paging="sync"`` encodes a block (K3), pools the
+  host container and restores the slot's rows from the pooled bytes
+  (K4), at the step that completes it. ``kv_paging="async"`` runs decode
+  in windows up to the nearest block boundary (``window_step``: two
+  uploads and one read-back per window), frames blocks on the card into
+  a device ``BlockArena``, and decodes them through K5 on a side stream
+  behind the next window (``PagedKVCache`` / ``BlockPrefetcher``).
+  Both are token-identical to the dense engine and share one pool
+  format.
+
+Per-tenant fairness caps, SSM snapshot re-basing and mesh-bound caches
+are not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -27,10 +43,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm.blockpool import (ArenaExhausted, BlockArena,
+                                        BlockPool, PoolExhausted)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import decode_step, init_decode_states
 from repro_torch.models.transformer import tree_map
-from repro_torch.serving.engine import prefill
+from repro_torch.serving.engine import prefill, window_step
+from repro_torch.serving.kv_cache import (KVCacheSpec, PagedKVCache,
+                                          calibrate_cache)
 
 _rid_counter = itertools.count()
 
@@ -60,8 +81,9 @@ class RequestStatus:
     """Snapshot of a request's lifecycle (``Engine.poll``)."""
     request_id: str
     tenant: str
-    state: str                  # waiting | running | finished
+    state: str                  # waiting | running | finished | rejected
     tokens: np.ndarray          # generated tokens so far, int32 [<= budget]
+    error: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -70,6 +92,9 @@ class _Seq:
     state: str = "waiting"
     slot: Optional[int] = None
     toks: List[int] = dataclasses.field(default_factory=list)
+    evicted: int = 0            # tokens behind this sequence's cold blocks
+    digests: List[str] = dataclasses.field(default_factory=list)
+    error: Optional[str] = None
 
     @property
     def rid(self) -> str:
@@ -79,30 +104,84 @@ class _Seq:
     def prompt_len(self) -> int:
         return int(self.req.prompt.size)
 
+    @property
+    def absorbed(self) -> int:
+        """Tokens written into this sequence's cache so far (the last
+        generated token has not been fed back yet)."""
+        return self.prompt_len + max(0, len(self.toks) - 1)
+
+
+def _slot_view(states, b: int):
+    """Batch row ``b`` of the decode states, as views (every leaf is
+    ``[n_groups, batch, ...]``)."""
+    return tree_map(lambda a: a[:, b:b + 1], states)
+
 
 class Engine:
     """Continuous-batching engine (see module docstring). Runs on the
-    device of ``params["embed"]``."""
+    device of ``params["embed"]``.
+
+    ``kv_spec`` switches on compressed block paging into ``pool``
+    (default: an effectively unbounded ``BlockPool``); ``registry`` is
+    calibrated from the FIRST admitted request's prefill states when it
+    lacks the ``kv/layer{i}`` entries. ``kv_paging="async"`` needs
+    ``KVCacheSpec(mode="qlc", exact_capacity=False)`` and keeps up to
+    ``arena_slots`` evicted blocks in a device arena.
+    """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
-                 max_batch: int = 4):
+                 max_batch: int = 4, kv_spec: Optional[KVCacheSpec] = None,
+                 registry=None, pool: Optional[BlockPool] = None,
+                 kv_paging: str = "sync", arena_slots: int = 256):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if kv_paging not in ("sync", "async"):
+            raise ValueError(f"kv_paging must be 'sync' or 'async', got "
+                             f"{kv_paging!r}")
+        if kv_paging == "async" and (kv_spec is None or kv_spec.mode != "qlc"
+                                     or kv_spec.exact_capacity):
+            raise ValueError(
+                "kv_paging='async' needs KVCacheSpec(mode='qlc', "
+                "exact_capacity=False): the fixed plan geometry is what "
+                "lets the card frame block containers itself")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
         self.max_seq_len = int(max_seq_len)
         self.max_batch = int(max_batch)
+        self.kv_spec = kv_spec
+        if kv_spec is not None and registry is None:
+            from repro_torch.core.registry import CodecRegistry
+            registry = CodecRegistry()
+        self.registry = registry
+        if kv_spec is not None and pool is None:
+            pool = BlockPool(1 << 50)       # effectively unbounded
+        self.pool = pool
+        self.kv_paging = kv_paging
+        self._arena_slots = int(arena_slots)
+        self._codec: Optional[PagedKVCache] = None
+        self._kinds = cfg.layer_kinds()
         self._seqs: Dict[str, _Seq] = {}
         self._waiting: List[str] = []
         self._slots: List[Optional[str]] = [None] * self.max_batch
         self._states = init_decode_states(cfg, self.max_batch,
                                           self.max_seq_len, self.device)
+        #: prefetches scheduled at the last block boundary, consumed after
+        #: the NEXT window: (rid, handle)
+        self._pending: List[tuple] = []
+        self._windows = 0
+        self._window_h2d = 0        # host->device uploads per async run
+        self._window_d2h = 0        # device->host reads per async run
+        #: deterministic scheduling trace: (step, event, request_id)
+        self.events: List[tuple] = []
         self._step_idx = 0
         self._prefill_s = 0.0
         self._prefill_tokens = 0
         self._decode_s = 0.0
         self._decode_tokens = 0
+        self._dense_of: Dict[str, int] = {}     # digest -> dense bytes
+        self._dense_logical = 0
+        self.peak_dense_logical_bytes = 0
 
     # ---- request lifecycle ----------------------------------------------
 
@@ -119,46 +198,110 @@ class Engine:
                 f"{self.max_seq_len}")
         self._seqs[rid] = _Seq(req=req)
         self._waiting.append(rid)
+        self._log("submit", rid)
         return rid
 
     def poll(self, handle: str) -> RequestStatus:
         seq = self._seqs[handle]
         return RequestStatus(request_id=seq.rid, tenant=seq.req.tenant,
                              state=seq.state,
-                             tokens=np.asarray(seq.toks, np.int32))
+                             tokens=np.asarray(seq.toks, np.int32),
+                             error=seq.error)
+
+    def _active(self):
+        return [(b, rid) for b, rid in enumerate(self._slots)
+                if rid is not None]
+
+    def _seed(self, active):
+        """Each active slot's last token and its position, [B, 1] each."""
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        pos = np.zeros((self.max_batch, 1), np.int32)
+        for b, rid in active:
+            seq = self._seqs[rid]
+            tokens[b, 0] = seq.toks[-1]
+            pos[b, 0] = seq.prompt_len + len(seq.toks) - 1
+        return self._tensor(tokens), self._tensor(pos)
 
     def step(self) -> int:
-        """Admit what fits and run ONE batched decode step over the
-        padded active set. Returns the number of requests still in
+        """Admit what fits, run ONE batched decode step over the padded
+        active set (one window of steps under ``kv_paging="async"``),
+        page completed blocks. Returns the number of requests still in
         flight (waiting + running)."""
+        if self.kv_paging == "async":
+            return self._step_async()
         self._step_idx += 1
         self._admit()
-        active = [(b, rid) for b, rid in enumerate(self._slots)
-                  if rid is not None]
+        active = self._active()
         if active:
-            tokens = np.zeros((self.max_batch, 1), np.int32)
-            pos = np.zeros((self.max_batch, 1), np.int32)
-            for b, rid in active:
-                seq = self._seqs[rid]
-                tokens[b, 0] = seq.toks[-1]
-                pos[b, 0] = seq.prompt_len + len(seq.toks) - 1
+            tokens, pos = self._seed(active)
             t0 = time.perf_counter()
-            lg, self._states = decode_step(
-                self.params, self.cfg, self._tensor(tokens), self._states,
-                self._tensor(pos))
+            lg, self._states = decode_step(self.params, self.cfg, tokens,
+                                           self._states, pos)
             nxt = torch.argmax(lg[:, 0], dim=-1).cpu().numpy()  # syncs
             self._decode_s += time.perf_counter() - t0
             self._decode_tokens += len(active)
             for b, rid in active:
                 seq = self._seqs[rid]
                 seq.toks.append(int(nxt[b]))
-                if len(seq.toks) >= seq.req.max_new_tokens:
-                    self._finish(seq)
+                self._page_and_maybe_finish(seq)
+        return self._in_flight()
+
+    def _step_async(self) -> int:
+        """One window of decode steps: the window ends exactly at the
+        nearest block boundary or budget across active slots, so blocks
+        are only evicted between windows. The host uploads one seed token
+        and position per slot and reads the window's tokens back once (2
+        up, 1 down). The prefetch decodes scheduled at the last boundary
+        ran on the side stream behind this window; they are consumed (a
+        wait on their done events, timed: a stall is the cost prefetch
+        failed to hide) and applied after it."""
+        self._step_idx += 1
+        self._admit()
+        active = self._active()
+        if active:
+            bt = self.kv_spec.block_tokens
+            hot = self.kv_spec.hot_blocks
+            window = min(
+                min(s.req.max_new_tokens - len(s.toks),
+                    s.evicted + (1 + hot) * bt - s.absorbed)
+                for s in (self._seqs[rid] for _, rid in active))
+            window = max(1, window)
+            t0 = time.perf_counter()
+            tokens, pos = self._seed(active)
+            self._window_h2d += 2
+            gen_dev, self._states = window_step(
+                self.params, self.cfg, tokens, pos, self._states, window)
+            gen = gen_dev.cpu().numpy()      # ONE read-back for the window
+            self._window_d2h += 1
+            self._windows += 1
+            ready = self._consume_pending()
+            self._decode_s += time.perf_counter() - t0
+            self._decode_tokens += len(active) * window
+            self._apply_pending(ready)
+            for b, rid in active:
+                seq = self._seqs[rid]
+                if seq.state != "running":      # rejected at consume
+                    continue
+                seq.toks.extend(int(t) for t in gen[b, :window])
+                self._page_and_maybe_finish(seq)
+        return self._in_flight()
+
+    def _page_and_maybe_finish(self, seq: _Seq):
+        try:
+            self._page(seq)
+        except PoolExhausted as e:
+            self._reject(seq, e)
+            return
+        if len(seq.toks) >= seq.req.max_new_tokens:
+            self._finish(seq)
+
+    def _in_flight(self) -> int:
         return sum(1 for s in self._seqs.values()
                    if s.state in ("waiting", "running"))
 
     def run(self):
-        """Drive :meth:`step` until every submitted request finished."""
+        """Drive :meth:`step` until every submitted request finished or
+        was rejected."""
         while self.step():
             pass
 
@@ -168,8 +311,32 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     def _admit(self):
-        while self._waiting and None in self._slots:
-            self._start(self._seqs[self._waiting.pop(0)])
+        for rid in list(self._waiting):
+            if None not in self._slots:
+                break
+            seq = self._seqs[rid]
+            self._waiting.remove(rid)
+            try:
+                if self.pool is not None and self.kv_spec is not None:
+                    try:
+                        self.pool.check_admission(self._projected_bytes(seq))
+                    except PoolExhausted as e:
+                        self._reject(seq, e, event="reject_admission")
+                        continue
+                self._start(seq)
+            except PoolExhausted as e:
+                self._reject(seq, e)
+
+    def _projected_bytes(self, seq: _Seq) -> float:
+        """Projected compressed footprint of a request, in the pool's
+        measured mean-block-bytes unit (0 before any block pooled)."""
+        mean = self.pool.mean_block_bytes()
+        if not mean:
+            return 0.0
+        bt = self.kv_spec.block_tokens
+        total = seq.prompt_len + seq.req.max_new_tokens - 1
+        n_blocks = max(0, total // bt - self.kv_spec.hot_blocks)
+        return mean * n_blocks * len(self._kinds)
 
     def _start(self, seq: _Seq):
         b = self._slots.index(None)
@@ -180,38 +347,237 @@ class Engine:
         first = int(torch.argmax(logits[0]))              # syncs
         self._prefill_s += time.perf_counter() - t0
         self._prefill_tokens += seq.prompt_len
+        if self.kv_spec is not None and self._codec is None:
+            self._ensure_codec(row, seq.prompt_len)
         # in place: the slot's rows of the engine-owned states
-        tree_map(lambda dst, src: dst[:, b:b + 1].copy_(src),
-                 self._states, row)
+        tree_map(lambda dst, src: dst.copy_(src),
+                 _slot_view(self._states, b), row)
         self._slots[b] = seq.rid
         seq.slot = b
         seq.state = "running"
         seq.toks = [first]
-        if len(seq.toks) >= seq.req.max_new_tokens:
-            self._finish(seq)
+        self._log("admit", seq.rid)
+        self._page_and_maybe_finish(seq)    # prompt blocks page out now
+
+    def _ensure_codec(self, row_states, tokens: int):
+        """Build the shared block codec, calibrating the registry's
+        ``kv/layer{i}`` entries from the first prefill when absent."""
+        base = self.kv_spec.layer_codec(0)
+        if not any(n == base or n.startswith(base + "/")
+                   for n in self.registry.names()):
+            calibrate_cache(self.registry, self.cfg, row_states, tokens,
+                            self.kv_spec)
+        self._codec = PagedKVCache(self.kv_spec, self.cfg, self.registry,
+                                   device=self.device)
+
+    # ---- paging through the shared pool ---------------------------------
+
+    def _page(self, seq: _Seq):
+        if self._codec is None:
+            return
+        bt = self.kv_spec.block_tokens
+        hot = self.kv_spec.hot_blocks
+        evict = (self._evict_slot_async if self.kv_paging == "async"
+                 else self._evict_slot)
+        while seq.evicted + (1 + hot) * bt <= seq.absorbed:
+            t0 = seq.evicted
+            evict(seq, t0, t0 + bt)
+            seq.evicted = t0 + bt
+
+    def _evict_slot(self, seq: _Seq, t0: int, t1: int):
+        """Encode one completed block of ``seq``'s slot row into the pool,
+        then restore the row from the POOLED container — shared (deduped)
+        bytes are what the model attends over."""
+        row = _slot_view(self._states, seq.slot)
+        for i in range(len(self._kinds)):
+            key = f"l{i}"
+            k, v = attn.kv_block_slice(row[key], t0, t1)
+            block = self._codec.encode_block_arrays(
+                self.kv_spec.layer_codec(i), key, (k, v), start=t0,
+                tokens=t1 - t0)
+            digest = self._pool_put(seq, block)
+            k2, v2 = self._codec.decode_block_arrays(self.pool.get(digest))
+            attn.kv_block_restore(row[key], t0, t1, k2, v2)
+
+    # ---- async paging (device arena + prefetch) --------------------------
+
+    def _ensure_arena(self, slot_words: int) -> BlockArena:
+        if self._codec.arena is None:
+            arena = BlockArena(self._arena_slots, slot_words, self.device)
+            self._codec.arena = arena
+            if self.pool.arena is None:
+                self.pool.arena = arena
+        return self._codec.arena
+
+    def _evict_slot_async(self, seq: _Seq, t0: int, t1: int):
+        """Async twin of :meth:`_evict_slot`: frame every layer's block on
+        the card, park the words in the arena, and SCHEDULE the prefetch
+        decode, consumed after the next window (:meth:`_consume_pending`).
+        Escape overflow under the plan capacity redoes the boundary on
+        the sync host path (counted as a prefetch miss)."""
+        row = _slot_view(self._states, seq.slot)
+        devs = []
+        for i in range(len(self._kinds)):
+            key = f"l{i}"
+            dev = self._codec.encode_block_device(
+                self.kv_spec.layer_codec(i), key,
+                attn.kv_block_slice(row[key], t0, t1), start=t0,
+                tokens=t1 - t0)
+            if dev is None:
+                self._codec.prefetcher.miss()
+                self._evict_slot(seq, t0, t1)
+                return
+            devs.append(dev)
+        arena = self._ensure_arena(max(d.plan.total_words for d in devs))
+        for dev in devs:
+            try:
+                slot, gen = arena.alloc()
+                arena.write(slot, dev.words)
+                dev.slot, dev.gen = slot, gen
+            except ArenaExhausted:
+                dev.slot = None     # decode straight from the framed words
+            self._pending.append(
+                (seq.rid, self._codec.prefetcher.schedule(dev)))
+
+    def _consume_pending(self):
+        """Wait on the prefetch decodes scheduled at the last boundary:
+        arena staleness check, then the done event. The only paging cost
+        on the decode critical path, so it runs inside the timed region;
+        the restore and pool accounting (:meth:`_apply_pending`) is
+        bookkeeping the sync path also does untimed."""
+        pending, self._pending = self._pending, []
+        ready = []
+        for rid, handle in pending:
+            seq = self._seqs[rid]
+            if seq.state != "running":
+                continue            # rejected/finished since scheduled
+            ready.append((seq, handle,
+                          self._codec.prefetcher.consume(handle)))
+        return ready
+
+    def _apply_pending(self, ready):
+        """Restore consumed blocks and do their deferred pool accounting.
+        Restoring one window late is exact: the ``"qlc"`` round trip is
+        bit-identical, and the window never touches cache rows behind
+        the eviction horizon."""
+        for seq, handle, arrays in ready:
+            if seq.state != "running":
+                continue
+            try:
+                self._apply_consumed(seq, handle, arrays)
+            except PoolExhausted as e:
+                self._reject(seq, e)
+
+    def _apply_consumed(self, seq: _Seq, handle, arrays):
+        dev = handle.block
+        digest = self._pool_put(seq, dev.host_block())
+        if dev.slot is not None and not self.pool.attach_arena_slot(
+                digest, dev.slot, dev.gen):
+            # dedup hit: the pooled entry already owns an arena copy
+            self._codec.arena.free(dev.slot)
+        k2, v2 = arrays
+        attn.kv_block_restore(_slot_view(self._states, seq.slot)[dev.layer],
+                              dev.start, dev.start + dev.tokens, k2, v2)
+
+    def _flush_pending(self, seq: _Seq):
+        """Consume (or drop, if no longer running) every pending prefetch
+        of ``seq`` now — before finish/reject, so deferred pool
+        accounting cannot outlive the request."""
+        keep = []
+        for rid, handle in self._pending:
+            if rid != seq.rid:
+                keep.append((rid, handle))
+            elif seq.state == "running":
+                self._apply_consumed(seq, handle,
+                                     self._codec.prefetcher.consume(handle))
+        self._pending = keep
+
+    def _pool_put(self, seq: _Seq, block) -> str:
+        digest = self.pool.put(block)
+        seq.digests.append(digest)
+        self._dense_of[digest] = block.dense_bytes
+        self._dense_logical += block.dense_bytes
+        self.peak_dense_logical_bytes = max(self.peak_dense_logical_bytes,
+                                            self._dense_logical)
+        return digest
+
+    def _release_all(self, seq: _Seq):
+        for digest in seq.digests:
+            self.pool.release(digest)
+            self._dense_logical -= self._dense_of.get(digest, 0)
+        seq.digests.clear()
+
+    # ---- completion / rejection -----------------------------------------
 
     def _finish(self, seq: _Seq):
+        if self._pending:
+            try:
+                self._flush_pending(seq)
+            except PoolExhausted as e:
+                self._reject(seq, e)
+                return
         seq.state = "finished"
+        self._vacate(seq)
+        self._log("finish", seq.rid)
+
+    def _reject(self, seq: _Seq, err: Exception, event: str = "reject"):
+        seq.state = "rejected"
+        seq.error = f"{type(err).__name__}: {err}"
+        if self._pending:
+            self._flush_pending(seq)    # drops (state != running)
+        self._vacate(seq)
+        self._log(event, seq.rid)
+
+    def _vacate(self, seq: _Seq):
         if seq.slot is not None:
             self._slots[seq.slot] = None
             seq.slot = None
+        if self.pool is not None:
+            self._release_all(seq)      # zero-ref blocks stay cached
+
+    def _log(self, event: str, rid: str):
+        self.events.append((self._step_idx, event, rid))
 
     # ---- accounting ------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
-        """Request states and ms/token for prefill and decode (host clock
-        around work that ends in a device-to-host read)."""
+        """Request states, ms/token prefill and decode (host clock around
+        work that ends in a device-to-host read), KV codec counters, the
+        async window transfers and prefetch/arena counters, and the
+        pool's byte-level stats."""
         by_state: Dict[str, int] = {}
         for s in self._seqs.values():
             by_state[s.state] = by_state.get(s.state, 0) + 1
-        return {
+        out: Dict[str, Any] = {
             "steps": self._step_idx,
             "requests": {st: by_state.get(st, 0) for st in
-                         ("waiting", "running", "finished")},
+                         ("waiting", "running", "finished", "rejected")},
             "prefill_tokens": self._prefill_tokens,
             "decode_tokens": self._decode_tokens,
             "ms_per_token_prefill": (1e3 * self._prefill_s
                                      / max(1, self._prefill_tokens)),
             "ms_per_token_decode": (1e3 * self._decode_s
                                     / max(1, self._decode_tokens)),
+            "dense_logical_bytes": self._dense_logical,
+            "peak_dense_logical_bytes": self.peak_dense_logical_bytes,
         }
+        if self._codec is not None:
+            out["kv"] = {
+                "overflow_sections": self._codec.overflow_sections,
+                "raw_sections": self._codec.raw_sections,
+            }
+        if self.kv_paging == "async":
+            out["async"] = {
+                "windows": self._windows,
+                "window_h2d": self._window_h2d,
+                "window_d2h": self._window_d2h,
+                "h2d_per_window": self._window_h2d / max(1, self._windows),
+                "d2h_per_window": self._window_d2h / max(1, self._windows),
+            }
+            if self._codec is not None:
+                out["prefetch"] = self._codec.prefetcher.stats()
+                if self._codec.arena is not None:
+                    out["arena"] = self._codec.arena.stats()
+        if self.pool is not None:
+            out["pool"] = self.pool.stats()
+        return out

@@ -78,3 +78,74 @@ def test_k2_kernel_matches_plain(cuda, form):
                                     out_dtype=od)
         want = ref.decode_dequantize_ref(w, s, tl, sid, k, out_dtype=od)
     assert torch.equal(got, want)
+
+
+def _symbols(rows: int, k: int, seed: int) -> torch.Tensor:
+    """u8 chunks: most rows skewed (they code below 8 bits/symbol), every
+    fourth one uniform (it runs over a tight slot)."""
+    rng = np.random.default_rng(seed)
+    sym = np.minimum(rng.geometric(0.08, (rows, k)), 255).astype(np.uint8)
+    sym[::4] = rng.integers(0, 256, (len(sym[::4]), k), dtype=np.uint8)
+    return torch.from_numpy(sym)
+
+
+def _sym_tables():
+    counts = np.bincount(_symbols(64, 256, 1).numpy().reshape(-1),
+                         minlength=256).astype(np.float64) + 1
+    return [lut.build_tables(counts, schemes.TABLE1),
+            lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 1024])
+def test_k3_kernel_matches_plain(cuda, k):
+    t1 = _sym_tables()[0]
+    sym = _symbols(300, k, 2).to(cuda)
+    nbits = codec.encode_chunk_bits(sym, t1.enc_len)
+    for cap in (codec.worst_case_words(k), -(-int(nbits.max()) // 32),
+                int(nbits.float().median()) // 32, 3):
+        got = ops.encode(sym, t1, cap)
+        want = ref.encode_ref(sym, t1, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 1024])
+@pytest.mark.parametrize("entry", ["decode", "decode_block_async"])
+def test_k4_k5_kernels_match_plain(cuda, k, entry):
+    """Two schemes interleaved by chunk, slots cut below the longest
+    chunks (cursors run past the slot), an odd word count, and words
+    that start at an odd offset of their buffer (K5 copies 4 B at a
+    time from any offset)."""
+    tl = _sym_tables()
+    rows = 1000
+    sym = _symbols(rows, k, 3).to(cuda)
+    sid = (torch.arange(rows, device=cuda) % 2).to(torch.int32)
+    nb = torch.maximum(codec.encode_chunk_bits(sym, tl[0].enc_len),
+                       codec.encode_chunk_bits(sym, tl[1].enc_len))
+    fn = getattr(ops, entry)
+    for cap in (-(-int(nb.max()) // 32) | 1, int(nb.float().median()) // 32):
+        w1, _ = ops.encode(sym, tl[0], cap)
+        w2, _ = ops.encode(sym, tl[1], cap)
+        w = torch.where((sid == 1)[:, None], w2, w1)
+        buf = torch.zeros(w.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = w.reshape(-1)
+        w_odd = buf[1:].view(rows, cap)
+        want = ref.decode_ref(w, tl, sid, k)
+        for words in (w, w_odd):
+            assert torch.equal(fn(words, tl, k, scheme_ids=sid), want), cap
+
+
+@pytest.mark.cuda
+def test_k5_wide_slots_take_smaller_tiles(cuda):
+    """Worst-case 1024-symbol slots (353 words) leave room for one warp's
+    tile per slot of K5's double buffer; still bit-equal to K4's plain
+    version."""
+    from repro_torch.kernels import qlc_codes
+    t1 = _sym_tables()[0]
+    cap = codec.worst_case_words(1024)
+    assert qlc_codes.prefetch_warps(cap) == 1
+    sym = _symbols(200, 1024, 4).to(cuda)
+    w, _ = ops.encode(sym, t1, cap)
+    assert torch.equal(ops.decode_block_async(w, t1, 1024), sym)

@@ -64,6 +64,7 @@ def test_entry_points_default_to_the_card(no_cuda):
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch import serve
+    from repro_torch.comm.blockpool import BlockArena
     from repro_torch.models import init_decode_states, init_params
     cfg = reduced(get_config("phi3-mini-3.8b"))
     calls = [
@@ -72,6 +73,8 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
         lambda: serve.serve(cfg),
         lambda: serve.main(["--arch", "phi3-mini-3.8b", "--reduced"]),
+        lambda: serve.serve(cfg, kv_cache="qlc", kv_paging="async"),
+        lambda: BlockArena(2, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
