@@ -6,14 +6,22 @@ output, so on the card no plain quantizer runs: block-32 symbols do not
 depend on how the flat tensor is cut into chunk rows, so the bulk goes
 through K1 in rows of 1024 and a ragged tail in rows of 32.
 
+Gradients (:func:`calibrate_for_gradients`, :func:`calibrate_for_tensor`):
+the flat tensor is quantized in pieces on its device and its symbols are
+counted there by the histogram kernel K6 (``kernels.ops.histogram``), in
+launches of at most 2^31 - 1 symbols summed in int64. The empirical slot
+sizing (:func:`empirical_plan`) gathers each symbol's code length and
+sums it per chunk on the same device; only the per-chunk sums come down
+to the host, where the percentile and the margin are computed exactly as
+in the reference.
+
 KV / decode states (:func:`calibrate_kv_entries`): the lossless mode's
 symbols are the states' bytes, split into byte planes by a little-endian
-``view(torch.uint8)`` on the states' device; the histograms and the
-empirical slot sizing run on the host with numpy, as in the reference.
+``view(torch.uint8)`` on the states' device, and counted there by K6.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,9 +29,11 @@ import torch
 from repro_torch.comm.planner import CommPlan, plan_for_tables
 from repro_torch.core import adapt, codec
 from repro_torch.core.lut import CodecTables, identity_tables
-from repro_torch.core.schemes import TABLE1
+from repro_torch.core.schemes import TABLE1, QLCScheme
+from repro_torch.kernels import histogram256 as _hist
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import tree_leaves
+from repro_torch.models.transformer import (pytree_leaves,
+                                           pytree_unflatten, tree_leaves)
 from repro_torch.quant import e4m3
 
 _ROW = 1024
@@ -58,7 +68,35 @@ def histogram_of_tree(tree) -> np.ndarray:
     return counts
 
 
-def empirical_plan(tables: CodecTables, syms: np.ndarray, plan: CommPlan,
+def symbol_counts(syms: torch.Tensor) -> np.ndarray:
+    """u8 symbols on any device -> counts[256] (float64), through K6 on
+    the card in launches of at most 2^31 - 1 symbols, summed in int64."""
+    flat = syms.reshape(-1)
+    total = torch.zeros(256, dtype=torch.int64, device=flat.device)
+    for s in range(0, flat.numel(), _hist.MAX_SYMBOLS):
+        total += ops.histogram(flat[s:s + _hist.MAX_SYMBOLS]).long()
+    return total.cpu().numpy().astype(np.float64)
+
+
+def _chunk_bit_sums(tables: CodecTables, syms: torch.Tensor,
+                    chunk_symbols: int, n_chunks: int) -> np.ndarray:
+    """int64 [n_chunks]: the code bits of each whole chunk of ``syms``,
+    gathered and summed on the symbols' device, piece by piece."""
+    enc_len = torch.as_tensor(np.asarray(tables.enc_len, np.int32),
+                              device=syms.device)
+    sums = torch.empty(n_chunks, dtype=torch.int64, device=syms.device)
+    step = max(1, e4m3.PIECE // chunk_symbols)
+    for c0 in range(0, n_chunks, step):
+        c1 = min(n_chunks, c0 + step)
+        part = syms[c0 * chunk_symbols:c1 * chunk_symbols].to(torch.int32)
+        lens = torch.index_select(enc_len, 0, part)
+        sums[c0:c1] = lens.reshape(c1 - c0, chunk_symbols).sum(
+            dim=1, dtype=torch.int64)
+    return sums.cpu().numpy()
+
+
+def empirical_plan(tables: CodecTables,
+                   syms: Union[torch.Tensor, np.ndarray], plan: CommPlan,
                    *, chunk_symbols: int = 1024,
                    target_escape_prob: float = 1e-6,
                    max_pool_slots_per_1k: Optional[int] = None,
@@ -71,13 +109,11 @@ def empirical_plan(tables: CodecTables, syms: np.ndarray, plan: CommPlan,
     raw fallback for incompressible streams (the paged KV cache)."""
     if drift_margin_bits is None:
         drift_margin_bits = plan.drift_margin_bits
-    syms = np.asarray(syms).reshape(-1)
-    lens = tables.enc_len[syms].astype(np.int64)
-    n_chunks = len(lens) // chunk_symbols
+    syms = torch.as_tensor(syms).reshape(-1)
+    n_chunks = syms.numel() // chunk_symbols
     if n_chunks < 8:
         return plan
-    sums = lens[:n_chunks * chunk_symbols].reshape(
-        n_chunks, chunk_symbols).sum(axis=1)
+    sums = _chunk_bit_sums(tables, syms, chunk_symbols, n_chunks)
     q = float(np.quantile(sums, 0.999))
     bits = min(8.0 * chunk_symbols, q + drift_margin_bits * chunk_symbols)
     cap_words = max(1, int(np.ceil(bits / 32)))
@@ -93,6 +129,65 @@ def empirical_plan(tables: CodecTables, syms: np.ndarray, plan: CommPlan,
         escape_prob_bound=max(emp_escape, target_escape_prob),
         drift_margin_bits=drift_margin_bits,
     )
+
+
+def quantized_symbols(x: torch.Tensor) -> torch.Tensor:
+    """float tensor -> u8 [n] block-32 e4m3 symbols of its flattened
+    values, on its device; a trailing partial block is left out, as in
+    the reference."""
+    flat = x.reshape(-1)
+    n = (flat.shape[0] // e4m3.BLOCK) * e4m3.BLOCK
+    codes, _ = e4m3.quantize_block32_pieces(flat[:n].float())
+    return codes
+
+
+def calibrate_for_tensor(x: torch.Tensor,
+                         scheme: Optional[QLCScheme] = None,
+                         chunk_symbols: int = 1024,
+                         target_escape_prob: float = 1e-6,
+                         allow_search: bool = False,
+                         empirical: bool = True,
+                         ) -> Tuple[CodecTables, CommPlan]:
+    """Histogram a representative tensor and derive tables + wire plan.
+
+    ``empirical=True`` sizes the chunk slot from the measured per-chunk
+    bit counts (:func:`empirical_plan`) rather than an iid Hoeffding
+    bound: a whole gradient vector mixes tensor types whose local
+    statistics differ, so its chunk sums are far more dispersed than iid
+    sampling of the global PMF predicts."""
+    codes = quantized_symbols(x)
+    counts = np.maximum(symbol_counts(codes), 1e-6)
+    tables = adapt.calibrate_tables(counts, scheme=scheme,
+                                    allow_search=allow_search)
+    plan = plan_for_tables(tables, counts, chunk_symbols=chunk_symbols,
+                           target_escape_prob=target_escape_prob)
+    if empirical:
+        plan = empirical_plan(tables, codes, plan,
+                              chunk_symbols=chunk_symbols,
+                              target_escape_prob=target_escape_prob)
+    return tables, plan
+
+
+def flat_gradient(model_cfg, params, batch) -> torch.Tensor:
+    """One backward pass of ``next_token_loss`` over ``batch`` -> the
+    gradient leaves flattened into one f32 vector, in the reference's
+    pytree order."""
+    from repro_torch.models import next_token_loss
+    live = [p.detach().requires_grad_(True) for p in pytree_leaves(params)]
+    loss = next_token_loss(pytree_unflatten(params, live), model_cfg,
+                           batch["tokens"], batch["labels"])
+    grads = torch.autograd.grad(loss, live)
+    return torch.cat([g.reshape(-1).float() for g in grads])
+
+
+def calibrate_for_gradients(model_cfg, params, batch,
+                            chunk_symbols: int = 1024,
+                            allow_search: bool = False,
+                            ) -> Tuple[CodecTables, CommPlan]:
+    """One backward pass -> gradient histogram (K6) -> tables + plan."""
+    return calibrate_for_tensor(flat_gradient(model_cfg, params, batch),
+                                chunk_symbols=chunk_symbols,
+                                allow_search=allow_search)
 
 
 # --------------------------------------------------------------------------
@@ -194,12 +289,11 @@ def calibrate_kv_entries(registry, layer_arrays, *, mode: str = "qlc",
         for name, syms in streams:
             layout.append(name)
             if name not in registry:
-                pending.append((name, syms.cpu().numpy()))
+                pending.append((name, syms))
 
     groups = []   # [{pmf, counts, members: [(name, syms, counts)]}]
     for name, syms in pending:
-        counts = np.maximum(
-            np.bincount(syms, minlength=256).astype(np.float64), 1e-6)
+        counts = np.maximum(symbol_counts(syms), 1e-6)
         pmf = counts / counts.sum()
         for g in groups:
             if merge_tol > 0 and \

@@ -1,6 +1,6 @@
-"""The QLC wire payload and its local transforms, codes path: the part
-of the reference's ``comm/compressed.py`` that paged KV serving and the
-container format run on.
+"""The QLC wire payload and its local transforms: the codes path (paged
+KV serving, containers) and the value path (the gradient wire's
+quantize-encode, decode-dequantize and decode-accumulate).
 
 Each ``chunk_symbols``-symbol chunk gets a fixed slot of
 ``capacity_words`` 32-bit words, a 1-byte escape flag, and escaped
@@ -16,13 +16,19 @@ chunks become words by a little-endian byte view, as the reference's
 
 ``_encode`` / ``_decode`` route by the device of their input through
 ``kernels.ops``: K3 and K4 on the card, their plain versions on the
-CPU. ``CommConfig.use_kernels`` is kept so that configs, manifests and
-registry JSON round-trip with the reference, but it does not pick the
-route: the reference leaves it False on its serving path and so runs
-its pure codec, while on the card the port must run its kernels.
+CPU; the value transforms likewise through K1 (quantize-encode) and K2
+(decode-dequantize, plain and accumulate forms). ``CommConfig.
+use_kernels`` is kept so that configs, manifests and registry JSON
+round-trip with the reference, but it does not pick the route: the
+reference leaves it False on its serving and training paths and so runs
+its pure codec, while on the card the port must run its kernels. The
+outputs are the same bit for bit either way.
 
-The value transforms (quantize-encode, fused decode) and the
-collectives come with the gradient-wire slice.
+Escaped chunks are patched into the decoded values row by row (only the
+escaped rows are dequantized from the pool), where the reference selects
+between two full-size tensors: the same values, without a second
+full-size temporary. The collectives over these transforms live in
+``comm.transport`` and ``comm.channel``.
 """
 from __future__ import annotations
 
@@ -247,10 +253,140 @@ def _decompress_codes(payload: WirePayload, tables: Optional[CodecTables],
 
 def _quantize(x: torch.Tensor, cfg: CommConfig):
     """float [..., M] -> (codes u8 [..., M], scales [..., M/32] in
-    ``cfg.scale_dtype``, cast with round-to-nearest-even)."""
-    codes, scales = e4m3.quantize_block32(x.float())
+    ``cfg.scale_dtype``, cast with round-to-nearest-even), in pieces (the
+    raw twin quantizes a whole flat gradient)."""
+    codes, scales = e4m3.quantize_block32_pieces(x.float())
     return codes, scales.to(getattr(torch, cfg.scale_dtype))
 
 
 def _dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    return e4m3.dequantize_block32(codes, scales.float())
+    return e4m3.dequantize_block32_pieces(codes, scales.float())
+
+
+
+# --- value transforms (the gradient wire's local hot path) ----------------
+
+class ReduceScatterResult(NamedTuple):
+    """A compressed reduce-scatter's output: this rank's summed segment,
+    padded to the static segment length; ``valid``, how many leading
+    entries of it map to real (pre-padding) input; and ``ok``."""
+    segment: torch.Tensor     # f32 [seg_padded]
+    valid: int
+    ok: torch.Tensor          # bool []
+
+
+def _compress_values(x: torch.Tensor, tables: CodecTables, cfg: CommConfig,
+                     *, emit_hist: bool = False):
+    """float [..., M] (M % chunk_symbols == 0) -> (WirePayload, scales
+    [..., M/32] in ``cfg.scale_dtype`` [, hist int32 [256]]).
+
+    Enabled: quantize and encode in one K1 launch on the card, which also
+    emits the symbols (the escape pool stores escaped chunks raw) and,
+    with ``emit_hist``, their histogram. Raw twin (``enabled=False``):
+    the plain quantizer, the codes viewed as words."""
+    k = cfg.chunk_symbols
+    *lead, m = x.shape
+    if m % k:
+        raise ValueError(f"{m} values are not a multiple of {k}")
+    n_chunks = m // k
+    if not cfg.enabled:
+        codes, scales = _quantize(x, cfg)
+        payload = _raw_payload(codes.reshape(*lead, n_chunks, k))
+        if emit_hist:
+            return payload, scales, ops.histogram(codes)
+        return payload, scales
+    outs = ops.quantize_encode(x.reshape(-1, k), tables, cfg.capacity_words,
+                               emit_codes=True, emit_hist=emit_hist)
+    words, nbits, scales, codes = outs[:4]
+    payload = _assemble_payload(
+        codes.reshape(*lead, n_chunks, k),
+        words.reshape(*lead, n_chunks, cfg.capacity_words),
+        nbits.reshape(*lead, n_chunks), cfg)
+    scales = scales.reshape(*lead, m // e4m3.BLOCK).to(
+        getattr(torch, cfg.scale_dtype))
+    if emit_hist:
+        return payload, scales, outs[4]
+    return payload, scales
+
+
+def _pool_values(payload: WirePayload, scales: torch.Tensor,
+                 cfg: CommConfig):
+    """Escape epilogue of the value decode: dequantize only the escaped
+    rows, from the pool.
+
+    Returns ``(escape bool [..., n_chunks], rows, ok bool [...])``:
+    ``rows(mask)`` gives f32 [n_selected, K], the raw values of the
+    chunks selected by ``mask`` (a subset of ``escape``): each chunk's
+    pool row (clamped to the last slot when the pool overflowed; ``ok``
+    is then False and the caller falls back) dequantized with the
+    chunk's own scales, as the reference's codec path does."""
+    k = cfg.chunk_symbols
+    *lead, n_chunks, _ = payload.words.shape
+    pool_slots = payload.pool.shape[-2]
+    escape = payload.flags.bool()
+    esc_idx, _ = _escape_slots(payload.flags, pool_slots)
+    src = esc_idx.clamp(max=pool_slots - 1)
+    pool_u8 = payload.pool.contiguous().view(torch.uint8).reshape(
+        -1, pool_slots, k)
+    lead_idx = torch.arange(pool_u8.shape[0], device=escape.device
+                            ).reshape(*lead, 1).expand(*lead, n_chunks) \
+        if lead else torch.zeros(n_chunks, dtype=torch.int64,
+                                 device=escape.device)
+    chunk_scales = scales.float().reshape(*lead, n_chunks,
+                                          k // e4m3.BLOCK)
+
+    def rows(mask: torch.Tensor) -> torch.Tensor:
+        return e4m3.dequantize_block32(pool_u8[lead_idx[mask], src[mask]],
+                                       chunk_scales[mask])
+
+    ok = payload.pool_count[..., 0] <= pool_slots
+    return escape, rows, ok
+
+
+def _decode_values(payload: WirePayload, scales: torch.Tensor,
+                   tables: CodecTables, cfg: CommConfig,
+                   acc: Optional[torch.Tensor]):
+    k = cfg.chunk_symbols
+    *lead, n_chunks, cw = payload.words.shape
+    flat_words = payload.words.reshape(-1, cw)
+    flat_scales = scales.float().reshape(-1, k // e4m3.BLOCK)
+    if acc is None:
+        vals = ops.decode_dequantize(flat_words, flat_scales, tables, k)
+    else:
+        vals = ops.decode_dequantize_accumulate(
+            acc.reshape(-1, k).float(), flat_words, flat_scales, tables, k)
+    vals = vals.reshape(*lead, n_chunks, k)
+    escape, rows, ok = _pool_values(payload, scales, cfg)
+    if bool(escape.any()):
+        raw = rows(escape)
+        if acc is not None:
+            raw = acc.reshape(*lead, n_chunks, k)[escape].float() + raw
+        vals[escape] = raw
+    return vals.reshape(*lead, n_chunks * k), ok
+
+
+def _decompress_values(payload: WirePayload, scales: torch.Tensor,
+                       tables: Optional[CodecTables], cfg: CommConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(WirePayload, scales) -> (f32 values [..., M], ok bool [...]):
+    one K2 launch on the card, escaped chunks patched in from the pool.
+    The raw twin views the words as codes and dequantizes them."""
+    if not cfg.enabled:
+        codes, ok = _decompress_codes(payload, tables, cfg)
+        return _dequantize(codes, scales), ok
+    return _decode_values(payload, scales, tables, cfg, None)
+
+
+def _accumulate_values(acc: torch.Tensor, payload: WirePayload,
+                       scales: torch.Tensor, tables: Optional[CodecTables],
+                       cfg: CommConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``acc + decompress_values(payload)`` in f32: one launch of K2's
+    accumulate form on the card (the dequantize product rounded before
+    the add, so it equals the reference's decode-then-add bit for bit);
+    escaped chunks are ``acc + raw`` from the pool. Returns ``(new_acc
+    f32 [..., M], ok)``."""
+    if not cfg.enabled:
+        vals, ok = _decompress_values(payload, scales, tables, cfg)
+        return acc + vals, ok
+    return _decode_values(payload, scales, tables, cfg, acc)

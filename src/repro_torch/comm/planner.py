@@ -1,15 +1,22 @@
-"""Wire-format planning: the static slot size per chunk, from the
-calibration histogram (mean code length plus a Hoeffding-bounded margin
-so the per-chunk escape probability stays below ``target_escape_prob``).
+"""Wire-format and transport planning.
 
-The transport cost model of the reference's planner comes with the
-collectives slice.
+Wire format: the static slot size per chunk, from the calibration
+histogram (mean code length plus a Hoeffding-bounded margin so the
+per-chunk escape probability stays below ``target_escape_prob``).
+
+Transport: an alpha-beta cost model (:class:`AlphaBetaModel`) picks
+between one-shot (one collective of the whole payload, decode after it)
+and ring (point-to-point hops, hop *k*'s decode overlapping hop *k+1*'s
+transfer) and sizes the ring's hop chunking. The hierarchical
+(two-tier) kind and the cross-pod link class wait for multi-node
+(ROADMAP queue 1, item 13); measured autotuning waits for
+``Channel.autotune`` (item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -68,3 +75,166 @@ def plan_for_tables(tables: CodecTables, counts: np.ndarray,
         escape_prob_bound=target_escape_prob,
         drift_margin_bits=drift_margin_bits,
     )
+
+
+# --------------------------------------------------------------------------
+# Transport selection (one-shot vs ring, hop chunking)
+# --------------------------------------------------------------------------
+
+#: The valid ``TransportConfig.kind`` values. ``"hierarchical"`` is kept
+#: so configs round-trip with the reference; running it raises (item 13).
+TRANSPORT_KINDS = ("oneshot", "ring", "hierarchical")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """Static transport selection for one compressed collective.
+
+    ``kind``: ``"oneshot"`` (one ``all_to_all`` / ``all_gather`` of the
+    whole compressed payload, decode strictly after it) or ``"ring"``
+    (``d - 1`` point-to-point hops; hop *k* is decoded, and for a
+    reduce-scatter accumulated, while hop *k+1* is in flight).
+    ``hop_chunks`` splits each hop's payload into that many
+    independently compressed pieces.
+    """
+    kind: str = "oneshot"
+    hop_chunks: int = 1
+
+    def __post_init__(self):
+        if self.kind not in TRANSPORT_KINDS:
+            raise ValueError(
+                f"unknown transport kind {self.kind!r}; valid kinds: "
+                + ", ".join(repr(k) for k in TRANSPORT_KINDS))
+        if self.hop_chunks < 1:
+            raise ValueError("hop_chunks must be >= 1")
+
+
+ONESHOT = TransportConfig("oneshot")
+
+
+def resolve_transport(transport) -> TransportConfig:
+    """Normalize ``None`` (one-shot) / str / TransportConfig."""
+    if transport is None:
+        return ONESHOT
+    if isinstance(transport, TransportConfig):
+        return transport
+    if isinstance(transport, str):
+        return TransportConfig(kind=transport)
+    raise TypeError(
+        f"bad transport spec: {transport!r} (expected None, a "
+        f"TransportConfig, or one of {TRANSPORT_KINDS})")
+
+
+#: Ring hop-chunk candidates the planner compares.
+HOP_CHUNK_CANDIDATES = (1, 2, 4, 8)
+
+
+def clamp_hop_chunks(hop_chunks: int, n_chunks: int) -> int:
+    """Largest h <= hop_chunks that tiles ``n_chunks`` (>= 1): ring hop
+    pieces must tile the payload's chunk count, or the per-piece padding
+    would change the ZeRO-1 segment geometry."""
+    h = max(1, min(hop_chunks, n_chunks))
+    while n_chunks % h:
+        h -= 1
+    return h
+
+
+@dataclasses.dataclass(frozen=True)
+class AlphaBetaModel:
+    """alpha-beta cost model of one compressed-collective exchange.
+
+    Defaults are for one NVIDIA H100 SXM node (NVIDIA's H100 SXM data
+    sheet: NVLink 900 GB/s per card, 450 GB/s each way; HBM 3.35 TB/s):
+
+    * ``alpha_s`` — per-message latency of an NCCL point-to-point or
+      collective launch, a first-order 10 us.
+    * ``wire_Bps`` — one NVLink direction, 450 GB/s.
+    * ``decode_Bps`` — fused decode->dequantize throughput in decoded f32
+      bytes per second: K2's rate on the H100 at the weight wire's
+      largest leaf, 3.2 GB in 4.7 ms (``chip_smoke.py``), about
+      0.69 TB/s; the HBM rate of 3.35 TB/s bounds it.
+    * ``dispatch_s`` — per decode dispatch on the host: the eager
+      PyTorch launches around one piece's decode and escape merge,
+      about ten at ~30 us each (``chip_smoke.py``'s profile line).
+    """
+    alpha_s: float = 10e-6
+    wire_Bps: float = 450e9
+    decode_Bps: float = 0.69e12
+    dispatch_s: float = 300e-6
+
+    def wire_time(self, wire_bytes: float) -> float:
+        return self.alpha_s + wire_bytes / self.wire_Bps
+
+    def decode_time(self, value_bytes: float) -> float:
+        return self.dispatch_s + value_bytes / self.decode_Bps
+
+
+def payload_wire_bytes(n_symbols: int, chunk_symbols: int,
+                       capacity_words: int, pool_slots_per_1k: int = 8,
+                       scale_bytes: int = 2, hop_chunks: int = 1) -> int:
+    """Static wire bytes of one shard's compressed payload (slots +
+    flags + pool + pool count + block-32 scales) without building it.
+    ``hop_chunks > 1`` charges one row-sized escape pool and pool count
+    per piece (the ring's ok-parity wire shape)."""
+    n_chunks = max(1, math.ceil(n_symbols / chunk_symbols))
+    pool_slots = max(1, math.ceil(n_chunks * pool_slots_per_1k / 1024))
+    pieces = max(1, int(hop_chunks))
+    return (n_chunks * capacity_words * 4
+            + n_chunks
+            + pieces * pool_slots * chunk_symbols
+            + pieces * 4
+            + scale_bytes * math.ceil(n_symbols / 32))
+
+
+def modeled_oneshot_time(model: AlphaBetaModel, shard_wire_bytes: float,
+                         shard_value_bytes: float, axis_size: int,
+                         n_decode_dispatches: int = 1) -> float:
+    """One-shot: every peer's payload crosses the wire, then decode runs
+    strictly after it. The reduce-scatter pays ``axis_size`` accumulate
+    dispatches (the ring's op sequence), the all-gather one."""
+    d = axis_size
+    wire = model.wire_time(shard_wire_bytes * (d - 1))
+    return (wire + shard_value_bytes * d / model.decode_Bps
+            + max(1, n_decode_dispatches) * model.dispatch_s)
+
+
+def modeled_ring_time(model: AlphaBetaModel, shard_wire_bytes: float,
+                      shard_value_bytes: float, axis_size: int,
+                      hop_chunks: int = 1) -> float:
+    """Ring: ``(d-1) * hop_chunks`` messages; decode of unit *k* overlaps
+    the transfer of unit *k+1*: fill + steady ``max(transfer, decode)``
+    per unit + drain."""
+    d = axis_size
+    if d <= 1:
+        return model.decode_time(shard_value_bytes)
+    h = hop_chunks
+    unit_wire = model.wire_time(shard_wire_bytes / h)
+    unit_dec = model.decode_time(shard_value_bytes / h)
+    n_units = (d - 1) * h
+    return (unit_wire + (n_units - 1) * max(unit_wire, unit_dec)
+            + unit_dec)
+
+
+def choose_transport(shard_wire_bytes: float, shard_value_bytes: float,
+                     axis_size: int,
+                     model: Optional[AlphaBetaModel] = None,
+                     hop_chunk_candidates: Sequence[int]
+                     = HOP_CHUNK_CANDIDATES,
+                     n_oneshot_decode_dispatches: int = 1
+                     ) -> TransportConfig:
+    """The transport (and ring hop chunking) of least modeled time for
+    one device's shard of ``shard_wire_bytes`` / ``shard_value_bytes``
+    over a group of ``axis_size``."""
+    model = model or AlphaBetaModel()
+    if axis_size <= 1:
+        return ONESHOT
+    best = ("oneshot", 1,
+            modeled_oneshot_time(model, shard_wire_bytes,
+                                 shard_value_bytes, axis_size,
+                                 n_oneshot_decode_dispatches))
+    for h in hop_chunk_candidates:
+        t = modeled_ring_time(model, shard_wire_bytes, shard_value_bytes,
+                              axis_size, h)
+        if t < best[2]:
+            best = ("ring", h, t)
+    return TransportConfig(kind=best[0], hop_chunks=best[1])

@@ -1,6 +1,7 @@
-"""Parameters from the reference package, as numpy arrays, into the
-port's tree: same keys, shapes and dtypes, so both packages compute
-the same function on the same weights."""
+"""State from the reference package, as numpy arrays, into the port:
+parameters into the port's tree (same keys, shapes and dtypes, so both
+packages compute the same function on the same weights), and the flat
+ZeRO-1 optimizer state into one data-parallel rank's slice."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,3 +21,23 @@ def params_from_numpy(tree, device="cuda"):
         return torch.from_numpy(np.array(node)).to(dev)
 
     return walk(tree)
+
+
+def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
+    """The reference's global ZeRO-1 state (``m`` / ``v`` laid out
+    ``[*data_axes, model, seg]``, ``step`` a scalar) -> this data-parallel
+    rank's flat state ``{"m": [seg], "v": [seg], "step": []}`` on
+    ``device``. The model axis must have size 1 (tensor parallelism is
+    not ported); data ranks are taken in row-major order of the mesh's
+    data axes, the order of the reference's reduce-scatter segments."""
+    dev = resolve_device(device)
+    out = {}
+    for k in ("m", "v"):
+        a = np.array(state[k])
+        if a.shape[-2] != 1:
+            raise ValueError(f"{k}: model axis {a.shape[-2]} != 1")
+        out[k] = torch.from_numpy(
+            np.ascontiguousarray(a.reshape(-1, a.shape[-1])[rank])).to(dev)
+    out["step"] = torch.tensor(int(np.array(state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

@@ -14,6 +14,7 @@ fallback from the kernel to the plain version.
   decode                        — words -> u8 symbols: K4.
   decode_block_async            — ``decode`` with the words staged through
                                   a double-buffered copy: K5.
+  histogram                     — u8 symbols -> int32 [256] counts: K6.
 
 Every decode entry point takes one ``CodecTables`` or a sequence of them
 with ``scheme_ids`` (int [n_chunks]) naming each chunk's scheme: stacked
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.core.lut import CodecTables
+from repro_torch.kernels import histogram256 as _hist
 from repro_torch.kernels import qlc_codes, qlc_fused, ref
 from repro_torch.quant import e4m3
 
@@ -189,3 +191,15 @@ def decode_block_async(words: torch.Tensor, tables: Tables,
     return _codes_decode(qlc_codes.prefetch_decode,
                          ref.decode_block_async_ref, words, tables,
                          chunk_symbols, scheme_ids)
+
+
+def histogram(symbols: torch.Tensor) -> torch.Tensor:
+    """u8 symbols (any shape, at most 2^31 - 1 of them) -> int32 [256]
+    counts, through K6 on the card. The reference pads to its tile and
+    takes the padding back out of bin 0; K6 needs no padding, so the
+    counts are those of exactly the symbols given."""
+    if symbols.dtype != torch.uint8:
+        raise TypeError(f"symbols must be u8, got {symbols.dtype}")
+    if _route(symbols) == "cpu":
+        return ref.histogram256_ref(symbols)
+    return _hist.histogram256(symbols.reshape(-1).contiguous())

@@ -9,8 +9,9 @@ builder of every kernel of the port.
                          ``repro/kernels/qlc_fused.py::fused_decode_pallas``).
 
 The codes kernels K3-K5 have their wrappers in ``kernels.qlc_codes``
-and build here too. Each source has a plain C interface and is compiled
-at first use by ``nvcc`` into its own shared library under
+and the histogram K6 in ``kernels.histogram256``; all build here.
+Each source has a plain C interface and is compiled at first use by
+``nvcc`` into its own shared library under
 ``build/torch_kernels/`` in the checkout, named by a digest of the
 source, the shared headers and the flags, and loaded with ``ctypes``.
 All sources build in parallel. Nothing is compiled or loaded when this
@@ -37,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("qlc_fused_encode", "qlc_fused_decode", "qlc_encode",
-           "qlc_decode", "qlc_prefetch")
+           "qlc_decode", "qlc_prefetch", "histogram256")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_SMEM = 48 * 1024
@@ -54,6 +55,7 @@ _ARGTYPES = {
     "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P],
     "qlc_decode": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
     "qlc_prefetch": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P],
+    "histogram256": [_P, _L, _P, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels K1-K5.
+"""Plain PyTorch versions of the kernels K1-K6.
 
 They compose the pure codec (and, for K1/K2, the e4m3 quantizer), op for
 op, and are what ``kernels.ops`` runs for a tensor on the CPU. On the
@@ -62,3 +62,21 @@ def decode_ref(words: torch.Tensor, tables_list: Sequence[CodecTables],
 
 #: Plain K5. K5 differs from K4 only in how the words reach the cursor.
 decode_block_async_ref = decode_ref
+
+
+#: symbols per slice of the plain histogram: its one-hot is 1 KiB per
+#: symbol, so a slice holds at most 64 MiB of it.
+_HIST_SLICE = 1 << 16
+
+
+def histogram256_ref(symbols: torch.Tensor) -> torch.Tensor:
+    """Plain K6: u8 (any shape) -> int32 [256] counts, as the reference's
+    one-hot reduction, slice by slice."""
+    flat = symbols.reshape(-1)
+    bins = torch.arange(256, dtype=torch.int32, device=flat.device)
+    counts = torch.zeros(256, dtype=torch.int32, device=flat.device)
+    for s in range(0, flat.numel(), _HIST_SLICE):
+        part = flat[s:s + _HIST_SLICE].to(torch.int32)
+        counts += (part[:, None] == bins[None, :]).sum(dim=0,
+                                                       dtype=torch.int32)
+    return counts

@@ -1,9 +1,17 @@
-"""Attention with RoPE and a KV cache: the decode branch of the
-reference's ``models/attention.py::attention_block``.
+"""Attention with RoPE: the reference's ``models/attention.py``.
 
-The blocked (flash-style) training/prefill attention is not ported yet
-(ROADMAP queue 1, item 7); serving prefills token by token through the
-decode branch, as the reference's ``serving.engine.prefill`` does.
+Full-sequence causal attention for training (:func:`dense_attention`,
+the O(S^2) reference, and :func:`blocked_attention`, the flash-style
+online softmax over KV blocks), in plain PyTorch ops with autograd for
+the backward pass, following the reference's formulation: f32 scores
+and softmax statistics, the probabilities cast to the compute dtype for
+the value product. The reference's TPU memory tricks (a checkpointed
+scan over KV blocks) become Python loops; the per-layer checkpoint of
+``remat="full"`` bounds what autograd keeps.
+
+Serving runs the decode branch of :func:`attention_block`: one token
+against a KV cache (prefill goes token by token through it, as the
+reference's ``serving.engine.prefill`` does).
 """
 from __future__ import annotations
 
@@ -59,23 +67,94 @@ def kv_block_restore(cache: KVCache, t0: int, t1: int, k: torch.Tensor,
     return cache
 
 
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, S, KV, H] -> [B, S, KV*groups, H] (GQA head expansion)."""
+    if groups == 1:
+        return x
+    b, s, kv, h = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, groups, h).reshape(
+        b, s, kv * groups, h)
+
+
+def _mask(q_pos, k_pos, window: Optional[int]):
+    """Causal (+ sliding window) mask: [..., Sq, Sk] bool (True = keep)."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
+
+
+def dense_attention(q, k, v, q_pos, k_pos, window=None):
+    """Reference O(S^2) attention. q: [B,Sq,H,D], k/v: [B,Sk,H,D]."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = _mask(q_pos, k_pos, window)[:, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def blocked_attention(q, k, v, q_pos, k_pos, window=None, q_block=512,
+                      kv_block=1024, causal_skip=False,
+                      score_dtype=torch.float32):
+    """Flash-style attention: q blocks in turn, an online softmax over kv
+    blocks, scores accumulated in ``score_dtype`` and kept in f32.
+    Shapes as :func:`dense_attention`. ``causal_skip`` is accepted for
+    the reference's signature; as there, no block is skipped."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, sk)
+    if sq % q_block or sk % kv_block:
+        raise ValueError(f"sequence lengths {sq}/{sk} must be multiples of "
+                         f"the blocks {q_block}/{kv_block}")
+    scale = hd ** -0.5
+    outs = []
+    for q0 in range(0, sq, q_block):
+        qi = q[:, q0:q0 + q_block].to(score_dtype)
+        qpi = q_pos[:, q0:q0 + q_block]
+        acc = torch.zeros((b, h, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        m_run = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, h, q_block), dtype=torch.float32,
+                            device=q.device)
+        for k0 in range(0, sk, kv_block):
+            kj = k[:, k0:k0 + kv_block]
+            vj = v[:, k0:k0 + kv_block]
+            s_ij = torch.einsum("bqhd,bkhd->bhqk", qi,
+                                kj.to(score_dtype)).float() * scale
+            msk = _mask(qpi, k_pos[:, k0:k0 + kv_block], window)[:, None]
+            s_ij = torch.where(msk, s_ij, torch.full_like(s_ij, NEG_INF))
+            m_new = torch.maximum(m_run, s_ij.amax(dim=-1))
+            p = torch.exp(s_ij - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("bhqk,bkhd->bhqd", p.to(vj.dtype),
+                                  vj).float())
+            m_run = m_new
+        out = acc / torch.clamp(l_run[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def attention_block(params, x, cfg: ModelConfig, positions,
                     cache: Optional[KVCache] = None):
-    """Single-token decode against ``cache``.
+    """Self-attention over the whole sequence (training), or, with
+    ``cache``, single-token decode.
 
-    x: [B, 1, D]. Writes k/v at position ``cache.length`` and attends
-    over the filled prefix. Returns (out [B, 1, D], new_cache).
+    x: [B, S, D]. With ``cache`` (S == 1) it writes k/v at position
+    ``cache.length`` and attends over the filled prefix. Returns
+    (out [B, S, D], new_cache or None).
     """
-    if cache is None or x.shape[1] != 1:
+    if cfg.pad_heads_multiple and cfg.num_heads % cfg.pad_heads_multiple:
+        raise NotImplementedError("padded-head attention is not ported")
+    if cache is not None and (x.shape[1] != 1
+                              or cfg.sliding_window is not None):
         raise NotImplementedError(
-            "only single-token decode against a KV cache is ported; "
-            "blocked training/prefill attention waits for ROADMAP queue 1, "
-            "item 7")
-    if cfg.sliding_window is not None or (
-            cfg.pad_heads_multiple
-            and cfg.num_heads % cfg.pad_heads_multiple):
-        raise NotImplementedError(
-            "sliding-window and padded-head attention are not ported")
+            "multi-token prefill into a KV cache and sliding-window "
+            "decode are not ported; serving prefills token by token")
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
 
@@ -84,6 +163,19 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     v = torch.einsum("bsd,dnh->bsnh", x, params["wv"].to(x.dtype))
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+
+    if cache is None:
+        kk, vv = _repeat_kv(k, groups), _repeat_kv(v, groups)
+        if cfg.attn_impl == "dense":
+            out = dense_attention(q, kk, vv, positions, positions,
+                                  cfg.sliding_window)
+        else:
+            out = blocked_attention(
+                q, kk, vv, positions, positions, cfg.sliding_window,
+                cfg.attn_q_block, cfg.attn_kv_block, cfg.causal_skip,
+                score_dtype=getattr(torch, cfg.attn_score_dtype))
+        return torch.einsum("bsnh,nhd->bsd", out,
+                            params["wo"].to(out.dtype)), None
 
     b = x.shape[0]
     idx = cache.length                                       # [B]

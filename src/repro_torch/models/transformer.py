@@ -1,5 +1,6 @@
-"""Model assembly for serving: parameter init, decode states and the
-one-token decode step over the layer-group stack.
+"""Model assembly: parameter init, the training forward and loss, and,
+for serving, decode states and the one-token decode step over the
+layer-group stack.
 
 Parameters are a plain dict tree in the reference's layout: layer
 groups are stacked along a leading group dim, e.g.
@@ -9,9 +10,10 @@ a dense FFN are ported; other block kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -48,6 +50,30 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def pytree_leaves(tree) -> list:
+    """Leaves of a dict tree in the reference's pytree order (each dict's
+    keys sorted, as ``jax.tree.leaves`` flattens): the order of the flat
+    gradient and parameter vectors, so flat state moves between the two
+    packages element for element."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in pytree_leaves(tree[k])]
+    return [tree]
+
+
+def pytree_unflatten(like, leaves) -> Any:
+    """Inverse of :func:`pytree_leaves`: ``leaves`` in that order placed
+    into a dict tree shaped like ``like``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+
+    return build(like)
 
 
 # --------------------------------------------------------------------------
@@ -157,14 +183,37 @@ def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state):
     return x, new_state
 
 
-def apply_stack(params, x, positions, cfg: ModelConfig, states,
+def _apply_group(pg, x, positions, cfg: ModelConfig):
+    for i, kind in enumerate(cfg.layer_kinds()):
+        x, _ = _apply_block(pg[f"l{i}"], kind, x, positions, cfg, None)
+    return x
+
+
+def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
                 weight_codec=None):
-    """Run every layer group in order against its decode states. With
-    ``weight_codec`` the group params arrive in wire form and each
-    group's wire is opened inside the loop, right before its layers."""
+    """Run every layer group in order. ``states=None`` (training): the
+    whole sequence through each group, each group recomputed in the
+    backward pass when ``cfg.remat`` is not ``"none"`` (a per-group
+    ``torch.utils.checkpoint``; ``"dots"``, which keeps the matmul
+    outputs in the reference, recomputes the whole group here, with the
+    same values). Returns (x, None). With decode states, each group runs
+    against its states; with ``weight_codec`` the group params arrive in
+    wire form and each group's wire is opened inside the loop, right
+    before its layers. Returns (x, new_states)."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
+    if states is None:
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        for g in range(n_groups):
+            pg = tree_map(lambda a: a[g], groups)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _apply_group, pg, x, positions, cfg,
+                    use_reentrant=False)
+            else:
+                x = _apply_group(pg, x, positions, cfg)
+        return x, None
     outs = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], groups)
@@ -178,6 +227,45 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states,
         outs.append(new_sg)
     new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
     return x, new_states
+
+
+def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_emb: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    dtype = getattr(torch, cfg.dtype)
+    x = layers.embed(params["embed"], tokens).to(dtype)
+    if prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(dtype), x], dim=1)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    x, _ = apply_stack(params, x, positions, cfg, states=None)
+    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_emb: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: [B, St] -> logits [B, St(+P), V]; ``prefix_emb`` [B, P, D]
+    is prepended to the token embeddings."""
+    x = _hidden(params, cfg, tokens, prefix_emb, positions)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return layers.unembed(head, x, cfg.tie_embeddings)
+
+
+def next_token_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
+                    labels: torch.Tensor,
+                    prefix_emb: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Mean next-token cross entropy (f32). labels: [B, St] aligned to
+    tokens (label t = token t+1); prefix positions carry no loss."""
+    logits = forward(params, cfg, tokens, prefix_emb)
+    if prefix_emb is not None:
+        logits = logits[:, prefix_emb.shape[1]:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return -ll.mean()
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,

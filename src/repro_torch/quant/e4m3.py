@@ -91,3 +91,44 @@ def dequantize_block32(codes: torch.Tensor, scales: torch.Tensor,
     cb = codes.reshape(*lead, n // block, block)
     vals = e4m3_decode(cb) * scales[..., None].float()
     return vals.reshape(*lead, n)
+
+
+#: values per piece of the piecewise (de)quantizers below.
+PIECE = 1 << 24
+
+
+def quantize_block32_pieces(x: torch.Tensor, piece: int = PIECE
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_block32` of ``x`` [..., n] computed over its
+    flattened blocks in pieces of at most ``piece`` values: each block
+    of 32 is quantized on its own, so the codes and scales are the same,
+    and the temporaries (the encoder's int64 search indices are 8 B per
+    value) stay bounded by the piece instead of the tensor."""
+    *lead, n = x.shape
+    if n % BLOCK:
+        raise ValueError(f"last axis {n} not divisible by block {BLOCK}")
+    flat = x.reshape(-1)
+    codes = torch.empty(flat.shape, dtype=torch.uint8, device=x.device)
+    scales = torch.empty(flat.shape[0] // BLOCK, dtype=torch.float32,
+                         device=x.device)
+    step = max(BLOCK, piece // BLOCK * BLOCK)
+    for s in range(0, flat.shape[0], step):
+        c, sc = quantize_block32(flat[s:s + step])
+        codes[s:s + step] = c
+        scales[s // BLOCK:(s + c.shape[0]) // BLOCK] = sc
+    return codes.reshape(x.shape), scales.reshape(*lead, n // BLOCK)
+
+
+def dequantize_block32_pieces(codes: torch.Tensor, scales: torch.Tensor,
+                              piece: int = PIECE) -> torch.Tensor:
+    """:func:`dequantize_block32` in pieces of at most ``piece`` values:
+    the same values, temporaries bounded by the piece."""
+    flat = codes.reshape(-1)
+    sc = scales.reshape(-1)
+    out = torch.empty(flat.shape, dtype=torch.float32, device=codes.device)
+    step = max(BLOCK, piece // BLOCK * BLOCK)
+    for s in range(0, flat.shape[0], step):
+        part = flat[s:s + step]
+        out[s:s + step] = dequantize_block32(
+            part, sc[s // BLOCK:(s + part.shape[0]) // BLOCK])
+    return out.reshape(codes.shape)

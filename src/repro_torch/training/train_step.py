@@ -1,0 +1,400 @@
+"""Train steps over a data-parallel ``torch.distributed`` process group.
+
+Two implementations, as in the reference:
+
+* **baseline** — each rank computes the gradients of its slice of the
+  global batch; a dense f32 all-reduce averages them across ranks (none
+  with one rank); AdamW on the whole parameter tree.
+
+* **compressed** — the paper's technique: each rank flattens its local
+  gradients, a QLC-compressed reduce-scatter (K1 encode, then K2
+  decode and accumulate) leaves it its segment of the summed flat
+  gradient, the mean and the exact global gradient norm follow, a ZeRO-1
+  AdamW updates the rank's segment of the flat parameter vector, and a
+  compressed all-gather (K1, then K2) brings every rank the updated
+  parameters. The wire is lossless relative to the e4m3-quantized
+  values; if an escape pool overflows (``ok`` False) the trainer redoes
+  the step through the baseline step (:func:`make_zero1_fallback`).
+
+Flat vectors follow the reference's pytree order (dict keys sorted), so
+a ZeRO-1 state moves between the packages element for element. The
+reference's ``"model"`` mesh axis has size 1 here (tensor parallelism is
+not ported), so its ``weight_vec`` is 1 on every real entry and 0 on the
+padding: the norm sums the squares of the segment's real entries.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm.channel import Channel, ChannelSpec
+from repro_torch.comm.compressed import CommConfig
+from repro_torch.comm.transport import all_gather_flat
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.registry import CodecRegistry
+from repro_torch.models import next_token_loss
+from repro_torch.models.transformer import (pytree_leaves, pytree_unflatten,
+                                            tree_map)
+from repro_torch.training import optimizer as opt
+
+GRAD_TYPE = "grads"      # registry key for the gradient reduce-scatter
+PARAM_TYPE = "params"    # registry key for the parameter all-gather
+
+_NO_PODS = ("the pod axis and the hierarchical wire are not ported: "
+            "ROADMAP queue 1, item 13")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's ``comm_mode`` is the choice of step builder here,
+    and its ``batch_axes`` the process group."""
+    microbatches: int = 1
+
+
+def _world(group) -> Tuple[int, int]:
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def local_batch(batch: Dict[str, Any], group, device) -> Dict[str, Any]:
+    """This rank's rows of a global batch (contiguous slices, as the
+    reference shards the batch's first dim over its data axes), as
+    tensors on ``device``."""
+    d, r = _world(group)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if t.shape[0] % d:
+            raise ValueError(f"global batch {t.shape[0]} not divisible by "
+                             f"{d} ranks")
+        n = t.shape[0] // d
+        out[k] = t[r * n:(r + 1) * n].to(device)
+    return out
+
+
+def _value_and_grad(params, model_cfg: ModelConfig, batch):
+    live = [p.detach().requires_grad_(True) for p in pytree_leaves(params)]
+    loss = next_token_loss(pytree_unflatten(params, live), model_cfg,
+                           batch["tokens"], batch["labels"],
+                           batch.get("prefix_emb"))
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), pytree_unflatten(params, list(grads))
+
+
+def _microbatched_grads(params, model_cfg: ModelConfig, batch,
+                        n_micro: int):
+    """Gradient accumulation over ``n_micro`` microbatches (f32 sums,
+    then times 1/n_micro, as the reference's scan)."""
+    if n_micro == 1:
+        return _value_and_grad(params, model_cfg, batch)
+    b = next(iter(batch.values())).shape[0]
+    if b % n_micro:
+        raise ValueError(f"local batch {b} not divisible by {n_micro} "
+                         "microbatches")
+    n = b // n_micro
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    loss_acc = torch.zeros((), dtype=torch.float32,
+                           device=pytree_leaves(params)[0].device)
+    for i in range(n_micro):
+        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        loss, g = _value_and_grad(params, model_cfg, mb)
+        acc = tree_map(lambda a, x: a + x.float(), acc, g)
+        loss_acc = loss_acc + loss
+    inv = 1.0 / n_micro
+    return loss_acc * inv, tree_map(lambda g: g * inv, acc)
+
+
+def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
+    d, _ = _world(group)
+    if d > 1:
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        t = t / d
+    return t
+
+
+# --------------------------------------------------------------------------
+# Baseline step
+# --------------------------------------------------------------------------
+
+def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
+                       train_cfg: TrainConfig, *, group=None,
+                       moe_channels=None) -> Callable:
+    """``train_step(params, opt_state, batch)`` with a dense f32 gradient
+    all-reduce over ``group`` (default: the default process group).
+    ``batch`` is the global batch (numpy or tensors)."""
+    if moe_channels is not None:
+        raise NotImplementedError("MoE is not ported: ROADMAP queue 1, "
+                                  "item 11")
+    group = dist.group.WORLD if group is None else group
+
+    def train_step(params, opt_state, batch):
+        dev = pytree_leaves(params)[0].device
+        loss, grads = _microbatched_grads(
+            params, model_cfg, local_batch(batch, group, dev),
+            train_cfg.microbatches)
+        grads = tree_map(lambda g: _mean_over(g.float(), group), grads)
+        new_params, new_state, info = opt.apply_update(params, grads,
+                                                       opt_state, opt_cfg)
+        metrics = {"loss": _mean_over(loss, group),
+                   "ok": torch.ones((), dtype=torch.bool, device=dev),
+                   **info}
+        return new_params, new_state, metrics
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# Compressed step
+# --------------------------------------------------------------------------
+
+def step_channels(codec, comm_cfg: CommConfig = None, *, group=None,
+                  transport=None, transport_model=None,
+                  grad_key: str = GRAD_TYPE, param_key: str = PARAM_TYPE
+                  ) -> Tuple[Channel, Channel, CommConfig]:
+    """Open the compressed step's two channels over ``group``: the
+    gradient reduce-scatter and the parameter all-gather.
+
+    ``codec`` is a bare ``CodecTables`` (with ``comm_cfg``) or a
+    ``CodecRegistry`` holding ``grad_key`` and optionally ``param_key``
+    (default: the grad entry); ``comm_cfg`` then overrides the non-plan
+    knobs (``enabled``, ``use_kernels``, ``scale_dtype``). ``transport``
+    is ``None`` (one-shot), a ``TransportConfig`` or str for both, or a
+    dict with ``grad_key`` / ``param_key`` entries. Returns
+    ``(rs_channel, ag_channel, rs_cfg)`` (the reference returns one map
+    per data-parallel mesh axis; here there is one group)."""
+    group = dist.group.WORLD if group is None else group
+    if isinstance(transport, dict):
+        rs_t, ag_t = transport.get(grad_key), transport.get(param_key)
+    else:
+        rs_t = ag_t = transport
+    if isinstance(codec, CodecRegistry):
+        g = codec.get(grad_key)
+        if g is None:
+            raise KeyError(f"registry has no {grad_key!r} entry; have "
+                           f"{codec.names()}")
+        p = codec.get(param_key, default=g)
+        overrides = {}
+        if comm_cfg is not None:
+            overrides = dict(enabled=comm_cfg.enabled,
+                             use_kernels=comm_cfg.use_kernels,
+                             scale_dtype=comm_cfg.scale_dtype)
+        rs_codec, ag_codec = g, p
+        rs_cfg, ag_cfg = g.config(**overrides), p.config(**overrides)
+        registry = codec
+    else:
+        if comm_cfg is None:
+            raise TypeError("bare CodecTables needs an explicit CommConfig")
+        rs_codec = ag_codec = codec
+        rs_cfg = ag_cfg = comm_cfg
+        registry = None
+    if rs_cfg.chunk_symbols != ag_cfg.chunk_symbols:
+        raise ValueError("grad and param codecs must share chunk_symbols, "
+                         f"got {rs_cfg.chunk_symbols} vs "
+                         f"{ag_cfg.chunk_symbols}")
+    rs = Channel(ChannelSpec(codec=rs_codec, cfg=rs_cfg, transport=rs_t,
+                             group=group), registry=registry,
+                 model=transport_model)
+    ag = Channel(ChannelSpec(codec=ag_codec, cfg=ag_cfg, transport=ag_t,
+                             group=group), registry=registry,
+                 model=transport_model)
+    return rs, ag, rs_cfg
+
+
+class FlatGeometry(NamedTuple):
+    """The flat parameter vector of one rank (the whole model here: the
+    model axis has size 1): ``n_local`` real entries, padded to
+    ``n_padded`` (a multiple of ranks x chunk), ``seg`` per rank."""
+    n_local: int
+    n_padded: int
+    seg: int
+
+
+def flat_geometry(params, group_size: int, comm_cfg: CommConfig
+                  ) -> FlatGeometry:
+    n_local = sum(p.numel() for p in pytree_leaves(params))
+    unit = group_size * comm_cfg.chunk_symbols
+    n_padded = -(-n_local // unit) * unit
+    return FlatGeometry(n_local, n_padded, n_padded // group_size)
+
+
+def _flatten_local(tree, n_padded: int) -> torch.Tensor:
+    """Leaves in pytree order -> one f32 vector, zero-padded to
+    ``n_padded``."""
+    leaves = pytree_leaves(tree)
+    out = torch.zeros(n_padded, dtype=torch.float32,
+                      device=leaves[0].device)
+    off = 0
+    for leaf in leaves:
+        n = leaf.numel()
+        out[off:off + n] = leaf.reshape(-1)
+        off += n
+    return out
+
+
+def _flat_slice(tree, start: int, length: int) -> torch.Tensor:
+    """``_flatten_local(tree, ...)[start:start + length]`` without the
+    whole vector."""
+    leaves = pytree_leaves(tree)
+    out = torch.zeros(length, dtype=torch.float32, device=leaves[0].device)
+    off = 0
+    for leaf in leaves:
+        n = leaf.numel()
+        lo, hi = max(off, start), min(off + n, start + length)
+        if lo < hi:
+            out[lo - start:hi - start] = leaf.reshape(-1)[lo - off:hi - off]
+        off += n
+    return out
+
+
+def _unflatten_local(flat: torch.Tensor, like) -> Any:
+    """Inverse of :func:`_flatten_local`: leaves shaped and typed like
+    ``like``'s."""
+    out: List[torch.Tensor] = []
+    off = 0
+    for leaf in pytree_leaves(like):
+        n = leaf.numel()
+        out.append(flat[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        off += n
+    return pytree_unflatten(like, out)
+
+
+def _all_ok(ok: torch.Tensor, group) -> torch.Tensor:
+    """True on every rank iff ``ok`` is True on every rank."""
+    bad = (~ok).to(torch.int32).reshape(1)
+    dist.all_reduce(bad, group=group)
+    return bad[0] == 0
+
+
+def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
+                         train_cfg: TrainConfig, group, tables,
+                         comm_cfg: CommConfig = None, *,
+                         grad_key: str = GRAD_TYPE,
+                         param_key: str = PARAM_TYPE,
+                         transport=None, transport_model=None,
+                         hierarchical_wire: bool = False,
+                         moe_channels=None,
+                         telemetry: bool = False) -> Callable:
+    """``train_step(params, flat_opt_state, batch)`` for compressed mode
+    over ``group`` (``None``: the default group).
+
+    ``tables`` is a ``CodecTables`` (with ``comm_cfg``) or a
+    ``CodecRegistry`` (``grad_key`` codec on the reduce-scatter,
+    ``param_key`` on the all-gather); ``transport`` as in
+    :func:`step_channels`. The returned function carries ``stage1``
+    (``(params, batch) -> (loss, grads)``, the rank's gradients),
+    ``stage2`` (``(params, grads, flat_opt) -> (params, flat_opt,
+    metrics)``, the wire and the update), ``channels`` (the RS and AG
+    channels) and ``geometry``."""
+    if hierarchical_wire:
+        raise NotImplementedError(_NO_PODS)
+    if moe_channels is not None:
+        raise NotImplementedError("MoE is not ported: ROADMAP queue 1, "
+                                  "item 11")
+    if telemetry:
+        raise NotImplementedError("wire telemetry for adaptive "
+                                  "recalibration is not ported: ROADMAP "
+                                  "queue 1, item 12")
+    group = dist.group.WORLD if group is None else group
+    rs_ch, ag_ch, rs_cfg = step_channels(
+        tables, comm_cfg, group=group, transport=transport,
+        transport_model=transport_model, grad_key=grad_key,
+        param_key=param_key)
+    d, rank = _world(group)
+    geom: Dict[str, FlatGeometry] = {}
+
+    def geometry(params) -> FlatGeometry:
+        if "g" not in geom:
+            geom["g"] = flat_geometry(params, d, rs_cfg)
+        return geom["g"]
+
+    def stage1(params, batch):
+        dev = pytree_leaves(params)[0].device
+        return _microbatched_grads(params, model_cfg,
+                                   local_batch(batch, group, dev),
+                                   train_cfg.microbatches)
+
+    def stage2(params, grads, flat_opt):
+        g = geometry(params)
+        g_flat = _flatten_local(grads, g.n_padded)
+        del grads
+        r = rs_ch.reduce_scatter(g_flat)
+        del g_flat
+        valid, ok_rs = r.valid, r.ok
+        seg = r.segment / d                              # mean over ranks
+        del r
+        sq = opt.sum_of_squares(seg[:valid]).reshape(1)
+        dist.all_reduce(sq, group=group)
+        gnorm = torch.sqrt(sq[0]).float()
+        p_seg = _flat_slice(params, rank * g.seg, g.seg)
+        new_seg, new_opt, lr = opt.apply_flat_update(p_seg, seg, flat_opt,
+                                                     opt_cfg, gnorm)
+        del seg, p_seg
+        full, ok_ag = ag_ch.all_gather(new_seg)
+        ok = _all_ok(ok_rs & ok_ag, group)
+        new_params = _unflatten_local(full, params)
+        return new_params, new_opt, {"ok": ok, "grad_norm": gnorm,
+                                     "lr": lr}
+
+    def train_step(params, flat_opt, batch):
+        loss, grads = stage1(params, batch)
+        new_params, new_opt, metrics = stage2(params, grads, flat_opt)
+        return new_params, new_opt, {"loss": _mean_over(loss, group),
+                                     **metrics}
+
+    train_step.stage1 = stage1
+    train_step.stage2 = stage2
+    train_step.channels = (rs_ch, ag_ch)
+    train_step.geometry = geometry
+    return train_step
+
+
+def init_compressed_opt_state(params, group, comm_cfg,
+                              opt_cfg: opt.OptConfig) -> Dict[str, Any]:
+    """This rank's ZeRO-1 state: ``m``, ``v`` of its segment and
+    ``step``. ``comm_cfg``: a ``CommConfig`` or the ``CodecRegistry``
+    given to :func:`make_compressed_step` (geometry from its grad
+    entry)."""
+    group = dist.group.WORLD if group is None else group
+    if isinstance(comm_cfg, CodecRegistry):
+        comm_cfg = comm_cfg[GRAD_TYPE].config()
+    g = flat_geometry(params, dist.get_world_size(group), comm_cfg)
+    return opt.init_flat_state(g.seg, opt_cfg,
+                               pytree_leaves(params)[0].device)
+
+
+def make_zero1_fallback(baseline_step: Callable, compressed_step: Callable,
+                        group=None) -> Callable:
+    """The trainer's retry for a compressed step whose wire overflowed:
+    the baseline step on the ZeRO-1 state. Each rank's ``m``/``v``
+    segments are all-gathered (dense f32) into trees, the baseline step
+    runs, and each rank keeps its segment of the new moments."""
+    group = dist.group.WORLD if group is None else group
+    d, rank = _world(group)
+
+    def gather(seg: torch.Tensor) -> torch.Tensor:
+        if d == 1:
+            return seg
+        full = torch.empty(d * seg.numel(), dtype=seg.dtype,
+                           device=seg.device)
+        all_gather_flat(full, seg.contiguous(), group=group)
+        return full
+
+    def step(params, flat_opt, batch):
+        g = compressed_step.geometry(params)
+        tree_state = {k: tree_map(lambda t: t.to(flat_opt[k].dtype),
+                                  _unflatten_local(gather(flat_opt[k]),
+                                                   params))
+                      for k in ("m", "v")}
+        tree_state["step"] = flat_opt["step"]
+        new_params, new_state, metrics = baseline_step(params, tree_state,
+                                                       batch)
+        new_flat = {k: _flat_slice(new_state[k], rank * g.seg, g.seg).to(
+            flat_opt[k].dtype) for k in ("m", "v")}
+        new_flat["step"] = new_state["step"]
+        return new_params, new_flat, metrics
+
+    return step

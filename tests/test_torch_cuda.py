@@ -149,3 +149,40 @@ def test_k5_wide_slots_take_smaller_tiles(cuda):
     sym = _symbols(200, 1024, 4).to(cuda)
     w, _ = ops.encode(sym, t1, cap)
     assert torch.equal(ops.decode_block_async(w, t1, 1024), sym)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 15, 4096, 100003])
+@pytest.mark.parametrize("offset", [0, 3, 13])
+def test_k6_kernel_matches_plain_at_any_offset(cuda, n, offset):
+    """Lengths around the 16-byte vector and byte offsets off its
+    alignment: K6 equals its plain version and ``torch.bincount``."""
+    rng = np.random.default_rng(n + offset)
+    buf = torch.from_numpy(np.minimum(rng.geometric(0.05, n + 16), 255)
+                           .astype(np.uint8)).to(cuda)
+    x = buf[offset:offset + n]
+    got = ops.histogram(x)
+    assert torch.equal(got, ref.histogram256_ref(x))
+    assert torch.equal(got, torch.bincount(x.long(), minlength=256)
+                       .to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k6_kernel_one_symbol_stream(cuda):
+    """Every symbol in one bin: the contention case of the per-warp
+    shared-memory bins."""
+    x = torch.full((1 << 22,), 0x3C, dtype=torch.uint8, device=cuda)
+    got = ops.histogram(x.reshape(1024, -1))
+    assert int(got[0x3C]) == 1 << 22 and int(got.sum()) == 1 << 22
+
+
+@pytest.mark.cuda
+def test_k6_counts_gradient_symbols(cuda):
+    """The calibration path: block-32 e4m3 symbols of a gradient-like
+    vector, counted by K6 in ``symbol_counts``."""
+    from repro_torch.comm import calibrate
+    x = _x(512, 1024, 9).reshape(-1).to(cuda)
+    x = torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=-1.0)
+    syms = calibrate.quantized_symbols(x)
+    want = torch.bincount(syms.long(), minlength=256).cpu().numpy()
+    np.testing.assert_array_equal(calibrate.symbol_counts(syms), want)

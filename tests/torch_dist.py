@@ -1,0 +1,184 @@
+"""Run a function of this module in several gloo ranks, each its own
+process (``python -m tests.torch_dist``), and collect what each returns.
+
+The children import torch, numpy and the port only. Arguments and
+results travel as pickles in a temporary directory; every rank gets the
+same arguments and finds its rank and the world size in ``ctx``.
+"""
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_ranks(target: str, world: int, timeout: int = 300, **kwargs):
+    """``target(ctx, **kwargs)`` on ``world`` gloo ranks -> [result of
+    rank 0, rank 1, ...]."""
+    from repro_torch.launch.mesh import free_port
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, os.path.join(REPO, "src"), env.get("PYTHONPATH", "")])
+    env.setdefault("OMP_NUM_THREADS", "1")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "args.pkl"), "wb") as f:
+            pickle.dump(kwargs, f)
+        init = f"tcp://localhost:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tests.torch_dist", target, str(r),
+             str(world), init, tmp], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        bad = [(r, p.returncode) for r, p in enumerate(procs)
+               if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"ranks failed {bad}:\n" + "\n".join(logs))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _main():
+    target, rank, world, init, tmp = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import data_parallel
+    with open(os.path.join(tmp, "args.pkl"), "rb") as f:
+        kwargs = pickle.load(f)
+    with data_parallel("cpu", rank=rank, world_size=world,
+                       init_method=init) as group:
+        ctx = {"rank": rank, "world": world, "group": group}
+        out = globals()[target](ctx, **kwargs)
+    with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+# --------------------------------------------------------------------------
+# Targets
+# --------------------------------------------------------------------------
+
+def collectives(ctx, xs, counts, cfg_kw, variants):
+    """Compressed RS of ``xs[rank]`` and AG of its first ``n_ag`` values
+    under each transport variant -> {variant: (segment, valid, rs_ok,
+    gathered, ag_ok)} as numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.channel import Channel, ChannelSpec
+    from repro_torch.comm.compressed import CommConfig
+    from repro_torch.comm.planner import TransportConfig
+    from repro_torch.core import lut, schemes
+    tables = lut.build_tables(np.asarray(counts), schemes.TABLE1)
+    x = torch.from_numpy(np.asarray(xs[ctx["rank"]]))
+    out = {}
+    for kind, h in variants:
+        ch = Channel(ChannelSpec(codec=tables, cfg=CommConfig(**cfg_kw),
+                                 transport=TransportConfig(kind, h),
+                                 group=ctx["group"]))
+        r = ch.reduce_scatter(x)
+        n_ag = x.shape[0] // ctx["world"]
+        full, ok = ch.all_gather(x[:n_ag])
+        out[(kind, h)] = (r.segment.numpy(), r.valid, bool(r.ok),
+                          full.numpy(), bool(ok))
+    return out
+
+
+def train_runs(ctx, cfg_kw, steps, global_batch, seq_len, lr, runs):
+    """Train the reduced config for ``steps`` under each of ``runs``
+    ((name, comm, transport, wire_enabled)) from the same start and codec
+    registry -> {name: (losses, oks, fallbacks, flat params)}.
+
+    The registry's pools hold every chunk: this model's flat gradient is
+    a few dozen chunks per rank, so the calibrated one-slot pool could
+    overflow, and the runs compare the wire, not the fallback."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import pytree_leaves
+    cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
+    calibrated = train(cfg, comm="qlc", steps=0, seq_len=seq_len,
+                       global_batch=global_batch, device="cpu")["registry"]
+    registry = CodecRegistry()
+    for name in ("grads", "params"):
+        e = calibrated[name]
+        registry.register_tables(name, e.tables, dataclasses.replace(
+            e.plan, pool_slots_per_1k=1024), counts=e.counts)
+    out = {}
+    for name, comm, transport, enabled in runs:
+        res = train(cfg, comm=comm, steps=steps, seq_len=seq_len,
+                    global_batch=global_batch, transport=transport, lr=lr,
+                    device="cpu", registry=registry, wire_enabled=enabled)
+        flat = torch.cat([p.reshape(-1) for p in
+                          pytree_leaves(res["params"])]).numpy()
+        out[name] = ([h["loss"] for h in res["history"]],
+                     [h["ok"] for h in res["history"]],
+                     res["comm_fallbacks"], flat)
+    return out
+
+
+def reference_recipe(ctx, steps):
+    """The reference's own training check (``tests/test_train_integration
+    .py``): reduced deepseek-coder-33b (d_model 64, 2 layers, bf16
+    compute), AdamW lr 1e-2 with 2 warmup steps and clip 1.0, 2
+    microbatches, global batch 8 x 16 tokens from seed 3, gradient codec
+    calibrated on the first batch at 256-symbol chunks with a pool for
+    every chunk; the baseline and the compressed step side by side ->
+    (baseline losses, compressed losses, compressed oks)."""
+    import dataclasses
+    import torch
+    from repro_torch.comm.calibrate import calibrate_for_gradients
+    from repro_torch.comm.compressed import CommConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptConfig, TrainConfig,
+                                      init_compressed_opt_state,
+                                      make_baseline_step,
+                                      make_compressed_step)
+    from repro_torch.training import optimizer as optm
+    cfg = reduced(get_config("deepseek-coder-33b"), d_model=64,
+                  num_layers=2)
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=2, total_steps=50,
+                        grad_clip=1.0)
+    train_cfg = TrainConfig(microbatches=2)
+    data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=16, global_batch=8, seed=3))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b0 = {k: torch.as_tensor(v) for k, v in data.batch_at(0).items()}
+    tables, plan = calibrate_for_gradients(cfg, params, b0,
+                                           chunk_symbols=256)
+    comm_cfg = dataclasses.replace(CommConfig.from_plan(plan),
+                                   pool_slots_per_1k=1024)
+    base = make_baseline_step(cfg, opt_cfg, train_cfg)
+    comp = make_compressed_step(cfg, opt_cfg, train_cfg, None, tables,
+                                comm_cfg)
+    pb, ob = params, optm.init_state(params, opt_cfg)
+    pc = params
+    oc = init_compressed_opt_state(params, None, comm_cfg, opt_cfg)
+    lb, lc, oks = [], [], []
+    for s in range(steps):
+        batch = data.batch_at(s)
+        pb, ob, mb = base(pb, ob, batch)
+        pc, oc, mc = comp(pc, oc, batch)
+        lb.append(float(mb["loss"]))
+        lc.append(float(mc["loss"]))
+        oks.append(bool(mc["ok"]))
+    return lb, lc, oks
+
+
+if __name__ == "__main__":
+    _main()
