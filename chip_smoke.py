@@ -8,7 +8,11 @@ non-zero (nothing is caught and carried on):
   2. build   — compiles the kernels from ``src/repro_torch/kernels/csrc``.
   3. parity  — each kernel against its plain PyTorch version on the card,
                bit for bit: K1 (fused quantize+encode) on [4096, 1024] f32
-               and bf16 with adversarial values mixed in; K2 (fused
+               and bf16 with adversarial values mixed in, and its e4m3
+               encoder on all 2^32 f32 bit patterns; K1 and K2 at the
+               edges of their geometry (k = 32 and 4096, row counts no
+               tile divides, slots over capacity, K2 at a 1409-word
+               slot, codes of 12, 14 and 16 bits); K2 (fused
                decode+dequantize) in f32, bf16 and accumulate form with
                two schemes interleaved by scheme id; K3 (encode), K4
                (decode) and K5 (prefetch decode) on [4096, 256] u8 chunks
@@ -68,7 +72,10 @@ non-zero (nothing is caught and carried on):
                ``Trainer``, K6/K1/K2 counts zeroed right before and read
                right after, every ``ok`` true and no fallback; K6 on the
                path's own symbols equal to ``torch.bincount`` and timed
-               there; 2 compressed steps and 2 of the raw e4m3 twin from
+               there; K1 with codes and K2's accumulate form on the path's
+               own shape (the flat gradient's chunks at the plan's slot),
+               bit-equal to their plain versions on the first and last
+               4096 chunks and timed there; 2 compressed steps and 2 of the raw e4m3 twin from
                the same start, parameters bit-equal; 4 baseline steps,
                their losses beside the compressed run's (recorded: at
                this width the two do not stay within the reference's
@@ -247,6 +254,108 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
                            require_equal("K2 over capacity", [a], [b]))
     res["K2"].update(res["K2"]["forms"]["f32"])
     return res
+
+
+def e4m3_exhaustive(qf, e4m3, piece: int = 1 << 26) -> int:
+    """K1's e4m3 encoder (the hardware conversion with its two patches)
+    against the plain encoder on every f32 bit pattern, in pieces of
+    ``piece`` patterns. Returns the number of patterns that differ."""
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for start in range(0, 1 << 32, piece):
+        bits = torch.arange(start, start + piece, dtype=torch.int64,
+                            device="cuda")
+        x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+            torch.int32).view(torch.float32)
+        bad += (qf.e4m3_encode(x) != e4m3.e4m3_encode(x)).sum()
+    return int(bad)
+
+
+def phase_edge_parity(ops, ref, lut, schemes, codec):
+    """K1 and K2 against their plain versions, bit for bit, at the edges of
+    their launch geometry: chunks of one block (k = 32) and of four
+    1024-symbol pieces (k = 4096), row counts that no CTA's warps or
+    32-chunk tiles divide, f32 and bf16 inputs, slots that fit, that the
+    median chunk overruns and of 20 words; K2 in f32, bf16 and accumulate
+    form with two schemes interleaved, also at k = 4096's worst-case slot
+    (1409 words: wider than 1024)."""
+    from repro_torch.quant import e4m3
+    rng = np.random.default_rng(7)
+    err = {"K1": 0.0, "K2": 0.0}
+    for k, n in ((32, 4133), (4096, 1037)):
+        x = (rng.standard_normal((n, k)) * 2).astype(np.float32)
+        x[0, :8] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-40, 480.0]
+        x[1, :32] = 0.0
+        sym = e4m3.quantize_block32(torch.from_numpy(np.nan_to_num(x)))[0]
+        counts = np.bincount(sym.numpy().reshape(-1),
+                             minlength=256).astype(np.float64) + 1
+        tl = [lut.build_tables(counts, schemes.TABLE1),
+              lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+        wc = codec.worst_case_words(k)
+        for dt in (torch.float32, torch.bfloat16):
+            xd = torch.from_numpy(x).cuda().to(dt)
+            for cap in (wc, 20):
+                err["K1"] = max(err["K1"], require_equal(
+                    f"K1 edge k {k} {dt} cap {cap}",
+                    ops.quantize_encode(xd, tl[0], cap, emit_codes=True,
+                                        emit_hist=True),
+                    ref.quantize_encode_ref(xd, tl[0], cap, emit_codes=True,
+                                            emit_hist=True)))
+        xf = torch.from_numpy(x).cuda()
+        w1, n1, sc = ops.quantize_encode(xf, tl[0], wc)
+        w2, n2, _ = ops.quantize_encode(xf, tl[1], wc)
+        sid = (torch.arange(n, device="cuda") % 2).to(torch.int32)
+        nb = torch.where(sid == 1, n2, n1)
+        mix = torch.where((sid == 1)[:, None], w2, w1)
+        acc = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
+                               ).cuda()
+        caps = {"fit": -(-int(nb.max()) // 32),
+                "over": max(1, int(nb.float().median()) // 32), "worst": wc}
+        for what, cap in caps.items():
+            w = mix[:, :cap].contiguous()
+            for form, kern, plain in (
+                    ("f32", lambda: ops.decode_dequantize(
+                        w, sc, tl, k, scheme_ids=sid),
+                     lambda: ref.decode_dequantize_ref(w, sc, tl, sid, k)),
+                    ("bf16", lambda: ops.decode_dequantize(
+                        w, sc, tl, k, scheme_ids=sid,
+                        out_dtype=torch.bfloat16),
+                     lambda: ref.decode_dequantize_ref(
+                         w, sc, tl, sid, k, out_dtype=torch.bfloat16)),
+                    ("acc", lambda: ops.decode_dequantize_accumulate(
+                        acc, w, sc, tl, k, scheme_ids=sid),
+                     lambda: ref.decode_dequantize_ref(w, sc, tl, sid, k,
+                                                       acc=acc))):
+                err["K2"] = max(err["K2"], require_equal(
+                    f"K2 edge k {k} {form} {what} cap {cap}", [kern()],
+                    [plain()]))
+        log("parity", f"K1 edge k {k} [{n}, {k}] f32/bf16 at {wc} and 20 "
+                      "words with codes and hist; K2 f32/bf16/acc, 2 schemes, "
+                      f"at {caps} words: bit-equal")
+    # Wider area codes than the paper's 3 bits: every code prefix + 8 bits
+    # long, up to 16 (two per cursor top-up, K2's 64-word ring).
+    n, k = 1037, 1024
+    x = torch.from_numpy((rng.standard_normal((n, k)) * 2).astype(np.float32))
+    counts = np.bincount(e4m3.quantize_block32(x)[0].numpy().reshape(-1),
+                         minlength=256) + 1.0
+    x = x.cuda()
+    for pb in (4, 6, 8):
+        t = lut.build_tables(counts, schemes.QLCScheme(
+            areas=((256 >> pb, 8),) * (1 << pb), prefix_bits=pb))
+        wc = codec.worst_case_words(k, pb + 8)
+        got = ops.quantize_encode(x, t, wc)
+        err["K1"] = max(err["K1"], require_equal(
+            f"K1 prefix {pb}", got, ref.quantize_encode_ref(x, t, wc)))
+        w, nb, sc = got
+        for cap in (wc, max(1, int(nb.float().median()) // 32)):
+            wcut = w[:, :cap].contiguous()
+            err["K2"] = max(err["K2"], require_equal(
+                f"K2 prefix {pb} cap {cap}",
+                [ops.decode_dequantize(wcut, sc, t, k)],
+                [ref.decode_dequantize_ref(wcut, sc, [t], 0, k)]))
+        log("parity", f"K1 and K2 f32 with {pb + 8}-bit codes ({pb}-bit "
+                      f"prefix) [{n}, {k}] at {wc} words and over capacity: "
+                      "bit-equal")
+    return err
 
 
 def _skewed_symbols(rows: int, k: int, seed: int) -> torch.Tensor:
@@ -841,9 +950,9 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
                                      seq_len=seq_len,
                                      global_batch=global_batch)).batch_at(0)
     b0 = {k: torch.as_tensor(v).to(dev) for k, v in b0.items()}
-    syms = calibrate.quantized_symbols(
-        calibrate.flat_gradient(cfg, params, b0))
+    grad = calibrate.flat_gradient(cfg, params, b0)
     del params
+    syms = calibrate.quantized_symbols(grad)
     got = ops.histogram(syms)
     lib = torch.bincount(syms, minlength=256).to(torch.int32)
     k6_err = require_equal("K6 on the gradient's symbols", [got], [lib])
@@ -857,6 +966,9 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
                  f"torch.bincount {path['library_ms']:.4f} ms, HBM bound "
                  f"{path['bound_ms']:.4f} ms")
     del syms, got, lib
+    fused = train_path_fused(ops, ref, g, grad, flush)
+    del grad
+    torch.cuda.empty_cache()
 
     twin = {}
     for name, enabled in (("compressed", True), ("raw e4m3", False)):
@@ -889,8 +1001,55 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
     if dev == "cuda":
         log("train", f"peak device memory over the phase's runs "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"launches": launches, "path": path, "losses": losses,
+    return {"launches": launches, "path": path, "fused": fused,
+            "losses": losses,
             "step_ms": step_ms, "base_ms": base_ms, "base_losses": lb}
+
+
+def train_path_fused(ops, ref, entry, grad, flush, rows=4096):
+    """K1 with codes and K2's accumulate form at the train path's own
+    shape: the flat gradient as chunks of the plan's size, at the plan's
+    slot, with the calibrated gradient codec. Each held bit for bit
+    against its plain version on the first and last ``rows`` chunks, and
+    timed beside its HBM bound. Returns {"K1": ..., "K2": ...}."""
+    k, cap = entry.plan.chunk_symbols, entry.plan.capacity_words
+    t = entry.tables
+    x = grad.reshape(-1, k)
+    n = x.shape[0]
+    words, nb, sc, codes = ops.quantize_encode(x, t, cap, emit_codes=True)
+    acc = grad.reshape(-1, k)
+    out = ops.decode_dequantize_accumulate(acc, words, sc, t, k)
+    err = {"K1": 0.0, "K2": 0.0}
+    for r0 in sorted({0, max(0, n - rows)}):
+        sl = slice(r0, r0 + rows)
+        err["K1"] = max(err["K1"], require_equal(
+            f"K1 train path rows {r0}:{r0 + rows}",
+            [words[sl], nb[sl], sc[sl], codes[sl]],
+            ref.quantize_encode_ref(x[sl], t, cap, emit_codes=True)))
+        err["K2"] = max(err["K2"], require_equal(
+            f"K2 acc train path rows {r0}:{r0 + rows}", [out[sl]],
+            [ref.decode_dequantize_ref(words[sl], sc[sl], [t], 0, k,
+                                       acc=acc[sl])]))
+    del out
+    res = {
+        "K1": {"shape": [n, k], "cap": cap, "codes": True,
+               "max_abs_err": err["K1"],
+               "ms": time_ms(lambda: ops.quantize_encode(
+                   x, t, cap, emit_codes=True), 5, flush),
+               "bound_ms": bound_ms(nbytes(x, words, nb, sc, codes))},
+        "K2": {"shape": [n, cap], "form": "acc", "max_abs_err": err["K2"],
+               "ms": time_ms(lambda: ops.decode_dequantize_accumulate(
+                   acc, words, sc, t, k), 5, flush),
+               # words, scales, scheme ids and acc in; the sum out.
+               "bound_ms": bound_ms(nbytes(words, sc, acc) + 4 * n
+                                   + n * k * 4)}}
+    for kname, v in res.items():
+        log("train", f"{kname} at the train path's shape {v['shape']} (slot "
+                     f"{cap} words{', codes' if kname == 'K1' else ', acc'}):"
+                     f" bit-equal to plain on the first and last {rows} "
+                     f"chunks; {v['ms']:.3f} ms, HBM bound "
+                     f"{v['bound_ms']:.3f} ms")
+    return res
 
 
 def phase_train_recipe(dev="cuda", steps=8):
@@ -1053,6 +1212,16 @@ def main():
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
+    t0 = time.perf_counter()
+    bad = e4m3_exhaustive(qf, e4m3)
+    if bad:
+        raise AssertionError(f"K1's e4m3 encoder differs from the plain one "
+                             f"on {bad} of 2^32 f32 bit patterns")
+    log("parity", "K1's e4m3 encoder == plain e4m3_encode on all 2^32 f32 "
+                  f"bit patterns ({time.perf_counter() - t0:.2f} s)")
+    from repro_torch.core import codec
+    for kname, e in phase_edge_parity(ops, ref, lut, schemes, codec).items():
+        par[kname]["err"] = max(par[kname]["err"], e)
     codes_par = phase_codes_parity(ops, ref, lut, schemes, flush)
     hist_par = phase_hist_parity(ops, ref, flush)
     phase_small(serve_mod, reduced, get_config)
@@ -1081,12 +1250,14 @@ def main():
                  "replaces": f"src/repro/kernels/qlc_fused.py:{line}",
                  "launches": launches[kname],
                  "max_abs_err": max(p["err"],
-                                    main_shape[kname]["max_abs_err"]),
+                                    main_shape[kname]["max_abs_err"],
+                                    tr["fused"][kname]["max_abs_err"]),
                  "ms": p["ms"], "plain_ms": p["plain_ms"],
                  "bound_ms": p["bound_ms"], "bound_by": "bytes",
                  "library_ms": None, "shape": [4096, 1024],
                  "main_path": main_shape[kname],
-                 "train_launches": tr["launches"][kname]}
+                 "train_launches": tr["launches"][kname],
+                 "train_path": tr["fused"][kname]}
         if "forms" in p:
             entry["forms"] = p["forms"]
         kernels.append(entry)

@@ -21,6 +21,19 @@ The wrappers take CUDA tensors only: the CPU route to the plain versions
 lives in ``kernels.ops``. Each wrapper counts its launches in a plain
 int attribute (``fused_encode.launches``, ``fused_decode.launches``),
 incremented once per kernel launch and nowhere else.
+
+Launch geometry (set by the C launchers). K1 runs persistent CTAs of 1,
+2, 4 or 8 independent warps, one chunk per warp at a time and one
+32-symbol block per lane; each warp holds two staged 1024-symbol pieces
+of its input, its slot and, with ``emit_hist``, 256 bins in dynamic
+shared memory, and the launcher takes the most warps whose CTA still
+lets two CTAs share an SM. K2 runs CTAs of 4 warps, one thread per chunk
+and 32 chunks per warp; each warp holds a 32 x 36 store tile and a ring
+of 32 words per thread (64 for prefixes over 5 bits), and the CTA a
+decode table of 2^(prefix_bits + 9) bytes per scheme (4 KiB at the
+paper's 3-bit prefix) in dynamic shared memory, at least a quarter of an
+SM's, so that at most four CTAs share an SM. Both take codes of at most
+16 bits (prefix_bits at most 8).
 """
 from __future__ import annotations
 
@@ -42,6 +55,11 @@ SOURCES = ("qlc_fused_encode", "qlc_fused_decode", "qlc_encode",
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_SMEM = 48 * 1024
+#: K1's widest slot, 44 KiB, the widest its first design took: a CTA of
+#: one warp then takes 56 KiB of shared memory.
+ENCODE_MAX_CAP = (MAX_SMEM - 4096) // 4
+#: The longest code K1 and K2 take: two codes fill one 32-bit step.
+MAX_CODE_BITS = 16
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -50,6 +68,7 @@ _L = ctypes.c_int64
 _ARGTYPES = {
     "qlc_fused_encode": [_P, _I, _L, _L, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                          _P],
+    "qlc_fused_encode_e4m3": [_P, _L, _P, _P],
     "qlc_fused_decode": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _L,
                          _P, _P, _I, _P],
     "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P],
@@ -113,9 +132,11 @@ def _lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for fname, argtypes in _ARGTYPES.items():
+            if fname == name or fname.startswith(f"{name}_"):
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -143,6 +164,12 @@ def _threads_for(k: int) -> int:
     raise ValueError(f"chunk size {k} must be a multiple of 32")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data starts on 16 bytes (the kernels' vector
+    copies and stores need it), else a contiguous copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_encode(x: torch.Tensor, enc_code: torch.Tensor,
                  enc_len: torch.Tensor, capacity_words: int, *,
                  emit_codes: bool = False, emit_hist: bool = False):
@@ -150,19 +177,24 @@ def fused_encode(x: torch.Tensor, enc_code: torch.Tensor,
     (u32 bit patterns), nbits int32 [n], scales f32 [n, K/32]
     [, codes u8 [n, K]] [, hist int32 [256]]).
 
-    ``enc_code`` / ``enc_len`` are int32 [256] CUDA tensors.
+    ``enc_code`` / ``enc_len`` are int32 [256] CUDA tensors, codes of at
+    most ``MAX_CODE_BITS`` bits (a scheme's prefix_bits at most 8; not
+    checked here, which would cost a device-to-host read per call).
     """
+    cap = int(capacity_words)
+    if not 1 <= cap <= ENCODE_MAX_CAP:
+        raise ValueError(f"capacity_words {cap} outside [1, {ENCODE_MAX_CAP}]")
+    if x.dim() != 2 or x.shape[1] % 32 or x.shape[1] <= 0:
+        raise ValueError(f"x {tuple(x.shape)} must be [n, K], K a positive "
+                         "multiple of 32")
     _check(x, "x", (torch.float32, torch.bfloat16), 2)
     for t, what in ((enc_code, "enc_code"), (enc_len, "enc_len")):
         _check(t, what, (torch.int32,), 1)
         if t.numel() != 256 or t.device != x.device:
             raise ValueError(f"{what} must be 256 entries on {x.device}")
     n, k = x.shape
-    cap = int(capacity_words)
-    max_cap = (MAX_SMEM - 4096) // 4     # 4 KiB of static tables/scan
-    if not 1 <= cap <= max_cap:
-        raise ValueError(f"capacity_words {cap} outside [1, {max_cap}]")
-    threads = _threads_for(k)
+    bf16 = x.dtype == torch.bfloat16
+    x = _aligned16(x)
     dev = x.device
     words = torch.empty((n, cap), dtype=torch.int32, device=dev)
     nbits = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -172,11 +204,11 @@ def fused_encode(x: torch.Tensor, enc_code: torch.Tensor,
     hist = torch.zeros(256, dtype=torch.int32, device=dev) if emit_hist \
         else None
     rc = _lib("qlc_fused_encode").qlc_fused_encode(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), n, k,
+        x.data_ptr(), int(bf16), n, k,
         enc_code.data_ptr(), enc_len.data_ptr(), cap, words.data_ptr(),
         nbits.data_ptr(), scales.data_ptr(),
         codes.data_ptr() if codes is not None else None,
-        hist.data_ptr() if hist is not None else None, threads, _stream(x))
+        hist.data_ptr() if hist is not None else None, 0, _stream(x))
     if rc != 0:
         raise RuntimeError(f"K1 fused_encode launch failed: CUDA error {rc}")
     fused_encode.launches += 1
@@ -190,6 +222,23 @@ def fused_encode(x: torch.Tensor, enc_code: torch.Tensor,
 
 fused_encode.launches = 0
 
+
+def e4m3_encode(x: torch.Tensor) -> torch.Tensor:
+    """K1's e4m3 encoder on its own, on the card: f32 (any shape) -> u8
+    codes, what K1 gives each scaled element. For holding it against
+    the plain encoder over every f32 bit pattern."""
+    _check(x.reshape(-1), "x", (torch.float32,), 1)
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    rc = _lib("qlc_fused_encode").qlc_fused_encode_e4m3(
+        x.data_ptr(), x.numel(), out.data_ptr(), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"K1 e4m3 encoder launch failed: CUDA error {rc}")
+    e4m3_encode.launches += 1
+    return out
+
+
+e4m3_encode.launches = 0
+
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -202,13 +251,25 @@ def fused_decode(words: torch.Tensor, scales: torch.Tensor,
     """K2 on the card: words int32 [n, CW], scales f32 [n, K/32], scheme
     slots int32 [n], stacked LUTs int32 ``dec_lut [S, 256]`` /
     ``area_* [S, A]``, value table f32 [256] -> [n, K] in ``out_dtype``
-    (f32 or bf16), or ``acc + value`` in f32 when ``acc`` is given."""
-    _check(words, "words", (torch.int32,), 2)
-    n, cw = words.shape
+    (f32 or bf16), or ``acc + value`` in f32 when ``acc`` is given.
+
+    ``value_tab`` is the e4m3 value table (``quant.e4m3.decode_table``,
+    which ``kernels.ops`` passes; not checked here, which would cost a
+    device-to-host read per call): K2 keeps each value in a 2-byte table
+    entry beside its code length, which holds e4m3 values only.
+    Stacked schemes must fit their decode tables, 2^(prefix_bits + 9)
+    bytes each, in one CTA's shared memory: up to 47 schemes at a 3-bit
+    prefix, one at 8 bits; the launch fails with CUDA error 1 past that."""
     k = int(chunk_symbols)
     if k % 32 or k <= 0:
         raise ValueError(f"chunk_symbols {k} must be a positive multiple "
                          "of 32")
+    if not 0 <= int(prefix_bits) <= MAX_CODE_BITS - 8:
+        raise ValueError(f"prefix_bits {prefix_bits} outside [0, "
+                         f"{MAX_CODE_BITS - 8}]: K2 takes codes of at most "
+                         f"{MAX_CODE_BITS} bits")
+    _check(words, "words", (torch.int32,), 2)
+    n, cw = words.shape
     _check(scales, "scales", (torch.float32,), 2)
     _check(scheme_ids, "scheme_ids", (torch.int32,), 1)
     for t, what in ((dec_lut, "dec_lut"), (area_sb, "area_sb"),
@@ -218,23 +279,23 @@ def fused_decode(words: torch.Tensor, scales: torch.Tensor,
     s, a = area_sb.shape
     if (scales.shape != (n, k // 32) or scheme_ids.shape != (n,)
             or dec_lut.shape != (s, 256) or area_starts.shape != (s, a)
-            or value_tab.shape != (256,)):
+            or a != 1 << int(prefix_bits) or value_tab.shape != (256,)):
         raise ValueError("operand shapes disagree: words "
                          f"{tuple(words.shape)}, scales {tuple(scales.shape)},"
                          f" sid {tuple(scheme_ids.shape)}, dec_lut "
-                         f"{tuple(dec_lut.shape)}, area {tuple(area_sb.shape)}")
-    if s * (256 + 2 * a) * 4 > 16 * 1024:
-        raise ValueError(f"{s} stacked schemes exceed the kernel's LUT "
-                         "shared memory")
+                         f"{tuple(dec_lut.shape)}, area {tuple(area_sb.shape)}"
+                         f" at prefix_bits {prefix_bits}")
     if acc is not None:
         _check(acc, "acc", (torch.float32,), 2)
         if acc.shape != (n, k):
             raise ValueError(f"acc shape {tuple(acc.shape)} != {(n, k)}")
         kind, out_dtype = 2, torch.float32
+        acc = _aligned16(acc)
     else:
         if out_dtype not in _OUT_KIND:
             raise TypeError(f"out_dtype {out_dtype} not in f32/bf16")
         kind = _OUT_KIND[out_dtype]
+    words = _aligned16(words)
     out = torch.empty((n, k), dtype=out_dtype, device=words.device)
     rc = _lib("qlc_fused_decode").qlc_fused_decode(
         words.data_ptr(), n, cw, scales.data_ptr(), scheme_ids.data_ptr(),

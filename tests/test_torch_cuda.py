@@ -186,3 +186,194 @@ def test_k6_counts_gradient_symbols(cuda):
     syms = calibrate.quantized_symbols(x)
     want = torch.bincount(syms.long(), minlength=256).cpu().numpy()
     np.testing.assert_array_equal(calibrate.symbol_counts(syms), want)
+
+
+def _x_tables(k: int, rows: int, seed: int):
+    """Inputs of the K1/K2 edge cases: ``_x`` rows (adversarial values in
+    the first two) and two schemes calibrated on them."""
+    x = _x(rows, k, seed)
+    sym = e4m3.quantize_block32(torch.nan_to_num(x, nan=0.0))[0]
+    counts = np.bincount(sym.numpy().reshape(-1),
+                         minlength=256).astype(np.float64) + 1
+    return x, [lut.build_tables(counts, schemes.TABLE1),
+               lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 256, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_kernel_edge_cases(cuda, k, dtype):
+    """Chunk sizes of one block, a quarter piece and four pieces; 37 rows
+    (no multiple of any CTA's warps); slots that fit every chunk, and 1
+    and 20 words (every chunk over capacity: word cap-1 sums the clamped
+    codes); codes and histogram on."""
+    x, tl = _x_tables(k, 37, 11)
+    x = x.to(cuda, getattr(torch, dtype))
+    for cap in (codec.worst_case_words(k), 20, 1):
+        got = ops.quantize_encode(x, tl[0], cap, emit_codes=True,
+                                  emit_hist=True)
+        want = ref.quantize_encode_ref(x, tl[0], cap, emit_codes=True,
+                                       emit_hist=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (k, cap)
+
+
+@pytest.mark.cuda
+def test_k1_histogram_of_skewed_symbols(cuda):
+    """Gradient-like values (most blocks one large value among small
+    ones) put most symbols in a few bins: the per-warp bins' contention
+    case. The histogram equals the plain one and torch.bincount."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((2048, 1024)) * 1e-3).astype(np.float32)
+    x[:, ::32] = 1.0
+    x = torch.from_numpy(x).to(cuda)
+    t1 = _tables()[0]
+    got = ops.quantize_encode(x, t1, codec.worst_case_words(1024),
+                              emit_codes=True, emit_hist=True)
+    want = ref.quantize_encode_ref(x, t1, codec.worst_case_words(1024),
+                                   emit_codes=True, emit_hist=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[4], torch.bincount(got[3].reshape(-1).long(),
+                                              minlength=256).to(torch.int32))
+
+
+def _k2_case(cuda, k: int, rows: int, seed: int, cap_kind: str):
+    """Two schemes interleaved by chunk, words cut to the longest chunk's
+    slot ("fit"), to the median chunk's ("over": cursors run past the
+    slot), or left at the worst case ("worst")."""
+    x, tl = _x_tables(k, rows, seed)
+    x = x.to(cuda)
+    wc = codec.worst_case_words(k)
+    w1, n1, s = ops.quantize_encode(x, tl[0], wc)
+    w2, n2, _ = ops.quantize_encode(x, tl[1], wc)
+    sid = (torch.arange(rows, device=cuda) % 2).to(torch.int32)
+    nb = torch.where(sid == 1, n2, n1)
+    cap = {"fit": -(-int(nb.max()) // 32),
+           "over": max(1, int(nb.float().median()) // 32),
+           "worst": wc}[cap_kind]
+    w = torch.where((sid == 1)[:, None], w2, w1)[:, :cap].contiguous()
+    return w, s, tl, sid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 256, 4096])
+@pytest.mark.parametrize("cap_kind", ["fit", "over"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "accumulate"])
+def test_k2_kernel_edge_cases(cuda, k, cap_kind, form):
+    w, s, tl, sid = _k2_case(cuda, k, 37, 13, cap_kind)
+    rows = w.shape[0]
+    if form == "accumulate":
+        acc = torch.randn((rows, k), generator=torch.Generator()
+                          .manual_seed(1)).to(cuda)
+        got = ops.decode_dequantize_accumulate(acc, w, s, tl, k,
+                                               scheme_ids=sid)
+        want = ref.decode_dequantize_ref(w, s, tl, sid, k, acc=acc)
+    else:
+        od = torch.float32 if form == "f32" else torch.bfloat16
+        got = ops.decode_dequantize(w, s, tl, k, scheme_ids=sid,
+                                    out_dtype=od)
+        want = ref.decode_dequantize_ref(w, s, tl, sid, k, out_dtype=od)
+    assert torch.equal(got, want)
+
+
+def _wide_schemes(prefix_bits: int):
+    """Schemes of a ``prefix_bits``-bit area code: every code of the
+    longest length, prefix + 8 bits, and one that mixes prefix-bit codes
+    with that longest length."""
+    a = 1 << prefix_bits
+    longest = schemes.QLCScheme(areas=((256 // a, 8),) * a,
+                                prefix_bits=prefix_bits)
+    mixed = schemes.QLCScheme(areas=((1, 0),) * (a - 1) + ((257 - a, 8),),
+                              prefix_bits=prefix_bits)
+    return longest, mixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_bits", [4, 5, 6, 8])
+@pytest.mark.parametrize("cap_kind", ["worst", "over"])
+def test_k1_k2_wide_prefixes(cuda, prefix_bits, cap_kind):
+    """Codes of up to prefix + 8 bits, 16 at a prefix of 8 (two codes per
+    cursor top-up, the widest word ring), through K1 and K2 in f32 and
+    accumulate form: bit-equal to the plain versions, also on slots the
+    median chunk overruns. At a prefix of 8 one scheme's table fills most
+    of the shared memory, so the stack is the longest-code scheme alone."""
+    k, rows = 1024, 70
+    x = _x(rows, k, 15)
+    counts = np.bincount(e4m3.quantize_block32(torch.nan_to_num(x))[0]
+                         .numpy().reshape(-1), minlength=256) + 1.0
+    tl = [lut.build_tables(counts, sc) for sc in _wide_schemes(prefix_bits)]
+    if prefix_bits == 8:
+        tl = tl[:1]
+    x = x.to(cuda)
+    wc = codec.worst_case_words(k, prefix_bits + 8)
+    enc = [ops.quantize_encode(x, t, wc) for t in tl]
+    for t, got in zip(tl, enc):
+        for a, b in zip(got, ref.quantize_encode_ref(x, t, wc)):
+            assert torch.equal(a, b)
+    sid = (torch.arange(rows, device=cuda) % len(tl)).to(torch.int32)
+    nb = torch.stack([e[1] for e in enc]).gather(0, sid.long()[None])[0]
+    cap = wc if cap_kind == "worst" else max(
+        1, int(nb.float().median()) // 32)
+    w = torch.stack([e[0] for e in enc]).gather(
+        0, sid.long()[None, :, None].expand(1, rows, wc))[0, :, :cap]
+    w, sc = w.contiguous(), enc[0][2]
+    assert torch.equal(ops.decode_dequantize(w, sc, tl, k, scheme_ids=sid),
+                       ref.decode_dequantize_ref(w, sc, tl, sid, k))
+    acc = torch.randn((rows, k), generator=torch.Generator().manual_seed(2)
+                      ).to(cuda)
+    assert torch.equal(
+        ops.decode_dequantize_accumulate(acc, w, sc, tl, k, scheme_ids=sid),
+        ref.decode_dequantize_ref(w, sc, tl, sid, k, acc=acc))
+
+
+@pytest.mark.cuda
+def test_k2_wide_slot(cuda):
+    """At k = 4096 the worst-case slot (1409 words) is wider than 1024:
+    two schemes interleaved, f32."""
+    w, s, tl, sid = _k2_case(cuda, 4096, 70, 14, "worst")
+    assert torch.equal(ops.decode_dequantize(w, s, tl, 4096, scheme_ids=sid),
+                       ref.decode_dequantize_ref(w, s, tl, sid, 4096))
+
+
+@pytest.mark.cuda
+def test_k2_refuses_what_it_cannot_take(cuda):
+    """Codes over 16 bits (a 9-bit prefix) are refused by K2's wrapper,
+    and stacked schemes whose decode tables pass the shared memory by
+    its launch; the plain version takes both."""
+    k = 1024
+    x = _x(8, k, 16)
+    counts = np.bincount(e4m3.quantize_block32(torch.nan_to_num(x))[0]
+                         .numpy().reshape(-1), minlength=256) + 1.0
+    t9 = lut.build_tables(counts, schemes.QLCScheme(
+        areas=((1, 8),) * 256, prefix_bits=9))
+    wc = codec.worst_case_words(k, 17)
+    w, nb, sc = ref.quantize_encode_ref(x, t9, wc)
+    assert torch.isfinite(ref.decode_dequantize_ref(w, sc, [t9], 0, k)
+                          ).any()
+    with pytest.raises(ValueError, match="prefix_bits 9"):
+        ops.decode_dequantize(w.to(cuda), sc.to(cuda), t9, k)
+    t8 = lut.build_tables(counts, _wide_schemes(8)[0])
+    w, nb, sc = ref.quantize_encode_ref(x, t8, wc)
+    two = [t8, t8]
+    sid = np.zeros(8, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        ops.decode_dequantize(w.to(cuda), sc.to(cuda), two, k,
+                              scheme_ids=sid)
+    assert torch.equal(ref.decode_dequantize_ref(w, sc, two, sid, k),
+                       ref.decode_dequantize_ref(w, sc, [t8], 0, k))
+
+
+@pytest.mark.cuda
+def test_k1_e4m3_encoder_on_every_f32(cuda):
+    """K1 rounds with the hardware's e4m3 conversion and patches the two
+    places where that format differs from this one (|x| > 464 and NaN
+    take 480): equal to the plain encoder on all 2^32 bit patterns."""
+    from repro_torch.kernels import qlc_fused as qf
+    piece = 1 << 26
+    for start in range(0, 1 << 32, piece):
+        bits = torch.arange(start, start + piece, dtype=torch.int64,
+                            device=cuda)
+        x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+            torch.int32).view(torch.float32)
+        assert torch.equal(qf.e4m3_encode(x), e4m3.e4m3_encode(x)), start
