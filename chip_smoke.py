@@ -17,13 +17,22 @@ non-zero (nothing is caught and carried on):
                two schemes interleaved by scheme id; K3 (encode), K4
                (decode) and K5 (prefetch decode) on [4096, 256] u8 chunks
                with two schemes interleaved, at a slot that fits and at
-               one that the longest chunks overrun. Times each (median of
-               CUDA-event timings, L2 flushed before each launch) beside
-               its HBM bound. K6 (256-bin histogram) against its plain
-               version and ``torch.bincount`` on [4096, 1024] skewed
-               symbols covering all 256 values, on a length that is not a
-               multiple of 16 at an odd byte offset, and on a stream of
-               one symbol; timed beside ``torch.bincount`` and its bound.
+               one that the longest chunks overrun; K4 and K5 at the
+               edges of their geometry (n 1/31/33/4097, k 4 to 1024,
+               slots of 1 word and even and odd ones, corrupted words,
+               words at an odd offset, the most stacked schemes each
+               takes and one more refused, prefixes of 4 to 8 bits); the
+               decode and encode entries after one warm call under
+               torch's sync debug mode "error" (no synchronizing call).
+               Times each (median of CUDA-event timings, L2 flushed
+               before each launch) through ``ops`` and alone (the bare
+               wrapper on operands made beforehand, the device's own
+               time: ``time_ms(..., alone=True)``) beside its HBM bound.
+               K6 (256-bin histogram) against its plain version and
+               ``torch.bincount`` on [4096, 1024] skewed symbols covering
+               all 256 values, on a length that is not a multiple of 16
+               at an odd byte offset, and on a stream of one symbol;
+               timed beside ``torch.bincount`` and its bound.
   4. small   — reduced phi3-mini-3.8b (d_model 128, f32) served from the
                QLC wire on the card and on the CPU: the wire and the
                opened params must be bit-equal, one decode step's logits
@@ -87,8 +96,10 @@ non-zero (nothing is caught and carried on):
                algorithms are on for this phase, so that two runs of the
                same step see the same gradients.
 
-Then a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name/power
-line, and, last, ``{"ok": true, "device": {...}}``.
+Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
+``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
+the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
+"device": {...}}``.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -120,14 +131,27 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush (the main path finds its operands cold)."""
+#: SM cycles the device spins between a flush and a kernel-alone timing
+#: (about 0.5 ms on the H100).
+SETTLE_CYCLES = 1_000_000
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor, alone: bool = False
+            ) -> float:
+    """Median time of ``fn`` over ``reps`` launches, each after an L2 flush
+    (the main path finds its operands cold), from CUDA events around the
+    call: device time, plus any time the device waits for the host to
+    issue the call's work. With ``alone`` the device spins for
+    ``SETTLE_CYCLES`` after the flush, so its dirty lines drain to HBM and
+    the host has issued the call before the device reaches the start
+    event: the events then time the device's execution alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if alone:
+            torch.cuda._sleep(SETTLE_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -156,6 +180,54 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
             return math.inf
         return float((a.float() - b.float()).nan_to_num().abs().max())
     return float((a.long() - b.long()).abs().max())
+
+
+# Kernel-alone calls: each kernel's wrapper (``kernels.qlc_fused``,
+# ``qlc_codes``, ``histogram256``) on operands that are made before the
+# call is timed (device tables, scheme slots), where the ``ops`` entry
+# points make or look them up on every call.
+
+def _tables_of(tables):
+    return tables if isinstance(tables, (list, tuple)) else [tables]
+
+
+def bare_k1(x, tables, cap, **kw):
+    from repro_torch.kernels import ops, qlc_fused as qf
+    enc = ops._encode_luts(tables, x.device)
+    return lambda: qf.fused_encode(x, *enc, cap, **kw)
+
+
+def bare_k2(words, scales, tables, k, sid=None, **kw):
+    from repro_torch.kernels import ops, qlc_fused as qf
+    dev = words.device
+    dec, sb, st, pb = ops._area_luts(_tables_of(tables), dev)
+    vtab = ops._value_table(dev)
+    sid = torch.zeros(words.shape[0], dtype=torch.int32, device=dev) \
+        if sid is None else sid
+    sc = scales.float().contiguous()
+    return lambda: qf.fused_decode(words, sc, sid, dec, sb, st, vtab, k,
+                                   prefix_bits=pb, **kw)
+
+
+def bare_k3(sym, tables, cap):
+    from repro_torch.kernels import ops, qlc_codes as qc
+    enc = ops._encode_luts(tables, sym.device)
+    return lambda: qc.encode(sym, *enc, cap)
+
+
+def bare_codes_decode(which, words, tables, sid, k):
+    """K4 (``which="decode"``) or K5 (``"prefetch_decode"``) alone."""
+    from repro_torch.kernels import ops, qlc_codes as qc
+    window, pb, longest = ops._window_luts(_tables_of(tables), words.device)
+    fn = getattr(qc, which)
+    return lambda: fn(words, sid, window, k, prefix_bits=pb,
+                      max_code_bits=longest)
+
+
+def bare_k6(x):
+    from repro_torch.kernels import histogram256 as h6
+    flat = x.reshape(-1).contiguous()
+    return lambda: h6.histogram256(flat)
 
 
 def require_equal(what: str, a, b) -> float:
@@ -200,11 +272,14 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
     enc = lambda: ops.quantize_encode(xf, t1, wc)          # noqa: E731
     words, nb, sc = enc()
     res["K1"]["ms"] = time_ms(enc, 20, flush)
+    res["K1"]["kernel_ms"] = time_ms(bare_k1(xf, t1, wc), 20, flush,
+                                    alone=True)
     res["K1"]["plain_ms"] = time_ms(
         lambda: ref.quantize_encode_ref(xf, t1, wc), 3, flush)
     res["K1"]["bound_ms"] = bound_ms(nbytes(xf, words, nb, sc))
-    log("parity", f"K1 f32 [{n}, {k}] cap {wc}: {res['K1']['ms']:.4f} ms, "
-                  f"plain {res['K1']['plain_ms']:.2f} ms, HBM bound "
+    log("parity", f"K1 f32 [{n}, {k}] cap {wc}: {res['K1']['ms']:.4f} ms "
+                  f"(kernel alone {res['K1']['kernel_ms']:.4f}), plain "
+                  f"{res['K1']['plain_ms']:.2f} ms, HBM bound "
                   f"{res['K1']['bound_ms']:.4f} ms")
 
     # Two schemes interleaved by chunk: even rows under t1, odd under t2,
@@ -220,32 +295,35 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
         "f32": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
                                               scheme_ids=sid),
                 lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k),
-                4),
+                4, bare_k2(mix, s1, [t1, t2], k, sid)),
         "bf16": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
                                                scheme_ids=sid,
                                                out_dtype=torch.bfloat16),
                  lambda: ref.decode_dequantize_ref(
                      mix, s1, [t1, t2], sid, k, out_dtype=torch.bfloat16),
-                 2),
+                 2, bare_k2(mix, s1, [t1, t2], k, sid,
+                            out_dtype=torch.bfloat16)),
         "acc": (lambda: ops.decode_dequantize_accumulate(
                     acc, mix, s1, [t1, t2], k, scheme_ids=sid),
                 lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k,
                                                   acc=acc),
-                8),
+                8, bare_k2(mix, s1, [t1, t2], k, sid, acc=acc)),
     }
     res["K2"]["forms"] = {}
     in_bytes = nbytes(mix, s1, sid)
-    for name, (kern, plain, out_b) in forms.items():
+    for name, (kern, plain, out_b, bare) in forms.items():
         a, b = kern(), plain()
         torch.cuda.synchronize()
         res["K2"]["err"] = max(res["K2"]["err"],
                                require_equal(f"K2 {name}", [a], [b]))
         f = {"ms": time_ms(kern, 20, flush),
+             "kernel_ms": time_ms(bare, 20, flush, alone=True),
              "plain_ms": time_ms(plain, 3, flush),
              "bound_ms": bound_ms(in_bytes + n * k * out_b)}
         res["K2"]["forms"][name] = f
         log("parity", f"K2 {name} [{n}, {k}] cap {cap}, 2 schemes: "
-                      f"bit-equal; {f['ms']:.4f} ms, plain "
+                      f"bit-equal; {f['ms']:.4f} ms (kernel alone "
+                      f"{f['kernel_ms']:.4f}), plain "
                       f"{f['plain_ms']:.2f} ms, HBM bound "
                       f"{f['bound_ms']:.4f} ms")
     a = ops.decode_dequantize(w1[:, :20].contiguous(), s1, t1, k)
@@ -399,18 +477,22 @@ def time_codes(ops, ref, sym, tables, cap, words, sid, flush, reps=20):
     n, k = sym.shape
     tl = tables if isinstance(tables, list) else [tables]
     out = {}
-    for name, fn, plain, nb in (
+    for name, fn, bare, plain, nb in (
             ("K3", lambda: ops.encode(sym, tl[0], cap),
+             bare_k3(sym, tl[0], cap),
              lambda: ref.encode_ref(sym, tl[0], cap),
              n * k + n * cap * 4 + n * 4),
             ("K4", lambda: ops.decode(words, tl, k, scheme_ids=sid),
+             bare_codes_decode("decode", words, tl, sid, k),
              lambda: ref.decode_ref(words, tl, sid, k),
              nbytes(words, sid) + n * k),
             ("K5", lambda: ops.decode_block_async(words, tl, k,
                                                   scheme_ids=sid),
+             bare_codes_decode("prefetch_decode", words, tl, sid, k),
              lambda: ref.decode_block_async_ref(words, tl, sid, k),
              nbytes(words, sid) + n * k)):
         out[name] = {"ms": time_ms(fn, reps, flush),
+                     "kernel_ms": time_ms(bare, reps, flush, alone=True),
                      "plain_ms": time_ms(plain, 3, flush),
                      "bound_ms": bound_ms(nb), "shape": [n, k], "cap": cap}
     return out
@@ -436,9 +518,173 @@ def phase_codes_parity(ops, ref, lut, schemes, flush):
         r["err"] = err[name]
         log("parity", f"{name} [{n}, {k}] cap {r['cap']}, 2 schemes "
                       f"(also bit-equal at {over} words, over capacity): "
-                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+                      f"{r['ms']:.4f} ms (kernel alone "
+                      f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.2f} ms, "
                       f"HBM bound {r['bound_ms']:.4f} ms")
     return res
+
+
+def _edge_words(n, k, cw, tables, seed):
+    """Words [n, cw] on the card of skewed and uniform chunks under
+    schemes drawn at random per chunk (the plain encoder's, so slots the
+    longer chunks overrun unless cw is wide), a quarter of the rows
+    replaced by random u32 words; and the scheme slots."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    sym = _skewed_symbols(n, k, seed)
+    sid = torch.from_numpy(rng.integers(0, len(tables), n).astype(np.int32)
+                           ).to(DEVICE)
+    w = torch.zeros((n, cw), dtype=torch.int32, device=DEVICE)
+    for j, t in enumerate(tables):
+        wj, _ = ref.encode_ref(sym, t, cw)
+        w[sid == j] = wj[sid == j]
+    bad = torch.from_numpy(rng.random(n) < 0.25).to(DEVICE)
+    w[bad] = torch.from_numpy(rng.integers(
+        0, 1 << 32, (int(bad.sum()), cw), dtype=np.uint64
+    ).astype(np.uint32).view(np.int32)).to(DEVICE)
+    return sym, w, sid
+
+
+def _at_offset(w: torch.Tensor, offset: int) -> torch.Tensor:
+    buf = torch.zeros(w.numel() + offset, dtype=torch.int32, device=w.device)
+    buf[offset:] = w.reshape(-1)
+    return buf[offset:].view(w.shape)
+
+
+def phase_codes_edge(ops, ref, lut, schemes, codec):
+    """K4 and K5 against the plain decode, bit for bit, at the edges of
+    their geometry: n in {1, 31, 33, 4097} chunks, k in {4, 36, 100, 256,
+    1024} symbols, slots of 1 word and of an even and an odd count at the
+    longest chunk's size, a quarter of the rows random u32 words, words
+    at word offsets 0 and 1 of their buffer; then as many 3-bit schemes
+    as each wrapper takes (one more refused), and prefixes of 4 to 8 bits
+    (codes of up to 16) at worst-case and overrun slots."""
+    from repro_torch.kernels import qlc_codes as qc
+    err = {"K4": 0.0, "K5": 0.0}
+    entries = (("K4", ops.decode), ("K5", ops.decode_block_async))
+    counts = np.bincount(_skewed_symbols(64, 256, 1).cpu().numpy()
+                         .reshape(-1), minlength=256).astype(np.float64) + 1
+    tl = [lut.build_tables(counts, schemes.TABLE1),
+          lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+    cases = 0
+    for n in (1, 31, 33, 4097):
+        for k in (4, 36, 100, 256, 1024):
+            sym = _skewed_symbols(n, k, n + k)
+            fit = max(-(-int(codec.encode_chunk_bits(sym, t.enc_len).max())
+                        // 32) for t in tl)
+            for cw in sorted({1, fit + (fit & 1), fit | 1}):
+                _, w, sid = _edge_words(n, k, cw, tl, n + k)
+                want = ref.decode_ref(w, tl, sid, k)
+                for offset in (0, 1):
+                    for name, fn in entries:
+                        err[name] = max(err[name], require_equal(
+                            f"{name} edge n {n} k {k} cw {cw} offset "
+                            f"{offset}", [fn(_at_offset(w, offset), tl, k,
+                                             scheme_ids=sid)], [want]))
+                        cases += 1
+    log("parity", f"K4, K5 edges: {cases} cases (n 1/31/33/4097, k "
+                  "4/36/100/256/1024, cw 1/even/odd, corrupted rows, word "
+                  "offsets 0 and 1): bit-equal")
+    k, n, cw = 256, 700, 45
+    rng = np.random.default_rng(21)
+    for name, fn, fits in (
+            ("K4", ops.decode, lambda s_: qc.decode_smem(s_, 3)
+             <= qc.CTA_SMEM),
+            ("K5", ops.decode_block_async,
+             lambda s_: qc.prefetch_tile_rows(s_, 3, cw) > 0)):
+        most = max(s_ for s_ in range(1, 64) if fits(s_))
+        many = [lut.build_tables(rng.integers(1, 1000, 256).astype(
+            np.float64), (schemes.TABLE1, schemes.TABLE2)[i % 2])
+            for i in range(most + 1)]
+        _, w, sid = _edge_words(n, k, cw, many[:most], 22)
+        err[name] = max(err[name], require_equal(
+            f"{name} with {most} stacked schemes",
+            [fn(w, many[:most], k, scheme_ids=sid)],
+            [ref.decode_ref(w, many[:most], sid, k)]))
+        try:
+            fn(w, many, k, scheme_ids=sid)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} took {most + 1} stacked schemes")
+        log("parity", f"{name} with {most} stacked 3-bit schemes at {cw} "
+                      f"words: bit-equal; {most + 1} refused")
+    k, n = 1024, 70
+    counts = np.bincount(_skewed_symbols(64, k, 5).cpu().numpy().reshape(-1),
+                         minlength=256) + 1.0
+    for pb in (4, 5, 6, 8):
+        a = 1 << pb
+        wide = [lut.build_tables(counts, schemes.QLCScheme(
+                    areas=((256 // a, 8),) * a, prefix_bits=pb)),
+                lut.build_tables(counts, schemes.QLCScheme(
+                    areas=((1, 0),) * (a - 1) + ((257 - a, 8),),
+                    prefix_bits=pb))][:1 if pb == 8 else 2]
+        sym = _skewed_symbols(n, k, 23)
+        nb = max(int(codec.encode_chunk_bits(sym, t.enc_len).float()
+                     .median()) for t in wide)
+        for cw in (codec.worst_case_words(k, pb + 8), max(1, nb // 32)):
+            _, w, sid = _edge_words(n, k, cw, wide, 23)
+            want = ref.decode_ref(w, wide, sid, k)
+            for name, fn in entries:
+                err[name] = max(err[name], require_equal(
+                    f"{name} prefix {pb} cw {cw}",
+                    [fn(w, wide, k, scheme_ids=sid)], [want]))
+        log("parity", f"K4, K5 with {pb + 8}-bit codes ({pb}-bit prefix) "
+                      f"[{n}, {k}] at worst-case and overrun slots, "
+                      "corrupted rows: bit-equal")
+    return err
+
+
+def phase_sync_free(ops, lut, schemes, codec):
+    """After one warm call, the decode entries (K4, K5, K2 and its
+    accumulate form) and the encode entries (K3, K1) run with
+    device-resident scheme ids under torch's sync debug mode "error":
+    none makes a synchronizing call. Host ids out of range still raise
+    ValueError."""
+    counts = np.bincount(_skewed_symbols(64, 256, 1).cpu().numpy()
+                         .reshape(-1), minlength=256).astype(np.float64) + 1
+    tl = [lut.build_tables(counts, schemes.TABLE1),
+          lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+    n, k = 96, 256
+    sym = _skewed_symbols(n, k, 9)
+    sid = (torch.arange(n, device=DEVICE) % 2).to(torch.int32)
+    words = ops.encode(sym, tl[0], 89)[0]
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (n, 1024)).astype(np.float32)).to(DEVICE)
+    wv, _, sc = ops.quantize_encode(x, tl[0], codec.worst_case_words(1024))
+    acc = torch.zeros((n, 1024), device=DEVICE)
+    calls = {
+        "decode": lambda: ops.decode(words, tl, k, scheme_ids=sid),
+        "decode_block_async": lambda: ops.decode_block_async(
+            words, tl, k, scheme_ids=sid),
+        "decode_dequantize": lambda: ops.decode_dequantize(
+            wv, sc, tl, 1024, scheme_ids=sid),
+        "decode_dequantize_accumulate": lambda:
+            ops.decode_dequantize_accumulate(acc, wv, sc, tl, 1024,
+                                             scheme_ids=sid),
+        "encode": lambda: ops.encode(sym, tl[0], 89),
+        "quantize_encode": lambda: ops.quantize_encode(x, tl[0], 353)}
+    warm = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = {name: call() for name, call in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name in calls:
+        a, b = warm[name], again[name]
+        require_equal(f"{name} warm vs under sync debug",
+                      a if isinstance(a, tuple) else [a],
+                      b if isinstance(b, tuple) else [b])
+    try:
+        ops.decode(words, tl, k, scheme_ids=[0, 2] * (n // 2))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("host scheme ids out of range were taken")
+    log("parity", f"no synchronizing call after one warm call, device "
+                  f"scheme ids ({', '.join(calls)}); host ids out of range "
+                  "raise ValueError")
 
 
 def phase_hist_parity(ops, ref, flush):
@@ -469,11 +715,13 @@ def phase_hist_parity(ops, ref, flush):
     flat = x.reshape(-1)
     res = {"err": err, "shape": list(x.shape),
            "ms": time_ms(lambda: ops.histogram(x), 20, flush),
+           "kernel_ms": time_ms(bare_k6(x), 20, flush, alone=True),
            "plain_ms": time_ms(lambda: ref.histogram256_ref(x), 3, flush),
            "library_ms": time_ms(
                lambda: torch.bincount(flat, minlength=256), 20, flush),
            "bound_ms": bound_ms(x.numel() + 256 * 4)}
-    log("parity", f"K6 [4096, 1024]: {res['ms']:.4f} ms, plain "
+    log("parity", f"K6 [4096, 1024]: {res['ms']:.4f} ms (kernel alone "
+                  f"{res['kernel_ms']:.4f}), plain "
                   f"{res['plain_ms']:.2f} ms, torch.bincount "
                   f"{res['library_ms']:.4f} ms, HBM bound "
                   f"{res['bound_ms']:.4f} ms")
@@ -678,6 +926,8 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
     enc = lambda: ops.quantize_encode(xw, tables, 353)     # noqa: E731
     words, nb, sc = enc()
     main = {"K1": {"shape": list(xw.shape), "ms": time_ms(enc, 3, flush),
+                   "kernel_ms": time_ms(bare_k1(xw, tables, 353), 3, flush,
+                                        alone=True),
                    "bound_ms": bound_ms(nbytes(xw, words, nb, sc)),
                    "max_abs_err": k1_err}}
     del words, nb, sc
@@ -686,12 +936,15 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
     dec = lambda: ops.decode_dequantize(w, s, tables, 1024)  # noqa: E731
     main["K2"] = {"shape": list(w.shape), "cap": m.capacity_words,
                   "ms": time_ms(dec, 3, flush),
+                  "kernel_ms": time_ms(bare_k2(w, s, tables, 1024), 3,
+                                       flush, alone=True),
                   "bound_ms": bound_ms(nbytes(w, s) + 4 * w.shape[0]
                                        + xw.numel() * 4),
                   "max_abs_err": k2_err}
     for kname, v in main.items():
         log("slice", f"{kname} at the main path's w_in shape {v['shape']}: "
-                     f"{v['ms']:.3f} ms, HBM bound {v['bound_ms']:.3f} ms")
+                     f"{v['ms']:.3f} ms (kernel alone {v['kernel_ms']:.3f}),"
+                     f" HBM bound {v['bound_ms']:.3f} ms")
     log("slice", f"peak device memory "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, main, opened, cfg
@@ -757,8 +1010,9 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush):
     for name, r in times.items():
         r["err"] = err[name]
         log("kv", f"{name} at the KV shape {r['shape']} cap {cap}: "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, HBM "
-                  f"bound {r['bound_ms']:.4f} ms")
+                  f"{r['ms']:.4f} ms (kernel alone {r['kernel_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.2f} ms, HBM bound "
+                  f"{r['bound_ms']:.4f} ms")
     return times
 
 
@@ -958,11 +1212,13 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
     k6_err = require_equal("K6 on the gradient's symbols", [got], [lib])
     path = {"shape": [syms.numel()], "err": k6_err,
             "ms": time_ms(lambda: ops.histogram(syms), 5, flush),
+            "kernel_ms": time_ms(bare_k6(syms), 5, flush, alone=True),
             "library_ms": time_ms(
                 lambda: torch.bincount(syms, minlength=256), 5, flush),
             "bound_ms": bound_ms(syms.numel() + 256 * 4)}
     log("train", f"K6 on the path's {syms.numel()} gradient symbols (one "
-                 f"launch): equal to torch.bincount; {path['ms']:.4f} ms, "
+                 f"launch): equal to torch.bincount; {path['ms']:.4f} ms "
+                 f"(kernel alone {path['kernel_ms']:.4f}), "
                  f"torch.bincount {path['library_ms']:.4f} ms, HBM bound "
                  f"{path['bound_ms']:.4f} ms")
     del syms, got, lib
@@ -1036,10 +1292,14 @@ def train_path_fused(ops, ref, entry, grad, flush, rows=4096):
                "max_abs_err": err["K1"],
                "ms": time_ms(lambda: ops.quantize_encode(
                    x, t, cap, emit_codes=True), 5, flush),
+               "kernel_ms": time_ms(bare_k1(x, t, cap, emit_codes=True), 5,
+                                    flush, alone=True),
                "bound_ms": bound_ms(nbytes(x, words, nb, sc, codes))},
         "K2": {"shape": [n, cap], "form": "acc", "max_abs_err": err["K2"],
                "ms": time_ms(lambda: ops.decode_dequantize_accumulate(
                    acc, words, sc, t, k), 5, flush),
+               "kernel_ms": time_ms(bare_k2(words, sc, t, k, acc=acc), 5,
+                                    flush, alone=True),
                # words, scales, scheme ids and acc in; the sum out.
                "bound_ms": bound_ms(nbytes(words, sc, acc) + 4 * n
                                    + n * k * 4)}}
@@ -1047,7 +1307,8 @@ def train_path_fused(ops, ref, entry, grad, flush, rows=4096):
         log("train", f"{kname} at the train path's shape {v['shape']} (slot "
                      f"{cap} words{', codes' if kname == 'K1' else ', acc'}):"
                      f" bit-equal to plain on the first and last {rows} "
-                     f"chunks; {v['ms']:.3f} ms, HBM bound "
+                     f"chunks; {v['ms']:.3f} ms (kernel alone "
+                     f"{v['kernel_ms']:.3f}), HBM bound "
                      f"{v['bound_ms']:.3f} ms")
     return res
 
@@ -1129,11 +1390,12 @@ def codes_kernel_entries(src, codes_par, kv_runs, kv_times):
                             if paging in run_of[kname]),
             "launches_by_run": [[paging, n[kname]] for paging, n in kv_runs],
             "max_abs_err": max(p["err"], kv["err"]),
-            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "ms": p["ms"], "kernel_ms": p["kernel_ms"],
+            "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": p["shape"], "cap": p["cap"],
-            "kv_path": {k: kv[k] for k in ("shape", "cap", "ms", "plain_ms",
-                                           "bound_ms")}})
+            "kv_path": {k: kv[k] for k in ("shape", "cap", "ms", "kernel_ms",
+                                           "plain_ms", "bound_ms")}})
     return out
 
 
@@ -1223,6 +1485,9 @@ def main():
     for kname, e in phase_edge_parity(ops, ref, lut, schemes, codec).items():
         par[kname]["err"] = max(par[kname]["err"], e)
     codes_par = phase_codes_parity(ops, ref, lut, schemes, flush)
+    for kname, e in phase_codes_edge(ops, ref, lut, schemes, codec).items():
+        codes_par[kname]["err"] = max(codes_par[kname]["err"], e)
+    phase_sync_free(ops, lut, schemes, codec)
     hist_par = phase_hist_parity(ops, ref, flush)
     phase_small(serve_mod, reduced, get_config)
     launches, main_shape, opened, cfg = phase_slice(qf, serve_mod, e4m3,
@@ -1252,7 +1517,8 @@ def main():
                  "max_abs_err": max(p["err"],
                                     main_shape[kname]["max_abs_err"],
                                     tr["fused"][kname]["max_abs_err"]),
-                 "ms": p["ms"], "plain_ms": p["plain_ms"],
+                 "ms": p["ms"], "kernel_ms": p["kernel_ms"],
+                 "plain_ms": p["plain_ms"],
                  "bound_ms": p["bound_ms"], "bound_by": "bytes",
                  "library_ms": None, "shape": [4096, 1024],
                  "main_path": main_shape[kname],
@@ -1270,10 +1536,12 @@ def main():
         "launches_by_run": [["train", tr["launches"]["K6"]]]
         + [[paging, n["K6"]] for paging, n in kv_runs],
         "max_abs_err": max(hist_par["err"], tr["path"]["err"]),
-        "ms": hist_par["ms"], "plain_ms": hist_par["plain_ms"],
+        "ms": hist_par["ms"], "kernel_ms": hist_par["kernel_ms"],
+        "plain_ms": hist_par["plain_ms"],
         "bound_ms": hist_par["bound_ms"], "bound_by": "bytes",
         "library_ms": hist_par["library_ms"], "shape": hist_par["shape"],
         "train_path": {k: tr["path"][k] for k in ("shape", "ms",
+                                                    "kernel_ms",
                                                     "library_ms",
                                                     "bound_ms")}})
     print(json.dumps({"kernels": kernels}))

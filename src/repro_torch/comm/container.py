@@ -56,6 +56,7 @@ from repro_torch.comm.compressed import (CommConfig, WirePayload,
                                          pad_to_multiple)
 from repro_torch.core.registry import CodecEntry, CodecRegistry
 from repro_torch.kernels import ops
+from repro_torch.models.transformer import resolve_device
 
 MAGIC = 0x514C4331           # "QLC1"
 CONTAINER_VERSION = 1
@@ -278,7 +279,7 @@ def _upload(buf: np.ndarray, device) -> torch.Tensor:
     """A container or stream as one int32 tensor on ``device``: one copy
     (also on the CPU, so decoded views never alias the caller's bytes)."""
     return torch.from_numpy(np.ascontiguousarray(buf).view(np.int32)
-                            ).to(device, copy=True)
+                            ).to(resolve_device(device), copy=True)
 
 
 def _slice_payload(h: ContainerHeader, words: torch.Tensor, pos: int):
@@ -304,7 +305,7 @@ def _slice_payload(h: ContainerHeader, words: torch.Tensor, pos: int):
                        pool_count=pool_count), scales
 
 
-def unpack_payload(buf: np.ndarray, offset: int = 0, *, device="cpu"
+def unpack_payload(buf: np.ndarray, offset: int = 0, *, device="cuda"
                    ) -> Tuple[ContainerHeader, WirePayload,
                               Optional[torch.Tensor], int]:
     """Slice one container back into (header, WirePayload, scales,

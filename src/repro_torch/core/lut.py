@@ -7,6 +7,8 @@ recovered from area code + payload) back to the output symbol.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 
 import numpy as np
 
@@ -35,6 +37,18 @@ class CodecTables:
     area_starts: np.ndarray
     prefix_bits: int
     scheme: QLCScheme
+
+    @functools.cached_property
+    def digest(self) -> str:
+        """Content digest of every table, computed once per instance: the
+        key under which ``kernels.ops`` keeps their device copies."""
+        h = hashlib.sha256(bytes([self.prefix_bits]))
+        for a in (self.enc_code, self.enc_len, self.dec_lut,
+                  self.area_symbol_bits, self.area_starts):
+            a = np.ascontiguousarray(a)
+            h.update(str((a.dtype.str, a.shape)).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
 
     @property
     def max_code_length(self) -> int:

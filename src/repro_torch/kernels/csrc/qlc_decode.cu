@@ -4,95 +4,127 @@
 // (body _decode_kernel). Plain version: repro_torch/kernels/ref.py
 // ::decode_ref, which the kernel matches bit for bit.
 //
-// Bound on the H100: memory by bytes (each slot word read once, 1 B per
-// symbol written, floor = bytes / 3.35 TB/s), but in practice the serial
-// cursor: each symbol is a chain of dependent shifts and shared-memory
-// LUT reads, so a chunk takes K steps however wide the card is.
+// Bound on the H100: by bytes the floor is tiny (each slot word read
+// once, 1 B per symbol written: 1.6 us at the KV path's [12288, 256] at
+// 45 words). What sets the time is one chunk's serial chain of K symbols:
+// each is a table load and a shift that depend on the one before, so a
+// chunk takes K steps however wide the card is, and 12,288 chunks are
+// only 384 warps, about three per SM.
 //
-// Design: K2's decode without the dequantize. One thread per chunk, 32
-// chunks per warp, 4 warps per CTA. Each thread walks its chunk with the
-// paper's O(1) step (qlc::decode_symbol): the 3-bit area code gives the
-// payload bits and the area's first rank from the stacked per-scheme
-// LUTs at the chunk's scheme slot, the rank indexes dec_lut. All LUTs
-// sit in shared memory. The warp decodes 128 symbols of each of its 32
-// chunks into a shared-memory tile and stores it row by row, 128
-// consecutive bytes per store, instead of 32 one-byte stores 1 chunk
-// apart.
-//
-// What this simple design leaves on the table: each thread reads its own
-// chunk's words straight from global memory, strided across the warp
-// (K5 stages them through shared memory instead), and 128 chunks per CTA
-// give few CTAs when n is small.
+// Design: K2's decode core, written once in qlc_codes.cuh for K4 and K5,
+// emitting symbols. One thread per chunk, 32 chunks per warp, CTAs of one
+// warp, so the KV shape's 384 warps spread over all 132 SMs (CTAs of 4
+// warps left 36 SMs idle).
+//  - Table: per scheme, the symbol and code length of every
+//    (prefix + 8)-bit window, 2 B each (4 KiB at the paper's 3-bit
+//    prefix), built once per table set on the host and kept on the device
+//    by kernels.ops; each CTA copies the stacked tables into shared memory
+//    with 16-byte cp.async in its prologue, beside its first words.
+//  - Words: a per-thread ring of 128 words in shared memory fed by
+//    16-byte cp.async copies aligned on the word's index from the 16-byte
+//    aligned base below `words` (any 4-byte offset works; zero-filled past
+//    the tensor's end), cut at the slot's end. A slot of up to 125 words
+//    (every 256-symbol slot) arrives whole in the prologue; a wider one is
+//    topped up at block boundaries, two blocks ahead of its use (a
+//    block's copies delay the shared-memory loads issued after them, by
+//    about 20 cycles a symbol at 89-word slots with a 64-word ring).
+//  - Cursor: a 96-bit bit buffer in three registers, topped up every
+//    second symbol so that at least 48 bits are valid; the next table
+//    entry is loaded before the top-up, whose bits lie above the window,
+//    so the loop-carried chain is mask -> address -> table load -> funnel
+//    shift (43 cycles in a bare chain on the H100, tools/decode_cycles.py).
+//    Blocks whose cursor may pass the slot take the exact path (first
+//    word all ones, second the slot's last; the rank clamp is in the
+//    table).
+//  - Stores: each lane keeps a block's 32 symbols in 8 registers and
+//    stores them itself (two 16-byte stores when rows are 16-byte
+//    aligned).
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "qlc_codes.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+// Shared memory of the CTA's warp beside the tables: 32 rings at a stride
+// of 132 words (16-byte aligned rows).
+constexpr int kRingStride = qlc::kRingWords + 4;
+constexpr int kRingBytes = 32 * kRingStride * 4;
 
-__global__ void decode_kernel(const uint32_t* __restrict__ words, int64_t n, int cw,
-                              const int32_t* __restrict__ sid,
-                              const int32_t* __restrict__ dec_lut,
-                              const int32_t* __restrict__ area_sb,
-                              const int32_t* __restrict__ area_st, int n_schemes, int n_area,
-                              int prefix_bits, int64_t k, uint8_t* __restrict__ out) {
-  extern __shared__ int32_t s_luts[];
-  __shared__ __align__(16) uint8_t s_tile[kWarps][32][qlc::kTileStride];
-  int32_t* s_dec = s_luts;
-  int32_t* s_sb = s_dec + n_schemes * 256;
-  int32_t* s_st = s_sb + n_schemes * n_area;
-
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n_schemes * 256; i += blockDim.x) s_dec[i] = dec_lut[i];
-  for (int i = tid; i < n_schemes * n_area; i += blockDim.x) {
-    s_sb[i] = area_sb[i];
-    s_st[i] = area_st[i];
-  }
-  __syncthreads();
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t base_row = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * 32;
-  const int64_t row = base_row + lane;
+__global__ void __launch_bounds__(32)
+    decode_kernel(const uint32_t* __restrict__ words, int head, int64_t n, int cw,
+                  const int32_t* __restrict__ sid, const uint16_t* __restrict__ wtab,
+                  int n_schemes, int prefix_bits, int maxlen, int64_t k,
+                  uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x;
+  const int tbits = prefix_bits + 8;
+  const int64_t tab_bytes = qlc::window_table_bytes(n_schemes, prefix_bits);
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 32 + lane;
   const bool active = row < n;
-  const uint32_t* wr = words + (active ? row : 0) * cw;
-  const int s = active ? sid[row] : 0;
-  const int32_t* dec = s_dec + s * 256;
-  const int32_t* sb = s_sb + s * n_area;
-  const int32_t* st = s_st + s * n_area;
-  uint8_t(*tile)[qlc::kTileStride] = s_tile[warp];
-  uint32_t bitpos = 0u;
+  const uint32_t ucw = static_cast<uint32_t>(cw);
 
-  for (int64_t base = 0; base < k; base += qlc::kTileSyms) {
-    const int w = static_cast<int>(k - base < qlc::kTileSyms ? k - base : qlc::kTileSyms);
-    if (active) {
-      for (int j = 0; j < w; ++j)
-        tile[lane][j] = static_cast<uint8_t>(
-            qlc::decode_symbol(wr, static_cast<uint32_t>(cw), bitpos, dec, sb, st, prefix_bits));
-    }
-    qlc::store_tile(tile, base_row, n, k, base, w, out);
-  }
+  for (int64_t i = 16 * lane; i < tab_bytes; i += 16 * 32)
+    __pipeline_memcpy_async(smem + i, reinterpret_cast<const uint8_t*>(wtab) + i, 16);
+  const uint64_t g0 = static_cast<uint64_t>(head) + static_cast<uint64_t>(active ? row : 0) * ucw;
+  qlc::WordRing wr{words,
+                   reinterpret_cast<uint32_t*>(smem + tab_bytes) + lane * kRingStride,
+                   g0,
+                   static_cast<uint64_t>(head) + static_cast<uint64_t>(n) * ucw,
+                   ucw,
+                   static_cast<uint32_t>(g0) & (qlc::kRingWords - 1)};
+  if (active) wr.fill(0u, qlc::kRingWords - 3);
+  __pipeline_commit();
+  const int s = active ? qlc::scheme_slot(sid, row, n_schemes) : 0;
+  const uint32_t wlast = active ? __ldg(words + wr.g0 + ucw - 1u) : 0u;
+  __pipeline_wait_prior(0);
+  __syncwarp();  // every lane's share of the tables is in
+
+  qlc::BitCursor c;
+  if (active) c.start(wr);
+  qlc::decode_rows(wr, c, active, ucw, wlast, qlc::smem_addr(smem) + (s << (tbits + 1)),
+                   (1u << tbits) - 1u, static_cast<uint32_t>(maxlen), k, row, out);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). k is a multiple
-// of 4. The stacked LUTs take n_schemes * (256 + 2 * n_area) * 4 bytes of
-// dynamic shared memory.
-extern "C" int qlc_decode(const void* words, int64_t n, int cw, const void* sid,
-                          const void* dec_lut, const void* area_sb, const void* area_st,
-                          int n_schemes, int n_area, int prefix_bits, int64_t k, void* out,
+// Returns the cudaError_t of the launch (0 on success; cudaErrorInvalidValue
+// (1) for operands outside the kernel's domain, also when the tables and
+// the rings pass the CTA's shared memory). words: int32 [n, cw]
+// at any 4-byte offset, whose 16-byte aligned base below it lies in the
+// same allocation; sid: int32 [n] scheme slots (clamped into
+// [0, n_schemes)) or null for slot 0; wtab: the stacked window tables,
+// n_schemes x 2^(prefix_bits + 8) u16, 16-byte aligned; prefix_bits at
+// most 8; max_code_bits the longest code of any stacked scheme; k a
+// positive multiple of 4.
+extern "C" int qlc_decode(const void* words, int64_t n, int cw, const void* sid, const void* wtab,
+                          int n_schemes, int prefix_bits, int max_code_bits, int64_t k, void* out,
                           void* stream) {
   if (n == 0) return 0;
-  const size_t smem = static_cast<size_t>(n_schemes) * (256 + 2 * n_area) * sizeof(int32_t);
-  const int64_t rows_per_cta = 32 * kWarps;
-  const dim3 grid(static_cast<unsigned>((n + rows_per_cta - 1) / rows_per_cta));
-  decode_kernel<<<grid, 32 * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n, cw, static_cast<const int32_t*>(sid),
-      static_cast<const int32_t*>(dec_lut), static_cast<const int32_t*>(area_sb),
-      static_cast<const int32_t*>(area_st), n_schemes, n_area, prefix_bits, k,
+  const uintptr_t p = reinterpret_cast<uintptr_t>(words);
+  if (cw < 1 || k <= 0 || k % 4 != 0 || n_schemes < 1 || prefix_bits < 0 ||
+      prefix_bits > qlc::kMaxPrefix || max_code_bits < 0 || max_code_bits > prefix_bits + 8 ||
+      p % 4 != 0 || reinterpret_cast<uintptr_t>(wtab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = qlc::window_table_bytes(n_schemes, prefix_bits) + kRingBytes;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((n + 31) / 32));
+  decode_kernel<<<grid, 32, static_cast<size_t>(smem),
+                  static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(15)),
+      static_cast<int>((p & 15) / 4), n, cw, static_cast<const int32_t*>(sid),
+      static_cast<const uint16_t*>(wtab), n_schemes, prefix_bits, max_code_bits, k,
       static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,11 @@
 //    writes the tile out four rows per instruction with 16-byte stores
 //    (bf16: 8 bytes after __float2bfloat16_rn).
 //
+// Scheme slots are clamped into [0, S) (qlc::scheme_slot), so ids left
+// on the card unchecked never read outside the stacked tables. K4 and K5
+// run a later form of this decode core, written once in qlc_codes.cuh;
+// this kernel keeps its own.
+//
 // What still keeps it from its bound: the output stream (the bf16 form,
 // half the bytes written after the same decode, takes three quarters of
 // the f32 time); each chunk's decode is serial, so the cursor's chain (a
@@ -64,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "qlc_codes.cuh"
 
 namespace {
 
@@ -152,7 +159,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   __syncthreads();
   if (rows == 0) return;
 
-  const int s = active ? sid[row] : 0;
+  const int s = active ? qlc::scheme_slot(sid, row, n_schemes) : 0;
   const uint16_t* tab = s_tab + (s << tbits);
   uint32_t maxlen = 0;
   for (int a = 0; a < n_area; ++a)

@@ -1,5 +1,6 @@
-// K5: QLC decode with the slot words staged through a double-buffered
-// asynchronous copy into shared memory, for sm_90a.
+// K5: QLC decode with the slot words staged tile by tile into shared
+// memory by Hopper's bulk asynchronous copy (TMA), double-buffered, for
+// sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/qlc_prefetch.py
 // ::prefetch_decode_pallas (body _prefetch_decode_kernel), which streams
@@ -8,171 +9,221 @@
 // repro_torch/kernels/ref.py::decode_block_async_ref, the same function
 // as decode_ref, and the kernel matches it bit for bit.
 //
-// Bound on the H100: as K4, memory by bytes, the serial cursor in
-// practice.
+// Bound on the H100: as K4, a tiny byte floor; the serial cursor of each
+// chunk sets the time.
 //
-// Design: a CTA of kWarps warps walks tiles of 32 * kWarps consecutive
-// chunks, tile blockIdx.x, then blockIdx.x + gridDim.x, ... A tile's
-// words are one contiguous run in global memory; the CTA copies it into
-// one of two shared-memory slots with cp.async (__pipeline_memcpy_async,
-// 4 B per copy so any word offset works; rows padded to an odd stride so
-// the 32 cursors of a warp spread over the banks). Before it decodes
-// tile i from slot i % 2 it issues tile i+1's copy into the other slot
-// and commits it, then waits for all but that newest group: tile i+1's
-// words are in flight while tile i decodes. Each thread then runs K4's
-// cursor over its chunk's words in shared memory, and the warp stores its
-// symbols through K4's staging tile. The grid is half the tile count,
-// rounded up, and at most the CTAs that fit on the card at once, so every
-// CTA but an odd last one walks two tiles or more.
-//
-// What this simple design leaves on the table: a CTA that walks two
-// tiles decodes them one after the other, so at a given size K5 runs
-// half as many cursors at once as K4; the copy is 4 B per thread; TMA
-// would free the threads of the copy altogether.
+// Design: CTAs of one warp; a tile is T consecutive chunks, one per lane
+// (T = 32, or 16, 8, ... 1 when two slots of 32 chunks' words do not fit
+// beside the tables: the wrapper picks it), whose words are one
+// contiguous run in global memory. The grid is one CTA per tile, up to the
+// CTAs that fit on the card at once; a CTA with more than one tile walks
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+//  - Staging: lane 0 copies a tile's run (widened to 16-byte aligned
+//    ends, never past the tensor: the at most 3 words of a ragged end are
+//    loaded by the lanes) into one of two shared-memory slots with one
+//    cp.async.bulk, which completes on that slot's mbarrier
+//    (complete_tx). Before it decodes tile i from slot i % 2 it issues
+//    tile i+1's copy into the other slot, so the next tile is in flight
+//    while this one decodes, and no thread spends instructions on the
+//    copy. Each slot's barrier phase flips per use; its parity is tracked
+//    in a register. The first copy also brings the stacked window tables.
+//  - Decode: K4's cursor core (qlc_codes.cuh) over the staged words: the
+//    bit buffer, the window table, the exact path past the slot, the
+//    lanes' stores from registers.
+//  - A dense run cannot be padded to an odd row stride, so with an even
+//    cw the lanes' word reads may share banks; they come once per 32
+//    bits consumed, off the cursor's chain, and are accepted.
 #include <cstdint>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "qlc_codes.cuh"
 
 namespace {
 
-template <int kWarps>
-__global__ void prefetch_decode_kernel(const uint32_t* __restrict__ words, int64_t n, int cw,
-                                       int stride, int64_t n_tiles,
-                                       const int32_t* __restrict__ sid,
-                                       const int32_t* __restrict__ dec_lut,
-                                       const int32_t* __restrict__ area_sb,
-                                       const int32_t* __restrict__ area_st, int n_schemes,
-                                       int n_area, int prefix_bits, int64_t k,
-                                       uint8_t* __restrict__ out) {
-  constexpr int kTile = 32 * kWarps;
-  extern __shared__ int32_t s_dyn[];
-  __shared__ __align__(16) uint8_t s_tile[kWarps][32][qlc::kTileStride];
-  int32_t* s_dec = s_dyn;
-  int32_t* s_sb = s_dec + n_schemes * 256;
-  int32_t* s_st = s_sb + n_schemes * n_area;
-  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_st + n_schemes * n_area);
+using qlc::smem_addr;
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < n_schemes * 256; i += blockDim.x) s_dec[i] = dec_lut[i];
-  for (int i = tid; i < n_schemes * n_area; i += blockDim.x) {
-    s_sb[i] = area_sb[i];
-    s_st[i] = area_st[i];
-  }
+constexpr int kHeadBytes = 16;  // the two slots' mbarriers, at the start of shared memory
 
-  // Issue the copy of one tile's words into a slot, as one commit group.
-  auto issue = [&](int64_t tile, int slot) {
-    const int64_t r0 = tile * kTile;
-    const int rows = static_cast<int>(n - r0 < kTile ? n - r0 : kTile);
-    const uint32_t* src = words + r0 * cw;
-    uint32_t* dst = s_words + static_cast<int64_t>(slot) * kTile * stride;
-    for (int i = tid; i < rows * cw; i += blockDim.x) {
-      const int r = i / cw;
-      __pipeline_memcpy_async(dst + r * stride + (i - r * cw), src + i, sizeof(uint32_t));
-    }
-    __pipeline_commit();
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0u;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Global -> shared bulk copy of `bytes` (a multiple of 16, both ends
+// 16-byte aligned), completed on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Words of a slot: a tile's run of `rows` chunks widened to 16-byte ends.
+__host__ __device__ constexpr int64_t slot_words(int cw, int rows) {
+  return (static_cast<int64_t>(rows) * cw + 6 + 3) & ~3LL;
+}
+
+__global__ void __launch_bounds__(32)
+    prefetch_decode_kernel(const uint32_t* __restrict__ words, int head, int64_t n, int cw,
+                           int tile_rows, int64_t n_tiles, const int32_t* __restrict__ sid,
+                           const uint16_t* __restrict__ wtab, int n_schemes, int prefix_bits,
+                           int maxlen, int64_t k, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int lane = threadIdx.x;
+  const int tbits = prefix_bits + 8;
+  const int64_t tab_bytes = qlc::window_table_bytes(n_schemes, prefix_bits);
+  uint16_t* s_tab = reinterpret_cast<uint16_t*>(smem + kHeadBytes);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(smem + kHeadBytes + tab_bytes);
+  const int64_t sw = slot_words(cw, tile_rows);
+  const uint64_t ucw = static_cast<uint64_t>(cw);
+  const uint64_t gend = static_cast<uint64_t>(head) + static_cast<uint64_t>(n) * ucw;
+  const uint64_t bulk_end = gend & ~3ull;  // bulk copies stop at the tensor's last aligned piece
+
+  // Words [first, end) of tile t, first rounded down to 16 bytes.
+  auto span = [&](int64_t t, uint64_t& first, uint64_t& end) {
+    const int64_t r0 = t * tile_rows;
+    const int64_t r1 = n - r0 < tile_rows ? n : r0 + tile_rows;
+    first = (static_cast<uint64_t>(head) + static_cast<uint64_t>(r0) * ucw) & ~3ull;
+    end = static_cast<uint64_t>(head) + static_cast<uint64_t>(r1) * ucw;
+  };
+  // The bulk part of tile t's run: words [first, stop).
+  auto bulk_stop = [&](uint64_t first, uint64_t end) {
+    const uint64_t up = (end + 3) & ~3ull;
+    const uint64_t stop = up < bulk_end ? up : bulk_end;
+    return stop > first ? stop : first;
+  };
+  // Lane 0: tile t's bulk copy into slot `slot` (with `extra` bytes of
+  // tables on the first).
+  auto issue = [&](int64_t t, int slot, uint32_t extra) {
+    uint64_t first, end;
+    span(t, first, end);
+    const uint32_t bytes = static_cast<uint32_t>(bulk_stop(first, end) - first) * 4u;
+    mbar_arrive_expect_tx(&bar[slot], bytes + extra);
+    if (extra != 0u) bulk_copy(s_tab, wtab, extra, &bar[slot]);
+    if (bytes != 0u) bulk_copy(slots + slot * sw, words + first, bytes, &bar[slot]);
   };
 
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  uint8_t(*tile)[qlc::kTileStride] = s_tile[warp];
+  if (lane == 0) {
+    mbar_init(&bar[0], 1u);
+    mbar_init(&bar[1], 1u);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  if (lane == 0) issue(blockIdx.x, 0, static_cast<uint32_t>(tab_bytes));
 
+  uint32_t parity = 0u;  // bit b: the phase parity slot b completes next
   int slot = 0;
-  if (static_cast<int64_t>(blockIdx.x) < n_tiles) issue(blockIdx.x, 0);
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, slot ^= 1) {
-    // Prefetch: tile t + gridDim.x into the other slot before decoding t.
     const int64_t next = t + gridDim.x;
-    if (next < n_tiles) {
-      issue(next, slot ^ 1);
-    } else {
-      __pipeline_commit();  // an empty group keeps "all but the newest" = tile t
-    }
-    __pipeline_wait_prior(1);
-    __syncthreads();
+    // Slot ^ 1 was last read in the previous iteration, which ended in a
+    // __syncwarp: refill it with the next tile.
+    if (lane == 0 && next < n_tiles) issue(next, slot ^ 1, 0u);
+    uint32_t* sl = slots + slot * sw;
+    uint64_t first, end;
+    span(t, first, end);
+    for (uint64_t i = bulk_stop(first, end) + lane; i < end; i += 32)
+      sl[i - first] = __ldg(words + i);
+    mbar_wait(&bar[slot], (parity >> slot) & 1u);
+    parity ^= 1u << slot;
+    __syncwarp();  // the lanes' ragged-end words are in too
 
-    const int64_t base_row = t * kTile + warp * 32;
+    const int64_t base_row = t * tile_rows;
+    const int rows = static_cast<int>(n - base_row < tile_rows ? n - base_row : tile_rows);
     const int64_t row = base_row + lane;
-    const bool active = row < n;
-    const uint32_t* wr =
-        s_words + (static_cast<int64_t>(slot) * kTile + warp * 32 + lane) * stride;
-    const int s = active ? sid[row] : 0;
-    const int32_t* dec = s_dec + s * 256;
-    const int32_t* sb = s_sb + s * n_area;
-    const int32_t* st = s_st + s * n_area;
-    uint32_t bitpos = 0u;
-    for (int64_t base = 0; base < k; base += qlc::kTileSyms) {
-      const int w = static_cast<int>(k - base < qlc::kTileSyms ? k - base : qlc::kTileSyms);
-      if (active) {
-        for (int j = 0; j < w; ++j)
-          tile[lane][j] = static_cast<uint8_t>(qlc::decode_symbol(
-              wr, static_cast<uint32_t>(cw), bitpos, dec, sb, st, prefix_bits));
-      }
-      qlc::store_tile(tile, base_row, n, k, base, w, out);
-    }
-    __syncthreads();  // this slot is refilled by the next iteration's prefetch
+    const bool active = lane < rows;
+    qlc::StagedWords wr{
+        sl + (static_cast<uint64_t>(head) + static_cast<uint64_t>(active ? row : base_row) * ucw -
+              first),
+        static_cast<uint32_t>(cw)};
+    const int s = active ? qlc::scheme_slot(sid, row, n_schemes) : 0;
+    const uint32_t wlast = wr(static_cast<uint32_t>(cw) - 1u);
+    qlc::BitCursor c;
+    if (active) c.start(wr);
+    qlc::decode_rows(wr, c, active, static_cast<uint32_t>(cw), wlast,
+                     smem_addr(s_tab) + (s << (tbits + 1)), (1u << tbits) - 1u,
+                     static_cast<uint32_t>(maxlen), k, row, out);
+    __syncwarp();  // this slot is refilled by the next iteration's copy
   }
 }
 
-template <int kWarps>
-int launch(const void* words, int64_t n, int cw, int stride, const void* sid,
-           const void* dec_lut, const void* area_sb, const void* area_st, int n_schemes,
-           int n_area, int prefix_bits, int64_t k, void* out, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = prefetch_decode_kernel<kWarps>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kWarps,
-                                                           smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int64_t tile = 32 * kWarps;
-  const int64_t n_tiles = (n + tile - 1) / tile;
-  int64_t grid = (n_tiles + 1) / 2;  // every CTA walks >= 2 tiles when there are 2
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (grid > resident) grid = resident;
-  if (grid < 1) grid = 1;
-  kernel<<<dim3(static_cast<unsigned>(grid)), 32 * kWarps, smem, stream>>>(
-      static_cast<const uint32_t*>(words), n, cw, stride, n_tiles,
-      static_cast<const int32_t*>(sid), static_cast<const int32_t*>(dec_lut),
-      static_cast<const int32_t*>(area_sb), static_cast<const int32_t*>(area_st), n_schemes,
-      n_area, prefix_bits, k, static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+// Shared memory of one CTA: the barriers, the stacked window tables and
+// two slots (kernels/qlc_codes.py::prefetch_smem).
+int64_t cta_smem(int n_schemes, int prefix_bits, int cw, int tile_rows) {
+  return kHeadBytes + qlc::window_table_bytes(n_schemes, prefix_bits) +
+         2 * slot_words(cw, tile_rows) * 4;
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). `warps` (4, 2 or
-// 1) sets the tile to 32 * warps chunks; the wrapper picks the largest
-// whose two word slots fit. k is a multiple of 4. Dynamic shared memory:
-// the stacked LUTs plus 2 * 32 * warps * stride words, stride = cw
-// rounded up to odd.
+// Returns the cudaError_t of the launch (0 on success; cudaErrorInvalidValue
+// (1) for operands outside the kernel's domain, also when a CTA's shared
+// memory (cta_smem) passes the card's). Operands as qlc_decode's
+// (qlc_decode.cu); tile_rows (1 to 32) chunks per tile.
 extern "C" int qlc_prefetch(const void* words, int64_t n, int cw, const void* sid,
-                            const void* dec_lut, const void* area_sb, const void* area_st,
-                            int n_schemes, int n_area, int prefix_bits, int64_t k, void* out,
-                            int warps, void* stream) {
+                            const void* wtab, int n_schemes, int prefix_bits, int max_code_bits,
+                            int64_t k, void* out, int tile_rows, void* stream) {
   if (n == 0) return 0;
-  const int stride = cw | 1;
-  const size_t smem =
-      (static_cast<size_t>(n_schemes) * (256 + 2 * n_area) +
-       2 * static_cast<size_t>(32 * warps) * static_cast<size_t>(stride)) *
-      sizeof(int32_t);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (warps) {
-    case 4:
-      return launch<4>(words, n, cw, stride, sid, dec_lut, area_sb, area_st, n_schemes, n_area,
-                       prefix_bits, k, out, smem, s);
-    case 2:
-      return launch<2>(words, n, cw, stride, sid, dec_lut, area_sb, area_st, n_schemes, n_area,
-                       prefix_bits, k, out, smem, s);
-    case 1:
-      return launch<1>(words, n, cw, stride, sid, dec_lut, area_sb, area_st, n_schemes, n_area,
-                       prefix_bits, k, out, smem, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t p = reinterpret_cast<uintptr_t>(words);
+  if (cw < 1 || k <= 0 || k % 4 != 0 || n_schemes < 1 || prefix_bits < 0 ||
+      prefix_bits > qlc::kMaxPrefix || max_code_bits < 0 || max_code_bits > prefix_bits + 8 ||
+      p % 4 != 0 || reinterpret_cast<uintptr_t>(wtab) % 16 != 0 || tile_rows < 1 ||
+      tile_rows > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = cta_smem(n_schemes, prefix_bits, cw, tile_rows);
+  // The CTAs that fit on the card at once, per device and shared-memory
+  // size (asked once: the query costs more than the launch).
+  static int64_t known_smem[16], known_resident[16];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 16) return static_cast<int>(cudaErrorInvalidDevice);
+  if (known_smem[dev] != smem) {
+    int optin = 0, sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(prefetch_decode_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prefetch_decode_kernel, 32,
+                                                          static_cast<size_t>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    known_resident[dev] = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+    known_smem[dev] = smem;
   }
+  const int64_t n_tiles = (n + tile_rows - 1) / tile_rows;
+  const int64_t grid = n_tiles < known_resident[dev] ? n_tiles : known_resident[dev];
+  prefetch_decode_kernel<<<dim3(static_cast<unsigned>(grid)), 32, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(15)),
+      static_cast<int>((p & 15) / 4), n, cw, tile_rows, n_tiles, static_cast<const int32_t*>(sid),
+      static_cast<const uint16_t*>(wtab), n_schemes, prefix_bits, max_code_bits, k,
+      static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

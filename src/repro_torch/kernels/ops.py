@@ -13,12 +13,21 @@ fallback from the kernel to the plain version.
   encode                        — u8 symbols -> (words, nbits): K3.
   decode                        — words -> u8 symbols: K4.
   decode_block_async            — ``decode`` with the words staged through
-                                  a double-buffered copy: K5.
+                                  a double-buffered bulk copy: K5.
   histogram                     — u8 symbols -> int32 [256] counts: K6.
 
 Every decode entry point takes one ``CodecTables`` or a sequence of them
 with ``scheme_ids`` (int [n_chunks]) naming each chunk's scheme: stacked
-multi-LUT operands, as in the reference. The CUDA kernels need no row
+multi-LUT operands, as in the reference. Scheme ids given as host data
+(a list, an array, a CPU tensor) are checked against the number of
+tables before they are uploaded, and a ``ValueError`` names any outside
+``[0, S)``. Ids given as a CUDA tensor are not read back, which would
+block the host on the card: the kernels clamp each into ``[0, S)`` (as
+XLA clamps a dynamic index), so they never read outside their tables.
+The device copies of the tables (LUTs, window tables, the e4m3 value
+table) are made once per table set and kept, keyed by
+``CodecTables.digest``; after one warm call a decode on the card makes no
+device-to-host read and no upload. The CUDA kernels need no row
 padding, so the reference's TPU tile table has no counterpart here; the
 histogram counts exactly the symbols of the n input rows, which is what
 the reference returns after it takes its padding rows back out of bin 0.
@@ -54,38 +63,79 @@ def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
 
-_LUT_CACHE: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+_DEVICE_TABLES: Dict[Tuple, object] = {}
 
 
-def _device_luts(arrays, device) -> Tuple[torch.Tensor, ...]:
-    """int32 copies of small host tables on ``device``, kept per content:
-    a decode issued on a side stream then uploads nothing (a pageable
-    upload would wait for the stream's earlier work)."""
-    arrays = [np.ascontiguousarray(np.asarray(a, np.int32)) for a in arrays]
-    key = (str(device),) + tuple((a.shape, a.tobytes()) for a in arrays)
-    hit = _LUT_CACHE.get(key)
+def _on_device(key: Tuple, make):
+    """``make()``'s device tables, made once per key: the key names the
+    tables by ``CodecTables.digest`` (computed once per instance), so a
+    call looks them up without re-stacking or hashing any array, and a
+    decode issued on a side stream uploads nothing (a pageable upload
+    would wait for the stream's earlier work)."""
+    hit = _DEVICE_TABLES.get(key)
     if hit is None:
-        hit = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        hit = make()
         # Entries are never dropped: a kernel queued on another stream
         # may still read them.
-        if len(_LUT_CACHE) < 256:
-            _LUT_CACHE[key] = hit
+        if len(_DEVICE_TABLES) < 256:
+            _DEVICE_TABLES[key] = hit
     return hit
 
 
-def _scheme_slots(tables: Tables, n: int, scheme_ids, device):
-    """(tables list, int32 [n] scheme slot per chunk), validated."""
-    tables_list = _tables_list(tables)
+def _encode_luts(tables: CodecTables, device):
+    """K1's and K3's int32 [256] code and length tables on ``device``."""
+    return _on_device(("enc", str(device), tables.digest), lambda: (
+        _i32(tables.enc_code, device), _i32(tables.enc_len, device)))
+
+
+def _area_luts(tables_list, device):
+    """K2's stacked decode LUTs on ``device``: (dec [S, 256], area_sb,
+    area_starts [S, 2^p], prefix_bits)."""
+    def make():
+        dec, sb, st, pb = codec.stack_decode_tables(tables_list)
+        return _i32(dec, device), _i32(sb, device), _i32(st, device), pb
+    return _on_device(("area", str(device))
+                      + tuple(t.digest for t in tables_list), make)
+
+
+def _window_luts(tables_list, device):
+    """K4's and K5's stacked window tables on ``device``: (int16 [S,
+    2^(p + 8)], prefix_bits, longest code in bits)."""
+    def make():
+        dec, sb, st, pb = codec.stack_decode_tables(tables_list)
+        tab, longest = qlc_codes.window_table(dec, sb, st, pb)
+        return torch.from_numpy(tab).to(device), pb, longest
+    return _on_device(("window", str(device))
+                      + tuple(t.digest for t in tables_list), make)
+
+
+def _value_table(device) -> torch.Tensor:
+    """The e4m3 value table, f32 [256], on ``device``."""
+    return _on_device(("e4m3", str(device)), lambda: torch.as_tensor(
+        e4m3.decode_table(), device=device))
+
+
+def _scheme_slots(n_tables: int, n: int, scheme_ids, device):
+    """The chunks' scheme slots for a decode on ``device``: None (all 0),
+    or int32 [n]. Ids given as host data are range-checked before upload;
+    ids already on the card are not read back (the kernels clamp them into
+    ``[0, n_tables)``)."""
     if scheme_ids is None:
-        return tables_list, torch.zeros(n, dtype=torch.int32, device=device)
-    sid = torch.as_tensor(scheme_ids, device=device).to(torch.int32
-                                                        ).reshape(-1)
-    if sid.shape[0] != n:
-        raise ValueError(f"{sid.shape[0]} scheme ids for {n} chunks")
-    # The kernels index their shared-memory LUTs with these slots.
-    if n and not 0 <= int(sid.min()) <= int(sid.max()) < len(tables_list):
-        raise ValueError(f"scheme ids must lie in [0, {len(tables_list)})")
-    return tables_list, sid
+        return None
+    if (isinstance(scheme_ids, torch.Tensor) and device.type == "cuda"
+            and scheme_ids.device.type == "cuda"):
+        sid = scheme_ids.reshape(-1)
+        if sid.shape[0] != n:
+            raise ValueError(f"{sid.shape[0]} scheme ids for {n} chunks")
+        return sid.to(device=device, dtype=torch.int32)
+    if isinstance(scheme_ids, torch.Tensor):
+        scheme_ids = scheme_ids.cpu()
+    host = np.asarray(scheme_ids, np.int64).reshape(-1)
+    if host.shape[0] != n:
+        raise ValueError(f"{host.shape[0]} scheme ids for {n} chunks")
+    if n and not 0 <= host.min() <= host.max() < n_tables:
+        raise ValueError(f"scheme ids must lie in [0, {n_tables})")
+    return torch.from_numpy(host.astype(np.int32)).to(device)
 
 
 def quantize_encode(x: torch.Tensor, tables: CodecTables,
@@ -101,26 +151,28 @@ def quantize_encode(x: torch.Tensor, tables: CodecTables,
                                        emit_codes=emit_codes,
                                        emit_hist=emit_hist)
     return qlc_fused.fused_encode(
-        x.contiguous(), _i32(tables.enc_code, x.device),
-        _i32(tables.enc_len, x.device), capacity_words,
+        x.contiguous(), *_encode_luts(tables, x.device), capacity_words,
         emit_codes=emit_codes, emit_hist=emit_hist)
 
 
 def _decode(words, scales, tables: Tables, chunk_symbols: int, scheme_ids,
             out_dtype, acc):
-    tables_list, sid = _scheme_slots(tables, words.shape[0], scheme_ids,
-                                     words.device)
-    if _route(words) == "cpu":
-        return ref.decode_dequantize_ref(words, scales, tables_list, sid,
-                                         chunk_symbols, out_dtype=out_dtype,
-                                         acc=acc)
-    dec, sb, st, prefix_bits = codec.stack_decode_tables(tables_list)
+    tables_list = _tables_list(tables)
+    route = _route(words)
+    sid = _scheme_slots(len(tables_list), words.shape[0], scheme_ids,
+                        words.device)
+    if route == "cpu":
+        return ref.decode_dequantize_ref(
+            words, scales, tables_list, 0 if sid is None else sid,
+            chunk_symbols, out_dtype=out_dtype, acc=acc)
     dev = words.device
+    dec, sb, st, prefix_bits = _area_luts(tables_list, dev)
+    if sid is None:
+        sid = torch.zeros(words.shape[0], dtype=torch.int32, device=dev)
     return qlc_fused.fused_decode(
-        words.contiguous(), scales.float().contiguous(), sid,
-        _i32(dec, dev), _i32(sb, dev), _i32(st, dev),
-        torch.as_tensor(e4m3.decode_table(), device=dev), chunk_symbols,
-        prefix_bits=prefix_bits, out_dtype=out_dtype,
+        words.contiguous(), scales.float().contiguous(), sid, dec, sb, st,
+        _value_table(dev), chunk_symbols, prefix_bits=prefix_bits,
+        out_dtype=out_dtype,
         acc=None if acc is None else acc.float().contiguous())
 
 
@@ -156,22 +208,23 @@ def encode(symbols: torch.Tensor, tables: CodecTables, capacity_words: int):
                         f"{tuple(symbols.shape)}")
     if _route(symbols) == "cpu":
         return ref.encode_ref(symbols, tables, capacity_words)
-    enc_code, enc_len = _device_luts((tables.enc_code, tables.enc_len),
-                                     symbols.device)
-    return qlc_codes.encode(symbols.contiguous(), enc_code, enc_len,
+    return qlc_codes.encode(symbols.contiguous(),
+                            *_encode_luts(tables, symbols.device),
                             capacity_words)
 
 
 def _codes_decode(kernel, plain, words, tables: Tables, chunk_symbols: int,
                   scheme_ids):
-    tables_list, sid = _scheme_slots(tables, words.shape[0], scheme_ids,
-                                     words.device)
-    if _route(words) == "cpu":
-        return plain(words, tables_list, sid, chunk_symbols)
-    dec, sb, st, prefix_bits = codec.stack_decode_tables(tables_list)
-    return kernel(words.contiguous(), sid,
-                  *_device_luts((dec, sb, st), words.device), chunk_symbols,
-                  prefix_bits=prefix_bits)
+    tables_list = _tables_list(tables)
+    route = _route(words)
+    sid = _scheme_slots(len(tables_list), words.shape[0], scheme_ids,
+                        words.device)
+    if route == "cpu":
+        return plain(words, tables_list, 0 if sid is None else sid,
+                     chunk_symbols)
+    window, prefix_bits, longest = _window_luts(tables_list, words.device)
+    return kernel(words.contiguous(), sid, window, chunk_symbols,
+                  prefix_bits=prefix_bits, max_code_bits=longest)
 
 
 def decode(words: torch.Tensor, tables: Tables, chunk_symbols: int, *,
@@ -185,9 +238,9 @@ def decode(words: torch.Tensor, tables: Tables, chunk_symbols: int, *,
 def decode_block_async(words: torch.Tensor, tables: Tables,
                        chunk_symbols: int, *, scheme_ids=None
                        ) -> torch.Tensor:
-    """:func:`decode`, bit for bit, with the words streamed tile by tile
-    through K5's double-buffered shared-memory copy: the decode the async
-    KV paging path issues ahead of a block's use."""
+    """:func:`decode`, bit for bit, with the words staged tile by tile
+    through K5's double-buffered bulk copy into shared memory: the decode
+    the async KV paging path issues ahead of a block's use."""
     return _codes_decode(qlc_codes.prefetch_decode,
                          ref.decode_block_async_ref, words, tables,
                          chunk_symbols, scheme_ids)

@@ -72,8 +72,8 @@ _ARGTYPES = {
     "qlc_fused_decode": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _L,
                          _P, _P, _I, _P],
     "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P],
-    "qlc_decode": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
-    "qlc_prefetch": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P],
+    "qlc_decode": [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P, _P],
+    "qlc_prefetch": [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P, _I, _P],
     "histogram256": [_P, _L, _P, _I, _P],
 }
 
@@ -249,9 +249,10 @@ def fused_decode(words: torch.Tensor, scales: torch.Tensor,
                  prefix_bits: int, out_dtype=torch.float32,
                  acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2 on the card: words int32 [n, CW], scales f32 [n, K/32], scheme
-    slots int32 [n], stacked LUTs int32 ``dec_lut [S, 256]`` /
-    ``area_* [S, A]``, value table f32 [256] -> [n, K] in ``out_dtype``
-    (f32 or bf16), or ``acc + value`` in f32 when ``acc`` is given.
+    slots int32 [n] (clamped into [0, S) by the kernel), stacked LUTs
+    int32 ``dec_lut [S, 256]`` / ``area_* [S, A]``, value table f32
+    [256] -> [n, K] in ``out_dtype`` (f32 or bf16), or ``acc + value`` in
+    f32 when ``acc`` is given.
 
     ``value_tab`` is the e4m3 value table (``quant.e4m3.decode_table``,
     which ``kernels.ops`` passes; not checked here, which would cost a

@@ -116,8 +116,8 @@ def test_k3_kernel_matches_plain(cuda, k):
 def test_k4_k5_kernels_match_plain(cuda, k, entry):
     """Two schemes interleaved by chunk, slots cut below the longest
     chunks (cursors run past the slot), an odd word count, and words
-    that start at an odd offset of their buffer (K5 copies 4 B at a
-    time from any offset)."""
+    that start at an odd offset of their buffer (K4's ring and K5's bulk
+    copy read from the 16-byte aligned address below them)."""
     tl = _sym_tables()
     rows = 1000
     sym = _symbols(rows, k, 3).to(cuda)
@@ -139,16 +139,159 @@ def test_k4_k5_kernels_match_plain(cuda, k, entry):
 
 @pytest.mark.cuda
 def test_k5_wide_slots_take_smaller_tiles(cuda):
-    """Worst-case 1024-symbol slots (353 words) leave room for one warp's
-    tile per slot of K5's double buffer; still bit-equal to K4's plain
-    version."""
+    """Worst-case 4096-symbol slots (1409 words): two slots of 32 chunks
+    do not fit K5's shared memory, two of 16 do; bit-equal to the plain
+    decode, as at 1024-symbol worst-case slots (353 words, 32 chunks)."""
     from repro_torch.kernels import qlc_codes
     t1 = _sym_tables()[0]
-    cap = codec.worst_case_words(1024)
-    assert qlc_codes.prefetch_warps(cap) == 1
-    sym = _symbols(200, 1024, 4).to(cuda)
-    w, _ = ops.encode(sym, t1, cap)
-    assert torch.equal(ops.decode_block_async(w, t1, 1024), sym)
+    for k, rows in ((1024, 32), (4096, 16)):
+        cap = codec.worst_case_words(k)
+        assert qlc_codes.prefetch_tile_rows(1, 3, cap) == rows
+        sym = _symbols(200, k, 4).to(cuda)
+        w, _ = ops.encode(sym, t1, cap)
+        assert torch.equal(ops.decode_block_async(w, t1, k), sym)
+
+
+def _at_offset(w: torch.Tensor, offset: int) -> torch.Tensor:
+    """``w``'s values as a view that starts ``offset`` words into its
+    buffer."""
+    buf = torch.zeros(w.numel() + offset, dtype=torch.int32,
+                      device=w.device)
+    buf[offset:] = w.reshape(-1)
+    return buf[offset:].view(w.shape)
+
+
+def _edge_words(cuda, n: int, k: int, cw: int, tl, seed: int):
+    """Words [n, cw] of skewed and uniform chunks under schemes drawn at
+    random per chunk (slots the longer chunks overrun unless cw is wide),
+    with a quarter of the rows replaced by random u32 words."""
+    rng = np.random.default_rng(seed)
+    sym = _symbols(n, k, seed)
+    sid = rng.integers(0, len(tl), n).astype(np.int32)
+    w = torch.zeros((n, cw), dtype=torch.int32)
+    for j, t in enumerate(tl):
+        wj, _ = ref.encode_ref(sym, t, cw)
+        w[sid == j] = wj[sid == j]
+    bad = rng.random(n) < 0.25
+    w[bad] = torch.from_numpy(rng.integers(
+        0, 1 << 32, (int(bad.sum()), cw), dtype=np.uint64
+    ).astype(np.uint32).view(np.int32))
+    return w.to(cuda), torch.from_numpy(sid).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["decode", "decode_block_async"])
+@pytest.mark.parametrize("k", [4, 36, 100, 256, 1024])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_k4_k5_edge_cases(cuda, n, k, entry):
+    """K4 / K5 against the plain decode, bit for bit: row counts around a
+    warp's 32 chunks, chunks of one short block (k = 4) to 32 blocks,
+    ragged last blocks (36, 100), slots of one word, of an even and an
+    odd count at the longest chunk's size, corrupted rows, and words at
+    word offsets 0 and 1 (odd) of their buffer."""
+    tl = _sym_tables()
+    fit = max(-(-int(codec.encode_chunk_bits(_symbols(n, k, n + k),
+                                             t.enc_len).max()) // 32)
+              for t in tl)
+    fn = getattr(ops, entry)
+    for cw in sorted({1, fit + (fit & 1), fit | 1}):
+        w, sid = _edge_words(cuda, n, k, cw, tl, n + k)
+        want = ref.decode_ref(w, tl, sid, k)
+        for offset in (0, 1):
+            got = fn(_at_offset(w, offset), tl, k, scheme_ids=sid)
+            assert torch.equal(got, want), (cw, offset)
+
+
+def _most_schemes(entry: str, cw: int) -> int:
+    """The most 3-bit-prefix schemes K4 (``"decode"``) or K5 stacks at
+    ``cw``-word slots: K5 takes smaller tiles to fit more."""
+    from repro_torch.kernels import qlc_codes as qc
+    fits = ((lambda s: qc.decode_smem(s, 3) <= qc.CTA_SMEM)
+            if entry == "decode" else
+            (lambda s: qc.prefetch_tile_rows(s, 3, cw) > 0))
+    return max(s for s in range(1, 64) if fits(s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["decode", "decode_block_async"])
+def test_k4_k5_most_stacked_schemes(cuda, entry):
+    """As many 3-bit-prefix schemes as the wrapper takes (their window
+    tables fill the CTA's shared memory), ids drawn over all of them:
+    bit-equal; one more scheme is refused before launch."""
+    k, n = 256, 700
+    cw = 45
+    most = _most_schemes(entry, cw)
+    rng = np.random.default_rng(21)
+    tl = [lut.build_tables(rng.integers(1, 1000, 256).astype(np.float64),
+                           (schemes.TABLE1, schemes.TABLE2)[i % 2])
+          for i in range(most + 1)]
+    w, sid = _edge_words(cuda, n, k, cw, tl[:most], 22)
+    fn = getattr(ops, entry)
+    assert torch.equal(fn(w, tl[:most], k, scheme_ids=sid),
+                       ref.decode_ref(w, tl[:most], sid, k))
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(w, tl, k, scheme_ids=sid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_bits", [4, 5, 6, 8])
+@pytest.mark.parametrize("entry", ["decode", "decode_block_async"])
+def test_k4_k5_wide_prefixes(cuda, prefix_bits, entry):
+    """Codes of up to prefix + 8 bits (16 at a prefix of 8: two codes per
+    top-up, the 64-word ring) at the worst-case slot and at one the
+    median chunk overruns, corrupted rows mixed in: bit-equal."""
+    k, n = 1024, 70
+    counts = np.bincount(_symbols(64, k, 5).numpy().reshape(-1),
+                         minlength=256) + 1.0
+    tl = [lut.build_tables(counts, sc) for sc in _wide_schemes(prefix_bits)]
+    if prefix_bits == 8:
+        tl = tl[:1]
+    nb = max(int(codec.encode_chunk_bits(_symbols(n, k, 23), t.enc_len)
+                 .float().median()) for t in tl)
+    fn = getattr(ops, entry)
+    for cw in (codec.worst_case_words(k, prefix_bits + 8), max(1, nb // 32)):
+        w, sid = _edge_words(cuda, n, k, cw, tl, 23)
+        assert torch.equal(fn(w, tl, k, scheme_ids=sid),
+                           ref.decode_ref(w, tl, sid, k)), cw
+
+
+@pytest.mark.cuda
+def test_decode_entries_make_no_blocking_reads(cuda):
+    """After one warm call, the decode entry points (K4, K5, K2 and its
+    accumulate form) and the encode entries run with device-resident
+    scheme ids and no synchronizing call: torch's sync debug mode set to
+    "error" raises on none. Scheme ids given as a host list are still
+    range-checked."""
+    tl = _sym_tables()
+    k, n = 256, 96
+    sym = _symbols(n, k, 9).to(cuda)
+    sid = (torch.arange(n, device=cuda) % 2).to(torch.int32)
+    words = ops.encode(sym, tl[0], 89)[0]
+    x = _x(n, 1024, 10).to(cuda)
+    wv, _, sc = ops.quantize_encode(x, tl[0], codec.worst_case_words(1024))
+    acc = torch.zeros((n, 1024), device=cuda)
+    calls = [
+        lambda: ops.decode(words, tl, k, scheme_ids=sid),
+        lambda: ops.decode_block_async(words, tl, k, scheme_ids=sid),
+        lambda: ops.decode_dequantize(wv, sc, tl, 1024, scheme_ids=sid),
+        lambda: ops.decode_dequantize_accumulate(acc, wv, sc, tl, 1024,
+                                                 scheme_ids=sid),
+        lambda: ops.encode(sym, tl[0], 89),
+        lambda: ops.quantize_encode(x, tl[0], 353),
+    ]
+    warm = [call() for call in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(warm, again):
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="scheme ids"):
+        ops.decode(words, tl, k, scheme_ids=[0, 2] * (n // 2))
 
 
 @pytest.mark.cuda

@@ -79,3 +79,45 @@ def test_entry_points_default_to_the_card(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _device_params():
+    """(name, default) of the ``device`` parameter of every public
+    function, and public class's constructor and methods, in
+    ``repro_torch.comm.container``, ``repro_torch.serving`` and
+    ``repro_torch.launch`` (their submodules included)."""
+    import importlib
+    import inspect
+    import pkgutil
+    import repro_torch.launch
+    import repro_torch.serving
+    mods = [importlib.import_module("repro_torch.comm.container")]
+    for pkg in (repro_torch.serving, repro_torch.launch):
+        mods.append(pkg)
+        mods += [importlib.import_module(f"{pkg.__name__}.{m.name}")
+                 for m in pkgutil.iter_modules(pkg.__path__)]
+    out = {}
+    for mod in mods:
+        for name, obj in vars(mod).items():
+            if name.startswith("_"):
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else [
+                (f"{name}.{n}", f) for n, f in vars(obj).items()
+                if inspect.isfunction(f)
+                and (n == "__init__" or not n.startswith("_"))
+            ] if inspect.isclass(obj) else []
+            for fname, fn in fns:
+                p = inspect.signature(fn).parameters.get("device")
+                if p is not None:
+                    out[f"{fn.__module__}.{fname}"] = p.default
+    return out
+
+
+def test_device_parameters_default_to_the_card():
+    """No entry point of the container, serving or launch modules
+    defaults its ``device`` to the CPU: the port runs on the card unless
+    the caller asks for the CPU."""
+    params = _device_params()
+    assert "repro_torch.comm.container.unpack_payload" in params
+    cpu = {k: v for k, v in params.items() if str(v) == "cpu"}
+    assert not cpu, cpu

@@ -1,6 +1,7 @@
 """Time the fused kernels K1 (quantize -> encode) and K2 (decode ->
 dequantize) of this checkout against those of another checkout, in turns
-on one card, at the main paths' own shapes.
+on one card, at the main paths' own shapes; with ``--codes``, the codes
+decoders K4 (decode) and K5 (prefetch decode) instead.
 
 Shapes (NVIDIA H100, one card):
   w_in   — the slice's largest leaf: phi3-mini-3.8b's stacked w_in
@@ -14,8 +15,9 @@ Shapes (NVIDIA H100, one card):
            plan's slot, K2 accumulate on those words.
 
 Each kernel of each checkout is timed in turns (other, this, this, other)
-with ``chip_smoke.time_ms`` (median of CUDA-event timings, L2 flushed
-before every launch), beside ``chip_smoke.bound_ms`` of the bytes it must
+with ``chip_smoke.time_ms(..., alone=True)`` (median of CUDA-event
+timings of the device's execution, L2 flushed before every launch),
+beside ``chip_smoke.bound_ms`` of the bytes it must
 move. The outputs of the two checkouts must be equal bit for bit. The
 other checkout's K1 is launched with ``--other-threads`` threads per
 CTA: by default the CTA size the wrapper passed before K1's launcher
@@ -23,10 +25,25 @@ picked its own (``qlc_fused._threads_for``); 0 lets a launcher that
 picks its own CTA pick. Prints
 one JSON line, and writes it to ``--json PATH`` when given.
 
+``--codes`` shapes (u8 chunks from ``chip_smoke._skewed_symbols``: skewed
+rows, every fourth uniform, so those overrun a tight slot):
+  kv     — the KV path's coded plane, [12288, 256] at 45-word slots, one
+           scheme;
+  parity — ``chip_smoke.py``'s codes parity shape, [4096, 256], two
+           schemes interleaved by chunk, at the longest chunk's slot;
+  warp   — one warp's 32 chunks of 256 symbols and of 4 (45-word slots):
+           the launch and prologue with and without one chunk's chain.
+K4 and K5 of both checkouts decode the same words (encoded by the plain
+version) with their operands made outside the timed window. The other
+checkout's kernels are called through its own C interface: the stacked
+area tables of PRs 12-14 (K5 with its warps argument), or the window
+table of this checkout's, whichever its ``qlc_decode.cu`` declares.
+
 Run from the root of a checkout, with the other checkout's tree (the
 parent commit, for example, from ``git archive``) under a directory that
 ``.gitignore`` lists:
-    python3 tools/bench_fused_ab.py --other build/parent [--json out.json]
+    python3 tools/bench_fused_ab.py --other build/parent [--codes]
+        [--json out.json]
 """
 from __future__ import annotations
 
@@ -38,6 +55,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,10 +64,24 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 from chip_smoke import bound_ms, nbytes, smi_line, time_ms  # noqa: E402
 
 NAMES = ("qlc_fused_encode", "qlc_fused_decode")
+CODES = ("qlc_decode", "qlc_prefetch")
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: K4/K5's C interface before the window table (PRs 12-14).
+AREA_ARGTYPES = {
+    "qlc_decode": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "qlc_prefetch": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P]}
 
 
-def build_other(qf, other: str):
-    """The other checkout's K1/K2 entry points, compiled with this
+def codes_interface(other: str) -> str:
+    """"window" when the other checkout's K4 takes the window table, else
+    "area" (the stacked area tables of PRs 12-14)."""
+    path = os.path.join(other, "src", "repro_torch", "kernels", "csrc",
+                        "qlc_decode.cu")
+    return "window" if "wtab" in open(path).read() else "area"
+
+
+def build_other(qf, other: str, names=NAMES, argtypes=None):
+    """The other checkout's entry points ``names``, compiled with this
     checkout's flags into build/ab_other/, all sources at once."""
     csrc = os.path.join(other, "src", "repro_torch", "kernels", "csrc")
     out_dir = os.path.join(ROOT, "build", "ab_other")
@@ -58,14 +90,15 @@ def build_other(qf, other: str):
         [qf._nvcc(), *qf.NVCC_FLAGS, "-o", os.path.join(out_dir, f"{name}.so"),
          os.path.join(csrc, f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in NAMES}
+        for name in names}
     fns = {}
     for name, proc in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the other {name}:\n{text}")
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{name}.so")), name)
-        fn.argtypes, fn.restype = qf._ARGTYPES[name], ctypes.c_int
+        fn.argtypes = (argtypes or qf._ARGTYPES)[name]
+        fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
@@ -89,7 +122,7 @@ def a_b(name, fns, outs, reps, flush, nbytes_moved):
     equal = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
     ms = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
-        ms[who].append(time_ms(fns[who], reps, flush))
+        ms[who].append(time_ms(fns[who], reps, flush, alone=True))
     res = {"equal": equal, "other_ms": ms["other"], "this_ms": ms["this"],
            "bound_ms": bound_ms(nbytes_moved)}
     print(f"[ab] {name}: outputs equal {equal}, other {ms['other']} ms, this "
@@ -156,6 +189,83 @@ def run_shape(label, x, tables, enc_cap, train, other, qf, ops, flush, reps,
     return res
 
 
+def codes_shape(label, sym, tables, sid, cap, other, interface, flush,
+                reps):
+    """K4 and K5 of both checkouts on the same words: ``sym`` encoded by
+    the plain version at ``cap`` words under ``tables[sid]``."""
+    from repro_torch.kernels import ops, qlc_codes as qc, qlc_fused as qf
+    from repro_torch.kernels import ref
+    n, k = sym.shape
+    words = torch.stack([ref.encode_ref(sym, t, cap)[0] for t in tables]
+                        ).gather(0, sid.long()[None, :, None].expand(
+                            1, n, cap))[0].contiguous()
+    window, pb, longest = ops._window_luts(tables, sym.device)
+    dec, sb, st, _ = ops._area_luts(tables, sym.device)
+    this_args = (window.data_ptr(), len(tables), pb, longest, k)
+    if interface == "window":
+        other_args = this_args
+    else:
+        other_args = (dec.data_ptr(), sb.data_ptr(), st.data_ptr(),
+                      len(tables), sb.shape[1], pb, k)
+    res = {}
+    for kname, cname in (("K4", "qlc_decode"), ("K5", "qlc_prefetch")):
+        outs = {who: [torch.empty((n, k), dtype=torch.uint8,
+                                  device=sym.device)]
+                for who in ("other", "this")}
+        # K5's last argument: its tile's chunks (this checkout's, and the
+        # other's with the window table), or, before the window table,
+        # its CTA's warps (the most of 4, 2, 1 whose two word slots fit
+        # 160 KiB).
+        this_extra = other_extra = ()
+        if kname == "K5":
+            this_extra = (qc.prefetch_tile_rows(len(tables), pb, cap),)
+            other_extra = this_extra if interface == "window" else (
+                next(w for w in (4, 2, 1)
+                     if 2 * 32 * w * (cap | 1) * 4 <= 160 * 1024),)
+        fns = {"other": launcher(other[cname], words.data_ptr(), n, cap,
+                                 sid.data_ptr(), *other_args,
+                                 outs["other"][0].data_ptr(), *other_extra),
+               "this": launcher(getattr(qf._lib(cname), cname),
+                                words.data_ptr(), n, cap, sid.data_ptr(),
+                                *this_args, outs["this"][0].data_ptr(),
+                                *this_extra)}
+        r = a_b(f"{label} {kname}", fns, outs, reps, flush,
+                nbytes(words, sid) + n * k)
+        want = ref.decode_ref(words, tables, sid, k)
+        r["equal"] = r["equal"] and torch.equal(outs["this"][0], want)
+        res[kname] = {"shape": [n, k], "cap": cap, **r}
+    return res
+
+
+def main_codes(args, flush, result):
+    from chip_smoke import _skewed_symbols
+    from repro_torch.core import lut, schemes
+    from repro_torch.kernels import qlc_fused as qf
+    interface = codes_interface(args.other)
+    other = build_other(qf, args.other, CODES,
+                        AREA_ARGTYPES if interface == "area" else None)
+    result["other_interface"] = interface
+    for label, n, k, two, cap in (("kv", 12288, 256, False, 45),
+                                  ("parity", 4096, 256, True, None),
+                                  ("warp", 32, 256, False, 45),
+                                  ("warp_k4", 32, 4, False, 45)):
+        sym = _skewed_symbols(n, k, 0)
+        counts = np.bincount(sym.cpu().numpy().reshape(-1),
+                             minlength=256).astype(np.float64) + 1
+        tables = [lut.build_tables(counts, schemes.TABLE1)]
+        if two:
+            tables.append(lut.build_tables(counts[::-1].copy(),
+                                           schemes.TABLE2))
+        sid = (torch.arange(n, device="cuda") % len(tables)).to(torch.int32)
+        if cap is None:
+            from repro_torch.core import codec
+            nb = torch.maximum(*(codec.encode_chunk_bits(sym, t.enc_len)
+                                 for t in tables))
+            cap = -(-int(nb.max()) // 32) | 1
+        result[label] = codes_shape(label, sym, tables, sid, cap, other,
+                                    interface, flush, args.reps)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
@@ -163,6 +273,8 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--other-threads", type=int,
                     help="K1 CTA size for the other checkout")
+    ap.add_argument("--codes", action="store_true",
+                    help="time K4 and K5 instead of K1 and K2")
     ap.add_argument("--json", help="also write the result line here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -175,9 +287,12 @@ def main():
     smi = smi_line()
     print(f"[ab] {smi}", flush=True)
     qf.build_kernels()
-    other = build_other(qf, args.other)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     result = {"device": smi}
+    if args.codes:
+        main_codes(args, flush, result)
+        return finish(args, result)
+    other = build_other(qf, args.other)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     xw = torch.randn((786432, 1024), generator=gen, device="cuda") \
@@ -202,13 +317,19 @@ def main():
         "train", grad.reshape(-1, plan.chunk_symbols), tables,
         plan.capacity_words, True, other, qf, ops, flush, args.reps,
         args.other_threads)
+    finish(args, result)
+
+
+def finish(args, result):
+    """Print (and write) the result line; exit 1 unless every pair of
+    outputs was equal."""
     line = json.dumps(result)
     if args.json:
         with open(args.json, "w") as f:
             f.write(line + "\n")
     print(line)
-    sys.exit(0 if all(v["equal"] for key, r in result.items()
-                      if key != "device" for v in r.values()) else 1)
+    sys.exit(0 if all(v["equal"] for r in result.values()
+                      if isinstance(r, dict) for v in r.values()) else 1)
 
 
 if __name__ == "__main__":
