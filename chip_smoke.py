@@ -21,7 +21,14 @@ non-zero (nothing is caught and carried on):
                edges of their geometry (n 1/31/33/4097, k 4 to 1024,
                slots of 1 word and even and odd ones, corrupted words,
                words at an odd offset, the most stacked schemes each
-               takes and one more refused, prefixes of 4 to 8 bits); the
+               takes and one more refused, prefixes of 4 to 8 bits); K3
+               at the edges of its geometry (k 32 to 4096, worst,
+               longest-chunk, median and 1-word slots, n around a full
+               grid of warps, symbols at byte offsets 1-15, two tables,
+               hand-made codes of up to 16, 17, 24 and 32 bits) and at
+               the shapes of one 128-token KV block ([98304, 256], 45
+               words) and of the ``Channel`` default ([32768, 1024], 240
+               words), timed there too; the
                decode and encode entries after one warm call under
                torch's sync debug mode "error" (no synchronizing call).
                Times each (median of CUDA-event timings, L2 flushed
@@ -193,8 +200,8 @@ def _tables_of(tables):
 
 def bare_k1(x, tables, cap, **kw):
     from repro_torch.kernels import ops, qlc_fused as qf
-    enc = ops._encode_luts(tables, x.device)
-    return lambda: qf.fused_encode(x, *enc, cap, **kw)
+    code, length, _ = ops._encode_luts(tables, x.device)
+    return lambda: qf.fused_encode(x, code, length, cap, **kw)
 
 
 def bare_k2(words, scales, tables, k, sid=None, **kw):
@@ -211,8 +218,8 @@ def bare_k2(words, scales, tables, k, sid=None, **kw):
 
 def bare_k3(sym, tables, cap):
     from repro_torch.kernels import ops, qlc_codes as qc
-    enc = ops._encode_luts(tables, sym.device)
-    return lambda: qc.encode(sym, *enc, cap)
+    code, length, longest = ops._encode_luts(tables, sym.device)
+    return lambda: qc.encode(sym, code, length, cap, max_code_bits=longest)
 
 
 def bare_codes_decode(which, words, tables, sid, k):
@@ -633,6 +640,114 @@ def phase_codes_edge(ops, ref, lut, schemes, codec):
                       f"[{n}, {k}] at worst-case and overrun slots, "
                       "corrupted rows: bit-equal")
     return err
+
+
+#: K3's shapes beyond the parity and KV ones: (label, chunks, symbols
+#: per chunk, slot words). block128: the KV plane of one 128-token block,
+#: the reference's default --kv-block, at phi3-mini-3.8b's widths;
+#: channel: the CommConfig default that Channel.compress_codes uses.
+K3_SHAPES = (("block128", 98304, 256, 45), ("channel", 32768, 1024, 240))
+
+
+def _k3_long_tables(base, longest: int, seed: int):
+    """``base`` with hand-made encoder LUTs: random lengths in [0,
+    longest] (0, 24 and ``longest`` among them), random codes below
+    2^length. What K3 encodes; not a prefix code."""
+    import dataclasses
+    rng = np.random.default_rng(seed)
+    length = rng.integers(0, longest + 1, 256)
+    length[:3] = (0, min(24, longest), longest)
+    code = (rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+            & ((np.uint64(1) << length.astype(np.uint64)) - np.uint64(1)))
+    return dataclasses.replace(base, enc_code=code.astype(np.uint32),
+                               enc_len=length.astype(np.uint32))
+
+
+def phase_k3_edge(ops, ref, lut, schemes, codec):
+    """K3 against the plain encoder, bit for bit, at the edges of its
+    geometry: k in {32, 256, 1024, 4096}; slots at the worst case, the
+    longest chunk's, the median chunk's (half the chunks over capacity)
+    and 1 word; n in {1, 7} and one below and one above a full grid of
+    warps; symbols at byte offsets 1-15 of their buffer; two tables back
+    to back; hand-made tables of codes up to 16, 17, 24 and 32 bits (the
+    two-codes-per-step pack and the one-code step)."""
+    from repro_torch.kernels import qlc_codes as qc
+    counts = np.bincount(_skewed_symbols(64, 256, 1).cpu().numpy()
+                         .reshape(-1), minlength=256).astype(np.float64) + 1
+    tl = [lut.build_tables(counts, schemes.TABLE1),
+          lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
+    err, cases = 0.0, 0
+
+    def check(sym, t, cap, what):
+        nonlocal err, cases
+        err = max(err, require_equal(f"K3 {what}", ops.encode(sym, t, cap),
+                                     ref.encode_ref(sym, t, cap)))
+        cases += 1
+
+    def caps_of(t, k):
+        nb = codec.encode_chunk_bits(_skewed_symbols(64, k, 2), t.enc_len)
+        return sorted({codec.worst_case_words(k, int(t.enc_len.max())),
+                       max(1, -(-int(nb.max()) // 32)),
+                       max(1, int(nb.float().median()) // 32), 1})
+
+    for k in (32, 256, 1024, 4096):
+        caps = caps_of(tl[0], k)
+        for cap in caps:
+            full = qc.encode_grid_chunks(k, cap, int(tl[0].enc_len.max()))
+            for n in (1, 7, full - 1, full + 1):
+                check(_skewed_symbols(n, k, n), tl[0], cap,
+                      f"k {k} cap {cap} n {n}")
+        sym = _skewed_symbols(7, k, 3)
+        for offset in range(1, 16):
+            buf = torch.zeros(sym.numel() + offset, dtype=torch.uint8,
+                              device=DEVICE)
+            buf[offset:] = sym.reshape(-1)
+            for cap in caps:
+                check(buf[offset:].view(sym.shape), tl[0], cap,
+                      f"k {k} offset {offset} cap {cap}")
+        for t in tl:
+            for cap in caps:
+                check(sym, t, cap, f"k {k} tables back to back cap {cap}")
+        for longest in (16, 17, 24, 32):
+            t = _k3_long_tables(tl[0], longest, longest)
+            for cap in caps_of(t, k):
+                n = qc.encode_grid_chunks(k, cap, longest) + 1
+                check(_skewed_symbols(n, k, 5), t, cap,
+                      f"k {k} codes of up to {longest} bits cap {cap}")
+    log("parity", f"K3 edges: {cases} cases (k 32/256/1024/4096; worst, "
+                  "longest-chunk, median and 1-word slots; n 1/7/full grid "
+                  "-1/+1; byte offsets 1-15; two tables; codes of up to "
+                  "16/17/24/32 bits): bit-equal")
+    return err
+
+
+def phase_k3_shapes(ops, ref, lut, schemes, flush):
+    """K3 at ``K3_SHAPES`` on skewed chunks (every fourth uniform, so
+    those overrun a tight slot) under one TABLE1 scheme calibrated on
+    them: bit-equal to the plain version, then timed through ``ops``,
+    alone and plain beside its HBM bound."""
+    out = {}
+    for label, n, k, cap in K3_SHAPES:
+        sym = _skewed_symbols(n, k, 0)
+        counts = np.bincount(sym.cpu().numpy().reshape(-1),
+                             minlength=256).astype(np.float64) + 1
+        t = lut.build_tables(counts, schemes.TABLE1)
+        r = {"err": require_equal(f"K3 {label}", ops.encode(sym, t, cap),
+                                  ref.encode_ref(sym, t, cap)),
+             "shape": [n, k], "cap": cap,
+             "ms": time_ms(lambda: ops.encode(sym, t, cap), 20, flush),
+             "kernel_ms": time_ms(bare_k3(sym, t, cap), 20, flush,
+                                  alone=True),
+             "plain_ms": time_ms(lambda: ref.encode_ref(sym, t, cap), 3,
+                                 flush),
+             "bound_ms": bound_ms(n * k + n * cap * 4 + n * 4)}
+        log("parity", f"K3 {label} [{n}, {k}] cap {cap}: bit-equal; "
+                      f"{r['ms']:.4f} ms (kernel alone "
+                      f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.2f} "
+                      f"ms, HBM bound {r['bound_ms']:.4f} ms")
+        out[label] = r
+        del sym
+    return out
 
 
 def phase_sync_free(ops, lut, schemes, codec):
@@ -1372,9 +1487,10 @@ def phase_train_recipe(dev="cuda", steps=8):
                  f"{max(diffs):.4f} < 0.15")
 
 
-def codes_kernel_entries(src, codes_par, kv_runs, kv_times):
+def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
-    times, and launches summed over the KV runs that use each kernel."""
+    times (and K3's at ``K3_SHAPES``), and launches summed over the KV
+    runs that use each kernel."""
     run_of = {"K3": ("sync", "async"), "K4": ("sync",), "K5": ("async",)}
     out = []
     for kname, fn, cu, replaces in (
@@ -1396,6 +1512,9 @@ def codes_kernel_entries(src, codes_par, kv_runs, kv_times):
             "library_ms": None, "shape": p["shape"], "cap": p["cap"],
             "kv_path": {k: kv[k] for k in ("shape", "cap", "ms", "kernel_ms",
                                            "plain_ms", "bound_ms")}})
+    out[0]["shapes"] = k3_shapes
+    out[0]["max_abs_err"] = max([out[0]["max_abs_err"]]
+                                + [r["err"] for r in k3_shapes.values()])
     return out
 
 
@@ -1487,6 +1606,9 @@ def main():
     codes_par = phase_codes_parity(ops, ref, lut, schemes, flush)
     for kname, e in phase_codes_edge(ops, ref, lut, schemes, codec).items():
         codes_par[kname]["err"] = max(codes_par[kname]["err"], e)
+    codes_par["K3"]["err"] = max(codes_par["K3"]["err"],
+                                 phase_k3_edge(ops, ref, lut, schemes, codec))
+    k3_shapes = phase_k3_shapes(ops, ref, lut, schemes, flush)
     phase_sync_free(ops, lut, schemes, codec)
     hist_par = phase_hist_parity(ops, ref, flush)
     phase_small(serve_mod, reduced, get_config)
@@ -1527,7 +1649,8 @@ def main():
         if "forms" in p:
             entry["forms"] = p["forms"]
         kernels.append(entry)
-    kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times)
+    kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times,
+                                    k3_shapes)
     kernels.append({
         "name": "K6 histogram256", "route": "cuda",
         "source": src + "histogram256.cu",

@@ -1,6 +1,5 @@
-// Device code shared by the codes kernels K3 (qlc_encode.cu), K4
-// (qlc_decode.cu) and K5 (qlc_prefetch.cu): the encoder's CTA-wide scan
-// and word packing, and the decoder's core (a bit cursor over a window
+// Device code shared by the codes decoders K4 (qlc_decode.cu) and K5
+// (qlc_prefetch.cu): the decoder's core (a bit cursor over a window
 // table, the per-thread word ring that feeds it, and the warp's staged
 // store of decoded symbols).
 #pragma once
@@ -12,47 +11,6 @@
 namespace qlc {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// Exclusive offset of this thread's code in the chunk, from a CTA-wide
-// scan of the code lengths in element order. `s_warp` holds one slot per
-// warp, `carry` the bits of earlier passes. Ends with the CTA in sync.
-__device__ __forceinline__ uint32_t cta_exclusive_offset(uint32_t len, uint32_t carry,
-                                                         uint32_t* s_warp,
-                                                         uint32_t* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  uint32_t incl = len;
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < nwarps ? s_warp[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t t = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += t;
-    }
-    if (lane < nwarps) s_warp[lane] = w;
-  }
-  __syncthreads();
-  *total = s_warp[nwarps - 1];
-  return carry + (warp > 0 ? s_warp[warp - 1] : 0u) + incl - len;
-}
-
-// Add a code of <= 11 bits at bit offset `off` into the slot. Word
-// indices clamp to cap-1, the second one from the clamped first, and the
-// adds wrap mod 2^32: the reference's scatter-add, over capacity too.
-__device__ __forceinline__ void pack_code(uint32_t* s_words, int cap, uint32_t off,
-                                          uint32_t code) {
-  const uint32_t shift = off & 31u;
-  const int widx = min(static_cast<int>(off >> 5), cap - 1);
-  const int hidx = min(widx + 1, cap - 1);
-  atomicAdd(&s_words[widx], code << shift);
-  atomicAdd(&s_words[hidx], shift == 0u ? 0u : code >> (32u - shift));
-}
 
 // ---- The decoder's core (K4, K5) --------------------------------------
 //

@@ -83,9 +83,26 @@ def _on_device(key: Tuple, make):
 
 
 def _encode_luts(tables: CodecTables, device):
-    """K1's and K3's int32 [256] code and length tables on ``device``."""
-    return _on_device(("enc", str(device), tables.digest), lambda: (
-        _i32(tables.enc_code, device), _i32(tables.enc_len, device)))
+    """K1's and K3's int32 [256] code and length tables on ``device``, and
+    the longest code in bits. Checked on the host once per table set
+    (the kernels OR codes into place where the reference adds them):
+    every length in [0, 32] and every code below 2^length, else
+    ValueError."""
+    def make():
+        code = np.asarray(tables.enc_code).astype(np.int64)
+        length = np.asarray(tables.enc_len).astype(np.int64)
+        if code.shape != (256,) or length.shape != (256,):
+            raise ValueError(f"encoder tables {code.shape}, {length.shape} "
+                             "are not [256]")
+        if length.min() < 0 or length.max() > 32:
+            raise ValueError("code lengths must lie in [0, 32], got "
+                             f"[{length.min()}, {length.max()}]")
+        if code.min() < 0 or (code >> length).any():
+            bad = np.flatnonzero((code < 0) | (code >> length != 0))
+            raise ValueError(f"codes of symbols {bad[:8].tolist()} do not "
+                             "fit their lengths")
+        return _i32(code, device), _i32(length, device), int(length.max())
+    return _on_device(("enc", str(device), tables.digest), make)
 
 
 def _area_luts(tables_list, device):
@@ -150,8 +167,13 @@ def quantize_encode(x: torch.Tensor, tables: CodecTables,
         return ref.quantize_encode_ref(x, tables, capacity_words,
                                        emit_codes=emit_codes,
                                        emit_hist=emit_hist)
+    code, length, longest = _encode_luts(tables, x.device)
+    if longest > qlc_fused.MAX_CODE_BITS:
+        raise ValueError(f"K1 takes codes of at most "
+                         f"{qlc_fused.MAX_CODE_BITS} bits, the tables have "
+                         f"{longest}")
     return qlc_fused.fused_encode(
-        x.contiguous(), *_encode_luts(tables, x.device), capacity_words,
+        x.contiguous(), code, length, capacity_words,
         emit_codes=emit_codes, emit_hist=emit_hist)
 
 
@@ -208,9 +230,9 @@ def encode(symbols: torch.Tensor, tables: CodecTables, capacity_words: int):
                         f"{tuple(symbols.shape)}")
     if _route(symbols) == "cpu":
         return ref.encode_ref(symbols, tables, capacity_words)
-    return qlc_codes.encode(symbols.contiguous(),
-                            *_encode_luts(tables, symbols.device),
-                            capacity_words)
+    code, length, longest = _encode_luts(tables, symbols.device)
+    return qlc_codes.encode(symbols.contiguous(), code, length,
+                            capacity_words, max_code_bits=longest)
 
 
 def _codes_decode(kernel, plain, words, tables: Tables, chunk_symbols: int,

@@ -14,6 +14,11 @@ symbols, no quantizer.
                             ``repro/kernels/qlc_prefetch.py::
                             prefetch_decode_pallas``).
 
+K3 takes any chunk size that is a multiple of 32, slots of 1 to
+``ENCODE_MAX_CAP`` words and codes of up to 32 bits; its launch geometry
+is :func:`encode_geometry`, which refuses anything else with
+``ValueError`` before the card is touched.
+
 K4 and K5 decode through a per-scheme window table
 (:func:`window_table`, built once per table set on the host and kept on
 the card by ``kernels.ops``): for every (prefix + 8)-bit window, the
@@ -37,8 +42,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.qlc_fused import (MAX_CODE_BITS, MAX_SMEM, _check,
-                                           _lib, _stream, _threads_for)
+from repro_torch.kernels.qlc_fused import (ENCODE_MAX_CAP, MAX_CODE_BITS,
+                                           MAX_SMEM, _aligned16, _check,
+                                           _lib, _stream)
 
 #: the widest area code K4 and K5 take: codes of at most 16 bits.
 MAX_PREFIX_BITS = MAX_CODE_BITS - 8
@@ -46,28 +52,89 @@ MAX_PREFIX_BITS = MAX_CODE_BITS - 8
 CTA_SMEM = 232448
 
 
+#: the longest code K3 takes (codes of at most 16 bits are packed four
+#: to a 64-bit step, longer ones two).
+ENCODE_MAX_CODE_BITS = 32
+
+
+def encode_geometry(chunk_symbols: int, capacity_words: int,
+                    max_code_bits: int) -> Tuple[int, int, int]:
+    """K3's launch geometry (``csrc/qlc_encode.cu``): (warps per CTA,
+    chunks per warp turn, shared memory of one CTA in bytes). A warp's
+    turn is 32 lanes of 32 symbols: up to ``32 / (k / 32)`` whole chunks
+    of k <= 1024 symbols, or one 1024-symbol piece of a longer chunk. A
+    CTA holds the encoder LUT (256 x 4 B, or 256 x 8 B for codes over 16
+    bits) and each warp a slot of ``capacity_words`` per chunk of its
+    turn: the most chunks a turn takes with the most warps of 8, 4, 2, 1
+    that fit in 48 KiB, else one warp with as many chunks as fit. Raises
+    ValueError outside K3's domain: ``chunk_symbols`` a positive multiple
+    of 32, ``capacity_words`` in [1, ENCODE_MAX_CAP], ``max_code_bits``
+    in [0, 32]."""
+    k, cap, bits = int(chunk_symbols), int(capacity_words), int(max_code_bits)
+    if k <= 0 or k % 32:
+        raise ValueError(f"chunk size {k} must be a positive multiple of 32")
+    if not 1 <= cap <= ENCODE_MAX_CAP:
+        raise ValueError(f"capacity_words {cap} outside [1, "
+                         f"{ENCODE_MAX_CAP}]")
+    if not 0 <= bits <= ENCODE_MAX_CODE_BITS:
+        raise ValueError(f"max_code_bits {bits} outside [0, "
+                         f"{ENCODE_MAX_CODE_BITS}]")
+    most = 1 if k > 1024 else 32 // (k // 32)
+    lut = 256 * (8 if bits > MAX_CODE_BITS else 4)
+    slot = 4 * cap
+    warps = next((w for w in (8, 4, 2, 1)
+                  if lut + w * most * slot <= MAX_SMEM), 0)
+    chunks = most if warps else (MAX_SMEM - lut) // slot
+    warps = max(warps, 1)
+    return warps, chunks, lut + warps * chunks * slot
+
+
+def encode_grid_chunks(chunk_symbols: int, capacity_words: int,
+                       max_code_bits: int) -> int:
+    """The chunks of a full K3 grid's first turns on the current card at
+    these operands: the most chunks one launch encodes before its
+    persistent warps go round again."""
+    warps, chunks, _ = encode_geometry(chunk_symbols, capacity_words,
+                                       max_code_bits)
+    got = _lib("qlc_encode").qlc_encode_grid_warps(
+        int(chunk_symbols), int(capacity_words), int(max_code_bits), warps,
+        chunks)
+    if got <= 0:
+        raise RuntimeError(f"K3 occupancy query failed: CUDA error {-got}")
+    return got * chunks
+
+
 def encode(symbols: torch.Tensor, enc_code: torch.Tensor,
-           enc_len: torch.Tensor, capacity_words: int):
-    """K3 on the card: u8 [n, K] -> (words int32 [n, CW] (u32 bit
-    patterns), nbits int32 [n]). ``enc_code`` / ``enc_len`` are int32
-    [256] CUDA tensors."""
+           enc_len: torch.Tensor, capacity_words: int, *,
+           max_code_bits: int = ENCODE_MAX_CODE_BITS):
+    """K3 on the card: u8 [n, K] (any byte offset) -> (words int32 [n, CW]
+    (u32 bit patterns), nbits int32 [n]). ``enc_code`` / ``enc_len`` are
+    int32 [256] CUDA tensors, every code below 2^len and no length over
+    ``max_code_bits`` (not checked here, which would cost a
+    device-to-host read per call; ``kernels.ops`` checks its tables once
+    on the host and passes their longest code), which picks the pack:
+    four codes a step up to 16 bits, two above."""
+    if symbols.dim() != 2:
+        raise ValueError(f"symbols must be [n, K], got "
+                         f"{tuple(symbols.shape)}")
+    n, k = symbols.shape
+    cap = int(capacity_words)
+    warps, chunks, _ = encode_geometry(k, cap, max_code_bits)
     _check(symbols, "symbols", (torch.uint8,), 2)
     for t, what in ((enc_code, "enc_code"), (enc_len, "enc_len")):
         _check(t, what, (torch.int32,), 1)
         if t.numel() != 256 or t.device != symbols.device:
             raise ValueError(f"{what} must be 256 entries on "
                              f"{symbols.device}")
-    n, k = symbols.shape
-    cap = int(capacity_words)
-    max_cap = (MAX_SMEM - 4096) // 4     # 4 KiB of static tables/scan
-    if not 1 <= cap <= max_cap:
-        raise ValueError(f"capacity_words {cap} outside [1, {max_cap}]")
-    threads = _threads_for(k)
     words = torch.empty((n, cap), dtype=torch.int32, device=symbols.device)
     nbits = torch.empty((n,), dtype=torch.int32, device=symbols.device)
+    if n == 0:
+        return words, nbits
+    symbols = _aligned16(symbols)
     rc = _lib("qlc_encode").qlc_encode(
         symbols.data_ptr(), n, k, enc_code.data_ptr(), enc_len.data_ptr(),
-        cap, words.data_ptr(), nbits.data_ptr(), threads, _stream(symbols))
+        cap, words.data_ptr(), nbits.data_ptr(), int(max_code_bits), warps,
+        chunks, _stream(symbols))
     if rc != 0:
         raise RuntimeError(f"K3 encode launch failed: CUDA error {rc}")
     encode.launches += 1

@@ -71,7 +71,8 @@ _ARGTYPES = {
     "qlc_fused_encode_e4m3": [_P, _L, _P, _P],
     "qlc_fused_decode": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _L,
                          _P, _P, _I, _P],
-    "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P],
+    "qlc_encode": [_P, _L, _L, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "qlc_encode_grid_warps": [_L, _I, _I, _I, _I],
     "qlc_decode": [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P, _P],
     "qlc_prefetch": [_P, _L, _I, _P, _P, _I, _I, _I, _L, _P, _I, _P],
     "histogram256": [_P, _L, _P, _I, _P],
@@ -154,14 +155,6 @@ def _check(t: torch.Tensor, what: str, dtypes, ndim: int):
 
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _threads_for(k: int) -> int:
-    """Largest multiple of 32 that divides k and is at most 1024."""
-    for t in range(min(k, 1024) // 32 * 32, 31, -32):
-        if k % t == 0:
-            return t
-    raise ValueError(f"chunk size {k} must be a multiple of 32")
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:

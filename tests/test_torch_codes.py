@@ -75,11 +75,12 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 def _cap(kind: str, nbits: np.ndarray, k: int) -> int:
     return {"worst": tcodec.worst_case_words(k),
             "exact": -(-int(nbits.max()) // 32),
-            "over": int(np.median(nbits)) // 32}[kind]
+            "over": int(np.median(nbits)) // 32,
+            "one": 1}[kind]
 
 
-@pytest.mark.parametrize("k", [256, 1024])
-@pytest.mark.parametrize("cap", ["worst", "exact", "over"])
+@pytest.mark.parametrize("k", [32, 256, 1024, 4096])
+@pytest.mark.parametrize("cap", ["worst", "exact", "over", "one"])
 def test_k3_plain_matches_reference_kernel(tables, k, cap):
     jt, tt = tables[0]
     sym = _syms(12, k, 3)
@@ -90,6 +91,75 @@ def test_k3_plain_matches_reference_kernel(tables, k, cap):
     assert nt.dtype == torch.int32 and tuple(nt.shape) == (12,)
     np.testing.assert_array_equal(np.asarray(wj), _u32(wt))
     np.testing.assert_array_equal(np.asarray(nj), nt.numpy())
+
+
+def test_k3_geometry_fits_and_refuses(monkeypatch):
+    """K3's launch geometry fits one CTA's 48 KiB for every chunk size
+    32..4096 and every slot up to ``ENCODE_MAX_CAP`` words, at 16- and
+    32-bit codes; the wrapper refuses anything outside that domain with
+    ValueError before any CUDA call."""
+    from repro_torch.kernels import qlc_codes as qc
+    from repro_torch.kernels import qlc_fused as qf
+    assert qc.ENCODE_MAX_CAP == 11264
+    for bits in (16, 32):
+        lut = 256 * (8 if bits > 16 else 4)
+        for cap in range(1, qc.ENCODE_MAX_CAP + 1):
+            warps, chunks, smem = qc.encode_geometry(256, cap, bits)
+            assert warps in (1, 2, 4, 8) and 1 <= chunks <= 4
+            assert smem == lut + warps * chunks * 4 * cap <= qf.MAX_SMEM
+            if chunks == 4:     # then the most warps that fit
+                assert warps == 8 or lut + 8 * warps * 4 * cap > qf.MAX_SMEM
+            else:               # else one warp with the most chunks
+                assert warps == 1
+                assert lut + (chunks + 1) * 4 * cap > qf.MAX_SMEM
+    for k in range(32, 4097, 32):
+        most = 1 if k > 1024 else 32 // (k // 32)
+        for cap in (1, 45, 240, 1409, qc.ENCODE_MAX_CAP):
+            _, chunks, smem = qc.encode_geometry(k, cap, 32)
+            assert smem <= qf.MAX_SMEM and 1 <= chunks <= most
+
+    def no_cuda(name):
+        raise AssertionError("a CUDA call was made")
+    monkeypatch.setattr(qc, "_lib", no_cuda)
+    code = torch.zeros(256, dtype=torch.int32)
+    for k, cap, bits in ((0, 45, 11), (16, 45, 11), (48, 45, 11),
+                         (-32, 45, 11), (256, 0, 11), (256, 11265, 11),
+                         (256, 45, -1), (256, 45, 33)):
+        with pytest.raises(ValueError):
+            qc.encode_geometry(k, cap, bits)
+        sym = torch.zeros((4, max(k, 0)), dtype=torch.uint8)
+        with pytest.raises(ValueError):
+            qc.encode(sym, code, code, cap, max_code_bits=bits)
+    with pytest.raises(ValueError):     # in the domain, but not on the card
+        qc.encode(torch.zeros((4, 256), dtype=torch.uint8), code, code, 45)
+    with pytest.raises(ValueError):
+        qc.encode(torch.zeros(256, dtype=torch.uint8), code, code, 45)
+
+
+def test_encode_luts_checked_on_the_host(tables):
+    """``ops._encode_luts`` gives the device LUTs and the longest code,
+    and refuses lengths outside [0, 32] and codes that do not fit their
+    length (the kernels OR codes into place where the reference adds
+    them)."""
+    _, tt = tables[0]
+    code, length, longest = tops._encode_luts(tt, torch.device("cpu"))
+    assert longest == int(tt.enc_len.max()) == tt.max_code_length
+    np.testing.assert_array_equal(code.numpy().view(np.uint32), tt.enc_code)
+    np.testing.assert_array_equal(length.numpy(), tt.enc_len)
+    wide = tt.enc_len.copy()
+    wide[5] = 32
+    full = tt.enc_code.copy()
+    full[5] = 0xFFFFFFFF
+    assert tops._encode_luts(dataclasses.replace(
+        tt, enc_code=full, enc_len=wide), torch.device("cpu"))[2] == 32
+    for c, ln in ((tt.enc_code, np.where(np.arange(256) == 3, 33,
+                                         tt.enc_len)),
+                  (np.where(np.arange(256) == 7, 1 << tt.enc_len[7],
+                            tt.enc_code), tt.enc_len)):
+        bad = dataclasses.replace(tt, enc_code=c.astype(np.uint32),
+                                  enc_len=ln.astype(np.uint32))
+        with pytest.raises(ValueError):
+            tops._encode_luts(bad, torch.device("cpu"))
 
 
 def _mixed_words(tables, k: int, rows: int, cap: str):

@@ -96,18 +96,79 @@ def _sym_tables():
             lut.build_tables(counts[::-1].copy(), schemes.TABLE2)]
 
 
+def _k3_equal(sym, tables, cap, what):
+    got = ops.encode(sym, tables, cap)
+    want = ref.encode_ref(sym, tables, cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), what
+
+
+def _k3_caps(sym, tables, k):
+    """The worst-case slot, the longest chunk's, the median chunk's (half
+    the chunks over capacity) and one word."""
+    nbits = codec.encode_chunk_bits(sym, tables.enc_len)
+    return (codec.worst_case_words(k, int(tables.enc_len.max())),
+            max(1, -(-int(nbits.max()) // 32)),
+            max(1, int(nbits.float().median()) // 32), 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [256, 1024])
+@pytest.mark.parametrize("k", [32, 256, 1024, 4096])
 def test_k3_kernel_matches_plain(cuda, k):
-    t1 = _sym_tables()[0]
-    sym = _symbols(300, k, 2).to(cuda)
-    nbits = codec.encode_chunk_bits(sym, t1.enc_len)
-    for cap in (codec.worst_case_words(k), -(-int(nbits.max()) // 32),
-                int(nbits.float().median()) // 32, 3):
-        got = ops.encode(sym, t1, cap)
-        want = ref.encode_ref(sym, t1, cap)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b), cap
+    """K3 against the plain encoder, bit for bit, at each of the caps of
+    ``_k3_caps``, on n = 0, 1, 7, and one below and one above a full grid
+    of warps (the persistent warps' second round); on symbol views at
+    byte offsets 1-15 of their buffer; and under two tables back to
+    back."""
+    from repro_torch.kernels import qlc_codes as qc
+    tl = _sym_tables()
+    caps = _k3_caps(_symbols(64, k, 2).to(cuda), tl[0], k)
+    for cap in caps:
+        full = qc.encode_grid_chunks(k, cap, int(tl[0].enc_len.max()))
+        for n in (0, 1, 7, full - 1, full + 1):
+            _k3_equal(_symbols(n, k, n).to(cuda), tl[0], cap,
+                      f"cap {cap} n {n}")
+    sym = _symbols(7, k, 3).to(cuda)
+    for offset in range(1, 16):
+        buf = torch.zeros(sym.numel() + offset, dtype=torch.uint8,
+                          device=cuda)
+        buf[offset:] = sym.reshape(-1)
+        view = buf[offset:].view(sym.shape)
+        for cap in caps:
+            _k3_equal(view, tl[0], cap, f"offset {offset} cap {cap}")
+    for t in tl:
+        for cap in caps:
+            _k3_equal(sym, t, cap, f"second table cap {cap}")
+
+
+def _long_tables(longest: int):
+    """A hand-made table of ``_sym_tables()[0]``'s decode side with codes
+    of random lengths in [0, longest] (0, 24 and ``longest`` among them)
+    and random codes below 2^length: what K3 encodes, not a prefix
+    code."""
+    import dataclasses
+    rng = np.random.default_rng(longest)
+    length = rng.integers(0, longest + 1, 256)
+    length[:3] = (0, min(24, longest), longest)
+    code = (rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+            & ((np.uint64(1) << length.astype(np.uint64)) - np.uint64(1)))
+    return dataclasses.replace(_sym_tables()[0],
+                               enc_code=code.astype(np.uint32),
+                               enc_len=length.astype(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("longest", [16, 17, 24, 32])
+@pytest.mark.parametrize("k", [32, 256, 1024, 4096])
+def test_k3_long_codes_match_plain(cuda, k, longest):
+    """Codes up to 16 bits take K3's two-codes-per-step pack, longer ones
+    its one-code step: both bit-equal to the plain encoder, up to 32-bit
+    codes, at the caps of ``_k3_caps`` and over a full grid of warps."""
+    from repro_torch.kernels import qlc_codes as qc
+    t = _long_tables(longest)
+    for cap in _k3_caps(_symbols(64, k, 4).to(cuda), t, k):
+        n = qc.encode_grid_chunks(k, cap, longest) + 1
+        _k3_equal(_symbols(n, k, 5).to(cuda), t, cap, f"cap {cap}")
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Time the fused kernels K1 (quantize -> encode) and K2 (decode ->
 dequantize) of this checkout against those of another checkout, in turns
 on one card, at the main paths' own shapes; with ``--codes``, the codes
-decoders K4 (decode) and K5 (prefetch decode) instead.
+kernels K3 (encode), K4 (decode) and K5 (prefetch decode) and the
+histogram K6 instead.
 
 Shapes (NVIDIA H100, one card):
   w_in   — the slice's largest leaf: phi3-mini-3.8b's stacked w_in
@@ -21,12 +22,32 @@ beside ``chip_smoke.bound_ms`` of the bytes it must
 move. The outputs of the two checkouts must be equal bit for bit. The
 other checkout's K1 is launched with ``--other-threads`` threads per
 CTA: by default the CTA size the wrapper passed before K1's launcher
-picked its own (``qlc_fused._threads_for``); 0 lets a launcher that
+picked its own (``threads_for``); 0 lets a launcher that
 picks its own CTA pick. Prints
 one JSON line, and writes it to ``--json PATH`` when given.
 
-``--codes`` shapes (u8 chunks from ``chip_smoke._skewed_symbols``: skewed
-rows, every fourth uniform, so those overrun a tight slot):
+``--codes`` K3 shapes (u8 chunks from ``chip_smoke._skewed_symbols``:
+skewed rows, every fourth uniform, so those overrun a tight slot; one
+TABLE1 scheme calibrated on the data):
+  warp     — [32, 256] at 45-word slots: one warp's worth, the launch
+             and prologue;
+  parity   — [4096, 256] at 89 words, ``chip_smoke.py``'s parity shape;
+  kv       — [12288, 256] at 45 words, the KV path's coded plane
+             (phi3-mini-3.8b, 16-token blocks);
+  block128 — [98304, 256] at 45 words, the plane of one 128-token block,
+             the reference's default ``--kv-block``;
+  channel  — [32768, 1024] at 240 words, the ``CommConfig`` default that
+             ``Channel.compress_codes`` uses.
+K3 of both checkouts is timed alone (as K1/K2 are) and, in turns of one
+process per checkout (other, this, this, other), through each
+checkout's own ``kernels.ops.encode`` (``time_ms`` without ``alone``,
+the host's entry work included). The other checkout's K3 is called
+through whichever C interface its ``qlc_encode.cu`` declares: one CTA of
+``threads`` per chunk (K3's first design), or the longest code, the
+warps per CTA and the chunks per warp turn. K6 of both on [4096, 1024]
+skewed symbols.
+
+``--codes`` K4/K5 shapes (the same data):
   kv     — the KV path's coded plane, [12288, 256] at 45-word slots, one
            scheme;
   parity — ``chip_smoke.py``'s codes parity shape, [4096, 256], two
@@ -44,6 +65,8 @@ parent commit, for example, from ``git archive``) under a directory that
 ``.gitignore`` lists:
     python3 tools/bench_fused_ab.py --other build/parent [--codes]
         [--json out.json]
+(``--codes`` takes about 2 minutes: it builds each checkout's kernels in
+a process of its own too.)
 """
 from __future__ import annotations
 
@@ -64,12 +87,18 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 from chip_smoke import bound_ms, nbytes, smi_line, time_ms  # noqa: E402
 
 NAMES = ("qlc_fused_encode", "qlc_fused_decode")
-CODES = ("qlc_decode", "qlc_prefetch")
+CODES = ("qlc_decode", "qlc_prefetch", "qlc_encode", "histogram256")
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: K4/K5's C interface before the window table (PRs 12-14).
 AREA_ARGTYPES = {
     "qlc_decode": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
     "qlc_prefetch": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _L, _P, _I, _P]}
+#: The C interface of K3's first design: one CTA of ``threads`` per chunk.
+K3_THREADS_ARGTYPES = [_P, _L, _L, _P, _P, _I, _P, _P, _I, _P]
+#: K3's shapes: label, chunks, symbols per chunk, slot words.
+K3_SHAPES = (("warp", 32, 256, 45), ("parity", 4096, 256, 89),
+             ("kv", 12288, 256, 45), ("block128", 98304, 256, 45),
+             ("channel", 32768, 1024, 240))
 
 
 def codes_interface(other: str) -> str:
@@ -78,6 +107,114 @@ def codes_interface(other: str) -> str:
     path = os.path.join(other, "src", "repro_torch", "kernels", "csrc",
                         "qlc_decode.cu")
     return "window" if "wtab" in open(path).read() else "area"
+
+
+def threads_for(k: int) -> int:
+    """The CTA size the first designs' wrappers passed K1 and K3: the
+    largest multiple of 32 that divides k and is at most 1024."""
+    return next(t for t in range(min(k, 1024) // 32 * 32, 31, -32)
+                if k % t == 0)
+
+
+def k3_interface(root: str) -> str:
+    """"lut" when the checkout's K3 takes the longest code, its warps per
+    CTA and chunks per warp turn, else "threads" (one CTA of ``threads``
+    per chunk, K3's first design)."""
+    path = os.path.join(root, "src", "repro_torch", "kernels", "csrc",
+                        "qlc_encode.cu")
+    return "lut" if "max_code_bits" in open(path).read() else "threads"
+
+
+def k3_tail(interface: str, k: int, cap: int, longest: int) -> tuple:
+    """K3's launch arguments after ``nbits``, by C interface."""
+    if interface == "threads":
+        return (threads_for(k),)
+    from repro_torch.kernels import qlc_codes as qc
+    warps, chunks, _ = qc.encode_geometry(k, cap, longest)
+    return (longest, warps, chunks)
+
+
+def k3_case(n: int, k: int):
+    """K3's symbols on the card and one TABLE1 scheme calibrated on them."""
+    from chip_smoke import _skewed_symbols
+    from repro_torch.core import lut, schemes
+    sym = _skewed_symbols(n, k, 0)
+    counts = np.bincount(sym.cpu().numpy().reshape(-1),
+                         minlength=256).astype(np.float64) + 1
+    return sym, lut.build_tables(counts, schemes.TABLE1)
+
+
+def ops_encode_times(reps: int) -> dict:
+    """ms of ``kernels.ops.encode`` at each K3 shape, through the
+    checkout first on ``sys.path``."""
+    from repro_torch.kernels import ops
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, n, k, cap in K3_SHAPES:
+        sym, tables = k3_case(n, k)
+        out[label] = time_ms(lambda: ops.encode(sym, tables, cap), reps,
+                             flush)
+    return out
+
+
+def k3_ops_turns(other: str, reps: int) -> dict:
+    """``ops_encode_times`` in one process per checkout, in turns other,
+    this, this, other: {label: {"other": [ms, ms], "this": [ms, ms]}}."""
+    out = {label: {"other": [], "this": []} for label, *_ in K3_SHAPES}
+    for who in ("other", "this", "this", "other"):
+        src = os.path.join(other if who == "other" else ROOT, "src")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--other", other,
+             "--ops-encode", "--src", src, "--reps", str(reps)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"ops.encode timing of {who} failed:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        for label, ms in json.loads(proc.stdout.splitlines()[-1]).items():
+            out[label][who].append(ms)
+    return out
+
+
+def k3_shape(label, n, k, cap, fns_c, interfaces, flush, reps):
+    """K3 of both checkouts alone on the same symbols; the outputs must
+    also equal the plain version's."""
+    from repro_torch.kernels import ops, ref
+    sym, tables = k3_case(n, k)
+    code = ops._i32(tables.enc_code, "cuda")
+    length = ops._i32(tables.enc_len, "cuda")
+    longest = int(tables.enc_len.max())
+    outs = {who: [torch.empty((n, cap), dtype=torch.int32, device="cuda"),
+                  torch.empty(n, dtype=torch.int32, device="cuda")]
+            for who in ("other", "this")}
+    fns = {who: launcher(fns_c[who], sym.data_ptr(), n, k, code.data_ptr(),
+                         length.data_ptr(), cap,
+                         *(o.data_ptr() for o in outs[who]),
+                         *k3_tail(interfaces[who], k, cap, longest))
+           for who in ("other", "this")}
+    r = a_b(f"{label} K3", fns, outs, reps, flush, n * k + n * cap * 4 + n * 4)
+    want = ref.encode_ref(sym, tables, cap)
+    r["equal"] = r["equal"] and all(torch.equal(a, b)
+                                    for a, b in zip(outs["this"], want))
+    return {"shape": [n, k], "cap": cap, **r}
+
+
+def k6_shape(fns_c, flush, reps):
+    """K6 of both checkouts on [4096, 1024] skewed symbols (all 256
+    values), the grid its wrapper picks."""
+    from repro_torch.kernels import histogram256 as h6
+    rng = np.random.default_rng(6)
+    sym = np.minimum(rng.geometric(0.05, (4096, 1024)), 255).astype(np.uint8)
+    sym[0, :256] = np.arange(256)
+    x = torch.from_numpy(sym).cuda().reshape(-1)
+    n = x.numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = max(1, min(-(-n // (16 * h6._THREADS)), sms * h6._CTAS_PER_SM))
+    outs = {who: [torch.zeros(256, dtype=torch.int32, device="cuda")]
+            for who in ("other", "this")}
+    fns = {who: launcher(fns_c[who], x.data_ptr(), n, outs[who][0].data_ptr(),
+                         blocks) for who in ("other", "this")}
+    return {"shape": [4096, 1024], **a_b("hist K6", fns, outs, reps, flush,
+                                         n + 256 * 4)}
 
 
 def build_other(qf, other: str, names=NAMES, argtypes=None):
@@ -153,7 +290,7 @@ def run_shape(label, x, tables, enc_cap, train, other, qf, ops, flush, reps,
         outs[who][3].data_ptr() if train else None, None, threads)
         for who, fn, threads in (
             ("other", other["qlc_fused_encode"],
-             qf._threads_for(k) if other_threads is None else other_threads),
+             threads_for(k) if other_threads is None else other_threads),
             ("this", qf._lib("qlc_fused_encode").qlc_fused_encode, 0))}
     res = {"K1": {"shape": [n, k], "cap": enc_cap, "codes": train, **a_b(
         f"{label} K1", fns, outs, reps, flush, nbytes(x, *outs["this"]))}}
@@ -242,9 +379,27 @@ def main_codes(args, flush, result):
     from repro_torch.core import lut, schemes
     from repro_torch.kernels import qlc_fused as qf
     interface = codes_interface(args.other)
-    other = build_other(qf, args.other, CODES,
-                        AREA_ARGTYPES if interface == "area" else None)
+    k3_faces = {"other": k3_interface(args.other), "this": k3_interface(ROOT)}
+    argtypes = {**qf._ARGTYPES, **(AREA_ARGTYPES if interface == "area"
+                                   else {})}
+    if k3_faces["other"] == "threads":
+        argtypes["qlc_encode"] = K3_THREADS_ARGTYPES
+    other = build_other(qf, args.other, CODES, argtypes)
     result["other_interface"] = interface
+    result["k3_interfaces"] = k3_faces
+    k3_c = {"other": other["qlc_encode"],
+            "this": qf._lib("qlc_encode").qlc_encode}
+    result["k3"] = {label: k3_shape(label, n, k, cap, k3_c, k3_faces, flush,
+                                    args.reps)
+                    for label, n, k, cap in K3_SHAPES}
+    torch.cuda.empty_cache()
+    for label, ms in k3_ops_turns(args.other, args.reps).items():
+        result["k3"][label]["ops_ms"] = ms
+        print(f"[ab] {label} K3 through ops: other {ms['other']} ms, this "
+              f"{ms['this']} ms", flush=True)
+    result["k6"] = {"hist": k6_shape(
+        {"other": other["histogram256"],
+         "this": qf._lib("histogram256").histogram256}, flush, args.reps)}
     for label, n, k, two, cap in (("kv", 12288, 256, False, 45),
                                   ("parity", 4096, 256, True, None),
                                   ("warp", 32, 256, False, 45),
@@ -276,9 +431,17 @@ def main():
     ap.add_argument("--codes", action="store_true",
                     help="time K4 and K5 instead of K1 and K2")
     ap.add_argument("--json", help="also write the result line here")
+    ap.add_argument("--ops-encode", action="store_true",
+                    help="(internal) print K3's ops.encode times of the "
+                         "checkout whose src is --src")
+    ap.add_argument("--src", help="(internal) the src/ to import first")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_fused_ab: no CUDA device available")
+    if args.ops_encode:
+        sys.path.insert(0, args.src)
+        print(json.dumps(ops_encode_times(args.reps)))
+        return
     from repro_torch.comm import calibrate
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticDataset
@@ -329,7 +492,8 @@ def finish(args, result):
             f.write(line + "\n")
     print(line)
     sys.exit(0 if all(v["equal"] for r in result.values()
-                      if isinstance(r, dict) for v in r.values()) else 1)
+                      if isinstance(r, dict) for v in r.values()
+                      if isinstance(v, dict)) else 1)
 
 
 if __name__ == "__main__":
