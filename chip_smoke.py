@@ -103,6 +103,43 @@ non-zero (nothing is caught and carried on):
                algorithms are on for this phase, so that two runs of the
                same step see the same gradients.
 
+  8. ckpt    — on the same rank, first the resume check through the
+               launcher's entry: ``train(comm="qlc", transport="auto",
+               autotune=True, checkpoint_dir=..., checkpoint_every=3)``
+               on reduced phi3, 6 steps; step 6 is then removed, as if the
+               run had died while saving it, and the same launch resumes
+               at step 3 and runs 3 more: parameters and ZeRO-1 state
+               bit-equal to the straight run's, the step's "auto"
+               channels resolving to the launcher's tuning, K1/K2/K6
+               counted from zero around both launches. Then (after the
+               autotune phase) the
+               FP8 weight checkpoint of phi3-mini-3.8b at full width and
+               all 32 layers (8, as the train phase, when the disk holds
+               less than 1.5x its raw bytes): the block-32 e4m3 symbols
+               and bf16 scales of every weight leaf, one float8_e4m3fn
+               leaf and one f32 leaf, saved through ``CheckpointManager``
+               into a temporary directory and restored bit for bit, with
+               K3, K4 and K6 counted from zero around both; the stages
+               timed (counts, encode, device-to-host, md5, write with
+               fsync; read, decode); on-disk over raw bytes; at the
+               largest leaf's shape K3 against its plain version on every
+               chunk, K4 against the saved symbols and against its plain
+               version on the first and last 4096 chunks, K6 whole, each
+               timed there; the stored container must hold K3's words;
+               one flipped container word must make the restore raise
+               IOError. The directory is removed.
+  9. autotune — the launcher's ``_autotune_transports`` on the train
+               phase's registry and its one NCCL rank, for "grads"
+               (reduce-scatter) and "params" (all-gather) at the train
+               path's flat payload: the measured decode rate and the
+               chosen transport; the tuning through a registry JSON round
+               trip, an "auto" channel then resolving to it; what the
+               decode probe measures (its payload's escapes and pool, its
+               call beside the same decode under CUDA events and K2 alone
+               on its words); ``psum`` and ``all_to_all`` on the card
+               equal to the same calls on the CPU (plain versions). K1/K2
+               counted from zero around the phase.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -1309,6 +1346,7 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
                  f"(grads), {res['params_wire_bytes_per_symbol']:.4f} "
                  f"(params); launches {launches}; {wall:.1f} s with init; "
                  f"peak device memory {peak:.2f} GiB")
+    n_padded = res["step"].geometry(res["params"]).n_padded
     del res
 
     # K6 on the path's own symbols: the same seed, batch and backward.
@@ -1373,7 +1411,7 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
         log("train", f"peak device memory over the phase's runs "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"launches": launches, "path": path, "fused": fused,
-            "losses": losses,
+            "losses": losses, "registry": reg, "n_padded": n_padded,
             "step_ms": step_ms, "base_ms": base_ms, "base_losses": lb}
 
 
@@ -1485,6 +1523,392 @@ def phase_train_recipe(dev="cuda", steps=8):
                  f"{[round(v, 4) for v in lb]}, compressed "
                  f"{[round(v, 4) for v in lc]}; both learn, max |diff| "
                  f"{max(diffs):.4f} < 0.15")
+
+
+#: free disk over the checkpoint's raw bytes the full-depth ckpt phase
+#: needs (the compressed files, with room to spare); below it the phase
+#: cuts to the train phase's 8 layers.
+CKPT_DISK_FACTOR = 1.5
+
+
+def _ckpt_tree(cfg, dev, min_numel=1 << 20):
+    """The FP8 weight checkpoint of ``cfg`` from the slice's seed: the
+    block-32 e4m3 symbols (u8, shaped like the weight; blocks of its
+    flattened values) and bf16 scales of
+    every weight leaf of ``min_numel`` values or more, the embedding's
+    symbols once more as a ``float8_e4m3fn`` leaf, and the final norm
+    (f32)."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models import init_params
+    from repro_torch.quant import e4m3
+    flat = flatten_with_paths(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    weights = {}
+    for key in list(flat):
+        if flat[key].numel() >= min_numel:
+            w = flat.pop(key)
+            codes, scales = e4m3.quantize_block32_pieces(w.reshape(-1))
+            weights[key.replace("/", ".")] = {
+                "codes": codes.view(w.shape),
+                "scales": scales.to(torch.bfloat16)}
+    return {"weights": weights,
+            "fp8_embed": weights["embed"]["codes"].view(torch.float8_e4m3fn),
+            "final_norm": flat["final_norm"]}
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+def phase_ckpt(qc, h6, ops, ref, flush, dev="cuda", cfg=None,
+               min_numel=1 << 20):
+    """The FP8 weight checkpoint of phi3-mini-3.8b at full width (32
+    layers, or the train phase's 8 when the disk cannot hold 32) through
+    ``CheckpointManager``: saved and restored bit for bit, K3, K4 and K6
+    counted from zero around the save and restore, the stages timed; K3,
+    K4 and K6 held against their plain versions at the largest leaf's
+    shape and timed there; a flipped word must raise IOError."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.comm import container
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecRegistry
+    cfg = cfg or get_config("phi3-mini-3.8b")
+    tree = _ckpt_tree(cfg, dev, min_numel)
+    tmp = tempfile.mkdtemp(prefix="qlc_ckpt_")
+    try:
+        raw = sum(nbytes(t) for t in flatten_with_paths(tree).values())
+        free = shutil.disk_usage(tmp).free
+        depth = cfg.num_layers
+        if free < CKPT_DISK_FACTOR * raw:
+            depth = 8
+            for w in tree["weights"].values():
+                if w["codes"].shape[0] == cfg.num_layers:
+                    for part in ("codes", "scales"):
+                        w[part] = w[part][:depth].contiguous()
+            raw = sum(nbytes(t) for t in flatten_with_paths(tree).values())
+        leaves = flatten_with_paths(tree)
+        log("ckpt", f"{cfg.name} FP8 weight checkpoint, {depth} of "
+                    f"{cfg.num_layers} layers, full width: {len(leaves)} "
+                    f"leaves, {raw} raw bytes ("
+                    f"{sum(w['codes'].numel() for w in tree['weights'].values())}"
+                    f" e4m3 symbols); {free} bytes free at {tmp}")
+        counters = {"K3": qc.encode, "K4": qc.decode, "K6": h6.histogram256}
+        for fn in counters.values():
+            fn.launches = 0
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(1, tree, extra={"step": 1})
+        save_s, save_t = time.perf_counter() - t0, dict(mgr.timings)
+        t0 = time.perf_counter()
+        got, extra = mgr.restore(tree, device=dev)
+        torch.cuda.synchronize()
+        restore_s, restore_t = time.perf_counter() - t0, dict(mgr.timings)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        for kname, c in launches.items():
+            if c <= 0:
+                raise AssertionError(f"{kname} was not launched on the "
+                                     "checkpoint path")
+        back = flatten_with_paths(got)
+        bad = [k for k in leaves if not _same_bytes(leaves[k], back[k])]
+        if bad or extra != {"step": 1}:
+            raise AssertionError(f"ckpt: restored leaves differ: {bad}")
+        del got, back
+        cdir = os.path.join(tmp, "step_0000000001")
+        with open(os.path.join(cdir, "manifest.json")) as f:
+            manifest = json.load(f)
+        disk = sum(os.path.getsize(os.path.join(cdir, n))
+                   for n in os.listdir(cdir))
+        codes_keys = [f"weights/{k}/codes" for k in tree["weights"]]
+        if not all("qlc" in manifest["leaves"][k]
+                   for k in codes_keys + ["fp8_embed"]):
+            raise AssertionError("ckpt: a symbol leaf was kept raw")
+        codes_disk = sum(os.path.getsize(os.path.join(
+            cdir, manifest["leaves"][k]["file"])) for k in codes_keys)
+        codes_raw = sum(tree["weights"][k]["codes"].numel()
+                        for k in tree["weights"])
+
+        def rates(t):
+            return "; ".join(f"{k} {v:.3f} s ({raw / v / 1e9:.2f} GB/s)"
+                             for k, v in t.items())
+
+        log("ckpt", f"save {save_s:.3f} s: {rates(save_t)}")
+        log("ckpt", f"restore {restore_s:.3f} s: {rates(restore_t)}")
+        log("ckpt", f"restored == saved, bit for bit, all {len(leaves)} "
+                    f"leaves; on disk {disk} B / raw {raw} B = "
+                    f"{disk / raw:.4f} (symbol leaves {codes_disk} / "
+                    f"{codes_raw} = {codes_disk / codes_raw:.4f}); launches "
+                    f"{launches}")
+
+        # K3, K4 and K6 at the largest leaf's shape, against the plain
+        # versions (K3 over the whole leaf, 4096 chunks at a time; K4 over
+        # its first and last 4096 chunks, the plain decode being ~0.6 s
+        # each; K6 whole) and the saved symbols.
+        key = max(tree["weights"],
+                  key=lambda k: tree["weights"][k]["codes"].numel())
+        meta = manifest["leaves"][f"weights/{key}/codes"]
+        stored = np.load(os.path.join(cdir, meta["file"]))
+        h = container.parse_header(stored)
+        t = CodecRegistry.load(os.path.join(cdir, "registry.json")).by_id(
+            h.scheme_id).tables
+        cap, k = h.capacity_words, h.chunk_symbols
+        sym = tree["weights"][key]["codes"].reshape(-1, k)
+        n = sym.shape[0]
+        rows = 4096
+        words, nb = ops.encode(sym, t, cap)
+        err = {"K3": 0.0}
+        for r0 in range(0, n, rows):
+            sl = slice(r0, r0 + rows)
+            err["K3"] = max(err["K3"], require_equal(
+                f"K3 ckpt rows {r0}:{r0 + rows}", [words[sl], nb[sl]],
+                ref.encode_ref(sym[sl], t, cap)))
+        framed = torch.from_numpy(stored[container.HEADER_WORDS:
+                                         container.HEADER_WORDS + n * cap]
+                                  .view(np.int32)).to(dev).view(n, cap)
+        if not torch.equal(words, framed):
+            raise AssertionError("ckpt: the stored container's slots are "
+                                 "not the words K3 encodes (framing)")
+        del framed
+        sid = torch.zeros(n, dtype=torch.int32, device=dev)
+        dec = ops.decode(words, t, k)
+        err["K4"] = require_equal("K4 at the ckpt leaf vs its symbols",
+                                  [dec], [sym])
+        for r0 in sorted({0, max(0, n - rows)}):
+            sl = slice(r0, r0 + rows)
+            err["K4"] = max(err["K4"], require_equal(
+                f"K4 ckpt rows {r0}:{r0 + rows}", [dec[sl]],
+                [ref.decode_ref(words[sl], [t], sid[sl], k)]))
+        del dec
+        flat_sym = sym.reshape(-1)
+        err["K6"] = require_equal(
+            "K6 at the ckpt leaf", [ops.histogram(flat_sym)],
+            [ref.histogram256_ref(flat_sym)])
+        part = sym[:rows]
+        path = {
+            "K3": {"ms": time_ms(lambda: ops.encode(sym, t, cap), 5, flush),
+                   "kernel_ms": time_ms(bare_k3(sym, t, cap), 5, flush,
+                                        alone=True),
+                   "plain_ms": time_ms(lambda: ref.encode_ref(part, t, cap),
+                                       3, flush),
+                   "bound_ms": bound_ms(n * k + n * cap * 4 + n * 4)},
+            "K4": {"ms": time_ms(lambda: ops.decode(words, t, k), 5, flush),
+                   "kernel_ms": time_ms(bare_codes_decode(
+                       "decode", words, [t], sid, k), 5, flush, alone=True),
+                   "plain_ms": time_ms(lambda: ref.decode_ref(
+                       words[:rows], [t], sid[:rows], k), 3, flush),
+                   "bound_ms": bound_ms(nbytes(words, sid) + n * k)},
+            "K6": {"ms": time_ms(lambda: ops.histogram(flat_sym), 5, flush),
+                   "kernel_ms": time_ms(bare_k6(flat_sym), 5, flush,
+                                        alone=True),
+                   "plain_ms": time_ms(lambda: ref.histogram256_ref(
+                       flat_sym[:rows * k]), 3, flush),
+                   "library_ms": time_ms(lambda: torch.bincount(
+                       flat_sym, minlength=256), 5, flush),
+                   "bound_ms": bound_ms(n * k + 256 * 4)}}
+        checked = {
+            "K3": f"bit-equal to plain on all {n} chunks ({rows} at a "
+                  "time), and the stored container holds its words",
+            "K4": f"equal to the saved symbols on all {n} chunks and "
+                  f"bit-equal to plain on the first and last {rows}",
+            "K6": "equal to plain on the whole leaf"}
+        for kname, v in path.items():
+            v.update(shape=[n, k], cap=cap, err=err[kname],
+                     launches=launches[kname],
+                     plain_shape=[rows, k])
+            log("ckpt", f"{kname} at the largest leaf {key} [{n}, {k}] "
+                        f"(slot {cap} words): {checked[kname]}; "
+                        f"{v['ms']:.4f} ms (kernel alone "
+                        f"{v['kernel_ms']:.4f}), plain on [{rows}, {k}] "
+                        f"{v['plain_ms']:.3f} ms, HBM bound "
+                        f"{v['bound_ms']:.4f} ms"
+                        + (f", torch.bincount {v['library_ms']:.4f} ms"
+                           if "library_ms" in v else ""))
+        del words, nb, stored
+
+        fp8 = manifest["leaves"]["fp8_embed"]
+        fpath = os.path.join(cdir, fp8["file"])
+        arr = np.load(fpath)
+        arr[container.HEADER_WORDS + 5] ^= np.uint32(0xFFFF)
+        np.save(fpath, arr)
+        try:
+            mgr.restore({"fp8_embed": tree["fp8_embed"]}, device=dev)
+        except IOError as e:
+            log("ckpt", f"one flipped word in fp8_embed's container: "
+                        f"restore raised IOError ({e})")
+        else:
+            raise AssertionError("ckpt: a flipped word restored silently")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"depth": depth, "ratio": disk / raw, "save_s": save_s,
+            "restore_s": restore_s, "path": path}
+
+
+def phase_ckpt_resume(qf, h6, reduced, get_config, dev="cuda"):
+    """Reduced phi3 (d_model 128, 2 layers, f32) through the training
+    launcher's entry, ``train(comm="qlc", transport="auto", autotune=True,
+    checkpoint_dir=..., checkpoint_every=3)``, 6 steps; then step 6 is
+    removed, as if the run had died while saving it, and the same launch
+    resumes from step 3 and runs 3 more: parameters and ZeRO-1 state
+    bit-equal to the straight run's. Both runs autotune the step's two
+    wires, whose "auto" channels resolve to the tuning. K1, K2 and K6
+    counted from zero around the two launches."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.launch.train import train
+    cfg = reduced(get_config("phi3-mini-3.8b"), d_model=128,
+                  dtype="float32")
+    kw = dict(comm="qlc", steps=6, seq_len=32, global_batch=4, lr=1e-3,
+              transport="auto", autotune=True, checkpoint_every=3,
+              device=dev)
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K6": h6.histogram256}
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="qlc_resume_") as tmp:
+        a = train(cfg, checkpoint_dir=tmp, **kw)
+        shutil.rmtree(os.path.join(tmp, "step_0000000006"))
+        b = train(cfg, checkpoint_dir=tmp, **kw)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if (a["start_step"], b["start_step"]) != (0, 3):
+        raise AssertionError(f"resume: started at {a['start_step']} and "
+                             f"{b['start_step']}, not 0 and 3")
+    fa = flatten_with_paths((a["params"], a["opt_state"]))
+    fb = flatten_with_paths((b["params"], b["opt_state"]))
+    bad = [k for k in fa if not _same_bytes(fa[k], fb[k])]
+    if bad or list(fa) != list(fb):
+        raise AssertionError(f"resume: leaves differ: {bad}")
+    n = a["step"].geometry(a["params"]).n_padded
+    tuned = {}
+    for res in (a, b):
+        for (name, is_reduce), ch in zip((("grads", True), ("params", False)),
+                                         res["channels"]):
+            want = res["tuned"][name].transport
+            got = ch.resolved_transport(n, is_reduce=is_reduce)
+            if got != want:
+                raise AssertionError(f"autotune {name}: the step's channel "
+                                     f"resolves to {got}, tuned {want}")
+            tuned.setdefault(name, []).append(
+                [want.kind, want.hop_chunks,
+                 res["tuned"][name].model.decode_Bps])
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched by the launcher")
+    log("ckpt", f"resume on the card through launch.train.train (reduced "
+                f"phi3, --comm qlc --transport auto --autotune "
+                f"--checkpoint-every 3): 6 steps straight == 3 steps + step "
+                f"6 removed + resume at step 3 + 3 steps, {len(fa)} leaves of "
+                f"params and ZeRO-1 state bit-equal; fallbacks "
+                f"{a['comm_fallbacks']}, {b['comm_fallbacks']}; tuned (kind, "
+                f"hop pieces, decode B/s; both runs) {tuned}, the step's "
+                f"'auto' channels resolve to them; launches {launches}")
+    return {"launches": launches, "tuned": tuned}
+
+
+def phase_autotune(qf, tr, flush, dev="cuda"):
+    """The launcher's autotune (``_autotune_transports``) of the train
+    phase's registry on its one NCCL rank, "grads" (reduce-scatter) and
+    "params" (all-gather) at the train path's flat payload, the decode
+    probe at 2^24 symbols; the tuning through a registry JSON round trip
+    and an "auto" channel. Then what the probe measures: its payload's
+    escapes and pool, and the probe's decode against K2 alone on it.
+    Last, psum and all_to_all on the card against the same on the CPU
+    (the plain versions), bit for bit. K1 and K2 counted from zero
+    around the phase."""
+    import torch.distributed as dist
+    from repro_torch.comm import compressed as comp
+    from repro_torch.comm.channel import (Channel, ChannelSpec,
+                                          decode_probe_payload)
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.train import _autotune_transports
+    reg, n = tr["registry"], tr["n_padded"]
+    group = dist.group.WORLD
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    probe_symbols = 1 << 24
+    t0 = time.perf_counter()
+    tuned = _autotune_transports(reg, n, group, dev,
+                                 probe_symbols=probe_symbols, repeats=5)
+    log("autotune", f"launch.train._autotune_transports at {4 * n} B per "
+                    f"rank, {dist.get_world_size()} rank (no wire probe), "
+                    f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
+                        f"{name} decode {ch.model.decode_Bps:.6g} B/s, "
+                        f"chosen {ch.transport.kind} x"
+                        f"{ch.transport.hop_chunks}"
+                        for name, ch in tuned.items()))
+    back = CodecRegistry.from_json(reg.to_json())
+    for name, is_reduce in (("grads", True), ("params", False)):
+        want = tuned[name].transport
+        cached = back.cached_transport(back[name].scheme_id, "data", 4 * n,
+                                       is_reduce=is_reduce)
+        auto = Channel(ChannelSpec(codec=name, transport="auto",
+                                   group=group), registry=back)
+        got = auto.resolved_transport(n, is_reduce=is_reduce)
+        if cached != want or got != want:
+            raise AssertionError(f"autotune {name}: cached {cached}, auto "
+                                 f"{got}, tuned {want}")
+    log("autotune", "the tuning survives a registry JSON round trip; an "
+                    "'auto' channel on the reloaded registry resolves to it")
+    probe = {}
+    for name, ch in tuned.items():
+        payload, scales, m = decode_probe_payload(
+            ch.tables, ch.cfg, probe_symbols, counts=ch.entry.counts,
+            device=dev)
+        k, cw = ch.cfg.chunk_symbols, payload.words.shape[-1]
+        escaped = int(payload.flags.sum())
+        used, slots = int(payload.pool_count.reshape(-1)[0]), \
+            payload.pool.shape[-2]
+        ok = bool(comp._decompress_values(payload, scales, ch.tables,
+                                          ch.cfg)[1].all())
+        whole = time_ms(lambda: comp._decompress_values(
+            payload, scales, ch.tables, ch.cfg), 5, flush)
+        k2 = time_ms(bare_k2(payload.words.reshape(-1, cw),
+                             scales.float().reshape(-1, k // 32), ch.tables,
+                             k), 5, flush, alone=True)
+        call_ms = 4.0 * m / ch.model.decode_Bps * 1e3
+        probe[name] = {"chunks": m // k, "escaped": escaped,
+                       "pool_used": used, "pool_slots": slots, "ok": ok,
+                       "slot_words": cw, "call_ms": call_ms,
+                       "events_ms": whole, "k2_alone_ms": k2,
+                       "wire_bytes": ch.wire_bytes(payload, scales)}
+        log("autotune", f"{name} probe payload: {m // k} chunks of {k}, "
+                        f"slot {cw} words, {escaped} escaped ("
+                        f"{escaped / (m // k):.4f}), pool {used} of {slots} "
+                        f"slots, ok {ok}, {probe[name]['wire_bytes']} wire B; "
+                        f"the probe's call {call_ms:.4f} ms (host clock, "
+                        f"synchronized), the same decode {whole:.4f} ms "
+                        f"(CUDA events, after an L2 flush), K2 alone on its "
+                        f"words {k2:.4f} ms")
+    ch = Channel(ChannelSpec(codec="grads", group=group), registry=reg)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(1 << 22, generator=gen) * 1e-3
+    x[: 1 << 20] *= 50.0
+    s_d, ok_d = ch.psum(x.to(dev))
+    s_c, ok_c = ch.psum(x)
+    a_d, oka_d = ch.all_to_all(x.to(dev)[None])
+    a_c, oka_c = ch.all_to_all(x[None])
+    err = require_equal("psum and all_to_all: card vs CPU",
+                        [s_d.cpu(), a_d.cpu()], [s_c, a_c])
+    if not (bool(ok_d) and bool(ok_c) and bool(oka_d) and bool(oka_c)):
+        raise AssertionError("autotune: psum / all_to_all ok is False")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the "
+                                 "autotune / psum / all_to_all path")
+    log("autotune", f"psum and all_to_all of {x.numel()} values on one "
+                    f"rank: card (K1, K2) == CPU (plain versions), bit for "
+                    f"bit, ok; launches {launches}")
+    return {"launches": launches, "err": err, "probe": probe,
+            "decode_Bps": {k: v.model.decode_Bps for k, v in tuned.items()},
+            "transport": {k: [v.transport.kind, v.transport.hop_chunks]
+                          for k, v in tuned.items()}}
 
 
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
@@ -1624,7 +2048,11 @@ def main():
         phase_train_small(reduced, get_config)
         phase_train_recipe()
         tr = phase_train(qf, h6, ops, ref, flush)
+        resume = phase_ckpt_resume(qf, h6, reduced, get_config)
+        auto = phase_autotune(qf, tr, flush)
     torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    ck = phase_ckpt(qc, h6, ops, ref, flush)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -1645,12 +2073,21 @@ def main():
                  "library_ms": None, "shape": [4096, 1024],
                  "main_path": main_shape[kname],
                  "train_launches": tr["launches"][kname],
-                 "train_path": tr["fused"][kname]}
+                 "train_path": tr["fused"][kname],
+                 "autotune_launches": auto["launches"][kname],
+                 "autotune_probe": auto["probe"] if kname == "K2" else None,
+                 "launcher_resume_launches": resume["launches"][kname]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"])
         if "forms" in p:
             entry["forms"] = p["forms"]
         kernels.append(entry)
     kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times,
                                     k3_shapes)
+    for entry in kernels[2:4]:
+        kname = entry["name"].split()[0]
+        entry["ckpt_path"] = ck["path"][kname]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   ck["path"][kname]["err"])
     kernels.append({
         "name": "K6 histogram256", "route": "cuda",
         "source": src + "histogram256.cu",
@@ -1666,7 +2103,11 @@ def main():
         "train_path": {k: tr["path"][k] for k in ("shape", "ms",
                                                     "kernel_ms",
                                                     "library_ms",
-                                                    "bound_ms")}})
+                                                    "bound_ms")},
+        "ckpt_path": ck["path"]["K6"],
+        "launcher_resume_launches": resume["launches"]["K6"]})
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     ck["path"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

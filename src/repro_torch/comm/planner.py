@@ -7,10 +7,14 @@ per-chunk escape probability stays below ``target_escape_prob``).
 Transport: an alpha-beta cost model (:class:`AlphaBetaModel`) picks
 between one-shot (one collective of the whole payload, decode after it)
 and ring (point-to-point hops, hop *k*'s decode overlapping hop *k+1*'s
-transfer) and sizes the ring's hop chunking. The hierarchical
-(two-tier) kind and the cross-pod link class wait for multi-node
-(ROADMAP queue 1, item 13); measured autotuning waits for
-``Channel.autotune`` (item 6).
+transfer) and sizes the ring's hop chunking; the all-to-all's ring is priced
+with the link traversals of its distance-*s* hops
+(:func:`modeled_a2a_ring_time`). ``Channel.autotune`` replaces the
+model's first-order constants with measured ones. The hierarchical
+(two-tier) kind and the use of the cross-pod (``"dcn"``) link class
+wait for multi-node (ROADMAP queue 1, item 13): its constants are
+carried, and round-trip through registry JSON, but no schedule here
+reads them.
 """
 from __future__ import annotations
 
@@ -38,6 +42,18 @@ class CommPlan:
     #: per-symbol slack between the expected code length and the slot,
     #: read by the drift policy as its recalibration threshold.
     drift_margin_bits: float = 0.5
+
+    @property
+    def capacity_bits(self) -> int:
+        return self.capacity_words * 32
+
+    @property
+    def wire_bytes_per_symbol(self) -> float:
+        """Main-slot wire bytes per symbol (without scales, flags, pool)."""
+        return self.capacity_words * 4 / self.chunk_symbols
+
+    def pool_slots(self, n_chunks: int) -> int:
+        return max(1, math.ceil(n_chunks * self.pool_slots_per_1k / 1024))
 
 
 def hoeffding_margin_bits(chunk_symbols: int, target_prob: float,
@@ -77,6 +93,16 @@ def plan_for_tables(tables: CodecTables, counts: np.ndarray,
     )
 
 
+def effective_compression_ratio(plan: CommPlan,
+                                scale_bytes_per_symbol: float = 2.0 / 32,
+                                baseline_bytes: float = 2.0) -> float:
+    """Baseline (bf16) bytes over compressed wire bytes per symbol, the
+    scales and the flag byte per chunk included."""
+    wire = plan.wire_bytes_per_symbol + scale_bytes_per_symbol \
+        + 1.0 / plan.chunk_symbols
+    return baseline_bytes / wire
+
+
 # --------------------------------------------------------------------------
 # Transport selection (one-shot vs ring, hop chunking)
 # --------------------------------------------------------------------------
@@ -110,6 +136,7 @@ class TransportConfig:
 
 
 ONESHOT = TransportConfig("oneshot")
+RING = TransportConfig("ring")
 
 
 def resolve_transport(transport) -> TransportConfig:
@@ -139,6 +166,12 @@ def clamp_hop_chunks(hop_chunks: int, n_chunks: int) -> int:
     return h
 
 
+#: Link classes of the cost model: ``"ici"``, the link a single-node
+#: group runs over (NVLink here; the name is the reference's), and
+#: ``"dcn"``, the cross-node network a pod axis crosses (item 13).
+LINK_CLASSES = ("ici", "dcn")
+
+
 @dataclasses.dataclass(frozen=True)
 class AlphaBetaModel:
     """alpha-beta cost model of one compressed-collective exchange.
@@ -156,14 +189,48 @@ class AlphaBetaModel:
     * ``dispatch_s`` — per decode dispatch on the host: the eager
       PyTorch launches around one piece's decode and escape merge,
       about ten at ~30 us each (``chip_smoke.py``'s profile line).
+    * ``dcn_alpha_s`` / ``dcn_wire_Bps`` — the cross-node class: a
+      first-order 25 us and one 400 Gb/s NIC (50 GB/s). Carried for the
+      registry's link cache; no port schedule reads them yet (item 13).
+
+    ``with_link(link, ...)`` folds measured constants of one link class
+    in (``Channel.autotune``'s wire probe -> the registry's link cache
+    -> here).
     """
     alpha_s: float = 10e-6
     wire_Bps: float = 450e9
     decode_Bps: float = 0.69e12
     dispatch_s: float = 300e-6
+    dcn_alpha_s: float = 25e-6
+    dcn_wire_Bps: float = 50e9
 
-    def wire_time(self, wire_bytes: float) -> float:
-        return self.alpha_s + wire_bytes / self.wire_Bps
+    def _check_link(self, link: str):
+        if link not in LINK_CLASSES:
+            raise ValueError(f"unknown link class {link!r}; valid "
+                             f"classes: {LINK_CLASSES}")
+
+    def link_alpha(self, link: str = "ici") -> float:
+        self._check_link(link)
+        return self.dcn_alpha_s if link == "dcn" else self.alpha_s
+
+    def link_Bps(self, link: str = "ici") -> float:
+        self._check_link(link)
+        return self.dcn_wire_Bps if link == "dcn" else self.wire_Bps
+
+    def with_link(self, link: str, *, alpha_s: Optional[float] = None,
+                  wire_Bps: Optional[float] = None) -> "AlphaBetaModel":
+        """Copy with ``link``'s measured constants substituted."""
+        self._check_link(link)
+        pre = "dcn_" if link == "dcn" else ""
+        kw = {}
+        if alpha_s is not None:
+            kw[pre + "alpha_s"] = float(alpha_s)
+        if wire_Bps is not None:
+            kw[pre + "wire_Bps"] = float(wire_Bps)
+        return dataclasses.replace(self, **kw) if kw else self
+
+    def wire_time(self, wire_bytes: float, link: str = "ici") -> float:
+        return self.link_alpha(link) + wire_bytes / self.link_Bps(link)
 
     def decode_time(self, value_bytes: float) -> float:
         return self.dispatch_s + value_bytes / self.decode_Bps
@@ -238,3 +305,80 @@ def choose_transport(shard_wire_bytes: float, shard_value_bytes: float,
         if t < best[2]:
             best = ("ring", h, t)
     return TransportConfig(kind=best[0], hop_chunks=best[1])
+
+
+def modeled_a2a_ring_time(model: AlphaBetaModel, row_wire_bytes: float,
+                          row_value_bytes: float, axis_size: int,
+                          hop_chunks: int = 1) -> float:
+    """Ring all-to-all: hop *s* moves row ``(i+s) % d`` over distance
+    *s* while the previous unit decodes. A distance-*s* hop is charged
+    *s* link traversals (``s * row_wire_bytes / wire_Bps``), as on one
+    physical ring, so the a2a ring wins only where decode is slow next to
+    the wire. ``row_*_bytes`` describe one destination row; the own
+    row's decode overlaps the first transfer."""
+    d = axis_size
+    if d <= 1:
+        return model.decode_time(row_value_bytes)
+    h = hop_chunks
+    unit_dec = model.decode_time(row_value_bytes / h)
+
+    def unit_wire(s: int) -> float:
+        return model.alpha_s + s * (row_wire_bytes / h) / model.wire_Bps
+
+    units = [s for s in range(1, d) for _ in range(h)]
+    t = unit_wire(units[0])
+    for s in units[1:]:
+        t += max(unit_wire(s), unit_dec)
+    return t + unit_dec
+
+
+def choose_a2a_transport(row_wire_bytes: float, row_value_bytes: float,
+                         axis_size: int,
+                         model: Optional[AlphaBetaModel] = None,
+                         hop_chunk_candidates: Sequence[int]
+                         = HOP_CHUNK_CANDIDATES) -> TransportConfig:
+    """Transport of ``Channel.all_to_all``: one-shot (``d - 1`` remote
+    rows over the wire, then every decode) against the distance-charged
+    ring of :func:`modeled_a2a_ring_time`, on per-row sizes."""
+    model = model or AlphaBetaModel()
+    if axis_size <= 1:
+        return ONESHOT
+    best = ("oneshot", 1,
+            modeled_oneshot_time(model, row_wire_bytes, row_value_bytes,
+                                 axis_size))
+    for h in hop_chunk_candidates:
+        t = modeled_a2a_ring_time(model, row_wire_bytes, row_value_bytes,
+                                  axis_size, h)
+        if t < best[2]:
+            best = ("ring", h, t)
+    return TransportConfig(kind=best[0], hop_chunks=best[1])
+
+
+def transport_crossover_bytes(axis_size: int,
+                              model: Optional[AlphaBetaModel] = None,
+                              compression_ratio: float = 2.1,
+                              lo: float = 1024.0,
+                              hi: float = float(1 << 40)) -> float:
+    """Smallest shard value size (bytes) at which the ring's modeled time
+    beats one-shot, by bisection (``compression_ratio`` maps value bytes
+    to wire bytes)."""
+    model = model or AlphaBetaModel()
+
+    def ring_wins(value_bytes: float) -> bool:
+        wire = value_bytes / compression_ratio
+        one = modeled_oneshot_time(model, wire, value_bytes, axis_size)
+        ring = min(modeled_ring_time(model, wire, value_bytes, axis_size,
+                                     h) for h in HOP_CHUNK_CANDIDATES)
+        return ring < one
+
+    if ring_wins(lo):
+        return lo
+    if not ring_wins(hi):
+        return hi
+    for _ in range(60):
+        mid = math.sqrt(lo * hi)
+        if ring_wins(mid):
+            hi = mid
+        else:
+            lo = mid
+    return hi

@@ -2,9 +2,9 @@
 one-shot and ring (the kinds of ``planner.TRANSPORT_KINDS``; the
 hierarchical two-tier kind waits for multi-node, ROADMAP queue 1, item 13).
 
-* **one-shot**: a single ``all_to_all_single`` (reduce-scatter) or
-  ``all_gather_into_tensor`` (all-gather) of the whole compressed
-  payload; every decode runs after the last byte lands.
+* **one-shot**: a single ``all_to_all_single`` (reduce-scatter,
+  all-to-all) or ``all_gather_into_tensor`` (all-gather) of the whole
+  compressed payload; every decode runs after the last byte lands.
 * **ring**: the payload moves in ``d - 1`` point-to-point hops
   (``batch_isend_irecv``). Hop *s+1* is issued before hop *s* is decoded,
   so the decode (and, for the reduce-scatter, the accumulate) of one hop
@@ -15,10 +15,11 @@ Schedules (d = group size, i = this rank), as in the reference:
 
 * all-gather: the neighbor ring ``i -> i+1``; hop *s* delivers peer
   ``i-s``'s original payload, decoded into its output row.
-* reduce-scatter: the rotated pairwise exchange; hop *s* sends the
-  original compressed segment destined for peer ``i+s`` and receives
-  peer ``i-s``'s segment for this rank. No partial sum crosses the wire,
-  so nothing is quantized twice.
+* reduce-scatter and all-to-all: the rotated pairwise exchange; hop *s*
+  sends the original compressed segment destined for peer ``i+s`` and
+  receives peer ``i-s``'s segment for this rank. No partial sum crosses
+  the wire, so nothing is quantized twice. The all-to-all decodes each
+  arriving row into its source's output row, its own row included.
 
 **Bit-identity contract.** Both transports move the same compressed
 bytes and reduce through the same per-row-piece op sequence in the same
@@ -168,6 +169,27 @@ def _wait(works):
     for w in works:
         w.wait()
 
+def _pairwise(packed: Sequence[torch.Tensor], group, d: int, my: int,
+              consume):
+    """The rotated pairwise exchange of per-destination rows ``packed``
+    (h x [d, L]): hop *s* sends row ``i+s`` to peer ``i+s`` and receives
+    peer ``i-s``'s row for this rank; hop *s+1* is posted before hop *s*
+    is consumed. ``consume(bufs, src)`` sees this rank's own row first."""
+    def post(s):
+        dst = (my + s) % d
+        return _exchange([p[dst] for p in packed], dst, (my - s) % d,
+                         group)
+
+    nxt = post(1) if d > 1 else None
+    for s in range(d):
+        if s == 0:
+            bufs = [p[my] for p in packed]
+        else:
+            bufs, works = nxt
+            _wait(works)
+            nxt = post(s + 1) if s + 1 < d else None
+        consume(bufs, (my - s) % d)
+
 
 def ring_stream(local: List[torch.Tensor], group, consume, init):
     """Neighbor-forwarding ring: at hop *s* the buffers holding peer
@@ -268,23 +290,55 @@ def exchange_reduce_scatter(xs: torch.Tensor, group, tables, cfg,
             accs, ok = _accumulate_row_pieces(
                 accs, [_row(pc, src) for pc in received], tables, cfg, ok)
     else:
-        packed = [_pack(pc) for pc in pieces]         # h x [d, L]
-
-        def post(s):
-            dst = (my + s) % d
-            return _exchange([p[dst] for p in packed], dst, (my - s) % d,
-                             group)
-
-        nxt = post(1) if d > 1 else None
-        for s in range(d):
-            if s == 0:
-                bufs = [p[my] for p in packed]
-            else:
-                bufs, works = nxt
-                _wait(works)
-                nxt = post(s + 1) if s + 1 < d else None
+        def consume(bufs, src):
+            nonlocal accs, ok
             row = [_row(_unpack(b[None], pc), 0)
                    for b, pc in zip(bufs, pieces)]
             accs, ok = _accumulate_row_pieces(accs, row, tables, cfg, ok)
+
+        _pairwise([_pack(pc) for pc in pieces], group, d, my, consume)
     acc = torch.cat(accs)
     return (acc, ok, hist) if emit_hist else (acc, ok)
+
+
+
+# --------------------------------------------------------------------------
+# All-to-all
+# --------------------------------------------------------------------------
+
+def exchange_all_to_all(rows: torch.Tensor, group, tables, cfg,
+                        t: TransportConfig, emit_hist: bool = False):
+    """All-to-all of ``rows [d, n]`` (row j goes to peer j) -> ``(vals
+    f32 [d, n], ok bool [])``, output row j holding peer j's dequantized
+    row for this rank (+ the int32 [256] histogram of every symbol this
+    rank encoded with ``emit_hist``). The own row is quantized and
+    decoded like the others on both transports, so one-shot and ring
+    give the same bits."""
+    _check_kind(t)
+    d = dist.get_world_size(group)
+    my = dist.get_rank(group)
+    h = t.hop_chunks if t.kind == "ring" else 1
+    pieces, hist = _compress_pieces(rows, h, tables, cfg, emit_hist)
+    if t.kind == "oneshot":
+        packed = _pack(pieces[0])                       # [d, L]
+        out = torch.empty_like(packed)
+        dist.all_to_all_single(out, packed, group=group)
+        payload, scales = _unpack(out, pieces[0])
+        vals, ok = comp._decompress_values(payload, scales, tables, cfg)
+        res = (vals, ok.all())
+    else:
+        vals_out = torch.empty((d, h, rows.shape[-1] // h),
+                               dtype=torch.float32, device=rows.device)
+        oks = []
+
+        def consume(bufs, src):
+            row = [_row(_unpack(b[None], pc), 0)
+                   for b, pc in zip(bufs, pieces)]
+            for p, (pp, ps) in enumerate(row):
+                vals_out[src, p], _ = comp._decompress_values(pp, ps,
+                                                              tables, cfg)
+            oks.append(_row_pool_ok(row))
+
+        _pairwise([_pack(pc) for pc in pieces], group, d, my, consume)
+        res = (vals_out.reshape(d, -1), torch.stack(oks).all())
+    return res + (hist,) if emit_hist else res

@@ -11,9 +11,8 @@ histograms and scheme give bit-identical tables on every host, and
 entries whose tables come out bit-identical share one scheme-id. The
 JSON form is the reference package's (version 1): a registry written by
 either package loads in the other with the same scheme-ids and
-bit-identical tables. The transport and link caches that the
-reference's collectives write are carried through the JSON unchanged;
-the API that reads them comes with the collectives slice.
+bit-identical tables, the same autotuned-transport cache and the same
+measured link constants (``Channel.autotune``).
 """
 from __future__ import annotations
 
@@ -33,8 +32,15 @@ REGISTRY_VERSION = 1
 #: scheme-id is carried in a u32 header field / u8 manifest fields.
 MAX_SCHEME_ID = 0xFFFF
 
-#: JSON sections written by the reference's collectives, kept verbatim.
-_PASSTHROUGH = ("transport_cache", "link_cache")
+#: Field names of the autotuned-transport cache key, in key order.
+TRANSPORT_CACHE_KEY = ("scheme_id", "axis", "payload_bucket", "is_reduce")
+
+
+def payload_bucket(payload_bytes: int) -> int:
+    """Power-of-two bucket of a payload size (``ceil(log2(bytes))``): the
+    autotune cache keys tuned transports by ``(scheme_id, axis,
+    payload_bucket, is_reduce)``, one measurement per size class."""
+    return max(0, int(payload_bytes) - 1).bit_length()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +62,9 @@ class CodecEntry:
         """The entry's wire format as a ``CommConfig`` (kwargs override)."""
         from repro_torch.comm.compressed import CommConfig
         return CommConfig.from_plan(self.plan, **overrides)
+
+    def expected_bits(self) -> float:
+        return self.plan.expected_bits_per_symbol
 
 
 def _tables_digest(tables: CodecTables) -> str:
@@ -91,7 +100,9 @@ class CodecRegistry:
         self._by_name: Dict[str, CodecEntry] = {}
         self._by_id: Dict[int, CodecEntry] = {}
         self._digest_to_id: Dict[str, int] = {}
-        self._passthrough: Dict[str, list] = {}
+        self._transport_cache: Dict[Tuple[int, str, int, bool],
+                                    "TransportConfig"] = {}
+        self._link_cache: Dict[str, Dict] = {}
 
     # ---- registration ----------------------------------------------------
 
@@ -201,6 +212,71 @@ class CodecRegistry:
         """Distinct entries, ordered by scheme-id."""
         return [self._by_id[i] for i in sorted(self._by_id)]
 
+    def tables_for(self, name: str) -> CodecTables:
+        return self[name].tables
+
+    def config_for(self, name: str, **overrides) -> "CommConfig":
+        return self[name].config(**overrides)
+
+    # ---- autotuned transport cache (Channel.autotune) --------------------
+
+    def cache_transport(self, scheme_id: int, axis: str,
+                        payload_bytes: int, transport: "TransportConfig",
+                        *, is_reduce: bool = False):
+        """Record an autotuned transport for ``(scheme_id, axis, payload
+        bucket, is_reduce)``, overwriting any earlier tuning of the key.
+        Reduce-scatter tunings are keyed apart: the one-shot RS pays a
+        decode dispatch per rank that the gather does not."""
+        from repro_torch.comm.planner import TransportConfig
+        if not isinstance(transport, TransportConfig):
+            raise TypeError(f"expected TransportConfig, got "
+                            f"{type(transport).__name__}")
+        key = (int(scheme_id), str(axis), payload_bucket(payload_bytes),
+               bool(is_reduce))
+        self._transport_cache[key] = transport
+
+    def cached_transport(self, scheme_id: int, axis: str,
+                         payload_bytes: int, *, is_reduce: bool = False
+                         ) -> Optional["TransportConfig"]:
+        """Tuned transport for the payload's size class, or ``None``."""
+        return self._transport_cache.get(
+            (int(scheme_id), str(axis), payload_bucket(payload_bytes),
+             bool(is_reduce)))
+
+    def transport_cache(self) -> Dict[Tuple[int, str, int, bool],
+                                      "TransportConfig"]:
+        """A copy of the tuning cache."""
+        return dict(self._transport_cache)
+
+    # ---- measured per-link-class constants (Channel.autotune) ------------
+
+    def cache_link_constants(self, axis: str, link: str, *,
+                             wire_Bps: float,
+                             alpha_s: Optional[float] = None):
+        """Record measured constants for one axis (a process group's
+        name): its link class (``planner.LINK_CLASSES``), the measured
+        per-hop wire rate and optionally the per-message latency."""
+        from repro_torch.comm.planner import LINK_CLASSES
+        if link not in LINK_CLASSES:
+            raise ValueError(f"unknown link class {link!r}; "
+                             f"valid classes: {LINK_CLASSES}")
+        wire_Bps = float(wire_Bps)
+        if not wire_Bps > 0:
+            raise ValueError(f"wire_Bps must be positive, got {wire_Bps}")
+        self._link_cache[str(axis)] = {
+            "link": link, "wire_Bps": wire_Bps,
+            "alpha_s": None if alpha_s is None else float(alpha_s)}
+
+    def cached_link_constants(self, axis: str) -> Optional[Dict]:
+        """``{"link", "wire_Bps", "alpha_s"}`` of ``axis``, or ``None``
+        when it was never probed."""
+        e = self._link_cache.get(str(axis))
+        return None if e is None else dict(e)
+
+    def link_cache(self) -> Dict[str, Dict]:
+        """A copy of the per-axis link cache."""
+        return {a: dict(e) for a, e in self._link_cache.items()}
+
     # ---- multi-LUT batched decode operands -------------------------------
 
     def stacked_decode_tables(
@@ -240,7 +316,17 @@ class CodecRegistry:
                 "plan": dataclasses.asdict(entry.plan),
             })
         out = {"version": REGISTRY_VERSION, "entries": entries}
-        out.update({k: v for k, v in self._passthrough.items() if v})
+        if self._transport_cache:
+            out["transport_cache"] = [
+                {"scheme_id": sid, "axis": axis, "bucket": bucket,
+                 "is_reduce": red, "kind": t.kind,
+                 "hop_chunks": t.hop_chunks}
+                for (sid, axis, bucket, red), t
+                in sorted(self._transport_cache.items())]
+        if self._link_cache:
+            out["link_cache"] = [
+                {"axis": axis, **e}
+                for axis, e in sorted(self._link_cache.items())]
         return out
 
     def to_json(self) -> str:
@@ -251,7 +337,7 @@ class CodecRegistry:
         if d.get("version") != REGISTRY_VERSION:
             raise ValueError(f"unsupported registry version "
                              f"{d.get('version')!r}")
-        from repro_torch.comm.planner import CommPlan
+        from repro_torch.comm.planner import CommPlan, TransportConfig
         reg = cls()
         for e in d["entries"]:
             scheme = QLCScheme(
@@ -272,9 +358,15 @@ class CodecRegistry:
                                         rebind=True)
             for alias in e.get("aliases", []):
                 reg._by_name[alias] = entry
-        for key in _PASSTHROUGH:
-            if d.get(key):
-                reg._passthrough[key] = list(d[key])
+        for c in d.get("transport_cache", []):
+            reg._transport_cache[
+                (int(c["scheme_id"]), str(c["axis"]), int(c["bucket"]),
+                 bool(c.get("is_reduce", False)))] = TransportConfig(
+                    kind=c["kind"], hop_chunks=int(c.get("hop_chunks", 1)))
+        for c in d.get("link_cache", []):
+            reg.cache_link_constants(c["axis"], c["link"],
+                                     wire_Bps=c["wire_Bps"],
+                                     alpha_s=c.get("alpha_s"))
         return reg
 
     @classmethod

@@ -11,12 +11,25 @@ through ``Trainer``, which redoes a step whose escape pool overflowed
 through the baseline step. Weights are random, from ``--seed``; data is
 the reference's synthetic token stream.
 
+``--autotune`` (with ``--comm qlc``) measures the decode rate on the
+device and, over two or more ranks, the group's wire rate, and caches
+the tuned transport of each wire in the registry, where the step's
+``"auto"`` channels find it. ``--checkpoint-dir`` saves ``(params,
+opt_state)`` through ``CheckpointManager`` every ``--checkpoint-every``
+steps and after the last, and a launch that finds a checkpoint there
+resumes from its step. The registry is calibrated from the initial
+parameters and batch 0 before the restore, so a resumed run uses the
+codecs of the uninterrupted one.
+
 Example (one H100; ``--reduced`` and ``--device cpu`` run on the CPU
 with the kernels' plain versions):
   python -m repro_torch.launch.train --arch phi3-mini-3.8b --comm qlc \\
       --steps 4 --seq-len 512 --global-batch 4 --transport oneshot
   python -m repro_torch.launch.train --arch phi3-mini-3.8b --reduced \\
       --device cpu --comm qlc --steps 3
+  python -m repro_torch.launch.train --arch phi3-mini-3.8b --reduced \\
+      --device cpu --comm qlc --steps 6 --autotune \\
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 3
 
 The launcher runs one rank; ``train()`` runs on whatever process group
 its caller set up (``launch.mesh``). Flags of the reference that reach
@@ -27,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -35,6 +49,7 @@ import torch.distributed as dist
 
 from repro_torch.comm.calibrate import (calibrate_for_gradients,
                                         histogram_of_tree)
+from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.configs.base import ModelConfig
@@ -48,6 +63,7 @@ from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
                                   make_baseline_step, make_compressed_step,
                                   make_zero1_fallback)
 from repro_torch.training import optimizer as optm
+from repro_torch.training.train_step import flat_geometry
 
 
 def _sync(dev: torch.device):
@@ -78,22 +94,74 @@ def calibrate_registry(cfg: ModelConfig, params, batch, group
     return CodecRegistry.from_json(payload[0])
 
 
+def _autotune_transports(registry: CodecRegistry, n_padded: int, group,
+                         device, **probe) -> Dict[str, Channel]:
+    """Autotune the step's two wires into ``registry``: one ``"auto"``
+    channel per tensor type over ``group`` (the binding the compressed
+    step opens), tuned at the payload each moves per rank of a flat
+    gradient of ``n_padded`` values: ``"grads"`` on the reduce-scatter,
+    ``"params"`` on the all-gather. ``probe`` goes to
+    ``Channel.autotune`` (``probe_symbols``, ``repeats``). Returns the
+    tuned channels (their ``model`` holds the measured rates)."""
+    d = dist.get_world_size(group)
+    tuned = {}
+    for name, is_reduce in (("grads", True), ("params", False)):
+        ch = Channel(ChannelSpec(codec=name, transport="auto", group=group),
+                     registry=registry)
+        tuned[name] = ch.autotune(4 * (n_padded // d), is_reduce=is_reduce,
+                                  device=device, **probe)
+        logging.info("autotuned %s over %d ranks: %s", name, d,
+                     tuned[name].transport)
+    return tuned
+
+
+def rank_checkpoint_dir(root: str, group) -> str:
+    """The directory this rank of ``group`` checkpoints into: ``root``
+    for one rank, ``root/rank_<r>`` for each of several (every rank
+    keeps its own ZeRO-1 state). A ``root`` that holds the checkpoints of
+    a group of another size raises ``ValueError`` on every rank before
+    any of them writes there."""
+    d = dist.get_world_size(group)
+    names = os.listdir(root) if os.path.isdir(root) else []
+    ranks = sorted(n for n in names if n.startswith("rank_"))
+    want = [f"rank_{r:05d}" for r in range(d)] if d > 1 else []
+    flat = any(n.startswith("step_") for n in names)
+    if (ranks and ranks != want) or (d > 1 and flat):
+        held = f"{len(ranks)} ranks" if ranks else "one rank"
+        raise ValueError(f"{root} holds the checkpoints of {held}; this "
+                         f"group has {d}")
+    if d == 1:
+        return root
+    dist.barrier(group=group)
+    if dist.get_rank(group) == 0:
+        for name in want:
+            os.makedirs(os.path.join(root, name), exist_ok=True)
+    dist.barrier(group=group)
+    return os.path.join(root, want[dist.get_rank(group)])
+
+
 def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
           seq_len: int = 128, global_batch: int = 8,
           transport: str = "oneshot", microbatches: int = 1,
           lr: float = 3e-4, device="cuda", seed: int = 0,
           registry: Optional[CodecRegistry] = None,
-          wire_enabled: bool = True, params=None) -> Dict[str, Any]:
+          wire_enabled: bool = True, params=None, autotune: bool = False,
+          checkpoint_dir: Optional[str] = None,
+          checkpoint_every: int = 100) -> Dict[str, Any]:
     """Run the launcher's path on the default process group (one rank of
     ``device``'s backend is set up, and torn down after, when none
     exists) and return what it produced: ``history`` (per step: loss,
     seconds, ok), ``comm_fallbacks``, the final ``params`` and
-    ``opt_state``; with ``comm="qlc"`` also the ``registry``,
+    ``opt_state``, ``start_step`` (past 0 when resumed from
+    ``checkpoint_dir``); with ``comm="qlc"`` also the ``registry``,
     ``calibrate_s`` (nothing is calibrated when a registry is given), the
-    step and its
-    channels, and the modeled wire bytes per symbol of both wires.
+    step and its channels, the modeled wire bytes per symbol of both
+    wires, and with ``autotune`` the tuned channels (``tuned``).
     ``wire_enabled=False`` runs the raw e4m3 twin (the same step with
-    the codes uncompressed on the wire)."""
+    the codes uncompressed on the wire). Over several ranks each keeps
+    its checkpoints (its ZeRO-1 state is its own) in
+    ``checkpoint_dir/rank_<r>`` (:func:`rank_checkpoint_dir`), and all
+    resume from the newest step that they all hold."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     dev = resolve_device(device)
@@ -118,6 +186,10 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                                               group)
             _sync(dev)
             out["calibrate_s"] = time.perf_counter() - t0
+            if autotune:
+                n = flat_geometry(params, dist.get_world_size(group),
+                                  registry["grads"].config()).n_padded
+                out["tuned"] = _autotune_transports(registry, n, group, dev)
             step = make_compressed_step(
                 cfg, opt_cfg, train_cfg, group, registry,
                 CommConfig(enabled=wire_enabled), transport=transport)
@@ -134,12 +206,19 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         else:
             step = baseline
             opt_state = optm.init_state(params, opt_cfg)
-        trainer = Trainer(TrainerConfig(total_steps=steps), step,
-                          fallback_step_fn=fallback)
-        params, opt_state = trainer.run(params, opt_state, data)
+        if checkpoint_dir:
+            checkpoint_dir = rank_checkpoint_dir(checkpoint_dir, group)
+        trainer = Trainer(TrainerConfig(total_steps=steps,
+                                        checkpoint_dir=checkpoint_dir,
+                                        checkpoint_every=checkpoint_every),
+                          step, fallback_step_fn=fallback, group=group)
+        params, opt_state, start = trainer.restore_or(params, opt_state)
+        params, opt_state = trainer.run(params, opt_state, data,
+                                        start_step=start)
         _sync(dev)
     out.update(history=trainer.history, comm_fallbacks=trainer.comm_fallbacks,
-               params=params, opt_state=opt_state, data=data)
+               params=params, opt_state=opt_state, data=data,
+               start_step=start)
     return out
 
 
@@ -156,12 +235,6 @@ def _not_ported(args):
     if args.adapt:
         raise NotImplementedError("online codec adaptation is not ported: "
                                   "ROADMAP queue 1, item 12")
-    if args.autotune:
-        raise NotImplementedError("transport autotuning is not ported: "
-                                  "ROADMAP queue 1, item 6")
-    if args.checkpoint_dir:
-        raise NotImplementedError("checkpoints are not ported: ROADMAP "
-                                  "queue 1, item 8")
 
 
 def main(argv=None):
@@ -191,6 +264,7 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -206,16 +280,30 @@ def main(argv=None):
                 global_batch=args.global_batch or (8 if args.reduced
                                                    else 256),
                 transport=args.transport, microbatches=args.microbatches,
-                lr=args.lr, device=args.device, seed=args.seed)
+                lr=args.lr, device=args.device, seed=args.seed,
+                autotune=args.autotune and args.comm == "qlc",
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every)
     hist = res["history"]
     if args.comm == "qlc":
         print(f"calibrate {res['calibrate_s'] * 1e3:.1f} ms; wire "
               f"{res['grads_wire_bytes_per_symbol']:.4f} B/symbol (grads), "
               f"{res['params_wire_bytes_per_symbol']:.4f} (params); "
               f"{res['comm_fallbacks']} fallbacks")
-    print(f"{len(hist)} steps, {sum(h['dt'] for h in hist) / len(hist) * 1e3:.1f}"
-          f" ms/step; final loss {hist[-1]['loss']:.4f} (from "
-          f"{hist[0]['loss']:.4f})")
+    for name, ch in res.get("tuned", {}).items():
+        t = ch.transport
+        print(f"autotuned {name}: {t.kind} x{t.hop_chunks} (decode "
+              f"{ch.model.decode_Bps:.4g} B/s)")
+    if res["start_step"]:
+        print(f"resumed from step {res['start_step']} "
+              f"({args.checkpoint_dir})")
+    if hist:
+        print(f"{len(hist)} steps, "
+              f"{sum(h['dt'] for h in hist) / len(hist) * 1e3:.1f} ms/step; "
+              f"final loss {hist[-1]['loss']:.4f} (from "
+              f"{hist[0]['loss']:.4f})")
+    else:
+        print(f"no step left to run (steps {args.steps})")
     return res
 
 

@@ -1,6 +1,5 @@
-"""Training loop: straggler watchdog, comm-failure retry (compressed step
--> fallback step), metrics. Checkpoint and resume wait for the
-checkpoint slice (ROADMAP queue 1, item 8)."""
+"""Training loop: checkpoint and resume, straggler watchdog, comm-failure
+retry (compressed step -> fallback step), metrics."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,18 +7,22 @@ import logging
 import time
 from typing import Callable, Optional
 
+import torch.distributed as dist
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime.fault import StragglerWatchdog
 
 log = logging.getLogger("repro_torch.trainer")
-
-_NO_CKPT = "checkpoints are not ported: ROADMAP queue 1, item 8"
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int
-    checkpoint_dir: Optional[str] = None    # not ported: raises
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 100
     log_every: int = 10
+    keep_checkpoints: int = 3
 
 
 class Trainer:
@@ -31,21 +34,62 @@ class Trainer:
     holds by retrying on the uncompressed path rather than accepting
     corrupt gradients. ``on_step(step, metrics) -> Optional[new_step_fn]``
     runs after each completed step; a callable it returns replaces
-    ``step_fn`` from the next step on.
+    ``step_fn`` from the next step on. With ``checkpoint_dir``,
+    ``(params, opt_state)`` is saved with ``extra={"step": step}`` every
+    ``checkpoint_every`` steps and after the last one, and
+    :meth:`restore_or` resumes from the latest checkpoint.
+
+    ``group``: the process group the step runs on, whose ranks each keep
+    their own ``checkpoint_dir`` (their ZeRO-1 state is their own). Each
+    save records the group's size, and :meth:`restore_or` resumes every
+    rank from the newest step that all of them hold.
     """
 
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  fallback_step_fn: Optional[Callable] = None,
-                 on_step: Optional[Callable] = None):
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(_NO_CKPT)
+                 on_step: Optional[Callable] = None, group=None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.fallback_step_fn = fallback_step_fn
         self.on_step = on_step
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.watchdog = StragglerWatchdog()
+        self.ckpt = (CheckpointManager(cfg.checkpoint_dir,
+                                       keep=cfg.keep_checkpoints)
+                     if cfg.checkpoint_dir else None)
         self.history: list = []
         self.comm_fallbacks = 0
+
+    def restore_or(self, params, opt_state, start_step: int = 0):
+        """``(params, opt_state, start_step)`` from the newest checkpoint
+        that every rank of the group holds, placed on the device of
+        ``params``; the given ones when there is none. A checkpoint saved
+        by a group of another size raises ``ValueError``."""
+        if self.ckpt is None:
+            return params, opt_state, start_step
+        held = set(self.ckpt.all_steps())
+        if self.world > 1:
+            lists = [None] * self.world
+            dist.all_gather_object(lists, sorted(held), group=self.group)
+            held = set.intersection(*map(set, lists))
+            if not held and any(lists):
+                log.warning("the ranks hold no checkpoint step in common "
+                            "(%s); starting from step %d", lists, start_step)
+        if not held:
+            return params, opt_state, start_step
+        step = max(held)
+        device = tree_leaves(params)[0].device
+        (params, opt_state), extra = self.ckpt.restore(
+            (params, opt_state), step=step, device=device)
+        world = int(extra.get("world_size", 1))
+        if world != self.world:
+            raise ValueError(f"checkpoint step {step} in {self.ckpt.dir} was "
+                             f"saved by {world} ranks; this group has "
+                             f"{self.world}")
+        start_step = int(extra.get("step", step))
+        log.info("resumed from step %d", start_step)
+        return params, opt_state, start_step
 
     def run(self, params, opt_state, dataset, start_step: int = 0):
         step = start_step
@@ -77,4 +121,10 @@ class Trainer:
                                  "ok": ok})
             if step % self.cfg.log_every == 0:
                 log.info("step %d loss %.4f (%.2fs)", step, loss, dt)
+            if self.ckpt is not None and (
+                    step % self.cfg.checkpoint_every == 0
+                    or step == self.cfg.total_steps):
+                self.ckpt.save(step, (params, opt_state),
+                               extra={"step": step,
+                                      "world_size": self.world})
         return params, opt_state

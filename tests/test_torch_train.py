@@ -18,6 +18,8 @@ tolerances and why:
   of entries (in practice all) and losses to rtol 1e-5 — the gradients
   differ in their last bits, so an e4m3 code may round the other way.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -324,13 +326,42 @@ def test_launcher_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--pods", "2"], "item 13"), (["--transport", "hierarchical"],
                                    "item 13"),
-    (["--moe-wire", "qlc"], "item 11"), (["--adapt"], "item 12"),
-    (["--autotune"], "item 6"), (["--checkpoint-dir", "/nonexistent"],
-                                 "item 8")])
+    (["--moe-wire", "qlc"], "item 11"), (["--adapt"], "item 12")])
 def test_launcher_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "phi3-mini-3.8b", "--reduced", "--device",
                         "cpu"] + flags)
+
+
+_SMALL = ["--arch", "phi3-mini-3.8b", "--reduced", "--device", "cpu",
+          "--comm", "qlc", "--seq-len", "32", "--global-batch", "4"]
+
+
+def test_launcher_checkpoint_dir_saves_and_resumes(tmp_path, capsys):
+    """``--checkpoint-dir``: the first launch writes its checkpoints, a
+    second launch with more steps resumes from the last one's step and
+    saves its own."""
+    ck = str(tmp_path / "ck")
+    first = train_mod.main(_SMALL + ["--steps", "2", "--checkpoint-dir", ck,
+                                     "--checkpoint-every", "1"])
+    assert first["start_step"] == 0 and len(first["history"]) == 2
+    assert sorted(os.listdir(ck)) == ["latest", "step_0000000001",
+                                      "step_0000000002"]
+    second = train_mod.main(_SMALL + ["--steps", "3", "--checkpoint-dir",
+                                      ck])
+    assert second["start_step"] == 2 and len(second["history"]) == 1
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert "step_0000000003" in os.listdir(ck)
+
+
+def test_launcher_autotune_prints_tuned_transports(capsys):
+    res = train_mod.main(_SMALL + ["--steps", "1", "--autotune"])
+    out = capsys.readouterr().out
+    assert "autotuned grads: oneshot x1" in out
+    assert "autotuned params: oneshot x1" in out
+    reg = res["registry"]
+    assert len(reg.transport_cache()) == 2
+    assert {k[1] for k in reg.transport_cache()} == {"data"}
 
 
 @pytest.fixture

@@ -12,6 +12,7 @@ tolerance is exact: on the wire the dequantize product of an e4m3 value
 and a bf16 scale is exact in f32, so no fused multiply-add can change
 an accumulated sum.
 """
+import dataclasses
 import os
 import tempfile
 
@@ -87,12 +88,16 @@ def _bf16_bits(t) -> np.ndarray:
     return np.asarray(t).view(np.int16)
 
 
-@pytest.fixture(scope="module")
-def wire():
+def _wire_inputs():
     x = _grad_like((3, 12 * K), 0)
     counts = _counts(x)
     return (x, build_tables(counts, TABLE1),
             t_lut.build_tables(counts, t_schemes.TABLE1), _cfgs(x))
+
+
+@pytest.fixture(scope="module")
+def wire():
+    return _wire_inputs()
 
 
 @pytest.mark.parametrize("case", ["escapes", "overflow"])
@@ -194,18 +199,165 @@ def test_planner_matches_reference():
         tplanner.TransportConfig("mesh")
 
 
+def test_planner_link_classes_and_a2a_match_reference():
+    """The link-class model, the a2a ring model and choice, the crossover
+    and the compression ratio, on a grid, against the reference on the
+    same constants; the payload buckets of the autotune cache."""
+    from repro.core import registry as jreg_mod
+    from repro_torch.core import registry as treg_mod
+    consts = dict(alpha_s=1e-5, wire_Bps=4.5e11, decode_Bps=6.9e11,
+                  dispatch_s=3e-4, dcn_alpha_s=2e-5, dcn_wire_Bps=2.5e10)
+    jm = jplanner.AlphaBetaModel(**consts)
+    tm = tplanner.AlphaBetaModel(**consts)
+    for link, kw in (("ici", dict(wire_Bps=1e11)), ("dcn", dict(
+            alpha_s=1e-4, wire_Bps=1e9)), ("ici", {})):
+        jl, tl = jm.with_link(link, **kw), tm.with_link(link, **kw)
+        assert dataclasses.asdict(jl) == dataclasses.asdict(tl)
+        for b in (0.0, 1e6):
+            assert jl.wire_time(b, link) == tl.wire_time(b, link)
+    with pytest.raises(ValueError, match="link class"):
+        tm.link_alpha("nvlink")
+    for model_pair in ((jm, tm), (jm.with_link("ici", wire_Bps=1e9),
+                                  tm.with_link("ici", wire_Bps=1e9))):
+        jmm, tmm = model_pair
+        for wb, vb, d in ((1e5, 4e5, 4), (1e8, 4e8, 8), (3e3, 1e4, 2),
+                          (1e9, 4.2e9, 1)):
+            for h in (1, 2, 4):
+                assert tplanner.modeled_a2a_ring_time(tmm, wb, vb, d, h) == \
+                    jplanner.modeled_a2a_ring_time(jmm, wb, vb, d, h)
+            jc = jplanner.choose_a2a_transport(wb, vb, d, model=jmm)
+            tc = tplanner.choose_a2a_transport(wb, vb, d, model=tmm)
+            assert (jc.kind, jc.hop_chunks) == (tc.kind, tc.hop_chunks)
+        for d, ratio in ((2, 2.1), (4, 1.3), (8, 3.0)):
+            assert tplanner.transport_crossover_bytes(
+                d, tmm, compression_ratio=ratio) == \
+                jplanner.transport_crossover_bytes(d, jmm,
+                                                   compression_ratio=ratio)
+    for cap, k in ((150, 1024), (45, 256), (240, 1024)):
+        jp = jplanner.CommPlan(k, cap, 8, 5.0, 1e-6)
+        tp = tplanner.CommPlan(k, cap, 8, 5.0, 1e-6)
+        assert tplanner.effective_compression_ratio(tp) == \
+            jplanner.effective_compression_ratio(jp)
+        assert tp.pool_slots(1000) == jp.pool_slots(1000)
+    assert treg_mod.TRANSPORT_CACHE_KEY == jreg_mod.TRANSPORT_CACHE_KEY
+    for b in (0, 1, 2, 3, 4095, 4096, 4097, 1 << 20, (1 << 20) + 1):
+        assert treg_mod.payload_bucket(b) == jreg_mod.payload_bucket(b)
+
+
 def test_channel_unported_parts_raise(wire):
     _, _, tt, cfgs = wire
     cfg = tcomp.CommConfig(**cfgs["escapes"])
     with pytest.raises(NotImplementedError, match="item 13"):
         Channel(ChannelSpec(codec=tt, cfg=cfg, transport="hierarchical"))
     ch = Channel(ChannelSpec(codec=tt, cfg=cfg))
-    for call, item in ((ch.psum, "item 6"), (ch.all_to_all, "item 6"),
-                       (ch.autotune, "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            call(torch.zeros(8))
-    with pytest.raises(ValueError, match="no process group"):
-        ch.reduce_scatter(torch.zeros(K))
+    assert ch.axis is None
+    for call in (ch.psum, ch.all_to_all, ch.autotune,
+                 ch.reduce_scatter):
+        with pytest.raises(ValueError, match="no process group"):
+            call(torch.zeros(4, K))
+
+
+def test_channel_psum_all_to_all_autotune_run_on_one_rank(wire):
+    """On a gloo group of one: psum and all_to_all return the wire's
+    lossless round trip (the e4m3 dequantize of the input) with ok, the
+    payload's wire bytes are the reference's, and autotune measures the
+    decode rate (no wire to probe) and keeps one-shot; the tuned
+    channel's ``replace`` keeps its measured model."""
+    from repro_torch.comm.channel import measure_decode_Bps
+    from repro_torch.core import CodecRegistry as TRegistry
+    from repro_torch.launch.mesh import data_parallel
+    x, jt, tt, cfgs = wire
+    cfg = tcomp.CommConfig(**cfgs["escapes"])
+    xt = torch.from_numpy(x[0])
+    want, _ = tcomp._decompress_values(
+        *tcomp._compress_values(xt, tt, cfg), tt, cfg)
+    reg = TRegistry()
+    reg.register("grads", _counts(x))
+    with data_parallel("cpu") as group:
+        ch = Channel(ChannelSpec(codec=tt, cfg=cfg, group=group))
+        assert ch.axis == "data"
+        s, ok = ch.psum(xt)
+        assert bool(ok) and torch.equal(s, want)
+        jp, js = jcomp._compress_values(jnp.asarray(x[0]), jt,
+                                        jcomp.CommConfig(**cfgs["escapes"]))
+        assert ch.wire_bytes(*ch.compress(xt)) == jcomp.wire_bytes(jp, js)
+        a, ok, hist = ch.all_to_all(xt[None], with_hist=True)
+        assert bool(ok) and torch.equal(a[0], want)
+        codes = tcomp._quantize(xt, cfg)[0]
+        assert torch.equal(hist, torch.bincount(
+            codes.reshape(-1).long(), minlength=256).to(hist.dtype))
+        auto = Channel(ChannelSpec(codec="grads", transport="auto",
+                                   group=group), registry=reg)
+        tuned = auto.autotune(1 << 16, probe_symbols=4096, repeats=1,
+                              device="cpu")
+        assert tuned.transport == tplanner.ONESHOT
+        assert tuned.model.decode_Bps > 0
+        ring = tuned.replace(transport=tplanner.RING)
+        assert ring.transport == tplanner.RING
+        assert ring.model is tuned.model and ring.registry is reg
+        assert reg.cached_transport(reg["grads"].scheme_id, "data",
+                                    1 << 16) == tplanner.ONESHOT
+    rate, secs = measure_decode_Bps(tt, cfg, 4 * K, repeats=2, device="cpu")
+    assert rate > 0 and rate == pytest.approx(4 * 4 * K / secs)
+
+
+def test_autotune_caches_round_trip_from_the_reference(monkeypatch):
+    """A reference registry tuned by the reference's ``Channel.autotune``
+    (decode probe stubbed) and given measured link constants loads in the
+    port with the same caches, and the port's "auto" channel resolves to
+    the reference's tuning; back to the reference unchanged."""
+    from repro.comm import channel as jchm
+    from repro.core import CodecRegistry as JRegistry
+    from repro_torch.core import CodecRegistry as TRegistry
+    from repro_torch.launch.mesh import data_parallel
+    x, _, _, _ = _wire_inputs()
+    jreg = JRegistry()
+    jreg.register("grads", _counts(x))
+    monkeypatch.setattr(jchm, "measure_decode_Bps",
+                        lambda *a, **k: (2e6, 0.0))
+    jreg.cache_link_constants("data", "ici", wire_Bps=3.0e9, alpha_s=4e-5)
+    payload = 4 * 65536
+    jch = jchm.Channel(jchm.ChannelSpec(codec="grads", transport="auto",
+                                        axis="data", axis_size=4),
+                       registry=jreg)
+    jt = jch.autotune(payload, is_reduce=True).transport
+    treg = TRegistry.from_json(jreg.to_json())
+    assert treg.transport_cache() == {
+        k: tplanner.TransportConfig(v.kind, v.hop_chunks)
+        for k, v in jreg.transport_cache().items()}
+    assert treg.link_cache() == jreg.link_cache()
+    with data_parallel("cpu") as group:
+        tch = Channel(ChannelSpec(codec="grads", transport="auto",
+                                  group=group), registry=treg)
+        got = tch.resolved_transport(payload // 4 * 4, is_reduce=True,
+                                     axis_size=4)
+    assert (got.kind, got.hop_chunks) == (jt.kind, jt.hop_chunks)
+    assert JRegistry.from_json(treg.to_json()).to_json_dict() == \
+        jreg.to_json_dict()
+
+
+def test_channel_spec_json_matches_reference():
+    from repro.comm import channel as jchm
+    from repro_torch.comm import channel as tchm
+    for t in (None, "auto", "ring", tplanner.TransportConfig("ring", 4)):
+        jt = t if not isinstance(t, tplanner.TransportConfig) else \
+            jplanner.TransportConfig(t.kind, t.hop_chunks)
+        assert tchm.transport_to_json(t) == jchm.transport_to_json(jt)
+        back = tchm.transport_from_json(tchm.transport_to_json(t))
+        assert back == t
+    spec = ChannelSpec(transport="ring", use_kernels=True,
+                       scale_dtype="bfloat16")
+    assert tchm.spec_to_json(spec) == jchm.spec_to_json(
+        jchm.ChannelSpec(transport="ring", use_kernels=True,
+                         scale_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tchm.spec_from_json({"pod_axis": "pod", "pod_axis_size": 2})
+    d = jchm.spec_to_json(jchm.ChannelSpec(
+        transport=jplanner.TransportConfig("ring", 2), axis="data",
+        axis_size=4, enabled=False))
+    back = tchm.spec_from_json(d)
+    assert back.transport == tplanner.TransportConfig("ring", 2)
+    assert back.enabled is False and back.axis is None
 
 
 # --------------------------------------------------------------------------
@@ -302,3 +454,114 @@ def test_collectives_ring_oneshot_and_reference_agree():
                                                (rank + 1) * seg_len]
         np.testing.assert_array_equal(
             port["escapes"][rank][VARIANTS[0]][0], want)
+
+
+_REFERENCE_PSUM_A2A = """
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.comm import CommConfig
+from repro.comm.channel import Channel, ChannelSpec
+from repro.comm.planner import TransportConfig
+from repro.core import TABLE1, build_tables
+from repro.parallel.sharding import shard_map_compat
+
+d = np.load({path!r}, allow_pickle=True)
+xs, ys, counts = d["xs"], d["ys"], d["counts"]
+cfgs = d["cfgs"].item()
+tables = build_tables(counts, TABLE1)
+mesh = Mesh(np.array(jax.devices()[:4]), ("d",))
+out = {{}}
+for name, kw in cfgs.items():
+    for kind, h in {variants!r}:
+        ch = Channel(ChannelSpec(codec=tables, cfg=CommConfig(**kw),
+                                 transport=TransportConfig(kind, h),
+                                 axis="d", axis_size=4))
+
+        def f(x, y):
+            s, ok = ch.psum(x[0])
+            a, ok2 = ch.all_to_all(y[0])
+            return s[None], ok[None], a[None], ok2[None]
+
+        res = jax.jit(shard_map_compat(
+            f, mesh=mesh, in_specs=(P("d", None), P("d", None, None)),
+            out_specs=(P("d"),) * 4))(jnp.asarray(xs), jnp.asarray(ys))
+        for i, r in enumerate(res):
+            out[f"{{name}}|{{kind}}|{{h}}|{{i}}"] = np.asarray(r)
+np.savez({out!r}, **out)
+print("REFERENCE OK")
+"""
+
+
+def test_psum_all_to_all_and_autotune_on_four_ranks():
+    """psum and all_to_all under one-shot, ring and ring with 2 hop
+    pieces: on 4 gloo ranks every variant gives the same values and ok,
+    and each equals the reference's on 4 devices; with an overflowing
+    pool ok is False in both packages. Then autotune (decode probe
+    stubbed): every rank caches the same tuning, the choice is the
+    planner's on the measured constants, and the caches load in the
+    reference with the same keys, its "auto" channel resolving to it."""
+    from repro.core import CodecRegistry as JRegistry
+    from repro.comm.channel import Channel as JChannel
+    from repro.comm.channel import ChannelSpec as JChannelSpec
+    from repro_torch.core import CodecRegistry as TRegistry
+    xs = _grad_like((4, 6000), 21)
+    ys = _grad_like((4, 4, 1400), 22)
+    counts = _counts(xs)
+    cfgs = _cfgs(xs[:, :5888])
+    tune = 4 * 65536
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "ref.npz")
+        np.savez(path, xs=xs, ys=ys, counts=counts,
+                 cfgs=np.array(cfgs, dtype=object))
+        run_md(_REFERENCE_PSUM_A2A.format(path=path, out=out,
+                                          variants=VARIANTS),
+               n_devices=4, timeout=600)
+        ref = dict(np.load(out))
+    port = run_ranks("psum_a2a", 4, xs=xs, ys=ys, counts=counts, cfgs=cfgs,
+                     variants=VARIANTS, tune_bytes=tune)
+    for name in cfgs:
+        for kind, h in VARIANTS:
+            key = f"{name}|{kind}|{h}"
+            for rank in range(4):
+                s, ok, a, ok2 = port[rank][(name, kind, h)]
+                assert ok == bool(ref[f"{key}|1"][rank]), (key, rank)
+                assert ok2 == bool(ref[f"{key}|3"][rank]), (key, rank)
+                assert ok == ok2 == (name == "escapes"), (key, rank)
+                if not ok:
+                    continue      # values past an overflowed pool differ
+                np.testing.assert_array_equal(s, ref[f"{key}|0"][rank])
+                np.testing.assert_array_equal(a, ref[f"{key}|2"][rank])
+                base = port[rank][(name,) + VARIANTS[0]]
+                np.testing.assert_array_equal(s, base[0])
+                np.testing.assert_array_equal(a, base[2])
+                np.testing.assert_array_equal(s, port[0][(name, kind, h)][0])
+
+    texts = {p["tuned"][0] for p in port}
+    assert len(texts) == 1
+    text, tuned, resolved = port[0]["tuned"]
+    assert resolved == tuned
+    treg = TRegistry.from_json(text)
+    link = treg.cached_link_constants("data")
+    assert link["link"] == "ici"
+    assert link["wire_Bps"] == tuned["params"][2] > 0
+    for name, is_reduce in (("grads", True), ("params", False)):
+        ch = Channel(ChannelSpec(codec=name), registry=treg)
+        model = dataclasses.replace(
+            tplanner.AlphaBetaModel().with_link("ici",
+                                                wire_Bps=tuned[name][2]),
+            decode_Bps=2e6)
+        want = tplanner.choose_transport(
+            ch.modeled_wire_bytes(tune // 4), float(tune), 4, model=model,
+            n_oneshot_decode_dispatches=4 if is_reduce else 1)
+        assert tuned[name][:2] == (want.kind, want.hop_chunks), name
+    tuned = {name: t[:2] for name, t in tuned.items()}
+    jreg = JRegistry.from_json(text)
+    assert sorted(jreg.transport_cache()) == sorted(treg.transport_cache())
+    for name, is_reduce in (("grads", True), ("params", False)):
+        jch = JChannel(JChannelSpec(codec=name, transport="auto",
+                                    axis="data", axis_size=4),
+                       registry=jreg)
+        got = jch.resolved_transport(tune // 4 * (4 if is_reduce else 1),
+                                     is_reduce=is_reduce)
+        assert (got.kind, got.hop_chunks) == tuned[name], name
+    assert TRegistry.from_json(jreg.to_json()).to_json() == text

@@ -95,6 +95,54 @@ def collectives(ctx, xs, counts, cfg_kw, variants):
     return out
 
 
+def psum_a2a(ctx, xs, ys, counts, cfgs, variants, tune_bytes):
+    """Compressed psum of ``xs[rank]`` and all-to-all of ``ys[rank]``
+    ([world, n]) under each config and transport variant -> {(name, kind,
+    h): (psum, ok, a2a, ok)}; then ``Channel.autotune`` of a ``"grads"``
+    (reduce-scatter) and a ``"params"`` channel (gather), each probing the
+    wire, at ``tune_bytes`` with the decode probe stubbed at 2e6 B/s ->
+    out["tuned"] = (registry JSON, {name: (kind, hop_chunks, the wire
+    rate it was tuned on)}, {name: what a fresh "auto" channel resolves
+    to, and the same rate})."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import channel as chm
+    from repro_torch.comm.channel import Channel, ChannelSpec
+    from repro_torch.comm.compressed import CommConfig
+    from repro_torch.comm.planner import TransportConfig
+    from repro_torch.core import CodecRegistry, lut, schemes
+    tables = lut.build_tables(np.asarray(counts), schemes.TABLE1)
+    x = torch.from_numpy(np.asarray(xs[ctx["rank"]]))
+    y = torch.from_numpy(np.asarray(ys[ctx["rank"]]))
+    out = {}
+    for name, kw in cfgs.items():
+        for kind, h in variants:
+            ch = Channel(ChannelSpec(codec=tables, cfg=CommConfig(**kw),
+                                     transport=TransportConfig(kind, h),
+                                     group=ctx["group"]))
+            s, ok = ch.psum(x)
+            a, ok2 = ch.all_to_all(y)
+            out[(name, kind, h)] = (s.numpy(), bool(ok), a.numpy(),
+                                    bool(ok2))
+    reg = CodecRegistry()
+    reg.register("grads", np.asarray(counts))
+    reg.register("params", np.asarray(counts)[::-1].copy())
+    chm.measure_decode_Bps = lambda *a, **k: (2e6, 0.0)
+    tuned, resolved = {}, {}
+    world = ctx["world"]
+    for name, is_reduce in (("grads", True), ("params", False)):
+        ch = Channel(ChannelSpec(codec=name, transport="auto",
+                                 group=ctx["group"]), registry=reg)
+        got = ch.autotune(tune_bytes, is_reduce=is_reduce, device="cpu")
+        t = got.transport
+        tuned[name] = (t.kind, t.hop_chunks, got.model.wire_Bps)
+        n_values = tune_bytes // 4 * (world if is_reduce else 1)
+        r = ch.resolved_transport(n_values, is_reduce=is_reduce)
+        resolved[name] = (r.kind, r.hop_chunks, got.model.wire_Bps)
+    out["tuned"] = (reg.to_json(), tuned, resolved)
+    return out
+
+
 def train_runs(ctx, cfg_kw, steps, global_batch, seq_len, lr, runs):
     """Train the reduced config for ``steps`` under each of ``runs``
     ((name, comm, transport, wire_enabled)) from the same start and codec
@@ -128,6 +176,44 @@ def train_runs(ctx, cfg_kw, steps, global_batch, seq_len, lr, runs):
                      [h["ok"] for h in res["history"]],
                      res["comm_fallbacks"], flat)
     return out
+
+
+def train_resume(ctx, cfg_kw, steps, every, root, single_root):
+    """Compressed training of the reduced config for ``steps`` with
+    checkpoints every ``every`` steps under ``root`` (one directory per
+    rank); then rank 1's newest checkpoint is deleted (its ``latest``
+    pointer left naming it), as if it had died while rank 0's save went
+    through, and the same launch runs again. Last, a launch into
+    ``single_root``, which holds a one-rank run's checkpoints -> (start
+    step of the second run, flat parameters after the first run, after
+    the second, the message of the third's ValueError)."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import pytree_leaves
+    cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
+    kw = dict(comm="qlc", steps=steps, seq_len=16, global_batch=4,
+              device="cpu", checkpoint_every=every)
+
+    def flat(res):
+        return torch.cat([p.reshape(-1) for p in
+                          pytree_leaves(res["params"])]).numpy()
+
+    first = flat(train(cfg, checkpoint_dir=root, **kw))
+    torch.distributed.barrier(group=ctx["group"])
+    if ctx["rank"] == 1:
+        shutil.rmtree(os.path.join(root, "rank_00001",
+                                   f"step_{steps:010d}"))
+    torch.distributed.barrier(group=ctx["group"])
+    res = train(cfg, checkpoint_dir=root, **kw)
+    try:
+        train(cfg, checkpoint_dir=single_root, **kw)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return res["start_step"], first, flat(res), refused
 
 
 def reference_recipe(ctx, steps):
