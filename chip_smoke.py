@@ -140,6 +140,33 @@ non-zero (nothing is caught and carried on):
                equal to the same calls on the CPU (plain versions). K1/K2
                counted from zero around the phase.
 
+ 10. adapt   — online codec adaptation. After the kv phase, its sync
+               run again with a ``TrafficMonitor`` on the paged cache
+               (``serve(..., kv_monitor=True)``): K6 counts every encoded
+               section (exactly one launch each on top of the run's
+               calibration), measured against planned bits/symbol per KV
+               byte plane, and one section's K6 counts equal to a host
+               ``np.bincount``. After the autotune phase, on the train
+               cell (8 layers, full width, batch 4 x 512, one NCCL rank):
+               2 compressed steps without and 2 with wire telemetry from
+               the same state, parameters and moments bit-equal, each
+               histogram counting every symbol of its wire; K1 alone at
+               the flat-gradient shape with and without its histogram
+               output (outputs bit-equal, the histogram equal to
+               ``torch.bincount`` of the codes), in turns;
+               ``train(comm="qlc", adapt=True, adapt_every=2)`` on real
+               gradients, 6 steps, each check's measured against planned
+               bits/symbol; a forced swap: the ``"grads"`` codec
+               calibrated on the parameters' histogram, ``adapt_every=1``,
+               6 steps: the adapter must flag, recalibrate, register a
+               new scheme-id and install the rebuilt step (swap step,
+               ids, bits and modeled wire B/symbol before and after, the
+               swap's ms); parameter chunks encoded under the old id
+               before the swap decode after it beside gradient chunks
+               under the new id in one stacked K2 launch, and the same
+               for codes containers through K4. K1, K2 and K6 counted
+               from zero around the two launches.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -1224,6 +1251,98 @@ def phase_kv(qf, qc, serve_mod, cfg, opened, ops, ref, flush):
     return runs, times
 
 
+def phase_kv_monitor(qc, h6, serve_mod, cfg, opened, sync_k6):
+    """The sync-paging KV run of phase_kv with a ``TrafficMonitor`` on
+    the paged cache (``serve(..., kv_monitor=True)``): every coded or raw
+    section it encodes is counted by K6 on the card, one launch each on
+    top of the run's calibration (``sync_k6``, the same run's K6 launches
+    without the monitor). Per KV byte plane: measured against planned
+    bits/symbol over the layers' codecs. Then one section's counts (layer
+    0 of request 0's first block, each byte plane, encoded by a cache
+    with a fresh monitor) against a host ``np.bincount``."""
+    from repro_torch.adaptive import TrafficMonitor
+    from repro_torch.comm.calibrate import byte_planes
+    from repro_torch.core import CodecRegistry
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_decode_states
+    from repro_torch.serving import (KVCacheSpec, PagedKVCache,
+                                     calibrate_cache, prefill)
+    counters = {"K3": qc.encode, "K4": qc.decode, "K6": h6.histogram256}
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve_mod.serve(cfg, batch=4, requests=6, prompt_len=32,
+                          new_tokens=32, kv_cache="qlc", kv_block=16,
+                          kv_paging="sync", device=DEVICE, params=opened,
+                          kv_monitor=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if not all(o.state == "finished" and len(o.tokens) == 32
+               for o in res["outs"]):
+        raise AssertionError("kv monitor run: a request did not finish")
+    rows = res["kv_monitor"].snapshot()
+    sections = sum(r["events"] for r in rows)
+    if not rows or launches["K6"] != sync_k6 + sections:
+        raise AssertionError(f"kv monitor: {launches['K6']} K6 launches, "
+                             f"want {sync_k6} (calibration) + {sections} "
+                             "(one per observed section)")
+    for kname in ("K3", "K4"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the "
+                                 "monitored KV path")
+    planes = {}
+    for r in rows:
+        planes.setdefault(r["name"].rsplit("/", 1)[-1], []).append(r)
+    summary = {}
+    for plane, rs in sorted(planes.items()):
+        m = [r["measured_bits"] for r in rs]
+        e = [r["expected_bits"] for r in rs]
+        x = [a - b for a, b in zip(m, e)]
+        summary[plane] = {"codecs": len(rs), "measured": float(np.mean(m)),
+                          "planned": float(np.mean(e)),
+                          "excess_min": min(x), "excess_max": max(x),
+                          "entropy": float(np.mean([r["entropy_bits"]
+                                                    for r in rs])),
+                          "escape_rate": max(r["escape_rate"] for r in rs),
+                          "overflow_rate": max(r["overflow_rate"]
+                                               for r in rs)}
+        log("adapt", f"kv monitor, plane {plane}: {len(rs)} codecs, "
+                     f"measured {summary[plane]['measured']:.4f} vs planned "
+                     f"{summary[plane]['planned']:.4f} bits/symbol (mean; "
+                     f"excess {min(x):+.4f} to {max(x):+.4f}), entropy "
+                     f"{summary[plane]['entropy']:.4f}, escape rate <= "
+                     f"{summary[plane]['escape_rate']:.4f}, overflow rate "
+                     f"<= {summary[plane]['overflow_rate']:.4f}")
+    log("adapt", f"kv monitor run (sync, 6 requests x 32 tokens, all "
+                 f"finished): {len(rows)} codecs observed, {sections} "
+                 f"sections; launches {launches} (K6 = {sync_k6} calibration "
+                 f"+ {sections} monitored sections)")
+
+    p = torch.from_numpy(np.asarray(res["prompts"][0])[None, :]).to(DEVICE)
+    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, DEVICE))
+    reg = CodecRegistry()
+    spec = KVCacheSpec(block_tokens=16)
+    calibrate_cache(reg, cfg, st, p.shape[1], spec)
+    mon = TrafficMonitor(reg)
+    cache = PagedKVCache(spec, cfg, reg, device=DEVICE, monitor=mon)
+    kv = attn.kv_block_slice(st["l0"], 0, 16)
+    h6.histogram256.launches = 0
+    cache.encode_block_arrays("kv/layer0", "l0", kv, start=0, tokens=16)
+    by_plane = byte_planes(kv)
+    if h6.histogram256.launches != len(by_plane):
+        raise AssertionError(f"kv monitor: {h6.histogram256.launches} K6 "
+                             f"launches for {len(by_plane)} sections")
+    for (isz, j), plane in by_plane.items():
+        t = mon.traffic(f"kv/layer0/w{isz}b{j}")
+        host = np.bincount(plane.reshape(-1).cpu().numpy(), minlength=256)
+        if t is None or t.events != 1 or not np.array_equal(
+                t.counts, host.astype(np.float64)):
+            raise AssertionError(f"kv monitor: K6's counts of plane "
+                                 f"w{isz}b{j} differ from np.bincount")
+    log("adapt", f"kv monitor: layer 0 of request 0's first block, "
+                 f"{len(by_plane)} byte planes of {plane.numel()} symbols: "
+                 "the monitor's K6 counts == host np.bincount")
+    return {"launches": launches, "sections": sections, "planes": summary}
+
+
 def _flat_params(params) -> torch.Tensor:
     from repro_torch.models.transformer import pytree_leaves
     return torch.cat([p.reshape(-1) for p in pytree_leaves(params)])
@@ -1293,14 +1412,10 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
     """phi3-mini-3.8b at full width, depth cut to 8 layers: the compressed
     training path with K6/K1/K2 counted, K6 checked and timed on the
     path's own symbols, the raw e4m3 twin and the baseline."""
-    import dataclasses
     from repro_torch.comm import calibrate
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models import init_params
-    if cfg is None:
-        cfg = dataclasses.replace(get_config("phi3-mini-3.8b"),
-                                  num_layers=8)
+    cfg = _train_cell(cfg)
     log("train", f"{cfg.name}: {cfg.num_layers} of 32 layers (cut: f32 "
                  f"params, grads and AdamW moments of 32 layers are ~61 GB "
                  f"before the step's flat copies), d_model {cfg.d_model}, "
@@ -1911,6 +2026,347 @@ def phase_autotune(qf, tr, flush, dev="cuda"):
                           for k, v in tuned.items()}}
 
 
+def _train_cell(cfg=None):
+    """The train cell's config (phi3-mini-3.8b, 8 of 32 layers), or
+    ``cfg``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return cfg or dataclasses.replace(get_config("phi3-mini-3.8b"),
+                                      num_layers=8)
+
+
+def adapt_telemetry(tr, cfg, dev, seq_len, global_batch, smi):
+    """Two compressed steps without and two with wire telemetry from the
+    same state and registry (the train phase's): parameters and AdamW
+    moments bit-equal; each telemetry histogram counts every symbol its
+    wire encoded (one rank: the padded flat length, on both wires)."""
+    import torch.distributed as dist
+    from repro_torch.comm.compressed import CommConfig
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptConfig, TrainConfig,
+                                      init_compressed_opt_state,
+                                      make_compressed_step)
+    reg = tr["registry"]
+    opt_cfg = OptConfig(lr=3e-4, total_steps=2, warmup_steps=10)
+    data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq_len,
+                                       global_batch=global_batch))
+    runs = {}
+    for name, telemetry in (("plain", False), ("telemetry", True)):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        step = make_compressed_step(cfg, opt_cfg, TrainConfig(),
+                                    dist.group.WORLD, reg, CommConfig(),
+                                    transport="oneshot", telemetry=telemetry)
+        o = init_compressed_opt_state(params, None, reg, opt_cfg)
+        n = step.geometry(params).n_padded
+        ms, sums = [], []
+        for s in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, o, m = step(params, o, data.batch_at(s))
+            ok = bool(m["ok"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not ok:
+                raise AssertionError(f"adapt: {name} step {s} overflowed")
+            if telemetry:
+                sums.append([int(m[k].sum()) for k in (
+                    "adapt/grads_hist", "adapt/params_hist",
+                    "adapt/grads_overflow", "adapt/params_overflow")])
+        runs[name] = ([_flat_params(params).cpu(), o["m"].cpu(),
+                       o["v"].cpu()], ms, sums)
+        del params, o, step, m
+        torch.cuda.empty_cache()
+    require_equal("adapt: telemetry vs plain steps (params, m, v)",
+                  runs["telemetry"][0], runs["plain"][0])
+    if any(g != n or p != n or go or po
+           for g, p, go, po in runs["telemetry"][2]):
+        raise AssertionError(f"adapt: histogram sums {runs['telemetry'][2]},"
+                             f" want {n} on both wires and no overflow")
+    log("adapt", f"telemetry is free of payload effect: 2 telemetry steps "
+                 f"and 2 plain steps from the same state, "
+                 f"{runs['plain'][0][0].numel()} parameters and both AdamW "
+                 f"moments bit-equal; histogram sums (grads, params) "
+                 f"{[r[:2] for r in runs['telemetry'][2]]} == {n} symbols "
+                 f"each wire encoded; ms/step plain "
+                 f"{[round(t, 3) for t in runs['plain'][1]]}, telemetry "
+                 f"{[round(t, 3) for t in runs['telemetry'][1]]} | {smi}")
+    return {"plain_ms": runs["plain"][1], "telemetry_ms": runs["telemetry"][1],
+            "n_padded": n}
+
+
+def adapt_k1_hist(ops, flush, entry, grad, smi):
+    """K1 at the flat-gradient shape with codes, without and with its
+    histogram output (what the telemetry step's encode runs): the same
+    words, bits, scales and codes; the histogram equal to torch.bincount
+    of the codes; both timed alone, in turns (codes, hist, hist, codes)."""
+    k, cap, t = entry.plan.chunk_symbols, entry.plan.capacity_words, \
+        entry.tables
+    x = grad[:grad.numel() // k * k].reshape(-1, k)
+    plain = ops.quantize_encode(x, t, cap, emit_codes=True)
+    outs = ops.quantize_encode(x, t, cap, emit_codes=True, emit_hist=True)
+    err = require_equal("K1 with emit_hist vs without, train shape",
+                        list(outs[:4]), list(plain))
+    lib = torch.bincount(outs[3].reshape(-1), minlength=256).to(torch.int32)
+    err = max(err, require_equal("K1's histogram vs torch.bincount of its "
+                                 "codes, train shape", [outs[4]], [lib]))
+    bound = bound_ms(nbytes(x, *outs))
+    del plain, lib
+    times = [time_ms(bare_k1(x, t, cap, emit_codes=True, emit_hist=h), 5,
+                     flush, alone=True) for h in (False, True, True, False)]
+    res = {"shape": list(x.shape), "cap": cap, "max_abs_err": err,
+           "kernel_ms": (times[0] + times[3]) / 2,
+           "hist_kernel_ms": (times[1] + times[2]) / 2,
+           "turns_ms": times, "bound_ms": bound}
+    log("adapt", f"K1 alone at the flat-gradient shape {res['shape']} (slot "
+                 f"{cap} words, codes): without emit_hist "
+                 f"{res['kernel_ms']:.4f} ms, with {res['hist_kernel_ms']:.4f}"
+                 f" ms (turns {[round(v, 4) for v in times]}); outputs "
+                 f"bit-equal, histogram == torch.bincount of the codes; HBM "
+                 f"bound {bound:.4f} ms | {smi}")
+    return res
+
+
+def adapt_escape_census(ops, cfg, dev, seq_len, global_batch, entries):
+    """Batch 0's flat gradient (the calibration's) under each codec of
+    ``entries``: the chunks whose code exceeds the plan's slot (they
+    escape to the pool) against the pool's slots, and for the last entry
+    the leaves that hold most of them (a chunk counts for the leaf it
+    starts in)."""
+    from repro_torch.comm import calibrate
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.models import init_params
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    b0 = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=seq_len,
+                                     global_batch=global_batch)).batch_at(0)
+    grad = calibrate.flat_gradient(
+        cfg, params, {k: torch.as_tensor(v).to(dev) for k, v in b0.items()})
+    sizes = [(path, t.numel())
+             for path, t in flatten_with_paths(params).items()]
+    del params
+    out = {}
+    for label, e in entries.items():
+        k, cap = e.plan.chunk_symbols, e.plan.capacity_words
+        x = grad[:grad.numel() // k * k].reshape(-1, k)
+        nb = ops.quantize_encode(x, e.tables, cap)[1]
+        esc = nb > 32 * cap
+        n = x.shape[0]
+        out[label] = {"chunks": n, "escaped": int(esc.sum()),
+                      "pool_slots": e.plan.pool_slots(n),
+                      "capacity_words": cap,
+                      "pool_slots_per_1k": e.plan.pool_slots_per_1k}
+        del nb, x
+    starts = np.cumsum([0] + [m for _, m in sizes])
+    idx = torch.nonzero(esc).reshape(-1).cpu().numpy() * k
+    leaf = np.searchsorted(starts, idx, side="right") - 1
+    counts = np.bincount(leaf, minlength=len(sizes))
+    top = [(sizes[i][0], int(counts[i]), -(-sizes[i][1] // k))
+           for i in np.argsort(-counts)[:3] if counts[i]]
+    out[label]["top_leaves"] = top
+    del grad, esc
+    torch.cuda.empty_cache()
+    log("adapt", "escape census of batch 0's gradient (" + "; ".join(
+        f"{label}: {v['escaped']} of {v['chunks']} chunks over the "
+        f"{v['capacity_words']}-word slot, pool {v['pool_slots']} slots "
+        f"({v['pool_slots_per_1k']}/1k)" for label, v in out.items())
+        + f"); the {label}'s escapes by leaf (escaped, chunks): {top}")
+    return out
+
+
+def _wire_bytes_per_symbol(entry, n: int) -> float:
+    from repro_torch.comm.planner import payload_wire_bytes
+    p = entry.plan
+    return payload_wire_bytes(n, p.chunk_symbols, p.capacity_words,
+                              p.pool_slots_per_1k) / n
+
+
+def _check_lines(res) -> str:
+    return "; ".join(
+        f"after step {c['step'] + 1} {c['name']} id {c['scheme_id']} "
+        f"{c['measured_bits']:.4f} vs {c['planned_bits']:.4f}"
+        f"{' FLAGGED' if c['flagged'] else ''}"
+        for c in res["adapt"]["checks"])
+
+
+def phase_adapt(qf, h6, ops, flush, tr, smi, dev="cuda", cfg=None,
+                seq_len=512, global_batch=4):
+    """Online codec adaptation on the train cell (phi3-mini-3.8b at full
+    width, 8 layers, batch 4 x 512, one NCCL rank): telemetry steps
+    bit-equal to plain ones; K1 with and without its histogram output at
+    the flat-gradient shape; ``launch.train.train(comm="qlc", adapt=True,
+    adapt_every=2)`` on real gradients, per check measured against
+    planned bits/symbol; then a forced swap: the ``"grads"`` codec
+    calibrated on the parameters' histogram, ``adapt_every=1``. The
+    adapter must flag it, recalibrate, register a new scheme-id and
+    install the rebuilt step; a payload and a codes container written
+    under the old id before the swap decode bit-exactly after it through
+    the registry's stacked tables (K2; K3 and K4). K1, K2 and K6 counted
+    from zero around the two launches."""
+    from repro_torch.comm import calibrate
+    from repro_torch.comm import container as qcont
+    from repro_torch.core import CodecRegistry
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.training.train_step import _flat_slice
+    cfg = _train_cell(cfg)
+    kw = dict(seq_len=seq_len, global_batch=global_batch, device=dev,
+              transport="oneshot", seed=0)
+    tel = adapt_telemetry(tr, cfg, dev, seq_len, global_batch, smi)
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    b0 = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=seq_len,
+                                     global_batch=global_batch)).batch_at(0)
+    grad = calibrate.flat_gradient(
+        cfg, params, {k: torch.as_tensor(v).to(dev) for k, v in b0.items()})
+    k1 = adapt_k1_hist(ops, flush, tr["registry"]["grads"], grad, smi)
+    # Chunks of parameters and of gradient for the old-id payloads.
+    rows = min(4096, grad.numel() // 1024)
+    p4 = _flat_slice(params, 0, rows * 1024).reshape(rows, 1024)
+    g4 = grad[:rows * 1024].reshape(rows, 1024).clone()
+    hist_params = calibrate.histogram_of_tree(params)
+    del grad, params
+    torch.cuda.empty_cache()
+
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K6": h6.histogram256}
+    for fn in counters.values():
+        fn.launches = 0
+    real = train(cfg, comm="qlc", steps=6, adapt=True, adapt_every=2, **kw)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ev = real["adapt"]["events"]
+    log("adapt", f"--adapt on real gradients (6 steps, checks every 2): "
+                 f"{_check_lines(real)}; swaps "
+                 f"{[(e.name, e.old_scheme_id, e.new_scheme_id) for e in ev]}"
+                 f"; fallbacks {real['comm_fallbacks']}; ms/step "
+                 f"{[round(h['dt'] * 1e3, 3) for h in real['history']]}; "
+                 f"launches {launches} | {smi}")
+    real_out = {"checks": real["adapt"]["checks"],
+                "swaps": [vars(e) for e in ev],
+                "fallbacks": real["comm_fallbacks"],
+                "step_ms": [h["dt"] * 1e3 for h in real["history"]]}
+    del real
+    torch.cuda.empty_cache()
+
+    forced = CodecRegistry()
+    forced.register("grads", hist_params)
+    forced.register("params", hist_params)
+    old = forced["grads"]
+    k, cap_old = old.plan.chunk_symbols, old.plan.capacity_words
+    # Written under the old id before the swap: parameter chunks (the
+    # old codec's own distribution) as values and as a codes container.
+    w_old, nb_old, sc_old, codes_old = ops.quantize_encode(
+        p4, old.tables, cap_old, emit_codes=True)
+    vals_old = ops.decode_dequantize(w_old, sc_old, old.tables, k)
+    box_old = qcont.encode_codes(codes_old, old, pool_slots_per_1k=1024)
+    for fn in counters.values():
+        fn.launches = 0
+    res = train(cfg, comm="qlc", steps=6, registry=forced, adapt=True,
+                adapt_every=1, **kw)
+    for kname, c in launches.items():
+        launches[kname] = c + counters[kname].launches
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the adapt "
+                                 "path")
+    events, swaps = res["adapt"]["events"], res["adapt"]["swaps"]
+    if not events or events[0].name != "grads":
+        raise AssertionError(f"adapt: the forced codec did not swap: "
+                             f"{_check_lines(res)}")
+    ev, sw = events[0], swaps[0]
+    new = forced.by_id(ev.new_scheme_id)
+    if (forced.by_id(ev.old_scheme_id) is not old
+            or new.plan.chunk_symbols != k):
+        raise AssertionError("adapt: the old entry was not kept, or the "
+                             "revision changed the chunk size")
+    after = [c["measured_bits"] for c in res["adapt"]["checks"]
+             if c["name"] == "grads" and c["scheme_id"] == new.scheme_id]
+    n = res["step"].geometry(res["params"]).n_padded
+    step_ms = [h["dt"] * 1e3 for h in res["history"]]
+    swap_ms = (sw["check_s"] + sw["rebuild_s"]) * 1e3
+    log("adapt", f"forced swap (grads codec from the parameters' "
+                 f"histogram): {_check_lines(res)}")
+    log("adapt", f"forced swap at step {sw['step'] + 1}: grads scheme-id "
+                 f"{ev.old_scheme_id} -> {ev.new_scheme_id}; measured "
+                 f"{ev.measured_bits:.4f} bits/symbol before (planned "
+                 f"{ev.old_expected_bits:.4f}), "
+                 f"{after[0] if after else float('nan'):.4f} after (planned "
+                 f"{ev.new_expected_bits:.4f}); wire "
+                 f"{_wire_bytes_per_symbol(old, n):.4f} -> "
+                 f"{_wire_bytes_per_symbol(new, n):.4f} B/symbol; swap "
+                 f"{swap_ms:.3f} ms (check and recalibration "
+                 f"{sw['check_s'] * 1e3:.3f}, step rebuild "
+                 f"{sw['rebuild_s'] * 1e3:.3f}); {len(events)} swaps, "
+                 f"fallbacks {res['comm_fallbacks']} (ok "
+                 f"{[h['ok'] for h in res['history']]}); ms/step (the "
+                 f"telemetry step, and the baseline step where it fell back) "
+                 f"{[round(t, 3) for t in step_ms]} | {smi}")
+
+    # After the swap: the old id's payloads beside gradient chunks
+    # encoded under the new id, each part through the stacked tables.
+    tables, id_map = forced.stacked_decode_tables([old.scheme_id,
+                                                   new.scheme_id])
+    cap_new = new.plan.capacity_words
+    w_new, nb_new, sc_new, codes_new = ops.quantize_encode(
+        g4, new.tables, cap_new, emit_codes=True)
+    vals_new = ops.decode_dequantize(w_new, sc_new, new.tables, k)
+    fit_old, fit_new = nb_old <= 32 * cap_old, nb_new <= 32 * cap_new
+    m_old, m_new = int(fit_old.sum()), int(fit_new.sum())
+    if min(m_old, m_new) < rows // 4:
+        raise AssertionError(f"adapt: only {m_old} / {m_new} of {rows} "
+                             "chunks fit their slots")
+    cap = max(cap_old, cap_new)
+    pad = torch.nn.functional.pad
+    words = torch.cat([pad(w_old[fit_old], (0, cap - cap_old)),
+                       pad(w_new[fit_new], (0, cap - cap_new))])
+    sids = torch.tensor([int(id_map[old.scheme_id])] * m_old
+                        + [int(id_map[new.scheme_id])] * m_new,
+                        dtype=torch.int32, device=dev)
+    out = ops.decode_dequantize(
+        words, torch.cat([sc_old[fit_old], sc_new[fit_new]]), tables, k,
+        scheme_ids=sids)
+    err = require_equal("adapt: old- and new-id payloads after the swap "
+                        "(K2, stacked)", [out[:m_old], out[m_old:]],
+                        [vals_old[fit_old], vals_new[fit_new]])
+    box_new = qcont.encode_codes(codes_new, new, pool_slots_per_1k=1024)
+    both = qcont.decode_codes_stream(qcont.pack_stream([box_old, box_new]),
+                                     forced, device=dev)
+    if not all(ok and torch.equal(c, want.reshape(-1)) for (c, ok), want
+               in zip(both, (codes_old, codes_new))):
+        raise AssertionError("adapt: the old-id codes container does not "
+                             "decode after the swap (K4, stacked)")
+    log("adapt", f"after the swap: {m_old} parameter chunks encoded under "
+                 f"id {old.scheme_id} before it and {m_new} gradient chunks "
+                 f"under id {new.scheme_id} (those of {rows} that fit "
+                 f"their slots) decode in one stacked K2 launch bit-equal to each "
+                 f"id's own decode; the old-id codes container and a new-id "
+                 f"one in one stream decode in one stacked K4 launch, each "
+                 f"== its codes")
+    census = adapt_escape_census(
+        ops, cfg, dev, seq_len, global_batch,
+        {"calibrated": tr["registry"]["grads"], "forced": old,
+         "revision": new})
+    return {"launches": launches, "telemetry": tel, "k1_hist": k1,
+            "real": real_out, "err": err, "census": census,
+            "forced": {"step": sw["step"] + 1, "old_id": ev.old_scheme_id,
+                       "new_id": ev.new_scheme_id,
+                       "measured_before": ev.measured_bits,
+                       "measured_after": after[0] if after else None,
+                       "planned_before": ev.old_expected_bits,
+                       "planned_after": ev.new_expected_bits,
+                       "wire_before": _wire_bytes_per_symbol(old, n),
+                       "wire_after": _wire_bytes_per_symbol(new, n),
+                       "swap_ms": swap_ms, "swaps": len(events),
+                       "fallbacks": res["comm_fallbacks"],
+                       "step_ms": step_ms}}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -2040,6 +2496,9 @@ def main():
                                                     ref, flush)
     kv_runs, kv_times = phase_kv(qf, qc, serve_mod, cfg, opened, ops, ref,
                                  flush)
+    kvmon = phase_kv_monitor(qc, h6, serve_mod, cfg, opened,
+                             next(n["K6"] for paging, n in kv_runs
+                                  if paging == "sync"))
     del opened
     torch.cuda.empty_cache()
 
@@ -2050,6 +2509,7 @@ def main():
         tr = phase_train(qf, h6, ops, ref, flush)
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
+        adapt = phase_adapt(qf, h6, ops, flush, tr, smi)
     torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
     ck = phase_ckpt(qc, h6, ops, ref, flush)
@@ -2076,8 +2536,14 @@ def main():
                  "train_path": tr["fused"][kname],
                  "autotune_launches": auto["launches"][kname],
                  "autotune_probe": auto["probe"] if kname == "K2" else None,
-                 "launcher_resume_launches": resume["launches"][kname]}
-        entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"])
+                 "launcher_resume_launches": resume["launches"][kname],
+                 "adapt_launches": adapt["launches"][kname]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
+                                   adapt["err"])
+        if kname == "K1":
+            entry["train_path_hist"] = adapt["k1_hist"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       adapt["k1_hist"]["max_abs_err"])
         if "forms" in p:
             entry["forms"] = p["forms"]
         kernels.append(entry)
@@ -2085,6 +2551,7 @@ def main():
                                     k3_shapes)
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
+        entry["kv_monitor_launches"] = kvmon["launches"][kname]
         entry["ckpt_path"] = ck["path"][kname]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    ck["path"][kname]["err"])
@@ -2105,7 +2572,9 @@ def main():
                                                     "library_ms",
                                                     "bound_ms")},
         "ckpt_path": ck["path"]["K6"],
-        "launcher_resume_launches": resume["launches"]["K6"]})
+        "launcher_resume_launches": resume["launches"]["K6"],
+        "kv_monitor_launches": kvmon["launches"]["K6"],
+        "adapt_launches": adapt["launches"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))

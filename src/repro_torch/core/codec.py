@@ -49,6 +49,11 @@ def worst_case_words(chunk_symbols: int, max_code_bits: int = MAX_CODE_BITS
     return math.ceil(chunk_symbols * max_code_bits / 32) + 1
 
 
+def raw_words(chunk_symbols: int) -> int:
+    """Words needed to store a chunk raw (8 bits/symbol)."""
+    return math.ceil(chunk_symbols * 8 / 32)
+
+
 def to_u32(words: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2**32)."""
     return words.to(torch.int64) & U32
@@ -160,3 +165,55 @@ def decode_chunks_multi(words: torch.Tensor,
         out[:, i] = dec[sid * 256 + rank.clamp(max=255)].to(torch.uint8)
         bitpos = bitpos + prefix + sb
     return out.reshape(lead + (chunk_symbols,))
+
+
+# --------------------------------------------------------------------------
+# Whole-array helpers (worst-case slots: every chunk fits)
+# --------------------------------------------------------------------------
+
+def pad_to_chunks(symbols: torch.Tensor, chunk_symbols: int
+                  ) -> Tuple[torch.Tensor, int]:
+    """Flatten and zero-pad a symbol tensor to [n_chunks, K]; returns it
+    and the number of real symbols."""
+    flat = symbols.reshape(-1)
+    n = flat.numel()
+    pad = -(-n // chunk_symbols) * chunk_symbols - n
+    flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, chunk_symbols), n
+
+
+def encode_stream(symbols: torch.Tensor, tables: CodecTables,
+                  chunk_symbols: int = 1024):
+    """Encode any u8 tensor into worst-case (always fitting) slots ->
+    ``(words, nbits, n)``."""
+    cap = worst_case_words(chunk_symbols, tables.max_code_length)
+    chunks, n = pad_to_chunks(symbols, chunk_symbols)
+    words, nbits = encode_chunks(chunks, tables, cap)
+    return words, nbits, n
+
+
+def decode_stream(words: torch.Tensor, tables: CodecTables,
+                  chunk_symbols: int, n: int, shape=None) -> torch.Tensor:
+    """Inverse of :func:`encode_stream`: the first ``n`` symbols,
+    reshaped to ``shape`` when given."""
+    out = decode_chunks(words, tables, chunk_symbols).reshape(-1)[:n]
+    if shape is not None:
+        out = out.reshape(shape)
+    return out
+
+
+def compressed_bits(symbols: torch.Tensor, tables: CodecTables
+                    ) -> torch.Tensor:
+    """Exact compressed size in bits, without packing: an int64 sum,
+    returned as f32 (the reference sums in f32, exact below 2^24)."""
+    lens = torch.as_tensor(np.asarray(tables.enc_len, np.int64),
+                           device=symbols.device)
+    return lens[symbols.reshape(-1).long()].sum().to(torch.float32)
+
+
+def measured_compressibility(symbols, tables: CodecTables) -> float:
+    """``(8 - mean bits) / 8`` on actual data (numpy, exact)."""
+    syms = np.asarray(symbols).reshape(-1)
+    lens = tables.enc_len[syms.astype(np.int64)]
+    avg = lens.mean(dtype=np.float64)
+    return float((8.0 - avg) / 8.0)

@@ -166,6 +166,26 @@ class CodecRegistry:
         self._digest_to_id[digest] = sid
         return entry
 
+    def register_revision(self, name: str, tables: CodecTables,
+                          plan: "CommPlan", *,
+                          counts: Optional[np.ndarray] = None
+                          ) -> CodecEntry:
+        """Register a recalibrated codec for ``name`` under a fresh
+        scheme-id and rebind the name to it (the hot-swap of
+        ``repro_torch.adaptive``). The previous entry keeps its id and is
+        never mutated, so containers written under it still decode. The
+        same tables and plan as the current binding are a no-op returning
+        it; otherwise a new id is taken even when the tables equal
+        another entry's, since a revision may change only the plan."""
+        cur = self._by_name.get(name)
+        if cur is None:
+            return self.register_tables(name, tables, plan, counts=counts)
+        if (_tables_digest(tables) == _tables_digest(cur.tables)
+                and plan == cur.plan):
+            return cur
+        return self.register_tables(name, tables, plan, counts=counts,
+                                    scheme_id=self._next_id(), rebind=True)
+
     def _next_id(self) -> int:
         return max(self._by_id, default=-1) + 1
 

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import CodecRegistry
 from repro_torch.models import init_params
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
@@ -52,12 +53,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
           prompt_len: int = 16, new_tokens: int = 32, wire: str = "none",
           kv_cache: str = "none", kv_block: int = 128,
           kv_paging: str = "sync", device="cuda", seed: int = 0,
-          params=None) -> Dict[str, Any]:
+          params=None, kv_monitor: bool = False) -> Dict[str, Any]:
     """Run the launcher's path and return what it produced: the request
     statuses, engine stats, the served params, with ``wire="qlc"`` the
     wire, its codec and the calibrate/compress/open seconds, and with
     ``kv_cache="qlc"`` the dense solo run's tokens (``solo_tokens``),
-    which must equal request 0's or this raises."""
+    which must equal request 0's or this raises. ``kv_monitor`` attaches
+    a ``TrafficMonitor`` to the paged cache (``kv_monitor`` in the result:
+    each KV codec's measured traffic)."""
     if kv_paging == "async" and kv_cache != "qlc":
         raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
@@ -68,7 +71,6 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     out: Dict[str, Any] = {}
     if wire == "qlc":
         from repro_torch.comm.calibrate import histogram_of_tree
-        from repro_torch.core import CodecRegistry
         from repro_torch.serving import (compress_params_for_serving,
                                          open_params)
         t0 = time.perf_counter()
@@ -86,15 +88,20 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     elif wire != "none":
         raise ValueError(f"wire must be 'none' or 'qlc', got {wire!r}")
 
-    kv_spec = pool = None
+    kv_spec = pool = registry = monitor = None
     if kv_cache != "none":
         # async paging frames blocks on the card: fixed plan geometry
         kv_spec = KVCacheSpec(block_tokens=kv_block, mode=kv_cache,
                               exact_capacity=kv_paging != "async")
         pool = BlockPool(1 << 30)
+        if kv_monitor:
+            from repro_torch.adaptive import TrafficMonitor
+            registry = CodecRegistry()
+            monitor = out["kv_monitor"] = TrafficMonitor(registry)
     max_seq_len = prompt_len + new_tokens + 8
     eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
-                 kv_spec=kv_spec, pool=pool, kv_paging=kv_paging)
+                 kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
+                 registry=registry, monitor=monitor)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()

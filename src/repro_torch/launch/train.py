@@ -17,9 +17,17 @@ the tuned transport of each wire in the registry, where the step's
 ``"auto"`` channels find it. ``--checkpoint-dir`` saves ``(params,
 opt_state)`` through ``CheckpointManager`` every ``--checkpoint-every``
 steps and after the last, and a launch that finds a checkpoint there
-resumes from its step. The registry is calibrated from the initial
-parameters and batch 0 before the restore, so a resumed run uses the
-codecs of the uninterrupted one.
+resumes from its step. Each checkpoint carries the wire registry, so
+a resumed run encodes with the codecs the interrupted one had reached
+(the registry is calibrated from the initial parameters and batch 0
+where there is none); ``--autotune`` tunes after the restore.
+
+``--adapt`` (with ``--comm qlc``) adapts the codecs online: the step
+counts both wires' symbols beside their encode (K1's histogram output),
+every ``--adapt-every`` steps the drift policy compares the measured
+bits/symbol of each wire's traffic with its codec's plan, and a drifted
+codec is recalibrated, registered under a new scheme-id and the step
+rebuilt. It prints each check and each swap.
 
 Example (one H100; ``--reduced`` and ``--device cpu`` run on the CPU
 with the kernels' plain versions):
@@ -30,6 +38,8 @@ with the kernels' plain versions):
   python -m repro_torch.launch.train --arch phi3-mini-3.8b --reduced \\
       --device cpu --comm qlc --steps 6 --autotune \\
       --checkpoint-dir /tmp/ckpt --checkpoint-every 3
+  python -m repro_torch.launch.train --arch phi3-mini-3.8b --reduced \\
+      --device cpu --comm qlc --steps 4 --adapt --adapt-every 1
 
 The launcher runs one rank; ``train()`` runs on whatever process group
 its caller set up (``launch.mesh``). Flags of the reference that reach
@@ -147,7 +157,8 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
           registry: Optional[CodecRegistry] = None,
           wire_enabled: bool = True, params=None, autotune: bool = False,
           checkpoint_dir: Optional[str] = None,
-          checkpoint_every: int = 100) -> Dict[str, Any]:
+          checkpoint_every: int = 100, adapt: bool = False,
+          adapt_every: int = 10) -> Dict[str, Any]:
     """Run the launcher's path on the default process group (one rank of
     ``device``'s backend is set up, and torn down after, when none
     exists) and return what it produced: ``history`` (per step: loss,
@@ -161,7 +172,19 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     the codes uncompressed on the wire). Over several ranks each keeps
     its checkpoints (its ZeRO-1 state is its own) in
     ``checkpoint_dir/rank_<r>`` (:func:`rank_checkpoint_dir`), and all
-    resume from the newest step that they all hold."""
+    resume from the newest step that they all hold. A checkpoint of a
+    ``"qlc"`` run carries the wire registry, and a resumed run encodes
+    with it.
+
+    ``adapt`` (with ``comm="qlc"``): the step runs with wire telemetry,
+    and a ``TrainingAdapter`` checks the ``"grads"`` and ``"params"``
+    codecs every ``adapt_every`` steps; a drifted codec is recalibrated
+    from its traffic, registered under a new scheme-id, and the step
+    (and its fallback) rebuilt. ``adapt`` then holds the swaps
+    (``events``, ``SwapEvent``; ``swaps``: per swapping check its step
+    and the seconds of the check and of the rebuild), the checks
+    (``checks``: per name the scheme-id, measured and planned
+    bits/symbol, flagged) and the ``controller``."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     dev = resolve_device(device)
@@ -178,7 +201,7 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
             global_batch=global_batch, seed=seed))
         baseline = make_baseline_step(cfg, opt_cfg, train_cfg, group=group)
         out: Dict[str, Any] = {}
-        fallback = None
+        save_extra = None
         if comm == "qlc":
             t0 = time.perf_counter()
             if registry is None:
@@ -186,16 +209,40 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                                               group)
             _sync(dev)
             out["calibrate_s"] = time.perf_counter() - t0
+            opt_state = init_compressed_opt_state(params, group, registry,
+                                                  opt_cfg)
+
+            def save_extra():
+                return {"wire_registry": registry.to_json_dict()}
+        else:
+            opt_state = optm.init_state(params, opt_cfg)
+        if checkpoint_dir:
+            checkpoint_dir = rank_checkpoint_dir(checkpoint_dir, group)
+        trainer = Trainer(TrainerConfig(total_steps=steps,
+                                        checkpoint_dir=checkpoint_dir,
+                                        checkpoint_every=checkpoint_every),
+                          baseline, group=group, save_extra=save_extra)
+        params, opt_state, start = trainer.restore_or(params, opt_state)
+        if comm == "qlc":
+            saved = trainer.restored_extra.get("wire_registry")
+            if saved is not None:
+                registry = CodecRegistry.from_json_dict(saved)
             if autotune:
                 n = flat_geometry(params, dist.get_world_size(group),
                                   registry["grads"].config()).n_padded
                 out["tuned"] = _autotune_transports(registry, n, group, dev)
-            step = make_compressed_step(
-                cfg, opt_cfg, train_cfg, group, registry,
-                CommConfig(enabled=wire_enabled), transport=transport)
-            opt_state = init_compressed_opt_state(params, group, registry,
-                                                  opt_cfg)
-            fallback = make_zero1_fallback(baseline, step, group)
+
+            def build_step():
+                step = make_compressed_step(
+                    cfg, opt_cfg, train_cfg, group, registry,
+                    CommConfig(enabled=wire_enabled), transport=transport,
+                    telemetry=adapt)
+                trainer.step_fn = step
+                trainer.fallback_step_fn = make_zero1_fallback(
+                    baseline, step, group)
+                return step
+
+            step = build_step()
             rs, ag = step.channels
             n = step.geometry(params).n_padded
             out.update(registry=registry, step=step, channels=step.channels,
@@ -203,16 +250,9 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                            rs.modeled_wire_bytes(n) / n),
                        params_wire_bytes_per_symbol=(
                            ag.modeled_wire_bytes(n) / n))
-        else:
-            step = baseline
-            opt_state = optm.init_state(params, opt_cfg)
-        if checkpoint_dir:
-            checkpoint_dir = rank_checkpoint_dir(checkpoint_dir, group)
-        trainer = Trainer(TrainerConfig(total_steps=steps,
-                                        checkpoint_dir=checkpoint_dir,
-                                        checkpoint_every=checkpoint_every),
-                          step, fallback_step_fn=fallback, group=group)
-        params, opt_state, start = trainer.restore_or(params, opt_state)
+            if adapt:
+                out["adapt"] = _adapter(trainer, registry, build_step,
+                                        adapt_every)
         params, opt_state = trainer.run(params, opt_state, data,
                                         start_step=start)
         _sync(dev)
@@ -220,6 +260,26 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                params=params, opt_state=opt_state, data=data,
                start_step=start)
     return out
+
+
+def _adapter(trainer: Trainer, registry: CodecRegistry, build_step,
+             every: int) -> Dict[str, Any]:
+    """Install a ``TrainingAdapter`` over ``registry``'s ``"grads"`` and
+    ``"params"`` codecs as ``trainer``'s ``on_step``; returns what
+    :func:`train` reports under ``adapt``."""
+    from repro_torch.adaptive import AdaptiveController, TrainingAdapter
+    controller = AdaptiveController(registry)
+    adapter = TrainingAdapter(
+        controller, build_step, grad_key="grads", param_key="params",
+        check_every=every,
+        on_swap=lambda ev: logging.info(
+            "codec hot-swap %s: scheme-id %d -> %d (%.4f measured vs %.4f "
+            "planned bits/symbol; new plan %.4f)", ev.name,
+            ev.old_scheme_id, ev.new_scheme_id, ev.measured_bits,
+            ev.old_expected_bits, ev.new_expected_bits))
+    trainer.on_step = adapter
+    return {"events": controller.events, "checks": adapter.checks,
+            "swaps": adapter.swaps, "controller": controller}
 
 
 def _not_ported(args):
@@ -232,9 +292,6 @@ def _not_ported(args):
     if args.moe_wire != "auto" or args.moe_transport != "auto":
         raise NotImplementedError("the MoE expert wire is not ported: "
                                   "ROADMAP queue 1, item 11")
-    if args.adapt:
-        raise NotImplementedError("online codec adaptation is not ported: "
-                                  "ROADMAP queue 1, item 12")
 
 
 def main(argv=None):
@@ -283,7 +340,9 @@ def main(argv=None):
                 lr=args.lr, device=args.device, seed=args.seed,
                 autotune=args.autotune and args.comm == "qlc",
                 checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every)
+                checkpoint_every=args.checkpoint_every,
+                adapt=args.adapt and args.comm == "qlc",
+                adapt_every=args.adapt_every)
     hist = res["history"]
     if args.comm == "qlc":
         print(f"calibrate {res['calibrate_s'] * 1e3:.1f} ms; wire "
@@ -294,6 +353,19 @@ def main(argv=None):
         t = ch.transport
         print(f"autotuned {name}: {t.kind} x{t.hop_chunks} (decode "
               f"{ch.model.decode_Bps:.4g} B/s)")
+    if "adapt" in res:
+        for c in res["adapt"]["checks"]:
+            m = c["measured_bits"]
+            print(f"adapt check after step {c['step'] + 1}: {c['name']} "
+                  f"scheme-id {c['scheme_id']}, measured "
+                  f"{'none' if m is None else f'{m:.4f}'} vs planned "
+                  f"{c['planned_bits']:.4f} bits/symbol, flagged "
+                  f"{c['flagged']}")
+        for ev in res["adapt"]["events"]:
+            print(f"codec hot-swap {ev.name}: scheme-id {ev.old_scheme_id} "
+                  f"-> {ev.new_scheme_id} ({ev.measured_bits:.4f} measured "
+                  f"vs {ev.old_expected_bits:.4f} planned bits/symbol; new "
+                  f"plan {ev.new_expected_bits:.4f})")
     if res["start_step"]:
         print(f"resumed from step {res['start_step']} "
               f"({args.checkpoint_dir})")

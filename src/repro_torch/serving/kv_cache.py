@@ -63,6 +63,7 @@ from repro_torch.comm.compressed import (WirePayload, _compress_codes,
                                          pad_to_multiple)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import codec as _codec
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.transformer import resolve_device
 
@@ -398,15 +399,25 @@ class PagedKVCache:
     docstring). ``registry`` must already hold the per-layer entries
     (:func:`calibrate_cache`); ``channels`` defaults to
     :func:`open_kv_channels` over them. Decoded tensors land on
-    ``device``."""
+    ``device``.
+
+    ``monitor`` (a ``repro_torch.adaptive.TrafficMonitor``): every
+    section that :meth:`encode_block_arrays` encodes files its symbol
+    histogram (K6 on the card, over the section's valid symbols), its
+    escaped chunks, chunk count and pool overflow under the section's
+    ``(name, scheme_id)``. A hot-swap reaches the cache through
+    ``channels`` (wrap them in ``AdaptiveChannel``); old blocks keep
+    decoding, their containers carry the old scheme-id."""
 
     def __init__(self, spec: KVCacheSpec, cfg: ModelConfig, registry,
                  channels: Optional[Dict[str, Any]] = None,
-                 arena: Optional[BlockArena] = None, device="cuda"):
+                 arena: Optional[BlockArena] = None, device="cuda",
+                 monitor=None):
         self.spec = spec
         self.arena = arena
         self.cfg = cfg
         self.registry = registry
+        self.monitor = monitor
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         if any(k != "attention" for k in self.kinds):
@@ -493,6 +504,7 @@ class PagedKVCache:
         entry = self.registry[name]
         k = ch.cfg.chunk_symbols
         n_chunks = codes.numel() // k
+        overflows0 = self.overflow_sections
         coded = codec_wins(entry)
         if coded:
             cfg = self._block_cfg(ch, codes)
@@ -506,9 +518,30 @@ class PagedKVCache:
         else:
             self.raw_sections += 1
             coded, payload, cfg = self._raw_wire(ch, codes)
+        if self.monitor is not None:
+            self._observe(name, entry.scheme_id, codes, n_valid, n_chunks,
+                          payload if coded else None,
+                          self.overflow_sections > overflows0)
         return qc.frame_block_device(
             payload, scales, scheme_id=entry.scheme_id, cfg=cfg,
             n_valid=n_valid, prefix_bits=entry.tables.prefix_bits), coded
+
+    def _observe(self, name: str, scheme_id: int, codes: torch.Tensor,
+                 n_valid: int, n_chunks: int,
+                 payload: Optional[WirePayload], overflowed: bool):
+        """File one section with the monitor: its valid symbols' counts
+        and, when coded, its escaped chunks, in one device-to-host
+        read."""
+        counts = ops.histogram(codes.reshape(-1)[:n_valid])
+        if payload is not None:
+            escaped = payload.pool_count.reshape(-1).sum(dtype=torch.int32)
+            counts = torch.cat([counts, escaped.reshape(1)])
+        host = counts.cpu().numpy()
+        self.monitor.observe(
+            name, host[:256],
+            escaped_chunks=float(host[256]) if payload is not None else 0.0,
+            chunks=n_chunks, overflow=overflowed, containers=1.0,
+            scheme_id=scheme_id)
 
     def _block_cfg(self, ch, codes: torch.Tensor):
         """Wire config of one coded block: with ``exact_capacity`` the

@@ -126,13 +126,16 @@ class Engine:
     calibrated from the FIRST admitted request's prefill states when it
     lacks the ``kv/layer{i}`` entries. ``kv_paging="async"`` needs
     ``KVCacheSpec(mode="qlc", exact_capacity=False)`` and keeps up to
-    ``arena_slots`` evicted blocks in a device arena.
+    ``arena_slots`` evicted blocks in a device arena. ``monitor`` (a
+    ``repro_torch.adaptive.TrafficMonitor`` over ``registry``) goes to the
+    block codec (``PagedKVCache(monitor=)``).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
                  max_batch: int = 4, kv_spec: Optional[KVCacheSpec] = None,
                  registry=None, pool: Optional[BlockPool] = None,
-                 kv_paging: str = "sync", arena_slots: int = 256):
+                 kv_paging: str = "sync", arena_slots: int = 256,
+                 monitor=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if kv_paging not in ("sync", "async"):
@@ -160,6 +163,7 @@ class Engine:
         self.kv_paging = kv_paging
         self._arena_slots = int(arena_slots)
         self._codec: Optional[PagedKVCache] = None
+        self.monitor = monitor
         self._kinds = cfg.layer_kinds()
         self._seqs: Dict[str, _Seq] = {}
         self._waiting: List[str] = []
@@ -368,7 +372,7 @@ class Engine:
             calibrate_cache(self.registry, self.cfg, row_states, tokens,
                             self.kv_spec)
         self._codec = PagedKVCache(self.kv_spec, self.cfg, self.registry,
-                                   device=self.device)
+                                   device=self.device, monitor=self.monitor)
 
     # ---- paging through the shared pool ---------------------------------
 

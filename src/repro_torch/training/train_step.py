@@ -269,6 +269,18 @@ def _all_ok(ok: torch.Tensor, group) -> torch.Tensor:
     return bad[0] == 0
 
 
+def _group_telemetry(ghist, phist, ok_rs, ok_ag, group) -> Dict[str, Any]:
+    """The telemetry metrics of one step, summed over ``group`` in one
+    int32 all-reduce: both wires' symbol histograms and the number of
+    ranks whose reduce-scatter / all-gather escape pool overflowed."""
+    flags = torch.stack([~ok_rs, ~ok_ag]).to(torch.int32)
+    buf = torch.cat([ghist.to(torch.int32), phist.to(torch.int32), flags])
+    dist.all_reduce(buf, group=group)
+    return {"adapt/grads_hist": buf[:256], "adapt/params_hist": buf[256:512],
+            "adapt/grads_overflow": buf[512], "adapt/params_overflow":
+            buf[513]}
+
+
 def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
                          train_cfg: TrainConfig, group, tables,
                          comm_cfg: CommConfig = None, *,
@@ -288,16 +300,21 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     (``(params, batch) -> (loss, grads)``, the rank's gradients),
     ``stage2`` (``(params, grads, flat_opt) -> (params, flat_opt,
     metrics)``, the wire and the update), ``channels`` (the RS and AG
-    channels) and ``geometry``."""
+    channels) and ``geometry``.
+
+    ``telemetry=True`` adds the symbol histograms of the gradient and
+    parameter wires, summed over the group, to the metrics
+    (``"adapt/grads_hist"`` / ``"adapt/params_hist"``, int32 [256]; K1
+    counts them beside its encode, ``emit_hist``), and the number of
+    ranks whose escape pool overflowed on each wire
+    (``"adapt/grads_overflow"`` / ``"adapt/params_overflow"``): the
+    inputs of ``repro_torch.adaptive.TrainingAdapter``. The payloads are
+    untouched, so a telemetry step is bit-identical to a plain one."""
     if hierarchical_wire:
         raise NotImplementedError(_NO_PODS)
     if moe_channels is not None:
         raise NotImplementedError("MoE is not ported: ROADMAP queue 1, "
                                   "item 11")
-    if telemetry:
-        raise NotImplementedError("wire telemetry for adaptive "
-                                  "recalibration is not ported: ROADMAP "
-                                  "queue 1, item 12")
     group = dist.group.WORLD if group is None else group
     rs_ch, ag_ch, rs_cfg = step_channels(
         tables, comm_cfg, group=group, transport=transport,
@@ -321,7 +338,10 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         g = geometry(params)
         g_flat = _flatten_local(grads, g.n_padded)
         del grads
-        r = rs_ch.reduce_scatter(g_flat)
+        if telemetry:
+            r, ghist = rs_ch.reduce_scatter(g_flat, with_hist=True)
+        else:
+            r = rs_ch.reduce_scatter(g_flat)
         del g_flat
         valid, ok_rs = r.valid, r.ok
         seg = r.segment / d                              # mean over ranks
@@ -333,11 +353,18 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         new_seg, new_opt, lr = opt.apply_flat_update(p_seg, seg, flat_opt,
                                                      opt_cfg, gnorm)
         del seg, p_seg
-        full, ok_ag = ag_ch.all_gather(new_seg)
-        ok = _all_ok(ok_rs & ok_ag, group)
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        if telemetry:
+            full, ok_ag, phist = ag_ch.all_gather(new_seg, with_hist=True)
+            metrics.update(_group_telemetry(ghist, phist, ok_rs, ok_ag,
+                                            group))
+            ok = (metrics["adapt/grads_overflow"]
+                  + metrics["adapt/params_overflow"]) == 0
+        else:
+            full, ok_ag = ag_ch.all_gather(new_seg)
+            ok = _all_ok(ok_rs & ok_ag, group)
         new_params = _unflatten_local(full, params)
-        return new_params, new_opt, {"ok": ok, "grad_norm": gnorm,
-                                     "lr": lr}
+        return new_params, new_opt, {"ok": ok, **metrics}
 
     def train_step(params, flat_opt, batch):
         loss, grads = stage1(params, batch)

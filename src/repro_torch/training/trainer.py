@@ -32,12 +32,17 @@ class Trainer:
     If ``metrics["ok"]`` is False (compressed-wire escape-pool overflow),
     the step is redone with ``fallback_step_fn``: the lossless guarantee
     holds by retrying on the uncompressed path rather than accepting
-    corrupt gradients. ``on_step(step, metrics) -> Optional[new_step_fn]``
+    corrupt gradients; the attempt's ``"adapt/*"`` telemetry is kept in
+    the metrics. ``on_step(step, metrics) -> Optional[new_step_fn]``
     runs after each completed step; a callable it returns replaces
     ``step_fn`` from the next step on. With ``checkpoint_dir``,
     ``(params, opt_state)`` is saved with ``extra={"step": step}`` every
     ``checkpoint_every`` steps and after the last one, and
     :meth:`restore_or` resumes from the latest checkpoint.
+
+    ``save_extra() -> dict`` adds entries to every save's ``extra`` (the
+    launcher's wire registry), and :meth:`restore_or` leaves the restored
+    checkpoint's ``extra`` in ``restored_extra``.
 
     ``group``: the process group the step runs on, whose ranks each keep
     their own ``checkpoint_dir`` (their ZeRO-1 state is their own). Each
@@ -47,11 +52,14 @@ class Trainer:
 
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  fallback_step_fn: Optional[Callable] = None,
-                 on_step: Optional[Callable] = None, group=None):
+                 on_step: Optional[Callable] = None, group=None,
+                 save_extra: Optional[Callable[[], dict]] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.fallback_step_fn = fallback_step_fn
         self.on_step = on_step
+        self.save_extra = save_extra
+        self.restored_extra: dict = {}
         self.group = group
         self.world = 1 if group is None else dist.get_world_size(group)
         self.watchdog = StragglerWatchdog()
@@ -88,6 +96,7 @@ class Trainer:
                              f"saved by {world} ranks; this group has "
                              f"{self.world}")
         start_step = int(extra.get("step", step))
+        self.restored_extra = extra
         log.info("resumed from step %d", start_step)
         return params, opt_state, start_step
 
@@ -104,8 +113,13 @@ class Trainer:
                 log.warning("comm escape overflow at step %d; retrying "
                             "uncompressed", step)
                 del params2, opt2
+                # The compressed attempt's wire telemetry stays: the
+                # traffic that overflowed is what adaptation must see.
+                telemetry = {k: v for k, v in metrics.items()
+                             if k.startswith("adapt/")}
                 params2, opt2, metrics = self.fallback_step_fn(
                     params, opt_state, batch)
+                metrics.update(telemetry)
             params, opt_state = params2, opt2
             del params2, opt2
             loss = float(metrics["loss"])
@@ -124,7 +138,7 @@ class Trainer:
             if self.ckpt is not None and (
                     step % self.cfg.checkpoint_every == 0
                     or step == self.cfg.total_steps):
-                self.ckpt.save(step, (params, opt_state),
-                               extra={"step": step,
-                                      "world_size": self.world})
+                extra = self.save_extra() if self.save_extra else {}
+                extra.update(step=step, world_size=self.world)
+                self.ckpt.save(step, (params, opt_state), extra=extra)
         return params, opt_state

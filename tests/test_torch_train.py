@@ -39,6 +39,7 @@ from repro.training import TrainConfig as JTrainConfig
 from repro.training import init_compressed_opt_state as jinit_opt
 from repro.training import make_compressed_step as jmake_step
 from repro.training import optimizer as jopt
+from repro_torch.comm.calibrate import histogram_of_tree
 from repro_torch.comm.planner import CommPlan
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import flat_opt_state_from_numpy, params_from_numpy
@@ -46,7 +47,7 @@ from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
 from repro_torch.launch import train as train_mod
 from repro_torch.models import attention as tattn
-from repro_torch.models import next_token_loss
+from repro_torch.models import init_params, next_token_loss
 from repro_torch.models.transformer import pytree_leaves, pytree_unflatten
 from repro_torch.training import optimizer as topt
 from tests.torch_dist import run_ranks
@@ -326,7 +327,7 @@ def test_launcher_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--pods", "2"], "item 13"), (["--transport", "hierarchical"],
                                    "item 13"),
-    (["--moe-wire", "qlc"], "item 11"), (["--adapt"], "item 12")])
+    (["--moe-wire", "qlc"], "item 11")])
 def test_launcher_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "phi3-mini-3.8b", "--reduced", "--device",
@@ -362,6 +363,60 @@ def test_launcher_autotune_prints_tuned_transports(capsys):
     reg = res["registry"]
     assert len(reg.transport_cache()) == 2
     assert {k[1] for k in reg.transport_cache()} == {"data"}
+
+
+def test_launcher_adapt_runs_on_the_cpu(capsys):
+    """``--comm qlc --adapt --adapt-every 1``: the step runs with wire
+    telemetry and the launcher prints each check (both codecs, measured
+    against planned bits/symbol) and each swap."""
+    res = train_mod.main(_SMALL + ["--steps", "3", "--adapt",
+                                   "--adapt-every", "1"])
+    out = capsys.readouterr().out
+    checks = res["adapt"]["checks"]
+    assert [(c["step"], c["name"]) for c in checks] == [
+        (s, n) for s in range(3) for n in ("grads", "params")]
+    assert all(c["measured_bits"] > 0 for c in checks)
+    assert out.count("adapt check after step") == 6
+    assert "adapt check after step 1: grads scheme-id 0, measured" in out
+    assert out.count("codec hot-swap") == len(res["adapt"]["events"])
+
+
+def test_launcher_adapt_swaps_a_mismatched_codec_once(tmp_path):
+    """A ``"grads"`` codec calibrated on the parameters' histogram (a
+    real distribution of the model, not the gradients'): the drift policy
+    flags it at the second judged check, it is recalibrated under a new
+    scheme-id and the step rebuilt, and through the 3 checks of the
+    cooldown it stays put. The checkpoint of the last step carries the
+    revised registry, and a resumed launch restores the state bit for
+    bit and encodes with the revision."""
+    _, tcfg = _cfgs()
+    params = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    reg = CodecRegistry()
+    h = histogram_of_tree(params)
+    reg.register("grads", h, chunk_symbols=1024)
+    reg.register("params", h, chunk_symbols=1024)
+    ck = str(tmp_path / "ck")
+    kw = dict(comm="qlc", seq_len=32, global_batch=4, device="cpu",
+              checkpoint_dir=ck, checkpoint_every=6)
+    res = train_mod.train(tcfg, steps=6, registry=reg, params=params,
+                          adapt=True, adapt_every=1, **kw)
+    ev = res["adapt"]["events"]
+    assert [(e.name, e.old_scheme_id, e.new_scheme_id) for e in ev] == \
+        [("grads", 0, 1)]
+    assert ev[0].measured_bits > ev[0].old_expected_bits + 0.5
+    grads = [c for c in res["adapt"]["checks"] if c["name"] == "grads"]
+    assert [c["scheme_id"] for c in grads] == [0, 0, 0, 1, 1, 1]
+    assert [c["flagged"] for c in grads] == [False, False, True, False,
+                                             False, False]
+    assert res["registry"]["params"].scheme_id == 0
+    again = train_mod.train(tcfg, steps=6, **kw)
+    assert again["start_step"] == 6 and again["history"] == []
+    assert again["registry"]["grads"].scheme_id == 1
+    assert again["registry"].to_json() == res["registry"].to_json()
+    for a, b in zip(pytree_leaves(res["params"]) + [res["opt_state"]["m"]],
+                    pytree_leaves(again["params"])
+                    + [again["opt_state"]["m"]]):
+        assert torch.equal(a, b)
 
 
 @pytest.fixture

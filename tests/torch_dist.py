@@ -266,5 +266,68 @@ def reference_recipe(ctx, steps):
     return lb, lc, oks
 
 
+def telemetry_runs(ctx, cfg_kw, steps, seq_len, global_batch):
+    """The compressed step of the reduced config without and with wire
+    telemetry, ``steps`` steps each from the same start and registry ->
+    {"plain": (flat params, m, v), "telemetry": (flat params, m, v,
+    [(grads hist, params hist, overflow counts), ...] per step, [this
+    rank's own gradient symbol histogram per step]), "n_padded": ...}."""
+    import dataclasses
+    import torch
+    from repro_torch.comm.calibrate import quantized_symbols
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import CodecRegistry
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import calibrate_registry
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.training import (OptConfig, TrainConfig,
+                                      init_compressed_opt_state,
+                                      make_compressed_step)
+    from repro_torch.training.train_step import _flatten_local
+    cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
+    group = ctx["group"]
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq_len,
+                                       global_batch=global_batch))
+    calibrated = calibrate_registry(cfg, params, data.batch_at(0), group)
+    reg = CodecRegistry()              # pools for every chunk, as above
+    for name in ("grads", "params"):
+        e = calibrated[name]
+        reg.register_tables(name, e.tables, dataclasses.replace(
+            e.plan, pool_slots_per_1k=1024), counts=e.counts)
+    opt_cfg = OptConfig(lr=1e-3, total_steps=steps, warmup_steps=1)
+    out = {}
+    for name, telemetry in (("plain", False), ("telemetry", True)):
+        step = make_compressed_step(cfg, opt_cfg, TrainConfig(), group,
+                                    reg, telemetry=telemetry)
+        p = params
+        o = init_compressed_opt_state(params, group, reg, opt_cfg)
+        n = step.geometry(p).n_padded
+        seen, local = [], []
+        for s in range(steps):
+            batch = data.batch_at(s)
+            if telemetry:
+                _, grads = step.stage1(p, batch)
+                local.append(ops.histogram(quantized_symbols(
+                    _flatten_local(grads, n))).numpy())
+            p, o, m = step(p, o, batch)
+            assert bool(m["ok"])
+            if telemetry:
+                seen.append(tuple(m[k].numpy() for k in (
+                    "adapt/grads_hist", "adapt/params_hist",
+                    "adapt/grads_overflow", "adapt/params_overflow")))
+            else:
+                assert not any(k.startswith("adapt/") for k in m)
+        flat = torch.cat([t.reshape(-1) for t in pytree_leaves(p)]).numpy()
+        out[name] = (flat, o["m"].numpy(), o["v"].numpy())
+        if telemetry:
+            out[name] += (seen, local)
+        out["n_padded"] = n
+    return out
+
+
 if __name__ == "__main__":
     _main()
