@@ -166,6 +166,24 @@ non-zero (nothing is caught and carried on):
                under the new id in one stacked K2 launch, and the same
                for codes containers through K4. K1, K2 and K6 counted
                from zero around the two launches.
+ 11. moe     — MoE training with the QLC-compressed expert all-to-all,
+               after adapt, on the same rank (a 1 x 1 data x model
+               layout): deepseek-moe-16b at full width (d_model 2048, 64
+               routed experts top-6 of width 1408, 2 shared, vocab
+               102400), 1 of 28 layers, batch 4 x 512. On one layer's
+               real input gspmd, grouped_local(1) and raw shardmap_a2a
+               route alike (idx, keep mask, drops printed) and are
+               bit-equal; ``calibrate_moe_entries`` (K6 counts equal to
+               ``np.bincount``) prints both codecs; K1 and K2 (f32) at
+               the wire's shape bit-equal to plain on the first and last
+               4096 chunks; ``train(comm="baseline", moe_wire="qlc")``, 3
+               steps, bit-equal to its raw e4m3 twin, then
+               ``moe_wire="raw"``; ``train(comm="qlc", moe_wire="qlc")``,
+               3 steps, bit-equal to its twin. Prints per direction the
+               measured and modeled wire B/symbol, ms/step and K1/K2
+               launches per step of each run, the gradient and parameter
+               wires' B/symbol and the peak device memory. K1-K6 counted
+               from zero around the calibration and the runs.
 
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
@@ -2367,6 +2385,317 @@ def phase_adapt(qf, h6, ops, flush, tr, smi, dev="cuda", cfg=None,
                        "step_ms": step_ms}}
 
 
+#: deepseek-moe-16b layers the moe phase keeps (of 28): f32 parameters,
+#: gradients and AdamW moments of one layer with the 102400-token
+#: embeddings and head are ~16 GB before the steps' copies.
+MOE_LAYERS = 1
+
+
+def _moe_cell(cfg=None):
+    """The moe cell's config (deepseek-moe-16b, ``MOE_LAYERS`` of 28
+    layers), or ``cfg``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return cfg or dataclasses.replace(get_config("deepseek-moe-16b"),
+                                      num_layers=MOE_LAYERS)
+
+
+def _with_impl(cfg, impl, **over):
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl=impl, **over))
+
+
+def _same_leaves(what: str, a, b):
+    from repro_torch.models.transformer import pytree_leaves
+    la, lb = pytree_leaves(a), pytree_leaves(b)
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: parameters differ")
+    return sum(t.numel() for t in la)
+
+
+def moe_wire_fused(ops, ref, entry, vals, flush, rows=4096):
+    """K1 and K2's f32 form at the expert wire's own shape: one
+    direction's real all-to-all payload as chunks of the plan's size at
+    its slot, with its calibrated codec; each bit-equal to its plain
+    version on the first and last ``rows`` chunks and timed beside its
+    HBM bound."""
+    k, cap = entry.plan.chunk_symbols, entry.plan.capacity_words
+    t = entry.tables
+    x = vals.reshape(-1, k)
+    n = x.shape[0]
+    words, nb, sc = ops.quantize_encode(x, t, cap)
+    out = ops.decode_dequantize(words, sc, t, k)
+    err = {"K1": 0.0, "K2": 0.0}
+    for r0 in sorted({0, max(0, n - rows)}):
+        sl = slice(r0, r0 + rows)
+        err["K1"] = max(err["K1"], require_equal(
+            f"K1 moe wire rows {r0}:{r0 + rows}", [words[sl], nb[sl],
+                                                   sc[sl]],
+            ref.quantize_encode_ref(x[sl], t, cap)))
+        err["K2"] = max(err["K2"], require_equal(
+            f"K2 moe wire rows {r0}:{r0 + rows}", [out[sl]],
+            [ref.decode_dequantize_ref(words[sl], sc[sl], [t], 0, k)]))
+    res = {
+        "K1": {"shape": [n, k], "dtype": str(x.dtype), "cap": cap,
+               "max_abs_err": err["K1"],
+               "ms": time_ms(lambda: ops.quantize_encode(x, t, cap), 5,
+                             flush),
+               "kernel_ms": time_ms(bare_k1(x, t, cap), 5, flush,
+                                    alone=True),
+               "bound_ms": bound_ms(nbytes(x, words, nb, sc))},
+        "K2": {"shape": [n, cap], "form": "f32", "max_abs_err": err["K2"],
+               "ms": time_ms(lambda: ops.decode_dequantize(words, sc, t, k),
+                             5, flush),
+               "kernel_ms": time_ms(bare_k2(words, sc, t, k), 5, flush,
+                                    alone=True),
+               # words, scales and scheme ids in; the f32 values out.
+               "bound_ms": bound_ms(nbytes(words, sc, out) + 4 * n)}}
+    for kname, v in res.items():
+        log("moe", f"{kname} at the expert wire's shape {v['shape']} (slot "
+                   f"{cap} words, {entry.name}): bit-equal to plain on the "
+                   f"first and last {rows} chunks; {v['ms']:.3f} ms (kernel "
+                   f"alone {v['kernel_ms']:.3f}), HBM bound "
+                   f"{v['bound_ms']:.3f} ms")
+    return res
+
+
+def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
+              seq_len=512, global_batch=4, steps=3):
+    """deepseek-moe-16b at full width, ``MOE_LAYERS`` layer(s), batch
+    ``global_batch`` x ``seq_len`` of the reference's synthetic stream, on
+    a 1 x 1 layout of one NCCL rank: the three dispatch impls on one
+    layer's real input (routing, keep mask and drops equal; grouped(1)
+    and raw expert parallelism bit-equal to gspmd); the expert wire's
+    calibration (K6 counts equal to ``np.bincount``); ``train(comm=
+    "baseline", moe_wire="qlc")`` against its raw e4m3 twin (bit-equal)
+    and ``moe_wire="raw"``; ``train(comm="qlc", moe_wire="qlc")`` against
+    its twin (bit-equal). K1-K6 counted from zero around the calibration
+    and the runs. Returns the launches, K1/K2 at the wire's shape and
+    the numbers the phase prints."""
+    from repro_torch.comm import calibrate
+    from repro_torch.comm.channel import Channel, ChannelSpec
+    from repro_torch.core import CodecRegistry
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params, moe, next_token_loss
+    cfg = _moe_cell(cfg)
+    m = cfg.moe
+    n_tok = global_batch * seq_len
+    log("moe", f"{cfg.name}: {cfg.num_layers} of 28 layers (cut: f32 "
+               f"params, grads and AdamW moments), d_model {cfg.d_model}, "
+               f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+               f"{m.num_experts} routed experts top-{m.top_k} of width "
+               f"{m.d_expert} + {m.num_shared_experts} shared, vocab "
+               f"{cfg.vocab_size}, params {cfg.param_dtype}, compute "
+               f"{cfg.dtype}, remat {cfg.remat}; global batch "
+               f"{global_batch} x {seq_len}, one NCCL rank, layout 1 x 1")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh = make_test_mesh(model=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    b0 = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=seq_len,
+                                     global_batch=global_batch)).batch_at(0)
+    b0 = {k: torch.as_tensor(v).to(dev) for k, v in b0.items()}
+
+    # 1. The three impls on the first layer's real input.
+    gspmd = _with_impl(cfg, "gspmd")
+    captured = []
+    with torch.no_grad(), moe.capture_moe_traffic(captured):
+        next_token_loss(params, _with_impl(gspmd, "gspmd"), b0["tokens"],
+                        b0["labels"])
+    lp, x = captured[0]
+    outs, routes, impl_ms = {}, {}, {}
+    with torch.no_grad(), use_mesh(mesh), moe.bind_moe_channels(None):
+        for name, c in (("gspmd", gspmd),
+                        ("grouped_local(1)", _with_impl(
+                            cfg, "grouped_local", dispatch_groups=1)),
+                        ("shardmap_a2a raw", _with_impl(cfg,
+                                                        "shardmap_a2a"))):
+            rec = []
+            with moe.capture_moe_routing(rec):
+                outs[name] = moe.moe_block(lp, x, c)
+            routes[name] = rec[0]
+            impl_ms[name] = time_ms(lambda: moe.moe_block(lp, x, c), 3,
+                                    flush)
+    capacity = moe._capacity(n_tok, m)
+    ref_r = routes["gspmd"]
+    drops = int((~ref_r["keep"]).sum())
+    load = torch.bincount(ref_r["idx"].reshape(-1),
+                          minlength=m.num_experts)
+    for name in outs:
+        r = routes[name]
+        if not (torch.equal(r["idx"], ref_r["idx"])
+                and torch.equal(r["keep"], ref_r["keep"])):
+            raise AssertionError(f"moe: {name}'s routing or keep mask "
+                                 "differs from gspmd's")
+        if not torch.equal(outs[name], outs["gspmd"]):
+            raise AssertionError(f"moe: {name}'s output is not bit-equal "
+                                 "to gspmd's")
+    log("moe", f"one layer's input {list(x.shape)} {x.dtype}: gspmd, "
+               f"grouped_local(1) and raw shardmap_a2a route alike (idx, "
+               f"keep mask), capacity {capacity} per expert, "
+               f"{drops} of {ref_r['keep'].numel()} assignments dropped "
+               f"in each (expert loads {int(load.min())}-{int(load.max())},"
+               f" {int((load > capacity).sum())} of {m.num_experts} over "
+               f"capacity); outputs bit-equal to gspmd; ms "
+               + ", ".join(f"{k} {v:.3f}" for k, v in impl_ms.items()))
+    del outs, routes
+
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+    for fn in counters.values():
+        fn.launches = 0
+
+    # 2. The expert wire's codecs (K6 counts each direction's symbols).
+    t0 = time.perf_counter()
+    reg = CodecRegistry()
+    calibrate.calibrate_moe_entries(reg, cfg, params, b0)
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    k6_calib = h6.histogram256.launches
+    launches = {k: fn.launches for k, fn in counters.items()}
+    with torch.no_grad():
+        layers = [moe.dispatch_traffic(p, xi, cfg) for p, xi in captured]
+    del captured
+    # The first layer's buffers are its all-to-all payloads (1 x 1).
+    payloads = dict(zip((moe.MOE_DISPATCH, moe.MOE_COMBINE), layers[0]))
+    for j, name in enumerate(payloads):
+        syms = calibrate.kv_symbol_stream([bufs[j] for bufs in layers],
+                                          mode="e4m3")
+        want = np.maximum(np.bincount(syms.cpu().numpy(), minlength=256)
+                          .astype(np.float64), 1e-6)
+        if not np.array_equal(reg[name].counts, want):
+            raise AssertionError(f"moe: {name}'s K6 counts differ from "
+                                 "np.bincount of its symbols")
+    codecs = {n: (reg[n].scheme_id, reg[n].plan.expected_bits_per_symbol,
+                  reg[n].plan.capacity_words, reg[n].plan.pool_slots_per_1k)
+              for n in payloads}
+    log("moe", f"calibrate_moe_entries {calib_ms:.1f} ms ({k6_calib} K6 "
+               f"launches, counts equal to np.bincount of each direction's "
+               f"{syms.numel()} symbols): "
+               + "; ".join(f"{n} scheme-id {v[0]}, planned {v[1]:.4f} "
+                           f"bits/symbol, {v[2]}-word slots, pool {v[3]}/1k"
+                           for n, v in codecs.items()))
+    # Channel.wire_bytes of the real payloads (1 x 1: a direction's whole
+    # send buffer is the layer's dispatch / combine buffer).
+    wire_real = {}
+    for name, buf in payloads.items():
+        ch = Channel(ChannelSpec(codec=name), registry=reg)
+        p, sc = ch.compress(buf.reshape(1, -1))
+        wire_real[name] = ch.wire_bytes(p, sc) / buf.numel()
+        del p, sc
+    for fn in counters.values():
+        fn.launches = 0
+    fused = moe_wire_fused(ops, ref, reg[moe.MOE_DISPATCH],
+                           payloads[moe.MOE_DISPATCH], flush)
+    del payloads, layers, lp, x, syms
+    for fn in counters.values():
+        fn.launches = 0
+
+    # 3. The expert wire in baseline training, its twin, and raw.
+    kw = dict(steps=steps, seq_len=seq_len, global_batch=global_batch,
+              device=dev, transport="oneshot", seed=0, params=params)
+    runs = {}
+
+    def run(name, **over):
+        before = {k: fn.launches for k, fn in counters.items()}
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = train(cfg, **kw, **over)
+        hist = res["history"]
+        if not all(h["ok"] for h in hist) or res["comm_fallbacks"] \
+                or not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"moe {name}: ok {[h['ok'] for h in hist]}"
+                                 f", fallbacks {res['comm_fallbacks']}, "
+                                 f"losses {[h['loss'] for h in hist]}")
+        runs[name] = {
+            "losses": [h["loss"] for h in hist],
+            "step_ms": [h["dt"] * 1e3 for h in hist],
+            "launches": {k: fn.launches - before[k]
+                         for k, fn in counters.items() if k in ("K1", "K2")},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if dev == "cuda" else float("nan"))}
+        return res
+
+    with use_mesh(mesh):
+        q = run("baseline, qlc expert wire", comm="baseline", moe_wire="qlc",
+                registry=reg)
+        rep = q["moe"]
+        for name, r in rep.items():
+            if r["wire_bytes_per_symbol"] != wire_real[name]:
+                raise AssertionError(f"moe: {name} measured wire B/symbol "
+                                     f"{r['wire_bytes_per_symbol']} != "
+                                     f"{wire_real[name]} of the real payload")
+        q_params = q["params"]
+        del q
+        t = run("baseline, raw e4m3 twin", comm="baseline", moe_wire="qlc",
+                registry=reg, wire_enabled=False)
+        if [h["loss"] for h in t["history"]] != \
+                runs["baseline, qlc expert wire"]["losses"]:
+            raise AssertionError("moe: the QLC expert wire's losses differ "
+                                 "from its raw e4m3 twin's")
+        n_eq = _same_leaves("moe: QLC expert wire vs raw e4m3 twin",
+                            q_params, t["params"])
+        del q_params, t
+        run("baseline, raw wire (gspmd)", comm="baseline", moe_wire="raw")
+        log("moe", f"baseline training with the QLC expert wire == its raw "
+                   f"e4m3 twin after {steps} steps: losses and {n_eq} "
+                   "parameters bit-equal; per direction measured wire "
+                   "B/symbol (Channel.all_to_all of the last step's payload "
+                   "== Channel.wire_bytes of the real payload) vs modeled: "
+                   + "; ".join(f"{n} {r['wire_bytes_per_symbol']:.4f} vs "
+                               f"{r['modeled_wire_bytes_per_symbol']:.4f}"
+                               for n, r in rep.items()))
+
+        # 4. Both wires compressed (the gradient codec calibrated by K6,
+        # the expert wire's anew into the same registry).
+        c = run("qlc, qlc expert wire", comm="qlc", moe_wire="qlc")
+        c_reg, c_params = c["registry"], c["params"]
+        grads_b = c["grads_wire_bytes_per_symbol"]
+        params_b = c["params_wire_bytes_per_symbol"]
+        g = c_reg["grads"].plan
+        del c
+        ct = run("qlc, raw e4m3 twin", comm="qlc", moe_wire="qlc",
+                 registry=c_reg, wire_enabled=False)
+        if [h["loss"] for h in ct["history"]] != \
+                runs["qlc, qlc expert wire"]["losses"]:
+            raise AssertionError("moe: the compressed run's losses differ "
+                                 "from its raw e4m3 twin's")
+        n_eq = _same_leaves("moe: both wires compressed vs raw e4m3 twin",
+                            c_params, ct["params"])
+        del c_params, ct
+    for name, r in runs.items():
+        log("moe", f"{name}: {steps} steps {[round(v, 3) for v in r['step_ms']]}"
+                   f" ms, losses {r['losses']}, K1/K2 launches "
+                   f"{r['launches']['K1']}/{r['launches']['K2']} in the run "
+                   f"({r['launches']['K1'] / steps:.1f}/"
+                   f"{r['launches']['K2'] / steps:.1f} a step, its "
+                   f"calibration included), peak device memory "
+                   f"{r['peak_gib']:.2f} GiB")
+    log("moe", f"both wires compressed == raw e4m3 twin after {steps} steps "
+               f"({n_eq} parameters bit-equal); gradient wire {grads_b:.4f} "
+               f"B/symbol ({g.expected_bits_per_symbol:.4f} planned "
+               f"bits/symbol, {g.capacity_words}-word slots, pool "
+               f"{g.pool_slots_per_1k}/1k), parameter wire {params_b:.4f} "
+               f"B/symbol; {n_params} parameters")
+    launches = {k: launches[k] + fn.launches for k, fn in counters.items()}
+    for kname in ("K1", "K2", "K6"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the moe path")
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "fused": fused, "runs": runs,
+            "codecs": codecs, "wire": rep, "grads_wire": grads_b,
+            "params_wire": params_b, "drops": drops}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -2443,12 +2772,18 @@ def _leaves(tree):
 
 
 def main():
+    # Both are read when CUDA first starts. cuBLAS reads this when it
+    # first makes its handle; the train phase runs with deterministic
+    # algorithms, which need it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # The train, adapt and moe phases each hold most of the card; the
+    # allocator's expandable segments keep the blocks earlier phases
+    # left cached from fragmenting what the next one needs.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    # cuBLAS reads this when it first makes its handle; the train phase
-    # runs with deterministic algorithms, which need it.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import lut, schemes
@@ -2510,6 +2845,8 @@ def main():
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
         adapt = phase_adapt(qf, h6, ops, flush, tr, smi)
+        torch.cuda.empty_cache()
+        moe_res = phase_moe(qf, qc, h6, ops, ref, flush)
     torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
     ck = phase_ckpt(qc, h6, ops, ref, flush)
@@ -2537,9 +2874,12 @@ def main():
                  "autotune_launches": auto["launches"][kname],
                  "autotune_probe": auto["probe"] if kname == "K2" else None,
                  "launcher_resume_launches": resume["launches"][kname],
-                 "adapt_launches": adapt["launches"][kname]}
+                 "adapt_launches": adapt["launches"][kname],
+                 "moe_launches": moe_res["launches"][kname],
+                 "moe_path": moe_res["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
-                                   adapt["err"])
+                                   adapt["err"],
+                                   moe_res["fused"][kname]["max_abs_err"])
         if kname == "K1":
             entry["train_path_hist"] = adapt["k1_hist"]
             entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -2549,6 +2889,8 @@ def main():
         kernels.append(entry)
     kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times,
                                     k3_shapes)
+    for entry in kernels[2:5]:
+        entry["moe_launches"] = moe_res["launches"][entry["name"].split()[0]]
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -2574,7 +2916,8 @@ def main():
         "ckpt_path": ck["path"]["K6"],
         "launcher_resume_launches": resume["launches"]["K6"],
         "kv_monitor_launches": kvmon["launches"]["K6"],
-        "adapt_launches": adapt["launches"]["K6"]})
+        "adapt_launches": adapt["launches"]["K6"],
+        "moe_launches": moe_res["launches"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,14 @@ in the reference.
 KV / decode states (:func:`calibrate_kv_entries`): the lossless mode's
 symbols are the states' bytes, split into byte planes by a little-endian
 ``view(torch.uint8)`` on the states' device, and counted there by K6.
+
+MoE expert wire (:func:`calibrate_moe_entries`): one forward pass with
+traffic capture, each MoE layer's dispatch and combine buffers, their
+block-32 e4m3 symbols counted by K6.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from typing import Dict, Optional, Tuple, Union
 
@@ -323,3 +329,77 @@ def calibrate_kv_entries(registry, layer_arrays, *, mode: str = "qlc",
             entries[name] = registry.register_tables(name, tables, plan,
                                                      counts=counts)
     return {name: entries.get(name, registry[name]) for name in layout}
+
+
+# --------------------------------------------------------------------------
+# MoE expert-wire codecs
+# --------------------------------------------------------------------------
+
+def calibrate_moe_entries(registry, model_cfg, params, batch, *,
+                          chunk_symbols: int = 1024,
+                          target_escape_prob: float = 1e-4,
+                          dispatch_name: str = "moe/dispatch",
+                          combine_name: str = "moe/combine",
+                          allow_search: bool = False) -> Dict[str, object]:
+    """Calibrate the MoE expert-dispatch wire codecs into ``registry``.
+
+    Runs ONE forward pass (no gradient) over ``batch`` with traffic
+    capture on (``moe.capture_moe_traffic``), recomputes each captured
+    MoE layer's dispatch/combine buffers with ``moe.dispatch_traffic`` —
+    the routed-token values entering / leaving the expert all-to-all,
+    capacity drops and padding zeros included — and registers one codec
+    per direction from the pooled e4m3-symbol histograms (counted by K6
+    on the card, :func:`symbol_counts`):
+
+    * ``dispatch_name`` — pre-FFN token activations (a2a out),
+    * ``combine_name`` — post-FFN expert outputs (a2a back).
+
+    Each plan keeps a quarter-bit drift margin and is sized on the
+    measured chunk sums with an escape pool of at most 64 slots per 1024
+    chunks, as in the reference. Names already in ``registry`` are kept
+    (idempotent). Returns ``{name: CodecEntry}``. The capture forward
+    runs with ``remat="none"`` and ``moe.impl="gspmd"`` on this rank's
+    whole ``batch``: routing does not depend on the impl.
+    """
+    from repro_torch.models import moe, next_token_loss
+
+    todo = [n for n in (dispatch_name, combine_name) if n not in registry]
+    if not todo:
+        return {dispatch_name: registry[dispatch_name],
+                combine_name: registry[combine_name]}
+
+    eager_cfg = dataclasses.replace(
+        model_cfg, remat="none",
+        moe=dataclasses.replace(model_cfg.moe, impl="gspmd"))
+    captured: list = []
+    with torch.no_grad(), moe.capture_moe_traffic(captured), \
+            moe.batch_over(None), moe.bind_moe_channels(None):
+        next_token_loss(params, eager_cfg, batch["tokens"],
+                        batch["labels"], batch.get("prefix_emb"))
+        if not captured:
+            raise ValueError(
+                "no MoE traffic captured — is model_cfg.moe set?")
+        streams = {dispatch_name: [], combine_name: []}
+        for layer_params, x in captured:
+            buf, out_e = moe.dispatch_traffic(layer_params, x, eager_cfg)
+            streams[dispatch_name].append(buf)
+            streams[combine_name].append(out_e)
+
+    entries = {}
+    for name in (dispatch_name, combine_name):
+        if name not in todo:
+            entries[name] = registry[name]
+            continue
+        syms = kv_symbol_stream(streams[name], mode="e4m3")
+        counts = np.maximum(symbol_counts(syms), 1e-6)
+        tables = adapt.calibrate_tables(counts, allow_search=allow_search)
+        plan = plan_for_tables(tables, counts, chunk_symbols=chunk_symbols,
+                               target_escape_prob=target_escape_prob,
+                               drift_margin_bits=0.25)
+        plan = empirical_plan(tables, syms, plan,
+                              chunk_symbols=chunk_symbols,
+                              target_escape_prob=target_escape_prob,
+                              max_pool_slots_per_1k=64)
+        entries[name] = registry.register_tables(name, tables, plan,
+                                                 counts=counts)
+    return entries

@@ -5,10 +5,13 @@ A :class:`Channel` resolves a :class:`ChannelSpec` against a
 ``CodecRegistry`` at construction — the entry's tables, and its wire
 config from the calibrated plan unless one is given — and exposes the
 local transforms (``compress`` / ``decompress``, ``compress_codes`` /
-``decompress_codes``) and, bound to a data-parallel process group
-(``ChannelSpec(group=...)``, in place of the reference's mesh axis), the
-compressed ``reduce_scatter``, ``all_gather``, ``psum`` and
-``all_to_all``. :func:`open_channels` opens one per registry name.
+``decompress_codes``) and, bound to a process group, the compressed
+``reduce_scatter``, ``all_gather``, ``psum`` and ``all_to_all``. The
+group is given (``ChannelSpec(group=...)``) or named by a mesh axis
+(``ChannelSpec(axis="data" | "model")``), which resolves against the
+``launch.mesh.Mesh`` in scope (``use_mesh``): the ``"model"`` axis
+carries the MoE expert all-to-all. :func:`open_channels` opens one per
+registry name.
 
 The ``"auto"`` transport policy resolves per call: first from the
 registry's autotune cache, keyed by ``(scheme_id, axis, payload bucket,
@@ -21,9 +24,7 @@ decode rate (:func:`measure_decode_Bps`) and the group's wire rate
 caches; they ride the registry's JSON, which loads in either package.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: mesh axes without a process group (the reference's model axis,
-queue 1, item 6), and the pod axis and the hierarchical transport
-(item 13).
+item: the pod axis and the hierarchical transport (queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -53,9 +54,21 @@ AUTO = "auto"
 #: the spec names none: the reference's data-parallel mesh axis.
 DATA_AXIS = "data"
 
-_NO_MESH = ("mesh axes are not ported (ROADMAP queue 1, item 6: the model "
-            "axis); bind a data-parallel process group with "
-            "ChannelSpec(group=...)")
+
+
+def axis_group(axis: str, mesh=None):
+    """The process group of mesh axis ``axis`` (``"data"`` or
+    ``"model"``) on ``mesh``, or on the mesh in scope
+    (``launch.mesh.use_mesh``) when ``mesh`` is None."""
+    from repro_torch.launch.mesh import NO_PODS, current_mesh
+    if axis == "pod":
+        raise NotImplementedError(NO_PODS)
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise ValueError(f"ChannelSpec(axis={axis!r}) without a group needs "
+                         "a mesh in scope (launch.mesh.use_mesh) or "
+                         "ChannelSpec(group=...)")
+    return mesh.group(axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +84,8 @@ class ChannelSpec:
     (``torch.distributed.group.WORLD`` for the default group); ``None``
     binds no group (local transforms only). ``axis``: the bound group's
     name in the registry's caches (default ``"data"``); without a group
-    it would name a mesh axis, which is not ported.
+    it names a mesh axis (``"data"`` or ``"model"``), whose group comes
+    from the mesh in scope when the channel is built.
     ``use_kernels`` / ``enabled`` / ``scale_dtype``: non-plan wire knobs;
     ``None`` keeps the codec's. ``use_kernels`` is kept for the
     reference's JSON and does not pick the route.
@@ -108,7 +122,7 @@ class Channel:
     def __init__(self, spec: ChannelSpec, registry=None, *,
                  model: Optional[AlphaBetaModel] = None):
         if spec.axis is not None and spec.group is None:
-            raise NotImplementedError(_NO_MESH)
+            spec = dataclasses.replace(spec, group=axis_group(spec.axis))
         codec = spec.codec
         entry: Optional[CodecEntry] = None
         if isinstance(codec, CodecEntry):
@@ -321,11 +335,12 @@ class Channel:
         full, ok_ag = self.all_gather(r.segment)
         return full[:x.numel()].reshape(x.shape), r.ok & ok_ag
 
-    def all_to_all(self, x: torch.Tensor, *, with_hist: bool = False):
+    def all_to_all(self, x: torch.Tensor, *, with_hist: bool = False,
+                   with_wire: bool = False):
         """Compressed all-to-all of ``x [d, ...]`` (row j goes to peer j)
         -> ``(received, shaped like x, ok)``, row j from peer j (+ the
-        histogram of every symbol this rank encoded with
-        ``with_hist``)."""
+        histogram of every symbol this rank encoded with ``with_hist``;
+        + the wire bytes of this rank's payload with ``with_wire``)."""
         d = x.shape[0]
         if d != self._group_size():
             raise ValueError(f"all_to_all payload has {d} rows but the "
@@ -337,7 +352,8 @@ class Channel:
         if pad:
             row = F.pad(row, (0, pad))
         out = tr.exchange_all_to_all(row, self.group, self.tables, self.cfg,
-                                     t, emit_hist=with_hist)
+                                     t, emit_hist=with_hist,
+                                     with_wire=with_wire)
         vals = out[0][:, :n].reshape(x.shape)
         return (vals,) + tuple(out[1:])
 
@@ -484,9 +500,11 @@ def open_channels(registry, mesh=None, *, axis: Optional[str] = None,
                   group=None, transport=None,
                   use_kernels: Optional[bool] = None) -> Dict[str, Channel]:
     """Open one :class:`Channel` per registry name: ``{name: Channel}``,
-    bound to ``group`` (a data-parallel process group) when given."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    bound to ``group`` when given, else to ``mesh``'s group along
+    ``axis`` when both are given (with ``axis`` alone, to the group of
+    the mesh in scope); with neither, the channels are local."""
+    if group is None and axis is not None and mesh is not None:
+        group = axis_group(axis, mesh)
     return {name: Channel(ChannelSpec(codec=name, axis=axis, group=group,
                                       transport=transport,
                                       use_kernels=use_kernels),

@@ -307,13 +307,15 @@ def exchange_reduce_scatter(xs: torch.Tensor, group, tables, cfg,
 # --------------------------------------------------------------------------
 
 def exchange_all_to_all(rows: torch.Tensor, group, tables, cfg,
-                        t: TransportConfig, emit_hist: bool = False):
+                        t: TransportConfig, emit_hist: bool = False,
+                        with_wire: bool = False):
     """All-to-all of ``rows [d, n]`` (row j goes to peer j) -> ``(vals
     f32 [d, n], ok bool [])``, output row j holding peer j's dequantized
     row for this rank (+ the int32 [256] histogram of every symbol this
-    rank encoded with ``emit_hist``). The own row is quantized and
-    decoded like the others on both transports, so one-shot and ring
-    give the same bits."""
+    rank encoded with ``emit_hist``; + the wire bytes of this rank's
+    compressed rows, every piece's payload and scales, with
+    ``with_wire``). The own row is quantized and decoded like the others
+    on both transports, so one-shot and ring give the same bits."""
     _check_kind(t)
     d = dist.get_world_size(group)
     my = dist.get_rank(group)
@@ -341,4 +343,8 @@ def exchange_all_to_all(rows: torch.Tensor, group, tables, cfg,
 
         _pairwise([_pack(pc) for pc in pieces], group, d, my, consume)
         res = (vals_out.reshape(d, -1), torch.stack(oks).all())
-    return res + (hist,) if emit_hist else res
+    if emit_hist:
+        res += (hist,)
+    if with_wire:
+        res += (sum(comp.wire_bytes(p, s) for p, s in pieces),)
+    return res

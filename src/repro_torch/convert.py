@@ -1,12 +1,14 @@
 """State from the reference package, as numpy arrays, into the port:
 parameters into the port's tree (same keys, shapes and dtypes, so both
-packages compute the same function on the same weights), and the flat
-ZeRO-1 optimizer state into one data-parallel rank's slice."""
+packages compute the same function on the same weights), the flat
+ZeRO-1 optimizer state into one data-parallel rank's slice, and a global
+parameter tree cut to one rank's MoE experts (:func:`shard_experts`)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.moe import EXPERT_LEAVES, is_moe_ffn
 from repro_torch.models.transformer import resolve_device
 
 
@@ -27,8 +29,8 @@ def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     """The reference's global ZeRO-1 state (``m`` / ``v`` laid out
     ``[*data_axes, model, seg]``, ``step`` a scalar) -> this data-parallel
     rank's flat state ``{"m": [seg], "v": [seg], "step": []}`` on
-    ``device``. The model axis must have size 1 (tensor parallelism is
-    not ported); data ranks are taken in row-major order of the mesh's
+    ``device``. The model axis must have size 1 (the ZeRO-1 state over a
+    model axis is not ported, ROADMAP queue 1, item 15); data ranks are taken in row-major order of the mesh's
     data axes, the order of the reference's reduce-scatter segments."""
     dev = resolve_device(device)
     out = {}
@@ -41,3 +43,30 @@ def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     out["step"] = torch.tensor(int(np.array(state["step"])),
                                dtype=torch.int32, device=dev)
     return out
+
+
+def shard_experts(params, model_index: int, model_size: int):
+    """The tree a rank of model index ``model_index`` holds under
+    ``shardmap_a2a``: each MoE FFN's expert weights (a whole model's, or
+    one FFN's) cut to its ``num_experts / model_size`` experts ``[m * el,
+    (m + 1) * el)`` along the expert dim (the third from last), every
+    other leaf whole. Identity for ``model_size == 1``."""
+    if model_size == 1:
+        return params
+
+    def cut(t):
+        e = t.shape[-3]
+        el = e // model_size
+        if el * model_size != e:
+            raise ValueError(f"{e} experts cannot be split over a model "
+                             f"axis of {model_size}")
+        return t.narrow(-3, model_index * el, el).clone()
+
+    def walk(node):
+        if is_moe_ffn(node):
+            return {k: cut(v) if k in EXPERT_LEAVES else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return walk(params)

@@ -1,7 +1,18 @@
-"""The data-parallel process group: the port's counterpart of the
-reference's mesh ``"data"`` axis (its ``"model"`` axis has size 1 here:
-tensor parallelism is not ported, ROADMAP queue 1, item 6; the ``"pod"``
-axis waits for multi-node, item 13).
+"""Process groups and the 2-D rank layout: the port's counterpart of the
+reference's ``("data", "model")`` device mesh (``repro.launch.mesh``,
+``repro.parallel.sharding.use_mesh``).
+
+The world is laid out as ``(data, model)`` with model innermost: world
+rank ``r = d * model + m``, the order of the reference's
+``Mesh(devices.reshape(dp, dm), ("data", "model"))``. :class:`Mesh`
+carries both sizes and this rank's two process groups: its model row
+(the ranks ``[d * model, (d + 1) * model)``, over which MoE experts are
+split and the expert all-to-all runs) and its data column (the ranks
+that share its model index, over which an expert's gradient is summed).
+The model axis carries expert parallelism only: tensor parallelism of
+the dense layers is not ported (ROADMAP queue 1, item 14), and the
+``"pod"`` axis waits for multi-node (item 13). :func:`use_mesh` puts a
+mesh in scope for the code that reads it (:func:`current_mesh`).
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -14,11 +25,15 @@ rank; :func:`free_port` finds a port on this host.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import socket
-from typing import Iterator, Optional
+import threading
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+NO_PODS = "the pod axis is not ported: ROADMAP queue 1, item 13 (multi-node)"
 
 
 def free_port() -> int:
@@ -75,3 +90,111 @@ def data_parallel(device, *, rank: int = 0, world_size: int = 1,
     finally:
         if created:
             teardown_data_parallel()
+
+
+# --------------------------------------------------------------------------
+# The (data, model) layout
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A ``data x model`` layout of the world's ranks (model innermost)
+    and this rank's place in it: ``rank`` is its world rank, and
+    ``data_group`` / ``model_group`` the process groups of its data
+    column and model row (``world_group`` holds every rank)."""
+    data: int
+    model: int
+    rank: int
+    world_group: Any
+    data_group: Any
+    model_group: Any
+
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes by name, as the reference's ``Mesh.shape``."""
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's ``(data, model)`` index."""
+        return divmod(self.rank, self.model)
+
+    def group(self, axis: str):
+        """The process group of this rank along ``axis``."""
+        if axis == "data":
+            return self.data_group
+        if axis == "model":
+            return self.model_group
+        if axis == "pod":
+            raise NotImplementedError(NO_PODS)
+        raise ValueError(f"unknown mesh axis {axis!r}; the port's mesh has "
+                         f"{self.axis_names}")
+
+
+def make_test_mesh(*, model: int = 2, pods: int = 1) -> Mesh:
+    """The reference's small mesh over the ranks that exist:
+    ``model = min(model, world)``, ``data = world // model``. Every rank
+    of the default group calls this, since each creates every row's and
+    column's process group, in the same order. A group that would hold
+    every rank is the default group itself."""
+    if int(pods) > 1:
+        raise NotImplementedError(NO_PODS)
+    group = dist.group.WORLD
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    model = max(1, min(int(model), world))
+    data = world // model
+    if data * model != world:
+        raise ValueError(f"{world} ranks cannot be laid out as data x "
+                         f"model = {data} x {model}")
+
+    def subgroup(ranks):
+        if len(ranks) == world:
+            return group
+        return dist.new_group(ranks)
+
+    rows = [subgroup([d * model + m for m in range(model)])
+            for d in range(data)]
+    cols = [subgroup([d * model + m for d in range(data)])
+            for m in range(model)]
+    d_me, m_me = divmod(rank, model)
+    return Mesh(data=data, model=model, rank=rank, world_group=group,
+                data_group=cols[m_me], model_group=rows[d_me])
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         pods: int = None) -> Mesh:
+    """The reference's single-pod layout, 16 data x 16 model ranks (the
+    world must hold 256); a pod axis is not ported."""
+    if multi_pod or (pods is not None and int(pods) > 1):
+        raise NotImplementedError(NO_PODS)
+    world = dist.get_world_size()
+    if world != 256:
+        raise ValueError(f"the production layout needs 256 ranks, the "
+                         f"world has {world}")
+    return make_test_mesh(model=16)
+
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
+    """Put ``mesh`` in scope for this thread (:func:`current_mesh`)."""
+    old = getattr(_SCOPE, "mesh", None)
+    _SCOPE.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _SCOPE.mesh = old
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh :func:`use_mesh` put in scope on this thread, or None."""
+    return getattr(_SCOPE, "mesh", None)

@@ -1,6 +1,7 @@
 """Training launcher: data-parallel training over a ``torch.distributed``
 process group, with the gradient and parameter wires QLC-compressed
-(``--comm qlc``) or dense (``--comm baseline``).
+(``--comm qlc``) or dense (``--comm baseline``), and for an MoE model
+the expert all-to-all over the model axis.
 
 ``--comm qlc``: one backward pass over the first batch calibrates the
 gradient codec (``calibrate_for_gradients``: its symbols counted by the
@@ -29,6 +30,16 @@ bits/symbol of each wire's traffic with its codec's plan, and a drifted
 codec is recalibrated, registered under a new scheme-id and the step
 rebuilt. It prints each check and each swap.
 
+``--moe-wire`` (an MoE model): ``qlc`` switches ``moe.impl`` to
+expert-parallel ``shardmap_a2a`` and moves the routed tokens as QLC
+containers, one calibrated codec per direction (``moe/dispatch``,
+``moe/combine``; ``calibrate_moe_entries``, counted by K6) on the model
+axis, over ``--moe-transport``; ``auto`` means ``qlc`` under ``--comm
+qlc`` without switching the impl (so it opens no channel unless the
+config already says ``shardmap_a2a``), else ``raw``. It prints each
+direction's scheme-id, planned bits/symbol and the wire bytes per symbol
+of the last step's payload.
+
 Example (one H100; ``--reduced`` and ``--device cpu`` run on the CPU
 with the kernels' plain versions):
   python -m repro_torch.launch.train --arch phi3-mini-3.8b --comm qlc \\
@@ -40,15 +51,19 @@ with the kernels' plain versions):
       --checkpoint-dir /tmp/ckpt --checkpoint-every 3
   python -m repro_torch.launch.train --arch phi3-mini-3.8b --reduced \\
       --device cpu --comm qlc --steps 4 --adapt --adapt-every 1
+  python -m repro_torch.launch.train --arch deepseek-moe-16b --reduced \\
+      --device cpu --comm qlc --moe-wire qlc --steps 2
 
 The launcher runs one rank; ``train()`` runs on whatever process group
-its caller set up (``launch.mesh``). Flags of the reference that reach
-code not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item.
+its caller set up (``launch.mesh``), over the mesh in scope
+(``launch.mesh.use_mesh``) when there is one. Flags of the reference
+that reach code not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -58,15 +73,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm.calibrate import (calibrate_for_gradients,
+                                        calibrate_moe_entries,
                                         histogram_of_tree)
 from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.convert import shard_experts
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
-from repro_torch.launch.mesh import data_parallel
-from repro_torch.models import init_params
+from repro_torch.launch.mesh import current_mesh, data_parallel, \
+    make_test_mesh
+from repro_torch.models import init_params, moe
 from repro_torch.models.transformer import resolve_device
 from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
                                   TrainConfig, init_compressed_opt_state,
@@ -81,6 +99,27 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def _local_dispatch(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with an MoE's dispatch on one rank (``gspmd``): routing
+    does not depend on the impl, and calibration runs on rank 0 alone."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl="gspmd"))
+
+
+def _on_rank0(group, make) -> CodecRegistry:
+    """``make()`` on rank 0 of ``group`` (a registry), its JSON broadcast
+    so every rank holds the same tables."""
+    payload = [None]
+    if dist.get_rank(group) == 0:
+        payload = [make().to_json()]
+    if dist.get_world_size(group) > 1:
+        dist.broadcast_object_list(payload, src=dist.get_global_rank(
+            group, 0), group=group)
+    return CodecRegistry.from_json(payload[0])
+
+
 def calibrate_registry(cfg: ModelConfig, params, batch, group
                        ) -> CodecRegistry:
     """The step's per-tensor-type registry: ``"grads"`` from one
@@ -89,19 +128,54 @@ def calibrate_registry(cfg: ModelConfig, params, batch, group
     the registry's JSON is broadcast, so every rank holds the same
     tables."""
     dev = next(iter(params.values())).device
-    payload = [None]
-    if dist.get_rank(group) == 0:
+
+    def make():
         b0 = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        tables, plan = calibrate_for_gradients(cfg, params, b0)
+        tables, plan = calibrate_for_gradients(_local_dispatch(cfg), params,
+                                               b0)
         reg = CodecRegistry()
         reg.register_tables("grads", tables, plan)
         reg.register("params", histogram_of_tree(params),
                      chunk_symbols=plan.chunk_symbols)
-        payload = [reg.to_json()]
-    if dist.get_world_size(group) > 1:
-        dist.broadcast_object_list(payload, src=dist.get_global_rank(
-            group, 0), group=group)
-    return CodecRegistry.from_json(payload[0])
+        return reg
+    return _on_rank0(group, make)
+
+
+def calibrate_moe_registry(cfg: ModelConfig, params, batch, group,
+                           registry: Optional[CodecRegistry] = None
+                           ) -> CodecRegistry:
+    """``registry`` (or a new one) with the expert wire's two codecs
+    (``moe.MOE_DISPATCH``, ``moe.MOE_COMBINE``) calibrated by rank 0 on
+    the global ``batch`` and the global ``params``
+    (``calibrate_moe_entries``; names already there are kept)."""
+    dev = next(iter(params.values())).device
+
+    def make():
+        reg = CodecRegistry() if registry is None \
+            else CodecRegistry.from_json(registry.to_json())
+        b0 = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        calibrate_moe_entries(reg, cfg, params, b0)
+        return reg
+    return _on_rank0(group, make)
+
+
+def resolve_moe_wire(cfg: ModelConfig, moe_wire: str, comm: str):
+    """The reference's ``--moe-wire`` rule -> ``(cfg, wire)``: an
+    explicit ``"qlc"`` switches an MoE to ``shardmap_a2a``; ``"auto"``
+    is ``"qlc"`` under ``comm="qlc"`` (without switching) and ``"raw"``
+    otherwise. The wire is ``"qlc"`` only where channels open: an MoE
+    on ``shardmap_a2a``."""
+    if moe_wire not in ("auto", "raw", "qlc"):
+        raise ValueError(f"moe_wire must be 'auto', 'raw' or 'qlc', got "
+                         f"{moe_wire!r}")
+    if moe_wire == "qlc" and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="shardmap_a2a"))
+    if moe_wire == "auto":
+        moe_wire = "qlc" if comm == "qlc" else "raw"
+    if cfg.moe is None or cfg.moe.impl != "shardmap_a2a":
+        moe_wire = "raw"
+    return cfg, moe_wire
 
 
 def _autotune_transports(registry: CodecRegistry, n_padded: int, group,
@@ -158,7 +232,8 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
           wire_enabled: bool = True, params=None, autotune: bool = False,
           checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 100, adapt: bool = False,
-          adapt_every: int = 10) -> Dict[str, Any]:
+          adapt_every: int = 10, moe_wire: str = "auto",
+          moe_transport: str = "auto") -> Dict[str, Any]:
     """Run the launcher's path on the default process group (one rank of
     ``device``'s backend is set up, and torn down after, when none
     exists) and return what it produced: ``history`` (per step: loss,
@@ -184,11 +259,27 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     (``events``, ``SwapEvent``; ``swaps``: per swapping check its step
     and the seconds of the check and of the rebuild), the checks
     (``checks``: per name the scheme-id, measured and planned
-    bits/symbol, flagged) and the ``controller``."""
+    bits/symbol, flagged) and the ``controller``.
+
+    An MoE model: ``moe_wire`` as :func:`resolve_moe_wire`; over a wire
+    of ``"qlc"`` the experts are split over the model axis of the mesh
+    in scope (a 1 x ``world`` one when none is: a model axis of 1) and
+    ``params``, the global tree, is cut to this rank's experts
+    (``convert.shard_experts``). Its two codecs join ``registry`` (or a new
+    one), ``wire_enabled=False`` turns them to the raw e4m3 twin too, and
+    ``moe`` then holds per direction the scheme-id, the planned
+    bits/symbol and the wire bytes per symbol of the last step's payload,
+    measured (``Channel.all_to_all``) and modeled. Over a mesh the batch
+    is split over all its ranks."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
+    cfg, moe_wire = resolve_moe_wire(cfg, moe_wire, comm)
     dev = resolve_device(device)
     with data_parallel(dev) as group:
+        mesh = current_mesh()
+        if mesh is None and cfg.moe is not None \
+                and cfg.moe.impl == "shardmap_a2a":
+            mesh = make_test_mesh(model=1)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen, dev)
@@ -199,7 +290,6 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
             vocab_size=cfg.vocab_size,
             seq_len=seq_len - cfg.frontend_prefix_len,
             global_batch=global_batch, seed=seed))
-        baseline = make_baseline_step(cfg, opt_cfg, train_cfg, group=group)
         out: Dict[str, Any] = {}
         save_extra = None
         if comm == "qlc":
@@ -209,6 +299,22 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                                               group)
             _sync(dev)
             out["calibrate_s"] = time.perf_counter() - t0
+        moe_channels = None
+        if moe_wire == "qlc":
+            registry = calibrate_moe_registry(cfg, params, data.batch_at(0),
+                                              group, registry)
+            moe_channels = {name: Channel(ChannelSpec(
+                codec=name, transport=moe_transport, axis="model",
+                group=mesh.model_group,
+                enabled=None if wire_enabled else False), registry=registry)
+                for name in (moe.MOE_DISPATCH, moe.MOE_COMBINE)}
+            out["registry"] = registry
+        if mesh is not None and cfg.moe is not None \
+                and cfg.moe.impl == "shardmap_a2a":
+            params = shard_experts(params, mesh.coords[1], mesh.model)
+        baseline = make_baseline_step(cfg, opt_cfg, train_cfg, group=group,
+                                      mesh=mesh, moe_channels=moe_channels)
+        if comm == "qlc":
             opt_state = init_compressed_opt_state(params, group, registry,
                                                   opt_cfg)
 
@@ -236,7 +342,7 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                 step = make_compressed_step(
                     cfg, opt_cfg, train_cfg, group, registry,
                     CommConfig(enabled=wire_enabled), transport=transport,
-                    telemetry=adapt)
+                    moe_channels=moe_channels, mesh=mesh, telemetry=adapt)
                 trainer.step_fn = step
                 trainer.fallback_step_fn = make_zero1_fallback(
                     baseline, step, group)
@@ -253,12 +359,35 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
             if adapt:
                 out["adapt"] = _adapter(trainer, registry, build_step,
                                         adapt_every)
-        params, opt_state = trainer.run(params, opt_state, data,
-                                        start_step=start)
+        wire_log: Dict[str, Any] = {}
+        with moe.record_moe_wire(wire_log):
+            params, opt_state = trainer.run(params, opt_state, data,
+                                            start_step=start)
         _sync(dev)
+        if moe_channels is not None:
+            out["moe"] = _moe_report(cfg, mesh, moe_channels, wire_log,
+                                     global_batch * data.cfg.seq_len)
     out.update(history=trainer.history, comm_fallbacks=trainer.comm_fallbacks,
                params=params, opt_state=opt_state, data=data,
                start_step=start)
+    return out
+
+
+def _moe_report(cfg: ModelConfig, mesh, channels, wire_log, n_tokens: int
+                ) -> Dict[str, Dict[str, Any]]:
+    """Per expert-wire direction: its codec's scheme-id and planned
+    bits/symbol, and the wire bytes per symbol of the last step's
+    payload, measured (``None`` before any step) and modeled."""
+    row = moe.shardmap_a2a_geometry(cfg, n_tokens, mesh)["row_values"]
+    out = {}
+    for name, ch in channels.items():
+        nbytes, n = wire_log.get(name, (None, None))
+        out[name] = {
+            "scheme_id": ch.entry.scheme_id,
+            "planned_bits": ch.entry.plan.expected_bits_per_symbol,
+            "wire_bytes_per_symbol": None if n is None else nbytes / n,
+            "modeled_wire_bytes_per_symbol": (
+                ch.modeled_wire_bytes(row) / row)}
     return out
 
 
@@ -289,9 +418,6 @@ def _not_ported(args):
     if args.distributed:
         raise NotImplementedError("a multi-host launch is not ported: "
                                   "ROADMAP queue 1, item 13")
-    if args.moe_wire != "auto" or args.moe_transport != "auto":
-        raise NotImplementedError("the MoE expert wire is not ported: "
-                                  "ROADMAP queue 1, item 11")
 
 
 def main(argv=None):
@@ -342,13 +468,21 @@ def main(argv=None):
                 checkpoint_dir=args.checkpoint_dir,
                 checkpoint_every=args.checkpoint_every,
                 adapt=args.adapt and args.comm == "qlc",
-                adapt_every=args.adapt_every)
+                adapt_every=args.adapt_every, moe_wire=args.moe_wire,
+                moe_transport=args.moe_transport)
     hist = res["history"]
     if args.comm == "qlc":
         print(f"calibrate {res['calibrate_s'] * 1e3:.1f} ms; wire "
               f"{res['grads_wire_bytes_per_symbol']:.4f} B/symbol (grads), "
               f"{res['params_wire_bytes_per_symbol']:.4f} (params); "
               f"{res['comm_fallbacks']} fallbacks")
+    for name, r in res.get("moe", {}).items():
+        m = r["wire_bytes_per_symbol"]
+        print(f"moe codec {name}: scheme-id {r['scheme_id']}, planned "
+              f"{r['planned_bits']:.4f} bits/symbol; wire "
+              f"{'none' if m is None else f'{m:.4f}'} B/symbol measured "
+              f"(last step), {r['modeled_wire_bytes_per_symbol']:.4f} "
+              "modeled")
     for name, ch in res.get("tuned", {}).items():
         t = ch.transport
         print(f"autotuned {name}: {t.kind} x{t.hop_chunks} (decode "

@@ -1,0 +1,673 @@
+"""Mixture-of-Experts FFN: shared + routed experts, top-k routing with
+capacity, scatter/gather dispatch (the reference's ``models/moe.py``).
+
+Three dispatch implementations (``MoEConfig.impl``, validated against
+:data:`SUPPORTED_IMPLS`):
+
+  * ``"gspmd"``: every expert on this rank; dispatch is a scatter/gather
+    and a batched matmul over the expert dim (``torch.bmm``).
+  * ``"grouped_local"``: the same math over ``dispatch_groups`` token
+    groups, capacity per (group, expert) (see :func:`_moe_grouped`).
+  * ``"shardmap_a2a"``: expert parallelism over the model axis of the
+    :class:`~repro_torch.launch.mesh.Mesh` in scope. Each rank holds the
+    experts ``[m * el, (m + 1) * el)`` of its model index ``m`` and its
+    world rank's contiguous shard of the tokens; tokens cross its model
+    row through an all-to-all, raw or as QLC containers (the paper's
+    technique on the routed-token wire). Routing and capacity drops are
+    bit-identical to ``"gspmd"`` on the whole batch: each rank
+    reconstructs the global arrival-order positions from an int32 counts
+    all-gather (see :func:`_moe_shardmap_a2a`).
+
+Where the reference's ``moe_block`` sees the whole batch (the baseline
+step, jitted over the data axes), each port rank holds one shard of it:
+under :func:`batch_over` the gspmd and grouped impls take their capacity
+from the global token count and their positions from the same counts
+all-gather, so every impl computes the reference's function.
+
+The compressed wire is opened by binding ``moe/dispatch`` /
+``moe/combine`` channels (:data:`MOE_DISPATCH` / :data:`MOE_COMBINE`,
+calibrated by ``repro_torch.comm.calibrate.calibrate_moe_entries``) with
+:func:`bind_moe_channels`. Without bound channels the all-to-all runs
+uncompressed (``dist.all_to_all_single``). The bindings are read on the
+caller's thread when the layer stack starts (:func:`moe_scope`) and
+travel with it, so a layer recomputed by activation checkpointing (on
+the autograd engine's thread) sees the same wire.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.launch.mesh import current_mesh
+from repro_torch.models import layers
+
+#: Registry / channel names of the expert-dispatch wire codecs.
+MOE_DISPATCH = "moe/dispatch"
+MOE_COMBINE = "moe/combine"
+
+#: ``MoEConfig.impl`` values :func:`moe_block` accepts.
+SUPPORTED_IMPLS = ("gspmd", "grouped_local", "shardmap_a2a")
+
+#: the expert-sharded leaves of an MoE FFN (leading dim: experts).
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+_GROUPS_UNALIGNED = (
+    "grouped_local over {w} ranks needs its {g} dispatch groups to be a "
+    "multiple of the ranks (dispatch groups mapped to data ranks are not "
+    "ported: ROADMAP queue 1, item 17)")
+
+
+def _normal(gen, shape, scale, dtype, device):
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device).mul_(scale)
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype,
+             device="cuda", lead=()) -> Dict[str, Any]:
+    """Random MoE FFN parameters from ``generator`` on ``device``, each
+    leaf with the leading dims ``lead`` (the layer-group stack)."""
+    m = cfg.moe
+    d = cfg.d_model
+    s_in = 1.0 / d ** 0.5
+    s_out = 1.0 / m.d_expert ** 0.5
+    lead = tuple(lead)
+    p = {
+        "router": _normal(generator, lead + (d, m.num_experts), s_in,
+                          torch.float32, device),
+        "w_in": _normal(generator, lead + (m.num_experts, d, m.d_expert),
+                        s_in, dtype, device),
+        "w_gate": _normal(generator, lead + (m.num_experts, d, m.d_expert),
+                          s_in, dtype, device),
+        "w_out": _normal(generator, lead + (m.num_experts, m.d_expert, d),
+                         s_out, dtype, device),
+    }
+    if m.num_shared_experts:
+        ff = m.num_shared_experts * m.d_expert
+        p["shared"] = {
+            "w_in": _normal(generator, lead + (d, ff), s_in, dtype, device),
+            "w_out": _normal(generator, lead + (ff, d), 1.0 / ff ** 0.5,
+                             dtype, device),
+            "w_gate": _normal(generator, lead + (d, ff), s_in, dtype,
+                              device),
+        }
+    return p
+
+
+def moe_param_specs(cfg: ModelConfig):
+    specs = {
+        "router": ("embed", "expert"),
+        "w_in": ("expert", "embed", "mlp"),
+        "w_gate": ("expert", "embed", "mlp"),
+        "w_out": ("expert", "mlp", "embed"),
+    }
+    if cfg.moe and cfg.moe.num_shared_experts:
+        specs["shared"] = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed"),
+                           "w_gate": ("embed", "mlp")}
+    return specs
+
+
+# --------------------------------------------------------------------------
+# Routing (ONE router matmul, shared by dispatch and the aux loss)
+# --------------------------------------------------------------------------
+
+def _router_logits(params, x_flat: torch.Tensor) -> torch.Tensor:
+    """x_flat: [N, D] -> router logits [N, E] (f32)."""
+    return torch.einsum("nd,de->ne", x_flat.float(), params["router"])
+
+
+def _route(params, x_flat: torch.Tensor, m: MoEConfig):
+    """x_flat: [N, D] -> (expert_idx [N,k], gates [N,k], probs [N,E]).
+
+    The top-k is a stable descending sort: among equal logits the lower
+    expert index comes first, as ``jax.lax.top_k`` orders them."""
+    logits = _router_logits(params, x_flat)
+    srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, idx = srt[:, :m.top_k], order[:, :m.top_k]
+    gates = torch.softmax(top, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
+    return idx, gates, probs
+
+
+def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                          m: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss from the routing
+    artifacts of :func:`_route`."""
+    onehot = F.one_hot(idx, m.num_experts).float().sum(1)
+    frac_tokens = onehot.mean(0)
+    frac_probs = probs.float().mean(0)
+    return m.num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+# --------------------------------------------------------------------------
+# Shared dispatch-plan / FFN helpers
+# --------------------------------------------------------------------------
+
+def _capacity(n_tokens: int, m: MoEConfig) -> int:
+    """Static per-expert buffer capacity for ``n_tokens`` routed tokens."""
+    return max(1, int(n_tokens * m.top_k * m.capacity_factor
+                      // m.num_experts))
+
+
+def _positions_in_expert(flat_e: torch.Tensor, num_experts: int
+                         ) -> torch.Tensor:
+    """Arrival-order position of each assignment within its expert
+    (pre-capacity): ``flat_e [A]`` -> ``pos [A]`` (int64). Every impl
+    derives its capacity drops from this one primitive."""
+    onehot = F.one_hot(flat_e, num_experts)
+    pos_in_e = torch.cumsum(onehot, dim=0) - onehot
+    return torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
+
+
+def _expert_counts(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """int32 [E]: assignments per expert."""
+    return F.one_hot(flat_e, num_experts).sum(0).to(torch.int32)
+
+
+def _gather_counts(counts: torch.Tensor, group) -> torch.Tensor:
+    """int32 [R, E]: every rank's ``counts`` of ``group``, in rank order
+    (no gradient; the values never cross)."""
+    from repro_torch.comm.transport import all_gather_flat
+    r = dist.get_world_size(group)
+    if r == 1:
+        return counts[None]
+    out = torch.empty(r * counts.numel(), dtype=counts.dtype,
+                      device=counts.device)
+    all_gather_flat(out, counts.contiguous(), group=group)
+    return out.reshape((r,) + tuple(counts.shape))
+
+
+def global_positions(flat_e: torch.Tensor, num_experts: int, group):
+    """Arrival-order positions of this rank's assignments in the batch
+    made of the token shards of ``group``'s ranks in rank order:
+    ``pos_local + offset``, the offset being the assignments to the same
+    expert on lower ranks, from an int32 counts all-gather. Returns
+    ``(pos_global [A], pos_local [A], counts [R, E], offsets [R, E])``;
+    ``pos_global`` is what :func:`_positions_in_expert` gives on the
+    whole batch."""
+    pos_local = _positions_in_expert(flat_e, num_experts)
+    g = _gather_counts(_expert_counts(flat_e, num_experts), group)
+    offsets = torch.cumsum(g, dim=0, dtype=torch.int64) - g
+    off_me = offsets[dist.get_rank(group)]
+    return off_me[flat_e] + pos_local, pos_local, g, offsets
+
+
+def _expert_ffn(buf: torch.Tensor, w_in, w_gate, w_out) -> torch.Tensor:
+    """Row-wise swiglu expert FFN on a buffer ``[E, C, D]``. No biases,
+    so all-zero rows (padding, other ranks' slots) map to exactly zero —
+    the property the expert-parallel path relies on."""
+    h = torch.bmm(buf, w_in.to(buf.dtype))
+    g = torch.bmm(buf, w_gate.to(buf.dtype))
+    h = F.silu(g) * h
+    return torch.bmm(h, w_out.to(buf.dtype))
+
+
+def _scatter_rows(src: torch.Tensor, slot: torch.Tensor, n_rows: int
+                  ) -> torch.Tensor:
+    """``zeros[n_rows, D].at[slot].set(src, mode="drop")``: slots equal
+    to ``n_rows`` (the drop slot) are discarded. Kept slots are distinct,
+    so each kept row is written once."""
+    buf = src.new_zeros((n_rows + 1, src.shape[-1]))
+    return buf.index_copy(0, slot, src)[:n_rows]
+
+
+def _take_rows(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """``rows[slot]`` where ``slot == len(rows)`` (the drop slot) reads a
+    zero row: the reference's ``where(keep, take(...), 0)``."""
+    pad = rows.new_zeros((1, rows.shape[-1]))
+    return torch.cat([rows, pad])[slot]
+
+
+def _sum_topk(weighted: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """``zeros[n, D].at[repeat(arange(n), k)].add(weighted)`` in the
+    scatter's order, ``((0 + w_0) + w_1) + ...``: no atomics, so the
+    same bits on every run and device."""
+    w = weighted.reshape(n, k, -1)
+    out = w.new_zeros((n, w.shape[-1]))
+    for j in range(k):
+        out = out + w[:, j]
+    return out
+
+
+def _repeat_tokens(x_flat: torch.Tensor, k: int) -> torch.Tensor:
+    """``x_flat[repeat(arange(n), k)]`` as a view (its gradient sums the
+    k copies without a scatter)."""
+    n, d = x_flat.shape
+    return x_flat[:, None].expand(n, k, d).reshape(n * k, d)
+
+
+# --------------------------------------------------------------------------
+# Channel binding, batch scope and traffic capture
+# --------------------------------------------------------------------------
+
+_MOE_CTX = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEScope:
+    """What an MoE layer reads besides its inputs, taken on the caller's
+    thread (:func:`moe_scope`): the bound channels, the mesh in scope,
+    the group whose ranks' token shards make the batch
+    (:func:`batch_over`; None: this rank's tokens are the batch) and the
+    capture and record lists."""
+    channels: Optional[Dict[str, Any]] = None
+    mesh: Any = None
+    batch_group: Any = None
+    capture: Optional[list] = None
+    routing: Optional[list] = None
+    wire: Optional[dict] = None
+
+
+def moe_scope() -> MoEScope:
+    """The MoE bindings of this thread."""
+    return MoEScope(channels=getattr(_MOE_CTX, "channels", None),
+                    mesh=current_mesh(),
+                    batch_group=getattr(_MOE_CTX, "batch_group", None),
+                    capture=getattr(_MOE_CTX, "capture", None),
+                    routing=getattr(_MOE_CTX, "routing", None),
+                    wire=getattr(_MOE_CTX, "wire", None))
+
+
+@contextlib.contextmanager
+def _bound(attr: str, value):
+    old = getattr(_MOE_CTX, attr, None)
+    setattr(_MOE_CTX, attr, value)
+    try:
+        yield value
+    finally:
+        setattr(_MOE_CTX, attr, old)
+
+
+def bind_moe_channels(channels):
+    """Bind the expert-dispatch wire channels for ``shardmap_a2a``:
+    ``channels`` maps :data:`MOE_DISPATCH` / :data:`MOE_COMBINE` to
+    :class:`~repro_torch.comm.channel.Channel` objects bound to the model
+    axis (``None`` unbinds). Enter this around the forward and backward
+    pass; the step builders in ``repro_torch.training.train_step`` do it
+    for their ``moe_channels`` argument. ``AdaptiveChannel`` wrappers
+    (:func:`adaptive_moe_channels`) work unchanged: each call reads the
+    codec the wrapper holds at that moment."""
+    return _bound("channels", channels)
+
+
+def bound_moe_channels():
+    """The currently bound ``{name: Channel}`` map, or ``None``."""
+    return getattr(_MOE_CTX, "channels", None)
+
+
+def adaptive_moe_channels(controller, channels):
+    """Wrap a ``{name: Channel}`` expert-wire map for codec hot-swap.
+
+    Each channel is registered with the
+    :class:`repro_torch.adaptive.AdaptiveController` under its registry
+    name (:data:`MOE_DISPATCH` / :data:`MOE_COMBINE`), so a
+    drift-triggered ``register_revision`` rebinds the map in place; a
+    step rebuilt afterwards (or any later call) puts the new codec on the
+    wire."""
+    return {name: controller.wrap(ch, name=name)
+            for name, ch in channels.items()}
+
+
+def batch_over(group):
+    """Declare that the batch an MoE layer sees is the token shards of
+    ``group``'s ranks, in rank order (the baseline step's global batch):
+    capacity and arrival positions are then those of the whole batch."""
+    return _bound("batch_group", group)
+
+
+def capture_moe_traffic(out_list: list):
+    """Capture each MoE layer's ``(params, x)`` at :func:`moe_block`
+    entry into ``out_list``: the calibration hook
+    ``repro_torch.comm.calibrate.calibrate_moe_entries`` uses to see the
+    routed-token traffic."""
+    return _bound("capture", out_list)
+
+
+def capture_moe_routing(out_list: list):
+    """Record each MoE layer's routing into ``out_list``: a dict with the
+    ``impl``, this rank's ``idx`` [N, k] and ``keep`` [N * k] (the
+    assignments that survive the capacity drop), in token order."""
+    return _bound("routing", out_list)
+
+
+def record_moe_wire(out: dict):
+    """Record, per channel name, the last compressed all-to-all's
+    payload: ``out[name] = (wire bytes, values)`` of this rank's send
+    buffer (:meth:`Channel.all_to_all` with ``with_wire=True``)."""
+    return _bound("wire", out)
+
+
+def dispatch_traffic(params, x: torch.Tensor, cfg: ModelConfig):
+    """The per-layer expert-wire traffic: ``(dispatch buffer [E, C, D],
+    combine buffer [E, C, D])`` of one MoE layer on input ``x`` — the
+    token values entering / leaving the expert all-to-all. The gspmd
+    dispatch math on ``x`` as the whole batch; calibration input."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    x_flat = x.reshape(n, d)
+    idx, _gates, _probs = _route(params, x_flat, m)
+    capacity = _capacity(n, m)
+    flat_e = idx.reshape(-1)
+    pos = _positions_in_expert(flat_e, m.num_experts)
+    keep = pos < capacity
+    slot = torch.where(keep, flat_e * capacity
+                       + torch.clamp(pos, max=capacity - 1),
+                       m.num_experts * capacity)
+    buf = _scatter_rows(_repeat_tokens(x_flat, m.top_k), slot,
+                        m.num_experts * capacity)
+    buf = buf.reshape(m.num_experts, capacity, d)
+    out_e = _expert_ffn(buf, params["w_in"], params["w_gate"],
+                        params["w_out"])
+    return buf, out_e
+
+
+# --------------------------------------------------------------------------
+# Dispatch implementations
+# --------------------------------------------------------------------------
+
+def _shared(params, x, m: MoEConfig, out: torch.Tensor) -> torch.Tensor:
+    if m.num_shared_experts:
+        n, d = out.shape
+        out = out + layers.mlp(params["shared"], x, "swiglu").reshape(n, d)
+    return out
+
+
+def _world(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
+              scope: Optional[MoEScope] = None) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]. Capacity-bounded top-k dispatch.
+    ``scope``: the bindings to use (default: this thread's)."""
+    impl = cfg.moe.impl
+    if impl not in SUPPORTED_IMPLS:
+        raise ValueError(
+            f"unknown MoEConfig.impl {impl!r}; supported impls are "
+            f"{SUPPORTED_IMPLS}")
+    scope = moe_scope() if scope is None else scope
+    if scope.capture is not None:
+        scope.capture.append((params, x))
+    if impl == "grouped_local":
+        return _moe_grouped(params, x, cfg, scope)
+    if impl == "shardmap_a2a":
+        return _moe_shardmap_a2a(params, x, cfg, scope)
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    x_flat = x.reshape(n, d)
+
+    idx, gates, _probs = _route(params, x_flat, m)       # [N,k], [N,k]
+    flat_e = idx.reshape(-1)                            # [N*k]
+    group = scope.batch_group
+    capacity = _capacity(n * _world(group), m)
+    if _world(group) > 1:
+        pos = global_positions(flat_e, m.num_experts, group)[0]
+    else:
+        pos = _positions_in_expert(flat_e, m.num_experts)
+    keep = pos < capacity
+    slot = flat_e * capacity + torch.clamp(pos, max=capacity - 1)
+    slot = torch.where(keep, slot, m.num_experts * capacity)  # drop slot
+    if scope.routing is not None:
+        scope.routing.append({"impl": impl, "idx": idx, "keep": keep})
+
+    buf = _scatter_rows(_repeat_tokens(x_flat, m.top_k), slot,
+                        m.num_experts * capacity)
+    out_e = _expert_ffn(buf.reshape(m.num_experts, capacity, d),
+                        params["w_in"], params["w_gate"], params["w_out"])
+    gathered = _take_rows(out_e.reshape(m.num_experts * capacity, d), slot)
+    weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
+    out = _sum_topk(weighted, n, m.top_k)
+    return _shared(params, x, m, out).reshape(b, s, d)
+
+
+def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
+                 scope: MoEScope) -> torch.Tensor:
+    """Grouped-local dispatch: tokens split into ``dispatch_groups``
+    contiguous groups, capacity per (group, expert), scatters and
+    gathers inside a group. Under :func:`batch_over` the groups are
+    those of the whole batch, and each rank runs the groups its token
+    shard holds (they must tile the ranks, ROADMAP queue 1, item 17)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n_local = b * s
+    ranks = _world(scope.batch_group)
+    n = n_local * ranks
+    g = min(m.dispatch_groups, n)
+    while n % g:
+        g -= 1
+    if g % ranks:
+        raise NotImplementedError(_GROUPS_UNALIGNED.format(w=ranks, g=g))
+    g //= ranks                                         # this rank's groups
+    ng = n_local // g
+    x_flat = x.reshape(n_local, d)
+    e, k = m.num_experts, m.top_k
+
+    idx, gates, _probs = _route(params, x_flat, m)      # [N,k]
+    capacity = _capacity(ng, m)
+    flat_e = idx.reshape(g, ng * k)
+    onehot = F.one_hot(flat_e, e)
+    pos = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2,
+                       flat_e[..., None])[..., 0]       # [g, ng*k]
+    keep = pos < capacity
+    slot = flat_e * capacity + torch.clamp(pos, max=capacity - 1)
+    slot = torch.where(keep, slot, e * capacity)
+    if scope.routing is not None:
+        scope.routing.append({"impl": "grouped_local", "idx": idx,
+                              "keep": keep.reshape(-1)})
+    # One buffer of g blocks of E*C rows and a drop row each.
+    base = torch.arange(g, device=x.device)[:, None] * (e * capacity + 1)
+    bufs = _scatter_rows(_repeat_tokens(x_flat, k), (base + slot).reshape(-1),
+                         g * (e * capacity + 1))
+    bufs = bufs.reshape(g, e * capacity + 1, d)[:, :e * capacity]
+    # [g, E, C, D] -> [E, g*C, D]: one matmul per expert over every group.
+    per_e = bufs.reshape(g, e, capacity, d).transpose(0, 1).reshape(
+        e, g * capacity, d)
+    out_e = _expert_ffn(per_e, params["w_in"], params["w_gate"],
+                        params["w_out"])
+    out_e = out_e.reshape(e, g, capacity, d).transpose(0, 1).reshape(
+        g, e * capacity, d)
+    gathered = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
+    gathered = gathered.reshape(-1, d)[(base + slot).reshape(-1)]
+    weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
+    out = _sum_topk(weighted, n_local, k)
+    return _shared(params, x, m, out).reshape(b, s, d)
+
+
+# --------------------------------------------------------------------------
+# Expert-parallel all-to-all dispatch
+# --------------------------------------------------------------------------
+
+def shardmap_a2a_geometry(cfg: ModelConfig, n_tokens: int, mesh) -> dict:
+    """Static per-rank a2a payload geometry of one MoE layer.
+
+    Returns ``{"ng", "capacity", "c_send", "row_values", "axis_size"}``:
+    each rank's all-to-all moves ``axis_size`` rows of ``row_values``
+    values (per direction, per layer) for ``ng`` local tokens of the
+    ``n_tokens`` of the whole batch.
+    """
+    m = cfg.moe
+    dm = int(mesh.shape["model"])
+    dp = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            dp *= int(mesh.shape[a])
+    shards = dp * dm
+    if n_tokens % shards:
+        raise ValueError(
+            f"shardmap_a2a needs the token count ({n_tokens}) divisible "
+            f"by the token shards (dp*model = {shards})")
+    if m.num_experts % dm:
+        raise ValueError(
+            f"shardmap_a2a needs num_experts ({m.num_experts}) divisible "
+            f"by the model axis ({dm})")
+    ng = n_tokens // shards
+    capacity = _capacity(n_tokens, m)
+    # top_k experts are distinct per token, so a rank sends at most
+    # min(ng, capacity) rows to any one expert — the static send bound.
+    c_send = min(ng, capacity)
+    return {"ng": ng, "capacity": capacity, "c_send": c_send,
+            "row_values": (m.num_experts // dm) * c_send * cfg.d_model,
+            "axis_size": dm}
+
+
+def _all_to_all(v: torch.Tensor, group) -> torch.Tensor:
+    """Row j of ``v [d, ...]`` to rank j of ``group``; row j of the
+    result from rank j."""
+    v = v.contiguous()
+    out = torch.empty_like(v)
+    dist.all_to_all_single(out, v, group=group)
+    return out
+
+
+class _RawA2A(torch.autograd.Function):
+    """The raw all-to-all over a group; it is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, v, group):
+        ctx.group = group
+        return _all_to_all(v, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _ChannelA2A(torch.autograd.Function):
+    """The compressed all-to-all, straight-through: forward moves the
+    values as QLC containers (``Channel.all_to_all``: K1 encode, K2
+    decode on the card), lossless on the e4m3 symbols; the encode has no
+    gradient, so the backward moves the cotangent through the raw
+    all-to-all (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, v, ch, name, wire):
+        ctx.group = ch.group
+        vals, _ok, nbytes = ch.all_to_all(v, with_wire=True)
+        if wire is not None:
+            wire[name] = (nbytes, v.numel())
+        return vals.to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None, None, None
+
+
+def _a2a(scope: MoEScope, name: str, group):
+    if scope.channels is None:
+        return lambda v: _RawA2A.apply(v, group)
+    ch = scope.channels[name]
+    return lambda v: _ChannelA2A.apply(v, ch, name, scope.wire)
+
+
+def _moe_shardmap_a2a(params, x: torch.Tensor, cfg: ModelConfig,
+                      scope: MoEScope) -> torch.Tensor:
+    """Expert-parallel dispatch over the mesh in scope.
+
+    This rank's ``x`` is its world rank's contiguous shard of the batch
+    (ranks in ``(data, model)`` order, model innermost), its
+    ``w_in``/``w_gate``/``w_out`` the ``el`` experts of its model index.
+    Per rank:
+
+    1. route the local ``ng`` tokens (replicated router);
+    2. all-gather the per-expert assignment COUNTS (int32) over the world
+       in rank order and prefix-sum them: ``offset[e] + pos_local`` is
+       gspmd's global position, so ``keep = pos_global < capacity``
+       reproduces its capacity drops bit for bit, and each rank's kept
+       assignments are a prefix of its local arrival order, so send
+       slots pack contiguously;
+    3. all-to-all the packed ``[dm, el, c_send, D]`` send buffer over the
+       model row — raw, or as QLC containers through the bound channels;
+    4. scatter the received rows at their global positions (disjoint
+       across sources), run the local experts' FFN (zero rows stay
+       zero), gather the same positions back and reverse the all-to-all;
+    5. combine with the gate weights on the local tokens.
+    """
+    m = cfg.moe
+    mesh = scope.mesh
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        raise ValueError(
+            "moe.impl='shardmap_a2a' needs a mesh with a 'model' axis in "
+            "scope (repro_torch.launch.mesh.use_mesh)")
+    b, s, d = x.shape
+    ng = b * s
+    geo = shardmap_a2a_geometry(cfg, ng * mesh.size, mesh)
+    dm, capacity, c_send = (geo["axis_size"], geo["capacity"],
+                            geo["c_send"])
+    e, k = m.num_experts, m.top_k
+    el = e // dm                                   # local experts
+    dispatch_a2a = _a2a(scope, MOE_DISPATCH, mesh.model_group)
+    combine_a2a = _a2a(scope, MOE_COMBINE, mesh.model_group)
+
+    xl = x.reshape(ng, d)
+    idx, gates, _probs = _route(params, xl, m)
+    flat_e = idx.reshape(-1)                       # [ng*k]
+    pos_global, pos_local, g, offsets = global_positions(
+        flat_e, e, mesh.world_group)
+    keep = pos_global < capacity
+    if scope.routing is not None:
+        scope.routing.append({"impl": "shardmap_a2a", "idx": idx,
+                              "keep": keep})
+
+    # Pack kept assignments: their local positions are a prefix per
+    # expert, so pos_local IS the send slot.
+    slot = flat_e * c_send + torch.clamp(pos_local, max=c_send - 1)
+    slot = torch.where(keep, slot, e * c_send)
+    sbuf = _scatter_rows(_repeat_tokens(xl, k), slot, e * c_send)
+    recv = dispatch_a2a(sbuf.reshape(dm, el, c_send, d))
+
+    # Each source's global positions for MY experts, from the counts
+    # gather (my model-row peers are the world ranks [base, base + dm)).
+    base = (mesh.rank // dm) * dm
+    my_model = mesh.rank % dm
+    off_grp = offsets[base:base + dm, my_model * el:(my_model + 1) * el]
+    cnt_grp = g[base:base + dm, my_model * el:(my_model + 1) * el]
+    kept_grp = torch.minimum(torch.clamp(capacity - off_grp, min=0),
+                             cnt_grp.long())
+    s_idx = torch.arange(c_send, device=x.device)[None, None, :]
+    valid = s_idx < kept_grp[:, :, None]           # [dm, el, c_send]
+    e_idx = torch.arange(el, device=x.device)[None, :, None]
+    rpos = torch.where(valid, e_idx * capacity + off_grp[:, :, None] + s_idx,
+                       el * capacity).reshape(-1)  # drop slot
+    rbuf = _scatter_rows(recv.reshape(-1, d).to(x.dtype), rpos,
+                         el * capacity)
+    out_local = _expert_ffn(rbuf.reshape(el, capacity, d), params["w_in"],
+                            params["w_gate"], params["w_out"])
+
+    # Gather the same positions back and reverse the exchange.
+    gathered = _take_rows(out_local.reshape(el * capacity, d), rpos)
+    back = combine_a2a(gathered.reshape(dm, el, c_send, d))
+    comb = _take_rows(back.reshape(e * c_send, d).to(x.dtype), slot)
+    weighted = comb * gates.reshape(-1)[:, None].to(x.dtype)
+    out = _sum_topk(weighted, ng, k)
+    return _shared(params, x, m, out).reshape(b, s, d)
+
+
+# --------------------------------------------------------------------------
+# Expert-sharded parameters
+# --------------------------------------------------------------------------
+
+def is_moe_ffn(node) -> bool:
+    """Whether a parameter subtree is an MoE FFN's."""
+    return isinstance(node, dict) and "router" in node
+
+
+def expert_mask(params) -> List[bool]:
+    """Per leaf of ``params`` in pytree order (``transformer.pytree_leaves``):
+    True for an MoE layer's expert weights (:data:`EXPERT_LEAVES`), which
+    ``shardmap_a2a`` splits over the model axis."""
+    def walk(node, in_moe):
+        if isinstance(node, dict):
+            moe_here = is_moe_ffn(node)
+            return [flag for key in sorted(node)
+                    for flag in walk(node[key], moe_here and key
+                                     in EXPERT_LEAVES)]
+        return [in_moe]
+    return walk(params, False)

@@ -5,8 +5,10 @@ layer-group stack.
 Parameters are a plain dict tree in the reference's layout: layer
 groups are stacked along a leading group dim, e.g.
 ``params["groups"]["l0"]["mixer"]["wq"]`` has shape ``[G, d, h, hd]``.
-That stacked leaf is the weight wire's unit. Only attention blocks with
-a dense FFN are ported; other block kinds raise ``NotImplementedError``.
+That stacked leaf is the weight wire's unit. Attention blocks with a
+dense or an MoE FFN (``models.moe``) are ported; other block kinds raise
+``NotImplementedError`` naming their ROADMAP item, and so does serving
+(decoding) an MoE model.
 """
 from __future__ import annotations
 
@@ -17,10 +19,12 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 _NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP queue 1, item 11: "
-               "MoE, SSM, multimodal)")
+               "SSM, multimodal)")
+_MOE_DECODE = ("serving (decoding) an MoE model is not ported: ROADMAP queue "
+               "1, item 16")
 
 
 def resolve_device(device) -> torch.device:
@@ -104,8 +108,9 @@ def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
     }
     fk = cfg.ffn_kind(idx_in_group)
     if fk == "moe":
-        raise NotImplementedError(_NOT_PORTED.format("moe"))
-    if fk == "dense":
+        p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
+        p["ffn"] = moe.init_moe(gen, cfg, dtype, device, lead=(g,))
+    elif fk == "dense":
         if cfg.activation != "swiglu":
             raise NotImplementedError(
                 f"activation {cfg.activation!r} is not ported")
@@ -168,7 +173,8 @@ def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
         group)
 
 
-def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state):
+def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
+                 scope=None):
     if kind != "attention":
         raise NotImplementedError(_NOT_PORTED.format(kind))
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -176,16 +182,19 @@ def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state):
                                           cache=state)
     x = x + out
     if "ffn" in p:
-        if "router" in p["ffn"]:
-            raise NotImplementedError(_NOT_PORTED.format("moe"))
         h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + layers.mlp(p["ffn"], h2, cfg.activation)
+        if "router" in p["ffn"]:
+            f = moe.moe_block(p["ffn"], h2, cfg, scope)
+        else:
+            f = layers.mlp(p["ffn"], h2, cfg.activation)
+        x = x + f
     return x, new_state
 
 
-def _apply_group(pg, x, positions, cfg: ModelConfig):
+def _apply_group(pg, x, positions, cfg: ModelConfig, scope):
     for i, kind in enumerate(cfg.layer_kinds()):
-        x, _ = _apply_block(pg[f"l{i}"], kind, x, positions, cfg, None)
+        x, _ = _apply_block(pg[f"l{i}"], kind, x, positions, cfg, None,
+                            scope)
     return x
 
 
@@ -199,21 +208,26 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     same values). Returns (x, None). With decode states, each group runs
     against its states; with ``weight_codec`` the group params arrive in
     wire form and each group's wire is opened inside the loop, right
-    before its layers. Returns (x, new_states)."""
+    before its layers. Returns (x, new_states). MoE layers read their
+    bindings (``moe.moe_scope``) once, here on the caller's thread, so a
+    recomputed group sees the same ones."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
     if states is None:
+        scope = moe.moe_scope() if cfg.moe is not None else None
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _apply_group, pg, x, positions, cfg,
+                    _apply_group, pg, x, positions, cfg, scope,
                     use_reentrant=False)
             else:
-                x = _apply_group(pg, x, positions, cfg)
+                x = _apply_group(pg, x, positions, cfg, scope)
         return x, None
+    if cfg.moe is not None:
+        raise NotImplementedError(_MOE_DECODE)
     outs = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], groups)

@@ -74,8 +74,10 @@ def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
                        / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """Scale ``tree`` to l2 norm at most ``max_norm``; ``norm``: its norm
+    when the caller computed it (over several ranks' leaves)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
@@ -112,9 +114,11 @@ def init_state(params, cfg: OptConfig) -> Dict[str, Any]:
     }
 
 
-def apply_update(params, grads, state, cfg: OptConfig
+def apply_update(params, grads, state, cfg: OptConfig, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """AdamW on the tree; the clip uses ``gnorm`` when given, else the
+    norm of ``grads``."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     step = int(state["step"]) + 1
     lr = lr_at(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step)

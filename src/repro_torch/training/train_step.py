@@ -1,10 +1,18 @@
-"""Train steps over a data-parallel ``torch.distributed`` process group.
+"""Train steps over ``torch.distributed`` process groups.
 
 Two implementations, as in the reference:
 
 * **baseline** — each rank computes the gradients of its slice of the
   global batch; a dense f32 all-reduce averages them across ranks (none
-  with one rank); AdamW on the whole parameter tree.
+  with one rank); AdamW on the whole parameter tree. Over a
+  ``launch.mesh.Mesh`` (``data x model``) the batch is split over every
+  rank (rank-major) and the model axis carries MoE expert parallelism
+  (``moe.impl="shardmap_a2a"``): a rank holds its model index's experts,
+  whose gradients are summed over its data column (each rank's backward
+  all-to-all already brought back its model row's contributions) and
+  divided by the world size, while every other leaf is averaged over
+  the world; the clip norm counts replicated leaves once and sums the
+  expert leaves' squares over the model row.
 
 * **compressed** — the paper's technique: each rank flattens its local
   gradients, a QLC-compressed reduce-scatter (K1 encode, then K2
@@ -18,12 +26,22 @@ Two implementations, as in the reference:
 
 Flat vectors follow the reference's pytree order (dict keys sorted), so
 a ZeRO-1 state moves between the packages element for element. The
-reference's ``"model"`` mesh axis has size 1 here (tensor parallelism is
-not ported), so its ``weight_vec`` is 1 on every real entry and 0 on the
-padding: the norm sums the squares of the segment's real entries.
+compressed step runs with a model axis of size 1 (the ZeRO-1 flat vector
+split over a model axis is not ported: ROADMAP queue 1, item 15), so the
+reference's ``weight_vec`` is 1 on every real entry and 0 on the
+padding: the norm sums the squares of the segment's real entries. MoE
+models run there with ``gspmd`` or ``grouped_local`` dispatch, and with
+``shardmap_a2a`` on a 1 x 1 layout.
+
+Where the reference's MoE layers see the whole batch (its baseline step,
+jitted over the data axes), the baseline step declares the batch's ranks
+(``moe.batch_over``), and each rank's MoE layers take their capacity and
+arrival positions from the whole batch; the compressed step's stage 1
+sees the data shard in the reference, and each rank's own tokens here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
@@ -35,7 +53,8 @@ from repro_torch.comm.compressed import CommConfig
 from repro_torch.comm.transport import all_gather_flat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.registry import CodecRegistry
-from repro_torch.models import next_token_loss
+from repro_torch.launch.mesh import current_mesh, use_mesh
+from repro_torch.models import moe, next_token_loss
 from repro_torch.models.transformer import (pytree_leaves, pytree_unflatten,
                                             tree_map)
 from repro_torch.training import optimizer as opt
@@ -45,6 +64,9 @@ PARAM_TYPE = "params"    # registry key for the parameter all-gather
 
 _NO_PODS = ("the pod axis and the hierarchical wire are not ported: "
             "ROADMAP queue 1, item 13")
+_NO_ZERO1_MODEL = ("the compressed step's ZeRO-1 flat vector split over a "
+                   "model axis is not ported: ROADMAP queue 1, item 15; "
+                   "{what}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +82,9 @@ def _world(group) -> Tuple[int, int]:
 
 def local_batch(batch: Dict[str, Any], group, device) -> Dict[str, Any]:
     """This rank's rows of a global batch (contiguous slices, as the
-    reference shards the batch's first dim over its data axes), as
-    tensors on ``device``."""
+    reference shards the batch's first dim over its data axes; over a
+    mesh ``group`` is its world, so rank-major), as tensors on
+    ``device``."""
     d, r = _world(group)
     out = {}
     for k, v in batch.items():
@@ -107,13 +130,37 @@ def _microbatched_grads(params, model_cfg: ModelConfig, batch,
     return loss_acc * inv, tree_map(lambda g: g * inv, acc)
 
 
-def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
+def _mean_over(t: torch.Tensor, group, world: int = None) -> torch.Tensor:
+    """Sum over ``group``, divided by ``world`` (default: the group's
+    size)."""
     d, _ = _world(group)
+    world = d if world is None else world
     if d > 1:
         t = t.clone()
         dist.all_reduce(t, group=group)
-        t = t / d
+    if world > 1:
+        t = t / world
     return t
+
+
+@contextlib.contextmanager
+def _moe_bindings(mesh, moe_channels, batch_group=None):
+    """The MoE layers' bindings around a forward and backward pass."""
+    with use_mesh(mesh), moe.bind_moe_channels(moe_channels), \
+            moe.batch_over(batch_group):
+        yield
+
+
+def _step_mesh(model_cfg: ModelConfig, mesh):
+    """The mesh a step runs over: ``mesh``, else the one in scope. An
+    expert-parallel MoE needs one."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None and model_cfg.moe is not None \
+            and model_cfg.moe.impl == "shardmap_a2a":
+        raise ValueError("moe.impl='shardmap_a2a' needs a mesh with a "
+                         "'model' axis (mesh=..., or launch.mesh.use_mesh "
+                         "around the step's construction)")
+    return mesh
 
 
 # --------------------------------------------------------------------------
@@ -121,24 +168,60 @@ def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
-                       train_cfg: TrainConfig, *, group=None,
+                       train_cfg: TrainConfig, *, group=None, mesh=None,
                        moe_channels=None) -> Callable:
     """``train_step(params, opt_state, batch)`` with a dense f32 gradient
-    all-reduce over ``group`` (default: the default process group).
-    ``batch`` is the global batch (numpy or tensors)."""
-    if moe_channels is not None:
-        raise NotImplementedError("MoE is not ported: ROADMAP queue 1, "
-                                  "item 11")
+    all-reduce. ``batch`` is the global batch (numpy or tensors).
+
+    Over ``group`` (default: the default process group) every leaf is
+    averaged over the group. Over ``mesh`` (default: the mesh in scope,
+    if any) the batch is split over all its ranks, and with
+    ``moe.impl="shardmap_a2a"`` each rank holds its model index's
+    experts (``convert.shard_experts``; see the module docstring for their
+    gradients and the clip norm). ``moe_channels`` (``{moe.MOE_DISPATCH:
+    Channel, moe.MOE_COMBINE: Channel}`` on the model axis) puts the
+    expert all-to-all on the compressed wire; the gradient wire stays
+    dense. MoE layers see the whole batch, as in the reference. With
+    ``train_cfg.microbatches > 1`` a microbatch is each rank's
+    microbatch of its shard, which is not the reference's split of the
+    global batch when capacity binds."""
+    mesh = _step_mesh(model_cfg, mesh)
+    if mesh is not None:
+        group = mesh.world_group
     group = dist.group.WORLD if group is None else group
+    world, _ = _world(group)
+    ep = (mesh is not None and model_cfg.moe is not None
+          and model_cfg.moe.impl == "shardmap_a2a")
+
+    def reduce_grads(grads):
+        """Mean gradient tree and, with experts split over the model
+        axis, the global norm of it (else None: the tree's own)."""
+        if not ep:
+            return tree_map(lambda g: _mean_over(g.float(), group),
+                            grads), None
+        mask = moe.expert_mask(grads)
+        leaves = [_mean_over(g.float(), mesh.data_group if is_exp
+                             else group, world)
+                  for g, is_exp in zip(pytree_leaves(grads), mask)]
+        sq = [opt.sum_of_squares(g) for g in leaves]
+        exp = [i for i, is_exp in enumerate(mask) if is_exp]
+        if exp and mesh.model > 1:
+            tot = torch.stack([sq[i] for i in exp])
+            dist.all_reduce(tot, group=mesh.model_group)
+            for j, i in enumerate(exp):
+                sq[i] = tot[j]
+        gnorm = torch.sqrt(torch.stack(sq).sum()).float()
+        return pytree_unflatten(grads, leaves), gnorm
 
     def train_step(params, opt_state, batch):
         dev = pytree_leaves(params)[0].device
-        loss, grads = _microbatched_grads(
-            params, model_cfg, local_batch(batch, group, dev),
-            train_cfg.microbatches)
-        grads = tree_map(lambda g: _mean_over(g.float(), group), grads)
-        new_params, new_state, info = opt.apply_update(params, grads,
-                                                       opt_state, opt_cfg)
+        with _moe_bindings(mesh, moe_channels, group):
+            loss, grads = _microbatched_grads(
+                params, model_cfg, local_batch(batch, group, dev),
+                train_cfg.microbatches)
+        grads, gnorm = reduce_grads(grads)
+        new_params, new_state, info = opt.apply_update(
+            params, grads, opt_state, opt_cfg, gnorm=gnorm)
         metrics = {"loss": _mean_over(loss, group),
                    "ok": torch.ones((), dtype=torch.bool, device=dev),
                    **info}
@@ -288,10 +371,18 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
                          param_key: str = PARAM_TYPE,
                          transport=None, transport_model=None,
                          hierarchical_wire: bool = False,
-                         moe_channels=None,
+                         moe_channels=None, mesh=None,
                          telemetry: bool = False) -> Callable:
     """``train_step(params, flat_opt_state, batch)`` for compressed mode
-    over ``group`` (``None``: the default group).
+    over ``group`` (``None``: the default group), the data-parallel
+    group.
+
+    MoE models: ``gspmd`` and ``grouped_local`` dispatch on each rank's
+    own tokens (the reference's stage 1 sees the data shard), and
+    ``shardmap_a2a`` over ``mesh`` (default: the one in scope) of 1 x 1,
+    its all-to-all on ``moe_channels`` when given. A mesh with a model
+    axis above 1 raises ``NotImplementedError`` (ROADMAP queue 1, item
+    15).
 
     ``tables`` is a ``CodecTables`` (with ``comm_cfg``) or a
     ``CodecRegistry`` (``grad_key`` codec on the reduce-scatter,
@@ -312,9 +403,15 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     untouched, so a telemetry step is bit-identical to a plain one."""
     if hierarchical_wire:
         raise NotImplementedError(_NO_PODS)
-    if moe_channels is not None:
-        raise NotImplementedError("MoE is not ported: ROADMAP queue 1, "
-                                  "item 11")
+    mesh = _step_mesh(model_cfg, mesh)
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError(_NO_ZERO1_MODEL.format(
+            what=f"this mesh has a model axis of {mesh.model}"))
+    if model_cfg.moe is not None and model_cfg.moe.impl == "shardmap_a2a" \
+            and mesh.size > 1:
+        raise NotImplementedError(_NO_ZERO1_MODEL.format(
+            what=f"shardmap_a2a runs in the compressed step on a 1 x 1 "
+                 f"layout only, this one is {mesh.data} x {mesh.model}"))
     group = dist.group.WORLD if group is None else group
     rs_ch, ag_ch, rs_cfg = step_channels(
         tables, comm_cfg, group=group, transport=transport,
@@ -330,9 +427,10 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
 
     def stage1(params, batch):
         dev = pytree_leaves(params)[0].device
-        return _microbatched_grads(params, model_cfg,
-                                   local_batch(batch, group, dev),
-                                   train_cfg.microbatches)
+        with _moe_bindings(mesh, moe_channels):
+            return _microbatched_grads(params, model_cfg,
+                                       local_batch(batch, group, dev),
+                                       train_cfg.microbatches)
 
     def stage2(params, grads, flat_opt):
         g = geometry(params)

@@ -348,10 +348,12 @@ def test_channel_local_codes_and_mesh_refused(registries):
     out, ok = ch.decompress_codes(p)
     assert bool(ok) and torch.equal(out, codes)
     assert Channel(ChannelSpec(codec=treg["b"])).entry.name == "b"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        open_channels(treg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    local = open_channels(treg, mesh=object())
+    assert all(c.group is None for c in local.values())
+    with pytest.raises(ValueError, match="mesh in scope"):
         Channel(ChannelSpec(codec="a", axis="data"), registry=treg)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Channel(ChannelSpec(codec="a", axis="pod"), registry=treg)
 
 
 def _bf16_states(seed: int, shapes):

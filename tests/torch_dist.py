@@ -329,5 +329,101 @@ def telemetry_runs(ctx, cfg_kw, steps, seq_len, global_batch):
     return out
 
 
+def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
+    """Expert parallelism on a ``data x model`` layout of the world
+    (``launch.mesh.make_test_mesh(model=model)``): this rank takes its
+    token shard of ``x`` [B, S, D] (rows of the batch, rank-major) and
+    its experts of ``params`` (one MoE FFN, numpy). Runs ``shardmap_a2a``
+    raw, raw at capacity factor 0.25, and on the QLC wire (one-shot,
+    ring, and the raw e4m3 twin of one-shot) with the channels of
+    ``registry_json`` on the model axis; then the gradients of
+    ``sum(y ** 2)`` raw (expert leaves summed over the data column,
+    others over the world) and on the QLC wire (this rank's own); then,
+    when ``train_kw`` is given, ``launch.train.train`` over the mesh ->
+    dict of numpy results."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm.channel import Channel, ChannelSpec
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.convert import params_from_numpy, shard_experts
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import pytree_leaves
+    mesh = make_test_mesh(model=model)
+    assert mesh.shape == {"data": ctx["world"] // model, "model": model}
+    cfg = ModelConfig(moe=MoEConfig(**cfg_kw["moe"], impl="shardmap_a2a"),
+                      **cfg_kw["model"])
+    full = params_from_numpy(params, "cpu")
+    p = shard_experts(full, mesh.coords[1], mesh.model)
+    rows = x.shape[0] // ctx["world"]
+    xl = torch.from_numpy(np.ascontiguousarray(
+        x[ctx["rank"] * rows:(ctx["rank"] + 1) * rows]))
+    reg = CodecRegistry.from_json(registry_json)
+
+    def chans(transport, enabled=True):
+        return {name: Channel(ChannelSpec(
+            codec=name, transport=transport, axis="model",
+            enabled=None if enabled else False), registry=reg)
+            for name in (moe.MOE_DISPATCH, moe.MOE_COMBINE)}
+
+    def run(c, channels=None, routing=None, params=p):
+        with use_mesh(mesh), moe.bind_moe_channels(channels), \
+                moe.capture_moe_routing([] if routing is None else routing):
+            return moe.moe_block(params, xl, c)
+
+    out = {}
+    with torch.no_grad():
+        routing = []
+        out["raw"] = run(cfg, routing=routing).numpy()
+        out["idx"] = routing[0]["idx"].numpy()
+        out["keep"] = routing[0]["keep"].numpy()
+        c_of = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.25))
+        routing = []
+        out["raw_cf025"] = run(c_of, routing=routing).numpy()
+        out["keep_cf025"] = routing[0]["keep"].numpy()
+        with use_mesh(mesh):        # channels from the mesh in scope
+            qlc = {t: chans(t) for t in ("oneshot", "ring")}
+            twin = chans("oneshot", enabled=False)
+        out["qlc"] = run(cfg, qlc["oneshot"]).numpy()
+        out["ring"] = run(cfg, qlc["ring"]).numpy()
+        out["twin"] = run(cfg, twin).numpy()
+
+    def grads(channels=None):
+        live = [t.clone().requires_grad_(True) for t in pytree_leaves(p)]
+        from repro_torch.models.transformer import pytree_unflatten
+        tree = pytree_unflatten(p, live)
+        y = run(cfg, channels, params=tree)
+        return torch.autograd.grad((y ** 2).sum(), live)
+
+    mask = moe.expert_mask(p)
+    g_raw = []
+    for g, is_exp in zip(grads(), mask):
+        g = g.clone()
+        torch.distributed.all_reduce(
+            g, group=mesh.data_group if is_exp else mesh.world_group)
+        g_raw.append(g.numpy())
+    out["grads_raw"] = g_raw
+    out["grads_qlc"] = [g.numpy() for g in grads(qlc["oneshot"])]
+    out["expert_mask"] = mask
+    if train_kw is not None:
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.launch.train import train
+        tcfg = reduced(get_config("deepseek-moe-16b"), **train_kw["cfg"])
+        with use_mesh(mesh):
+            for name, wire in (("qlc", "qlc"), ("raw_ep", "raw")):
+                c = tcfg if wire == "qlc" else dataclasses.replace(
+                    tcfg, moe=dataclasses.replace(tcfg.moe,
+                                                  impl="shardmap_a2a"))
+                res = train(c, comm="baseline", moe_wire=wire,
+                            device="cpu", **train_kw["run"])
+                out[f"train_{name}"] = [h["loss"] for h in res["history"]]
+                if wire == "qlc":
+                    out["train_moe"] = res["moe"]
+    return out
+
+
 if __name__ == "__main__":
     _main()
