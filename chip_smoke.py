@@ -70,9 +70,11 @@ non-zero (nothing is caught and carried on):
                12,288 chunks of 256), K3/K4/K5 against their plain
                versions, the block through the host path (K3 + K4) and
                the device path (K3 + K5) back to its K/V, and the
-               device-framed words equal to the host container. The KV
-               calibration counts its symbols through K6, so K6 launches
-               in every run too.
+               device-framed words equal to the host container, and K6
+               on the calibration section's byte planes against its
+               plain version and ``np.bincount``. The KV calibration
+               counts its symbols through K6, so K6 launches in every
+               run too.
   7. train   — compressed data-parallel training
                (``repro_torch.launch.train.train``) on one NCCL rank.
                First at reduced size (d_model 128, 2 layers, f32): 2
@@ -185,15 +187,47 @@ non-zero (nothing is caught and carried on):
                wires' B/symbol and the peak device memory. K1-K6 counted
                from zero around the calibration and the runs.
 
+ 12. moe_serve — serving deepseek-moe-16b from the QLC weight wire,
+               after moe: full width, ``MOE_SERVE_LAYERS`` of 28 layers
+               (the deepest that leaves over 8 GiB of the card free),
+               f32 parameters, random weights from a seed. Through
+               ``launch.serve.serve``: calibrate (K1's histogram),
+               compress (K1), the init tree freed, open (K2), 6 requests
+               at batch 4, prompt 16, 16 new tokens: wire B/symbol,
+               set-up ms, ms/token prefill and decode, drops per decode
+               step (capacity 1 per expert at batch 4; batch-1 prefill
+               drops none); then ``--kv-cache qlc --kv-block 16`` sync
+               (K3, K4) and async (K3, K5), KV codecs calibrated through
+               K6, every request's tokens equal to the dense run's. K1-K6
+               counted from zero around the three runs, each non-zero.
+               K3-K6 against their plain versions on this model's KV
+               data, as in the kv phase (its 16 kv heads' byte planes at
+               the slot caps its codecs calibrate). Layer 0's expert
+               leaves from an e4m3-mode wire (plain
+               dequantize) bit-equal to the same leaves through QLC; the
+               serving manifest with the KV recipe through JSON opens
+               every wired leaf bit-identically; K2 and K1 at the
+               stacked ``w_in`` leaf's path shape bit-equal to plain on
+               the first and last 4096 chunks and timed there. Prints the
+               peak device memory.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 "device": {...}}``.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+
+``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
+the moe_serve phase, at L of the 28 layers, and prints its peak device
+memory and what of the card was never reserved (one depth a process;
+``MOE_SERVE_LAYERS`` is the deepest that leaves over 8 GiB), then the
+``nvidia-smi`` line, and no result line.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import os
@@ -1147,14 +1181,18 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
     return launches, main, opened, cfg
 
 
-def check_kv_path(ops, ref, cfg, opened, prompt, flush):
-    """K3/K4/K5 at the KV path's own shapes and data: request 0's prompt
+def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
+                  phase="kv"):
+    """K3-K6 at the KV path's own shapes and data: request 0's prompt
     prefilled on the opened params, its first 16-token block (2 byte
-    planes x 12,288 chunks of 256), codecs calibrated as the engine
-    does. Each kernel against its plain version; the block through the
-    host path (K3 + K4) and the device path (K3 + K5) back to its K/V;
-    the device-framed words equal to the host container. Returns the
-    errors and the timings of the coded plane."""
+    planes of chunks of 256: 12,288 chunks for phi3-mini), codecs
+    calibrated as the engine does. K6 on each byte plane of layer slot
+    0's calibration section, against its plain version and np.bincount;
+    K3/K4/K5 on the block's planes at the plan's slot caps, each against
+    its plain version; the block through the host path (K3 + K4) and the
+    device path (K3 + K5) back to its K/V; the device-framed words equal
+    to the host container. Returns each kernel's error and timings: K3-K5
+    on the coded plane, K6 on the first calibration plane."""
     from repro_torch.comm.calibrate import byte_planes
     from repro_torch.comm.container import stream_headers
     from repro_torch.core import CodecRegistry
@@ -1162,54 +1200,81 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush):
     from repro_torch.models import init_decode_states
     from repro_torch.serving import (KVCacheSpec, PagedKVCache,
                                      calibrate_cache, prefill)
-    p = torch.from_numpy(np.asarray(prompt)[None, :]).to(DEVICE)
-    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, DEVICE))
+    from repro_torch.serving.kv_cache import calibration_arrays
+    p = torch.from_numpy(np.asarray(prompt)[None, :]).to(dev)
+    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, dev))
     reg = CodecRegistry()
     spec = KVCacheSpec(block_tokens=16, exact_capacity=False)
     calibrate_cache(reg, cfg, st, p.shape[1], spec)
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
+    hist = [plane.reshape(-1) for plane in byte_planes(
+        calibration_arrays(cfg, st, p.shape[1])["l0"]).values()]
+    for i, h in enumerate(hist):
+        got = ops.histogram(h)
+        want = np.bincount(h.cpu().numpy(), minlength=256).astype(np.int32)
+        err["K6"] = max(err["K6"], require_equal(
+            f"K6 calibration plane {i}", [got], [ref.histogram256_ref(h)]),
+            require_equal(f"K6 calibration plane {i} vs np.bincount",
+                          [got.cpu()], [torch.from_numpy(want)]))
+    log(phase, f"K6 on layer slot 0's calibration section ({len(hist)} "
+               f"byte planes of {hist[0].numel()} symbols): bit-equal to "
+               "plain and np.bincount")
     kv = attn.kv_block_slice(st["l0"], 0, 16)
-    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
     coded = None
     for (isz, j), plane in byte_planes(kv).items():
         entry = reg[f"kv/layer0/w{isz}b{j}"]
         sym = plane.reshape(-1, 256)
         e, (w, s) = codes_checks(ops, ref, sym, entry.tables,
                                  (entry.plan.capacity_words,))
-        for name in err:
+        for name in e:
             err[name] = max(err[name], e[name])
-        log("kv", f"plane w{isz}b{j} {list(sym.shape)} at the plan's "
-                  f"{entry.plan.capacity_words}-word slots, "
-                  f"{entry.plan.expected_bits_per_symbol:.3f} expected "
-                  "bits/symbol: K3, K4, K5 bit-equal to plain")
+        log(phase, f"plane w{isz}b{j} {list(sym.shape)} at the plan's "
+                   f"{entry.plan.capacity_words}-word slots, "
+                   f"{entry.plan.expected_bits_per_symbol:.3f} expected "
+                   "bits/symbol: K3, K4, K5 bit-equal to plain")
         if coded is None or entry.plan.capacity_words < coded[3]:
             coded = (sym, entry.tables, (w, s), entry.plan.capacity_words)
-    cache = PagedKVCache(spec, cfg, reg, device=DEVICE)
+    cache = PagedKVCache(spec, cfg, reg, device=dev)
     host = cache.encode_block_arrays("kv/layer0", "l0", kv, start=0,
                                      tokens=16)
-    dev = cache.encode_block_device("kv/layer0", "l0", kv, start=0,
-                                    tokens=16)
-    if dev is None or not np.array_equal(
-            host.container, dev.words.cpu().numpy().view(np.uint32)):
-        raise AssertionError("kv: device framing != host container")
+    framed = cache.encode_block_device("kv/layer0", "l0", kv, start=0,
+                                       tokens=16)
+    if framed is None or not np.array_equal(
+            host.container, framed.words.cpu().numpy().view(np.uint32)):
+        raise AssertionError(f"{phase}: device framing != host container")
     for what, got in (("host path (K3+K4)", cache.decode_block_arrays(host)),
                       ("device path (K3+K5)",
-                       cache.decode_block_device(dev.plan, dev.words)[0])):
+                       cache.decode_block_device(framed.plan,
+                                                 framed.words)[0])):
         if not all(torch.equal(a, b) for a, b in zip(got, kv)):
-            raise AssertionError(f"kv: block through the {what} != K/V")
+            raise AssertionError(f"{phase}: block through the {what} "
+                                 "!= K/V")
     sections = [(h.coded, h.capacity_words)
                 for _, h in stream_headers(host.container)]
-    log("kv", f"block [0, 16) of request 0: {host.wire_bytes} B container "
-              f"for {host.dense_bytes} B of K/V (sections coded/cap "
-              f"{sections}); host path and device path give back the K/V "
-              "bit for bit, device-framed words == host container")
+    log(phase, f"block [0, 16) of request 0: {host.wire_bytes} B container "
+               f"for {host.dense_bytes} B of K/V (sections coded/cap "
+               f"{sections}); host path and device path give back the K/V "
+               "bit for bit, device-framed words == host container")
     sym, tables, (w, s), cap = coded
-    times = time_codes(ops, ref, sym, tables, cap, w, s, flush, reps=10)
+    reps = 10
+    times = time_codes(ops, ref, sym, tables, cap, w, s, flush, reps=reps)
+    h = hist[0]
+    times["K6"] = {
+        "shape": [h.numel()],
+        "ms": time_ms(lambda: ops.histogram(h), reps, flush),
+        "kernel_ms": time_ms(bare_k6(h), reps, flush, alone=True),
+        "plain_ms": time_ms(lambda: ref.histogram256_ref(h), 3, flush),
+        "library_ms": time_ms(lambda: torch.bincount(h, minlength=256),
+                              reps, flush),
+        # the symbols read once, the 256 counts written once.
+        "bound_ms": bound_ms(h.numel() + 256 * 4)}
     for name, r in times.items():
         r["err"] = err[name]
-        log("kv", f"{name} at the KV shape {r['shape']} cap {cap}: "
-                  f"{r['ms']:.4f} ms (kernel alone {r['kernel_ms']:.4f}), "
-                  f"plain {r['plain_ms']:.2f} ms, HBM bound "
-                  f"{r['bound_ms']:.4f} ms")
+        log(phase, f"{name} at the KV shape {r['shape']}"
+                   + (f" cap {r['cap']}" if "cap" in r else "")
+                   + f": {r['ms']:.4f} ms (kernel alone "
+                   f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.2f} ms, "
+                   f"HBM bound {r['bound_ms']:.4f} ms")
     return times
 
 
@@ -2696,6 +2761,284 @@ def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
             "params_wire": params_b, "drops": drops}
 
 
+MOE_SERVE_LAYERS = 23
+
+
+def _nest(key: str, value):
+    """``value`` at path ``key`` of an otherwise empty tree."""
+    for part in reversed(key.split("/")):
+        value = {part: value}
+    return value
+
+
+def _moe_serve_cell(cfg=None):
+    """The moe_serve cell's config (deepseek-moe-16b, ``MOE_SERVE_LAYERS``
+    of 28 layers), or ``cfg``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return cfg or dataclasses.replace(get_config("deepseek-moe-16b"),
+                                      num_layers=MOE_SERVE_LAYERS)
+
+
+def expert_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096):
+    """K2 and K1 at the expert leaf's path shape: K2 opens the stacked
+    leaf's words ([G * n_chunks, cap], as ``open_params`` does), and K1
+    encodes those values back ([G * n_chunks, 1024] into 353-word slots,
+    as ``compress_params_for_serving`` does); each bit-equal to its plain
+    version on the first and last ``rows`` chunks and timed beside its
+    HBM bound."""
+    from repro_torch.core import codec
+    m = wc.meta[key]
+    tables = wc.registry.by_id(m.scheme_id).tables
+    node = _node(wired, key)
+    w = node["words"].reshape(-1, m.capacity_words)
+    sc = node["scales"].float().reshape(-1, 32)
+    vals = ops.decode_dequantize(w, sc, tables, 1024)
+    cap = codec.worst_case_words(1024)
+    enc = ops.quantize_encode(vals, tables, cap)
+    n = w.shape[0]
+    err = {"K1": 0.0, "K2": 0.0}
+    for r0 in sorted({0, max(0, n - rows)}):
+        sl = slice(r0, r0 + rows)
+        err["K2"] = max(err["K2"], require_equal(
+            f"K2 expert leaf rows {r0}:{r0 + rows}", [vals[sl]],
+            [ref.decode_dequantize_ref(w[sl], sc[sl], [tables], 0, 1024)]))
+        err["K1"] = max(err["K1"], require_equal(
+            f"K1 expert leaf rows {r0}:{r0 + rows}",
+            [t[sl] for t in enc],
+            ref.quantize_encode_ref(vals[sl], tables, cap)))
+    res = {
+        "K2": {"shape": [n, m.capacity_words], "form": "f32",
+               "max_abs_err": err["K2"],
+               "ms": time_ms(lambda: ops.decode_dequantize(w, sc, tables,
+                                                           1024), 3, flush),
+               "kernel_ms": time_ms(bare_k2(w, sc, tables, 1024), 3, flush,
+                                    alone=True),
+               # words, scales and scheme ids in; the f32 values out.
+               "bound_ms": bound_ms(nbytes(w, sc, vals) + 4 * n)},
+        "K1": {"shape": [n, 1024], "cap": cap, "max_abs_err": err["K1"],
+               "ms": time_ms(lambda: ops.quantize_encode(vals, tables, cap),
+                             3, flush),
+               "kernel_ms": time_ms(bare_k1(vals, tables, cap), 3, flush,
+                                    alone=True),
+               "bound_ms": bound_ms(nbytes(vals, *enc))}}
+    for kname, v in res.items():
+        log("moe_serve", f"{kname} at the expert leaf {key} {v['shape']}: "
+                         f"bit-equal to plain on the first and last {rows} "
+                         f"chunks; {v['ms']:.3f} ms (kernel alone "
+                         f"{v['kernel_ms']:.3f}), HBM bound "
+                         f"{v['bound_ms']:.3f} ms")
+    return res
+
+
+def phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
+                    cfg=None, batch=4, requests=6, prompt_len=16,
+                    new_tokens=16, kv_block=16):
+    """Serving deepseek-moe-16b from the QLC weight wire, after the moe
+    phase: full width, ``MOE_SERVE_LAYERS`` layers, random weights from a
+    seed. Through ``launch.serve.serve``: calibrate (K1's histogram),
+    compress (K1), free the init tree, open (K2) and serve ``requests``
+    requests at ``batch``; then ``--kv-cache qlc`` sync (K3, K4) and
+    async (K3, K5), the KV codecs calibrated through K6, each token-
+    identical for every request to the dense run (inside ``serve``, and
+    here to the first run). K1-K6 counted from zero around the three
+    runs. Then K3-K6 against their plain versions on this model's KV
+    data (``check_kv_path``); one layer's expert leaves wired in e4m3
+    mode open (plain dequantize) bit-equal to the same leaves through
+    QLC (K1, K2); the serving manifest with the KV recipe through JSON
+    opens every wired leaf bit-identically; K2 and K1 at the expert
+    leaf's path shape against their plain versions. Returns the
+    launches, the path timings and the phase's numbers."""
+    import json
+    from repro_torch.models import moe
+    from repro_torch.serving import (KVCacheSpec, codec_from_manifest,
+                                     compress_params_for_serving,
+                                     kv_spec_from_manifest, open_params,
+                                     serving_manifest)
+    cfg = _moe_serve_cell(cfg)
+    m = cfg.moe
+    log("moe_serve", f"{cfg.name}: {cfg.num_layers} of 28 layers (cut: "
+                     f"f32 params beside the wire), d_model {cfg.d_model}, "
+                     f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+                     f"{m.num_experts} routed experts top-{m.top_k} of "
+                     f"width {m.d_expert} + {m.num_shared_experts} shared, "
+                     f"vocab {cfg.vocab_size}, params {cfg.param_dtype}, "
+                     f"compute {cfg.dtype}, impl {m.impl}; {requests} "
+                     f"requests at batch {batch}, prompt {prompt_len}, "
+                     f"{new_tokens} new tokens")
+    if dev == "cuda":
+        # Earlier phases' tensors that only reference cycles still hold
+        # (8.9 GiB of them in a full run) go before the peak.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log("moe_serve", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                         "held by earlier phases at the start")
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+    for fn in counters.values():
+        fn.launches = 0
+    kw = dict(batch=batch, requests=requests, prompt_len=prompt_len,
+              new_tokens=new_tokens, device=dev, seed=0)
+
+    # 1. The wire and the dense run.
+    rec = []
+    t0 = time.perf_counter()
+    with moe.capture_moe_routing(rec):
+        res = serve_mod.serve(cfg, wire="qlc", **kw)
+    run_s = {"dense": time.perf_counter() - t0}
+    wc, wired, opened = res["wire_codec"], res["wired"], res["params"]
+    outs = res["outs"]
+    if not all(o.state == "finished" and len(o.tokens) == new_tokens
+               for o in outs):
+        raise AssertionError([(o.request_id, o.state) for o in outs])
+    dense = [o.tokens for o in outs]
+    prompt0 = res["prompts"][0]
+    wire_b = sym = 0
+    for key, lm in wc.meta.items():
+        node = _node(wired, key)
+        wire_b += nbytes(node["words"], node["scales"])
+        sym += lm.n_symbols * node["words"].shape[0]
+    prefill = [r for r in rec if r["idx"].shape[0] != batch]
+    decode = [r for r in rec if r["idx"].shape[0] == batch]
+    if any(bool((~r["keep"]).any()) for r in prefill):
+        raise AssertionError("moe_serve: a batch-1 prefill step dropped")
+    per_step = [sum(int((~r["keep"]).sum()) for r in
+                    decode[i:i + cfg.num_layers])
+                for i in range(0, len(decode), cfg.num_layers)]
+    del rec, prefill, decode
+    st = res["stats"]
+    stats = {"dense": {"prefill": st["ms_per_token_prefill"],
+                       "decode": st["ms_per_token_decode"]}}
+    capacity = max(1, int(batch * m.top_k * m.capacity_factor
+                          // m.num_experts))
+    log("moe_serve", f"calibrate {res['calibrate_s'] * 1e3:.1f} ms, "
+                     f"compress {res['compress_s'] * 1e3:.1f} ms, open "
+                     f"{res['open_s'] * 1e3:.1f} ms; {len(wc.meta)} "
+                     f"compressed leaves, {sym} symbols, wire {wire_b} B = "
+                     f"{wire_b / sym:.4f} B/symbol (words + bf16 scales)")
+    log("moe_serve", f"dense run: {len(outs)} requests, "
+                     f"{st['ms_per_token_prefill']:.3f} ms/token prefill, "
+                     f"{st['ms_per_token_decode']:.3f} ms/token decode "
+                     f"({run_s['dense']:.1f} s with the wire); decode "
+                     f"steps at batch {batch}, capacity {capacity} per "
+                     f"expert: {len(per_step)} steps, drops per step "
+                     f"{per_step} ({sum(per_step) / max(1, len(per_step)):.2f}"
+                     f" a step of {batch * m.top_k * cfg.num_layers} "
+                     "assignments); prefill (batch 1) drops none")
+    res = None
+
+    # 2. The paged QLC KV cache, sync then async: every request's tokens
+    # equal the dense run's (checked inside serve against its own dense
+    # run of the same requests, and here against the first run).
+    pool = {}
+    for paging in ("sync", "async"):
+        t0 = time.perf_counter()
+        r = serve_mod.serve(cfg, params=opened, kv_cache="qlc",
+                            kv_block=kv_block, kv_paging=paging, **kw)
+        run_s[paging] = time.perf_counter() - t0
+        got = [o.tokens for o in r["outs"]]
+        if len(got) != len(dense) or not all(
+                np.array_equal(a, b) for a, b in zip(got, dense)):
+            raise AssertionError(f"moe_serve: the {paging} paged run's "
+                                 "tokens differ from the dense run's")
+        st = r["stats"]
+        stats[paging] = {"prefill": st["ms_per_token_prefill"],
+                         "decode": st["ms_per_token_decode"]}
+        ps = st["pool"]
+        pool[paging] = ps["peak_referenced_bytes"] / \
+            st["peak_dense_logical_bytes"]
+        log("moe_serve", f"--kv-cache qlc --kv-block {kv_block} "
+                         f"--kv-paging {paging}: every request's tokens == "
+                         f"the dense run's; {st['ms_per_token_prefill']:.3f} "
+                         f"ms/token prefill, {st['ms_per_token_decode']:.3f} "
+                         f"decode; pooled/dense KV bytes {pool[paging]:.4f}"
+                         f" ({run_s[paging]:.1f} s, the serve's own dense "
+                         "check included)")
+        del r
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the "
+                                 "moe_serve path")
+    path_peak = (torch.cuda.max_memory_allocated() / 2**30
+                 if dev == "cuda" else float("nan"))
+    log("moe_serve", "launches on the path (the three runs): "
+                     + ", ".join(f"{k} {v}" for k, v in launches.items())
+                     + f"; peak device memory {path_peak:.2f} GiB")
+
+    # 3. K3-K6 against their plain versions on this model's KV data: its
+    # kv heads' byte planes at the slot caps its codecs calibrate.
+    kv = check_kv_path(ops, ref, cfg, opened, prompt0, flush, dev=dev,
+                       phase="moe_serve")
+
+    # 4. One layer's expert leaves from an e4m3-mode wire == through QLC.
+    layer = {k: opened["groups"]["l0"]["ffn"][k][:1]
+             for k in moe.EXPERT_LEAVES}
+    wq, wcq = compress_params_for_serving(layer, wc.registry)
+    we, wce = compress_params_for_serving(layer, wc.registry, mode="e4m3")
+    oq, oe = open_params(wq, wcq), open_params(we, wce)
+    for k in moe.EXPERT_LEAVES:
+        if not torch.equal(oq[k], oe[k]):
+            raise AssertionError(f"moe_serve: expert leaf {k} opened from "
+                                 "the e4m3 wire differs from QLC's")
+    e4_b = sum(nbytes(*we[k].values()) for k in we)
+    q_b = sum(nbytes(*wq[k].values()) for k in wq)
+    n_e = sum(layer[k].numel() for k in layer)
+    log("moe_serve", f"layer 0's expert leaves ({n_e} values): the e4m3 "
+                     "wire (plain dequantize) opens bit-equal to the QLC "
+                     f"wire (K1, K2); {e4_b / n_e:.4f} against "
+                     f"{q_b / n_e:.4f} B/symbol")
+    del layer, wq, we, oq, oe
+
+    # 5. The manifest, with the KV recipe, through JSON.
+    spec = KVCacheSpec(block_tokens=kv_block)
+    man = json.loads(json.dumps(serving_manifest(wc, kv_spec=spec)))
+    if kv_spec_from_manifest(man["kv"])[0] != spec:
+        raise AssertionError("moe_serve: the manifest's KV spec differs")
+    wc2 = codec_from_manifest(man)
+    n_open = 0
+    for key, lm in wc.meta.items():
+        node = _node(wired, key)
+        step = max(1, (1 << 28) // lm.n_symbols)
+        for g in range(0, node["words"].shape[0], step):
+            part = {k: v[g:g + step] for k, v in node.items()}
+            got = _node(open_params(_nest(key, part), wc2), key)
+            if not torch.equal(got, _node(opened, key)[g:g + step]):
+                raise AssertionError(f"moe_serve: {key}[{g}] opened through "
+                                     "the manifest differs")
+            n_open += got.numel()
+            del got
+    log("moe_serve", f"codec_from_manifest(json(serving_manifest(wc, "
+                     f"kv_spec=...))) opens all {len(wc.meta)} wired leaves "
+                     f"({n_open} values) bit-identically "
+                     f"({len(json.dumps(man))} B of JSON)")
+
+    # 6. K2 and K1 at the expert leaf's path shape, the opened tree freed.
+    opened = None
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    fused = expert_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in",
+                              flush)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev == "cuda" else float("nan"))
+    free = ((torch.cuda.get_device_properties(0).total_memory
+             - torch.cuda.max_memory_reserved()) / 2**30
+            if dev == "cuda" else float("nan"))
+    log("moe_serve", f"peak device memory over the phase {peak:.2f} GiB "
+                     f"(the path's {path_peak:.2f}); {free:.2f} GiB of the "
+                     "card never reserved")
+    del wired, wc, wc2
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "fused": fused, "kv": kv,
+            "ms_per_token": stats,
+            "drops_per_step": per_step, "wire_bytes_per_symbol": wire_b / sym,
+            "pool": pool, "peak_gib": peak, "path_peak_gib": path_peak,
+            "free_gib": free, "run_s": run_s}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -2771,7 +3114,12 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--moe-serve-layers", type=int, default=None,
+                    metavar="L", help="run only the moe_serve phase, at L "
+                    "of deepseek-moe-16b's 28 layers, and print its peak")
+    args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
     # algorithms, which need it.
@@ -2807,6 +3155,23 @@ def main():
                  + " | ".join(regs))
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    if args.moe_serve_layers is not None:
+        import dataclasses
+        res = phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush,
+                              cfg=dataclasses.replace(
+                                  get_config("deepseek-moe-16b"),
+                                  num_layers=args.moe_serve_layers))
+        steps = res["drops_per_step"]
+        log("depth", f"{args.moe_serve_layers} layers alone: peak "
+                     f"{res['peak_gib']:.2f} GiB (the path's "
+                     f"{res['path_peak_gib']:.2f}), {res['free_gib']:.2f} "
+                     "GiB never reserved; ms/token prefill/decode "
+                     + ", ".join(f"{k} {v['prefill']:.3f}/{v['decode']:.3f}"
+                                 for k, v in res["ms_per_token"].items())
+                     + f"; {sum(steps) / len(steps):.2f} drops a decode "
+                     "step")
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -2849,6 +3214,7 @@ def main():
         moe_res = phase_moe(qf, qc, h6, ops, ref, flush)
     torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
+    moe_serve = phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush)
     ck = phase_ckpt(qc, h6, ops, ref, flush)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -2876,10 +3242,13 @@ def main():
                  "launcher_resume_launches": resume["launches"][kname],
                  "adapt_launches": adapt["launches"][kname],
                  "moe_launches": moe_res["launches"][kname],
-                 "moe_path": moe_res["fused"][kname]}
+                 "moe_path": moe_res["fused"][kname],
+                 "moe_serve_launches": moe_serve["launches"][kname],
+                 "moe_serve_path": moe_serve["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    adapt["err"],
-                                   moe_res["fused"][kname]["max_abs_err"])
+                                   moe_res["fused"][kname]["max_abs_err"],
+                                   moe_serve["fused"][kname]["max_abs_err"])
         if kname == "K1":
             entry["train_path_hist"] = adapt["k1_hist"]
             entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -2890,7 +3259,12 @@ def main():
     kernels += codes_kernel_entries(src, codes_par, kv_runs, kv_times,
                                     k3_shapes)
     for entry in kernels[2:5]:
-        entry["moe_launches"] = moe_res["launches"][entry["name"].split()[0]]
+        kname = entry["name"].split()[0]
+        entry["moe_launches"] = moe_res["launches"][kname]
+        entry["moe_serve_launches"] = moe_serve["launches"][kname]
+        entry["moe_serve_path"] = moe_serve["kv"][kname]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   moe_serve["kv"][kname]["err"])
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -2917,9 +3291,13 @@ def main():
         "launcher_resume_launches": resume["launches"]["K6"],
         "kv_monitor_launches": kvmon["launches"]["K6"],
         "adapt_launches": adapt["launches"]["K6"],
-        "moe_launches": moe_res["launches"]["K6"]})
+        "moe_launches": moe_res["launches"]["K6"],
+        "moe_serve_launches": moe_serve["launches"]["K6"],
+        "kv_path": kv_times["K6"], "moe_serve_path": moe_serve["kv"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                     ck["path"]["K6"]["err"])
+                                     ck["path"]["K6"]["err"],
+                                     kv_times["K6"]["err"],
+                                     moe_serve["kv"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

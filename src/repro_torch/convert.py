@@ -1,9 +1,13 @@
 """State from the reference package, as numpy arrays, into the port:
 parameters into the port's tree (same keys, shapes and dtypes, so both
-packages compute the same function on the same weights), the flat
-ZeRO-1 optimizer state into one data-parallel rank's slice, and a global
+packages compute the same function on the same weights), a wired
+(compressed-weight) tree and its manifest in both directions
+(:func:`wire_from_numpy`, :func:`wire_to_numpy`), the flat ZeRO-1
+optimizer state into one data-parallel rank's slice, and a global
 parameter tree cut to one rank's MoE experts (:func:`shard_experts`)."""
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -23,6 +27,55 @@ def params_from_numpy(tree, device="cuda"):
         return torch.from_numpy(np.array(node)).to(dev)
 
     return walk(tree)
+
+
+def _tensor_from_numpy(a, dev) -> torch.Tensor:
+    """One array -> a tensor with the same bits: uint32 as int32 bit
+    patterns, bfloat16 (numpy's extension dtype) through its 16 bits."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def wire_from_numpy(wired, manifest, device="cuda"):
+    """The reference's wired tree (``compress_params_for_serving``'s
+    output as array-likes) and its ``serving_manifest`` -> the port's
+    wired tree on ``device`` and its ``GroupWireCodec``: words go from
+    uint32 to int32 bit patterns, u8 codes and bf16 scales keep their
+    bits, dense leaves their dtypes; the manifest is carried as JSON."""
+    from repro_torch.serving.engine import codec_from_manifest
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor_from_numpy(node, dev)
+
+    return walk(wired), codec_from_manifest(json.loads(json.dumps(manifest)))
+
+
+def wire_to_numpy(wired, wire_codec):
+    """Inverse of :func:`wire_from_numpy`: the port's wired tree and codec
+    -> numpy arrays in the reference's dtypes (uint32 words, u8 codes,
+    bfloat16 scales through ``ml_dtypes``, the dtype the reference's
+    arrays carry) and the JSON manifest the reference's
+    ``codec_from_manifest`` opens."""
+    import ml_dtypes
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        a = t.numpy()
+        return a.view(np.uint32) if key == "words" else a
+
+    return walk(wired), json.loads(json.dumps(wire_codec.manifest()))
 
 
 def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):

@@ -14,9 +14,16 @@ encoded to QLC containers (K3) and decoded from the pooled bytes on
 access — ``--kv-paging sync`` through K4 at the step that completes a
 block, ``--kv-paging async`` (qlc only) from a device arena through K5 on
 a side stream behind the next decode window. Lossless, so the launcher
-checks that request 0's tokens equal a dense run of it alone (at the same
-batch width, so that every matmul has the shapes of the paged run).
+checks it against a dense cache: for a dense model, request 0's tokens
+against a dense run of it alone (at the same batch width, so that every
+matmul has the shapes of the paged run); for an MoE model, whose expert
+capacity the batch's rows share, every request's tokens against a dense
+run of the same requests in the same submit order at the same batch.
 ``--kv-cache e4m3`` quantizes blocks on eviction (lossy).
+
+The random-init tree the launcher makes is freed once the wire holds
+it, before the wire is opened, so the peak is the wire plus one
+parameter tree rather than two.
 
 Example (one H100):
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
@@ -25,6 +32,8 @@ Example (one H100):
 On the CPU, with the plain versions of the kernels:
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b --reduced \\
       --device cpu --wire qlc --kv-cache qlc --kv-block 4 --kv-paging sync
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b --reduced \\
+      --device cpu --wire qlc --kv-cache qlc --kv-block 4
 """
 from __future__ import annotations
 
@@ -57,10 +66,13 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     """Run the launcher's path and return what it produced: the request
     statuses, engine stats, the served params, with ``wire="qlc"`` the
     wire, its codec and the calibrate/compress/open seconds, and with
-    ``kv_cache="qlc"`` the dense solo run's tokens (``solo_tokens``),
-    which must equal request 0's or this raises. ``kv_monitor`` attaches
-    a ``TrafficMonitor`` to the paged cache (``kv_monitor`` in the result:
-    each KV codec's measured traffic)."""
+    ``kv_cache="qlc"`` the dense-cache check's tokens, which must equal
+    the paged run's or this raises: ``solo_tokens`` (request 0 alone)
+    for a dense model, ``dense_tokens`` (every request, the same batch)
+    for an MoE model. ``kv_monitor`` attaches a ``TrafficMonitor`` to the
+    paged cache (``kv_monitor`` in the result: each KV codec's measured
+    traffic). A tree made here (``params=None``) is freed before the
+    wire is opened."""
     if kv_paging == "async" and kv_cache != "qlc":
         raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
@@ -80,6 +92,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
         wired, wc = compress_params_for_serving(params, reg)
         _sync(dev)
         t2 = time.perf_counter()
+        params = None       # frees a tree made here before the open
         params = open_params(wired, wc)
         _sync(dev)
         t3 = time.perf_counter()
@@ -114,17 +127,27 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
                stats=eng.stats(), params=params, prompts=prompts)
     if kv_cache == "qlc":
         # The lossless contract: pooled compressed paging is
-        # token-identical to a dense run of the request alone.
-        solo = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch)
-        h = solo.submit(GenerationRequest(prompt=prompts[0],
-                                          max_new_tokens=new_tokens))
-        solo.run()
-        out["solo_tokens"] = solo.poll(h).tokens
-        if not np.array_equal(outs[0].tokens, out["solo_tokens"]):
-            raise RuntimeError(
-                f"qlc KV cache must be token-identical to the dense solo "
-                f"run: {outs[0].tokens.tolist()} vs "
-                f"{out['solo_tokens'].tolist()}")
+        # token-identical to a dense cache. A dense model's rows are
+        # independent, so request 0 alone decides; an MoE layer's capacity
+        # is shared by the batch's rows, so the dense run gets every
+        # request, in the same order, at the same batch.
+        dense = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch)
+        group = prompts if cfg.moe is not None else prompts[:1]
+        hs = [dense.submit(GenerationRequest(prompt=p,
+                                             max_new_tokens=new_tokens))
+              for p in group]
+        dense.run()
+        want = [dense.poll(h).tokens for h in hs]
+        if cfg.moe is not None:
+            out["dense_tokens"] = want
+        else:
+            out["solo_tokens"] = want[0]
+        for i, w in enumerate(want):
+            if not np.array_equal(outs[i].tokens, w):
+                raise RuntimeError(
+                    f"qlc KV cache must be token-identical to the dense "
+                    f"run: request {i} {outs[i].tokens.tolist()} vs "
+                    f"{w.tolist()}")
     return out
 
 

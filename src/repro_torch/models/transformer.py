@@ -6,9 +6,9 @@ Parameters are a plain dict tree in the reference's layout: layer
 groups are stacked along a leading group dim, e.g.
 ``params["groups"]["l0"]["mixer"]["wq"]`` has shape ``[G, d, h, hd]``.
 That stacked leaf is the weight wire's unit. Attention blocks with a
-dense or an MoE FFN (``models.moe``) are ported; other block kinds raise
-``NotImplementedError`` naming their ROADMAP item, and so does serving
-(decoding) an MoE model.
+dense or an MoE FFN (``models.moe``) are ported, for training and for
+decoding; other block kinds raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,8 +23,6 @@ from repro_torch.models import layers, moe
 
 _NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP queue 1, item 11: "
                "SSM, multimodal)")
-_MOE_DECODE = ("serving (decoding) an MoE model is not ported: ROADMAP queue "
-               "1, item 16")
 
 
 def resolve_device(device) -> torch.device:
@@ -210,12 +208,13 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     wire form and each group's wire is opened inside the loop, right
     before its layers. Returns (x, new_states). MoE layers read their
     bindings (``moe.moe_scope``) once, here on the caller's thread, so a
-    recomputed group sees the same ones."""
+    recomputed group sees the same ones; in a decode step the ``B``
+    tokens of the step are an MoE layer's batch, its capacity theirs."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
+    scope = moe.moe_scope() if cfg.moe is not None else None
     if states is None:
-        scope = moe.moe_scope() if cfg.moe is not None else None
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
@@ -226,8 +225,6 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
             else:
                 x = _apply_group(pg, x, positions, cfg, scope)
         return x, None
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE_DECODE)
     outs = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], groups)
@@ -237,7 +234,8 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
         new_sg = {}
         for i, kind in enumerate(kinds):
             x, new_sg[f"l{i}"] = _apply_block(pg[f"l{i}"], kind, x,
-                                              positions, cfg, sg[f"l{i}"])
+                                              positions, cfg, sg[f"l{i}"],
+                                              scope)
         outs.append(new_sg)
     new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
     return x, new_states

@@ -3,8 +3,8 @@ the compressed paged KV cache."""
 from repro_torch.comm.blockpool import (  # noqa: F401
     ArenaExhausted, ArenaStale, BlockArena, BlockPool, PoolExhausted)
 from repro_torch.serving.engine import (  # noqa: F401
-    ServeConfig, compress_params_for_serving, open_params, prefill,
-    window_step)
+    ServeConfig, codec_from_manifest, compress_params_for_serving,
+    open_params, prefill, serving_manifest, window_step)
 from repro_torch.serving.kv_cache import (  # noqa: F401
     KVBlock, KVCacheOverflowError, KVCacheSpec, PagedKVCache,
     calibrate_cache, kv_cache_manifest, kv_spec_from_manifest)

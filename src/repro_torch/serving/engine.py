@@ -12,13 +12,16 @@ back once (the counterpart of the reference's jitted window scan; no
 CUDA graph yet).
 
 Compressed-weight serving stores the layer stack as block-32 e4m3 + QLC
-words (``repro_torch.comm.weights``), compressed through K1, and opens
-it through K2 before the engine starts. Only the local open is ported;
-the chunk-sharded open over a mesh axis comes with the collectives.
+words (or raw e4m3 codes, ``mode="e4m3"``; ``repro_torch.comm.weights``),
+compressed through K1, and opens it through K2 before the engine starts,
+locally or chunk-sharded over a process group (:func:`open_params`).
+:func:`serving_manifest` / :func:`codec_from_manifest` carry the wire's
+recipe (and the KV cache's) through JSON in the reference's format.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -52,32 +55,92 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
 
 
 def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                positions: torch.Tensor, states, window: int):
+                positions: torch.Tensor, states, window: int,
+                free: Optional[torch.Tensor] = None):
     """``window`` greedy decode steps from seed ``tokens`` [B, 1] at
     ``positions`` [B, 1]: each step's argmax is the next step's token,
     on the device. Returns (generated tokens int32 [B, window], states);
-    column t is the token step t produced."""
+    column t is the token step t produced.
+
+    ``free`` (bool [B, 1]) marks free slots: they feed their seed token
+    at their seed position at every step of the window, as the
+    step-by-step engine feeds them, so an MoE batch, whose capacity
+    those rows share, is the same in both."""
     gen = []
     tok, pos = tokens, positions
     for _ in range(window):
         lg, states = decode_step(params, cfg, tok, states, pos)
-        tok = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
-        gen.append(tok)
-        pos = pos + 1
+        nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
+        gen.append(nxt)
+        if free is None:
+            tok, pos = nxt, pos + 1
+        else:
+            tok = torch.where(free, tokens, nxt)
+            pos = torch.where(free, positions, pos + 1)
     return torch.cat(gen, dim=1), states
 
 
-def compress_params_for_serving(params, tables):
+def compress_params_for_serving(params, tables, mode: str = "qlc",
+                                use_kernels: bool = True, type_key_fn=None):
     """Wire a parameter tree for compressed serving: large layer-stack
-    leaves become QLC words with exactly measured capacity plus bf16
-    scales, everything else stays dense. ``tables`` is a
-    ``CodecTables`` or a ``CodecRegistry``. Returns
-    ``(wired_params, wire_codec)``; open with :func:`open_params`."""
+    leaves become block-32 e4m3 symbols, packed into QLC words with
+    exactly measured capacity (``mode="qlc"``) or kept raw
+    (``mode="e4m3"``), plus bf16 scales; everything else stays dense.
+    ``tables`` is a ``CodecTables`` or a per-tensor-type
+    ``CodecRegistry`` (with an optional ``type_key_fn(leaf_path) -> type
+    name``). ``use_kernels`` is recorded in the manifest; the port
+    routes by device. Returns ``(wired_params, wire_codec)``; open with
+    :func:`open_params`."""
     from repro_torch.comm.weights import compress_groups
-    return compress_groups(params, tables)
+    return compress_groups(params, tables, mode=mode,
+                           use_kernels=use_kernels, type_key_fn=type_key_fn)
 
 
-def open_params(wired_params, wire_codec):
-    """Decode a wired parameter tree back to dense tensors through K2
-    (the plain version for tensors on the CPU)."""
-    return wire_codec.open_group(wired_params)
+def serving_manifest(wire_codec, *, kv_spec=None, kv_registry=None) -> dict:
+    """JSON-able manifest of a wired parameter tree: per-leaf geometry,
+    scheme-ids, the codec registry and the channel placement. With
+    ``kv_spec`` (a ``KVCacheSpec``) the KV cache's recipe rides along
+    under ``"kv"``, its ``kv/layer{i}`` scheme-ids resolved against
+    ``kv_registry`` (default: the wire codec's registry)."""
+    from repro_torch.serving.kv_cache import kv_cache_manifest
+    m = wire_codec.manifest()
+    if kv_spec is not None:
+        m["kv"] = kv_cache_manifest(
+            kv_spec, kv_registry if kv_registry is not None
+            else wire_codec.registry)
+    return m
+
+
+def codec_from_manifest(manifest: dict, use_kernels=None):
+    """Rebuild a ``GroupWireCodec`` from :func:`serving_manifest` output
+    (either package's): tables re-derived bit-identically from the
+    registry, the channel placement carried along. ``use_kernels=None``
+    keeps the manifest's recorded toggle; manifests without a channel
+    placement get the reference's historic default, True."""
+    from repro_torch.comm.weights import GroupWireCodec
+    if use_kernels is None and "channel" not in manifest:
+        use_kernels = True
+    return GroupWireCodec.from_manifest(manifest, use_kernels=use_kernels)
+
+
+def open_params(wired_params, wire_codec, *, channel=None, axis_name=None,
+                axis_size=None, transport=None):
+    """Decode a wired parameter tree back to dense tensors (K2 for QLC
+    leaves on the card, the plain version on the CPU).
+
+    With a ``Channel`` bound to a process group
+    (``wire_codec.channel(axis, axis_size)``), or the loose
+    ``axis_name`` (a mesh axis of the mesh in scope) / ``axis_size`` /
+    ``transport``, every compressed leaf is a chunk shard
+    (``comm.weights.shard_chunks``) and the wire streams over the group
+    (:meth:`GroupWireCodec.open_group_sharded`); the values are
+    bit-identical to the whole open."""
+    if channel is not None:
+        if channel.axis is None:          # local placement: plain open
+            return wire_codec.open_group(wired_params)
+        return wire_codec.open_group_sharded(
+            wired_params, transport=transport, channel=channel)
+    if axis_name is None:
+        return wire_codec.open_group(wired_params)
+    return wire_codec.open_group_sharded(wired_params, axis_name,
+                                         axis_size, transport)

@@ -40,8 +40,8 @@ falls back to a raw container (``stats()["overflow_sections"]``), and a
 coded container whose pool overflowed raises
 :class:`KVCacheOverflowError` at decode. SSM state snapshots and their
 prefix re-basing are not on phi3's path and raise
-``NotImplementedError`` (ROADMAP queue 1, item 11); an MoE model's
-decode step raises in the model (item 16). Entry points run on
+``NotImplementedError`` (ROADMAP queue 1, item 11). An MoE model pages
+like a dense one: only attention states are paged. Entry points run on
 the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations

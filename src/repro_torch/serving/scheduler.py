@@ -14,8 +14,13 @@ it step by step:
   instead of running out of memory mid-decode. Each admitted prompt
   prefills at batch 1 on fresh states and is copied into its slot row.
 * **Decode** — ONE ``decode_step`` over all slots per engine step (free
-  slots feed token 0 at position 0; every per-row op is row-independent,
-  so padding rows do not perturb active rows).
+  slots feed token 0 at position 0, in every step of an async window
+  too). In a dense model every per-row op is row-independent, so padding
+  rows do not perturb active rows. An MoE layer's capacity is shared by
+  the step's rows, free ones included, so there the batch's
+  composition is part of the result, as in the reference: two runs
+  agree when they see the same requests in the same order at the same
+  batch.
 * **Paging** (``kv_spec`` given) — each slot pages its completed blocks
   through the shared :class:`~repro_torch.serving.kv_cache.PagedKVCache`
   codec into the global :class:`~repro_torch.comm.blockpool.BlockPool`,
@@ -217,14 +222,14 @@ class Engine:
                 if rid is not None]
 
     def _seed(self, active):
-        """Each active slot's last token and its position, [B, 1] each."""
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        pos = np.zeros((self.max_batch, 1), np.int32)
+        """Each slot's last token and its position, int32 [B, 1] each, in
+        one upload; a free slot's are token 0 at position 0."""
+        seed = np.zeros((self.max_batch, 2), np.int32)
         for b, rid in active:
             seq = self._seqs[rid]
-            tokens[b, 0] = seq.toks[-1]
-            pos[b, 0] = seq.prompt_len + len(seq.toks) - 1
-        return self._tensor(tokens), self._tensor(pos)
+            seed[b] = seq.toks[-1], seq.prompt_len + len(seq.toks) - 1
+        seed = self._tensor(seed)
+        return seed[:, :1].contiguous(), seed[:, 1:].contiguous()
 
     def step(self) -> int:
         """Admit what fits, run ONE batched decode step over the padded
@@ -254,11 +259,12 @@ class Engine:
         """One window of decode steps: the window ends exactly at the
         nearest block boundary or budget across active slots, so blocks
         are only evicted between windows. The host uploads one seed token
-        and position per slot and reads the window's tokens back once (2
-        up, 1 down). The prefetch decodes scheduled at the last boundary
-        ran on the side stream behind this window; they are consumed (a
-        wait on their done events, timed: a stall is the cost prefetch
-        failed to hide) and applied after it."""
+        and position per slot, and which slots are free, and reads the
+        window's tokens back once (2 up, 1 down). The prefetch decodes
+        scheduled at the last boundary ran on the side stream behind this
+        window; they are consumed (a wait on their done events, timed: a
+        stall is the cost prefetch failed to hide) and applied after
+        it."""
         self._step_idx += 1
         self._admit()
         active = self._active()
@@ -272,9 +278,12 @@ class Engine:
             window = max(1, window)
             t0 = time.perf_counter()
             tokens, pos = self._seed(active)
+            free = self._tensor(np.array([[rid is None]
+                                          for rid in self._slots]))
             self._window_h2d += 2
             gen_dev, self._states = window_step(
-                self.params, self.cfg, tokens, pos, self._states, window)
+                self.params, self.cfg, tokens, pos, self._states, window,
+                free=free)
             gen = gen_dev.cpu().numpy()      # ONE read-back for the window
             self._window_d2h += 1
             self._windows += 1

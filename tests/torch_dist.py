@@ -4,6 +4,9 @@ process (``python -m tests.torch_dist``), and collect what each returns.
 The children import torch, numpy and the port only. Arguments and
 results travel as pickles in a temporary directory; every rank gets the
 same arguments and finds its rank and the world size in ``ctx``.
+
+Also the bit-exact tree comparison that the port's tests share
+(:func:`assert_same_tree`).
 """
 import os
 import pickle
@@ -48,6 +51,40 @@ def run_ranks(target: str, world: int, timeout: int = 300, **kwargs):
             with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(flat_tree(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def tree_bits(a):
+    """Bit patterns of a numpy array (either package's dtypes) or a CPU
+    tensor, for exact comparison: bf16 as int16, f32 and uint32 as
+    int32."""
+    import numpy as np
+    import torch
+    if isinstance(a, torch.Tensor):
+        a = a.detach()
+        a = (a.view(torch.int16) if a.dtype == torch.bfloat16 else a).numpy()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.int16)
+    return a.view(np.int32) if a.dtype in (np.float32, np.uint32) else a
+
+
+def assert_same_tree(a, b):
+    """Two nested dicts hold the same keys and bit-equal leaves."""
+    import numpy as np
+    fa, fb = flat_tree(a), flat_tree(b)
+    assert sorted(fa) == sorted(fb)
+    for key in fa:
+        np.testing.assert_array_equal(tree_bits(fa[key]), tree_bits(fb[key]),
+                                      err_msg=key)
 
 
 def _main():
@@ -422,6 +459,38 @@ def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
                 out[f"train_{name}"] = [h["loss"] for h in res["history"]]
                 if wire == "qlc":
                     out["train_moe"] = res["moe"]
+    return out
+
+
+def wire_sharded(ctx, wires, variants):
+    """The chunk-sharded weight-wire open: for each ``(wired, manifest)``
+    of ``wires`` (the port's wired tree and its manifest), this rank
+    takes its shard of the tree (``comm.weights.shard_chunks``) and opens
+    it with the codec rebuilt from the manifest under each of
+    ``variants`` -> [{variant: opened tree}] in the order of ``wires``. A
+    variant is ``"ring"``, ``"ring x2"`` (two hop pieces), ``"oneshot"``,
+    ``"channel"`` (the codec's own channel on the data axis) or
+    ``"channel auto"``."""
+    from repro_torch.comm.planner import TransportConfig
+    from repro_torch.comm.weights import shard_chunks
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.serving import codec_from_manifest, open_params
+    out = []
+    with use_mesh(make_test_mesh(model=1)):
+        for wired, manifest in wires:
+            wc = codec_from_manifest(manifest)
+            local = shard_chunks(wired, ctx["rank"], ctx["world"])
+            res = {}
+            out.append(res)
+            for v in variants:
+                if v.startswith("channel"):
+                    ch = wc.channel("data", ctx["world"], transport="auto"
+                                    if v.endswith("auto") else None)
+                    res[v] = open_params(local, wc, channel=ch)
+                else:
+                    t = TransportConfig("ring", 2) if v == "ring x2" else v
+                    res[v] = open_params(local, wc, axis_name="data",
+                                         axis_size=ctx["world"], transport=t)
     return out
 
 
