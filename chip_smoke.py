@@ -211,12 +211,41 @@ non-zero (nothing is caught and carried on):
                the first and last 4096 chunks and timed there. Prints the
                peak device memory.
 
+ 13. ssm     — xlstm-125m served and trained, after moe_serve: all 12
+               layers (sLSTM / mLSTM alternating), full width, f32
+               parameters, bf16 compute, random weights from a seed.
+               Through ``launch.serve.serve``: the weight wire (K1's
+               histogram, K1, K2) and a dense run of 6 requests at batch
+               4, prompt 16, 16 new tokens; ``--kv-cache qlc --kv-block
+               16`` sync (K3, K4) and async (K3, K5), codecs calibrated on
+               the recurrent states through K6, snapshots re-based; every
+               request's tokens equal the dense run's. Two requests
+               sharing a two-block prompt prefix, sync and async: their
+               re-based snapshots dedup and their tokens equal each alone
+               on the dense engine. K3-K6 against their plain versions on
+               the mLSTM layer's snapshot planes (``check_kv_path``), K1
+               and K2 at its ``wq`` leaf's wire shape; the kernel launches
+               of one decode step and one training forward and backward.
+               ``train(comm="qlc")`` on one NCCL rank at batch 4 x
+               ``SSM_TRAIN_SEQ``: 2 compressed steps, 2 of the raw e4m3
+               twin (bit-equal), 2 baseline steps. One mamba layer at
+               jamba-1.5-large's widths (d_model 8192, d_inner 16384, N
+               16, f32): 16 tokens, then 8 decode steps, equal to one
+               24-token segment; its state through K3 and K4 bit for bit.
+               K1-K6 counted from zero around the serve runs, the train
+               runs and the mamba round trip, each non-zero. Before the
+               moe_serve phase, the device bytes that ``gc.collect()``
+               frees are printed.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 "device": {...}}``.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+
+``python3 chip_smoke.py --ssm-only`` runs only the build and the ssm
+phase, then the ``nvidia-smi`` line, and no result line.
 
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
 the moe_serve phase, at L of the 28 layers, and prints its peak device
@@ -1182,22 +1211,26 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
 
 
 def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
-                  phase="kv"):
+                  phase="kv", layer="l0"):
     """K3-K6 at the KV path's own shapes and data: request 0's prompt
-    prefilled on the opened params, its first 16-token block (2 byte
-    planes of chunks of 256: 12,288 chunks for phi3-mini), codecs
-    calibrated as the engine does. K6 on each byte plane of layer slot
-    0's calibration section, against its plain version and np.bincount;
-    K3/K4/K5 on the block's planes at the plan's slot caps, each against
-    its plain version; the block through the host path (K3 + K4) and the
-    device path (K3 + K5) back to its K/V; the device-framed words equal
-    to the host container. Returns each kernel's error and timings: K3-K5
-    on the coded plane, K6 on the first calibration plane."""
+    prefilled on the opened params, the first 16-token block of layer
+    slot ``layer`` (an attention slot's K/V: 2 byte planes of chunks of
+    256, 12,288 chunks for phi3-mini; a recurrent slot's whole state
+    snapshot: 4 f32 byte planes, zero-padded to whole chunks as the
+    cache pads them), codecs calibrated as the engine does. K6 on each
+    byte plane of the slot's calibration section, against its plain
+    version and np.bincount; K3/K4/K5 on the block's planes at the plan's
+    slot caps, each against its plain version; the block through the
+    host path (K3 + K4) and the device path (K3 + K5) back to its
+    tensors; the device-framed words equal to the host container.
+    Returns each kernel's error and timings: K3-K5 on the coded plane
+    with the smallest slot, K6 on the first calibration plane."""
     from repro_torch.comm.calibrate import byte_planes
+    from repro_torch.comm.compressed import pad_to_multiple
     from repro_torch.comm.container import stream_headers
     from repro_torch.core import CodecRegistry
     from repro_torch.models import attention as attn
-    from repro_torch.models import init_decode_states
+    from repro_torch.models import init_decode_states, ssm
     from repro_torch.serving import (KVCacheSpec, PagedKVCache,
                                      calibrate_cache, prefill)
     from repro_torch.serving.kv_cache import calibration_arrays
@@ -1207,8 +1240,10 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
     spec = KVCacheSpec(block_tokens=16, exact_capacity=False)
     calibrate_cache(reg, cfg, st, p.shape[1], spec)
     err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
+    li = int(layer[1:])
+    base = spec.layer_codec(li)
     hist = [plane.reshape(-1) for plane in byte_planes(
-        calibration_arrays(cfg, st, p.shape[1])["l0"]).values()]
+        calibration_arrays(cfg, st, p.shape[1])[layer]).values()]
     for i, h in enumerate(hist):
         got = ops.histogram(h)
         want = np.bincount(h.cpu().numpy(), minlength=256).astype(np.int32)
@@ -1216,14 +1251,17 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
             f"K6 calibration plane {i}", [got], [ref.histogram256_ref(h)]),
             require_equal(f"K6 calibration plane {i} vs np.bincount",
                           [got.cpu()], [torch.from_numpy(want)]))
-    log(phase, f"K6 on layer slot 0's calibration section ({len(hist)} "
-               f"byte planes of {hist[0].numel()} symbols): bit-equal to "
-               "plain and np.bincount")
-    kv = attn.kv_block_slice(st["l0"], 0, 16)
+    log(phase, f"K6 on layer slot {li}'s calibration section "
+               f"({len(hist)} byte planes of {hist[0].numel()} symbols): "
+               "bit-equal to plain and np.bincount")
+    if cfg.layer_kinds()[li] == "attention":
+        kv, what = attn.kv_block_slice(st[layer], 0, 16), "K/V"
+    else:
+        kv, what = list(ssm.state_snapshot(st[layer])), "state snapshot"
     coded = None
     for (isz, j), plane in byte_planes(kv).items():
-        entry = reg[f"kv/layer0/w{isz}b{j}"]
-        sym = plane.reshape(-1, 256)
+        entry = reg[f"{base}/w{isz}b{j}"]
+        sym = pad_to_multiple(plane, 256)[0].reshape(-1, 256)
         e, (w, s) = codes_checks(ops, ref, sym, entry.tables,
                                  (entry.plan.capacity_words,))
         for name in e:
@@ -1235,26 +1273,26 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
         if coded is None or entry.plan.capacity_words < coded[3]:
             coded = (sym, entry.tables, (w, s), entry.plan.capacity_words)
     cache = PagedKVCache(spec, cfg, reg, device=dev)
-    host = cache.encode_block_arrays("kv/layer0", "l0", kv, start=0,
-                                     tokens=16)
-    framed = cache.encode_block_device("kv/layer0", "l0", kv, start=0,
-                                       tokens=16)
+    host = cache.encode_block_arrays(base, layer, kv, start=0, tokens=16)
+    framed = cache.encode_block_device(base, layer, kv, start=0, tokens=16)
     if framed is None or not np.array_equal(
             host.container, framed.words.cpu().numpy().view(np.uint32)):
         raise AssertionError(f"{phase}: device framing != host container")
-    for what, got in (("host path (K3+K4)", cache.decode_block_arrays(host)),
-                      ("device path (K3+K5)",
-                       cache.decode_block_device(framed.plan,
-                                                 framed.words)[0])):
+    for route, got in (("host path (K3+K4)",
+                        cache.decode_block_arrays(host)),
+                       ("device path (K3+K5)",
+                        cache.decode_block_device(framed.plan,
+                                                  framed.words)[0])):
         if not all(torch.equal(a, b) for a, b in zip(got, kv)):
-            raise AssertionError(f"{phase}: block through the {what} "
-                                 "!= K/V")
+            raise AssertionError(f"{phase}: block through the {route} "
+                                 f"!= {what}")
     sections = [(h.coded, h.capacity_words)
                 for _, h in stream_headers(host.container)]
-    log(phase, f"block [0, 16) of request 0: {host.wire_bytes} B container "
-               f"for {host.dense_bytes} B of K/V (sections coded/cap "
-               f"{sections}); host path and device path give back the K/V "
-               "bit for bit, device-framed words == host container")
+    log(phase, f"block [0, 16) of request 0, layer slot {li}: "
+               f"{host.wire_bytes} B container for {host.dense_bytes} B of "
+               f"{what} (sections coded/cap {sections}); host path and "
+               f"device path give back the {what} bit for bit, "
+               "device-framed words == host container")
     sym, tables, (w, s), cap = coded
     reps = 10
     times = time_codes(ops, ref, sym, tables, cap, w, s, flush, reps=reps)
@@ -2780,8 +2818,9 @@ def _moe_serve_cell(cfg=None):
                                       num_layers=MOE_SERVE_LAYERS)
 
 
-def expert_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096):
-    """K2 and K1 at the expert leaf's path shape: K2 opens the stacked
+def wire_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096,
+                    phase="moe_serve"):
+    """K2 and K1 at a wired leaf's path shape: K2 opens the stacked
     leaf's words ([G * n_chunks, cap], as ``open_params`` does), and K1
     encodes those values back ([G * n_chunks, 1024] into 353-word slots,
     as ``compress_params_for_serving`` does); each bit-equal to its plain
@@ -2801,10 +2840,10 @@ def expert_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096):
     for r0 in sorted({0, max(0, n - rows)}):
         sl = slice(r0, r0 + rows)
         err["K2"] = max(err["K2"], require_equal(
-            f"K2 expert leaf rows {r0}:{r0 + rows}", [vals[sl]],
+            f"K2 {key} rows {r0}:{r0 + rows}", [vals[sl]],
             [ref.decode_dequantize_ref(w[sl], sc[sl], [tables], 0, 1024)]))
         err["K1"] = max(err["K1"], require_equal(
-            f"K1 expert leaf rows {r0}:{r0 + rows}",
+            f"K1 {key} rows {r0}:{r0 + rows}",
             [t[sl] for t in enc],
             ref.quantize_encode_ref(vals[sl], tables, cap)))
     res = {
@@ -2823,11 +2862,10 @@ def expert_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096):
                                     alone=True),
                "bound_ms": bound_ms(nbytes(vals, *enc))}}
     for kname, v in res.items():
-        log("moe_serve", f"{kname} at the expert leaf {key} {v['shape']}: "
-                         f"bit-equal to plain on the first and last {rows} "
-                         f"chunks; {v['ms']:.3f} ms (kernel alone "
-                         f"{v['kernel_ms']:.3f}), HBM bound "
-                         f"{v['bound_ms']:.3f} ms")
+        log(phase, f"{kname} at the wired leaf {key} {v['shape']}: "
+                   f"bit-equal to plain on the first and last {rows} "
+                   f"chunks; {v['ms']:.3f} ms (kernel alone "
+                   f"{v['kernel_ms']:.3f}), HBM bound {v['bound_ms']:.3f} ms")
     return res
 
 
@@ -2868,8 +2906,13 @@ def phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                      f"{new_tokens} new tokens")
     if dev == "cuda":
         # Earlier phases' tensors that only reference cycles still hold
-        # (8.9 GiB of them in a full run) go before the peak.
+        # would go here, before the peak (8.9 GiB of them before the
+        # port's cycles were broken).
+        held = torch.cuda.memory_allocated()
         gc.collect()
+        log("moe_serve", f"gc.collect() freed "
+                         f"{held - torch.cuda.memory_allocated()} B of device "
+                         "memory held only by reference cycles")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         log("moe_serve", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -3019,8 +3062,7 @@ def phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     opened = None
     if dev == "cuda":
         torch.cuda.empty_cache()
-    fused = expert_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in",
-                              flush)
+    fused = wire_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in", flush)
     peak = (torch.cuda.max_memory_allocated() / 2**30
             if dev == "cuda" else float("nan"))
     free = ((torch.cuda.get_device_properties(0).total_memory
@@ -3037,6 +3079,382 @@ def phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
             "drops_per_step": per_step, "wire_bytes_per_symbol": wire_b / sym,
             "pool": pool, "peak_gib": peak, "path_peak_gib": path_peak,
             "free_gib": free, "run_s": run_s}
+
+
+SSM_ARCH = "xlstm-125m"
+#: 512 took 28.4-29.7 s a step (the eager recurrence), over the 15 s the
+#: phase allows a step, so the train cell is cut to 256
+SSM_TRAIN_SEQ = 256
+
+
+def count_kernels(fn) -> dict:
+    """``fn()`` timed once without the profiler (its wall time), then
+    once under torch.profiler: the kernels it launched on the device and
+    their summed time (one stream, so the device's busy time); ``None``
+    counts when the profiler recorded no kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kernels:
+        return {"launches": None, "busy_ms": None, "wall_ms": wall_ms}
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in kernels) / 1e3
+    return {"launches": sum(e.count for e in kernels), "busy_ms": busy,
+            "wall_ms": wall_ms}
+
+
+def _launch_profile(cfg, params, dev, seq_len=64, batch=4):
+    """Kernel launches of one decode step (batch 4, every slot live) and
+    of one training forward and backward at ``batch x seq_len`` (the
+    recurrence is a Python loop over the sequence: launches grow with
+    it), on the card through torch.profiler."""
+    from repro_torch.models import (decode_step, init_decode_states,
+                                    next_token_loss)
+    from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
+                                                pytree_unflatten)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((batch, 1), 16, dtype=torch.int32, device=dev)
+    st = init_decode_states(cfg, batch, 64, dev)
+    decode_step(params, cfg, tok, st, pos)              # warm-up
+    dec = count_kernels(lambda: decode_step(params, cfg, tok, st, pos))
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1),
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+
+    def fwd_bwd():
+        live = [p.detach().requires_grad_(True)
+                for p in pytree_leaves(params)]
+        loss = next_token_loss(pytree_unflatten(params, live), cfg,
+                               toks[:, :-1], toks[:, 1:])
+        leaf_grads(loss, live)
+
+    fwd_bwd()                                           # warm-up
+    train = count_kernels(fwd_bwd)
+    return {"decode": dec, "train": train, "train_shape": [batch, seq_len]}
+
+
+def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
+              batch=4, requests=6, prompt_len=16, new_tokens=16, kv_block=16,
+              seq_len=SSM_TRAIN_SEQ, global_batch=4, mamba_cfg=None):
+    """xlstm-125m (every layer, full width, f32 parameters, bf16 compute,
+    random weights from a seed) served and trained on the card, and one
+    mamba layer at jamba-1.5-large's widths. Serving through
+    ``launch.serve.serve``: the weight wire (calibrate with K1's
+    histogram, compress K1, open K2) and a dense run; then ``--kv-cache
+    qlc --kv-block 16`` sync (K3, K4) and async (K3, K5), the KV codecs
+    calibrated on the recurrent states through K6, re-based snapshots;
+    every request's tokens equal the dense run's. A pair of requests
+    sharing a two-block prompt prefix, paged sync and async: their
+    re-based snapshots dedup, and their tokens equal each alone on the
+    dense engine. K3-K6 against their plain versions on the mLSTM
+    layer's snapshot planes (``check_kv_path``), K1/K2 at the mLSTM
+    ``wq`` leaf's wire shape. Kernel launches of one decode step and one
+    training forward and backward (torch.profiler). Training:
+    ``train(comm="qlc")`` on one NCCL rank at ``global_batch x
+    seq_len``, oneshot, 2 compressed steps, 2 of the raw e4m3 twin from
+    the same registry (parameters bit-equal), 2 baseline steps. The
+    mamba layer: a 16-token segment from a fresh state, then 8 decode
+    steps from its state, equal within rtol 1e-4 / atol 1e-5 (f32
+    compute) to one 24-token segment, outputs and state; its state
+    through K3 then K4 bit for bit. K1-K6 counted from zero around the
+    serve runs, the train runs and the mamba round trip; each must
+    launch."""
+    import dataclasses
+    from repro_torch.comm.calibrate import calibrate_kv_entries
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.mesh import data_parallel
+    from repro_torch.launch.train import train
+    from repro_torch.models import ssm
+    from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
+                                     PagedKVCache)
+    cfg = cfg or get_config(SSM_ARCH)
+    kinds = cfg.layer_kinds()
+    log("ssm", f"{cfg.name}: all {cfg.num_layers} layers ("
+               f"{'/'.join(kinds)} alternating), d_model {cfg.d_model}, "
+               f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff "
+               f"{cfg.d_ff}, vocab {cfg.vocab_size}, params "
+               f"{cfg.param_dtype}, compute {cfg.dtype}; {requests} requests "
+               f"at batch {batch}, prompt {prompt_len}, {new_tokens} new "
+               f"tokens; train {global_batch} x {seq_len}")
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kw = dict(batch=batch, requests=requests, prompt_len=prompt_len,
+              new_tokens=new_tokens, device=dev, seed=0)
+
+    # 1. The wire and the dense run.
+    zero()
+    t0 = time.perf_counter()
+    res = serve_mod.serve(cfg, wire="qlc", **kw)
+    run_s = {"dense": time.perf_counter() - t0}
+    wc, wired, opened = res["wire_codec"], res["wired"], res["params"]
+    outs = res["outs"]
+    if not all(o.state == "finished" and len(o.tokens) == new_tokens
+               for o in outs):
+        raise AssertionError([(o.request_id, o.state) for o in outs])
+    dense = [o.tokens for o in outs]
+    prompt0 = res["prompts"][0]
+    n_params = sum(t.numel() for t in _leaves(opened))
+    wire_b = sym = 0
+    for key, lm in wc.meta.items():
+        node = _node(wired, key)
+        wire_b += nbytes(node["words"], node["scales"])
+        sym += lm.n_symbols * node["words"].shape[0]
+    st = res["stats"]
+    stats = {"dense": {"prefill": st["ms_per_token_prefill"],
+                       "decode": st["ms_per_token_decode"]}}
+    log("ssm", f"{n_params} parameters; calibrate "
+               f"{res['calibrate_s'] * 1e3:.1f} ms, compress "
+               f"{res['compress_s'] * 1e3:.1f} ms, open "
+               f"{res['open_s'] * 1e3:.1f} ms; {len(wc.meta)} compressed "
+               f"leaves, {sym} symbols, wire {wire_b} B = "
+               f"{wire_b / sym:.4f} B/symbol (words + bf16 scales); dense "
+               f"run {st['ms_per_token_prefill']:.3f} ms/token prefill, "
+               f"{st['ms_per_token_decode']:.3f} ms/token decode "
+               f"({run_s['dense']:.1f} s with the wire)")
+    res = None
+
+    # 2. The paged cache, sync then async, every request == dense.
+    pool = {}
+    for paging in ("sync", "async"):
+        t0 = time.perf_counter()
+        r = serve_mod.serve(cfg, params=opened, kv_cache="qlc",
+                            kv_block=kv_block, kv_paging=paging, **kw)
+        run_s[paging] = time.perf_counter() - t0
+        got = [o.tokens for o in r["outs"]]
+        if len(got) != len(dense) or not all(
+                np.array_equal(a, b) for a, b in zip(got, dense)):
+            raise AssertionError(f"ssm: the {paging} paged run's tokens "
+                                 "differ from the dense run's")
+        st = r["stats"]
+        stats[paging] = {"prefill": st["ms_per_token_prefill"],
+                         "decode": st["ms_per_token_decode"]}
+        ps = st["pool"]
+        pool[paging] = ps["peak_referenced_bytes"] / \
+            st["peak_dense_logical_bytes"]
+        line = (f"--kv-cache qlc --kv-block {kv_block} --kv-paging {paging}:"
+                f" every request's tokens == the dense run's; "
+                f"{st['ms_per_token_prefill']:.3f} ms/token prefill, "
+                f"{st['ms_per_token_decode']:.3f} decode; "
+                f"{ps['unique_blocks']} snapshot containers, pooled/dense "
+                f"bytes {pool[paging]:.4f} ({ps['peak_referenced_bytes']} "
+                f"of {st['peak_dense_logical_bytes']}); {run_s[paging]:.1f}"
+                " s with the serve's own dense check")
+        if paging == "async":
+            pf = st["prefetch"]
+            line += (f"; {st['async']['windows']} windows, prefetch "
+                     f"{pf['hits']}/{pf['scheduled']} hits, "
+                     f"{pf['stalled']} stalled, {pf['misses']} misses")
+            if pf["scheduled"] <= 0:
+                raise AssertionError("ssm: no prefetch was scheduled")
+        log("ssm", line)
+        del r
+
+    # 3. A shared two-block prefix: re-based snapshots dedup.
+    rng = np.random.default_rng(7)
+    pre = rng.integers(0, cfg.vocab_size, 2 * kv_block)
+    pair = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, 8)])
+            for _ in range(2)]
+    max_len = pair[0].size + 8 + 8
+
+    def run(prompts, **ekw):
+        eng = Engine(opened, cfg, max_seq_len=max_len, max_batch=batch,
+                     **ekw)
+        hs = [eng.submit(GenerationRequest(prompt=q, max_new_tokens=8))
+              for q in prompts]
+        eng.run()
+        return [eng.poll(h).tokens for h in hs], eng.stats()
+
+    solo = [run([q])[0][0] for q in pair]
+    hits = {}
+    for paging in ("sync", "async"):
+        got, st = run(pair, kv_paging=paging, kv_spec=KVCacheSpec(
+            block_tokens=kv_block, exact_capacity=paging == "sync"))
+        if not all(np.array_equal(a, b) for a, b in zip(got, solo)):
+            raise AssertionError(f"ssm: shared-prefix pair ({paging}) "
+                                 "differs from its solo runs")
+        hits[paging] = st["pool"]["dedup_hits"]
+        if hits[paging] <= 0:
+            raise AssertionError(f"ssm: the shared prefix's re-based "
+                                 f"snapshots did not dedup ({paging})")
+    log("ssm", f"two requests sharing a {2 * kv_block}-token prefix "
+               f"(prompts of {pair[0].size}): tokens == each alone on the "
+               f"dense engine; re-based snapshot dedup hits sync "
+               f"{hits['sync']}, async {hits['async']} (2 boundaries x "
+               f"{len(kinds)} layer slots, each stacking its "
+               f"{cfg.num_layers // len(kinds)} groups)")
+    launches = {"serve": read()}
+
+    # 4. K3-K6 on the mLSTM layer's snapshot planes; K1/K2 at its wq leaf.
+    mlstm = f"l{kinds.index('mlstm')}"
+    kv = check_kv_path(ops, ref, cfg, opened, prompt0, flush, dev=dev,
+                       phase="ssm", layer=mlstm)
+    fused = wire_leaf_fused(ops, ref, wc, wired,
+                            f"groups/{mlstm}/mixer/wq", flush, phase="ssm")
+    del wired, wc
+    prof = _launch_profile(cfg, opened, dev) if dev == "cuda" else None
+    if prof is not None:
+        d, t = prof["decode"], prof["train"]
+        log("ssm", f"one decode step (batch {batch}): {d['launches']} kernel "
+                   f"launches, {d['busy_ms']} ms of kernels, "
+                   f"{d['wall_ms']:.3f} ms wall; one training forward + "
+                   f"backward (remat recompute included) at "
+                   f"{prof['train_shape']}: {t['launches']} launches, "
+                   f"{t['busy_ms']} ms of kernels, {t['wall_ms']:.1f} ms "
+                   "wall (the recurrence is eager: launches grow with the "
+                   "sequence)")
+    opened = None
+
+    # 5. Training on one rank: compressed, its raw e4m3 twin, baseline.
+    tkw = dict(seq_len=seq_len, global_batch=global_batch, device=dev,
+               transport="oneshot", seed=0)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero()
+    train_runs = {}
+    with data_parallel(dev):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            r = train(cfg, comm="qlc", steps=2, **tkw)
+            train_runs["compressed"] = time.perf_counter() - t0
+            hist = r["history"]
+            if not all(h["ok"] for h in hist) or r["comm_fallbacks"]:
+                raise AssertionError(f"ssm train: ok "
+                                     f"{[h['ok'] for h in hist]}, fallbacks "
+                                     f"{r['comm_fallbacks']}")
+            losses = [h["loss"] for h in hist]
+            step_ms = [h["dt"] * 1e3 for h in hist]
+            reg, g = r["registry"], r["registry"]["grads"]
+            flat = _flat_params(r["params"])
+            gw, pw = (r["grads_wire_bytes_per_symbol"],
+                      r["params_wire_bytes_per_symbol"])
+            calib_ms = r["calibrate_s"] * 1e3
+            del r
+            twin = train(cfg, comm="qlc", steps=2, registry=reg,
+                         wire_enabled=False, **tkw)
+            require_equal("ssm: compressed vs raw e4m3 twin parameters "
+                          "after 2 steps", [flat],
+                          [_flat_params(twin["params"])])
+            del twin
+            base = train(cfg, comm="baseline", steps=2, **tkw)
+            lb = [h["loss"] for h in base["history"]]
+            base_ms = [h["dt"] * 1e3 for h in base["history"]]
+            del base
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if not all(math.isfinite(v) for v in losses + lb):
+        raise AssertionError(f"ssm train: losses {losses}, baseline {lb}")
+    launches["train"] = read()
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else float("nan"))
+    log("ssm", f"train: calibrate {calib_ms:.1f} ms (grads "
+               f"{g.plan.expected_bits_per_symbol:.4f} expected bits/symbol,"
+               f" {g.plan.capacity_words}-word slots); 2 compressed steps "
+               f"{[round(t, 1) for t in step_ms]} ms, losses {losses}, all "
+               f"ok, no fallback; wire {gw:.4f} B/symbol (grads), {pw:.4f} "
+               f"(params); == raw e4m3 twin after 2 steps ({flat.numel()} "
+               f"parameters bit-equal); baseline 2 steps "
+               f"{[round(t, 1) for t in base_ms]} ms, losses {lb}; "
+               f"launches {launches['train']}; peak device memory "
+               f"{peak:.2f} GiB")
+    del flat
+
+    # 6. One mamba layer at jamba-1.5-large's widths.
+    mcfg = mamba_cfg or dataclasses.replace(
+        get_config("jamba-1.5-large-398b"), num_layers=1, attn_every=None,
+        family="ssm", d_ff=0, moe=None, dtype="float32")
+    di, dtr = ssm.mamba_dims(mcfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    mp = ssm.init_mamba(gen, mcfg, torch.float32, dev)
+    n_pre, n_dec = 16, 8
+    x = torch.randn((1, n_pre + n_dec, mcfg.d_model), generator=gen,
+                    device=dev)
+    st0 = ssm.mamba_init_state(x, 1, mcfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_pre, st_pre = ssm.mamba_block(mp, x[:, :n_pre], mcfg, state=st0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs, stt = [], st_pre
+        for t in range(n_pre, n_pre + n_dec):
+            o, stt = ssm.mamba_block(mp, x[:, t:t + 1], mcfg, state=stt)
+            outs.append(o)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out_all, st_all = ssm.mamba_block(mp, x, mcfg, state=st0)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(torch.cat(outs, 1), out_all[:, n_pre:], **tol)
+    torch.testing.assert_close(out_pre, out_all[:, :n_pre], **tol)
+    for f, a, b in zip(stt._fields, stt, st_all):
+        torch.testing.assert_close(a, b, **tol, msg=f"mamba state {f}")
+    reg = CodecRegistry()
+    snap = list(ssm.state_snapshot(st_pre))
+    zero()
+    calibrate_kv_entries(reg, {"l0": snap}, mode="qlc", chunk_symbols=256)
+    cache = PagedKVCache(KVCacheSpec(block_tokens=n_pre), mcfg, reg,
+                         device=dev)
+    blk = cache.encode_block_arrays("kv/layer0", "l0", snap, start=n_pre,
+                                    tokens=n_pre)
+    back = cache.decode_block_arrays(blk)
+    if not all(_same_bytes(a, b) for a, b in zip(back, snap)):
+        raise AssertionError("ssm: MambaState through K3 and K4 differs")
+    launches["mamba"] = read()
+    for kname in ("K3", "K4"):
+        if launches["mamba"][kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the mamba "
+                                 "state's round trip")
+    err = max(float((a - b).abs().max()) for a, b in
+              [(torch.cat(outs, 1), out_all[:, n_pre:])]
+              + list(zip(stt, st_all)))
+    log("ssm", f"mamba at {mcfg.name}'s widths (d_model {mcfg.d_model}, "
+               f"d_inner {di}, dt_rank {dtr}, N {mcfg.ssm_state_dim}, conv "
+               f"{mcfg.conv_kernel}; f32): {n_pre}-token segment "
+               f"{(t1 - t0) * 1e3:.2f} ms, then {n_dec} decode steps "
+               f"{(t2 - t1) * 1e3 / n_dec:.2f} ms each; == one "
+               f"{n_pre + n_dec}-token segment, outputs and state (max abs "
+               f"diff {err:.3e}); its MambaState "
+               f"{[list(a.shape) for a in snap]} through K3 and K4 bit for "
+               f"bit: {blk.wire_bytes} B container for {blk.dense_bytes} B; "
+               f"launches {launches['mamba']}")
+    del mp, x, cache
+    total = {k: sum(run[k] for run in launches.values()) for k in counters}
+    for kname, c in total.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the ssm path")
+    log("ssm", "launches on the phase's paths (serve, train, mamba): "
+               + ", ".join(f"{k} {v}" for k, v in total.items()))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": total, "launches_by_run": launches, "kv": kv,
+            "fused": fused, "ms_per_token": stats, "pool": pool,
+            "dedup_hits": hits, "profile": prof, "step_ms": step_ms,
+            "base_ms": base_ms, "losses": losses, "base_losses": lb,
+            "wire_bytes_per_symbol": wire_b / sym, "peak_gib": peak,
+            "n_params": n_params, "run_s": run_s, "train_s": train_runs}
 
 
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
@@ -3119,6 +3537,8 @@ def main(argv=None):
     ap.add_argument("--moe-serve-layers", type=int, default=None,
                     metavar="L", help="run only the moe_serve phase, at L "
                     "of deepseek-moe-16b's 28 layers, and print its peak")
+    ap.add_argument("--ssm-only", action="store_true",
+                    help="run only the build and the ssm phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -3172,6 +3592,10 @@ def main(argv=None):
                      "step")
         print(smi)
         return
+    if args.ssm_only:
+        phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -3215,6 +3639,7 @@ def main(argv=None):
     torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
     moe_serve = phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush)
+    ssm_res = phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush)
     ck = phase_ckpt(qc, h6, ops, ref, flush)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3244,11 +3669,14 @@ def main(argv=None):
                  "moe_launches": moe_res["launches"][kname],
                  "moe_path": moe_res["fused"][kname],
                  "moe_serve_launches": moe_serve["launches"][kname],
-                 "moe_serve_path": moe_serve["fused"][kname]}
+                 "moe_serve_path": moe_serve["fused"][kname],
+                 "ssm_launches": ssm_res["launches"][kname],
+                 "ssm_path": ssm_res["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    adapt["err"],
                                    moe_res["fused"][kname]["max_abs_err"],
-                                   moe_serve["fused"][kname]["max_abs_err"])
+                                   moe_serve["fused"][kname]["max_abs_err"],
+                                   ssm_res["fused"][kname]["max_abs_err"])
         if kname == "K1":
             entry["train_path_hist"] = adapt["k1_hist"]
             entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -3263,8 +3691,11 @@ def main(argv=None):
         entry["moe_launches"] = moe_res["launches"][kname]
         entry["moe_serve_launches"] = moe_serve["launches"][kname]
         entry["moe_serve_path"] = moe_serve["kv"][kname]
+        entry["ssm_launches"] = ssm_res["launches"][kname]
+        entry["ssm_path"] = ssm_res["kv"][kname]
         entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   moe_serve["kv"][kname]["err"])
+                                   moe_serve["kv"][kname]["err"],
+                                   ssm_res["kv"][kname]["err"])
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -3293,11 +3724,14 @@ def main(argv=None):
         "adapt_launches": adapt["launches"]["K6"],
         "moe_launches": moe_res["launches"]["K6"],
         "moe_serve_launches": moe_serve["launches"]["K6"],
-        "kv_path": kv_times["K6"], "moe_serve_path": moe_serve["kv"]["K6"]})
+        "kv_path": kv_times["K6"], "moe_serve_path": moe_serve["kv"]["K6"],
+        "ssm_launches": ssm_res["launches"]["K6"],
+        "ssm_path": ssm_res["kv"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
                                      kv_times["K6"]["err"],
-                                     moe_serve["kv"]["K6"]["err"])
+                                     moe_serve["kv"]["K6"]["err"],
+                                     ssm_res["kv"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -84,39 +84,41 @@ def flatten_with_paths(tree) -> Dict[str, Any]:
     """``{path key: leaf}`` in the reference's leaf order (``None`` holds
     no leaf, as in JAX)."""
     flat: Dict[str, Any] = {}
-
-    def walk(node, parts):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            flat[SEP.join(parts)] = node
-            return
-        for part, child in kids:
-            walk(child, parts + [part])
-
-    walk(tree, [])
+    _flatten_into(flat, tree, [])
     return flat
+
+
+def _flatten_into(flat: Dict[str, Any], node, parts: List[str]):
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        flat[SEP.join(parts)] = node
+        return
+    for part, child in kids:
+        _flatten_into(flat, child, parts + [part])
 
 
 def _unflatten(like, flat: Dict[str, Any]):
     """``like``'s structure with its leaves taken from ``flat`` by key."""
-    def build(node, parts):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return flat[SEP.join(parts)]
-        built = {part: build(child, parts + [part]) for part, child in kids}
-        if isinstance(node, dict):
-            return {k: built[str(k)] for k in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(built[f] for f in node._fields))
-        if isinstance(node, (tuple, list)):
-            return type(node)(built[str(i)] for i in range(len(node)))
-        return dataclasses.replace(node, **built)
+    return _build_from(flat, like, [])
 
-    return build(like, [])
+
+def _build_from(flat: Dict[str, Any], node, parts: List[str]):
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        return flat[SEP.join(parts)]
+    built = {part: _build_from(flat, child, parts + [part])
+             for part, child in kids}
+    if isinstance(node, dict):
+        return {k: built[str(k)] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(built[f] for f in node._fields))
+    if isinstance(node, (tuple, list)):
+        return type(node)(built[str(i)] for i in range(len(node)))
+    return dataclasses.replace(node, **built)
 
 
 # --------------------------------------------------------------------------

@@ -38,7 +38,7 @@ from repro_torch.core.lut import CodecTables, identity_tables
 from repro_torch.core.schemes import TABLE1, QLCScheme
 from repro_torch.kernels import histogram256 as _hist
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import (pytree_leaves,
+from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
                                            pytree_unflatten, tree_leaves)
 from repro_torch.quant import e4m3
 
@@ -182,7 +182,7 @@ def flat_gradient(model_cfg, params, batch) -> torch.Tensor:
     live = [p.detach().requires_grad_(True) for p in pytree_leaves(params)]
     loss = next_token_loss(pytree_unflatten(params, live), model_cfg,
                            batch["tokens"], batch["labels"])
-    grads = torch.autograd.grad(loss, live)
+    grads = leaf_grads(loss, live)
     return torch.cat([g.reshape(-1).float() for g in grads])
 
 

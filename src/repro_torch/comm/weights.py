@@ -66,6 +66,15 @@ def _main_key(node) -> Optional[str]:
     return None
 
 
+def _map_leaves(fn: Callable[[Any, str], Any], node, prefix: str = ""):
+    """``fn(leaf, path)`` over a dict tree whose leaves are tensors or
+    wired leaves (path ``"a/b/c"``), the tree's structure kept."""
+    if _main_key(node) is not None or not isinstance(node, dict):
+        return fn(node, prefix)
+    return {k: _map_leaves(fn, v, f"{prefix}/{k}" if prefix else k)
+            for k, v in node.items()}
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -133,14 +142,10 @@ class GroupWireCodec:
         return ch
 
     def _walk(self, pg, leaf_fn):
-        def walk(node, prefix):
-            if _main_key(node) is not None:
-                return leaf_fn(node, self.meta[prefix])
-            if isinstance(node, dict):
-                return {k: walk(v, f"{prefix}/{k}" if prefix else k)
-                        for k, v in node.items()}
-            return node
-        return walk(pg, "")
+        meta = self.meta
+        return _map_leaves(
+            lambda node, path: node if _main_key(node) is None
+            else leaf_fn(node, meta[path]), pg)
 
     def open_group(self, pg):
         return self._walk(pg, self._decode)
@@ -311,20 +316,18 @@ def shard_chunks(wired, index: int, count: int):
     leaf cut to its ``index``-th contiguous run of chunks (words or
     codes along the chunk dim, scales along their last dim), every other
     leaf whole: the input of :meth:`GroupWireCodec.open_group_sharded`."""
-    def walk(node):
+    def cut(node, _path):
         key = _main_key(node)
-        if key is not None:
-            main, scales = node[key], node["scales"]
-            ncl = main.shape[-2] // count
-            sb = scales.shape[-1] // count
-            return {key: main[..., index * ncl:(index + 1) * ncl, :]
-                    .contiguous(),
-                    "scales": scales[..., index * sb:(index + 1) * sb]
-                    .contiguous()}
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return node
-    return walk(wired)
+        if key is None:
+            return node
+        main, scales = node[key], node["scales"]
+        ncl = main.shape[-2] // count
+        sb = scales.shape[-1] // count
+        return {key: main[..., index * ncl:(index + 1) * ncl, :]
+                .contiguous(),
+                "scales": scales[..., index * sb:(index + 1) * sb]
+                .contiguous()}
+    return _map_leaves(cut, wired)
 
 
 def _eligible(leaf_shape) -> bool:
@@ -383,11 +386,7 @@ def compress_groups(groups, tables, mode: str = "qlc",
     registry = registry_of(tables)
     meta: Dict[str, LeafMeta] = {}
 
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
-                    for k, v in node.items()}
-        leaf = node
+    def wire(leaf, prefix):
         if not _eligible(leaf.shape):
             return leaf
         entry = _entry_for(registry, prefix, type_key_fn)
@@ -412,7 +411,7 @@ def compress_groups(groups, tables, mode: str = "qlc",
                 "scales": scales.reshape(g, padded // e4m3.BLOCK)
                 .to(torch.bfloat16)}
 
-    wired = walk(groups, "")
+    wired = _map_leaves(wire, groups)
     return wired, GroupWireCodec(meta=meta, registry=registry,
                                  use_kernels=use_kernels)
 
@@ -431,11 +430,7 @@ def wire_shape_structs(group_shapes, tables, capacity_words: int,
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
-                    for k, v in node.items()}
-        leaf = node
+    def shape_struct(leaf, prefix):
         if not _eligible(leaf.shape):
             return leaf
         entry = _entry_for(registry, prefix, type_key_fn)
@@ -450,5 +445,5 @@ def wire_shape_structs(group_shapes, tables, capacity_words: int,
         return {"words": empty((g, n_chunks, cap), torch.int32),
                 "scales": scales}
 
-    wired = walk(group_shapes, "")
+    wired = _map_leaves(shape_struct, group_shapes)
     return wired, GroupWireCodec(meta=meta, registry=registry)

@@ -20,13 +20,15 @@ def params_from_numpy(tree, device="cuda"):
     """Nested dict of array-likes -> same dict of tensors on ``device``,
     dtypes kept."""
     dev = resolve_device(device)
+    return _map_dict(lambda a, _: torch.from_numpy(np.array(a)).to(dev),
+                     tree)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(dev)
 
-    return walk(tree)
+def _map_dict(fn, node, key=None):
+    """``fn(leaf, its key)`` over a nested dict, the structure kept."""
+    if isinstance(node, dict):
+        return {k: _map_dict(fn, v, k) for k, v in node.items()}
+    return fn(node, key)
 
 
 def _tensor_from_numpy(a, dev) -> torch.Tensor:
@@ -49,13 +51,8 @@ def wire_from_numpy(wired, manifest, device="cuda"):
     bits, dense leaves their dtypes; the manifest is carried as JSON."""
     from repro_torch.serving.engine import codec_from_manifest
     dev = resolve_device(device)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return _tensor_from_numpy(node, dev)
-
-    return walk(wired), codec_from_manifest(json.loads(json.dumps(manifest)))
+    return (_map_dict(lambda a, _: _tensor_from_numpy(a, dev), wired),
+            codec_from_manifest(json.loads(json.dumps(manifest))))
 
 
 def wire_to_numpy(wired, wire_codec):
@@ -66,16 +63,15 @@ def wire_to_numpy(wired, wire_codec):
     ``codec_from_manifest`` opens."""
     import ml_dtypes
 
-    def walk(node, key=None):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+    def to_numpy(node, key):
         t = node.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         a = t.numpy()
         return a.view(np.uint32) if key == "words" else a
 
-    return walk(wired), json.loads(json.dumps(wire_codec.manifest()))
+    return (_map_dict(to_numpy, wired),
+            json.loads(json.dumps(wire_codec.manifest())))
 
 
 def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
@@ -107,19 +103,23 @@ def shard_experts(params, model_index: int, model_size: int):
     if model_size == 1:
         return params
 
-    def cut(t):
-        e = t.shape[-3]
-        el = e // model_size
-        if el * model_size != e:
-            raise ValueError(f"{e} experts cannot be split over a model "
-                             f"axis of {model_size}")
-        return t.narrow(-3, model_index * el, el).clone()
+    return _cut_experts(params, model_index, model_size)
 
-    def walk(node):
-        if is_moe_ffn(node):
-            return {k: cut(v) if k in EXPERT_LEAVES else walk(v)
-                    for k, v in node.items()}
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+
+def _cut_experts(node, model_index: int, model_size: int):
+    if not isinstance(node, dict):
         return node
-    return walk(params)
+    moe_here = is_moe_ffn(node)
+    return {k: _cut_expert_leaf(v, model_index, model_size)
+            if moe_here and k in EXPERT_LEAVES
+            else _cut_experts(v, model_index, model_size)
+            for k, v in node.items()}
+
+
+def _cut_expert_leaf(t, model_index: int, model_size: int):
+    e = t.shape[-3]
+    el = e // model_size
+    if el * model_size != e:
+        raise ValueError(f"{e} experts cannot be split over a model "
+                         f"axis of {model_size}")
+    return t.narrow(-3, model_index * el, el).clone()

@@ -42,14 +42,13 @@ def code_lengths(counts: np.ndarray) -> np.ndarray:
         heapq.heappush(heap, (c1 + c2, uid, (n1, n2)))
         uid += 1
 
-    def walk(node, depth):
+    stack = [(heap[0][2], 0)]
+    while stack:
+        node, depth = stack.pop()
         if isinstance(node, int):
             lengths[node] = max(depth, 1)
         else:
-            walk(node[0], depth + 1)
-            walk(node[1], depth + 1)
-
-    walk(heap[0][2], 0)
+            stack += [(node[1], depth + 1), (node[0], depth + 1)]
     return lengths
 
 

@@ -149,12 +149,15 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     (out [B, S, D], new_cache or None).
     """
     if cfg.pad_heads_multiple and cfg.num_heads % cfg.pad_heads_multiple:
-        raise NotImplementedError("padded-head attention is not ported")
+        raise NotImplementedError(
+            "padded-head attention is not ported yet (ROADMAP queue 1, "
+            "item 11: the block variants)")
     if cache is not None and (x.shape[1] != 1
                               or cfg.sliding_window is not None):
         raise NotImplementedError(
             "multi-token prefill into a KV cache and sliding-window "
-            "decode are not ported; serving prefills token by token")
+            "decode are not ported yet (ROADMAP queue 1, item 11: the "
+            "block variants); serving prefills token by token")
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
 

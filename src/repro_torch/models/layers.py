@@ -48,7 +48,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
     """SwiGLU MLP. x: [B, S, D] -> [B, S, D]."""
     if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not ported")
+        raise NotImplementedError(
+            f"the {activation!r} FFN activation is not ported yet (ROADMAP "
+            "queue 1, item 11: the block variants)")
     h = torch.einsum("bsd,df->bsf", x, params["w_in"].to(x.dtype))
     g = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
     h = F.silu(g) * h

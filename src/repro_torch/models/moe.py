@@ -663,11 +663,13 @@ def expert_mask(params) -> List[bool]:
     """Per leaf of ``params`` in pytree order (``transformer.pytree_leaves``):
     True for an MoE layer's expert weights (:data:`EXPERT_LEAVES`), which
     ``shardmap_a2a`` splits over the model axis."""
-    def walk(node, in_moe):
-        if isinstance(node, dict):
-            moe_here = is_moe_ffn(node)
-            return [flag for key in sorted(node)
-                    for flag in walk(node[key], moe_here and key
-                                     in EXPERT_LEAVES)]
+    return _expert_flags(params, False)
+
+
+def _expert_flags(node, in_moe: bool) -> List[bool]:
+    if not isinstance(node, dict):
         return [in_moe]
-    return walk(params, False)
+    moe_here = is_moe_ffn(node)
+    return [flag for key in sorted(node)
+            for flag in _expert_flags(node[key],
+                                      moe_here and key in EXPERT_LEAVES)]

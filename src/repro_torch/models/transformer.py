@@ -5,10 +5,13 @@ layer-group stack.
 Parameters are a plain dict tree in the reference's layout: layer
 groups are stacked along a leading group dim, e.g.
 ``params["groups"]["l0"]["mixer"]["wq"]`` has shape ``[G, d, h, hd]``.
-That stacked leaf is the weight wire's unit. Attention blocks with a
-dense or an MoE FFN (``models.moe``) are ported, for training and for
-decoding; other block kinds raise ``NotImplementedError`` naming their
-ROADMAP item.
+That stacked leaf is the weight wire's unit. Every block kind is
+ported, for training and for decoding: attention with a dense or an MoE
+FFN (``models.moe``), and the recurrent mamba, sLSTM and mLSTM blocks
+(``models.ssm``), whose decode states are ``NamedTuple`` s in the same
+stacked layout. Block variants not ported yet (the ``gelu`` and
+``squared_relu`` FFNs, sliding-window decode, padded heads) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 
-_NOT_PORTED = ("block kind {!r} is not ported yet (ROADMAP queue 1, item 11: "
-               "SSM, multimodal)")
+_NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 11: the block "
+               "variants)")
 
 
 def resolve_device(device) -> torch.device:
@@ -64,18 +67,30 @@ def pytree_leaves(tree) -> list:
     return [tree]
 
 
+def _unflatten_at(node, leaves: list, pos: int):
+    """The subtree shaped like ``node`` from ``leaves[pos:]`` and the
+    position after it."""
+    if not isinstance(node, dict):
+        return leaves[pos], pos + 1
+    built = {}
+    for k in sorted(node):
+        built[k], pos = _unflatten_at(node[k], leaves, pos)
+    return {k: built[k] for k in node}, pos
+
+
 def pytree_unflatten(like, leaves) -> Any:
     """Inverse of :func:`pytree_leaves`: ``leaves`` in that order placed
     into a dict tree shaped like ``like``."""
-    it = iter(leaves)
+    return _unflatten_at(like, list(leaves), 0)[0]
 
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        return next(it)
 
-    return build(like)
+def leaf_grads(loss: torch.Tensor, leaves) -> list:
+    """``d loss / d leaf`` for each of ``leaves``; zeros for a leaf the
+    loss does not reach (the sLSTM block's ``wk`` and ``wv``), as
+    ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, leaves)]
 
 
 # --------------------------------------------------------------------------
@@ -87,22 +102,34 @@ def _normal(gen, shape, scale, dtype, device):
     return t.mul_(scale)
 
 
-def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
-                g: int, dtype, device) -> Dict[str, Any]:
+def _init_mixer(gen, kind: str, cfg: ModelConfig, g: int, dtype, device):
+    if kind == "mamba":
+        return ssm.init_mamba(gen, cfg, dtype, device, lead=(g,))
+    if kind == "mlstm":
+        return ssm.init_mlstm(gen, cfg, dtype, device, lead=(g,))
+    if kind == "slstm":
+        return ssm.init_slstm(gen, cfg, dtype, device, lead=(g,))
     if kind != "attention":
-        raise NotImplementedError(_NOT_PORTED.format(kind))
+        raise ValueError(kind)
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     s = 1.0 / d ** 0.5
     so = 1.0 / (h * hd) ** 0.5
-    p: Dict[str, Any] = {
-        "norm1": torch.ones((g, d), dtype=dtype, device=device),
-        "mixer": {
-            "wq": _normal(gen, (g, d, h, hd), s, dtype, device),
+    return {"wq": _normal(gen, (g, d, h, hd), s, dtype, device),
             "wk": _normal(gen, (g, d, kv, hd), s, dtype, device),
             "wv": _normal(gen, (g, d, kv, hd), s, dtype, device),
-            "wo": _normal(gen, (g, h, hd, d), so, dtype, device),
-        },
+            "wo": _normal(gen, (g, h, hd, d), so, dtype, device)}
+
+
+def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
+                g: int, dtype, device) -> Dict[str, Any]:
+    """One block's parameters, stacked over ``g`` groups. A block whose
+    FFN kind is ``"none"`` (the xLSTM blocks, any block of a ``d_ff``
+    0 config) has no ``norm2`` and no ``ffn``, as in the reference."""
+    d = cfg.d_model
+    p: Dict[str, Any] = {
+        "norm1": torch.ones((g, d), dtype=dtype, device=device),
+        "mixer": _init_mixer(gen, kind, cfg, g, dtype, device),
     }
     fk = cfg.ffn_kind(idx_in_group)
     if fk == "moe":
@@ -110,8 +137,8 @@ def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
         p["ffn"] = moe.init_moe(gen, cfg, dtype, device, lead=(g,))
     elif fk == "dense":
         if cfg.activation != "swiglu":
-            raise NotImplementedError(
-                f"activation {cfg.activation!r} is not ported")
+            raise NotImplementedError(_NOT_PORTED.format(
+                f"the {cfg.activation!r} FFN activation"))
         ff = cfg.d_ff
         p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
         p["ffn"] = {
@@ -159,25 +186,37 @@ def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
     kinds = cfg.layer_kinds()
     n_groups = cfg.num_layers // len(kinds)
     dtype = getattr(torch, cfg.dtype)
+    like = torch.zeros((1,), device=dev)
+    init_state = {"mamba": ssm.mamba_init_state,
+                  "mlstm": ssm.mlstm_init_state,
+                  "slstm": ssm.slstm_init_state}
     group = {}
     for i, kind in enumerate(kinds):
-        if kind != "attention":
-            raise NotImplementedError(_NOT_PORTED.format(kind))
-        group[f"l{i}"] = attn.KVCache.init(
-            batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim, dtype,
-            dev)
+        if kind == "attention":
+            group[f"l{i}"] = attn.KVCache.init(
+                batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim,
+                dtype, dev)
+        else:
+            group[f"l{i}"] = init_state[kind](like, batch, cfg)
     return tree_map(
         lambda a: a[None].expand((n_groups,) + tuple(a.shape)).clone(),
         group)
 
 
+_SSM_BLOCKS = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
+               "slstm": ssm.slstm_block}
+
+
 def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
                  scope=None):
-    if kind != "attention":
-        raise NotImplementedError(_NOT_PORTED.format(kind))
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
-                                          cache=state)
+    if kind == "attention":
+        out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
+                                              cache=state)
+    elif kind in _SSM_BLOCKS:
+        out, new_state = _SSM_BLOCKS[kind](p["mixer"], h, cfg, state=state)
+    else:
+        raise ValueError(kind)
     x = x + out
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)

@@ -1,4 +1,4 @@
-"""Compressed block-paged KV cache for decode-step serving.
+"""Compressed block-paged KV / SSM-state cache for decode-step serving.
 
 The decode states of a resident sequence are paged a block of tokens at
 a time:
@@ -10,9 +10,16 @@ a time:
 * :class:`KVCacheSpec` declares the paging policy: tokens per block,
   symbol mode, codec prefix, chunk size, capacity policy.
 * :class:`PagedKVCache` is the block codec. It encodes a completed
-  block's K/V slice (``models.attention.kv_block_slice``) through its
-  layer's bound channel into a container and decodes it back, so the
-  model only attends over values that went through the wire.
+  block's state (an attention layer's K/V slice,
+  ``models.attention.kv_block_slice``; a recurrent layer's whole carried
+  state, ``models.ssm.state_snapshot``) through its layer's bound
+  channel into a container and decodes it back, so the model only reads
+  values that went through the wire.
+* :class:`SSMBoundaryTracker` keeps each sequence's recurrent states at
+  block boundaries, so that with ``KVCacheSpec.ssm_rebase`` a block's
+  eviction encodes the state at its end boundary, which depends only on
+  the tokens before it: requests sharing a prompt prefix of whole blocks
+  give byte-identical snapshot containers, which the pool deduplicates.
 
 Symbol modes (``comm.calibrate.kv_symbol_stream``): ``"qlc"`` (default,
 lossless) codes the states' bytes, one container per byte plane, so
@@ -38,17 +45,16 @@ Two halves:
 Escape-pool overflow never corrupts a block: an overflowing encode
 falls back to a raw container (``stats()["overflow_sections"]``), and a
 coded container whose pool overflowed raises
-:class:`KVCacheOverflowError` at decode. SSM state snapshots and their
-prefix re-basing are not on phi3's path and raise
-``NotImplementedError`` (ROADMAP queue 1, item 11). An MoE model pages
-like a dense one: only attention states are paged. Entry points run on
-the card unless ``device="cpu"`` is passed.
+:class:`KVCacheOverflowError` at decode. An MoE model pages like a dense
+one: its FFNs hold no decode state. Entry points run on the card unless
+``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,10 +72,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import codec as _codec
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.transformer import resolve_device
-
-_SSM = ("SSM state snapshots (recurrent block kinds) are not ported yet: "
-        "ROADMAP queue 1, item 11")
 
 
 class KVCacheOverflowError(RuntimeError):
@@ -90,8 +94,13 @@ class KVCacheSpec:
     ``chunk_symbols``: KV codec chunk size. ``exact_capacity``: size
     each block's slots from its own longest chunk (zero escapes); False
     uses the calibrated plan capacity + escape pool, which async paging
-    needs. ``ssm_rebase`` and ``axis`` are kept for the reference's JSON
-    (SSM snapshots and cache migration are not ported).
+    needs. ``ssm_rebase``: a recurrent layer's eviction of block ``[t0,
+    t1)`` encodes its state at boundary ``t1`` rather than the live
+    state (:class:`SSMBoundaryTracker`); lossless (``"qlc"``) mode only,
+    forced off under ``"e4m3"``, where the live state must round-trip
+    the quantizer to stay the serving path's single source of truth.
+    ``axis`` is kept for the reference's JSON (cache migration is not
+    ported).
     """
     block_tokens: int = 128
     hot_blocks: int = 0
@@ -279,10 +288,13 @@ class BlockPrefetcher:
     event had already fired (hit) or had to be waited on (stall), then
     the escape-pool ok flags (:class:`KVCacheOverflowError`). The current
     stream waits on the done event, and the decoded tensors are recorded
-    on it, so they are neither read early nor freed early."""
+    on it, so they are neither read early nor freed early. The cache is
+    held through a weak proxy: the cache owns its prefetcher, and a
+    strong reference back would keep both, with the arena, alive until
+    the cycle collector ran."""
 
     def __init__(self, cache: "PagedKVCache"):
-        self.cache = cache
+        self.cache = weakref.proxy(cache)
         self.scheduled = 0
         self.hits = 0
         self.stalled = 0
@@ -370,11 +382,39 @@ class BlockPrefetcher:
 
 
 class SSMBoundaryTracker:
-    """Segment-local SSM snapshot re-basing (recurrent layers): not
-    ported."""
+    """Per-slot block-boundary snapshots for segment-local SSM state
+    re-basing (``KVCacheSpec.ssm_rebase``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SSM)
+    The engine records each recurrent layer's state tensors whenever a
+    sequence's absorbed-token count lands on a ``block_tokens`` boundary
+    (during segmented prefill and between decode steps or windows).
+    Eviction of block ``[t0, t1)`` then encodes the ``t1`` snapshot,
+    whose bytes depend only on tokens ``< t1``, instead of the
+    cumulative live state, so two requests sharing a prompt prefix give
+    byte-identical snapshot containers, which dedup in the pool. The
+    live state is never rewritten from a re-based snapshot: it has
+    absorbed tokens past the boundary that the snapshot excludes."""
+
+    def __init__(self):
+        #: request -> boundary t -> {layer key: tuple of state tensors}
+        self._by_seq: Dict[str, Dict[int, Dict[str, tuple]]] = {}
+
+    def record(self, seq: str, t: int, layer_arrays: Dict[str, tuple]):
+        self._by_seq.setdefault(seq, {})[t] = layer_arrays
+
+    def take(self, seq: str, t: int) -> Optional[Dict[str, tuple]]:
+        """Pop the boundary-``t`` snapshot and drop any older ones: a
+        block's eviction retires every earlier boundary."""
+        snaps = self._by_seq.get(seq)
+        if snaps is None:
+            return None
+        out = snaps.pop(t, None)
+        for older in [b for b in snaps if b < t]:
+            del snaps[older]
+        return out
+
+    def drop(self, seq: str):
+        self._by_seq.pop(seq, None)
 
 
 def codec_wins(entry) -> bool:
@@ -421,8 +461,6 @@ class PagedKVCache:
         self.monitor = monitor
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
-        if any(k != "attention" for k in self.kinds):
-            raise NotImplementedError(_SSM)
         if channels is None:
             channels = open_kv_channels(
                 registry, prefix=spec.codec_prefix, axis=spec.axis,
@@ -774,13 +812,16 @@ class PagedKVCache:
 def calibration_arrays(cfg: ModelConfig, states, tokens: int
                        ) -> Dict[str, List[torch.Tensor]]:
     """Per-layer-slot state tensors of a decode-states snapshot (e.g. a
-    prefill): the filled ``[0, tokens)`` K/V slice of each attention
-    slot — the histogram source for ``calibrate_kv_entries``."""
+    prefill), the histogram source for ``calibrate_kv_entries``: the
+    filled ``[0, tokens)`` K/V slice of each attention slot, the whole
+    carried state of each recurrent slot."""
     out: Dict[str, List[torch.Tensor]] = {}
     for i, kind in enumerate(cfg.layer_kinds()):
-        if kind != "attention":
-            raise NotImplementedError(_SSM)
-        out[f"l{i}"] = list(attn.kv_block_slice(states[f"l{i}"], 0, tokens))
+        st = states[f"l{i}"]
+        if kind == "attention":
+            out[f"l{i}"] = list(attn.kv_block_slice(st, 0, tokens))
+        else:
+            out[f"l{i}"] = list(ssm.state_snapshot(st))
     return out
 
 

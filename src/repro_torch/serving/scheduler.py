@@ -34,9 +34,20 @@ it step by step:
   behind the next window (``PagedKVCache`` / ``BlockPrefetcher``).
   Both are token-identical to the dense engine and share one pool
   format.
+* **Recurrent layers** (mamba, sLSTM, mLSTM) page their whole carried
+  state at each block boundary. With ``KVCacheSpec.ssm_rebase`` (the
+  default in ``"qlc"`` mode) admission prefills the prompt a block at a
+  time and records every recurrent layer's state at each boundary, as
+  do the decode steps and windows (a window never crosses one); the
+  eviction of block ``[t0, t1)`` encodes the state at ``t1``, so
+  requests sharing a prompt prefix of whole blocks pool one container.
+  A re-based snapshot is never restored into the live state, which has
+  absorbed tokens past ``t1``; without re-basing the live state is
+  encoded and continues from the pooled bytes. Each layer's newest
+  snapshot supersedes the previous one in the pool.
 
-Per-tenant fairness caps, SSM snapshot re-basing and mesh-bound caches
-are not ported (ROADMAP).
+Per-tenant fairness caps and mesh-bound caches are not ported
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -52,10 +63,11 @@ from repro_torch.comm.blockpool import (ArenaExhausted, BlockArena,
                                         BlockPool, PoolExhausted)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import decode_step, init_decode_states
+from repro_torch.models import decode_step, init_decode_states, ssm
 from repro_torch.models.transformer import tree_map
 from repro_torch.serving.engine import prefill, window_step
 from repro_torch.serving.kv_cache import (KVCacheSpec, PagedKVCache,
+                                          SSMBoundaryTracker,
                                           calibrate_cache)
 
 _rid_counter = itertools.count()
@@ -99,6 +111,8 @@ class _Seq:
     toks: List[int] = dataclasses.field(default_factory=list)
     evicted: int = 0            # tokens behind this sequence's cold blocks
     digests: List[str] = dataclasses.field(default_factory=list)
+    #: layer key -> digest of its newest pooled SSM snapshot
+    snap_digests: Dict[str, str] = dataclasses.field(default_factory=dict)
     error: Optional[str] = None
 
     @property
@@ -170,6 +184,10 @@ class Engine:
         self._codec: Optional[PagedKVCache] = None
         self.monitor = monitor
         self._kinds = cfg.layer_kinds()
+        #: boundary-state snapshots for SSM re-basing (qlc only)
+        self._snaps = SSMBoundaryTracker()
+        self._rebase = (kv_spec is not None and kv_spec.ssm_rebase
+                        and any(k != "attention" for k in self._kinds))
         self._seqs: Dict[str, _Seq] = {}
         self._waiting: List[str] = []
         self._slots: List[Optional[str]] = [None] * self.max_batch
@@ -252,6 +270,7 @@ class Engine:
             for b, rid in active:
                 seq = self._seqs[rid]
                 seq.toks.append(int(nxt[b]))
+                self._note_boundary(seq)
                 self._page_and_maybe_finish(seq)
         return self._in_flight()
 
@@ -273,7 +292,10 @@ class Engine:
             hot = self.kv_spec.hot_blocks
             window = min(
                 min(s.req.max_new_tokens - len(s.toks),
-                    s.evicted + (1 + hot) * bt - s.absorbed)
+                    s.evicted + (1 + hot) * bt - s.absorbed,
+                    # re-basing records every recurrent layer's state
+                    # at each boundary, so no window crosses one
+                    bt - s.absorbed % bt if self._rebase else bt)
                 for s in (self._seqs[rid] for _, rid in active))
             window = max(1, window)
             t0 = time.perf_counter()
@@ -296,6 +318,7 @@ class Engine:
                 if seq.state != "running":      # rejected at consume
                     continue
                 seq.toks.extend(int(t) for t in gen[b, :window])
+                self._note_boundary(seq)
                 self._page_and_maybe_finish(seq)
         return self._in_flight()
 
@@ -355,8 +378,22 @@ class Engine:
         b = self._slots.index(None)
         t0 = time.perf_counter()
         row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device)
-        logits, row = prefill(self.params, self.cfg,
-                              self._tensor(seq.req.prompt[None, :]), row)
+        prompt = self._tensor(seq.req.prompt[None, :])
+        if self._rebase:
+            # Segmented prefill: a block at a time, each recurrent
+            # layer's state recorded at every boundary. Prefill feeds
+            # token by token, so this is the whole prompt's states.
+            bt = self.kv_spec.block_tokens
+            pos = 0
+            while pos < seq.prompt_len:
+                end = min(seq.prompt_len, (pos // bt + 1) * bt)
+                logits, row = prefill(self.params, self.cfg,
+                                      prompt[:, pos:end], row, start_pos=pos)
+                pos = end
+                if pos % bt == 0:
+                    self._record_boundary_states(seq, row, pos)
+        else:
+            logits, row = prefill(self.params, self.cfg, prompt, row)
         first = int(torch.argmax(logits[0]))              # syncs
         self._prefill_s += time.perf_counter() - t0
         self._prefill_tokens += seq.prompt_len
@@ -397,20 +434,66 @@ class Engine:
             evict(seq, t0, t0 + bt)
             seq.evicted = t0 + bt
 
+    def _record_boundary_states(self, seq: _Seq, row, t: int):
+        """Copy every recurrent layer's state at boundary ``t`` (the
+        state after absorbing exactly ``t`` tokens) for a later re-based
+        eviction."""
+        snap = {f"l{i}": tuple(a.clone() for a in
+                               ssm.state_snapshot(row[f"l{i}"]))
+                for i, kind in enumerate(self._kinds)
+                if kind != "attention"}
+        if snap:
+            self._snaps.record(seq.rid, t, snap)
+
+    def _note_boundary(self, seq: _Seq):
+        """Record the boundary states the moment a running sequence's
+        absorbed count lands on a block boundary (re-basing only)."""
+        if not self._rebase or seq.slot is None:
+            return
+        if seq.absorbed > 0 and seq.absorbed % self.kv_spec.block_tokens == 0:
+            self._record_boundary_states(
+                seq, _slot_view(self._states, seq.slot), seq.absorbed)
+
     def _evict_slot(self, seq: _Seq, t0: int, t1: int):
-        """Encode one completed block of ``seq``'s slot row into the pool,
-        then restore the row from the POOLED container — shared (deduped)
-        bytes are what the model attends over."""
+        """Encode one completed block of ``seq``'s slot row into the pool
+        and decode it back from the POOLED container: an attention
+        layer's rows and a live recurrent state are restored from those
+        shared (deduped) bytes; a re-based snapshot (the state at
+        ``t1``) is decoded, so an overflowing container surfaces here,
+        but never restored."""
         row = _slot_view(self._states, seq.slot)
-        for i in range(len(self._kinds)):
+        bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
+        for i, kind in enumerate(self._kinds):
             key = f"l{i}"
-            k, v = attn.kv_block_slice(row[key], t0, t1)
+            name = self.kv_spec.layer_codec(i)
+            if kind == "attention":
+                k, v = attn.kv_block_slice(row[key], t0, t1)
+                block = self._codec.encode_block_arrays(
+                    name, key, (k, v), start=t0, tokens=t1 - t0)
+                digest = self._pool_put(seq, block)
+                k2, v2 = self._codec.decode_block_arrays(
+                    self.pool.get(digest))
+                attn.kv_block_restore(row[key], t0, t1, k2, v2)
+                continue
+            rebased = bsnap is not None and key in bsnap
+            arrays = bsnap[key] if rebased else ssm.state_snapshot(row[key])
             block = self._codec.encode_block_arrays(
-                self.kv_spec.layer_codec(i), key, (k, v), start=t0,
-                tokens=t1 - t0)
+                name, key, arrays, start=t1, tokens=t1 - t0)
             digest = self._pool_put(seq, block)
-            k2, v2 = self._codec.decode_block_arrays(self.pool.get(digest))
-            attn.kv_block_restore(row[key], t0, t1, k2, v2)
+            decoded = self._codec.decode_block_arrays(self.pool.get(digest))
+            if not rebased:
+                for dst, src in zip(row[key],
+                                    ssm.state_restore(row[key], decoded)):
+                    dst.copy_(src)
+            self._supersede_snapshot(seq, key, digest)
+
+    def _supersede_snapshot(self, seq: _Seq, key: str, digest: str):
+        """The newest snapshot of a recurrent layer replaces its previous
+        one in the pool."""
+        old = seq.snap_digests.get(key)
+        if old is not None:
+            self._pool_release(seq, old)
+        seq.snap_digests[key] = digest
 
     # ---- async paging (device arena + prefetch) --------------------------
 
@@ -429,15 +512,23 @@ class Engine:
         Escape overflow under the plan capacity redoes the boundary on
         the sync host path (counted as a prefetch miss)."""
         row = _slot_view(self._states, seq.slot)
+        bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
         devs = []
-        for i in range(len(self._kinds)):
+        for i, kind in enumerate(self._kinds):
             key = f"l{i}"
+            if kind == "attention":
+                arrays, start = attn.kv_block_slice(row[key], t0, t1), t0
+            elif bsnap is not None and key in bsnap:
+                arrays, start = bsnap[key], t1
+            else:
+                arrays, start = ssm.state_snapshot(row[key]), t1
             dev = self._codec.encode_block_device(
-                self.kv_spec.layer_codec(i), key,
-                attn.kv_block_slice(row[key], t0, t1), start=t0,
+                self.kv_spec.layer_codec(i), key, arrays, start=start,
                 tokens=t1 - t0)
             if dev is None:
                 self._codec.prefetcher.miss()
+                if bsnap is not None:
+                    self._snaps.record(seq.rid, t1, bsnap)   # un-take
                 self._evict_slot(seq, t0, t1)
                 return
             devs.append(dev)
@@ -488,6 +579,11 @@ class Engine:
                 digest, dev.slot, dev.gen):
             # dedup hit: the pooled entry already owns an arena copy
             self._codec.arena.free(dev.slot)
+        if self._kinds[int(dev.layer[1:])] != "attention":
+            # Never restored: the live state has advanced past the
+            # snapshot's boundary by a window.
+            self._supersede_snapshot(seq, dev.layer, digest)
+            return
         k2, v2 = arrays
         attn.kv_block_restore(_slot_view(self._states, seq.slot)[dev.layer],
                               dev.start, dev.start + dev.tokens, k2, v2)
@@ -514,11 +610,15 @@ class Engine:
                                             self._dense_logical)
         return digest
 
+    def _pool_release(self, seq: _Seq, digest: str):
+        self.pool.release(digest)
+        seq.digests.remove(digest)
+        self._dense_logical -= self._dense_of.get(digest, 0)
+
     def _release_all(self, seq: _Seq):
-        for digest in seq.digests:
-            self.pool.release(digest)
-            self._dense_logical -= self._dense_of.get(digest, 0)
-        seq.digests.clear()
+        for digest in list(seq.digests):
+            self._pool_release(seq, digest)
+        seq.snap_digests.clear()
 
     # ---- completion / rejection -----------------------------------------
 
@@ -547,6 +647,7 @@ class Engine:
             seq.slot = None
         if self.pool is not None:
             self._release_all(seq)      # zero-ref blocks stay cached
+        self._snaps.drop(seq.rid)
 
     def _log(self, event: str, rid: str):
         self.events.append((self._step_idx, event, rid))

@@ -55,8 +55,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.registry import CodecRegistry
 from repro_torch.launch.mesh import current_mesh, use_mesh
 from repro_torch.models import moe, next_token_loss
-from repro_torch.models.transformer import (pytree_leaves, pytree_unflatten,
-                                            tree_map)
+from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
+                                            pytree_unflatten, tree_map)
 from repro_torch.training import optimizer as opt
 
 GRAD_TYPE = "grads"      # registry key for the gradient reduce-scatter
@@ -80,20 +80,26 @@ def _world(group) -> Tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
-def local_batch(batch: Dict[str, Any], group, device) -> Dict[str, Any]:
-    """This rank's rows of a global batch (contiguous slices, as the
-    reference shards the batch's first dim over its data axes; over a
-    mesh ``group`` is its world, so rank-major), as tensors on
-    ``device``."""
+def local_batch(batch: Dict[str, Any], group, device,
+                n_micro: int = 1) -> Dict[str, Any]:
+    """This rank's rows of a global batch, as tensors on ``device``: its
+    contiguous slice (as the reference shards the batch's first dim over
+    its data axes; over a mesh ``group`` is its world, so rank-major).
+    With ``n_micro > 1`` the global batch is first cut into ``n_micro``
+    contiguous microbatches, as the reference's baseline step cuts it,
+    and the rank's rows are its slice of each, in microbatch order, so
+    that cutting them into ``n_micro`` contiguous runs gives the rank's
+    shard of every global microbatch."""
     d, r = _world(group)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        if t.shape[0] % d:
+        if t.shape[0] % (d * n_micro):
             raise ValueError(f"global batch {t.shape[0]} not divisible by "
-                             f"{d} ranks")
-        n = t.shape[0] // d
-        out[k] = t[r * n:(r + 1) * n].to(device)
+                             f"{n_micro} microbatches over {d} ranks")
+        n = t.shape[0] // (d * n_micro)
+        rows = t.reshape((n_micro, d, n) + tuple(t.shape[1:]))[:, r]
+        out[k] = rows.reshape((n_micro * n,) + tuple(t.shape[1:])).to(device)
     return out
 
 
@@ -102,8 +108,7 @@ def _value_and_grad(params, model_cfg: ModelConfig, batch):
     loss = next_token_loss(pytree_unflatten(params, live), model_cfg,
                            batch["tokens"], batch["labels"],
                            batch.get("prefix_emb"))
-    grads = torch.autograd.grad(loss, live)
-    return loss.detach(), pytree_unflatten(params, list(grads))
+    return loss.detach(), pytree_unflatten(params, leaf_grads(loss, live))
 
 
 def _microbatched_grads(params, model_cfg: ModelConfig, batch,
@@ -182,9 +187,9 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     Channel, moe.MOE_COMBINE: Channel}`` on the model axis) puts the
     expert all-to-all on the compressed wire; the gradient wire stays
     dense. MoE layers see the whole batch, as in the reference. With
-    ``train_cfg.microbatches > 1`` a microbatch is each rank's
-    microbatch of its shard, which is not the reference's split of the
-    global batch when capacity binds."""
+    ``train_cfg.microbatches > 1`` microbatch *i* on a rank is its shard
+    of the global batch's microbatch *i*, as the reference splits it
+    (:func:`local_batch`)."""
     mesh = _step_mesh(model_cfg, mesh)
     if mesh is not None:
         group = mesh.world_group
@@ -217,7 +222,8 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         dev = pytree_leaves(params)[0].device
         with _moe_bindings(mesh, moe_channels, group):
             loss, grads = _microbatched_grads(
-                params, model_cfg, local_batch(batch, group, dev),
+                params, model_cfg,
+                local_batch(batch, group, dev, train_cfg.microbatches),
                 train_cfg.microbatches)
         grads, gnorm = reduce_grads(grads)
         new_params, new_state, info = opt.apply_update(
@@ -426,6 +432,8 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         return geom["g"]
 
     def stage1(params, batch):
+        # The reference's stage 1 cuts its microbatches from the rank's
+        # own data shard, so here the shard comes first too.
         dev = pytree_leaves(params)[0].device
         with _moe_bindings(mesh, moe_channels):
             return _microbatched_grads(params, model_cfg,

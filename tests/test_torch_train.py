@@ -327,7 +327,7 @@ def test_launcher_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--pods", "2"], "item 13"), (["--transport", "hierarchical"],
                                    "item 13"),
-    (["--arch", "xlstm-125m"], "item 11")])
+    (["--arch", "musicgen-medium"], "item 11")])
 def test_launcher_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "phi3-mini-3.8b", "--reduced", "--device",

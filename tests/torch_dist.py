@@ -494,5 +494,41 @@ def wire_sharded(ctx, wires, variants):
     return out
 
 
+def microbatched_step(ctx, params, batch, capacity_factor, n_micro):
+    """One baseline step of reduced deepseek-moe-16b (f32, gspmd dispatch
+    at ``capacity_factor``) over the world with ``n_micro``
+    microbatches, from ``params`` (numpy) on the global ``batch`` ->
+    (the step's loss, the reduced gradient leaves it hands the
+    optimizer, in pytree order, numpy)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.training import TrainConfig, make_baseline_step
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step
+    cfg = reduced(get_config("deepseek-moe-16b"), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    p = params_from_numpy(params, "cpu")
+    opt_cfg = opt.OptConfig()
+    step = make_baseline_step(cfg, opt_cfg, TrainConfig(microbatches=n_micro),
+                              group=ctx["group"])
+    seen = {}
+    apply_update = train_step.opt.apply_update
+
+    def capture(params, grads, *args, **kw):
+        seen["grads"] = grads
+        return apply_update(params, grads, *args, **kw)
+
+    train_step.opt.apply_update = capture
+    try:
+        _, _, metrics = step(p, opt.init_state(p, opt_cfg), batch)
+    finally:
+        train_step.opt.apply_update = apply_update
+    return (float(metrics["loss"]),
+            [g.numpy() for g in pytree_leaves(seen["grads"])])
+
+
 if __name__ == "__main__":
     _main()
