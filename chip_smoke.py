@@ -237,6 +237,39 @@ non-zero (nothing is caught and carried on):
                moe_serve phase, the device bytes that ``gc.collect()``
                frees are printed.
 
+ 14. variants — the block variants, after ssm. musicgen-medium (gelu
+               FFN without ``w_gate``): all 48 layers at full width
+               (d_model 1536, 24 heads x 64, d_ff 6144, vocab 2048), f32
+               parameters, bf16 compute, random weights from a seed,
+               served through ``launch.serve.serve``: the weight wire
+               (K1's histogram, K1, K2), a dense run of 6 requests at
+               batch 4, prompt 16, 16 new tokens, ``--kv-cache qlc
+               --kv-block 16`` sync (K3, K4) and async (K3, K5), codecs
+               calibrated through K6, every request's tokens equal to the
+               dense run's; ``Engine(fairness_cap=0.5)`` over the same 6
+               requests from two tenants: ``defer_fairness`` events, at
+               most 2 running slots per tenant, tokens equal to the dense
+               engine's. K1/K2 at the stacked ``w_in`` leaf ([48, 1536,
+               6144]) and K3-K6 on its KV planes against their plain
+               versions; one decode step's launches, kernel and wall time
+               (idle share) and one training forward and backward's.
+               ``train(comm="qlc")`` on one NCCL rank at batch 4 x 512
+               (448 tokens a row), ``VARIANTS_TRAIN_LAYERS`` layers: 2
+               compressed steps, 2 of the raw e4m3 twin (bit-equal), 2
+               baseline; calibrate ms, ms/step, wire B/symbol, peak. One
+               nemotron-4-340b block at its widths (d_model 18432, 96 / 8
+               heads x 192, d_ff 73728 squared ReLU, f32): 24 positions
+               through the training path, then 16 tokens written into a
+               KV cache at once and 8 decode steps, equal to it within
+               rtol 1e-4 / atol 1e-5. One mixtral-8x22b attention block
+               (d_model 6144, 48 / 8 heads x 128, rope theta 1e6, window
+               4096, f32): 5120 positions through the blocked training
+               path, 4096 written into the cache at once and 1024 decode
+               steps past the window, equal to it; with the window off
+               equal to its own training path and different past the
+               window. K1-K6 counted from zero around the serve and train
+               runs, each non-zero.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -244,8 +277,9 @@ the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-``python3 chip_smoke.py --ssm-only`` runs only the build and the ssm
-phase, then the ``nvidia-smi`` line, and no result line.
+``python3 chip_smoke.py --ssm-only`` (``--variants-only``) runs only
+the build and the ssm (variants) phase, then the ``nvidia-smi`` line,
+and no result line.
 
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
 the moe_serve phase, at L of the 28 layers, and prints its peak device
@@ -3457,6 +3491,399 @@ def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
             "n_params": n_params, "run_s": run_s, "train_s": train_runs}
 
 
+VARIANTS_ARCH = "musicgen-medium"
+#: depth of the variants phase's training cell (musicgen-medium has 48)
+VARIANTS_TRAIN_LAYERS = 48
+
+
+def _fairness_run(opened, cfg, prompts, dense, max_seq_len, batch,
+                  new_tokens):
+    """``Engine(fairness_cap=0.5)`` at ``batch`` with the prompts of the
+    dense run, two thirds from tenant A then one third from tenant B:
+    ``defer_fairness`` events, never more than ``ceil(batch / 2)``
+    running slots of one tenant after any step, and every request's
+    tokens equal to its tokens on the dense engine."""
+    from repro_torch.serving import Engine, GenerationRequest
+    eng = Engine(opened, cfg, max_seq_len=max_seq_len, max_batch=batch,
+                 fairness_cap=0.5)
+    n_a = -(-2 * len(prompts) // 3)
+    tenant = ["A"] * n_a + ["B"] * (len(prompts) - n_a)
+    hs = [eng.submit(GenerationRequest(prompt=p, max_new_tokens=new_tokens,
+                                       tenant=t))
+          for p, t in zip(prompts, tenant)]
+    cap, most = -(-batch // 2), {"A": 0, "B": 0}
+    t0 = time.perf_counter()
+    while eng.step():
+        for t in most:
+            most[t] = max(most[t], sum(
+                1 for h, ht in zip(hs, tenant)
+                if ht == t and eng.poll(h).state == "running"))
+    run_s = time.perf_counter() - t0
+    deferred = sum(1 for _, e, _ in eng.events if e == "defer_fairness")
+    if not deferred or max(most.values()) > cap:
+        raise AssertionError(f"variants: fairness cap {cap}: "
+                             f"{deferred} deferrals, most running {most}")
+    for i, h in enumerate(hs):
+        st = eng.poll(h)
+        if st.state != "finished" or not np.array_equal(st.tokens,
+                                                        dense[i]):
+            raise AssertionError(f"variants: request {i} under the fairness "
+                                 "cap differs from the dense engine's")
+    return {"deferrals": deferred, "most_running": most, "cap": cap,
+            "tenants": {"A": n_a, "B": len(prompts) - n_a}, "run_s": run_s}
+
+
+def _block_check(what, cfg, block, dev, n_pre, n_dec, seed):
+    """One block at ``cfg``'s widths (f32): ``block(x, positions,
+    cache)`` over ``n_pre + n_dec`` positions through the training path
+    (no cache), then ``n_pre`` tokens written into an empty KV cache at
+    once and ``n_dec`` single decode steps; both equal to the training
+    path's outputs at those positions within rtol 1e-4 / atol 1e-5.
+    Returns the decode outputs, the max abs diff and the timings."""
+    from repro_torch.models import attention as attn
+    n = n_pre + n_dec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    tol = dict(rtol=1e-4, atol=1e-5)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _ = block(x, pos, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = attn.KVCache.init(1, n, cfg.num_kv_heads,
+                                  cfg.resolved_head_dim, torch.float32, dev)
+        out_pre, cache = block(x[:, :n_pre], pos[:, :n_pre], cache)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outs = [out_pre]
+        for t in range(n_pre, n):
+            o, cache = block(x[:, t:t + 1], pos[:, t:t + 1], cache)
+            outs.append(o)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    got = torch.cat(outs, 1)
+    torch.testing.assert_close(got, full, **tol,
+                               msg=lambda m: f"{what}: {m}")
+    if int(cache.length[0]) != n:
+        raise AssertionError(f"{what}: cache length {cache.length}")
+    return got, float((got - full).abs().max()), {
+        "train_ms": (t1 - t0) * 1e3, "write_ms": (t2 - t1) * 1e3,
+        "decode_ms_per_step": (t3 - t2) * 1e3 / n_dec}
+
+
+def phase_variants(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
+                   cfg=None, batch=4, requests=6, prompt_len=16,
+                   new_tokens=16, kv_block=16, seq_len=512, global_batch=4,
+                   train_cfg=None, nemo_cfg=None, nemo_tokens=(16, 8),
+                   mix_cfg=None, mix_tokens=(4096, 1024)):
+    """The block variants on the card. musicgen-medium (gelu FFN without
+    ``w_gate``; all 48 layers at full width, f32 parameters, bf16
+    compute, random weights from a seed) served through
+    ``launch.serve.serve``: the weight wire (K1's histogram, K1, K2) and
+    a dense run; ``--kv-cache qlc`` sync (K3, K4) and async (K3, K5),
+    codecs calibrated through K6, every request's tokens equal to the
+    dense run's; ``Engine(fairness_cap=0.5)`` over the same requests from
+    two tenants (``_fairness_run``). K1/K2 at the stacked ``w_in`` leaf
+    and K3-K6 on its KV planes against their plain versions; one decode
+    step's and one training forward and backward's launches, kernel and
+    wall time. ``train(comm="qlc")`` on one NCCL rank at ``global_batch x
+    seq_len`` (``seq_len - 64`` tokens a row, as the launcher gives): 2
+    compressed steps, 2 of the raw e4m3 twin (bit-equal), 2 baseline.
+    One nemotron-4-340b block (squared ReLU, 96 / 8 heads x 192, d_ff
+    73728, f32) and one mixtral-8x22b attention block (window 4096, f32)
+    through ``_block_check``; mixtral's decode with the window off must
+    differ past the window. K1-K6 counted from zero around the serve and
+    train runs, each non-zero."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import data_parallel
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    cfg = cfg or get_config(VARIANTS_ARCH)
+    log("variants", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                    f"{cfg.d_model}, {cfg.num_heads} heads x "
+                    f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
+                    f"{cfg.activation}, vocab {cfg.vocab_size}, params "
+                    f"{cfg.param_dtype}, compute {cfg.dtype}; {requests} "
+                    f"requests at batch {batch}, prompt {prompt_len}, "
+                    f"{new_tokens} new tokens")
+    if dev == "cuda":
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log("variants", f"gc.collect() freed "
+                        f"{held - torch.cuda.memory_allocated()} B; "
+                        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                        "held by earlier phases at the start")
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    kw = dict(batch=batch, requests=requests, prompt_len=prompt_len,
+              new_tokens=new_tokens, device=dev, seed=0)
+
+    # 1. The wire and the dense run.
+    zero()
+    t0 = time.perf_counter()
+    res = serve_mod.serve(cfg, wire="qlc", **kw)
+    run_s = {"dense": time.perf_counter() - t0}
+    wc, wired, opened = res["wire_codec"], res["wired"], res["params"]
+    if "w_gate" in opened["groups"]["l0"]["ffn"]:
+        raise AssertionError("variants: a gelu FFN holds a w_gate")
+    outs = res["outs"]
+    if not all(o.state == "finished" and len(o.tokens) == new_tokens
+               for o in outs):
+        raise AssertionError([(o.request_id, o.state) for o in outs])
+    dense = [o.tokens for o in outs]
+    prompts = res["prompts"]
+    n_params = sum(t.numel() for t in _leaves(opened))
+    wire_b = sym = 0
+    for key, lm in wc.meta.items():
+        node = _node(wired, key)
+        wire_b += nbytes(node["words"], node["scales"])
+        sym += lm.n_symbols * node["words"].shape[0]
+    st = res["stats"]
+    stats = {"dense": {"prefill": st["ms_per_token_prefill"],
+                       "decode": st["ms_per_token_decode"]}}
+    log("variants", f"{n_params} parameters; calibrate "
+                    f"{res['calibrate_s'] * 1e3:.1f} ms, compress "
+                    f"{res['compress_s'] * 1e3:.1f} ms, open "
+                    f"{res['open_s'] * 1e3:.1f} ms; {len(wc.meta)} "
+                    f"compressed leaves ({sorted(wc.meta)}), {sym} symbols, "
+                    f"wire {wire_b} B = {wire_b / sym:.4f} B/symbol (words "
+                    f"+ bf16 scales); dense run "
+                    f"{st['ms_per_token_prefill']:.3f} ms/token prefill, "
+                    f"{st['ms_per_token_decode']:.3f} ms/token decode "
+                    f"({run_s['dense']:.1f} s with the wire)")
+    res = None
+
+    # 2. The paged cache, sync then async, every request == dense.
+    pool = {}
+    for paging in ("sync", "async"):
+        t0 = time.perf_counter()
+        r = serve_mod.serve(cfg, params=opened, kv_cache="qlc",
+                            kv_block=kv_block, kv_paging=paging, **kw)
+        run_s[paging] = time.perf_counter() - t0
+        got = [o.tokens for o in r["outs"]]
+        if len(got) != len(dense) or not all(
+                np.array_equal(a, b) for a, b in zip(got, dense)):
+            raise AssertionError(f"variants: the {paging} paged run's "
+                                 "tokens differ from the dense run's")
+        st = r["stats"]
+        stats[paging] = {"prefill": st["ms_per_token_prefill"],
+                         "decode": st["ms_per_token_decode"]}
+        ps = st["pool"]
+        pool[paging] = ps["peak_referenced_bytes"] / \
+            st["peak_dense_logical_bytes"]
+        line = (f"--kv-cache qlc --kv-block {kv_block} --kv-paging {paging}:"
+                f" every request's tokens == the dense run's; "
+                f"{st['ms_per_token_prefill']:.3f} ms/token prefill, "
+                f"{st['ms_per_token_decode']:.3f} decode; "
+                f"{ps['unique_blocks']} blocks, pooled/dense KV bytes "
+                f"{pool[paging]:.4f}; {run_s[paging]:.1f} s with the "
+                "serve's own dense check")
+        if paging == "async":
+            pf = st["prefetch"]
+            line += (f"; {st['async']['windows']} windows, prefetch "
+                     f"{pf['hits']}/{pf['scheduled']} hits, "
+                     f"{pf['stalled']} stalled, {pf['misses']} misses")
+        log("variants", line)
+        del r
+
+    # 3. The fairness cap over the same requests.
+    fair = _fairness_run(opened, cfg, prompts, dense,
+                         prompt_len + new_tokens + 8, batch, new_tokens)
+    log("variants", f"Engine(fairness_cap=0.5) at batch {batch}, requests "
+                    f"per tenant {fair['tenants']}: "
+                    f"{fair['deferrals']} defer_fairness events, most "
+                    f"running per tenant {fair['most_running']} (cap "
+                    f"{fair['cap']}); every request's tokens == the dense "
+                    f"engine's ({fair['run_s']:.1f} s)")
+    launches = {"serve": read()}
+    path_peak = (torch.cuda.max_memory_allocated() / 2**30
+                 if dev == "cuda" else float("nan"))
+
+    # 4. K3-K6 on musicgen's KV planes, K1/K2 at the stacked w_in leaf;
+    # one decode step's and one training step's launches.
+    kv = check_kv_path(ops, ref, cfg, opened, prompts[0], flush, dev=dev,
+                       phase="variants")
+    fused = wire_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in", flush,
+                            phase="variants")
+    del wired, wc
+    prof = _launch_profile(cfg, opened, dev) if dev == "cuda" else None
+    if prof is not None:
+        d, t = prof["decode"], prof["train"]
+        idle = (None if d["busy_ms"] is None
+                else max(0.0, 1 - d["busy_ms"] / d["wall_ms"]))
+        prof["decode"]["idle_share"] = idle
+        log("variants", f"one decode step (batch {batch}): {d['launches']} "
+                        f"kernel launches, {d['busy_ms']} ms of kernels, "
+                        f"{d['wall_ms']:.3f} ms wall, device idle share "
+                        f"{idle}; one training forward + backward at "
+                        f"{prof['train_shape']}: {t['launches']} launches, "
+                        f"{t['busy_ms']} ms of kernels, {t['wall_ms']:.1f} "
+                        "ms wall")
+    opened = None
+    log("variants", f"peak device memory over the serve runs "
+                    f"{path_peak:.2f} GiB")
+
+    # 5. Training on one rank: compressed, its raw e4m3 twin, baseline.
+    tcfg = train_cfg or dataclasses.replace(
+        cfg, num_layers=VARIANTS_TRAIN_LAYERS)
+    tkw = dict(seq_len=seq_len, global_batch=global_batch, device=dev,
+               transport="oneshot", seed=0)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero()
+    t_train = time.perf_counter()
+    with data_parallel(dev):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            r = train(tcfg, comm="qlc", steps=2, **tkw)
+            hist = r["history"]
+            if not all(h["ok"] for h in hist) or r["comm_fallbacks"]:
+                raise AssertionError(f"variants train: ok "
+                                     f"{[h['ok'] for h in hist]}, fallbacks "
+                                     f"{r['comm_fallbacks']}")
+            losses = [h["loss"] for h in hist]
+            step_ms = [h["dt"] * 1e3 for h in hist]
+            reg, g = r["registry"], r["registry"]["grads"]
+            # held on the host while the twin runs: 5.5 GB of the card
+            flat = _flat_params(r["params"]).cpu()
+            gw, pw = (r["grads_wire_bytes_per_symbol"],
+                      r["params_wire_bytes_per_symbol"])
+            calib_ms = r["calibrate_s"] * 1e3
+            del r
+            twin = train(tcfg, comm="qlc", steps=2, registry=reg,
+                         wire_enabled=False, **tkw)
+            require_equal("variants: compressed vs raw e4m3 twin "
+                          "parameters after 2 steps", [flat],
+                          [_flat_params(twin["params"]).cpu()])
+            del twin
+            base = train(tcfg, comm="baseline", steps=2, **tkw)
+            lb = [h["loss"] for h in base["history"]]
+            base_ms = [h["dt"] * 1e3 for h in base["history"]]
+            del base
+        finally:
+            torch.use_deterministic_algorithms(False)
+    train_s = time.perf_counter() - t_train
+    if not all(math.isfinite(v) for v in losses + lb):
+        raise AssertionError(f"variants train: losses {losses}, baseline "
+                             f"{lb}")
+    launches["train"] = read()
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else float("nan"))
+    log("variants", f"train {tcfg.num_layers} layers at {global_batch} x "
+                    f"{seq_len} ({seq_len - tcfg.frontend_prefix_len} tokens "
+                    f"a row, no prefix): calibrate {calib_ms:.1f} ms (grads "
+                    f"{g.plan.expected_bits_per_symbol:.4f} expected "
+                    f"bits/symbol, {g.plan.capacity_words}-word slots); 2 "
+                    f"compressed steps {[round(t, 1) for t in step_ms]} ms, "
+                    f"losses {losses}, all ok, no fallback; wire {gw:.4f} "
+                    f"B/symbol (grads), {pw:.4f} (params); == raw e4m3 twin "
+                    f"after 2 steps ({flat.numel()} parameters bit-equal); "
+                    f"baseline 2 steps {[round(t, 1) for t in base_ms]} ms, "
+                    f"losses {lb}; launches {launches['train']}; peak "
+                    f"device memory {peak:.2f} GiB; {train_s:.1f} s")
+    del flat
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # 6. One nemotron-4-340b block at its widths.
+    ncfg = nemo_cfg or dataclasses.replace(
+        get_config("nemotron-4-340b"), num_layers=1, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    nb = transformer.tree_map(lambda a: a[0], transformer._init_block(
+        gen, "attention", ncfg, 0, 1, torch.float32, dev))
+    n_nb = sum(t.numel() for t in _leaves(nb))
+
+    def nemo_block(x, pos, cache):
+        return transformer._apply_block(nb, "attention", x, pos, ncfg, cache)
+
+    _, nerr, nt = _block_check("nemotron block", ncfg, nemo_block, dev,
+                               *nemo_tokens, seed=13)
+    log("variants", f"{ncfg.name} block at its widths (d_model "
+                    f"{ncfg.d_model}, {ncfg.num_heads} / {ncfg.num_kv_heads} "
+                    f"heads x {ncfg.resolved_head_dim}, d_ff {ncfg.d_ff} "
+                    f"{ncfg.activation}, {n_nb} parameters, f32): "
+                    f"{sum(nemo_tokens)} positions through the training path "
+                    f"{nt['train_ms']:.2f} ms; {nemo_tokens[0]} tokens "
+                    f"written into the cache at once {nt['write_ms']:.2f} "
+                    f"ms, then {nemo_tokens[1]} decode steps "
+                    f"{nt['decode_ms_per_step']:.2f} ms each; == the "
+                    f"training path (max abs diff {nerr:.3e})")
+    del nb
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # 7. One mixtral-8x22b attention block with its window, past it.
+    mcfg = mix_cfg or dataclasses.replace(
+        get_config("mixtral-8x22b"), num_layers=1, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    mb = transformer.tree_map(lambda a: a[0], transformer._init_mixer(
+        gen, "attention", mcfg, 1, torch.float32, dev))
+    mix = {}
+    for w in (mcfg.sliding_window, None):
+        c = dataclasses.replace(mcfg, sliding_window=w)
+
+        def mix_block(x, pos, cache, c=c):
+            return attn.attention_block(mb, x, c, pos, cache=cache)
+
+        got, err, tm = _block_check(f"mixtral block, window {w}", c,
+                                    mix_block, dev, *mix_tokens, seed=15)
+        mix[w] = (got[:, mix_tokens[0]:], err, tm)
+        del got
+    past = float((mix[mcfg.sliding_window][0] - mix[None][0]).abs().max())
+    if not past > 1e-3:
+        raise AssertionError(f"mixtral: decode past the window equals the "
+                             f"unwindowed decode (max diff {past})")
+    mt = mix[mcfg.sliding_window][2]
+    log("variants", f"{mcfg.name} attention block (d_model {mcfg.d_model}, "
+                    f"{mcfg.num_heads} / {mcfg.num_kv_heads} heads x "
+                    f"{mcfg.resolved_head_dim}, rope theta "
+                    f"{mcfg.rope_theta:g}, window {mcfg.sliding_window}, "
+                    f"f32): {sum(mix_tokens)} positions through the blocked "
+                    f"training path {mt['train_ms']:.1f} ms; "
+                    f"{mix_tokens[0]} tokens written into the cache at once "
+                    f"{mt['write_ms']:.1f} ms, then {mix_tokens[1]} decode "
+                    f"steps past the window {mt['decode_ms_per_step']:.3f} "
+                    f"ms each; == the training path (max abs diff "
+                    f"{mix[mcfg.sliding_window][1]:.3e}); window off: == "
+                    f"its own training path ({mix[None][1]:.3e}) and "
+                    f"differs past the window by up to {past:.3e}")
+    del mb, mix
+    total = {k: sum(run[k] for run in launches.values()) for k in counters}
+    for kname, c in total.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the variants "
+                                 "path")
+    log("variants", "launches on the phase's paths (serve, train): "
+                    + ", ".join(f"{k} {v}" for k, v in total.items()))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": total, "launches_by_run": launches, "kv": kv,
+            "fused": fused, "ms_per_token": stats, "pool": pool,
+            "fairness": fair, "profile": prof, "step_ms": step_ms,
+            "base_ms": base_ms, "calibrate_ms": calib_ms, "losses": losses,
+            "base_losses": lb, "grads_wire": gw, "params_wire": pw,
+            "wire_bytes_per_symbol": wire_b / sym, "peak_gib": peak,
+            "path_peak_gib": path_peak, "n_params": n_params,
+            "run_s": run_s, "train_s": train_s, "nemotron": nt,
+            "mixtral": mt}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -3539,6 +3966,8 @@ def main(argv=None):
                     "of deepseek-moe-16b's 28 layers, and print its peak")
     ap.add_argument("--ssm-only", action="store_true",
                     help="run only the build and the ssm phase")
+    ap.add_argument("--variants-only", action="store_true",
+                    help="run only the build and the variants phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -3596,6 +4025,10 @@ def main(argv=None):
         phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush)
         print(smi)
         return
+    if args.variants_only:
+        phase_variants(qf, qc, h6, ops, ref, serve_mod, flush)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -3640,6 +4073,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     moe_serve = phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush)
     ssm_res = phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush)
+    var = phase_variants(qf, qc, h6, ops, ref, serve_mod, flush)
     ck = phase_ckpt(qc, h6, ops, ref, flush)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3671,12 +4105,15 @@ def main(argv=None):
                  "moe_serve_launches": moe_serve["launches"][kname],
                  "moe_serve_path": moe_serve["fused"][kname],
                  "ssm_launches": ssm_res["launches"][kname],
-                 "ssm_path": ssm_res["fused"][kname]}
+                 "ssm_path": ssm_res["fused"][kname],
+                 "variants_launches": var["launches"][kname],
+                 "variants_path": var["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    adapt["err"],
                                    moe_res["fused"][kname]["max_abs_err"],
                                    moe_serve["fused"][kname]["max_abs_err"],
-                                   ssm_res["fused"][kname]["max_abs_err"])
+                                   ssm_res["fused"][kname]["max_abs_err"],
+                                   var["fused"][kname]["max_abs_err"])
         if kname == "K1":
             entry["train_path_hist"] = adapt["k1_hist"]
             entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -3693,9 +4130,12 @@ def main(argv=None):
         entry["moe_serve_path"] = moe_serve["kv"][kname]
         entry["ssm_launches"] = ssm_res["launches"][kname]
         entry["ssm_path"] = ssm_res["kv"][kname]
+        entry["variants_launches"] = var["launches"][kname]
+        entry["variants_path"] = var["kv"][kname]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    moe_serve["kv"][kname]["err"],
-                                   ssm_res["kv"][kname]["err"])
+                                   ssm_res["kv"][kname]["err"],
+                                   var["kv"][kname]["err"])
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -3726,12 +4166,15 @@ def main(argv=None):
         "moe_serve_launches": moe_serve["launches"]["K6"],
         "kv_path": kv_times["K6"], "moe_serve_path": moe_serve["kv"]["K6"],
         "ssm_launches": ssm_res["launches"]["K6"],
-        "ssm_path": ssm_res["kv"]["K6"]})
+        "ssm_path": ssm_res["kv"]["K6"],
+        "variants_launches": var["launches"]["K6"],
+        "variants_path": var["kv"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
                                      kv_times["K6"]["err"],
                                      moe_serve["kv"]["K6"]["err"],
-                                     ssm_res["kv"]["K6"]["err"])
+                                     ssm_res["kv"]["K6"]["err"],
+                                     var["kv"]["K6"]["err"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

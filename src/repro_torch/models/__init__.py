@@ -1,9 +1,9 @@
-"""Model zoo subset, for serving (decode) and training (full-sequence
-forward and loss): dense and MoE attention stacks (phi3-mini-3.8b,
-deepseek-moe-16b), the recurrent xLSTM and hybrid mamba stacks
-(xlstm-125m, jamba's blocks; ``models.ssm``), and the modality stubs
-(``models.multimodal``) that make a vlm or audio config's prefix
-embeddings."""
+"""The model zoo, for serving (decode) and training (full-sequence
+forward and loss): dense and MoE attention stacks with swiglu, gelu or
+squared-ReLU FFNs, sliding-window attention and padded heads, the
+recurrent xLSTM and hybrid mamba stacks (``models.ssm``), and the
+modality stubs (``models.multimodal``) that make a vlm or audio config's
+prefix embeddings."""
 from repro_torch.models.transformer import (  # noqa: F401
     apply_stack,
     decode_step,
@@ -11,4 +11,5 @@ from repro_torch.models.transformer import (  # noqa: F401
     init_decode_states,
     init_params,
     next_token_loss,
+    prefill_logits,
 )

@@ -9,9 +9,13 @@ the value product. The reference's TPU memory tricks (a checkpointed
 scan over KV blocks) become Python loops; the per-layer checkpoint of
 ``remat="full"`` bounds what autograd keeps.
 
-Serving runs the decode branch of :func:`attention_block`: one token
-against a KV cache (prefill goes token by token through it, as the
-reference's ``serving.engine.prefill`` does).
+Serving runs the decode branch of :func:`attention_block`: ``S`` query
+tokens written into a KV cache at its length and attending over the
+filled prefix, within the sliding window when the config has one (the
+engine's prefill goes token by token through it, as the reference's
+``serving.engine.prefill`` does). Padded heads (``pad_heads_multiple``)
+are zero slices of ``wq`` / ``wo`` held out of the gradient: training
+attends with all of them, decode with the real ones only.
 """
 from __future__ import annotations
 
@@ -65,6 +69,31 @@ def kv_block_restore(cache: KVCache, t0: int, t1: int, k: torch.Tensor,
     cache.k.narrow(KV_SEQ_AXIS, t0, t1 - t0).copy_(k)
     cache.v.narrow(KV_SEQ_AXIS, t0, t1 - t0).copy_(v)
     return cache
+
+
+def padded_heads(cfg: ModelConfig) -> int:
+    """Query heads after padding to a multiple of ``pad_heads_multiple``."""
+    h, m = cfg.num_heads, cfg.pad_heads_multiple
+    if not m or h % m == 0:
+        return h
+    return -(-h // m) * m
+
+
+def _freeze_pad(w: torch.Tensor, n_real: int, axis: int) -> torch.Tensor:
+    """The pad slice along ``axis`` detached, so padded heads stay
+    exactly 0 (the reference's ``stop_gradient``): without it the padded
+    heads' uniform softmax gives ``wo``'s pad slice a gradient."""
+    pad = w.narrow(axis, n_real, w.shape[axis] - n_real).detach()
+    return torch.cat([w.narrow(axis, 0, n_real), pad], dim=axis)
+
+
+def _expand_kv_padded(x: torch.Tensor, groups: int, n_real: int,
+                      hp: int) -> torch.Tensor:
+    """GQA expansion to ``hp`` heads: real head h reads kv[h // groups],
+    a padded head (its q is 0) reads kv[0]."""
+    idx = [min(h_ // groups, x.shape[2] - 1) if h_ < n_real else 0
+           for h_ in range(hp)]
+    return torch.index_select(x, 2, torch.tensor(idx, device=x.device))
 
 
 def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -139,36 +168,61 @@ def blocked_attention(q, k, v, q_pos, k_pos, window=None, q_block=512,
     return torch.cat(outs, dim=1)
 
 
+def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor
+                 ) -> KVCache:
+    """``k`` / ``v`` [B, S, KV, H] written at each row's ``cache.length``;
+    the length advanced by S. One token is a masked select over the
+    cache, as the reference's; S tokens a scatter at rows starting at
+    ``length`` clamped to ``S_max - S`` (``dynamic_update_slice``'s
+    clamp)."""
+    b, s_in = k.shape[:2]
+    idx = cache.length                                       # [B]
+    s_max = cache.k.shape[1]
+    if s_in == 1:
+        pos_iota = torch.arange(s_max, dtype=torch.int32,
+                                device=k.device)[None, :, None, None]
+        writing = pos_iota == idx[:, None, None, None]       # [B,S,1,1]
+        k_new = torch.where(writing, k.to(cache.k.dtype), cache.k)
+        v_new = torch.where(writing, v.to(cache.v.dtype), cache.v)
+    else:
+        start = torch.clamp(idx, 0, s_max - s_in).long()
+        rows = start[:, None] + torch.arange(s_in, device=k.device)
+        rows = rows[:, :, None, None].expand(-1, -1, *k.shape[2:])
+        k_new = cache.k.scatter(1, rows, k.to(cache.k.dtype))
+        v_new = cache.v.scatter(1, rows, v.to(cache.v.dtype))
+    return KVCache(k=k_new, v=v_new, length=idx + s_in)
+
+
 def attention_block(params, x, cfg: ModelConfig, positions,
                     cache: Optional[KVCache] = None):
     """Self-attention over the whole sequence (training), or, with
-    ``cache``, single-token decode.
+    ``cache``, decode.
 
-    x: [B, S, D]. With ``cache`` (S == 1) it writes k/v at position
-    ``cache.length`` and attends over the filled prefix. Returns
-    (out [B, S, D], new_cache or None).
+    x: [B, S, D]. With ``cache`` it writes the S tokens' k/v from
+    position ``cache.length`` and attends over the filled prefix, each
+    query causally at its own position (and within the sliding window).
+    Returns (out [B, S, D], new_cache or None).
     """
-    if cfg.pad_heads_multiple and cfg.num_heads % cfg.pad_heads_multiple:
-        raise NotImplementedError(
-            "padded-head attention is not ported yet (ROADMAP queue 1, "
-            "item 11: the block variants)")
-    if cache is not None and (x.shape[1] != 1
-                              or cfg.sliding_window is not None):
-        raise NotImplementedError(
-            "multi-token prefill into a KV cache and sliding-window "
-            "decode are not ported yet (ROADMAP queue 1, item 11: the "
-            "block variants); serving prefills token by token")
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
+    hp = padded_heads(cfg)
 
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(x.dtype))
+    wq, wo = params["wq"], params["wo"]
+    if hp != h:
+        wq = _freeze_pad(wq, h, 1)
+        wo = _freeze_pad(wo, h, 0)
+    q = torch.einsum("bsd,dnh->bsnh", x, wq.to(x.dtype))
     k = torch.einsum("bsd,dnh->bsnh", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsd,dnh->bsnh", x, params["wv"].to(x.dtype))
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
 
     if cache is None:
-        kk, vv = _repeat_kv(k, groups), _repeat_kv(v, groups)
+        if hp != h:
+            kk = _expand_kv_padded(k, groups, h, hp)
+            vv = _expand_kv_padded(v, groups, h, hp)
+        else:
+            kk, vv = _repeat_kv(k, groups), _repeat_kv(v, groups)
         if cfg.attn_impl == "dense":
             out = dense_attention(q, kk, vv, positions, positions,
                                   cfg.sliding_window)
@@ -177,30 +231,26 @@ def attention_block(params, x, cfg: ModelConfig, positions,
                 q, kk, vv, positions, positions, cfg.sliding_window,
                 cfg.attn_q_block, cfg.attn_kv_block, cfg.causal_skip,
                 score_dtype=getattr(torch, cfg.attn_score_dtype))
-        return torch.einsum("bsnh,nhd->bsd", out,
-                            params["wo"].to(out.dtype)), None
+        return torch.einsum("bsnh,nhd->bsd", out, wo.to(out.dtype)), None
 
-    b = x.shape[0]
-    idx = cache.length                                       # [B]
-    s_max = cache.k.shape[1]
-    pos_iota = torch.arange(s_max, dtype=torch.int32,
-                            device=x.device)[None, :, None, None]
-    writing = pos_iota == idx[:, None, None, None]           # [B,S,1,1]
-    k_new = torch.where(writing, k.to(cache.k.dtype), cache.k)
-    v_new = torch.where(writing, v.to(cache.v.dtype), cache.v)
-    new_cache = KVCache(k=k_new, v=v_new, length=idx + 1)
+    b, s_in = x.shape[:2]
+    new_cache = _write_cache(cache, k, v)
+    k_new, v_new = new_cache.k, new_cache.v
 
-    # GQA-grouped decode: contract against the cache per KV head.
-    qg = q.reshape(b, 1, kv, groups, hd)
-    k_pos = torch.arange(s_max, dtype=torch.int32, device=x.device)
+    # GQA-grouped decode over the real heads: contract against the cache
+    # per KV head.
+    qg = q[:, :, :h].reshape(b, s_in, kv, groups, hd)
+    k_pos = torch.arange(k_new.shape[1], dtype=torch.int32,
+                         device=x.device)[None, None, None, None, :]
+    q_pos = positions[:, :, None, None, None]
     scale = hd ** -0.5
     scores = (torch.einsum("bqkgd,bskd->bqkgs", qg, k_new).float()
               * scale)                                      # [B,S,KV,G,Smax]
-    valid = (k_pos[None, None, None, None, :]
-             <= positions[:, :, None, None, None])
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    valid = k_pos <= q_pos
+    if cfg.sliding_window is not None:
+        valid &= k_pos > q_pos - cfg.sliding_window
+    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs.to(x.dtype), v_new)
-    out = out.reshape(b, 1, h, hd)
+    out = out.reshape(b, s_in, h, hd)
     return torch.einsum("bsnh,nhd->bsd", out,
-                        params["wo"].to(out.dtype)), new_cache
+                        wo[:h].to(out.dtype)), new_cache

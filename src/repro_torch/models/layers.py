@@ -45,15 +45,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
 
 
+def _act(name: str):
+    """The FFN activation. ``gelu`` is the tanh form, which is what the
+    reference's ``jax.nn.gelu`` computes by default (torch's default,
+    the erf form, differs by up to 5e-4)."""
+    if name == "swiglu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "squared_relu":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
+
+
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU MLP. x: [B, S, D] -> [B, S, D]."""
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"the {activation!r} FFN activation is not ported yet (ROADMAP "
-            "queue 1, item 11: the block variants)")
+    """x: [B, S, D] -> [B, S, D]. SwiGLU gates with ``w_gate``; the other
+    activations have no gate."""
+    act = _act(activation)
     h = torch.einsum("bsd,df->bsf", x, params["w_in"].to(x.dtype))
-    g = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
-    h = F.silu(g) * h
+    if activation == "swiglu":
+        g = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
+        h = act(g) * h
+    else:
+        h = act(h)
     return torch.einsum("bsf,fd->bsd", h, params["w_out"].to(x.dtype))
 
 

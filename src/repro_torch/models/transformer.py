@@ -6,12 +6,11 @@ Parameters are a plain dict tree in the reference's layout: layer
 groups are stacked along a leading group dim, e.g.
 ``params["groups"]["l0"]["mixer"]["wq"]`` has shape ``[G, d, h, hd]``.
 That stacked leaf is the weight wire's unit. Every block kind is
-ported, for training and for decoding: attention with a dense or an MoE
-FFN (``models.moe``), and the recurrent mamba, sLSTM and mLSTM blocks
-(``models.ssm``), whose decode states are ``NamedTuple`` s in the same
-stacked layout. Block variants not ported yet (the ``gelu`` and
-``squared_relu`` FFNs, sliding-window decode, padded heads) raise
-``NotImplementedError`` naming their ROADMAP item.
+ported, for training and for decoding: attention (sliding-window and
+padded-head variants included) with a dense FFN of any activation
+(``w_gate`` only for swiglu) or an MoE FFN (``models.moe``), and the
+recurrent mamba, sLSTM and mLSTM blocks (``models.ssm``), whose decode
+states are ``NamedTuple`` s in the same stacked layout.
 """
 from __future__ import annotations
 
@@ -23,9 +22,6 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
-
-_NOT_PORTED = ("{} is not ported yet (ROADMAP queue 1, item 11: the block "
-               "variants)")
 
 
 def resolve_device(device) -> torch.device:
@@ -115,10 +111,16 @@ def _init_mixer(gen, kind: str, cfg: ModelConfig, g: int, dtype, device):
                     cfg.resolved_head_dim)
     s = 1.0 / d ** 0.5
     so = 1.0 / (h * hd) ** 0.5
-    return {"wq": _normal(gen, (g, d, h, hd), s, dtype, device),
-            "wk": _normal(gen, (g, d, kv, hd), s, dtype, device),
-            "wv": _normal(gen, (g, d, kv, hd), s, dtype, device),
-            "wo": _normal(gen, (g, h, hd, d), so, dtype, device)}
+    wq = _normal(gen, (g, d, h, hd), s, dtype, device)
+    wk = _normal(gen, (g, d, kv, hd), s, dtype, device)
+    wv = _normal(gen, (g, d, kv, hd), s, dtype, device)
+    wo = _normal(gen, (g, h, hd, d), so, dtype, device)
+    hp = attn.padded_heads(cfg)
+    if hp != h:
+        # zero pad slices, frozen at use: the unpadded function
+        wq = torch.cat([wq, wq.new_zeros((g, d, hp - h, hd))], dim=2)
+        wo = torch.cat([wo, wo.new_zeros((g, hp - h, hd, d))], dim=1)
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
 def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
@@ -136,18 +138,16 @@ def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
         p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
         p["ffn"] = moe.init_moe(gen, cfg, dtype, device, lead=(g,))
     elif fk == "dense":
-        if cfg.activation != "swiglu":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"the {cfg.activation!r} FFN activation"))
         ff = cfg.d_ff
         p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
         p["ffn"] = {
             "w_in": _normal(gen, (g, d, ff), 1.0 / d ** 0.5, dtype, device),
             "w_out": _normal(gen, (g, ff, d), 1.0 / ff ** 0.5, dtype,
                              device),
-            "w_gate": _normal(gen, (g, d, ff), 1.0 / d ** 0.5, dtype,
-                              device),
         }
+        if cfg.activation == "swiglu":
+            p["ffn"]["w_gate"] = _normal(gen, (g, d, ff), 1.0 / d ** 0.5,
+                                         dtype, device)
     return p
 
 
@@ -305,6 +305,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     return layers.unembed(head, x, cfg.tie_embeddings)
 
 
+def prefill_logits(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   prefix_emb: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Inference prefill: logits of the last position only, [B, 1, V]
+    (the [B, S, V] logits are never made)."""
+    x = _hidden(params, cfg, tokens, prefix_emb)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return layers.unembed(head, x[:, -1:], cfg.tie_embeddings)
+
+
 def next_token_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
                     labels: torch.Tensor,
                     prefix_emb: Optional[torch.Tensor] = None
@@ -321,9 +331,11 @@ def next_token_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,
                 positions: torch.Tensor, weight_codec=None):
-    """One-token decode. tokens: [B, 1]; positions: [B, 1] absolute.
+    """Decode. tokens: [B, S]; positions: [B, S] absolute. S is 1 in the
+    engine; an attention stack also takes S tokens at once, written into
+    the cache together.
 
-    Returns (logits [B, 1, V], new_states).
+    Returns (logits [B, S, V], new_states).
     """
     dtype = getattr(torch, cfg.dtype)
     x = layers.embed(params["embed"], tokens).to(dtype)

@@ -46,13 +46,18 @@ it step by step:
   encoded and continues from the pooled bytes. Each layer's newest
   snapshot supersedes the previous one in the pool.
 
-Per-tenant fairness caps and mesh-bound caches are not ported
-(ROADMAP).
+* **Fairness** (``fairness_cap``) — no tenant holds more than
+  ``ceil(cap * max_batch)`` slots at once; a waiting request over its
+  tenant's cap is skipped (a ``defer_fairness`` event) and later ones
+  may take the free slot.
+
+Mesh-bound caches are not ported (ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import time
 from typing import Any, Dict, List, Optional
 
@@ -147,12 +152,15 @@ class Engine:
     ``KVCacheSpec(mode="qlc", exact_capacity=False)`` and keeps up to
     ``arena_slots`` evicted blocks in a device arena. ``monitor`` (a
     ``repro_torch.adaptive.TrafficMonitor`` over ``registry``) goes to the
-    block codec (``PagedKVCache(monitor=)``).
+    block codec (``PagedKVCache(monitor=)``). ``fairness_cap`` (0 < cap
+    <= 1) bounds any one tenant to ``ceil(cap * max_batch)`` concurrent
+    slots.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
                  max_batch: int = 4, kv_spec: Optional[KVCacheSpec] = None,
                  registry=None, pool: Optional[BlockPool] = None,
+                 fairness_cap: Optional[float] = None,
                  kv_paging: str = "sync", arena_slots: int = 256,
                  monitor=None):
         if max_batch < 1:
@@ -184,6 +192,8 @@ class Engine:
         self._codec: Optional[PagedKVCache] = None
         self.monitor = monitor
         self._kinds = cfg.layer_kinds()
+        self._tenant_cap = (None if fairness_cap is None
+                            else max(1, math.ceil(fairness_cap * max_batch)))
         #: boundary-state snapshots for SSM re-basing (qlc only)
         self._snaps = SSMBoundaryTracker()
         self._rebase = (kv_spec is not None and kv_spec.ssm_rebase
@@ -351,6 +361,10 @@ class Engine:
             if None not in self._slots:
                 break
             seq = self._seqs[rid]
+            if self._tenant_cap is not None and \
+                    self._tenant_active(seq.req.tenant) >= self._tenant_cap:
+                self._log("defer_fairness", rid)
+                continue
             self._waiting.remove(rid)
             try:
                 if self.pool is not None and self.kv_spec is not None:
@@ -362,6 +376,10 @@ class Engine:
                 self._start(seq)
             except PoolExhausted as e:
                 self._reject(seq, e)
+
+    def _tenant_active(self, tenant: str) -> int:
+        return sum(1 for rid in self._slots if rid is not None
+                   and self._seqs[rid].req.tenant == tenant)
 
     def _projected_bytes(self, seq: _Seq) -> float:
         """Projected compressed footprint of a request, in the pool's

@@ -18,6 +18,7 @@ tolerances and why:
   of entries (in practice all) and losses to rtol 1e-5 — the gradients
   differ in their last bits, so an e4m3 code may round the other way.
 """
+import dataclasses
 import os
 
 import jax
@@ -326,12 +327,43 @@ def test_launcher_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pods", "2"], "item 13"), (["--transport", "hierarchical"],
-                                   "item 13"),
-    (["--arch", "musicgen-medium"], "item 11")])
+                                   "item 13")])
 def test_launcher_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_mod.main(["--arch", "phi3-mini-3.8b", "--reduced", "--device",
                         "cpu"] + flags)
+
+
+def test_launcher_trains_reduced_musicgen_like_the_reference(capsys):
+    """Reduced musicgen-medium (gelu FFN, no ``w_gate``) through the
+    launcher, 2 compressed steps in its bf16 compute: every step ok, no
+    fallback, and the first step's loss that of ``next_token_loss`` on
+    the launcher's initial parameters and batch 0 (``seq_len -
+    frontend_prefix_len`` tokens, no prefix). The same loss in f32
+    compute equals the reference's within GRAD_TOL."""
+    res = train_mod.main(["--arch", "musicgen-medium", "--reduced",
+                          "--device", "cpu", "--comm", "qlc", "--steps", "2",
+                          "--seq-len", "40", "--global-batch", "4"])
+    assert len(res["history"]) == 2 and res["comm_fallbacks"] == 0
+    assert all(h["ok"] for h in res["history"])
+    assert "B/symbol (grads)" in capsys.readouterr().out
+    tc = reduced(get_config("musicgen-medium"))
+    assert tc.frontend_prefix_len == 8 and tc.activation == "gelu"
+    tp = init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    assert "w_gate" not in tp["groups"]["l0"]["ffn"]
+    b = SyntheticDataset(DataConfig(vocab_size=tc.vocab_size, seq_len=32,
+                                    global_batch=4, seed=0)).batch_at(0)
+    t, lab = torch.from_numpy(b["tokens"]), torch.from_numpy(b["labels"])
+    with torch.no_grad():
+        np.testing.assert_allclose(res["history"][0]["loss"],
+                                   float(next_token_loss(tp, tc, t, lab)),
+                                   rtol=1e-6)
+        tl = next_token_loss(tp, dataclasses.replace(tc, dtype="float32"),
+                             t, lab)
+    jc = jreduced(jget_config("musicgen-medium"), dtype="float32")
+    jp = jax.tree.map(lambda x: jnp.asarray(x.numpy()), tp)
+    jl = jloss(jp, jc, jnp.asarray(b["tokens"]), jnp.asarray(b["labels"]))
+    np.testing.assert_allclose(float(tl), float(jl), **GRAD_TOL)
 
 
 _SMALL = ["--arch", "phi3-mini-3.8b", "--reduced", "--device", "cpu",
