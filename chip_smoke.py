@@ -270,6 +270,25 @@ non-zero (nothing is caught and carried on):
                window. K1-K6 counted from zero around the serve and train
                runs, each non-zero.
 
+ 15. tp      — tensor parallelism of the dense layers, right after the
+               train phase on its rank. The layout table: for every
+               config at 2 x 2, 1 x 4 and 16 x 16, the leaves its specs
+               split over the model axis and keep whole and the parameter
+               bytes a rank holds. phi3-mini-3.8b at full width and all 32
+               layers on the card, cut for model axes of 2 and 4
+               (``convert.shard_params``), every local leaf of its spec's
+               shape, gathered back bit-equal. The train cell (8 layers,
+               4 x 512): 2 compressed steps through ``train()`` with no
+               mesh and with a 1 x 1 mesh in scope (the 2-D step's code),
+               calibrated alike, parameters bit-equal; K6/K1/K2 counted
+               from zero around the second. K1 (with codes) and K2
+               (accumulate form) at 2 x 2's per-rank flat-gradient shape
+               (model rank 0's blocks of the 32-layer gradient of data
+               rank 0's 2 rows), bit-equal to plain on the first and last
+               4096 chunks and timed. With two or more cards, the layouts
+               they allow through ``tools/tp_cards.py`` at 8 layers; it
+               prints which layouts ran.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -277,9 +296,9 @@ the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-``python3 chip_smoke.py --ssm-only`` (``--variants-only``) runs only
-the build and the ssm (variants) phase, then the ``nvidia-smi`` line,
-and no result line.
+``python3 chip_smoke.py --ssm-only`` (``--variants-only``,
+``--tp-only``) runs only the build and the ssm (variants, tp) phase,
+then the ``nvidia-smi`` line, and no result line.
 
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
 the moe_serve phase, at L of the 28 layers, and prints its peak device
@@ -1685,7 +1704,8 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
             "step_ms": step_ms, "base_ms": base_ms, "base_losses": lb}
 
 
-def train_path_fused(ops, ref, entry, grad, flush, rows=4096):
+def train_path_fused(ops, ref, entry, grad, flush, rows=4096,
+                     phase="train"):
     """K1 with codes and K2's accumulate form at the train path's own
     shape: the flat gradient as chunks of the plan's size, at the plan's
     slot, with the calibrated gradient codec. Each held bit for bit
@@ -1727,7 +1747,7 @@ def train_path_fused(ops, ref, entry, grad, flush, rows=4096):
                "bound_ms": bound_ms(nbytes(words, sc, acc) + 4 * n
                                    + n * k * 4)}}
     for kname, v in res.items():
-        log("train", f"{kname} at the train path's shape {v['shape']} (slot "
+        log(phase, f"{kname} at the {phase} path's shape {v['shape']} (slot "
                      f"{cap} words{', codes' if kname == 'K1' else ', acc'}):"
                      f" bit-equal to plain on the first and last {rows} "
                      f"chunks; {v['ms']:.3f} ms (kernel alone "
@@ -3884,6 +3904,200 @@ def phase_variants(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
             "mixtral": mt}
 
 
+TP_LAYOUTS = ((2, 2), (1, 4), (16, 16))
+
+
+def tp_layout_table():
+    """Per config, at each of ``TP_LAYOUTS``: the leaves its resolved
+    specs split over the model axis, the leaves they keep whole, and the
+    parameter bytes one rank holds. Pure arithmetic on the shapes."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.parallel import sharding
+    table = {}
+    for name, cfg in REGISTRY.items():
+        shapes = sharding.param_shapes(cfg)
+        leaf_shapes = pytree_leaves(shapes)
+        item = torch.empty((), dtype=getattr(torch, cfg.param_dtype)
+                           ).element_size()
+        row = {}
+        for data, model in TP_LAYOUTS:
+            mesh = Mesh(data=data, model=model, rank=0, world_group=None,
+                        data_group=None, model_group=None)
+            specs = pytree_leaves(sharding.param_pspecs(cfg, mesh, shapes))
+            split = sum(sharding.model_dim(sp) is not None for sp in specs)
+            local = sum(sharding.local_numel(sh, sp, mesh)
+                        for sh, sp in zip(leaf_shapes, specs))
+            row[f"{data}x{model}"] = {"split": split,
+                                      "whole": len(specs) - split,
+                                      "bytes": local * item}
+        table[name] = row
+        log("tp", f"{name}: " + "; ".join(
+            f"{k} {v['split']} split / {v['whole']} whole leaves, "
+            f"{v['bytes'] / 2**30:.3f} GiB a rank" for k, v in row.items())
+            + ("" if sharding.tensor_parallel(cfg) else
+               " (MoE / recurrent: the port keeps today's layout)"))
+    return table
+
+
+def tp_cut_and_gather(cfg, dev):
+    """The whole tree of ``cfg`` on ``dev`` cut for a model axis of 2 and
+    of 4 (``convert.shard_params``), every local leaf of its resolved
+    shape, and gathered back (``convert.gather_params``) bit-equal.
+    Returns {model: (cut ms, gather ms)}."""
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.parallel import sharding
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {}
+    for model in (2, 4):
+        layout = Mesh(data=1, model=model, rank=0, world_group=None,
+                      data_group=None, model_group=None)
+        specs = pytree_leaves(sharding.param_pspecs(cfg, layout))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [shard_params(whole, cfg, m, model) for m in range(model)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = gather_params(parts, cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for part in parts:
+            for leaf, sp, full in zip(pytree_leaves(part), specs,
+                                      pytree_leaves(whole)):
+                want = sharding.local_shape(tuple(full.shape), sp, layout)
+                if tuple(leaf.shape) != want:
+                    raise AssertionError(f"tp: a {model}-way cut leaf is "
+                                         f"{tuple(leaf.shape)}, not {want}")
+        for a, b in zip(pytree_leaves(back), pytree_leaves(whole)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"tp: the {model}-way cut gathered "
+                                     "back differs from the whole tree")
+        out[model] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        n = sum(t.numel() for t in pytree_leaves(parts[0]))
+        log("tp", f"{cfg.name} ({sum(t.numel() for t in pytree_leaves(whole))}"
+                  f" parameters) cut for a model axis of {model} on the "
+                  f"card: {n} a rank, every leaf of its spec's shape, "
+                  f"gathered back bit-equal; cut {out[model][0]:.1f} ms, "
+                  f"gather {out[model][1]:.1f} ms")
+        del parts, back
+    del whole
+    return out
+
+
+def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
+             seq_len=512, global_batch=4):
+    """The tensor-parallel slice on one card: the layout table; the whole
+    of ``cfg`` (phi3-mini-3.8b, all 32 layers) cut for model axes of 2
+    and 4 and gathered back; the train cell (``train_cfg``: 8 layers)
+    trained 2 compressed steps through ``train()`` with no mesh and with
+    a 1 x 1 mesh in scope, bit-equal, K6/K1/K2 counted from zero around
+    the second; K1 and K2 at 2 x 2's per-rank flat-gradient shape (model
+    rank 0's blocks of the whole model's gradient on data rank 0's 2
+    rows) bit-equal to plain and timed; with two or more cards the
+    layouts they allow through ``tools/tp_cards.py``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.mesh import Mesh, make_test_mesh, use_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.training.train_step import (_flatten_local,
+                                                 _value_and_grad,
+                                                 flat_geometry, local_batch)
+    import hashlib
+    import torch.distributed as dist
+    cfg = cfg or get_config("phi3-mini-3.8b")
+    table = tp_layout_table()
+    cut = tp_cut_and_gather(cfg, dev)
+    torch.cuda.empty_cache()
+
+    cell = _train_cell(train_cfg)
+    kw = dict(comm="qlc", steps=2, seq_len=seq_len,
+              global_batch=global_batch, device=dev, transport="oneshot",
+              seed=0)
+    plain = train(cell, **kw)
+    reg = plain["registry"]
+    flat_plain = _flat_params(plain["params"]).cpu()
+    del plain
+    torch.cuda.empty_cache()
+    counters = {"K6": h6.histogram256, "K1": qf.fused_encode,
+                "K2": qf.fused_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    with use_mesh(make_test_mesh(model=1)):
+        meshed = train(cell, **kw)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the tp path")
+    if meshed["registry"].to_json() != reg.to_json():
+        raise AssertionError("tp: the 1 x 1 run calibrated another registry")
+    if not all(h["ok"] for h in meshed["history"]):
+        raise AssertionError("tp: a 1 x 1 step's ok is False")
+    flat_meshed = _flat_params(meshed["params"]).cpu()
+    require_equal("tp: 1 x 1 mesh vs no mesh, parameters after 2 steps",
+                  [flat_meshed], [flat_plain])
+    digest = hashlib.sha256(flat_meshed.numpy().tobytes()).hexdigest()[:16]
+    losses = [h["loss"] for h in meshed["history"]]
+    log("tp", f"train cell ({cell.num_layers} layers) at 1 x 1 through the "
+              f"2-D step: 2 compressed steps bit-equal to the run with no "
+              f"mesh ({flat_meshed.numel()} parameters, sha256 {digest}), "
+              f"losses {losses}; launches {launches}")
+    del meshed, flat_meshed, flat_plain
+    torch.cuda.empty_cache()
+
+    # K1 / K2 at 2 x 2's per-rank flat-gradient shape
+    layout = Mesh(data=2, model=2, rank=0, world_group=None, data_group=None,
+                  model_group=None)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = SyntheticDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq_len,
+        global_batch=global_batch)).batch_at(0)
+    rows = {k: torch.as_tensor(v)[:global_batch // 2].to(dev)
+            for k, v in batch.items()}
+    _, grads = _value_and_grad(whole, cfg, rows)
+    del whole
+    local = shard_params(grads, cfg, 0, 2)
+    del grads
+    geom = flat_geometry(local, 2, reg["grads"].config(), cfg, layout)
+    grad = _flatten_local(local, geom.n_padded)
+    del local
+    torch.cuda.empty_cache()
+    log("tp", f"2 x 2 on {cfg.name}, all {cfg.num_layers} layers: a model "
+              f"rank's flat vector {geom.n_local} of {geom.n_padded} "
+              f"(segment {geom.seg}); K1 / K2 at its shape on model rank "
+              "0's blocks of the gradient of data rank 0's rows")
+    fused = train_path_fused(ops, ref, reg["grads"], grad, flush, phase="tp")
+    del grad
+    torch.cuda.empty_cache()
+
+    n_cards = torch.cuda.device_count() if dev == "cuda" else 1
+    ran = ["1 x 1"]
+    if n_cards >= 2:
+        models = [m for m in (2, 4) if m <= n_cards and n_cards % m == 0]
+        cmd = [sys.executable, os.path.join(ROOT, "tools", "tp_cards.py"),
+               "--cards", str(n_cards), "--layers", "8", "--steps", "2",
+               "--model"] + [str(m) for m in models]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        for line in r.stdout.splitlines():
+            log("tp", f"cards: {line}")
+        if r.returncode:
+            raise AssertionError(f"tp: tools/tp_cards.py exited "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        ran += [f"{n_cards // m} x {m}" for m in models]
+    log("tp", f"layouts run: {', '.join(ran)} ({n_cards} card"
+              f"{'s' if n_cards > 1 else ''}; the 2-D layouts run on gloo "
+              "CPU ranks in tests/test_torch_tp.py and on 4 cards in "
+              "tools/tp_cards.py)")
+    return {"launches": launches, "fused": fused, "table": table,
+            "cut_ms": cut, "layouts": ran, "n_padded": geom.n_padded}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -3968,6 +4182,8 @@ def main(argv=None):
                     help="run only the build and the ssm phase")
     ap.add_argument("--variants-only", action="store_true",
                     help="run only the build and the variants phase")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run only the build and the tp phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -4029,6 +4245,12 @@ def main(argv=None):
         phase_variants(qf, qc, h6, ops, ref, serve_mod, flush)
         print(smi)
         return
+    if args.tp_only:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with data_parallel("cuda"):
+            phase_tp(qf, h6, ops, ref, flush)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -4064,6 +4286,9 @@ def main(argv=None):
         phase_train_small(reduced, get_config)
         phase_train_recipe()
         tr = phase_train(qf, h6, ops, ref, flush)
+        torch.cuda.empty_cache()
+        tp = phase_tp(qf, h6, ops, ref, flush)
+        torch.cuda.empty_cache()
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
         adapt = phase_adapt(qf, h6, ops, flush, tr, smi)
@@ -4107,8 +4332,11 @@ def main(argv=None):
                  "ssm_launches": ssm_res["launches"][kname],
                  "ssm_path": ssm_res["fused"][kname],
                  "variants_launches": var["launches"][kname],
-                 "variants_path": var["fused"][kname]}
+                 "variants_path": var["fused"][kname],
+                 "tp_launches": tp["launches"][kname],
+                 "tp_path": tp["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
+                                   tp["fused"][kname]["max_abs_err"],
                                    adapt["err"],
                                    moe_res["fused"][kname]["max_abs_err"],
                                    moe_serve["fused"][kname]["max_abs_err"],
@@ -4168,7 +4396,8 @@ def main(argv=None):
         "ssm_launches": ssm_res["launches"]["K6"],
         "ssm_path": ssm_res["kv"]["K6"],
         "variants_launches": var["launches"]["K6"],
-        "variants_path": var["kv"]["K6"]})
+        "variants_path": var["kv"]["K6"],
+        "tp_launches": tp["launches"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
                                      kv_times["K6"]["err"],

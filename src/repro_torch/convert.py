@@ -3,8 +3,10 @@ parameters into the port's tree (same keys, shapes and dtypes, so both
 packages compute the same function on the same weights), a wired
 (compressed-weight) tree and its manifest in both directions
 (:func:`wire_from_numpy`, :func:`wire_to_numpy`), the flat ZeRO-1
-optimizer state into one data-parallel rank's slice, and a global
-parameter tree cut to one rank's MoE experts (:func:`shard_experts`)."""
+optimizer state into one rank's slice, a global parameter tree cut to
+one rank's MoE experts (:func:`shard_experts`), and a dense model's
+tree cut to one model rank's tensor-parallel blocks and put back
+together (:func:`shard_params`, :func:`gather_params`)."""
 from __future__ import annotations
 
 import json
@@ -76,22 +78,90 @@ def wire_to_numpy(wired, wire_codec):
 
 def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     """The reference's global ZeRO-1 state (``m`` / ``v`` laid out
-    ``[*data_axes, model, seg]``, ``step`` a scalar) -> this data-parallel
-    rank's flat state ``{"m": [seg], "v": [seg], "step": []}`` on
-    ``device``. The model axis must have size 1 (the ZeRO-1 state over a
-    model axis is not ported, ROADMAP queue 1, item 15); data ranks are taken in row-major order of the mesh's
-    data axes, the order of the reference's reduce-scatter segments."""
+    ``[*data_axes, model, seg]``, ``step`` a scalar) -> the flat state
+    ``{"m": [seg], "v": [seg], "step": []}`` of world rank ``rank`` on
+    ``device``: the row ``[d, m]`` of rank ``d * model + m``, in
+    row-major order of the mesh's axes, the order of the reference's
+    segments and of ``launch.mesh``'s ranks."""
     dev = resolve_device(device)
     out = {}
     for k in ("m", "v"):
         a = np.array(state[k])
-        if a.shape[-2] != 1:
-            raise ValueError(f"{k}: model axis {a.shape[-2]} != 1")
         out[k] = torch.from_numpy(
             np.ascontiguousarray(a.reshape(-1, a.shape[-1])[rank])).to(dev)
     out["step"] = torch.tensor(int(np.array(state["step"])),
                                dtype=torch.int32, device=dev)
     return out
+
+
+def _model_dims(cfg, model_size: int, shapes):
+    """Per leaf, the dim the model axis splits (None: whole), as
+    ``cfg``'s specs resolve on a model axis of ``model_size``."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding
+    if not sharding.tensor_parallel(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE and recurrent blocks under tensor parallelism "
+            "are not ported: ROADMAP queue 1, item 15")
+    layout = Mesh(data=1, model=model_size, rank=0, world_group=None,
+                  data_group=None, model_group=None)
+    return _zip_dict(lambda spec, _: sharding.model_dim(spec),
+                     sharding.param_pspecs(cfg, layout, shapes), shapes)
+
+
+def _zip_dict(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over a nested dict and one of the same
+    keys."""
+    if isinstance(tree, dict):
+        return {k: _zip_dict(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def _block(t, dim: int, index: int, size: int):
+    n = t.shape[dim] // size
+    if isinstance(t, torch.Tensor):
+        return t.narrow(dim, index * n, n).clone()
+    return np.ascontiguousarray(
+        np.take(np.asarray(t), np.arange(index * n, (index + 1) * n), dim))
+
+
+def shard_params(params, cfg, model_index: int, model_size: int):
+    """The local tree of model rank ``model_index`` of ``model_size``: each
+    leaf of ``params`` (a whole tree: the reference's numpy parameters or
+    the port's tensors) cut to the contiguous block that the reference's
+    stage 2 gives that rank, ``[m * n / M, (m + 1) * n / M)`` along the dim
+    its spec puts on the model axis; a leaf whose spec keeps it whole is
+    returned as it is. Tensors in, tensors out (new storage for a cut
+    leaf); numpy in, numpy out. Identity for ``model_size == 1``."""
+    if model_size == 1:
+        return params
+    shapes = _map_dict(lambda t, _: tuple(t.shape), params)
+    return _zip_dict(lambda t, dim: t if dim is None
+                     else _block(t, dim, model_index, model_size),
+                     params, _model_dims(cfg, model_size, shapes))
+
+
+def gather_params(local_trees, cfg):
+    """Inverse of :func:`shard_params`: the local trees of model ranks
+    ``0 .. M-1`` (tensors or numpy) -> the whole tree; a whole leaf is
+    rank 0's."""
+    from repro_torch.parallel.sharding import param_shapes
+    size = len(local_trees)
+    if size == 1:
+        return local_trees[0]
+    dims = _model_dims(cfg, size, param_shapes(cfg))
+    return _gather_node(local_trees, dims)
+
+
+def _gather_node(nodes, dims):
+    if isinstance(dims, dict):
+        return {k: _gather_node([n[k] for n in nodes], dims[k])
+                for k in nodes[0]}
+    if dims is None:
+        return nodes[0]
+    if isinstance(nodes[0], torch.Tensor):
+        return torch.cat(nodes, dim=dims)
+    return np.concatenate([np.asarray(n) for n in nodes], axis=dims)
 
 
 def shard_experts(params, model_index: int, model_size: int):

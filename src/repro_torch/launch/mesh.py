@@ -6,13 +6,19 @@ The world is laid out as ``(data, model)`` with model innermost: world
 rank ``r = d * model + m``, the order of the reference's
 ``Mesh(devices.reshape(dp, dm), ("data", "model"))``. :class:`Mesh`
 carries both sizes and this rank's two process groups: its model row
-(the ranks ``[d * model, (d + 1) * model)``, over which MoE experts are
-split and the expert all-to-all runs) and its data column (the ranks
-that share its model index, over which an expert's gradient is summed).
-The model axis carries expert parallelism only: tensor parallelism of
-the dense layers is not ported (ROADMAP queue 1, item 14), and the
-``"pod"`` axis waits for multi-node (item 13). :func:`use_mesh` puts a
-mesh in scope for the code that reads it (:func:`current_mesh`).
+(the ranks ``[d * model, (d + 1) * model)``) and its data column (the
+ranks that share its model index). Over the model row a dense model's
+layers are split (tensor parallelism: heads, KV heads, ``mlp`` and
+``vocab`` by ``parallel.sharding``'s rules) and an MoE's experts with
+their all-to-all; over the data column the batch and the compressed
+step's ZeRO-1 segments. The model-row collectives inside autograd are
+:func:`copy_to_model`, :func:`reduce_from_model` and
+:func:`gather_from_model`, each over a :class:`ModelRow` that the layer
+stack reads once on the caller's thread (:func:`model_row`), so a
+recomputed layer sees the same one. MoE and recurrent blocks under
+tensor parallelism wait for ROADMAP queue 1, item 15, and the ``"pod"``
+axis for multi-node (item 13). :func:`use_mesh` puts a mesh in scope for
+the code that reads it (:func:`current_mesh`).
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -28,7 +34,7 @@ import contextlib
 import dataclasses
 import socket
 import threading
-from typing import Any, Iterator, Optional, Tuple
+from typing import Any, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -198,3 +204,102 @@ def use_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
 def current_mesh() -> Optional[Mesh]:
     """The mesh :func:`use_mesh` put in scope on this thread, or None."""
     return getattr(_SCOPE, "mesh", None)
+
+
+# --------------------------------------------------------------------------
+# Model-row collectives inside autograd
+# --------------------------------------------------------------------------
+
+class ModelRow(NamedTuple):
+    """This rank's model row: its process group, its size and this
+    rank's index in it."""
+    group: Any
+    size: int
+    index: int
+
+
+def model_row(cfg=None, mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
+    """The model row of ``mesh`` (default: the mesh in scope) that
+    ``cfg``'s layers split over, or None: no mesh, a model axis of 1, or
+    a config that the port does not split (``parallel.sharding.
+    tensor_parallel``)."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.model == 1:
+        return None
+    if cfg is not None:
+        from repro_torch.parallel.sharding import tensor_parallel
+        if not tensor_parallel(cfg):
+            return None
+    return ModelRow(mesh.model_group, mesh.model, mesh.coords[1])
+
+
+def _all_reduce(t: torch.Tensor, row: ModelRow) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=row.group)
+    return t
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, row):
+        ctx.row = row
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.row), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, row):
+        return _all_reduce(x, row)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, row):
+        ctx.dim, ctx.row, ctx.n = dim, row, x.shape[dim]
+        parts: List[torch.Tensor] = [torch.empty_like(x)
+                                     for _ in range(row.size)]
+        dist.all_gather(parts, x.contiguous(), group=row.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.row.index * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+def copy_to_model(x: torch.Tensor, row: Optional[ModelRow]) -> torch.Tensor:
+    """Identity forward; the cotangent summed over the model row
+    backward: the input of a layer whose weights are split, each rank's
+    part of the gradient completed by the others'."""
+    if row is None or row.size == 1:
+        return x
+    return _CopyToModel.apply(x, row)
+
+
+def reduce_from_model(x: torch.Tensor, row: Optional[ModelRow]
+                      ) -> torch.Tensor:
+    """Sum over the model row forward (every rank gets the same bits);
+    identity backward: the output of a layer whose contraction dim is
+    split."""
+    if row is None or row.size == 1:
+        return x
+    return _ReduceFromModel.apply(x, row)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, row: Optional[ModelRow]
+                      ) -> torch.Tensor:
+    """The model row's blocks concatenated along ``dim`` in rank order
+    forward; this rank's block of the cotangent backward, which is right
+    where the gathered tensor's cotangent is the same on every rank of
+    the row (what follows runs alike on all of them)."""
+    if row is None or row.size == 1:
+        return x
+    return _GatherFromModel.apply(x, dim % x.dim(), row)

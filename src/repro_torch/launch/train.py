@@ -56,7 +56,9 @@ with the kernels' plain versions):
 
 The launcher runs one rank; ``train()`` runs on whatever process group
 its caller set up (``launch.mesh``), over the mesh in scope
-(``launch.mesh.use_mesh``) when there is one. Flags of the reference
+(``launch.mesh.use_mesh``) when there is one: a dense model over a mesh
+with a model axis above 1 trains tensor-parallel, each rank on its cut
+of the same whole initial tree, the wire over its data column. Flags of the reference
 that reach code not ported yet raise ``NotImplementedError`` naming the
 ROADMAP item.
 """
@@ -78,7 +80,7 @@ from repro_torch.comm.calibrate import (calibrate_for_gradients,
 from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
-from repro_torch.convert import shard_experts
+from repro_torch.convert import shard_experts, shard_params
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
@@ -86,6 +88,7 @@ from repro_torch.launch.mesh import current_mesh, data_parallel, \
     make_test_mesh
 from repro_torch.models import init_params, moe
 from repro_torch.models.transformer import resolve_device
+from repro_torch.parallel.sharding import tensor_parallel
 from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
                                   TrainConfig, init_compressed_opt_state,
                                   make_baseline_step, make_compressed_step,
@@ -270,7 +273,15 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     ``moe`` then holds per direction the scheme-id, the planned
     bits/symbol and the wire bytes per symbol of the last step's payload,
     measured (``Channel.all_to_all``) and modeled. Over a mesh the batch
-    is split over all its ranks."""
+    is split over all its ranks.
+
+    A dense model over a mesh in scope with a model axis above 1 trains
+    tensor-parallel: the whole tree (``params``, or initialized from
+    ``seed``) is calibrated on rank 0 as above, then cut to this rank's
+    blocks (``convert.shard_params``) and the whole tree dropped; the
+    batch is split over the data axis, the wire (and its autotuning)
+    runs over the rank's data column, and ``params`` and ``opt_state``
+    come back local. A resume needs the same layout."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     cfg, moe_wire = resolve_moe_wire(cfg, moe_wire, comm)
@@ -280,6 +291,8 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         if mesh is None and cfg.moe is not None \
                 and cfg.moe.impl == "shardmap_a2a":
             mesh = make_test_mesh(model=1)
+        tp = mesh is not None and mesh.model > 1 and tensor_parallel(cfg)
+        wire_group = mesh.data_group if tp else group
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen, dev)
@@ -312,11 +325,15 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         if mesh is not None and cfg.moe is not None \
                 and cfg.moe.impl == "shardmap_a2a":
             params = shard_experts(params, mesh.coords[1], mesh.model)
+        if tp:
+            params = shard_params(params, cfg, mesh.coords[1], mesh.model)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         baseline = make_baseline_step(cfg, opt_cfg, train_cfg, group=group,
                                       mesh=mesh, moe_channels=moe_channels)
         if comm == "qlc":
-            opt_state = init_compressed_opt_state(params, group, registry,
-                                                  opt_cfg)
+            opt_state = init_compressed_opt_state(params, wire_group,
+                                                  registry, opt_cfg)
 
             def save_extra():
                 return {"wire_registry": registry.to_json_dict()}
@@ -334,9 +351,10 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
             if saved is not None:
                 registry = CodecRegistry.from_json_dict(saved)
             if autotune:
-                n = flat_geometry(params, dist.get_world_size(group),
+                n = flat_geometry(params, dist.get_world_size(wire_group),
                                   registry["grads"].config()).n_padded
-                out["tuned"] = _autotune_transports(registry, n, group, dev)
+                out["tuned"] = _autotune_transports(registry, n, wire_group,
+                                                    dev)
 
             def build_step():
                 step = make_compressed_step(
@@ -344,8 +362,8 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                     CommConfig(enabled=wire_enabled), transport=transport,
                     moe_channels=moe_channels, mesh=mesh, telemetry=adapt)
                 trainer.step_fn = step
-                trainer.fallback_step_fn = make_zero1_fallback(
-                    baseline, step, group)
+                trainer.fallback_step_fn = make_zero1_fallback(baseline,
+                                                               step)
                 return step
 
             step = build_step()

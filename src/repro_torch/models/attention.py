@@ -9,6 +9,17 @@ the value product. The reference's TPU memory tricks (a checkpointed
 scan over KV blocks) become Python loops; the per-layer checkpoint of
 ``remat="full"`` bounds what autograd keeps.
 
+Tensor parallelism (training): with a ``launch.mesh.ModelRow`` the
+block takes ``wq`` / ``wo`` split over the row by heads when its local
+``wq`` holds fewer than the padded heads, and ``wk`` / ``wv`` by KV
+heads likewise, each as its spec resolves (:func:`attention_param_specs`).
+Each rank attends with its own query heads, each reading the KV head the
+whole model's GQA map gives it: its own KV heads' when they are all
+local, else the whole ``wk`` / ``wv`` (held whole, or gathered over the
+row), whose gradient the row then sums, since each rank's query heads
+use only part of them. The output projection's partial sums are summed
+over the row.
+
 Serving runs the decode branch of :func:`attention_block`: ``S`` query
 tokens written into a KV cache at its length and attending over the
 filled prefix, within the sliding window when the config has one (the
@@ -24,6 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
+                                     reduce_from_model)
 from repro_torch.models import layers
 
 NEG_INF = -2.0 ** 30
@@ -77,6 +90,15 @@ def padded_heads(cfg: ModelConfig) -> int:
     if not m or h % m == 0:
         return h
     return -(-h // m) * m
+
+
+def attention_param_specs():
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
 
 
 def _freeze_pad(w: torch.Tensor, n_real: int, axis: int) -> torch.Tensor:
@@ -193,19 +215,63 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor
     return KVCache(k=k_new, v=v_new, length=idx + s_in)
 
 
+def _tp_projections(params, x, cfg: ModelConfig, row):
+    """The training branch's q / k / v of this rank's query heads over
+    the model ``row``, and the ``wo`` block to project them with: see the
+    module docstring. Returns (q, k and v with one head per local query
+    head, wo, whether the output is partial over the row)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    groups, hp = h // kv, padded_heads(cfg)
+    wq, wk, wv, wo = (params[k] for k in ("wq", "wk", "wv", "wo"))
+    hl, kvl = wq.shape[1], wk.shape[1]
+    q_split, kv_split = hl != hp, kvl != kv
+    q0 = row.index * hl if q_split else 0
+    if hp != h:
+        n_real = min(max(h - q0, 0), hl)
+        wq = _freeze_pad(wq, n_real, 1)
+        wo = _freeze_pad(wo, n_real, 0)
+    # the KV head of each local query head (a padded one reads head 0)
+    need = [(q0 + j) // groups if q0 + j < h else 0 for j in range(hl)]
+    k0 = row.index * kvl if kv_split else 0
+    if kv_split and all(k0 <= n < k0 + kvl for n in need):
+        need = [n - k0 for n in need]
+    elif kv_split:
+        wk, wv = (gather_from_model(w, 1, row) for w in (wk, wv))
+    if q_split and not (kv_split and wk.shape[1] == kvl):
+        # whole KV weights serve part of the heads here: the row sums
+        # their gradient
+        wk, wv = copy_to_model(wk, row), copy_to_model(wv, row)
+    if q_split:
+        x = copy_to_model(x, row)
+    q = torch.einsum("bsd,dnh->bsnh", x, wq.to(x.dtype))
+    k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
+    if need != list(range(k.shape[2])):
+        k, v = (torch.index_select(t, 2, torch.tensor(need, device=x.device))
+                for t in (k, v))
+    return q, k, v, wo, q_split
+
+
 def attention_block(params, x, cfg: ModelConfig, positions,
-                    cache: Optional[KVCache] = None):
+                    cache: Optional[KVCache] = None, row=None):
     """Self-attention over the whole sequence (training), or, with
     ``cache``, decode.
 
     x: [B, S, D]. With ``cache`` it writes the S tokens' k/v from
     position ``cache.length`` and attends over the filled prefix, each
     query causally at its own position (and within the sliding window).
-    Returns (out [B, S, D], new_cache or None).
+    ``row``: the model row the training branch's weights may be split
+    over (module docstring). Returns (out [B, S, D], new_cache or None).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
     hp = padded_heads(cfg)
+    if row is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "decode over a model axis is not ported: ROADMAP queue 1, "
+                "item 10")
+        return _attention_tp(params, x, cfg, positions, row), None
 
     wq, wo = params["wq"], params["wo"]
     if hp != h:
@@ -254,3 +320,20 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     out = out.reshape(b, s_in, h, hd)
     return torch.einsum("bsnh,nhd->bsd", out,
                         wo[:h].to(out.dtype)), new_cache
+
+
+def _attention_tp(params, x, cfg: ModelConfig, positions, row):
+    """The training branch over a model row (:func:`_tp_projections`)."""
+    q, k, v, wo, q_split = _tp_projections(params, x, cfg, row)
+    q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    if cfg.attn_impl == "dense":
+        out = dense_attention(q, k, v, positions, positions,
+                              cfg.sliding_window)
+    else:
+        out = blocked_attention(
+            q, k, v, positions, positions, cfg.sliding_window,
+            cfg.attn_q_block, cfg.attn_kv_block, cfg.causal_skip,
+            score_dtype=getattr(torch, cfg.attn_score_dtype))
+    out = torch.einsum("bsnh,nhd->bsd", out, wo.to(out.dtype))
+    return reduce_from_model(out, row) if q_split else out

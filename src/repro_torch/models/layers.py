@@ -2,11 +2,22 @@
 
 Same math and parameter layout as the reference package's
 ``models/layers.py``; einsum strings are kept so the two read alike.
+
+Tensor parallelism: given a ``launch.mesh.ModelRow``, :func:`mlp` takes
+its weights split over the row (``w_in`` and ``w_gate`` by columns,
+``w_out`` by rows, the ``mlp`` dim of :func:`mlp_param_specs`) and sums
+the partial outputs over it; :func:`embed` takes a vocab-split table (a
+masked lookup of the rank's rows, then the sum) and :func:`unembed` a
+vocab-split table or head (each rank's logits, gathered along the
+vocab). The caller passes a row only for weights that are split.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
+                                     reduce_from_model)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -58,25 +69,53 @@ def _act(name: str):
     raise ValueError(name)
 
 
-def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, activation: str, row=None
+        ) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. SwiGLU gates with ``w_gate``; the other
-    activations have no gate."""
+    activations have no gate. ``row``: the model row the weights are
+    split over (None: whole)."""
     act = _act(activation)
+    x = copy_to_model(x, row)
     h = torch.einsum("bsd,df->bsf", x, params["w_in"].to(x.dtype))
     if activation == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, params["w_gate"].to(x.dtype))
         h = act(g) * h
     else:
         h = act(h)
-    return torch.einsum("bsf,fd->bsd", h, params["w_out"].to(x.dtype))
+    out = torch.einsum("bsf,fd->bsd", h, params["w_out"].to(x.dtype))
+    return reduce_from_model(out, row)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def mlp_param_specs(activation: str):
+    specs = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if activation == "swiglu":
+        specs["w_gate"] = ("embed", "mlp")
+    return specs
 
 
-def unembed(table_or_head: torch.Tensor, x: torch.Tensor, tied: bool
-            ) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor, row=None
+          ) -> torch.Tensor:
+    """``table[tokens]``; with ``row``, ``table`` is this rank's block of
+    ``table.shape[0]`` rows of the vocab: the tokens outside it look up
+    zeros and the sum over the row completes the embedding exactly (one
+    non-zero term)."""
+    if row is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - row.index * n
+    inside = (local >= 0) & (local < n)
+    x = table[torch.where(inside, local, torch.zeros_like(local))]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return reduce_from_model(x, row)
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor, tied: bool,
+            row=None) -> torch.Tensor:
+    """Logits over the whole vocab; with ``row``, ``table_or_head`` is
+    this rank's vocab block and the row's logits are gathered."""
+    x = copy_to_model(x, row)
     if tied:
-        return torch.einsum("bsd,vd->bsv", x, table_or_head.to(x.dtype))
-    return torch.einsum("bsd,dv->bsv", x, table_or_head.to(x.dtype))
+        out = torch.einsum("bsd,vd->bsv", x, table_or_head.to(x.dtype))
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, table_or_head.to(x.dtype))
+    return gather_from_model(out, -1, row)

@@ -69,6 +69,18 @@ def _normal(gen, shape, scale, dtype, device):
                        device=device).mul_(scale)
 
 
+def moe_param_specs(cfg: ModelConfig):
+    specs = {
+        "router": ("embed", "expert"),
+        "w_in": ("expert", "embed", "mlp"),
+        "w_gate": ("expert", "embed", "mlp"),
+        "w_out": ("expert", "mlp", "embed"),
+    }
+    if cfg.moe and cfg.moe.num_shared_experts:
+        specs["shared"] = layers.mlp_param_specs("swiglu")
+    return specs
+
+
 def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype,
              device="cuda", lead=()) -> Dict[str, Any]:
     """Random MoE FFN parameters from ``generator`` on ``device``, each

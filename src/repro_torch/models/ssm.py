@@ -56,6 +56,30 @@ def mamba_dims(cfg: ModelConfig) -> Tuple[int, int]:
     return d_inner, dt_rank
 
 
+def mamba_param_specs():
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": ("conv", "mlp"),
+        "x_proj": ("mlp", None),
+        "dt_proj": (None, "mlp"),
+        "A_log": ("mlp", "state"),
+        "D": ("mlp",),
+        "out_proj": ("mlp", "embed"),
+    }
+
+
+def xlstm_param_specs():
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "heads", "head_dim"),
+        "wv": ("embed", "heads", "head_dim"),
+        "w_if": ("embed", "heads"),
+        "w_ff": ("embed", "heads"),
+        "w_of": ("embed", "heads"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+
+
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device,
                lead=()) -> Dict[str, Any]:
     """Random Mamba parameters from ``gen``, each leaf with the leading

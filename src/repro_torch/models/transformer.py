@@ -11,6 +11,13 @@ padded-head variants included) with a dense FFN of any activation
 (``w_gate`` only for swiglu) or an MoE FFN (``models.moe``), and the
 recurrent mamba, sLSTM and mLSTM blocks (``models.ssm``), whose decode
 states are ``NamedTuple`` s in the same stacked layout.
+
+:func:`param_specs` gives every leaf's logical axes, as the reference's
+(``"layers"`` before each stacked leaf). Over a mesh in scope whose
+model axis is above 1, a dense model's training forward takes each
+rank's local tree (``convert.shard_params``: every leaf cut as its
+resolved spec says) and runs the model row's collectives inside its
+layers (``models.layers``, ``models.attention``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import model_row
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 
@@ -175,6 +183,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def _block_specs(kind: str, cfg: ModelConfig, idx_in_group: int):
+    p: Dict[str, Any] = {"norm1": ("embed",)}
+    if kind == "attention":
+        p["mixer"] = attn.attention_param_specs()
+    elif kind == "mamba":
+        p["mixer"] = ssm.mamba_param_specs()
+    else:
+        p["mixer"] = ssm.xlstm_param_specs()
+    fk = cfg.ffn_kind(idx_in_group)
+    if fk != "none":
+        p["norm2"] = ("embed",)
+        if fk == "moe":
+            p["ffn"] = moe.moe_param_specs(cfg)
+        else:
+            p["ffn"] = layers.mlp_param_specs(cfg.activation)
+    return p
+
+
+def _stacked(specs):
+    """``"layers"`` before every leaf spec of a dict of specs."""
+    if isinstance(specs, dict):
+        return {k: _stacked(v) for k, v in specs.items()}
+    return ("layers",) + tuple(specs)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every parameter leaf (tuples of names), in the
+    parameter tree's layout: the reference's ``param_specs``."""
+    group = {f"l{i}": _block_specs(kind, cfg, i)
+             for i, kind in enumerate(cfg.layer_kinds())}
+    specs = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "groups": _stacked(group),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = ("embed", "vocab")
+    return specs
+
+
 # --------------------------------------------------------------------------
 # Decode
 # --------------------------------------------------------------------------
@@ -208,11 +256,11 @@ _SSM_BLOCKS = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
 
 
 def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
-                 scope=None):
+                 scope=None, row=None):
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attention":
         out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
-                                              cache=state)
+                                              cache=state, row=row)
     elif kind in _SSM_BLOCKS:
         out, new_state = _SSM_BLOCKS[kind](p["mixer"], h, cfg, state=state)
     else:
@@ -223,15 +271,18 @@ def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
         if "router" in p["ffn"]:
             f = moe.moe_block(p["ffn"], h2, cfg, scope)
         else:
-            f = layers.mlp(p["ffn"], h2, cfg.activation)
+            split = row is not None and p["ffn"]["w_out"].shape[-2] \
+                != cfg.d_ff
+            f = layers.mlp(p["ffn"], h2, cfg.activation,
+                           row if split else None)
         x = x + f
     return x, new_state
 
 
-def _apply_group(pg, x, positions, cfg: ModelConfig, scope):
+def _apply_group(pg, x, positions, cfg: ModelConfig, scope, row):
     for i, kind in enumerate(cfg.layer_kinds()):
         x, _ = _apply_block(pg[f"l{i}"], kind, x, positions, cfg, None,
-                            scope)
+                            scope, row)
     return x
 
 
@@ -248,21 +299,25 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     before its layers. Returns (x, new_states). MoE layers read their
     bindings (``moe.moe_scope``) once, here on the caller's thread, so a
     recomputed group sees the same ones; in a decode step the ``B``
-    tokens of the step are an MoE layer's batch, its capacity theirs."""
+    tokens of the step are an MoE layer's batch, its capacity theirs.
+    The training branch of a dense model over a mesh in scope with a
+    model axis above 1 runs ``params``, this rank's local tree, over its
+    model row (``launch.mesh.model_row``, read here likewise)."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
     scope = moe.moe_scope() if cfg.moe is not None else None
     if states is None:
+        row = model_row(cfg)
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _apply_group, pg, x, positions, cfg, scope,
+                    _apply_group, pg, x, positions, cfg, scope, row,
                     use_reentrant=False)
             else:
-                x = _apply_group(pg, x, positions, cfg, scope)
+                x = _apply_group(pg, x, positions, cfg, scope, row)
         return x, None
     outs = []
     for g in range(n_groups):
@@ -280,11 +335,27 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     return x, new_states
 
 
+def _vocab_row(table: torch.Tensor, dim: int, cfg: ModelConfig):
+    """The model row ``table`` (the embedding, or the head) is split over
+    along its vocab ``dim``, or None when it is whole."""
+    row = model_row(cfg)
+    return row if row is not None and table.shape[dim] != cfg.vocab_size \
+        else None
+
+
+def _head(params, cfg: ModelConfig):
+    """The unembedding weight and the row its vocab is split over."""
+    if cfg.tie_embeddings:
+        return params["embed"], _vocab_row(params["embed"], 0, cfg)
+    return params["head"], _vocab_row(params["head"], 1, cfg)
+
+
 def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    x = layers.embed(params["embed"], tokens).to(dtype)
+    x = layers.embed(params["embed"], tokens,
+                     _vocab_row(params["embed"], 0, cfg)).to(dtype)
     if prefix_emb is not None:
         x = torch.cat([prefix_emb.to(dtype), x], dim=1)
     b, s, _ = x.shape
@@ -299,10 +370,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens: [B, St] -> logits [B, St(+P), V]; ``prefix_emb`` [B, P, D]
-    is prepended to the token embeddings."""
+    is prepended to the token embeddings. Over a model row whose vocab is
+    split, each rank's logits are gathered: every rank returns the whole
+    [B, St(+P), V]."""
     x = _hidden(params, cfg, tokens, prefix_emb, positions)
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return layers.unembed(head, x, cfg.tie_embeddings)
+    head, row = _head(params, cfg)
+    return layers.unembed(head, x, cfg.tie_embeddings, row)
 
 
 def prefill_logits(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -320,7 +393,18 @@ def next_token_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
                     prefix_emb: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Mean next-token cross entropy (f32). labels: [B, St] aligned to
-    tokens (label t = token t+1); prefix positions carry no loss."""
+    tokens (label t = token t+1); prefix positions carry no loss.
+
+    Over a model row the logits are gathered along the vocab
+    (:func:`forward`) and the f32 ``log_softmax`` runs on the whole
+    vocab, on every rank alike, rather than a vocab-parallel cross
+    entropy: the loss is then the same function as the reference's, in
+    the same order, and its cotangent the same on every rank of the row,
+    so the gather's backward is a slice and the replicated leaves'
+    gradients stay bit-identical over the row. It costs each rank the
+    whole [B, S, V] f32 logits (131 MB for phi3-mini at 2 x 512). Against
+    the reference the loss agrees to rtol 1e-5 (the split matmuls sum in
+    another order)."""
     logits = forward(params, cfg, tokens, prefix_emb)
     if prefix_emb is not None:
         logits = logits[:, prefix_emb.shape[1]:]

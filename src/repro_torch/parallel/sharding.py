@@ -1,0 +1,211 @@
+"""Logical-axis sharding rules: the reference's
+``repro.parallel.sharding`` rule table and its resolution, for the
+port's ``data x model`` layout (``launch.mesh.Mesh``).
+
+Every parameter dimension has a logical name (``models.param_specs``);
+the rule table maps each name to mesh axes. A resolved spec is a plain
+tuple with one entry per dim: ``None`` (the dim is whole on every rank),
+an axis name, or a tuple of them. Resolution is the reference's
+``ShardingRules._resolve``: axes absent from the mesh drop out, a mesh
+axis serves at most one dim of a spec (the first dim that asks for it
+wins), and only the longest prefix of the axes whose sizes multiply to a
+divisor of the dim is kept, so 56 heads on a 16-way model axis stay
+whole instead of failing.
+
+The port resolves specs against a ``launch.mesh.Mesh`` (or any object
+with its ``axis_names`` and ``shape``): sizes ``data`` and ``model``,
+and no ``pod`` axis (ROADMAP queue 1, item 13). The reference's
+``logical_constraint``, ``shard_map_compat`` and ``block_axes`` steer
+XLA's GSPMD partitioner and have no counterpart here: the port's layers
+run the model axis themselves (``launch.mesh.copy_to_model`` and its
+siblings) on the local blocks that :func:`local_shape` describes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+#: The reference's default rules: batch over pod and data; heads, KV
+#: heads, mlp, experts and vocab over model; "fsdp" dims (ZeRO-3) over
+#: pod and data.
+DEFAULT_RULES: Dict[str, MeshAxes] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "expert": "model",
+    "vocab": "model",
+    "fsdp": ("pod", "data"),
+    "layers": None,
+    "kv_seq": None,
+    "state": None,
+    "conv": None,
+    "blocks32": None,
+}
+
+#: The reference's FSDP parameter overrides (``make_rules(fsdp_params=
+#: True)``); the port's steps resolve parameters without them, as the
+#: reference's compressed step does.
+FSDP_PARAM_OVERRIDES: Dict[str, MeshAxes] = {
+    "embed": ("pod", "data"),
+}
+
+
+@dataclasses.dataclass
+class ShardingRules:
+    """Rules for activations plus parameter-dim overrides."""
+    rules: Dict[str, MeshAxes]
+    param_overrides: Dict[str, MeshAxes] = dataclasses.field(
+        default_factory=dict)
+
+    def _resolve(self, name: Optional[str], dim: Optional[int], mesh,
+                 param: bool, used: set) -> MeshAxes:
+        if name is None:
+            return None
+        ax = (self.param_overrides.get(name, self.rules.get(name))
+              if param else self.rules.get(name))
+        if ax is None:
+            return None
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        if mesh is not None:
+            axes = tuple(a for a in axes if a in mesh.axis_names)
+        axes = tuple(a for a in axes if a not in used)
+        if dim is not None and mesh is not None:
+            kept, prod = [], 1
+            for a in axes:
+                size = mesh.shape[a]
+                if dim % (prod * size):
+                    break
+                kept.append(a)
+                prod *= size
+            axes = tuple(kept)
+        if not axes:
+            return None
+        used.update(axes)
+        return axes[0] if len(axes) == 1 else axes
+
+    def spec(self, logical_axes: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None, param: bool = False,
+             mesh=None) -> Tuple[MeshAxes, ...]:
+        """The resolved spec of a tensor with these logical axes (and,
+        for the divisibility rule, this shape) on ``mesh`` (default: the
+        mesh in scope, ``launch.mesh.current_mesh``)."""
+        if mesh is None:
+            from repro_torch.launch.mesh import current_mesh
+            mesh = current_mesh()
+        dims = list(shape) if shape is not None else [None] * len(
+            logical_axes)
+        used: set = set()
+        return tuple(self._resolve(name, d, mesh, param, used)
+                     for name, d in zip(logical_axes, dims))
+
+
+_STATE = threading.local()
+
+
+def set_rules(rules: Optional[ShardingRules]):
+    _STATE.rules = rules
+
+
+def get_rules() -> ShardingRules:
+    r = getattr(_STATE, "rules", None)
+    return r if r is not None else ShardingRules(dict(DEFAULT_RULES))
+
+
+def make_rules(fsdp_params: bool = True, decode_seq_shard: bool = False,
+               extra: Optional[Dict[str, MeshAxes]] = None
+               ) -> ShardingRules:
+    rules = dict(DEFAULT_RULES)
+    if decode_seq_shard:
+        rules["kv_seq"] = ("data",)
+        rules["batch"] = None
+    if extra:
+        rules.update(extra)
+    return ShardingRules(
+        rules=rules,
+        param_overrides=dict(FSDP_PARAM_OVERRIDES) if fsdp_params else {})
+
+
+# --------------------------------------------------------------------------
+# Parameter layouts
+# --------------------------------------------------------------------------
+
+def _axes_of(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], pspec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` laid out
+    by the resolved ``pspec``."""
+    return tuple(d // math.prod(mesh.shape[a] for a in _axes_of(e))
+                 for d, e in zip(shape, tuple(pspec)
+                                 + (None,) * (len(shape) - len(pspec))))
+
+
+def local_numel(shape: Sequence[int], pspec, mesh) -> int:
+    """The reference's ``_local_numel``: elements of one rank's block."""
+    return math.prod(local_shape(shape, pspec, mesh))
+
+
+def replication_factor(pspec, mesh, model_axes=("model",)) -> int:
+    """The reference's ``_replication_factor``: how many ranks of the
+    model axes hold the same block (1 for a leaf split over them)."""
+    used = {a for e in tuple(pspec) for a in _axes_of(e)}
+    return math.prod(mesh.shape[a] for a in model_axes
+                     if a in mesh.axis_names and a not in used)
+
+
+def model_dim(pspec) -> Optional[int]:
+    """The dim of a resolved spec that the model axis splits, or None."""
+    for i, e in enumerate(tuple(pspec)):
+        if "model" in _axes_of(e):
+            if e != "model":
+                raise NotImplementedError(
+                    f"spec {pspec}: a dim split over several mesh axes is "
+                    "not ported (FSDP overrides, pods: ROADMAP queue 1, "
+                    "items 13 and 15)")
+            return i
+    return None
+
+
+def param_pspecs(cfg, mesh, shapes=None):
+    """The resolved spec of every parameter leaf of ``cfg`` on ``mesh``,
+    as the reference's compressed step resolves them
+    (``_manual_param_specs``: the rules in scope, no parameter
+    overrides), in the parameter tree's layout. ``shapes``: the tree of
+    global leaf shapes (default: :func:`param_shapes`)."""
+    from repro_torch.models.transformer import param_specs
+    shapes = param_shapes(cfg) if shapes is None else shapes
+    return _resolve_tree(get_rules(), param_specs(cfg), shapes, mesh)
+
+
+def _resolve_tree(rules: ShardingRules, specs, shapes, mesh):
+    if isinstance(specs, dict):
+        return {k: _resolve_tree(rules, specs[k], shapes[k], mesh)
+                for k in specs}
+    return rules.spec(specs, shape=shapes, mesh=mesh)
+
+
+def param_shapes(cfg):
+    """The global shape of every parameter leaf of ``cfg`` (a tree of
+    tuples), with nothing allocated."""
+    from repro_torch.models.transformer import init_params, tree_map
+    return tree_map(lambda t: tuple(t.shape), init_params(cfg, None, "meta"))
+
+
+def tensor_parallel(cfg) -> bool:
+    """Whether the port splits ``cfg``'s layers over the model axis: a
+    dense attention stack (no MoE FFN, no recurrent block). MoE and SSM
+    blocks keep their layout over it (experts over ``model``, every other
+    leaf whole; ROADMAP queue 1, item 15)."""
+    return cfg.moe is None and all(k == "attention"
+                                   for k in cfg.layer_kinds())

@@ -5,14 +5,19 @@ Two implementations, as in the reference:
 * **baseline** — each rank computes the gradients of its slice of the
   global batch; a dense f32 all-reduce averages them across ranks (none
   with one rank); AdamW on the whole parameter tree. Over a
-  ``launch.mesh.Mesh`` (``data x model``) the batch is split over every
-  rank (rank-major) and the model axis carries MoE expert parallelism
-  (``moe.impl="shardmap_a2a"``): a rank holds its model index's experts,
-  whose gradients are summed over its data column (each rank's backward
-  all-to-all already brought back its model row's contributions) and
-  divided by the world size, while every other leaf is averaged over
-  the world; the clip norm counts replicated leaves once and sums the
-  expert leaves' squares over the model row.
+  ``launch.mesh.Mesh`` (``data x model``) with a model axis above 1, a
+  dense model is tensor-parallel: each rank holds its local tree
+  (``convert.shard_params``), the batch is split over the data axis
+  (a model row shares its shard), gradients are averaged over the data
+  column, and the clip norm sums the split leaves' squares over the
+  model row and counts the replicated ones once. An MoE model carries
+  expert parallelism there instead (``moe.impl="shardmap_a2a"``): the
+  batch is split over every rank (rank-major), a rank holds its model
+  index's experts, whose gradients are summed over its data column
+  (each rank's backward all-to-all already brought back its model row's
+  contributions) and divided by the world size, while every other leaf
+  is averaged over the world; the clip norm counts replicated leaves
+  once and sums the expert leaves' squares over the model row.
 
 * **compressed** — the paper's technique: each rank flattens its local
   gradients, a QLC-compressed reduce-scatter (K1 encode, then K2
@@ -25,13 +30,18 @@ Two implementations, as in the reference:
   the step through the baseline step (:func:`make_zero1_fallback`).
 
 Flat vectors follow the reference's pytree order (dict keys sorted), so
-a ZeRO-1 state moves between the packages element for element. The
-compressed step runs with a model axis of size 1 (the ZeRO-1 flat vector
-split over a model axis is not ported: ROADMAP queue 1, item 15), so the
-reference's ``weight_vec`` is 1 on every real entry and 0 on the
-padding: the norm sums the squares of the segment's real entries. MoE
-models run there with ``gspmd`` or ``grouped_local`` dispatch, and with
-``shardmap_a2a`` on a 1 x 1 layout.
+a ZeRO-1 state moves between the packages element for element. Over a
+``data x model`` mesh the compressed step is the reference's stage 2:
+rank ``(d, m)`` flattens its local tree (the leaves' local blocks, each
+row-major) into its model index's flat vector, the wire runs over its
+data column, and its ZeRO-1 state is the ``[d, m]`` row of the
+reference's ``[data, model, seg]`` state. The global norm weighs each
+entry as the reference's ``weight_vec`` does (1 on a split leaf,
+``1 / model`` on a replicated one, 0 on the padding; :func:`weight_vec`)
+and sums over the world. A dense model's layers run tensor-parallel
+there; MoE and recurrent models run the compressed step with a model
+axis of 1 only (ROADMAP queue 1, item 15): MoE with ``gspmd`` or
+``grouped_local`` dispatch, and with ``shardmap_a2a`` on a 1 x 1 layout.
 
 Where the reference's MoE layers see the whole batch (its baseline step,
 jitted over the data axes), the baseline step declares the batch's ranks
@@ -45,6 +55,7 @@ import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -57,6 +68,7 @@ from repro_torch.launch.mesh import current_mesh, use_mesh
 from repro_torch.models import moe, next_token_loss
 from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
                                             pytree_unflatten, tree_map)
+from repro_torch.parallel import sharding
 from repro_torch.training import optimizer as opt
 
 GRAD_TYPE = "grads"      # registry key for the gradient reduce-scatter
@@ -64,9 +76,10 @@ PARAM_TYPE = "params"    # registry key for the parameter all-gather
 
 _NO_PODS = ("the pod axis and the hierarchical wire are not ported: "
             "ROADMAP queue 1, item 13")
-_NO_ZERO1_MODEL = ("the compressed step's ZeRO-1 flat vector split over a "
-                   "model axis is not ported: ROADMAP queue 1, item 15; "
-                   "{what}")
+_NO_ZERO1_MODEL = ("MoE and recurrent blocks in the compressed step over a "
+                   "model axis (tensor parallelism of their layers, "
+                   "shardmap_a2a beyond 1 x 1) are not ported: ROADMAP "
+                   "queue 1, item 15; {what}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +185,20 @@ def _step_mesh(model_cfg: ModelConfig, mesh):
 # Baseline step
 # --------------------------------------------------------------------------
 
+def _split_mask(model_cfg: ModelConfig, mesh) -> List[bool]:
+    """Per parameter leaf in pytree order: True where ``mesh``'s model
+    axis splits it (its spec resolves a dim to ``"model"``)."""
+    specs = sharding.param_pspecs(model_cfg, mesh)
+    return [sharding.replication_factor(s, mesh) == 1
+            for s in pytree_leaves(specs)]
+
+
+def _tp_mesh(model_cfg: ModelConfig, mesh) -> bool:
+    """Whether a step over ``mesh`` runs ``model_cfg`` tensor-parallel."""
+    return (mesh is not None and mesh.model > 1
+            and sharding.tensor_parallel(model_cfg))
+
+
 def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
                        train_cfg: TrainConfig, *, group=None, mesh=None,
                        moe_channels=None) -> Callable:
@@ -180,27 +207,51 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
 
     Over ``group`` (default: the default process group) every leaf is
     averaged over the group. Over ``mesh`` (default: the mesh in scope,
-    if any) the batch is split over all its ranks, and with
-    ``moe.impl="shardmap_a2a"`` each rank holds its model index's
-    experts (``convert.shard_experts``; see the module docstring for their
-    gradients and the clip norm). ``moe_channels`` (``{moe.MOE_DISPATCH:
-    Channel, moe.MOE_COMBINE: Channel}`` on the model axis) puts the
-    expert all-to-all on the compressed wire; the gradient wire stays
-    dense. MoE layers see the whole batch, as in the reference. With
-    ``train_cfg.microbatches > 1`` microbatch *i* on a rank is its shard
-    of the global batch's microbatch *i*, as the reference splits it
-    (:func:`local_batch`)."""
+    if any) with a model axis above 1, a dense model runs
+    tensor-parallel on this rank's local tree (``params`` and the state
+    cut by ``convert.shard_params``), the batch split over the data
+    axis; an MoE model splits the batch over all the ranks and, with
+    ``moe.impl="shardmap_a2a"``, each rank holds its model index's
+    experts (``convert.shard_experts``; see the module docstring for the
+    gradients and the clip norm of both). ``moe_channels``
+    (``{moe.MOE_DISPATCH: Channel, moe.MOE_COMBINE: Channel}`` on the
+    model axis) puts the expert all-to-all on the compressed wire; the
+    gradient wire stays dense. MoE layers see the whole batch, as in the
+    reference. With ``train_cfg.microbatches > 1`` microbatch *i* on a
+    rank is its shard of the global batch's microbatch *i*, as the
+    reference splits it (:func:`local_batch`)."""
     mesh = _step_mesh(model_cfg, mesh)
+    tp = _tp_mesh(model_cfg, mesh)
     if mesh is not None:
         group = mesh.world_group
     group = dist.group.WORLD if group is None else group
     world, _ = _world(group)
     ep = (mesh is not None and model_cfg.moe is not None
           and model_cfg.moe.impl == "shardmap_a2a")
+    batch_group = mesh.data_group if tp else group
+    split = _split_mask(model_cfg, mesh) if tp else None
+
+    def norm_over_row(leaves, row_summed):
+        """The global norm of ``leaves``: the squares of those flagged
+        ``row_summed`` summed over the model row, the rest counted
+        once."""
+        sq = [opt.sum_of_squares(g) for g in leaves]
+        idx = [i for i, f in enumerate(row_summed) if f]
+        if idx and mesh.model > 1:
+            tot = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(tot, group=mesh.model_group)
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+        return torch.sqrt(torch.stack(sq).sum()).float()
 
     def reduce_grads(grads):
-        """Mean gradient tree and, with experts split over the model
-        axis, the global norm of it (else None: the tree's own)."""
+        """Mean gradient tree and, with leaves split over the model axis,
+        the global norm of it (else None: the tree's own)."""
+        if tp:
+            leaves = [_mean_over(g.float(), mesh.data_group)
+                      for g in pytree_leaves(grads)]
+            return (pytree_unflatten(grads, leaves),
+                    norm_over_row(leaves, split))
         if not ep:
             return tree_map(lambda g: _mean_over(g.float(), group),
                             grads), None
@@ -208,27 +259,20 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         leaves = [_mean_over(g.float(), mesh.data_group if is_exp
                              else group, world)
                   for g, is_exp in zip(pytree_leaves(grads), mask)]
-        sq = [opt.sum_of_squares(g) for g in leaves]
-        exp = [i for i, is_exp in enumerate(mask) if is_exp]
-        if exp and mesh.model > 1:
-            tot = torch.stack([sq[i] for i in exp])
-            dist.all_reduce(tot, group=mesh.model_group)
-            for j, i in enumerate(exp):
-                sq[i] = tot[j]
-        gnorm = torch.sqrt(torch.stack(sq).sum()).float()
-        return pytree_unflatten(grads, leaves), gnorm
+        return pytree_unflatten(grads, leaves), norm_over_row(leaves, mask)
 
     def train_step(params, opt_state, batch):
         dev = pytree_leaves(params)[0].device
         with _moe_bindings(mesh, moe_channels, group):
             loss, grads = _microbatched_grads(
                 params, model_cfg,
-                local_batch(batch, group, dev, train_cfg.microbatches),
+                local_batch(batch, batch_group, dev,
+                            train_cfg.microbatches),
                 train_cfg.microbatches)
         grads, gnorm = reduce_grads(grads)
         new_params, new_state, info = opt.apply_update(
             params, grads, opt_state, opt_cfg, gnorm=gnorm)
-        metrics = {"loss": _mean_over(loss, group),
+        metrics = {"loss": _mean_over(loss, batch_group),
                    "ok": torch.ones((), dtype=torch.bool, device=dev),
                    **info}
         return new_params, new_state, metrics
@@ -294,20 +338,64 @@ def step_channels(codec, comm_cfg: CommConfig = None, *, group=None,
 
 
 class FlatGeometry(NamedTuple):
-    """The flat parameter vector of one rank (the whole model here: the
-    model axis has size 1): ``n_local`` real entries, padded to
-    ``n_padded`` (a multiple of ranks x chunk), ``seg`` per rank."""
+    """The flat parameter vector of one model rank: ``n_local`` real
+    entries (its local leaves), padded to ``n_padded`` (a multiple of
+    data ranks x chunk), ``seg`` per data rank; ``runs``: ``(length,
+    weight)`` of consecutive real entries that the global norm weighs
+    alike (:func:`weight_vec`)."""
     n_local: int
     n_padded: int
     seg: int
+    runs: Tuple[Tuple[int, float], ...]
 
 
-def flat_geometry(params, group_size: int, comm_cfg: CommConfig
-                  ) -> FlatGeometry:
-    n_local = sum(p.numel() for p in pytree_leaves(params))
+def flat_geometry(params, group_size: int, comm_cfg: CommConfig,
+                  model_cfg: ModelConfig = None, mesh=None) -> FlatGeometry:
+    """The reference's ``flat_geometry`` for ``params``, this rank's local
+    tree, over ``group_size`` data ranks. With ``model_cfg`` and a
+    ``mesh``, a leaf replicated over its model axis weighs ``1 / model``;
+    else every real entry weighs 1."""
+    sizes = [p.numel() for p in pytree_leaves(params)]
+    n_local = sum(sizes)
     unit = group_size * comm_cfg.chunk_symbols
     n_padded = -(-n_local // unit) * unit
-    return FlatGeometry(n_local, n_padded, n_padded // group_size)
+    if mesh is None or model_cfg is None:
+        runs = ((n_local, 1.0),)
+    else:
+        specs = pytree_leaves(sharding.param_pspecs(model_cfg, mesh))
+        merged: List[List] = []
+        for n, spec in zip(sizes, specs):
+            w = 1.0 / sharding.replication_factor(spec, mesh)
+            if merged and merged[-1][1] == w:
+                merged[-1][0] += n
+            else:
+                merged.append([n, w])
+        runs = tuple((n, w) for n, w in merged)
+    return FlatGeometry(n_local, n_padded, n_padded // group_size, runs)
+
+
+def weight_vec(geom: FlatGeometry):
+    """The reference's ``weight_vec``: f32 numpy [n_padded], each real
+    entry's weight in the global norm, 0 on the padding."""
+    return np.concatenate(
+        [np.full(n, w, np.float32) for n, w in geom.runs]
+        + [np.zeros(geom.n_padded - geom.n_local, np.float32)])
+
+
+def _weighted_squares(seg: torch.Tensor, geom: FlatGeometry, start: int
+                      ) -> torch.Tensor:
+    """f64 sum over ``seg``, the flat entries ``[start, start + len)``, of
+    each real entry's weight times its square."""
+    if len(geom.runs) == 1 and geom.runs[0][1] == 1.0:
+        return opt.sum_of_squares(seg)
+    total = torch.zeros((), dtype=torch.float64, device=seg.device)
+    off = 0
+    for n, w in geom.runs:
+        lo, hi = max(off, start), min(off + n, start + seg.numel())
+        if lo < hi:
+            total = total + w * opt.sum_of_squares(seg[lo - start:hi - start])
+        off += n
+    return total
 
 
 def _flatten_local(tree, n_padded: int) -> torch.Tensor:
@@ -383,12 +471,18 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     over ``group`` (``None``: the default group), the data-parallel
     group.
 
-    MoE models: ``gspmd`` and ``grouped_local`` dispatch on each rank's
-    own tokens (the reference's stage 1 sees the data shard), and
-    ``shardmap_a2a`` over ``mesh`` (default: the one in scope) of 1 x 1,
-    its all-to-all on ``moe_channels`` when given. A mesh with a model
-    axis above 1 raises ``NotImplementedError`` (ROADMAP queue 1, item
-    15).
+    Over ``mesh`` (default: the one in scope) with a model axis above 1,
+    a dense model runs the reference's 2-D step: ``params`` is this
+    rank's local tree (``convert.shard_params``), the wire runs over its
+    data column (``mesh.data_group``, which replaces ``group``), the
+    batch is split over the data axis, and ``flat_opt_state`` is this
+    rank's ``[seg]`` of the ``[data, model, seg]`` state
+    (:func:`init_compressed_opt_state` over the data column). MoE and
+    recurrent models there raise ``NotImplementedError`` (ROADMAP queue
+    1, item 15). MoE models: ``gspmd`` and ``grouped_local`` dispatch on
+    each rank's own tokens (the reference's stage 1 sees the data
+    shard), and ``shardmap_a2a`` over a mesh of 1 x 1, its all-to-all on
+    ``moe_channels`` when given.
 
     ``tables`` is a ``CodecTables`` (with ``comm_cfg``) or a
     ``CodecRegistry`` (``grad_key`` codec on the reduce-scatter,
@@ -397,10 +491,10 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     (``(params, batch) -> (loss, grads)``, the rank's gradients),
     ``stage2`` (``(params, grads, flat_opt) -> (params, flat_opt,
     metrics)``, the wire and the update), ``channels`` (the RS and AG
-    channels) and ``geometry``.
+    channels), ``group`` (theirs) and ``geometry``.
 
     ``telemetry=True`` adds the symbol histograms of the gradient and
-    parameter wires, summed over the group, to the metrics
+    parameter wires, summed over every rank, to the metrics
     (``"adapt/grads_hist"`` / ``"adapt/params_hist"``, int32 [256]; K1
     counts them beside its encode, ``emit_hist``), and the number of
     ranks whose escape pool overflowed on each wire
@@ -410,7 +504,8 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     if hierarchical_wire:
         raise NotImplementedError(_NO_PODS)
     mesh = _step_mesh(model_cfg, mesh)
-    if mesh is not None and mesh.model > 1:
+    tp = _tp_mesh(model_cfg, mesh)
+    if mesh is not None and mesh.model > 1 and not tp:
         raise NotImplementedError(_NO_ZERO1_MODEL.format(
             what=f"this mesh has a model axis of {mesh.model}"))
     if model_cfg.moe is not None and model_cfg.moe.impl == "shardmap_a2a" \
@@ -418,7 +513,9 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         raise NotImplementedError(_NO_ZERO1_MODEL.format(
             what=f"shardmap_a2a runs in the compressed step on a 1 x 1 "
                  f"layout only, this one is {mesh.data} x {mesh.model}"))
-    group = dist.group.WORLD if group is None else group
+    group = mesh.data_group if tp else (
+        dist.group.WORLD if group is None else group)
+    world_group = mesh.world_group if tp else group
     rs_ch, ag_ch, rs_cfg = step_channels(
         tables, comm_cfg, group=group, transport=transport,
         transport_model=transport_model, grad_key=grad_key,
@@ -428,7 +525,8 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
 
     def geometry(params) -> FlatGeometry:
         if "g" not in geom:
-            geom["g"] = flat_geometry(params, d, rs_cfg)
+            geom["g"] = flat_geometry(params, d, rs_cfg, model_cfg,
+                                      mesh if tp else None)
         return geom["g"]
 
     def stage1(params, batch):
@@ -452,8 +550,8 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         valid, ok_rs = r.valid, r.ok
         seg = r.segment / d                              # mean over ranks
         del r
-        sq = opt.sum_of_squares(seg[:valid]).reshape(1)
-        dist.all_reduce(sq, group=group)
+        sq = _weighted_squares(seg[:valid], g, rank * g.seg).reshape(1)
+        dist.all_reduce(sq, group=world_group)
         gnorm = torch.sqrt(sq[0]).float()
         p_seg = _flat_slice(params, rank * g.seg, g.seg)
         new_seg, new_opt, lr = opt.apply_flat_update(p_seg, seg, flat_opt,
@@ -463,12 +561,12 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         if telemetry:
             full, ok_ag, phist = ag_ch.all_gather(new_seg, with_hist=True)
             metrics.update(_group_telemetry(ghist, phist, ok_rs, ok_ag,
-                                            group))
+                                            world_group))
             ok = (metrics["adapt/grads_overflow"]
                   + metrics["adapt/params_overflow"]) == 0
         else:
             full, ok_ag = ag_ch.all_gather(new_seg)
-            ok = _all_ok(ok_rs & ok_ag, group)
+            ok = _all_ok(ok_rs & ok_ag, world_group)
         new_params = _unflatten_local(full, params)
         return new_params, new_opt, {"ok": ok, **metrics}
 
@@ -481,6 +579,7 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     train_step.stage1 = stage1
     train_step.stage2 = stage2
     train_step.channels = (rs_ch, ag_ch)
+    train_step.group = group
     train_step.geometry = geometry
     return train_step
 
@@ -490,7 +589,9 @@ def init_compressed_opt_state(params, group, comm_cfg,
     """This rank's ZeRO-1 state: ``m``, ``v`` of its segment and
     ``step``. ``comm_cfg``: a ``CommConfig`` or the ``CodecRegistry``
     given to :func:`make_compressed_step` (geometry from its grad
-    entry)."""
+    entry). Over a ``data x model`` mesh, ``params`` is the rank's local
+    tree and ``group`` its data column (``mesh.data_group``): the state
+    is then its ``[seg]`` of the reference's ``[data, model, seg]``."""
     group = dist.group.WORLD if group is None else group
     if isinstance(comm_cfg, CodecRegistry):
         comm_cfg = comm_cfg[GRAD_TYPE].config()
@@ -503,9 +604,11 @@ def make_zero1_fallback(baseline_step: Callable, compressed_step: Callable,
                         group=None) -> Callable:
     """The trainer's retry for a compressed step whose wire overflowed:
     the baseline step on the ZeRO-1 state. Each rank's ``m``/``v``
-    segments are all-gathered (dense f32) into trees, the baseline step
-    runs, and each rank keeps its segment of the new moments."""
-    group = dist.group.WORLD if group is None else group
+    segments are all-gathered (dense f32) over ``group`` (default: the
+    compressed step's, its data column over a mesh) into trees, the
+    baseline step runs, and each rank keeps its segment of the new
+    moments."""
+    group = compressed_step.group if group is None else group
     d, rank = _world(group)
 
     def gather(seg: torch.Tensor) -> torch.Tensor:

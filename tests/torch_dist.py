@@ -530,5 +530,75 @@ def microbatched_step(ctx, params, batch, capacity_factor, n_micro):
             [g.numpy() for g in pytree_leaves(seen["grads"])])
 
 
+def tp_layouts(ctx, cases):
+    """Dense training over ``data x model`` layouts of this world, one
+    ``launch.mesh.make_test_mesh(model=...)`` a case: ``train()`` of the
+    reduced config with the mesh in scope from the whole tree
+    ``params`` (numpy; None: from the seed) -> {case name: {run name:
+    (losses, oks, fallbacks, the rank's local tree as numpy, its flat
+    ZeRO-1 state or None)}}. A case is a dict of ``name``, ``arch``,
+    ``cfg_kw``, ``model``, ``params``, ``registry_json`` (None:
+    calibrated), ``train_kw`` and ``runs``: (run name, comm, wire
+    enabled). A case with ``resume_root`` checkpoints each run there
+    (``rank_<r>`` directories) every ``steps - 1`` steps; each rank then
+    deletes its last checkpoint and the run is launched again, which
+    resumes one step short and finishes: the second launch is
+    ``"<run name>/resumed"`` and its start step is appended."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.train import train
+
+    def numpy_tree(tree):
+        if isinstance(tree, dict):
+            return {k: numpy_tree(v) for k, v in tree.items()}
+        return tree.detach().numpy().copy()
+
+    out = {}
+    for case in cases:
+        cfg = reduced(get_config(case["arch"]), **case["cfg_kw"])
+        mesh = make_test_mesh(model=case["model"])
+        reg = (None if case["registry_json"] is None
+               else CodecRegistry.from_json(case["registry_json"]))
+        runs = {}
+        kw = dict(case["train_kw"])
+        root = case.get("resume_root")
+        if root is not None:
+            root = os.path.join(root, case["name"])
+            kw.update(checkpoint_every=kw["steps"] - 1)
+        for name, comm, enabled in case["runs"]:
+            launches = [name] if root is None else [name, f"{name}/resumed"]
+            for launch in launches:
+                params = (None if case["params"] is None
+                          else params_from_numpy(case["params"], "cpu"))
+                ckpt = None if root is None else os.path.join(root, name)
+                with use_mesh(mesh):
+                    res = train(cfg, comm=comm, device="cpu", params=params,
+                                registry=reg, wire_enabled=enabled,
+                                checkpoint_dir=ckpt, **kw)
+                hist = res["history"]
+                opt = res["opt_state"]
+                runs[launch] = (
+                    [h["loss"] for h in hist], [h["ok"] for h in hist],
+                    res["comm_fallbacks"], numpy_tree(res["params"]),
+                    {k: opt[k].numpy().copy() for k in ("m", "v")}
+                    if comm == "qlc" else None)
+                if launch != name:
+                    runs[launch] += (res["start_step"],)
+                elif root is not None:
+                    torch.distributed.barrier()
+                    shutil.rmtree(os.path.join(
+                        ckpt, f"rank_{ctx['rank']:05d}",
+                        f"step_{kw['steps']:010d}"))
+                    torch.distributed.barrier()
+        out[case["name"]] = runs
+        torch.distributed.barrier()
+    return out
+
+
 if __name__ == "__main__":
     _main()

@@ -1,0 +1,240 @@
+"""Tensor parallelism across cards: phi3-mini-3.8b at full width and all
+32 layers (f32 parameters, bf16 compute; one card cannot hold its f32
+parameters, gradients, moments and the step's flat copies), trained by
+``launch.train.train(comm="qlc")`` on N NCCL ranks, one card each, laid
+out ``data x model`` (``launch.mesh.make_test_mesh``), for each
+``--model`` size in turn: 2 gives 2 x 2 on 4 cards, 4 gives 1 x 4.
+
+Per layout, on every rank:
+
+1. ``--steps`` compressed steps (batch 4 x 512, transport oneshot,
+   calibrated on rank 0 from the whole tree, then each rank's cut):
+   every ``ok`` true, no fallback, finite losses; ms/step; the gradient
+   and parameter wires' modeled B/symbol; peak device memory;
+2. the leaves that the model axis does not split (the norms) hold the
+   same bits on every rank of each model row;
+3. the same steps with the raw e4m3 twin from the same start and
+   registry: losses and this rank's parameters bit-equal to the QLC
+   run's;
+4. K1 (with codes) and K2 (accumulate form) at this layout's per-rank
+   flat-gradient shape, on this rank's own flat gradient of the first
+   batch, held bit for bit against their plain versions on the first
+   and last 4096 chunks and timed alone (``chip_smoke.train_path_fused``).
+
+Rank 0 prints one line per check and a JSON line per layout, then the
+card's name and power limit. Every rank runs the same code; a failed
+check raises on the rank that saw it and the run exits non-zero.
+
+Run from the root of a checkout on a machine with N cards:
+  python3 tools/tp_cards.py --cards 4 --model 2 4
+``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
+ranks with a reduced config whose pools hold every chunk (a rehearsal
+of the control flow, without the kernel timings; its times are not a
+card's).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rank_main(rank, args, init):
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
+                                         use_mesh)
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.training.train_step import _flatten_local
+
+    cuda = args.device == "cuda"
+    cfg = get_config("phi3-mini-3.8b")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if not cuda:
+        cfg = reduced(cfg, d_model=128, dtype="float32")
+    # two runs of a step see the same gradients (the embedding's backward
+    # scatter is atomic otherwise)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with data_parallel(args.device, rank=rank, world_size=args.cards,
+                       init_method=init):
+        dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+               else torch.device("cpu"))
+
+        def say(msg):
+            if rank == 0:
+                print(msg, flush=True)
+
+        kw = dict(steps=args.steps, seq_len=args.seq_len,
+                  global_batch=args.global_batch, device=args.device,
+                  transport="oneshot", seed=0)
+        say(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} / {cfg.num_kv_heads} heads x "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}; params {cfg.param_dtype}, compute "
+            f"{cfg.dtype}, remat {cfg.remat}; batch {args.global_batch} x "
+            f"{args.seq_len}; {args.cards} ranks ({args.device})")
+        for model in args.model:
+            mesh = make_test_mesh(model=model)
+            tag = f"{mesh.data} x {mesh.model}"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            registry = None
+            if not cuda:
+                # the reduced model's flat gradient is a few dozen chunks:
+                # a pool slot for each, so the rehearsal runs the wire
+                with use_mesh(mesh):
+                    registry = _wide_pools(train(cfg, comm="qlc", **dict(
+                        kw, steps=0))["registry"])
+            with use_mesh(mesh):
+                q = train(cfg, comm="qlc", registry=registry, **kw)
+            peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                    else float("nan"))
+            hist = q["history"]
+            losses = [h["loss"] for h in hist]
+            if not all(h["ok"] for h in hist) or q["comm_fallbacks"]:
+                raise AssertionError(f"{tag}: ok {[h['ok'] for h in hist]}, "
+                                     f"fallbacks {q['comm_fallbacks']}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{tag}: losses {losses}")
+            reg, step = q["registry"], q["step"]
+            geom = step.geometry(q["params"])
+            # the replicated leaves over the model row
+            specs = pytree_leaves(sharding.param_pspecs(cfg, mesh))
+            whole = [p.reshape(-1) for p, s in
+                     zip(pytree_leaves(q["params"]), specs)
+                     if sharding.model_dim(s) is None]
+            rep = torch.cat(whole).contiguous()
+            row = [torch.empty_like(rep) for _ in range(mesh.model)]
+            dist.all_gather(row, rep, group=mesh.model_group)
+            if not all(torch.equal(r.view(torch.int32),
+                                   rep.view(torch.int32)) for r in row):
+                raise AssertionError(f"{tag}: replicated leaves differ over "
+                                     "the model row")
+            say(f"[{tag}] {len(whole)} replicated leaves ({rep.numel()} "
+                f"values) bit-identical over each model row after "
+                f"{args.steps} steps")
+            # this rank's flat gradient of the first batch, for K1 / K2
+            batch = SyntheticDataset(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                global_batch=args.global_batch)).batch_at(0)
+            with use_mesh(mesh):
+                _, grads = step.stage1(q["params"], batch)
+            grad = _flatten_local(grads, geom.n_padded)
+            del grads
+            qlc_params = [p.detach().cpu() for p in
+                          pytree_leaves(q["params"])]
+            row_out = {
+                "layout": tag, "rank": rank,
+                "step_ms": [round(h["dt"] * 1e3, 3) for h in hist],
+                "losses": losses,
+                "calibrate_ms": q.get("calibrate_s", 0.0) * 1e3,
+                "wire_bytes_per_symbol": {
+                    "grads": q["grads_wire_bytes_per_symbol"],
+                    "params": q["params_wire_bytes_per_symbol"]},
+                "n_local": geom.n_local, "n_padded": geom.n_padded,
+                "seg": geom.seg, "peak_gib": peak}
+            del q, step
+            if cuda:
+                torch.cuda.empty_cache()
+                import chip_smoke
+                from repro_torch.kernels import ops, ref
+                flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+                fused = chip_smoke.train_path_fused(
+                    ops, ref, reg["grads"], grad, flush, phase=tag)
+                row_out["fused"] = {
+                    k: {f: v[f] for f in ("shape", "max_abs_err", "ms",
+                                          "kernel_ms", "bound_ms")}
+                    for k, v in fused.items()}
+                del flush
+            del grad
+            if cuda:
+                torch.cuda.empty_cache()
+            with use_mesh(mesh):
+                t = train(cfg, comm="qlc", registry=reg, wire_enabled=False,
+                          **kw)
+            if [h["loss"] for h in t["history"]] != losses:
+                raise AssertionError(f"{tag}: twin losses differ")
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(
+                    pytree_leaves(t["params"]), qlc_params)):
+                raise AssertionError(f"{tag}: parameters of the QLC run "
+                                     "differ from its raw e4m3 twin's")
+            row_out["twin_step_ms"] = [round(h["dt"] * 1e3, 3)
+                                       for h in t["history"]]
+            del t, qlc_params
+            if cuda:
+                torch.cuda.empty_cache()
+            gathered = [None] * args.cards
+            dist.all_gather_object(gathered, row_out)
+            r0 = gathered[0]
+            say(f"[{tag}] {args.steps} compressed steps "
+                f"{r0['step_ms']} ms, losses {losses}, all ok, no fallback; "
+                f"wire {r0['wire_bytes_per_symbol']['grads']:.4f} B/symbol "
+                f"(grads), {r0['wire_bytes_per_symbol']['params']:.4f} "
+                f"(params); flat vector {r0['n_local']} of {r0['n_padded']} "
+                f"a model rank, segment {r0['seg']}; peak "
+                + ", ".join(f"{g['peak_gib']:.2f}" for g in gathered)
+                + " GiB by rank; the raw e4m3 twin bit-equal on every rank")
+            say(json.dumps({"layout": tag, "ranks": gathered}))
+    if cuda and rank == 0:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0], flush=True)
+
+
+def _wide_pools(calibrated):
+    from repro_torch.core import CodecRegistry
+    reg = CodecRegistry()
+    for name in ("grads", "params"):
+        e = calibrated[name]
+        reg.register_tables(name, e.tables, dataclasses.replace(
+            e.plan, pool_slots_per_1k=1024), counts=e.counts)
+    return reg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cards", type=int, default=4)
+    ap.add_argument("--model", type=int, nargs="+", default=[2, 4])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: all 32 layers)")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--global-batch", type=int, default=4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    import torch
+    import torch.multiprocessing as mp
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.device == "cuda":
+        if torch.cuda.device_count() < args.cards:
+            raise SystemExit(f"needs {args.cards} cards, found "
+                             f"{torch.cuda.device_count()}")
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        from repro_torch.kernels import qlc_fused
+        qlc_fused.build_kernels()       # once, before the ranks load it
+    from repro_torch.launch.mesh import free_port
+    init = f"tcp://localhost:{free_port()}"
+    mp.start_processes(_rank_main, args=(args, init), nprocs=args.cards,
+                       start_method="spawn")
+
+
+if __name__ == "__main__":
+    main()
