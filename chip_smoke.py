@@ -189,7 +189,8 @@ non-zero (nothing is caught and carried on):
 
  12. moe_serve — serving deepseek-moe-16b from the QLC weight wire,
                after moe: full width, ``MOE_SERVE_LAYERS`` of 28 layers
-               (the deepest that leaves over 8 GiB of the card free),
+               (14: the whole script's time; 23 is the deepest that
+               leaves over 8 GiB of the card free),
                f32 parameters, random weights from a seed. Through
                ``launch.serve.serve``: calibrate (K1's histogram),
                compress (K1), the init tree freed, open (K2), 6 requests
@@ -303,8 +304,8 @@ then the ``nvidia-smi`` line, and no result line.
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
 the moe_serve phase, at L of the 28 layers, and prints its peak device
 memory and what of the card was never reserved (one depth a process;
-``MOE_SERVE_LAYERS`` is the deepest that leaves over 8 GiB), then the
-``nvidia-smi`` line, and no result line.
+23 is the deepest that leaves over 8 GiB), then the ``nvidia-smi``
+line, and no result line.
 """
 from __future__ import annotations
 
@@ -2853,7 +2854,10 @@ def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
             "params_wire": params_b, "drops": drops}
 
 
-MOE_SERVE_LAYERS = 23
+#: deepseek-moe-16b layers the moe_serve phase keeps (of 28): 23 is the
+#: deepest that leaves over 8 GiB of the card free; 14 keeps the whole
+#: script under 900 s of its 1200 s limit since the tp phase grew.
+MOE_SERVE_LAYERS = 14
 
 
 def _nest(key: str, value):
@@ -3909,8 +3913,9 @@ TP_LAYOUTS = ((2, 2), (1, 4), (16, 16))
 
 def tp_layout_table():
     """Per config, at each of ``TP_LAYOUTS``: the leaves its resolved
-    specs split over the model axis, the leaves they keep whole, and the
-    parameter bytes one rank holds. Pure arithmetic on the shapes."""
+    specs split over the model axis (every block kind's), the leaves they
+    keep whole, and the parameter bytes one rank holds. Pure arithmetic
+    on the shapes."""
     from repro_torch.configs import REGISTRY
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.transformer import pytree_leaves
@@ -3935,10 +3940,30 @@ def tp_layout_table():
         table[name] = row
         log("tp", f"{name}: " + "; ".join(
             f"{k} {v['split']} split / {v['whole']} whole leaves, "
-            f"{v['bytes'] / 2**30:.3f} GiB a rank" for k, v in row.items())
-            + ("" if sharding.tensor_parallel(cfg) else
-               " (MoE / recurrent: the port keeps today's layout)"))
+            f"{v['bytes'] / 2**30:.3f} GiB a rank" for k, v in row.items()))
     return table
+
+
+#: the MoE and recurrent configs whose whole trees the tp phase cuts and
+#: gathers back: xlstm-125m whole, deepseek-moe-16b at 8 of 28 layers
+#: (~20 GB of f32 parameters; its cut and the tree gathered back take as
+#: much again each), and jamba-1.5-large's mamba layer with its dense
+#: FFN at its widths
+TP_BLOCK_LAYERS = {"xlstm-125m": None, "deepseek-moe-16b": 8,
+                   "jamba-1.5-large-398b": 1}
+
+
+def _tp_block_cfgs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = []
+    for arch, layers in TP_BLOCK_LAYERS.items():
+        cfg = get_config(arch)
+        if arch.startswith("jamba"):
+            cfg = dataclasses.replace(cfg, attn_every=None)
+        out.append(dataclasses.replace(cfg, num_layers=layers)
+                   if layers else cfg)
+    return out
 
 
 def tp_cut_and_gather(cfg, dev):
@@ -3988,38 +4013,13 @@ def tp_cut_and_gather(cfg, dev):
     return out
 
 
-def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
-             seq_len=512, global_batch=4):
-    """The tensor-parallel slice on one card: the layout table; the whole
-    of ``cfg`` (phi3-mini-3.8b, all 32 layers) cut for model axes of 2
-    and 4 and gathered back; the train cell (``train_cfg``: 8 layers)
-    trained 2 compressed steps through ``train()`` with no mesh and with
-    a 1 x 1 mesh in scope, bit-equal, K6/K1/K2 counted from zero around
-    the second; K1 and K2 at 2 x 2's per-rank flat-gradient shape (model
-    rank 0's blocks of the whole model's gradient on data rank 0's 2
-    rows) bit-equal to plain and timed; with two or more cards the
-    layouts they allow through ``tools/tp_cards.py``."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.convert import shard_params
-    from repro_torch.data import DataConfig, SyntheticDataset
-    from repro_torch.launch.mesh import Mesh, make_test_mesh, use_mesh
+def _tp_one_by_one(qf, h6, cell, kw, what):
+    """``cell`` trained 2 compressed steps through ``train()`` with no
+    mesh and with a 1 x 1 mesh in scope, bit-equal, K6/K1/K2 counted
+    from zero around the second. Returns (launches, the registry)."""
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
     from repro_torch.launch.train import train
-    from repro_torch.models import init_params
-    from repro_torch.training.train_step import (_flatten_local,
-                                                 _value_and_grad,
-                                                 flat_geometry, local_batch)
     import hashlib
-    import torch.distributed as dist
-    cfg = cfg or get_config("phi3-mini-3.8b")
-    table = tp_layout_table()
-    cut = tp_cut_and_gather(cfg, dev)
-    torch.cuda.empty_cache()
-
-    cell = _train_cell(train_cfg)
-    kw = dict(comm="qlc", steps=2, seq_len=seq_len,
-              global_batch=global_batch, device=dev, transport="oneshot",
-              seed=0)
     plain = train(cell, **kw)
     reg = plain["registry"]
     flat_plain = _flat_params(plain["params"]).cpu()
@@ -4034,22 +4034,64 @@ def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
     launches = {k: fn.launches for k, fn in counters.items()}
     for kname, c in launches.items():
         if c <= 0:
-            raise AssertionError(f"{kname} was not launched on the tp path")
+            raise AssertionError(f"{kname} was not launched on the tp path "
+                                 f"({what})")
     if meshed["registry"].to_json() != reg.to_json():
-        raise AssertionError("tp: the 1 x 1 run calibrated another registry")
+        raise AssertionError(f"tp: the 1 x 1 run of the {what} calibrated "
+                             "another registry")
     if not all(h["ok"] for h in meshed["history"]):
-        raise AssertionError("tp: a 1 x 1 step's ok is False")
+        raise AssertionError(f"tp: a 1 x 1 step's ok is False ({what})")
     flat_meshed = _flat_params(meshed["params"]).cpu()
-    require_equal("tp: 1 x 1 mesh vs no mesh, parameters after 2 steps",
-                  [flat_meshed], [flat_plain])
+    require_equal(f"tp: {what} at 1 x 1 vs no mesh, parameters after 2 "
+                  "steps", [flat_meshed], [flat_plain])
     digest = hashlib.sha256(flat_meshed.numpy().tobytes()).hexdigest()[:16]
     losses = [h["loss"] for h in meshed["history"]]
-    log("tp", f"train cell ({cell.num_layers} layers) at 1 x 1 through the "
-              f"2-D step: 2 compressed steps bit-equal to the run with no "
-              f"mesh ({flat_meshed.numel()} parameters, sha256 {digest}), "
-              f"losses {losses}; launches {launches}")
+    log("tp", f"{what} ({cell.name}, {cell.num_layers} layers) at 1 x 1 "
+              f"through the 2-D step: 2 compressed steps bit-equal to the "
+              f"run with no mesh ({flat_meshed.numel()} parameters, sha256 "
+              f"{digest}), losses {losses}; launches {launches}")
     del meshed, flat_meshed, flat_plain
     torch.cuda.empty_cache()
+    return launches, reg
+
+
+def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
+             seq_len=512, global_batch=4, block_cfgs=None, moe_cfg=None):
+    """The tensor-parallel slice on one card: the layout table; the whole
+    of ``cfg`` (phi3-mini-3.8b, all 32 layers) cut for model axes of 2
+    and 4 and gathered back, and the MoE and recurrent configs of
+    ``block_cfgs`` likewise (default: :data:`TP_BLOCK_LAYERS`); the
+    train cell (``train_cfg``: 8 layers) and the moe cell (``moe_cfg``:
+    deepseek-moe-16b, 1 layer) each trained 2 compressed steps through
+    ``train()`` with no mesh and with a 1 x 1 mesh in scope, bit-equal,
+    K6/K1/K2 counted from zero around the second; K1 and K2 at 2 x 2's
+    per-rank flat-gradient shape (model rank 0's blocks of the whole
+    model's gradient on data rank 0's 2 rows) bit-equal to plain and
+    timed; with two or more cards the layouts they allow through
+    ``tools/tp_cards.py``."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.training.train_step import (_flatten_local,
+                                                 _value_and_grad,
+                                                 flat_geometry)
+    cfg = cfg or get_config("phi3-mini-3.8b")
+    table = tp_layout_table()
+    cut = tp_cut_and_gather(cfg, dev)
+    torch.cuda.empty_cache()
+    for bcfg in (block_cfgs or _tp_block_cfgs()):
+        cut[bcfg.name] = tp_cut_and_gather(bcfg, dev)
+        torch.cuda.empty_cache()
+
+    kw = dict(comm="qlc", steps=2, seq_len=seq_len,
+              global_batch=global_batch, device=dev, transport="oneshot",
+              seed=0)
+    launches, reg = _tp_one_by_one(qf, h6, _train_cell(train_cfg), kw,
+                                   "train cell")
+    moe_launches, _ = _tp_one_by_one(qf, h6, _moe_cell(moe_cfg), kw,
+                                     "moe cell")
 
     # K1 / K2 at 2 x 2's per-rank flat-gradient shape
     layout = Mesh(data=2, model=2, rank=0, world_group=None, data_group=None,
@@ -4094,8 +4136,9 @@ def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
               f"{'s' if n_cards > 1 else ''}; the 2-D layouts run on gloo "
               "CPU ranks in tests/test_torch_tp.py and on 4 cards in "
               "tools/tp_cards.py)")
-    return {"launches": launches, "fused": fused, "table": table,
-            "cut_ms": cut, "layouts": ran, "n_padded": geom.n_padded}
+    return {"launches": launches, "moe_launches": moe_launches,
+            "fused": fused, "table": table, "cut_ms": cut, "layouts": ran,
+            "n_padded": geom.n_padded}
 
 
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
@@ -4334,6 +4377,7 @@ def main(argv=None):
                  "variants_launches": var["launches"][kname],
                  "variants_path": var["fused"][kname],
                  "tp_launches": tp["launches"][kname],
+                 "tp_moe_launches": tp["moe_launches"][kname],
                  "tp_path": tp["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    tp["fused"][kname]["max_abs_err"],
@@ -4397,7 +4441,8 @@ def main(argv=None):
         "ssm_path": ssm_res["kv"]["K6"],
         "variants_launches": var["launches"]["K6"],
         "variants_path": var["kv"]["K6"],
-        "tp_launches": tp["launches"]["K6"]})
+        "tp_launches": tp["launches"]["K6"],
+        "tp_moe_launches": tp["moe_launches"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
                                      kv_times["K6"]["err"],

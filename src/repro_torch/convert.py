@@ -3,10 +3,10 @@ parameters into the port's tree (same keys, shapes and dtypes, so both
 packages compute the same function on the same weights), a wired
 (compressed-weight) tree and its manifest in both directions
 (:func:`wire_from_numpy`, :func:`wire_to_numpy`), the flat ZeRO-1
-optimizer state into one rank's slice, a global parameter tree cut to
-one rank's MoE experts (:func:`shard_experts`), and a dense model's
-tree cut to one model rank's tensor-parallel blocks and put back
-together (:func:`shard_params`, :func:`gather_params`)."""
+optimizer state into one rank's slice, and a model's tree cut to one
+model rank's tensor-parallel blocks and put back together
+(:func:`shard_params`, :func:`gather_params`), or drawn a leaf at a time
+straight into them (:func:`init_local_params`)."""
 from __future__ import annotations
 
 import json
@@ -14,8 +14,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.models.moe import EXPERT_LEAVES, is_moe_ffn
-from repro_torch.models.transformer import resolve_device
+from repro_torch.models.transformer import init_params, resolve_device
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -94,19 +93,17 @@ def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     return out
 
 
-def _model_dims(cfg, model_size: int, shapes):
+def _model_dims(cfg, model_size: int, shapes, specs=None):
     """Per leaf, the dim the model axis splits (None: whole), as
-    ``cfg``'s specs resolve on a model axis of ``model_size``."""
+    ``cfg``'s specs (or ``specs``, a subtree's logical axes) resolve on a
+    model axis of ``model_size``."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel import sharding
-    if not sharding.tensor_parallel(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and recurrent blocks under tensor parallelism "
-            "are not ported: ROADMAP queue 1, item 15")
     layout = Mesh(data=1, model=model_size, rank=0, world_group=None,
                   data_group=None, model_group=None)
     return _zip_dict(lambda spec, _: sharding.model_dim(spec),
-                     sharding.param_pspecs(cfg, layout, shapes), shapes)
+                     sharding.param_pspecs(cfg, layout, shapes, specs),
+                     shapes)
 
 
 def _zip_dict(fn, tree, other):
@@ -125,20 +122,46 @@ def _block(t, dim: int, index: int, size: int):
         np.take(np.asarray(t), np.arange(index * n, (index + 1) * n), dim))
 
 
-def shard_params(params, cfg, model_index: int, model_size: int):
+def shard_params(params, cfg, model_index: int, model_size: int,
+                 specs=None):
     """The local tree of model rank ``model_index`` of ``model_size``: each
     leaf of ``params`` (a whole tree: the reference's numpy parameters or
     the port's tensors) cut to the contiguous block that the reference's
     stage 2 gives that rank, ``[m * n / M, (m + 1) * n / M)`` along the dim
     its spec puts on the model axis; a leaf whose spec keeps it whole is
-    returned as it is. Tensors in, tensors out (new storage for a cut
-    leaf); numpy in, numpy out. Identity for ``model_size == 1``."""
+    returned as it is. Every block kind is cut by its resolved specs: an
+    MoE's experts by experts where they divide the axis (else each
+    expert's ``mlp`` dim) and its router by expert columns, mamba's
+    ``mlp`` channels, xLSTM's heads. ``specs``: the logical axes when
+    ``params`` is a subtree (one MoE FFN: ``models.moe.moe_param_specs``).
+    Tensors in, tensors out (new storage for a cut leaf); numpy in, numpy
+    out. Identity for ``model_size == 1``."""
     if model_size == 1:
         return params
     shapes = _map_dict(lambda t, _: tuple(t.shape), params)
     return _zip_dict(lambda t, dim: t if dim is None
                      else _block(t, dim, model_index, model_size),
-                     params, _model_dims(cfg, model_size, shapes))
+                     params, _model_dims(cfg, model_size, shapes, specs))
+
+
+def init_local_params(cfg, generator, device, model_index: int,
+                      model_size: int):
+    """``shard_params(init_params(cfg, generator, device), cfg,
+    model_index, model_size)``, bit for bit, without the whole tree: each
+    leaf is cut to the rank's block as soon as it is drawn
+    (``init_params(keep=...)``), so the peak is the largest whole leaf
+    beside the blocks kept so far."""
+    from repro_torch.parallel.sharding import param_shapes
+    if model_size == 1:
+        return init_params(cfg, generator, device)
+    dims = _model_dims(cfg, model_size, param_shapes(cfg))
+
+    def keep(path, t):
+        dim = dims
+        for key in path:
+            dim = dim[key]
+        return t if dim is None else _block(t, dim, model_index, model_size)
+    return init_params(cfg, generator, device, keep=keep)
 
 
 def gather_params(local_trees, cfg):
@@ -162,34 +185,3 @@ def _gather_node(nodes, dims):
     if isinstance(nodes[0], torch.Tensor):
         return torch.cat(nodes, dim=dims)
     return np.concatenate([np.asarray(n) for n in nodes], axis=dims)
-
-
-def shard_experts(params, model_index: int, model_size: int):
-    """The tree a rank of model index ``model_index`` holds under
-    ``shardmap_a2a``: each MoE FFN's expert weights (a whole model's, or
-    one FFN's) cut to its ``num_experts / model_size`` experts ``[m * el,
-    (m + 1) * el)`` along the expert dim (the third from last), every
-    other leaf whole. Identity for ``model_size == 1``."""
-    if model_size == 1:
-        return params
-
-    return _cut_experts(params, model_index, model_size)
-
-
-def _cut_experts(node, model_index: int, model_size: int):
-    if not isinstance(node, dict):
-        return node
-    moe_here = is_moe_ffn(node)
-    return {k: _cut_expert_leaf(v, model_index, model_size)
-            if moe_here and k in EXPERT_LEAVES
-            else _cut_experts(v, model_index, model_size)
-            for k, v in node.items()}
-
-
-def _cut_expert_leaf(t, model_index: int, model_size: int):
-    e = t.shape[-3]
-    el = e // model_size
-    if el * model_size != e:
-        raise ValueError(f"{e} experts cannot be split over a model "
-                         f"axis of {model_size}")
-    return t.narrow(-3, model_index * el, el).clone()

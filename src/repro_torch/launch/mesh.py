@@ -7,18 +7,18 @@ rank ``r = d * model + m``, the order of the reference's
 ``Mesh(devices.reshape(dp, dm), ("data", "model"))``. :class:`Mesh`
 carries both sizes and this rank's two process groups: its model row
 (the ranks ``[d * model, (d + 1) * model)``) and its data column (the
-ranks that share its model index). Over the model row a dense model's
-layers are split (tensor parallelism: heads, KV heads, ``mlp`` and
-``vocab`` by ``parallel.sharding``'s rules) and an MoE's experts with
-their all-to-all; over the data column the batch and the compressed
-step's ZeRO-1 segments. The model-row collectives inside autograd are
-:func:`copy_to_model`, :func:`reduce_from_model` and
-:func:`gather_from_model`, each over a :class:`ModelRow` that the layer
-stack reads once on the caller's thread (:func:`model_row`), so a
-recomputed layer sees the same one. MoE and recurrent blocks under
-tensor parallelism wait for ROADMAP queue 1, item 15, and the ``"pod"``
-axis for multi-node (item 13). :func:`use_mesh` puts a mesh in scope for
-the code that reads it (:func:`current_mesh`).
+ranks that share its model index). Over the model row every layer is
+split as ``parallel.sharding``'s rules resolve its leaves (tensor
+parallelism: heads, KV heads, ``mlp``, ``vocab``, and an MoE's experts,
+with their all-to-all under ``shardmap_a2a``); over the data column the
+batch and the compressed step's ZeRO-1 segments. The model-row
+collectives inside autograd are :func:`copy_to_model`,
+:func:`reduce_from_model` and :func:`gather_from_model`, each over a
+:class:`ModelRow` that the layer stack reads once on the caller's thread
+(:func:`model_row`), so a recomputed layer sees the same one. The
+``"pod"`` axis for multi-node waits for ROADMAP queue 1, item 13.
+:func:`use_mesh` puts a mesh in scope for the code that reads it
+(:func:`current_mesh`).
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -218,18 +218,12 @@ class ModelRow(NamedTuple):
     index: int
 
 
-def model_row(cfg=None, mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
-    """The model row of ``mesh`` (default: the mesh in scope) that
-    ``cfg``'s layers split over, or None: no mesh, a model axis of 1, or
-    a config that the port does not split (``parallel.sharding.
-    tensor_parallel``)."""
+def model_row(mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
+    """The model row of ``mesh`` (default: the mesh in scope) that the
+    layers split over, or None: no mesh, or a model axis of 1."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None or mesh.model == 1:
         return None
-    if cfg is not None:
-        from repro_torch.parallel.sharding import tensor_parallel
-        if not tensor_parallel(cfg):
-            return None
     return ModelRow(mesh.model_group, mesh.model, mesh.coords[1])
 
 

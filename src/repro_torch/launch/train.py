@@ -56,11 +56,11 @@ with the kernels' plain versions):
 
 The launcher runs one rank; ``train()`` runs on whatever process group
 its caller set up (``launch.mesh``), over the mesh in scope
-(``launch.mesh.use_mesh``) when there is one: a dense model over a mesh
-with a model axis above 1 trains tensor-parallel, each rank on its cut
-of the same whole initial tree, the wire over its data column. Flags of the reference
-that reach code not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item.
+(``launch.mesh.use_mesh``) when there is one: over a mesh with a model
+axis above 1 any model (dense, MoE, recurrent) trains tensor-parallel,
+each rank on its cut of the same initial tree, the wire over its data
+column. Flags of the reference that reach code not ported yet raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ from repro_torch.comm.calibrate import (calibrate_for_gradients,
 from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
-from repro_torch.convert import shard_experts, shard_params
+from repro_torch.convert import init_local_params, shard_params
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
@@ -88,7 +88,6 @@ from repro_torch.launch.mesh import current_mesh, data_parallel, \
     make_test_mesh
 from repro_torch.models import init_params, moe
 from repro_torch.models.transformer import resolve_device
-from repro_torch.parallel.sharding import tensor_parallel
 from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
                                   TrainConfig, init_compressed_opt_state,
                                   make_baseline_step, make_compressed_step,
@@ -266,22 +265,23 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
 
     An MoE model: ``moe_wire`` as :func:`resolve_moe_wire`; over a wire
     of ``"qlc"`` the experts are split over the model axis of the mesh
-    in scope (a 1 x ``world`` one when none is: a model axis of 1) and
-    ``params``, the global tree, is cut to this rank's experts
-    (``convert.shard_experts``). Its two codecs join ``registry`` (or a new
-    one), ``wire_enabled=False`` turns them to the raw e4m3 twin too, and
-    ``moe`` then holds per direction the scheme-id, the planned
-    bits/symbol and the wire bytes per symbol of the last step's payload,
-    measured (``Channel.all_to_all``) and modeled. Over a mesh the batch
-    is split over all its ranks.
+    in scope (a ``world`` x 1 one when none is: a model axis of 1). Its
+    two codecs join ``registry`` (or a new one), ``wire_enabled=False``
+    turns them to the raw e4m3 twin too, and ``moe`` then holds per
+    direction the scheme-id, the planned bits/symbol and the wire bytes
+    per symbol of the last step's payload, measured
+    (``Channel.all_to_all``) and modeled.
 
-    A dense model over a mesh in scope with a model axis above 1 trains
-    tensor-parallel: the whole tree (``params``, or initialized from
-    ``seed``) is calibrated on rank 0 as above, then cut to this rank's
-    blocks (``convert.shard_params``) and the whole tree dropped; the
-    batch is split over the data axis, the wire (and its autotuning)
-    runs over the rank's data column, and ``params`` and ``opt_state``
-    come back local. A resume needs the same layout."""
+    Over a mesh in scope with a model axis above 1 any model trains
+    tensor-parallel. Rank 0 calibrates what is to be calibrated (the
+    ``"grads"`` and ``"params"`` codecs, the expert wire's) on the whole
+    tree (``params``, or initialized from ``seed``), then cuts it to its
+    blocks (``convert.shard_params``) and drops it; the other ranks, and
+    rank 0 when nothing is to be calibrated, draw their blocks a leaf at
+    a time (``convert.init_local_params``: the same numbers, without the
+    whole tree). The batch is split over the data axis, the wire (and its
+    autotuning) runs over the rank's data column, and ``params`` and
+    ``opt_state`` come back local. A resume needs the same layout."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     cfg, moe_wire = resolve_moe_wire(cfg, moe_wire, comm)
@@ -291,11 +291,21 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         if mesh is None and cfg.moe is not None \
                 and cfg.moe.impl == "shardmap_a2a":
             mesh = make_test_mesh(model=1)
-        tp = mesh is not None and mesh.model > 1 and tensor_parallel(cfg)
+        tp = mesh is not None and mesh.model > 1
         wire_group = mesh.data_group if tp else group
+        calibrates = (comm == "qlc" and registry is None) or (
+            moe_wire == "qlc" and (registry is None or any(
+                n not in registry for n in (moe.MOE_DISPATCH,
+                                            moe.MOE_COMBINE))))
+        local = False
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(cfg, gen, dev)
+            if tp and not (calibrates and dist.get_rank(group) == 0):
+                params = init_local_params(cfg, gen, dev, mesh.coords[1],
+                                           mesh.model)
+                local = True
+            else:
+                params = init_params(cfg, gen, dev)
         opt_cfg = OptConfig(lr=lr, total_steps=steps,
                             warmup_steps=max(10, steps // 20))
         train_cfg = TrainConfig(microbatches=microbatches)
@@ -322,10 +332,7 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                 enabled=None if wire_enabled else False), registry=registry)
                 for name in (moe.MOE_DISPATCH, moe.MOE_COMBINE)}
             out["registry"] = registry
-        if mesh is not None and cfg.moe is not None \
-                and cfg.moe.impl == "shardmap_a2a":
-            params = shard_experts(params, mesh.coords[1], mesh.model)
-        if tp:
+        if tp and not local:
             params = shard_params(params, cfg, mesh.coords[1], mesh.model)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -384,19 +391,23 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         _sync(dev)
         if moe_channels is not None:
             out["moe"] = _moe_report(cfg, mesh, moe_channels, wire_log,
-                                     global_batch * data.cfg.seq_len)
+                                     global_batch * data.cfg.seq_len, comm)
     out.update(history=trainer.history, comm_fallbacks=trainer.comm_fallbacks,
                params=params, opt_state=opt_state, data=data,
                start_step=start)
     return out
 
 
-def _moe_report(cfg: ModelConfig, mesh, channels, wire_log, n_tokens: int
-                ) -> Dict[str, Dict[str, Any]]:
+def _moe_report(cfg: ModelConfig, mesh, channels, wire_log, n_tokens: int,
+                comm: str) -> Dict[str, Dict[str, Any]]:
     """Per expert-wire direction: its codec's scheme-id and planned
     bits/symbol, and the wire bytes per symbol of the last step's
-    payload, measured (``None`` before any step) and modeled."""
-    row = moe.shardmap_a2a_geometry(cfg, n_tokens, mesh)["row_values"]
+    payload, measured (``None`` before any step) and modeled (the
+    baseline step's layers see the whole batch of ``n_tokens``, the
+    compressed step's a data shard)."""
+    pieces = mesh.size if comm == "baseline" else mesh.model
+    row = moe.row_geometry(cfg, n_tokens // mesh.data, pieces,
+                           mesh.model)["row_values"]
     out = {}
     for name, ch in channels.items():
         nbytes, n = wire_log.get(name, (None, None))

@@ -20,6 +20,12 @@ from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
                                      reduce_from_model)
 
 
+def keep_whole(path, leaf: torch.Tensor) -> torch.Tensor:
+    """The ``keep`` of the init functions that keeps every leaf whole
+    (``transformer.init_params``)."""
+    return leaf
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     dt = x.dtype
@@ -69,11 +75,13 @@ def _act(name: str):
     raise ValueError(name)
 
 
-def mlp(params, x: torch.Tensor, activation: str, row=None
-        ) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, activation: str, row=None,
+        reduce: bool = True) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. SwiGLU gates with ``w_gate``; the other
     activations have no gate. ``row``: the model row the weights are
-    split over (None: whole)."""
+    split over (None: whole); ``reduce=False`` returns this rank's
+    partial output, for a caller that sums it over the row with its
+    own."""
     act = _act(activation)
     x = copy_to_model(x, row)
     h = torch.einsum("bsd,df->bsf", x, params["w_in"].to(x.dtype))
@@ -83,7 +91,7 @@ def mlp(params, x: torch.Tensor, activation: str, row=None
     else:
         h = act(h)
     out = torch.einsum("bsf,fd->bsd", h, params["w_out"].to(x.dtype))
-    return reduce_from_model(out, row)
+    return reduce_from_model(out, row) if reduce else out
 
 
 def mlp_param_specs(activation: str):

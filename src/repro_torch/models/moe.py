@@ -4,25 +4,34 @@ capacity, scatter/gather dispatch (the reference's ``models/moe.py``).
 Three dispatch implementations (``MoEConfig.impl``, validated against
 :data:`SUPPORTED_IMPLS`):
 
-  * ``"gspmd"``: every expert on this rank; dispatch is a scatter/gather
-    and a batched matmul over the expert dim (``torch.bmm``).
+  * ``"gspmd"``: dispatch is a scatter/gather and a batched matmul over
+    the expert dim (``torch.bmm``).
   * ``"grouped_local"``: the same math over ``dispatch_groups`` token
     groups, capacity per (group, expert) (see :func:`_moe_grouped`).
   * ``"shardmap_a2a"``: expert parallelism over the model axis of the
-    :class:`~repro_torch.launch.mesh.Mesh` in scope. Each rank holds the
-    experts ``[m * el, (m + 1) * el)`` of its model index ``m`` and its
-    world rank's contiguous shard of the tokens; tokens cross its model
-    row through an all-to-all, raw or as QLC containers (the paper's
-    technique on the routed-token wire). Routing and capacity drops are
-    bit-identical to ``"gspmd"`` on the whole batch: each rank
-    reconstructs the global arrival-order positions from an int32 counts
-    all-gather (see :func:`_moe_shardmap_a2a`).
+    :class:`~repro_torch.launch.mesh.Mesh` in scope. The tokens a model
+    row holds are cut over it, each rank routes its piece, and the pieces
+    cross the row to the ranks holding their experts through an
+    all-to-all, raw or as QLC containers (the paper's technique on the
+    routed-token wire). Routing and capacity drops are bit-identical to
+    ``"gspmd"`` on the same tokens: each rank reconstructs the
+    arrival-order positions from an int32 counts all-gather (see
+    :func:`_moe_shardmap_a2a`).
+
+Over a model row (``launch.mesh.ModelRow``) the leaves are this rank's
+blocks as their resolved specs cut them (``convert.shard_params``): the
+router by expert columns and each expert's weights by experts where the
+experts divide the row, else the router whole and every expert's hidden
+(``mlp``) dim split; the shared experts by their ``mlp`` dim. The gspmd
+and grouped impls route with the whole router (gathered over the row,
+so every rank routes alike, bit for bit as one rank does), run their
+part of the experts, and sum the row once; see :func:`moe_block`.
 
 Where the reference's ``moe_block`` sees the whole batch (the baseline
 step, jitted over the data axes), each port rank holds one shard of it:
-under :func:`batch_over` the gspmd and grouped impls take their capacity
-from the global token count and their positions from the same counts
-all-gather, so every impl computes the reference's function.
+under :func:`batch_over` the impls take their capacity from the global
+token count and their positions from the same counts all-gather, so
+every impl computes the reference's function.
 
 The compressed wire is opened by binding ``moe/dispatch`` /
 ``moe/combine`` channels (:data:`MOE_DISPATCH` / :data:`MOE_COMBINE`,
@@ -38,14 +47,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional
+import types
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.launch.mesh import current_mesh
+from repro_torch.launch.mesh import (copy_to_model, current_mesh,
+                                     gather_from_model, model_row,
+                                     reduce_from_model)
 from repro_torch.models import layers
 
 #: Registry / channel names of the expert-dispatch wire codecs.
@@ -55,7 +67,7 @@ MOE_COMBINE = "moe/combine"
 #: ``MoEConfig.impl`` values :func:`moe_block` accepts.
 SUPPORTED_IMPLS = ("gspmd", "grouped_local", "shardmap_a2a")
 
-#: the expert-sharded leaves of an MoE FFN (leading dim: experts).
+#: the routed experts' leaves of an MoE FFN (leading dim: experts).
 EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 
 _GROUPS_UNALIGNED = (
@@ -69,45 +81,40 @@ def _normal(gen, shape, scale, dtype, device):
                        device=device).mul_(scale)
 
 
-def moe_param_specs(cfg: ModelConfig):
-    specs = {
-        "router": ("embed", "expert"),
-        "w_in": ("expert", "embed", "mlp"),
-        "w_gate": ("expert", "embed", "mlp"),
-        "w_out": ("expert", "mlp", "embed"),
-    }
-    if cfg.moe and cfg.moe.num_shared_experts:
-        specs["shared"] = layers.mlp_param_specs("swiglu")
-    return specs
-
-
 def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype,
-             device="cuda", lead=()) -> Dict[str, Any]:
+             device="cuda", lead=(), keep=layers.keep_whole) -> Dict[str, Any]:
     """Random MoE FFN parameters from ``generator`` on ``device``, each
-    leaf with the leading dims ``lead`` (the layer-group stack)."""
+    leaf with the leading dims ``lead`` (the layer-group stack), passed
+    through ``keep(path, leaf)`` as soon as it is drawn
+    (``transformer.init_params``)."""
     m = cfg.moe
     d = cfg.d_model
     s_in = 1.0 / d ** 0.5
     s_out = 1.0 / m.d_expert ** 0.5
     lead = tuple(lead)
     p = {
-        "router": _normal(generator, lead + (d, m.num_experts), s_in,
-                          torch.float32, device),
-        "w_in": _normal(generator, lead + (m.num_experts, d, m.d_expert),
-                        s_in, dtype, device),
-        "w_gate": _normal(generator, lead + (m.num_experts, d, m.d_expert),
-                          s_in, dtype, device),
-        "w_out": _normal(generator, lead + (m.num_experts, m.d_expert, d),
-                         s_out, dtype, device),
+        "router": keep(("router",), _normal(
+            generator, lead + (d, m.num_experts), s_in, torch.float32,
+            device)),
+        "w_in": keep(("w_in",), _normal(
+            generator, lead + (m.num_experts, d, m.d_expert), s_in, dtype,
+            device)),
+        "w_gate": keep(("w_gate",), _normal(
+            generator, lead + (m.num_experts, d, m.d_expert), s_in, dtype,
+            device)),
+        "w_out": keep(("w_out",), _normal(
+            generator, lead + (m.num_experts, m.d_expert, d), s_out, dtype,
+            device)),
     }
     if m.num_shared_experts:
         ff = m.num_shared_experts * m.d_expert
         p["shared"] = {
-            "w_in": _normal(generator, lead + (d, ff), s_in, dtype, device),
-            "w_out": _normal(generator, lead + (ff, d), 1.0 / ff ** 0.5,
-                             dtype, device),
-            "w_gate": _normal(generator, lead + (d, ff), s_in, dtype,
-                              device),
+            "w_in": keep(("shared", "w_in"), _normal(
+                generator, lead + (d, ff), s_in, dtype, device)),
+            "w_out": keep(("shared", "w_out"), _normal(
+                generator, lead + (ff, d), 1.0 / ff ** 0.5, dtype, device)),
+            "w_gate": keep(("shared", "w_gate"), _normal(
+                generator, lead + (d, ff), s_in, dtype, device)),
         }
     return p
 
@@ -129,17 +136,35 @@ def moe_param_specs(cfg: ModelConfig):
 # Routing (ONE router matmul, shared by dispatch and the aux loss)
 # --------------------------------------------------------------------------
 
-def _router_logits(params, x_flat: torch.Tensor) -> torch.Tensor:
-    """x_flat: [N, D] -> router logits [N, E] (f32)."""
-    return torch.einsum("nd,de->ne", x_flat.float(), params["router"])
+def _router_weight(params, m: MoEConfig, row=None, summed: bool = False
+                   ) -> torch.Tensor:
+    """The whole router [D, E]: this rank's leaf, or, where the row splits
+    it by expert columns, the row's blocks gathered. The gather's backward
+    slices the cotangent, which is right where every rank of the row
+    computes the same one; ``summed`` (each rank routes its own tokens)
+    first sums it over the row."""
+    r = params["router"]
+    if row is None or r.shape[-1] == m.num_experts:
+        return r
+    r = gather_from_model(r, -1, row)
+    return copy_to_model(r, row) if summed else r
 
 
-def _route(params, x_flat: torch.Tensor, m: MoEConfig):
+def _router_logits(params, x_flat: torch.Tensor, m: MoEConfig, row=None,
+                   summed: bool = False) -> torch.Tensor:
+    """x_flat: [N, D] -> router logits [N, E] (f32), one einsum with the
+    whole router (:func:`_router_weight`)."""
+    return torch.einsum("nd,de->ne", x_flat.float(),
+                        _router_weight(params, m, row, summed))
+
+
+def _route(params, x_flat: torch.Tensor, m: MoEConfig, row=None,
+           summed: bool = False):
     """x_flat: [N, D] -> (expert_idx [N,k], gates [N,k], probs [N,E]).
 
     The top-k is a stable descending sort: among equal logits the lower
     expert index comes first, as ``jax.lax.top_k`` orders them."""
-    logits = _router_logits(params, x_flat)
+    logits = _router_logits(params, x_flat, m, row, summed)
     srt, order = torch.sort(logits, dim=-1, descending=True, stable=True)
     top, idx = srt[:, :m.top_k], order[:, :m.top_k]
     gates = torch.softmax(top, dim=-1)
@@ -384,11 +409,53 @@ def dispatch_traffic(params, x: torch.Tensor, cfg: ModelConfig):
 # Dispatch implementations
 # --------------------------------------------------------------------------
 
-def _shared(params, x, m: MoEConfig, out: torch.Tensor) -> torch.Tensor:
+def _expert_split(params, m: MoEConfig, row) -> Optional[str]:
+    """How the routed experts' leaves are cut over ``row``: ``"expert"``
+    (this rank's block of whole experts), ``"mlp"`` (every expert, its
+    block of the hidden dim) or None (whole)."""
+    if row is None:
+        return None
+    w = params["w_in"]
+    if w.shape[-3] != m.num_experts:
+        return "expert"
+    return "mlp" if w.shape[-1] != m.d_expert else None
+
+
+def _experts_over_row(buf: torch.Tensor, params, split: Optional[str],
+                      row) -> torch.Tensor:
+    """``buf [E, C, D]`` -> the expert outputs ``[E, C, D]``: whole, or
+    this rank's part of them, which the row sums: its experts' rows
+    (zeros for the others') under ``"expert"``, every expert's partial
+    sum over its hidden block under ``"mlp"``."""
+    w_in, w_gate, w_out = params["w_in"], params["w_gate"], params["w_out"]
+    if split != "expert":
+        return _expert_ffn(buf, w_in, w_gate, w_out)
+    el = w_in.shape[-3]
+    lo = row.index * el
+    out = _expert_ffn(buf[lo:lo + el], w_in, w_gate, w_out)
+    return F.pad(out, (0, 0, 0, 0, lo, buf.shape[0] - lo - el))
+
+
+def _finish(params, x: torch.Tensor, m: MoEConfig, routed: torch.Tensor,
+            partial: bool, row) -> torch.Tensor:
+    """The routed output ``routed [N, D]`` (this rank's part, which the
+    row sums, when ``partial``) plus the shared experts' (``mlp``-split
+    over the row when their leaves are), the row summed once."""
+    n, d = routed.shape
+    shared, sh_partial = None, False
     if m.num_shared_experts:
-        n, d = out.shape
-        out = out + layers.mlp(params["shared"], x, "swiglu").reshape(n, d)
-    return out
+        sh = params["shared"]
+        sh_partial = row is not None and \
+            sh["w_out"].shape[-2] != m.num_shared_experts * m.d_expert
+        shared = layers.mlp(sh, x, "swiglu", row if sh_partial else None,
+                            reduce=False).reshape(n, d)
+    if partial and sh_partial:
+        return reduce_from_model(routed + shared, row)
+    if partial:
+        routed = reduce_from_model(routed, row)
+    elif sh_partial:
+        shared = reduce_from_model(shared, row)
+    return routed if shared is None else routed + shared
 
 
 def _world(group) -> int:
@@ -396,27 +463,47 @@ def _world(group) -> int:
 
 
 def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
-              scope: Optional[MoEScope] = None) -> torch.Tensor:
+              scope: Optional[MoEScope] = None, row=None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. Capacity-bounded top-k dispatch.
-    ``scope``: the bindings to use (default: this thread's)."""
+    ``scope``: the bindings to use (default: this thread's); ``row``: the
+    model row the leaves may be split over (default: the mesh's in
+    scope, ``launch.mesh.model_row``).
+
+    Over a row, ``x`` is the same on every rank. ``gspmd`` and
+    ``grouped_local`` route every token with the whole router on every
+    rank, each rank runs its part of the experts (:func:`_expert_split`)
+    on the same dispatch buffer, and the gate-weighted combine of its
+    part is summed over the row with the shared experts' part in one
+    all-reduce. The gates enter the combine through ``copy_to_model``:
+    their cotangent, each rank's part of it, is summed, so the router's
+    backward is the same on every rank (and a whole router's gradient
+    stays bit-identical over the row). The row's partial sums add a
+    token's top-k outputs in another order than one rank does (each
+    rank's own experts first); the per-assignment rows could be summed
+    over the row first to keep one rank's order exactly, at ``top_k``
+    times the all-reduce's bytes: not done, the order moves the output
+    within f32 rounding."""
     impl = cfg.moe.impl
     if impl not in SUPPORTED_IMPLS:
         raise ValueError(
             f"unknown MoEConfig.impl {impl!r}; supported impls are "
             f"{SUPPORTED_IMPLS}")
     scope = moe_scope() if scope is None else scope
+    if row is None:
+        row = model_row(scope.mesh)
     if scope.capture is not None:
         scope.capture.append((params, x))
     if impl == "grouped_local":
-        return _moe_grouped(params, x, cfg, scope)
+        return _moe_grouped(params, x, cfg, scope, row)
     if impl == "shardmap_a2a":
-        return _moe_shardmap_a2a(params, x, cfg, scope)
+        return _moe_shardmap_a2a(params, x, cfg, scope, row)
     m = cfg.moe
     b, s, d = x.shape
     n = b * s
     x_flat = x.reshape(n, d)
+    split = _expert_split(params, m, row)
 
-    idx, gates, _probs = _route(params, x_flat, m)       # [N,k], [N,k]
+    idx, gates, _probs = _route(params, x_flat, m, row)  # [N,k], [N,k]
     flat_e = idx.reshape(-1)                            # [N*k]
     group = scope.batch_group
     capacity = _capacity(n * _world(group), m)
@@ -430,23 +517,26 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
     if scope.routing is not None:
         scope.routing.append({"impl": impl, "idx": idx, "keep": keep})
 
+    if split:
+        x_flat, gates = copy_to_model(x_flat, row), copy_to_model(gates, row)
     buf = _scatter_rows(_repeat_tokens(x_flat, m.top_k), slot,
                         m.num_experts * capacity)
-    out_e = _expert_ffn(buf.reshape(m.num_experts, capacity, d),
-                        params["w_in"], params["w_gate"], params["w_out"])
+    out_e = _experts_over_row(buf.reshape(m.num_experts, capacity, d),
+                              params, split, row)
     gathered = _take_rows(out_e.reshape(m.num_experts * capacity, d), slot)
     weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
     out = _sum_topk(weighted, n, m.top_k)
-    return _shared(params, x, m, out).reshape(b, s, d)
+    return _finish(params, x, m, out, split is not None, row).reshape(b, s, d)
 
 
 def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
-                 scope: MoEScope) -> torch.Tensor:
+                 scope: MoEScope, row) -> torch.Tensor:
     """Grouped-local dispatch: tokens split into ``dispatch_groups``
     contiguous groups, capacity per (group, expert), scatters and
     gathers inside a group. Under :func:`batch_over` the groups are
     those of the whole batch, and each rank runs the groups its token
-    shard holds (they must tile the ranks, ROADMAP queue 1, item 17)."""
+    shard holds (they must tile the ranks, ROADMAP queue 1, item 17).
+    Over a model row as :func:`moe_block`."""
     m = cfg.moe
     b, s, d = x.shape
     n_local = b * s
@@ -461,8 +551,9 @@ def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
     ng = n_local // g
     x_flat = x.reshape(n_local, d)
     e, k = m.num_experts, m.top_k
+    split = _expert_split(params, m, row)
 
-    idx, gates, _probs = _route(params, x_flat, m)      # [N,k]
+    idx, gates, _probs = _route(params, x_flat, m, row)  # [N,k]
     capacity = _capacity(ng, m)
     flat_e = idx.reshape(g, ng * k)
     onehot = F.one_hot(flat_e, e)
@@ -474,6 +565,8 @@ def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
     if scope.routing is not None:
         scope.routing.append({"impl": "grouped_local", "idx": idx,
                               "keep": keep.reshape(-1)})
+    if split:
+        x_flat, gates = copy_to_model(x_flat, row), copy_to_model(gates, row)
     # One buffer of g blocks of E*C rows and a drop row each.
     base = torch.arange(g, device=x.device)[:, None] * (e * capacity + 1)
     bufs = _scatter_rows(_repeat_tokens(x_flat, k), (base + slot).reshape(-1),
@@ -482,15 +575,15 @@ def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
     # [g, E, C, D] -> [E, g*C, D]: one matmul per expert over every group.
     per_e = bufs.reshape(g, e, capacity, d).transpose(0, 1).reshape(
         e, g * capacity, d)
-    out_e = _expert_ffn(per_e, params["w_in"], params["w_gate"],
-                        params["w_out"])
+    out_e = _experts_over_row(per_e, params, split, row)
     out_e = out_e.reshape(e, g, capacity, d).transpose(0, 1).reshape(
         g, e * capacity, d)
     gathered = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
     gathered = gathered.reshape(-1, d)[(base + slot).reshape(-1)]
     weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
     out = _sum_topk(weighted, n_local, k)
-    return _shared(params, x, m, out).reshape(b, s, d)
+    return _finish(params, x, m, out, split is not None,
+                   row).reshape(b, s, d)
 
 
 # --------------------------------------------------------------------------
@@ -528,6 +621,18 @@ def shardmap_a2a_geometry(cfg: ModelConfig, n_tokens: int, mesh) -> dict:
     return {"ng": ng, "capacity": capacity, "c_send": c_send,
             "row_values": (m.num_experts // dm) * c_send * cfg.d_model,
             "axis_size": dm}
+
+
+def row_geometry(cfg: ModelConfig, n_row: int, pieces: int, model: int
+                 ) -> dict:
+    """:func:`shardmap_a2a_geometry` of a layer whose model row holds
+    ``n_row`` tokens, cut into ``model`` pieces, in a batch of ``pieces``
+    pieces (``model`` of them: the compressed step's, the row's shard;
+    the world's: the baseline step's whole batch)."""
+    return shardmap_a2a_geometry(
+        cfg, n_row * pieces // model, types.SimpleNamespace(
+            axis_names=("data", "model"),
+            shape={"data": pieces // model, "model": model}))
 
 
 def _all_to_all(v: torch.Tensor, group) -> torch.Tensor:
@@ -580,27 +685,35 @@ def _a2a(scope: MoEScope, name: str, group):
 
 
 def _moe_shardmap_a2a(params, x: torch.Tensor, cfg: ModelConfig,
-                      scope: MoEScope) -> torch.Tensor:
+                      scope: MoEScope, row) -> torch.Tensor:
     """Expert-parallel dispatch over the mesh in scope.
 
-    This rank's ``x`` is its world rank's contiguous shard of the batch
-    (ranks in ``(data, model)`` order, model innermost), its
-    ``w_in``/``w_gate``/``w_out`` the ``el`` experts of its model index.
-    Per rank:
+    ``x`` is what this rank's model row holds (the same on each of its
+    ``dm`` ranks): its ``n`` tokens are cut into ``dm`` contiguous pieces
+    and rank ``m`` of the row takes piece ``m``, as the reference's
+    ``token_axes`` cut the tokens with the model axis innermost. Its
+    ``w_in``/``w_gate``/``w_out`` are the ``el`` experts of its model
+    index; the router, split by expert columns like them, is gathered
+    over the row (the reference's ``in_specs`` replicate it). The batch
+    is the pieces of the row, or under :func:`batch_over` (the baseline
+    step, the data column declared) the pieces of every row, in world
+    rank order. Per rank:
 
-    1. route the local ``ng`` tokens (replicated router);
-    2. all-gather the per-expert assignment COUNTS (int32) over the world
-       in rank order and prefix-sum them: ``offset[e] + pos_local`` is
-       gspmd's global position, so ``keep = pos_global < capacity``
-       reproduces its capacity drops bit for bit, and each rank's kept
-       assignments are a prefix of its local arrival order, so send
-       slots pack contiguously;
+    1. route the local ``ng`` tokens;
+    2. all-gather the per-expert assignment COUNTS (int32) over the
+       batch's pieces and prefix-sum them: ``offset[e] + pos_local`` is
+       gspmd's position on the same batch, so ``keep = pos_global <
+       capacity`` reproduces its capacity drops bit for bit, and each
+       rank's kept assignments are a prefix of its local arrival order,
+       so send slots pack contiguously;
     3. all-to-all the packed ``[dm, el, c_send, D]`` send buffer over the
        model row — raw, or as QLC containers through the bound channels;
     4. scatter the received rows at their global positions (disjoint
        across sources), run the local experts' FFN (zero rows stay
        zero), gather the same positions back and reverse the all-to-all;
-    5. combine with the gate weights on the local tokens.
+    5. combine with the gate weights on the local tokens, and gather the
+       row's pieces back into the ``n`` tokens; the shared experts run on
+       ``x`` as in :func:`moe_block`.
     """
     m = cfg.moe
     mesh = scope.mesh
@@ -609,20 +722,25 @@ def _moe_shardmap_a2a(params, x: torch.Tensor, cfg: ModelConfig,
             "moe.impl='shardmap_a2a' needs a mesh with a 'model' axis in "
             "scope (repro_torch.launch.mesh.use_mesh)")
     b, s, d = x.shape
-    ng = b * s
-    geo = shardmap_a2a_geometry(cfg, ng * mesh.size, mesh)
-    dm, capacity, c_send = (geo["axis_size"], geo["capacity"],
-                            geo["c_send"])
+    n = b * s
+    dm = mesh.model
+    pieces = mesh.world_group if scope.batch_group is not None \
+        else mesh.model_group
+    n_pieces = _world(pieces)
+    geo = row_geometry(cfg, n, n_pieces, dm)
+    ng, capacity, c_send = geo["ng"], geo["capacity"], geo["c_send"]
     e, k = m.num_experts, m.top_k
     el = e // dm                                   # local experts
     dispatch_a2a = _a2a(scope, MOE_DISPATCH, mesh.model_group)
     combine_a2a = _a2a(scope, MOE_COMBINE, mesh.model_group)
 
-    xl = x.reshape(ng, d)
-    idx, gates, _probs = _route(params, xl, m)
+    x_flat = x.reshape(n, d)
+    xl = x_flat
+    if dm > 1:   # each rank's piece: the row sums the input's cotangent
+        xl = copy_to_model(x_flat, row).narrow(0, row.index * ng, ng)
+    idx, gates, _probs = _route(params, xl, m, row, summed=True)
     flat_e = idx.reshape(-1)                       # [ng*k]
-    pos_global, pos_local, g, offsets = global_positions(
-        flat_e, e, mesh.world_group)
+    pos_global, pos_local, g, offsets = global_positions(flat_e, e, pieces)
     keep = pos_global < capacity
     if scope.routing is not None:
         scope.routing.append({"impl": "shardmap_a2a", "idx": idx,
@@ -636,9 +754,9 @@ def _moe_shardmap_a2a(params, x: torch.Tensor, cfg: ModelConfig,
     recv = dispatch_a2a(sbuf.reshape(dm, el, c_send, d))
 
     # Each source's global positions for MY experts, from the counts
-    # gather (my model-row peers are the world ranks [base, base + dm)).
-    base = (mesh.rank // dm) * dm
-    my_model = mesh.rank % dm
+    # gather (my model-row peers are the pieces [base, base + dm)).
+    me = dist.get_rank(pieces)
+    base, my_model = (me // dm) * dm, me % dm
     off_grp = offsets[base:base + dm, my_model * el:(my_model + 1) * el]
     cnt_grp = g[base:base + dm, my_model * el:(my_model + 1) * el]
     kept_grp = torch.minimum(torch.clamp(capacity - off_grp, min=0),
@@ -658,30 +776,5 @@ def _moe_shardmap_a2a(params, x: torch.Tensor, cfg: ModelConfig,
     back = combine_a2a(gathered.reshape(dm, el, c_send, d))
     comb = _take_rows(back.reshape(e * c_send, d).to(x.dtype), slot)
     weighted = comb * gates.reshape(-1)[:, None].to(x.dtype)
-    out = _sum_topk(weighted, ng, k)
-    return _shared(params, x, m, out).reshape(b, s, d)
-
-
-# --------------------------------------------------------------------------
-# Expert-sharded parameters
-# --------------------------------------------------------------------------
-
-def is_moe_ffn(node) -> bool:
-    """Whether a parameter subtree is an MoE FFN's."""
-    return isinstance(node, dict) and "router" in node
-
-
-def expert_mask(params) -> List[bool]:
-    """Per leaf of ``params`` in pytree order (``transformer.pytree_leaves``):
-    True for an MoE layer's expert weights (:data:`EXPERT_LEAVES`), which
-    ``shardmap_a2a`` splits over the model axis."""
-    return _expert_flags(params, False)
-
-
-def _expert_flags(node, in_moe: bool) -> List[bool]:
-    if not isinstance(node, dict):
-        return [in_moe]
-    moe_here = is_moe_ffn(node)
-    return [flag for key in sorted(node)
-            for flag in _expert_flags(node[key],
-                                      moe_here and key in EXPERT_LEAVES)]
+    out = gather_from_model(_sum_topk(weighted, ng, k), 0, row)
+    return _finish(params, x, m, out, False, row).reshape(b, s, d)

@@ -11,6 +11,26 @@ is a performance option, not a port of a kernel.
 States are ``NamedTuple`` s of f32 tensors (:data:`STATE_TYPES`); the
 paged serving cache moves them whole (:func:`state_snapshot`,
 :func:`state_restore`).
+
+Tensor parallelism (training): given a ``launch.mesh.ModelRow``, each
+block takes its leaves as their resolved specs cut them
+(:func:`mamba_param_specs`, :func:`xlstm_param_specs`) and finds which
+are split from their shapes. The xLSTM blocks split on ``heads``: each
+rank runs its heads' projections, gates and recurrence (all per head),
+and ``wo``'s partial sums are summed over the row. Mamba splits on its
+``mlp`` channels (``d_inner``): ``conv_w``, ``dt_proj``, ``A_log`` and
+``D`` per channel, ``x_proj`` on its input rows, so its ``[dt | B | C]``
+output is a partial sum that the row sums (and whose cotangent, each
+rank's part from its own channels, the row sums back), ``out_proj`` on
+its rows, summed likewise. ``in_proj`` is one ``[d, 2 d_inner]`` leaf
+read as ``xi | z``, so its contiguous block on rank 0 of a row of 2 is
+all of ``xi`` and on rank 1 all of ``z``; the block keeps the spec's cut
+(the flat ZeRO-1 vectors follow it) and exchanges activations instead:
+each rank's ``xz`` block is all-gathered over the row and each takes its
+own channels of both halves. The exchange moves ``B S 2 d_inner`` values
+in the compute dtype, where gathering the weight would move ``d 2
+d_inner`` in f32: fewer bytes for a data shard of fewer than ``2 d``
+tokens (jamba at 4 x 512: 2048 tokens against d 8192).
 """
 from __future__ import annotations
 
@@ -20,6 +40,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
+                                     reduce_from_model)
+from repro_torch.models import layers
+
+_NO_DECODE_TP = ("decode over a model axis is not ported: ROADMAP queue 1, "
+                 "item 10")
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -81,10 +107,11 @@ def xlstm_param_specs():
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-               lead=()) -> Dict[str, Any]:
+               lead=(), keep=layers.keep_whole) -> Dict[str, Any]:
     """Random Mamba parameters from ``gen``, each leaf with the leading
-    dims ``lead`` (the layer-group stack). ``A_log`` and ``D`` are f32
-    whatever ``dtype`` is, as in the reference."""
+    dims ``lead`` (the layer-group stack), passed through ``keep(path,
+    leaf)`` as soon as it is made (``transformer.init_params``). ``A_log``
+    and ``D`` are f32 whatever ``dtype`` is, as in the reference."""
     d = cfg.d_model
     di, dtr = mamba_dims(cfg)
     n, k = cfg.ssm_state_dim, cfg.conv_kernel
@@ -92,34 +119,49 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                    device=device))
     return {
-        "in_proj": _normal(gen, lead + (d, 2 * di), d ** -0.5, dtype,
-                           device),
-        "conv_w": _normal(gen, lead + (k, di), k ** -0.5, dtype, device),
-        "x_proj": _normal(gen, lead + (di, dtr + 2 * n), di ** -0.5, dtype,
-                          device),
-        "dt_proj": _normal(gen, lead + (dtr, di), dtr ** -0.5, dtype,
-                           device),
-        "A_log": a_log.expand(lead + (di, n)).clone(),
-        "D": torch.ones(lead + (di,), dtype=torch.float32, device=device),
-        "out_proj": _normal(gen, lead + (di, d), di ** -0.5, dtype, device),
+        "in_proj": keep(("in_proj",), _normal(
+            gen, lead + (d, 2 * di), d ** -0.5, dtype, device)),
+        "conv_w": keep(("conv_w",), _normal(gen, lead + (k, di), k ** -0.5,
+                                            dtype, device)),
+        "x_proj": keep(("x_proj",), _normal(
+            gen, lead + (di, dtr + 2 * n), di ** -0.5, dtype, device)),
+        "dt_proj": keep(("dt_proj",), _normal(
+            gen, lead + (dtr, di), dtr ** -0.5, dtype, device)),
+        "A_log": keep(("A_log",), a_log.expand(lead + (di, n)).clone()),
+        "D": keep(("D",), torch.ones(lead + (di,), dtype=torch.float32,
+                                     device=device)),
+        "out_proj": keep(("out_proj",), _normal(
+            gen, lead + (di, d), di ** -0.5, dtype, device)),
     }
 
 
 def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[MambaState] = None):
+                state: Optional[MambaState] = None, row=None):
     """x: [B, S, D]. Returns (out [B, S, D], new state or None). With
     ``state`` the recurrence continues from it (one token per decode
-    step, or a segment)."""
+    step, or a segment). ``row``: the model row the leaves may be split
+    over (module docstring)."""
     b, s, d = x.shape
     di, dtr = mamba_dims(cfg)
     n, k = cfg.ssm_state_dim, cfg.conv_kernel
+    in_split = row is not None and params["in_proj"].shape[-1] != 2 * di
+    ch_split = row is not None and params["conv_w"].shape[-1] != di
+    if (in_split or ch_split) and state is not None:
+        raise NotImplementedError(_NO_DECODE_TP)
 
-    xz = torch.einsum("bsd,de->bse", x, params["in_proj"].to(x.dtype))
-    xi, z = xz[..., :di], xz[..., di:]
+    xz = torch.einsum("bsd,de->bse", copy_to_model(x, row) if in_split
+                      else x, params["in_proj"].to(x.dtype))
+    lo, dl = 0, di
+    if in_split:        # xi | z: gather the row's blocks, keep my channels
+        xz = copy_to_model(gather_from_model(xz, -1, row), row)
+        if ch_split:
+            dl = di // row.size
+            lo = row.index * dl
+    xi, z = xz[..., lo:lo + dl], xz[..., di + lo:di + lo + dl]
 
     # Depthwise causal conv along time.
     if state is None:
-        xc = torch.cat([torch.zeros((b, k - 1, di), dtype=xi.dtype,
+        xc = torch.cat([torch.zeros((b, k - 1, dl), dtype=xi.dtype,
                                     device=xi.device), xi], dim=1)
         new_conv_tail = None
     else:
@@ -131,6 +173,8 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
 
     # Input-dependent SSM parameters.
     proj = torch.einsum("bse,ec->bsc", u, params["x_proj"].to(u.dtype))
+    if ch_split:        # my channels' part; each rank's cotangent summed
+        proj = copy_to_model(reduce_from_model(proj, row), row)
     dt_in, bmat, cmat = (proj[..., :dtr], proj[..., dtr:dtr + n],
                          proj[..., dtr + n:])
     dt_proj = params["dt_proj"]
@@ -142,7 +186,7 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
     da = torch.exp(dt[..., None] * a[None, None])      # [B, S, di, N]
     dbu = dt[..., None] * bmat[:, :, None, :] * uf[..., None]
 
-    h = state.ssm if state is not None else _zeros(x, (b, di, n))
+    h = state.ssm if state is not None else _zeros(x, (b, dl, n))
     ys = []
     for t in range(s):
         h = h * da[:, t] + dbu[:, t]                   # [B, di, N]
@@ -151,6 +195,8 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
     y = y + uf * params["D"][None, None]
     y = y.to(x.dtype) * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(y.dtype))
+    if ch_split:
+        out = reduce_from_model(out, row)
     if state is None:
         return out, None
     return out, MambaState(ssm=h, conv=new_conv_tail)
@@ -180,10 +226,11 @@ class SLSTMState(NamedTuple):
 
 
 def _init_qkv_gates(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                    lead=()) -> Dict[str, Any]:
+                    lead=(), keep=layers.keep_whole) -> Dict[str, Any]:
     """Random xLSTM block parameters, each leaf with the leading dims
-    ``lead``. The gate projections are f32 whatever ``dtype`` is. ``wo``
-    is drawn from the same normals as ``wq`` (reshaped, scaled by
+    ``lead``, passed through ``keep(path, leaf)`` as soon as it is made.
+    The gate projections are f32 whatever ``dtype`` is. ``wo`` is drawn
+    from the same normals as ``wq`` (reshaped, scaled by
     ``1/sqrt(h * hd)``): the reference draws both from one key."""
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
     lead = tuple(lead)
@@ -191,12 +238,14 @@ def _init_qkv_gates(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     so = 1.0 / (h * hd) ** 0.5
     zq = torch.randn(lead + (d, h, hd), generator=gen, dtype=dtype,
                      device=device)
-    p = {"wq": zq * s}
+    p = {"wq": keep(("wq",), zq * s)}
     for name in ("wk", "wv"):
-        p[name] = _normal(gen, lead + (d, h, hd), s, dtype, device)
+        p[name] = keep((name,), _normal(gen, lead + (d, h, hd), s, dtype,
+                                        device))
     for name in ("w_if", "w_ff", "w_of"):
-        p[name] = _normal(gen, lead + (d, h), s, torch.float32, device)
-    p["wo"] = zq.reshape(lead + (h, hd, d)) * so
+        p[name] = keep((name,), _normal(gen, lead + (d, h), s,
+                                        torch.float32, device))
+    p["wo"] = keep(("wo",), zq.reshape(lead + (h, hd, d)) * so)
     return p
 
 
@@ -213,11 +262,26 @@ def _gates(params, x: torch.Tensor):
     return i_pre, f_pre, o_gate
 
 
+def _heads_split(params, x, cfg: ModelConfig, state, row):
+    """An xLSTM block's heads here and its input: over a row that splits
+    the heads, this rank's heads and ``x`` through ``copy_to_model``
+    (its projections are this rank's part of the input's gradient)."""
+    h = params["wq"].shape[-2]
+    if row is None or h == cfg.num_heads:
+        return h, x, None
+    if state is not None:
+        raise NotImplementedError(_NO_DECODE_TP)
+    return h, copy_to_model(x, row), row
+
+
 def mlstm_block(params, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[MLSTMState] = None):
-    """mLSTM: matrix-memory LSTM with exponential gating (xLSTM §2.3)."""
+                state: Optional[MLSTMState] = None, row=None):
+    """mLSTM: matrix-memory LSTM with exponential gating (xLSTM §2.3).
+    ``row``: the model row the heads may be split over (module
+    docstring)."""
     b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    h, x, row = _heads_split(params, x, cfg, state, row)
 
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(x.dtype)) \
         * hd ** -0.5
@@ -253,6 +317,7 @@ def mlstm_block(params, x: torch.Tensor, cfg: ModelConfig,
     y = torch.stack(ys, dim=1)                         # [B, S, NH, HD]
     y = (y * o_gate[..., None]).to(x.dtype)
     out = torch.einsum("bsnh,nhd->bsd", y, params["wo"].to(y.dtype))
+    out = reduce_from_model(out, row)
     return out, (MLSTMState(c, nrm, m) if state is not None else None)
 
 
@@ -264,12 +329,14 @@ def mlstm_init_state(like: torch.Tensor, b: int,
 
 
 def slstm_block(params, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[SLSTMState] = None):
+                state: Optional[SLSTMState] = None, row=None):
     """sLSTM: scalar-memory LSTM with exponential gating (xLSTM §2.2),
     the reference's simplified form: recurrence on the cell state only
-    (no hidden-to-gate recurrent weights)."""
+    (no hidden-to-gate recurrent weights). ``row`` as
+    :func:`mlstm_block`."""
     b, s, d = x.shape
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    h, x, row = _heads_split(params, x, cfg, state, row)
 
     zt = torch.tanh(torch.einsum("bsd,dnh->bsnh", x,
                                  params["wq"].to(x.dtype)))
@@ -293,6 +360,7 @@ def slstm_block(params, x: torch.Tensor, cfg: ModelConfig,
     y = torch.stack(ys, dim=1)
     y = (y * o_gate[..., None]).to(x.dtype)
     out = torch.einsum("bsnh,nhd->bsd", y, params["wo"].to(y.dtype))
+    out = reduce_from_model(out, row)
     return out, (SLSTMState(c, nrm, m) if state is not None else None)
 
 

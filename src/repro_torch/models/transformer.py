@@ -14,10 +14,11 @@ states are ``NamedTuple`` s in the same stacked layout.
 
 :func:`param_specs` gives every leaf's logical axes, as the reference's
 (``"layers"`` before each stacked leaf). Over a mesh in scope whose
-model axis is above 1, a dense model's training forward takes each
+model axis is above 1, the training forward takes each
 rank's local tree (``convert.shard_params``: every leaf cut as its
 resolved spec says) and runs the model row's collectives inside its
-layers (``models.layers``, ``models.attention``).
+layers (``models.layers``, ``models.attention``, ``models.moe``,
+``models.ssm``): every block kind, dense, MoE and recurrent.
 """
 from __future__ import annotations
 
@@ -106,63 +107,85 @@ def _normal(gen, shape, scale, dtype, device):
     return t.mul_(scale)
 
 
-def _init_mixer(gen, kind: str, cfg: ModelConfig, g: int, dtype, device):
+def _under(keep, *prefix):
+    """``keep`` for the subtree at ``prefix``."""
+    return lambda path, t: keep(prefix + tuple(path), t)
+
+
+def _init_mixer(gen, kind: str, cfg: ModelConfig, g: int, dtype, device,
+                keep=layers.keep_whole):
     if kind == "mamba":
-        return ssm.init_mamba(gen, cfg, dtype, device, lead=(g,))
+        return ssm.init_mamba(gen, cfg, dtype, device, lead=(g,), keep=keep)
     if kind == "mlstm":
-        return ssm.init_mlstm(gen, cfg, dtype, device, lead=(g,))
+        return ssm.init_mlstm(gen, cfg, dtype, device, lead=(g,), keep=keep)
     if kind == "slstm":
-        return ssm.init_slstm(gen, cfg, dtype, device, lead=(g,))
+        return ssm.init_slstm(gen, cfg, dtype, device, lead=(g,), keep=keep)
     if kind != "attention":
         raise ValueError(kind)
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     s = 1.0 / d ** 0.5
     so = 1.0 / (h * hd) ** 0.5
-    wq = _normal(gen, (g, d, h, hd), s, dtype, device)
-    wk = _normal(gen, (g, d, kv, hd), s, dtype, device)
-    wv = _normal(gen, (g, d, kv, hd), s, dtype, device)
-    wo = _normal(gen, (g, h, hd, d), so, dtype, device)
     hp = attn.padded_heads(cfg)
+    # zero pad slices of wq / wo, frozen at use: the unpadded function
+    wq = _normal(gen, (g, d, h, hd), s, dtype, device)
     if hp != h:
-        # zero pad slices, frozen at use: the unpadded function
         wq = torch.cat([wq, wq.new_zeros((g, d, hp - h, hd))], dim=2)
+    p = {"wq": keep(("wq",), wq)}
+    del wq
+    for name in ("wk", "wv"):
+        p[name] = keep((name,), _normal(gen, (g, d, kv, hd), s, dtype,
+                                        device))
+    wo = _normal(gen, (g, h, hd, d), so, dtype, device)
+    if hp != h:
         wo = torch.cat([wo, wo.new_zeros((g, hp - h, hd, d))], dim=1)
-    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    p["wo"] = keep(("wo",), wo)
+    return p
 
 
 def _init_block(gen, kind: str, cfg: ModelConfig, idx_in_group: int,
-                g: int, dtype, device) -> Dict[str, Any]:
+                g: int, dtype, device, keep=layers.keep_whole
+                ) -> Dict[str, Any]:
     """One block's parameters, stacked over ``g`` groups. A block whose
     FFN kind is ``"none"`` (the xLSTM blocks, any block of a ``d_ff``
     0 config) has no ``norm2`` and no ``ffn``, as in the reference."""
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "norm1": torch.ones((g, d), dtype=dtype, device=device),
-        "mixer": _init_mixer(gen, kind, cfg, g, dtype, device),
+        "norm1": keep(("norm1",), torch.ones((g, d), dtype=dtype,
+                                             device=device)),
+        "mixer": _init_mixer(gen, kind, cfg, g, dtype, device,
+                             _under(keep, "mixer")),
     }
     fk = cfg.ffn_kind(idx_in_group)
+    if fk != "none":
+        p["norm2"] = keep(("norm2",), torch.ones((g, d), dtype=dtype,
+                                                 device=device))
     if fk == "moe":
-        p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
-        p["ffn"] = moe.init_moe(gen, cfg, dtype, device, lead=(g,))
+        p["ffn"] = moe.init_moe(gen, cfg, dtype, device, lead=(g,),
+                                keep=_under(keep, "ffn"))
     elif fk == "dense":
         ff = cfg.d_ff
-        p["norm2"] = torch.ones((g, d), dtype=dtype, device=device)
         p["ffn"] = {
-            "w_in": _normal(gen, (g, d, ff), 1.0 / d ** 0.5, dtype, device),
-            "w_out": _normal(gen, (g, ff, d), 1.0 / ff ** 0.5, dtype,
-                             device),
+            "w_in": keep(("ffn", "w_in"), _normal(
+                gen, (g, d, ff), 1.0 / d ** 0.5, dtype, device)),
+            "w_out": keep(("ffn", "w_out"), _normal(
+                gen, (g, ff, d), 1.0 / ff ** 0.5, dtype, device)),
         }
         if cfg.activation == "swiglu":
-            p["ffn"]["w_gate"] = _normal(gen, (g, d, ff), 1.0 / d ** 0.5,
-                                         dtype, device)
+            p["ffn"]["w_gate"] = keep(("ffn", "w_gate"), _normal(
+                gen, (g, d, ff), 1.0 / d ** 0.5, dtype, device))
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", keep=layers.keep_whole) -> Dict[str, Any]:
     """Random parameters on ``device`` from ``generator`` (which must
-    live on that device), in the reference's tree layout."""
+    live on that device), in the reference's tree layout. ``keep(path,
+    leaf) -> leaf``, when given, takes each leaf as soon as it is drawn
+    (``path``: its keys from the root), before the next is drawn: the
+    same numbers come from the generator, and a ``keep`` that returns a
+    block of each (``convert.init_local_params``) never holds more than
+    one whole leaf."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     kinds = cfg.layer_kinds()
@@ -172,14 +195,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                          f"divisible by period {len(kinds)}")
     d, v = cfg.d_model, cfg.vocab_size
     params = {
-        "embed": _normal(generator, (v, d), 1.0 / d ** 0.5, dtype, dev),
-        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+        "embed": keep(("embed",), _normal(generator, (v, d), 1.0 / d ** 0.5,
+                                          dtype, dev)),
+        "final_norm": keep(("final_norm",), torch.ones((d,), dtype=dtype,
+                                                       device=dev)),
         "groups": {f"l{i}": _init_block(generator, kind, cfg, i, n_groups,
-                                        dtype, dev)
+                                        dtype, dev,
+                                        _under(keep, "groups", f"l{i}"))
                    for i, kind in enumerate(kinds)},
     }
     if not cfg.tie_embeddings:
-        params["head"] = _normal(generator, (d, v), d ** -0.5, dtype, dev)
+        params["head"] = keep(("head",), _normal(generator, (d, v),
+                                                 d ** -0.5, dtype, dev))
     return params
 
 
@@ -262,14 +289,15 @@ def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
         out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
                                               cache=state, row=row)
     elif kind in _SSM_BLOCKS:
-        out, new_state = _SSM_BLOCKS[kind](p["mixer"], h, cfg, state=state)
+        out, new_state = _SSM_BLOCKS[kind](p["mixer"], h, cfg, state=state,
+                                           row=row)
     else:
         raise ValueError(kind)
     x = x + out
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
         if "router" in p["ffn"]:
-            f = moe.moe_block(p["ffn"], h2, cfg, scope)
+            f = moe.moe_block(p["ffn"], h2, cfg, scope, row)
         else:
             split = row is not None and p["ffn"]["w_out"].shape[-2] \
                 != cfg.d_ff
@@ -300,15 +328,15 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     bindings (``moe.moe_scope``) once, here on the caller's thread, so a
     recomputed group sees the same ones; in a decode step the ``B``
     tokens of the step are an MoE layer's batch, its capacity theirs.
-    The training branch of a dense model over a mesh in scope with a
-    model axis above 1 runs ``params``, this rank's local tree, over its
-    model row (``launch.mesh.model_row``, read here likewise)."""
+    The training branch over a mesh in scope with a model axis above 1
+    runs ``params``, this rank's local tree, over its model row
+    (``launch.mesh.model_row``, read here likewise)."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
     scope = moe.moe_scope() if cfg.moe is not None else None
     if states is None:
-        row = model_row(cfg)
+        row = model_row()
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
@@ -338,7 +366,7 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
 def _vocab_row(table: torch.Tensor, dim: int, cfg: ModelConfig):
     """The model row ``table`` (the embedding, or the head) is split over
     along its vocab ``dim``, or None when it is whole."""
-    row = model_row(cfg)
+    row = model_row()
     return row if row is not None and table.shape[dim] != cfg.vocab_size \
         else None
 

@@ -177,15 +177,19 @@ def model_dim(pspec) -> Optional[int]:
     return None
 
 
-def param_pspecs(cfg, mesh, shapes=None):
+def param_pspecs(cfg, mesh, shapes=None, specs=None):
     """The resolved spec of every parameter leaf of ``cfg`` on ``mesh``,
     as the reference's compressed step resolves them
     (``_manual_param_specs``: the rules in scope, no parameter
     overrides), in the parameter tree's layout. ``shapes``: the tree of
-    global leaf shapes (default: :func:`param_shapes`)."""
-    from repro_torch.models.transformer import param_specs
+    global leaf shapes (default: :func:`param_shapes`); ``specs``: the
+    logical axes of a subtree and ``shapes`` its shapes (default: the
+    whole model's, ``models.param_specs``)."""
+    if specs is None:
+        from repro_torch.models.transformer import param_specs
+        specs = param_specs(cfg)
     shapes = param_shapes(cfg) if shapes is None else shapes
-    return _resolve_tree(get_rules(), param_specs(cfg), shapes, mesh)
+    return _resolve_tree(get_rules(), specs, shapes, mesh)
 
 
 def _resolve_tree(rules: ShardingRules, specs, shapes, mesh):
@@ -200,12 +204,3 @@ def param_shapes(cfg):
     tuples), with nothing allocated."""
     from repro_torch.models.transformer import init_params, tree_map
     return tree_map(lambda t: tuple(t.shape), init_params(cfg, None, "meta"))
-
-
-def tensor_parallel(cfg) -> bool:
-    """Whether the port splits ``cfg``'s layers over the model axis: a
-    dense attention stack (no MoE FFN, no recurrent block). MoE and SSM
-    blocks keep their layout over it (experts over ``model``, every other
-    leaf whole; ROADMAP queue 1, item 15)."""
-    return cfg.moe is None and all(k == "attention"
-                                   for k in cfg.layer_kinds())

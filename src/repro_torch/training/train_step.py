@@ -5,19 +5,13 @@ Two implementations, as in the reference:
 * **baseline** — each rank computes the gradients of its slice of the
   global batch; a dense f32 all-reduce averages them across ranks (none
   with one rank); AdamW on the whole parameter tree. Over a
-  ``launch.mesh.Mesh`` (``data x model``) with a model axis above 1, a
-  dense model is tensor-parallel: each rank holds its local tree
-  (``convert.shard_params``), the batch is split over the data axis
-  (a model row shares its shard), gradients are averaged over the data
-  column, and the clip norm sums the split leaves' squares over the
-  model row and counts the replicated ones once. An MoE model carries
-  expert parallelism there instead (``moe.impl="shardmap_a2a"``): the
-  batch is split over every rank (rank-major), a rank holds its model
-  index's experts, whose gradients are summed over its data column
-  (each rank's backward all-to-all already brought back its model row's
-  contributions) and divided by the world size, while every other leaf
-  is averaged over the world; the clip norm counts replicated leaves
-  once and sums the expert leaves' squares over the model row.
+  ``launch.mesh.Mesh`` (``data x model``) with a model axis above 1 the
+  model is tensor-parallel, whatever its blocks: each rank holds its
+  local tree (``convert.shard_params``), the batch is split over the
+  data axis (a model row shares its shard; ``shardmap_a2a`` cuts it
+  over the row inside each MoE layer), gradients are averaged over the
+  data column, and the clip norm sums the split leaves' squares over the
+  model row and counts the replicated ones once.
 
 * **compressed** — the paper's technique: each rank flattens its local
   gradients, a QLC-compressed reduce-scatter (K1 encode, then K2
@@ -38,16 +32,16 @@ data column, and its ZeRO-1 state is the ``[d, m]`` row of the
 reference's ``[data, model, seg]`` state. The global norm weighs each
 entry as the reference's ``weight_vec`` does (1 on a split leaf,
 ``1 / model`` on a replicated one, 0 on the padding; :func:`weight_vec`)
-and sums over the world. A dense model's layers run tensor-parallel
-there; MoE and recurrent models run the compressed step with a model
-axis of 1 only (ROADMAP queue 1, item 15): MoE with ``gspmd`` or
-``grouped_local`` dispatch, and with ``shardmap_a2a`` on a 1 x 1 layout.
+and sums over the world. Every block kind runs tensor-parallel there:
+attention and dense FFNs, MoE FFNs under each dispatch impl, and the
+recurrent blocks (``models.moe``, ``models.ssm``).
 
 Where the reference's MoE layers see the whole batch (its baseline step,
 jitted over the data axes), the baseline step declares the batch's ranks
-(``moe.batch_over``), and each rank's MoE layers take their capacity and
-arrival positions from the whole batch; the compressed step's stage 1
-sees the data shard in the reference, and each rank's own tokens here.
+(``moe.batch_over``: the data column), and each rank's MoE layers take
+their capacity and arrival positions from the whole batch; the
+compressed step's stage 1 sees the data shard in the reference, and the
+row's shard here.
 """
 from __future__ import annotations
 
@@ -76,10 +70,6 @@ PARAM_TYPE = "params"    # registry key for the parameter all-gather
 
 _NO_PODS = ("the pod axis and the hierarchical wire are not ported: "
             "ROADMAP queue 1, item 13")
-_NO_ZERO1_MODEL = ("MoE and recurrent blocks in the compressed step over a "
-                   "model axis (tensor parallelism of their layers, "
-                   "shardmap_a2a beyond 1 x 1) are not ported: ROADMAP "
-                   "queue 1, item 15; {what}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,16 +138,13 @@ def _microbatched_grads(params, model_cfg: ModelConfig, batch,
     return loss_acc * inv, tree_map(lambda g: g * inv, acc)
 
 
-def _mean_over(t: torch.Tensor, group, world: int = None) -> torch.Tensor:
-    """Sum over ``group``, divided by ``world`` (default: the group's
-    size)."""
+def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group``, divided by the group's size."""
     d, _ = _world(group)
-    world = d if world is None else world
     if d > 1:
         t = t.clone()
         dist.all_reduce(t, group=group)
-    if world > 1:
-        t = t / world
+        t = t / d
     return t
 
 
@@ -171,13 +158,20 @@ def _moe_bindings(mesh, moe_channels, batch_group=None):
 
 def _step_mesh(model_cfg: ModelConfig, mesh):
     """The mesh a step runs over: ``mesh``, else the one in scope. An
-    expert-parallel MoE needs one."""
+    expert-parallel MoE needs one whose model axis divides its experts
+    (the reference's ``shardmap_a2a_geometry`` refuses the others)."""
     mesh = current_mesh() if mesh is None else mesh
-    if mesh is None and model_cfg.moe is not None \
-            and model_cfg.moe.impl == "shardmap_a2a":
+    m = model_cfg.moe
+    if m is None or m.impl != "shardmap_a2a":
+        return mesh
+    if mesh is None:
         raise ValueError("moe.impl='shardmap_a2a' needs a mesh with a "
                          "'model' axis (mesh=..., or launch.mesh.use_mesh "
                          "around the step's construction)")
+    if m.num_experts % mesh.model:
+        raise ValueError(
+            f"shardmap_a2a needs num_experts ({m.num_experts}) divisible "
+            f"by the model axis ({mesh.model})")
     return mesh
 
 
@@ -193,10 +187,9 @@ def _split_mask(model_cfg: ModelConfig, mesh) -> List[bool]:
             for s in pytree_leaves(specs)]
 
 
-def _tp_mesh(model_cfg: ModelConfig, mesh) -> bool:
-    """Whether a step over ``mesh`` runs ``model_cfg`` tensor-parallel."""
-    return (mesh is not None and mesh.model > 1
-            and sharding.tensor_parallel(model_cfg))
+def _tp_mesh(mesh) -> bool:
+    """Whether a step over ``mesh`` runs tensor-parallel."""
+    return mesh is not None and mesh.model > 1
 
 
 def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
@@ -207,13 +200,11 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
 
     Over ``group`` (default: the default process group) every leaf is
     averaged over the group. Over ``mesh`` (default: the mesh in scope,
-    if any) with a model axis above 1, a dense model runs
-    tensor-parallel on this rank's local tree (``params`` and the state
-    cut by ``convert.shard_params``), the batch split over the data
-    axis; an MoE model splits the batch over all the ranks and, with
-    ``moe.impl="shardmap_a2a"``, each rank holds its model index's
-    experts (``convert.shard_experts``; see the module docstring for the
-    gradients and the clip norm of both). ``moe_channels``
+    if any) with a model axis above 1, the model runs tensor-parallel on
+    this rank's local tree (``params`` and the state cut by
+    ``convert.shard_params``), the batch split over the data axis (see
+    the module docstring for the gradients and the clip norm). Over a
+    mesh the batch's ranks are its data column. ``moe_channels``
     (``{moe.MOE_DISPATCH: Channel, moe.MOE_COMBINE: Channel}`` on the
     model axis) puts the expert all-to-all on the compressed wire; the
     gradient wire stays dense. MoE layers see the whole batch, as in the
@@ -221,14 +212,11 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     rank is its shard of the global batch's microbatch *i*, as the
     reference splits it (:func:`local_batch`)."""
     mesh = _step_mesh(model_cfg, mesh)
-    tp = _tp_mesh(model_cfg, mesh)
+    tp = _tp_mesh(mesh)
     if mesh is not None:
         group = mesh.world_group
     group = dist.group.WORLD if group is None else group
-    world, _ = _world(group)
-    ep = (mesh is not None and model_cfg.moe is not None
-          and model_cfg.moe.impl == "shardmap_a2a")
-    batch_group = mesh.data_group if tp else group
+    batch_group = mesh.data_group if mesh is not None else group
     split = _split_mask(model_cfg, mesh) if tp else None
 
     def norm_over_row(leaves, row_summed):
@@ -252,18 +240,11 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
                       for g in pytree_leaves(grads)]
             return (pytree_unflatten(grads, leaves),
                     norm_over_row(leaves, split))
-        if not ep:
-            return tree_map(lambda g: _mean_over(g.float(), group),
-                            grads), None
-        mask = moe.expert_mask(grads)
-        leaves = [_mean_over(g.float(), mesh.data_group if is_exp
-                             else group, world)
-                  for g, is_exp in zip(pytree_leaves(grads), mask)]
-        return pytree_unflatten(grads, leaves), norm_over_row(leaves, mask)
+        return tree_map(lambda g: _mean_over(g.float(), group), grads), None
 
     def train_step(params, opt_state, batch):
         dev = pytree_leaves(params)[0].device
-        with _moe_bindings(mesh, moe_channels, group):
+        with _moe_bindings(mesh, moe_channels, batch_group):
             loss, grads = _microbatched_grads(
                 params, model_cfg,
                 local_batch(batch, batch_group, dev,
@@ -472,17 +453,16 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     group.
 
     Over ``mesh`` (default: the one in scope) with a model axis above 1,
-    a dense model runs the reference's 2-D step: ``params`` is this
-    rank's local tree (``convert.shard_params``), the wire runs over its
-    data column (``mesh.data_group``, which replaces ``group``), the
-    batch is split over the data axis, and ``flat_opt_state`` is this
-    rank's ``[seg]`` of the ``[data, model, seg]`` state
-    (:func:`init_compressed_opt_state` over the data column). MoE and
-    recurrent models there raise ``NotImplementedError`` (ROADMAP queue
-    1, item 15). MoE models: ``gspmd`` and ``grouped_local`` dispatch on
-    each rank's own tokens (the reference's stage 1 sees the data
-    shard), and ``shardmap_a2a`` over a mesh of 1 x 1, its all-to-all on
-    ``moe_channels`` when given.
+    the model runs the reference's 2-D step, whatever its blocks:
+    ``params`` is this rank's local tree (``convert.shard_params``), the
+    wire runs over its data column (``mesh.data_group``, which replaces
+    ``group``), the batch is split over the data axis, and
+    ``flat_opt_state`` is this rank's ``[seg]`` of the ``[data, model,
+    seg]`` state (:func:`init_compressed_opt_state` over the data
+    column). MoE layers dispatch the row's data shard (the reference's
+    stage 1 sees the data shard): ``gspmd`` and ``grouped_local`` on
+    every rank of the row, ``shardmap_a2a`` cut over the row, its
+    all-to-all on ``moe_channels`` when given.
 
     ``tables`` is a ``CodecTables`` (with ``comm_cfg``) or a
     ``CodecRegistry`` (``grad_key`` codec on the reduce-scatter,
@@ -504,15 +484,7 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     if hierarchical_wire:
         raise NotImplementedError(_NO_PODS)
     mesh = _step_mesh(model_cfg, mesh)
-    tp = _tp_mesh(model_cfg, mesh)
-    if mesh is not None and mesh.model > 1 and not tp:
-        raise NotImplementedError(_NO_ZERO1_MODEL.format(
-            what=f"this mesh has a model axis of {mesh.model}"))
-    if model_cfg.moe is not None and model_cfg.moe.impl == "shardmap_a2a" \
-            and mesh.size > 1:
-        raise NotImplementedError(_NO_ZERO1_MODEL.format(
-            what=f"shardmap_a2a runs in the compressed step on a 1 x 1 "
-                 f"layout only, this one is {mesh.data} x {mesh.model}"))
+    tp = _tp_mesh(mesh)
     group = mesh.data_group if tp else (
         dist.group.WORLD if group is None else group)
     world_group = mesh.world_group if tp else group

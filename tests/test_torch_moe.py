@@ -52,7 +52,7 @@ from repro_torch.comm.calibrate import histogram_of_quantized
 from repro_torch.comm.channel import Channel, ChannelSpec, open_channels
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.convert import params_from_numpy, shard_experts
+from repro_torch.convert import params_from_numpy, shard_params
 from repro_torch.core import CodecRegistry
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import (Mesh, data_parallel, make_test_mesh,
@@ -232,12 +232,17 @@ def _grads(tp, x, tc):
 
 @pytest.mark.parametrize("model", [4, 2], ids=["1x4", "2x2"])
 def test_expert_parallel_on_gloo_ranks(model):
-    """``shardmap_a2a`` over 4 gloo ranks laid out 1 x 4 and 2 x 2
-    against the port's ``gspmd`` on the whole batch in one process:
-    routing and drops equal, outputs within 1e-6, gradients within the
-    reference's tolerance; the QLC wire equal to its raw e4m3 twin and
-    ring to one-shot, bit for bit, and within the reference's bounds of
-    gspmd. On 2 x 2 also two baseline training steps of reduced
+    """``shardmap_a2a`` over 4 gloo ranks laid out 1 x 4 and 2 x 2, each
+    rank's FFN leaves cut by their specs (experts and router columns by
+    experts, the shared expert by its mlp dim), each model row holding
+    its data shard and cutting its tokens over the row, the batch
+    declared over the data column, against the port's ``gspmd`` on the
+    whole batch in one process: the ranks' pieces in rank order route
+    and drop as gspmd, outputs within 1e-6, gradients (summed over the
+    data column) within the reference's tolerance of the cut of gspmd's;
+    the QLC wire equal to its raw e4m3 twin and ring to one-shot, bit
+    for bit, and within the reference's bounds of gspmd. On 2 x 2 also
+    two baseline training steps of reduced
     deepseek-moe through ``launch.train.train`` against one rank: raw
     expert parallelism against gspmd, the QLC wire against the same wire
     on one rank (e4m3 on the wire moves the loss by ~2e-3, so the wire's
@@ -269,16 +274,13 @@ def test_expert_parallel_on_gloo_ranks(model):
     rel = (np.linalg.norm(cat["qlc"] - y_g.reshape(cat["qlc"].shape))
            / np.linalg.norm(y_g))
     assert 0 < rel < 0.15, rel
-    dm = model
-    el = TINY["moe"]["num_experts"] // dm
+    whole = pytree_unflatten(tp, [torch.from_numpy(g) for g in g_g])
     for rank, o in enumerate(out):
-        m_idx = rank % dm
-        for want, got, got_q, is_exp in zip(g_g, o["grads_raw"],
-                                            o["grads_qlc"],
-                                            o["expert_mask"]):
-            if is_exp:
-                want = want[m_idx * el:(m_idx + 1) * el]
-            np.testing.assert_allclose(got, want, **TOL)
+        cut = shard_params(whole, tc, rank % model, model,
+                           specs=moe.moe_param_specs(tc))
+        for want, got, got_q in zip(pytree_leaves(cut), o["grads_raw"],
+                                    o["grads_qlc"]):
+            np.testing.assert_allclose(got, want.numpy(), **TOL)
             assert np.isfinite(got_q).all()
         assert any((g != 0).any() for g in o["grads_qlc"])
     if train_kw is not None:
@@ -374,16 +376,34 @@ def test_compressed_step_tracks_reference_with_moe():
 
 
 def test_compressed_step_refuses_a_model_axis():
+    """The compressed step takes an MoE over a model axis now (``gspmd``
+    at 1 x 2, ``shardmap_a2a`` at 2 x 1 and 1 x 2 build, their wire on
+    the data column); what it refuses is what the reference refuses or
+    the port has not ported: ``shardmap_a2a`` without a mesh or with
+    experts that do not divide the model axis (``ValueError``, the
+    reference's message) and the pods' hierarchical wire (item 13)."""
     cfg = reduced(get_config("deepseek-moe-16b"))
     ep = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, impl="shardmap_a2a"))
     opt_cfg = topt.OptConfig()
-    for c, (data, model) in ((cfg, (1, 2)), (ep, (2, 1))):
-        mesh = Mesh(data=data, model=model, rank=0, world_group=None,
-                    data_group=None, model_group=None)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            make_compressed_step(c, opt_cfg, TrainConfig(), None, None,
-                                 mesh=mesh)
+    reg = CodecRegistry()
+    reg.register("grads", np.ones(256), chunk_symbols=256)
+    with data_parallel("cpu") as world:
+        for c, (data, model) in ((cfg, (1, 2)), (ep, (2, 1)), (ep, (1, 2))):
+            mesh = Mesh(data=data, model=model, rank=0, world_group=world,
+                        data_group=world, model_group=world)
+            step = make_compressed_step(c, opt_cfg, TrainConfig(), None, reg,
+                                        mesh=mesh)
+            assert step.group is world
+        with pytest.raises(NotImplementedError, match="item 13"):
+            make_compressed_step(cfg, opt_cfg, TrainConfig(), None, reg,
+                                 hierarchical_wire=True)
+    three = Mesh(data=1, model=3, rank=0, world_group=None,
+                 data_group=None, model_group=None)
+    with pytest.raises(ValueError, match=r"num_experts \(4\) divisible by "
+                                         r"the model axis \(3\)"):
+        make_compressed_step(ep, opt_cfg, TrainConfig(), None, None,
+                             mesh=three)
     with pytest.raises(ValueError, match="'model' axis"):
         make_compressed_step(ep, opt_cfg, TrainConfig(), None, None)
 
@@ -391,7 +411,9 @@ def test_compressed_step_refuses_a_model_axis():
 def test_one_rank_layout_and_channels_on_the_model_axis():
     """One gloo rank is a 1 x 1 layout whose groups are the world's;
     ``ChannelSpec(axis=...)`` resolves its group from the mesh in scope
-    and raises without one; ``shard_experts`` keeps a rank's experts."""
+    and raises without one; ``shard_params`` cuts one MoE FFN (its
+    ``moe_param_specs``) or a whole model to a rank's experts, router
+    columns and shared-expert block."""
     _, tc, _, tp, _ = _setup("tiny")
     reg = CodecRegistry()
     reg.register(moe.MOE_DISPATCH, np.ones(256), chunk_symbols=256)
@@ -411,17 +433,18 @@ def test_one_rank_layout_and_channels_on_the_model_axis():
         assert opened[moe.MOE_DISPATCH].group is world
         with pytest.raises(NotImplementedError, match="item 13"):
             mesh.group("pod")
-    cut = shard_experts(tp, 1, 2)
+    cut = shard_params(tp, tc, 1, 2, specs=moe.moe_param_specs(tc))
     for key in moe.EXPERT_LEAVES:
         assert torch.equal(cut[key], tp[key][2:])
-    assert cut["router"] is tp["router"]
-    full = init_params(reduced(get_config("deepseek-moe-16b")),
-                       torch.Generator().manual_seed(0), "cpu")
-    mask = moe.expert_mask(full)
-    assert sum(mask) == 3              # one stacked MoE layer group
-    flat = shard_experts(full, 0, 4)
-    assert [t.numel() for t, e in zip(pytree_leaves(flat), mask) if e] == \
-        [t.numel() // 4 for t, e in zip(pytree_leaves(full), mask) if e]
+    assert torch.equal(cut["router"], tp["router"][:, 2:])
+    assert torch.equal(cut["shared"]["w_in"], tp["shared"]["w_in"][:, 4:])
+    rcfg = reduced(get_config("deepseek-moe-16b"))
+    full = init_params(rcfg, torch.Generator().manual_seed(0), "cpu")
+    flat = shard_params(full, rcfg, 0, 4)
+    ffn = full["groups"]["l0"]["ffn"]
+    for key in moe.EXPERT_LEAVES:          # one stacked MoE layer group
+        assert flat["groups"]["l0"]["ffn"][key].numel() == \
+            ffn[key].numel() // 4
 
 
 def test_adaptive_moe_channels_put_the_revision_on_the_wire():

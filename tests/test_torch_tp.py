@@ -203,21 +203,31 @@ def test_shard_and_gather_round_trip(arch):
 
 
 def test_moe_and_ssm_keep_their_layout():
-    """MoE and recurrent configs are not split: ``shard_params`` refuses
-    them, no model row reaches their layers, and the compressed step
-    refuses a model axis for them (ROADMAP queue 1, item 15)."""
+    """MoE and recurrent configs take the layout of their resolved specs
+    like the dense ones (ROADMAP queue 1, item 15): ``shard_params`` cuts
+    them (``tests/test_torch_tp_blocks.py`` trains them), a model row
+    reaches their layers whatever the config, and what is still refused
+    is the pods' hierarchical wire (item 13) and ``shardmap_a2a`` with
+    experts that do not divide the model axis (``ValueError``, as the
+    reference's ``shardmap_a2a_geometry``)."""
     for arch in ("deepseek-moe-16b", "xlstm-125m", "jamba-1.5-large-398b"):
         cfg = reduced(REGISTRY[arch])
-        assert not sharding.tensor_parallel(cfg)
-        assert tmesh.model_row(cfg, _layout(1, 2)) is None
-        with pytest.raises(NotImplementedError, match="item 15"):
-            shard_params({}, cfg, 0, 2)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        meta = init_params(cfg, None, "meta")
+        cut = shard_params(meta, cfg, 1, 2)
+        assert sum(a.shape != b.shape for a, b in zip(
+            pytree_leaves(cut), pytree_leaves(meta))) >= 4
+        with pytest.raises(NotImplementedError, match="item 13"):
             make_compressed_step(cfg, topt.OptConfig(), TrainConfig(), None,
-                                 None, mesh=_layout(1, 2))
-    cfg = reduced(REGISTRY["phi3-mini-3.8b"])
-    assert tmesh.model_row(cfg, _layout(2, 1)) is None
-    assert tmesh.model_row(cfg, _layout(1, 2)).size == 2
+                                 None, mesh=_layout(1, 2),
+                                 hierarchical_wire=True)
+    ep = reduced(REGISTRY["deepseek-moe-16b"])
+    ep = dataclasses.replace(ep, moe=dataclasses.replace(
+        ep.moe, impl="shardmap_a2a"))
+    with pytest.raises(ValueError, match="divisible by the model axis"):
+        make_compressed_step(ep, topt.OptConfig(), TrainConfig(), None,
+                             None, mesh=_layout(1, 3))
+    assert tmesh.model_row(_layout(2, 1)) is None
+    assert tmesh.model_row(_layout(1, 2)).size == 2
     x = torch.ones(3)
     for fn in (tmesh.copy_to_model, tmesh.reduce_from_model):
         assert fn(x, None) is x

@@ -369,21 +369,23 @@ def telemetry_runs(ctx, cfg_kw, steps, seq_len, global_batch):
 def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
     """Expert parallelism on a ``data x model`` layout of the world
     (``launch.mesh.make_test_mesh(model=model)``): this rank takes its
-    token shard of ``x`` [B, S, D] (rows of the batch, rank-major) and
-    its experts of ``params`` (one MoE FFN, numpy). Runs ``shardmap_a2a``
-    raw, raw at capacity factor 0.25, and on the QLC wire (one-shot,
-    ring, and the raw e4m3 twin of one-shot) with the channels of
-    ``registry_json`` on the model axis; then the gradients of
-    ``sum(y ** 2)`` raw (expert leaves summed over the data column,
-    others over the world) and on the QLC wire (this rank's own); then,
-    when ``train_kw`` is given, ``launch.train.train`` over the mesh ->
-    dict of numpy results."""
+    data shard of ``x`` [B, S, D] (rows of the batch; a model row shares
+    it, and ``shardmap_a2a`` cuts its tokens over the row) and its blocks
+    of ``params`` (one MoE FFN, numpy, cut by its resolved specs), the
+    batch declared over the data column (``moe.batch_over``). Runs
+    ``shardmap_a2a`` raw, raw at capacity factor 0.25, and on the QLC
+    wire (one-shot, ring, and the raw e4m3 twin of one-shot) with the
+    channels of ``registry_json`` on the model axis, keeping this rank's
+    piece of the output (its tokens); then the gradients of
+    ``sum(y ** 2)`` raw (summed over the data column) and on the QLC wire
+    (this rank's own); then, when ``train_kw`` is given,
+    ``launch.train.train`` over the mesh -> dict of numpy results."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.comm.channel import Channel, ChannelSpec
     from repro_torch.configs.base import ModelConfig, MoEConfig
-    from repro_torch.convert import params_from_numpy, shard_experts
+    from repro_torch.convert import params_from_numpy, shard_params
     from repro_torch.core import CodecRegistry
     from repro_torch.launch.mesh import make_test_mesh, use_mesh
     from repro_torch.models import moe
@@ -392,11 +394,13 @@ def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
     assert mesh.shape == {"data": ctx["world"] // model, "model": model}
     cfg = ModelConfig(moe=MoEConfig(**cfg_kw["moe"], impl="shardmap_a2a"),
                       **cfg_kw["model"])
-    full = params_from_numpy(params, "cpu")
-    p = shard_experts(full, mesh.coords[1], mesh.model)
-    rows = x.shape[0] // ctx["world"]
+    d_idx, m_idx = mesh.coords
+    p = shard_params(params_from_numpy(params, "cpu"), cfg, m_idx, model,
+                     specs=moe.moe_param_specs(cfg))
+    rows = x.shape[0] // mesh.data
     xl = torch.from_numpy(np.ascontiguousarray(
-        x[ctx["rank"] * rows:(ctx["rank"] + 1) * rows]))
+        x[d_idx * rows:(d_idx + 1) * rows]))
+    ng = rows * x.shape[1] // model
     reg = CodecRegistry.from_json(registry_json)
 
     def chans(transport, enabled=True):
@@ -407,26 +411,30 @@ def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
 
     def run(c, channels=None, routing=None, params=p):
         with use_mesh(mesh), moe.bind_moe_channels(channels), \
+                moe.batch_over(mesh.data_group), \
                 moe.capture_moe_routing([] if routing is None else routing):
             return moe.moe_block(params, xl, c)
+
+    def piece(y):
+        return y.reshape(-1, y.shape[-1])[m_idx * ng:(m_idx + 1) * ng].numpy()
 
     out = {}
     with torch.no_grad():
         routing = []
-        out["raw"] = run(cfg, routing=routing).numpy()
+        out["raw"] = piece(run(cfg, routing=routing))
         out["idx"] = routing[0]["idx"].numpy()
         out["keep"] = routing[0]["keep"].numpy()
         c_of = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=0.25))
         routing = []
-        out["raw_cf025"] = run(c_of, routing=routing).numpy()
+        out["raw_cf025"] = piece(run(c_of, routing=routing))
         out["keep_cf025"] = routing[0]["keep"].numpy()
         with use_mesh(mesh):        # channels from the mesh in scope
             qlc = {t: chans(t) for t in ("oneshot", "ring")}
             twin = chans("oneshot", enabled=False)
-        out["qlc"] = run(cfg, qlc["oneshot"]).numpy()
-        out["ring"] = run(cfg, qlc["ring"]).numpy()
-        out["twin"] = run(cfg, twin).numpy()
+        out["qlc"] = piece(run(cfg, qlc["oneshot"]))
+        out["ring"] = piece(run(cfg, qlc["ring"]))
+        out["twin"] = piece(run(cfg, twin))
 
     def grads(channels=None):
         live = [t.clone().requires_grad_(True) for t in pytree_leaves(p)]
@@ -435,16 +443,13 @@ def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
         y = run(cfg, channels, params=tree)
         return torch.autograd.grad((y ** 2).sum(), live)
 
-    mask = moe.expert_mask(p)
     g_raw = []
-    for g, is_exp in zip(grads(), mask):
+    for g in grads():
         g = g.clone()
-        torch.distributed.all_reduce(
-            g, group=mesh.data_group if is_exp else mesh.world_group)
+        torch.distributed.all_reduce(g, group=mesh.data_group)
         g_raw.append(g.numpy())
     out["grads_raw"] = g_raw
     out["grads_qlc"] = [g.numpy() for g in grads(qlc["oneshot"])]
-    out["expert_mask"] = mask
     if train_kw is not None:
         from repro_torch.configs import get_config, reduced
         from repro_torch.launch.train import train
@@ -531,27 +536,34 @@ def microbatched_step(ctx, params, batch, capacity_factor, n_micro):
 
 
 def tp_layouts(ctx, cases):
-    """Dense training over ``data x model`` layouts of this world, one
+    """Training over ``data x model`` layouts of this world, one
     ``launch.mesh.make_test_mesh(model=...)`` a case: ``train()`` of the
     reduced config with the mesh in scope from the whole tree
     ``params`` (numpy; None: from the seed) -> {case name: {run name:
     (losses, oks, fallbacks, the rank's local tree as numpy, its flat
     ZeRO-1 state or None)}}. A case is a dict of ``name``, ``arch``,
-    ``cfg_kw``, ``model``, ``params``, ``registry_json`` (None:
-    calibrated), ``train_kw`` and ``runs``: (run name, comm, wire
-    enabled). A case with ``resume_root`` checkpoints each run there
-    (``rank_<r>`` directories) every ``steps - 1`` steps; each rank then
-    deletes its last checkpoint and the run is launched again, which
-    resumes one step short and finishes: the second launch is
-    ``"<run name>/resumed"`` and its start step is appended."""
+    ``cfg_kw`` (its ``"moe"``, if any, a dict of ``MoEConfig`` fields),
+    ``model``, ``params``, ``registry_json`` (None: calibrated),
+    ``train_kw`` and ``runs``: (run name, comm, wire enabled[, more
+    ``train()`` keywords]). A case with ``routing`` also records, per
+    compressed run, each MoE layer's routing (``idx``, ``keep``) and
+    input on the first batch from the initial tree under
+    ``"<run name>/routing"``: [(idx, keep, x)] in layer order. A case
+    with ``resume_root`` checkpoints each run there (``rank_<r>``
+    directories) every ``steps - 1`` steps; each rank then deletes its
+    last checkpoint and the run is launched again, which resumes one
+    step short and finishes: the second launch is ``"<run
+    name>/resumed"`` and its start step is appended."""
     import os
     import shutil
     import torch
     from repro_torch.configs import get_config, reduced
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.convert import params_from_numpy, shard_params
     from repro_torch.core import CodecRegistry
     from repro_torch.launch.mesh import make_test_mesh, use_mesh
     from repro_torch.launch.train import train
+    from repro_torch.models import moe
 
     def numpy_tree(tree):
         if isinstance(tree, dict):
@@ -560,7 +572,10 @@ def tp_layouts(ctx, cases):
 
     out = {}
     for case in cases:
-        cfg = reduced(get_config(case["arch"]), **case["cfg_kw"])
+        cfg_kw = dict(case["cfg_kw"])
+        if "moe" in cfg_kw:
+            cfg_kw["moe"] = MoEConfig(**cfg_kw["moe"])
+        cfg = reduced(get_config(case["arch"]), **cfg_kw)
         mesh = make_test_mesh(model=case["model"])
         reg = (None if case["registry_json"] is None
                else CodecRegistry.from_json(case["registry_json"]))
@@ -570,7 +585,8 @@ def tp_layouts(ctx, cases):
         if root is not None:
             root = os.path.join(root, case["name"])
             kw.update(checkpoint_every=kw["steps"] - 1)
-        for name, comm, enabled in case["runs"]:
+        for name, comm, enabled, *more in case["runs"]:
+            more = more[0] if more else {}
             launches = [name] if root is None else [name, f"{name}/resumed"]
             for launch in launches:
                 params = (None if case["params"] is None
@@ -579,7 +595,7 @@ def tp_layouts(ctx, cases):
                 with use_mesh(mesh):
                     res = train(cfg, comm=comm, device="cpu", params=params,
                                 registry=reg, wire_enabled=enabled,
-                                checkpoint_dir=ckpt, **kw)
+                                checkpoint_dir=ckpt, **more, **kw)
                 hist = res["history"]
                 opt = res["opt_state"]
                 runs[launch] = (
@@ -587,6 +603,17 @@ def tp_layouts(ctx, cases):
                     res["comm_fallbacks"], numpy_tree(res["params"]),
                     {k: opt[k].numpy().copy() for k in ("m", "v")}
                     if comm == "qlc" else None)
+                if case.get("routing") and comm == "qlc":
+                    local = shard_params(params_from_numpy(
+                        case["params"], "cpu"), cfg, mesh.coords[1],
+                        mesh.model)
+                    rec, seen = [], []
+                    with use_mesh(mesh), moe.capture_moe_routing(rec), \
+                            moe.capture_moe_traffic(seen):
+                        res["step"].stage1(local, res["data"].batch_at(0))
+                    runs[f"{name}/routing"] = [
+                        (r["idx"].numpy(), r["keep"].numpy(),
+                         x.detach().numpy()) for r, (_, x) in zip(rec, seen)]
                 if launch != name:
                     runs[launch] += (res["start_step"],)
                 elif root is not None:

@@ -6,10 +6,13 @@ size in turn.
 Per layout, on every rank:
 
 1. one MoE layer's forward on its real input (layer 0's, captured from
-   the batch): raw expert parallelism, the QLC expert wire and its raw
-   e4m3 twin — routing equal, the QLC wire bit-equal to its twin — and
-   each timed (median of CUDA-event timings over ``--reps`` calls, the
-   ranks lined up by a barrier before each);
+   the batch; each model row holds its data shard and cuts its tokens
+   over the row, the batch declared over the data column, and each rank
+   holds its blocks of the layer cut by their specs): raw expert
+   parallelism, the QLC expert wire and its raw e4m3 twin — routing
+   equal, the QLC wire bit-equal to its twin — and each timed (median of
+   CUDA-event timings over ``--reps`` calls, the ranks lined up by a
+   barrier before each);
 2. ``launch.train.train(comm="baseline")`` for ``--steps`` steps with
    the QLC expert wire, its raw e4m3 twin (losses and this rank's
    parameters bit-equal) and raw expert parallelism; ms/step of each.
@@ -64,7 +67,7 @@ def _rank_main(rank, args, init):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.comm.channel import Channel, ChannelSpec
     from repro_torch.configs import get_config, reduced
-    from repro_torch.convert import shard_experts
+    from repro_torch.convert import shard_params
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
                                          use_mesh)
@@ -102,15 +105,17 @@ def _rank_main(rank, args, init):
             next_token_loss(full, dataclasses.replace(cfg, remat="none"),
                             batch["tokens"], batch["labels"])
         layer, x = captured[0]
-        rows = x.shape[0] // args.cards
-        xl = x[rank * rows:(rank + 1) * rows].contiguous()
-        del captured, x
+        del captured
         ep = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, impl="shardmap_a2a"))
         for model in args.model:
             mesh = make_test_mesh(model=model)
             tag = f"{mesh.data} x {mesh.model}"
-            lp = shard_experts(layer, mesh.coords[1], mesh.model)
+            rows = x.shape[0] // mesh.data
+            d_idx = mesh.coords[0]
+            xl = x[d_idx * rows:(d_idx + 1) * rows].contiguous()
+            lp = shard_params(layer, ep, mesh.coords[1], mesh.model,
+                              specs=moe.moe_param_specs(ep))
             kw = dict(steps=args.steps, seq_len=args.seq_len,
                       global_batch=args.global_batch, device=args.device,
                       transport="oneshot", moe_transport="oneshot",
@@ -129,7 +134,8 @@ def _rank_main(rank, args, init):
                 with torch.no_grad():
                     for wire in ("raw", "qlc", "twin"):
                         rec = []
-                        with moe.bind_moe_channels(chans.get(wire)):
+                        with moe.bind_moe_channels(chans.get(wire)), \
+                                moe.batch_over(mesh.data_group):
                             with moe.capture_moe_routing(rec):
                                 outs[wire] = moe.moe_block(lp, xl, ep)
                             layer_ms[wire] = _median_ms(
@@ -172,13 +178,13 @@ def _rank_main(rank, args, init):
                    "local_params": n_local}
             gathered = [None] * args.cards
             dist.all_gather_object(gathered, row)
-            say(f"[{tag}] one layer's forward on rank 0's {list(xl.shape)} "
-                f"tokens: raw {layer_ms['raw']:.3f} ms, QLC wire "
+            say(f"[{tag}] one layer's forward on data row 0's "
+                f"{list(xl.shape)} tokens: raw {layer_ms['raw']:.3f} ms, QLC wire "
                 f"{layer_ms['qlc']:.3f}, raw e4m3 twin {layer_ms['twin']:.3f}"
                 f"; the QLC wire == its twin on every rank (outputs, then "
                 f"{args.steps} training steps: losses and parameters)")
             say(json.dumps({"layout": tag, "ranks": gathered}))
-            del q, t, r, lp
+            del q, t, r, lp, xl
             if cuda:
                 torch.cuda.empty_cache()
     if cuda and rank == 0:

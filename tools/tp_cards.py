@@ -1,16 +1,24 @@
-"""Tensor parallelism across cards: phi3-mini-3.8b at full width and all
-32 layers (f32 parameters, bf16 compute; one card cannot hold its f32
-parameters, gradients, moments and the step's flat copies), trained by
-``launch.train.train(comm="qlc")`` on N NCCL ranks, one card each, laid
-out ``data x model`` (``launch.mesh.make_test_mesh``), for each
-``--model`` size in turn: 2 gives 2 x 2 on 4 cards, 4 gives 1 x 4.
+"""Tensor parallelism across cards: a config at full width (``--arch``,
+default phi3-mini-3.8b at all 32 layers: f32 parameters, bf16 compute;
+one card cannot hold its f32 parameters, gradients, moments and the
+step's flat copies), trained by ``launch.train.train(comm="qlc")`` on N
+NCCL ranks, one card each, laid out ``data x model``
+(``launch.mesh.make_test_mesh``), for each ``--model`` size in turn: 2
+gives 2 x 2 on 4 cards, 4 gives 1 x 4. Every block kind splits over the
+model axis: dense, MoE (``--moe-impl`` picks the dispatch; with
+``shardmap_a2a`` the routed tokens cross the row on the QLC expert wire,
+``moe/dispatch`` and ``moe/combine`` calibrated on rank 0) and recurrent.
+``--arch jamba-1.5-large-398b`` trains one mamba layer with its dense
+swiglu FFN (``attn_every=None``) at its widths.
 
 Per layout, on every rank:
 
 1. ``--steps`` compressed steps (batch 4 x 512, transport oneshot,
-   calibrated on rank 0 from the whole tree, then each rank's cut):
-   every ``ok`` true, no fallback, finite losses; ms/step; the gradient
-   and parameter wires' modeled B/symbol; peak device memory;
+   calibrated on rank 0 from the whole tree, then each rank's cut; the
+   other ranks draw only their blocks): every ``ok`` true, no fallback,
+   finite losses; ms/step; the gradient and parameter wires' modeled
+   B/symbol (and the expert wire's, measured and modeled); peak device
+   memory;
 2. the leaves that the model axis does not split (the norms) hold the
    same bits on every rank of each model row;
 3. the same steps with the raw e4m3 twin from the same start and
@@ -27,10 +35,15 @@ check raises on the rank that saw it and the run exits non-zero.
 
 Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --cards 4 --model 2 4
+  python3 tools/tp_cards.py --arch deepseek-moe-16b --layers 8 --model 2 4
+  python3 tools/tp_cards.py --arch deepseek-moe-16b --layers 8 --model 2 \
+      --moe-impl shardmap_a2a
+  python3 tools/tp_cards.py --arch xlstm-125m --seq-len 256 --model 2
+  python3 tools/tp_cards.py --arch jamba-1.5-large-398b --model 4
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
-ranks with a reduced config whose pools hold every chunk (a rehearsal
-of the control flow, without the kernel timings; its times are not a
-card's).
+ranks with a reduced config of the arch whose pools hold every chunk (a
+rehearsal of the control flow, without the kernel timings; its times
+are not a card's).
 """
 from __future__ import annotations
 
@@ -50,7 +63,7 @@ def _rank_main(rank, args, init):
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import reduced
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
                                          use_mesh)
@@ -60,11 +73,10 @@ def _rank_main(rank, args, init):
     from repro_torch.training.train_step import _flatten_local
 
     cuda = args.device == "cuda"
-    cfg = get_config("phi3-mini-3.8b")
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = arch_config(args.arch, args.layers, args.moe_impl)
     if not cuda:
-        cfg = reduced(cfg, d_model=128, dtype="float32")
+        cfg = arch_config(args.arch, moe_impl=args.moe_impl, cfg=reduced(
+            cfg, dtype="float32", **({} if cfg.moe else {"d_model": 128})))
     # two runs of a step see the same gradients (the embedding's backward
     # scatter is atomic otherwise)
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -82,12 +94,16 @@ def _rank_main(rank, args, init):
         kw = dict(steps=args.steps, seq_len=args.seq_len,
                   global_batch=args.global_batch, device=args.device,
                   transport="oneshot", seed=0)
-        say(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        say(f"{cfg.name}: {cfg.num_layers} layers "
+            f"({'/'.join(cfg.layer_kinds())}), d_model {cfg.d_model}, "
             f"{cfg.num_heads} / {cfg.num_kv_heads} heads x "
             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-            f"{cfg.vocab_size}; params {cfg.param_dtype}, compute "
-            f"{cfg.dtype}, remat {cfg.remat}; batch {args.global_batch} x "
-            f"{args.seq_len}; {args.cards} ranks ({args.device})")
+            f"{cfg.vocab_size}"
+            + (f", {cfg.moe.num_experts} experts of {cfg.moe.d_expert} top-"
+               f"{cfg.moe.top_k} ({cfg.moe.impl})" if cfg.moe else "")
+            + f"; params {cfg.param_dtype}, compute {cfg.dtype}, remat "
+            f"{cfg.remat}; batch {args.global_batch} x {args.seq_len}; "
+            f"{args.cards} ranks ({args.device})")
         for model in args.model:
             mesh = make_test_mesh(model=model)
             tag = f"{mesh.data} x {mesh.model}"
@@ -147,7 +163,8 @@ def _rank_main(rank, args, init):
                     "grads": q["grads_wire_bytes_per_symbol"],
                     "params": q["params_wire_bytes_per_symbol"]},
                 "n_local": geom.n_local, "n_padded": geom.n_padded,
-                "seg": geom.seg, "peak_gib": peak}
+                "seg": geom.seg, "peak_gib": peak,
+                "moe_wire": q.get("moe")}
             del q, step
             if cuda:
                 torch.cuda.empty_cache()
@@ -188,7 +205,11 @@ def _rank_main(rank, args, init):
                 f"(params); flat vector {r0['n_local']} of {r0['n_padded']} "
                 f"a model rank, segment {r0['seg']}; peak "
                 + ", ".join(f"{g['peak_gib']:.2f}" for g in gathered)
-                + " GiB by rank; the raw e4m3 twin bit-equal on every rank")
+                + " GiB by rank; the raw e4m3 twin bit-equal on every rank"
+                + "".join(f"; {name} {w['wire_bytes_per_symbol']:.4f} "
+                          f"B/symbol measured, "
+                          f"{w['modeled_wire_bytes_per_symbol']:.4f} modeled"
+                          for name, w in (r0["moe_wire"] or {}).items()))
             say(json.dumps({"layout": tag, "ranks": gathered}))
     if cuda and rank == 0:
         print(subprocess.run(
@@ -197,10 +218,28 @@ def _rank_main(rank, args, init):
             check=True).stdout.strip().splitlines()[0], flush=True)
 
 
+def arch_config(arch: str, layers=None, moe_impl=None, cfg=None):
+    """The full-width config this tool trains: ``arch`` at ``layers``
+    layers (default: all), its MoE dispatch ``moe_impl`` (default: the
+    config's); jamba as one mamba layer with its dense FFN. ``cfg``: a
+    reduced one to set the dispatch of instead."""
+    from repro_torch.configs import get_config
+    if cfg is None:
+        cfg = get_config(arch)
+        if arch.startswith("jamba"):
+            cfg = dataclasses.replace(cfg, attn_every=None, num_layers=1)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=moe_impl))
+    return cfg
+
+
 def _wide_pools(calibrated):
     from repro_torch.core import CodecRegistry
     reg = CodecRegistry()
-    for name in ("grads", "params"):
+    for name in calibrated.names():
         e = calibrated[name]
         reg.register_tables(name, e.tables, dataclasses.replace(
             e.plan, pool_slots_per_1k=1024), counts=e.counts)
@@ -209,10 +248,15 @@ def _wide_pools(calibrated):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=["gspmd", "grouped_local", "shardmap_a2a"],
+                    help="an MoE's dispatch (default: the config's); "
+                         "shardmap_a2a puts the expert wire on QLC")
     ap.add_argument("--cards", type=int, default=4)
     ap.add_argument("--model", type=int, nargs="+", default=[2, 4])
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth (default: all 32 layers)")
+                    help="cut the depth (default: all layers)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=4)
