@@ -290,6 +290,25 @@ non-zero (nothing is caught and carried on):
                they allow through ``tools/tp_cards.py`` at 8 layers; it
                prints which layouts ran.
 
+ 16. tp_serve — serving over a model row, right after tp in the same
+               NCCL world of one. phi3-mini-3.8b at ``TP_SERVE_LAYERS``
+               of 32 layers, served through ``launch.serve.serve`` from
+               the QLC weight wire with no mesh and under a 1 x 1 mesh
+               (weight registry, opened tree, dense tokens and K1/K2
+               launches identical), then ``Engine(mesh=)`` paged sync and
+               async with ``KVCacheSpec(axis="model",
+               exact_capacity=False)`` beside the same engines with no
+               mesh: tokens, pooled bytes, KV registry digests and K3-K6
+               launches identical, tokens equal to the dense engine's.
+               ``all_gather_block_wire`` of a block over the world: the
+               words equal its container and decode through K4 bit-equal.
+               K1/K2 at a 1 x 4 deepseek-coder-33b rank's stacked
+               ``w_in`` block ([62, 7168, 4800]) and K3-K6 at its KV
+               block planes (2 of 8 KV heads, 62 layers, 16 tokens),
+               each bit-equal to plain and timed beside its HBM bound.
+               With two or more cards, ``tools/tp_cards.py --serve`` at 8
+               layers over all of them.
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -298,7 +317,8 @@ the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 Run from the root of a checkout:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ssm-only`` (``--variants-only``,
-``--tp-only``) runs only the build and the ssm (variants, tp) phase,
+``--tp-only``, ``--tp-serve-only``) runs only the build and the ssm
+(variants, tp, tp_serve) phase,
 then the ``nvidia-smi`` line, and no result line.
 
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
@@ -4141,6 +4161,298 @@ def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
             "n_padded": geom.n_padded}
 
 
+#: the tp_serve cell: phi3-mini-3.8b at this many of its 32 layers
+TP_SERVE_LAYERS = 8
+#: deepseek-coder-33b (arXiv:2401.14196) over a model row of 4: a rank's
+#: largest leaf (the stacked ``w_in``, its ``mlp`` block) and its KV heads
+CODER_ROW = 4
+
+
+def _digest(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def tp_serve_engines(qc, h6, cfg, opened, prompts, mesh, dev, new_tokens,
+                     kv_block=16):
+    """``Engine(mesh=mesh)`` (None: no mesh) on the opened tree, paged
+    sync then async with ``KVCacheSpec(axis="model",
+    exact_capacity=False)``, each run's K3-K6 launches counted from zero.
+    Returns {paging: (tokens, pool stats, KV registry digest, launches,
+    stats, the engine)}."""
+    from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
+                                     KVCacheSpec)
+    counters = {"K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+    out = {}
+    for paging in ("sync", "async"):
+        eng = Engine(opened, cfg, max_seq_len=prompts.shape[1] + new_tokens
+                     + 8, max_batch=4, kv_spec=KVCacheSpec(
+                         block_tokens=kv_block, exact_capacity=False,
+                         axis="model" if mesh is not None else None),
+                     pool=BlockPool(1 << 30), kv_paging=paging, mesh=mesh)
+        for fn in counters.values():
+            fn.launches = 0
+        hs = [eng.submit(GenerationRequest(prompt=p,
+                                           max_new_tokens=new_tokens))
+              for p in prompts]
+        eng.run()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        st = eng.stats()
+        out[paging] = ([eng.poll(h).tokens.tolist() for h in hs],
+                       {k: st["pool"][k] for k in (
+                           "unique_blocks", "peak_referenced_bytes",
+                           "resident_bytes", "dedup_hits")},
+                       _digest(eng.registry.to_json()), launches, st, eng)
+    return out
+
+
+def tp_serve_migration(eng, cfg, opened, prompt, dev):
+    """``all_gather_block_wire`` over the mesh-bound cache of ``eng``'s
+    world of one: request 0's first 16-token block of layer slot 0,
+    prefilled on the opened tree; the gathered words == the block's
+    container, decoded through K4 bit-equal to the block's K/V."""
+    import dataclasses
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_decode_states
+    from repro_torch.serving import all_gather_block_wire, prefill
+    codec = eng._codec
+    p = torch.from_numpy(np.asarray(prompt)[None, :]).to(dev)
+    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, dev))
+    kv = attn.kv_block_slice(st["l0"], 0, 16)
+    block = codec.encode_block_arrays("kv/layer0", "l0", kv, start=0,
+                                      tokens=16)
+    ch = codec.channels[sorted(codec.channels)[0]]
+    got = all_gather_block_wire(codec.block_wire(block), ch)
+    rows = got.cpu().numpy().view(np.uint32)
+    if rows.shape != (1, block.container.size) or not np.array_equal(
+            rows[0], block.container):
+        raise AssertionError("tp_serve: gathered block words != container")
+    dec = codec.decode_block_arrays(dataclasses.replace(block,
+                                                        container=rows[0]))
+    if not all(torch.equal(a, b) for a, b in zip(dec, kv)):
+        raise AssertionError("tp_serve: the migrated block decodes to "
+                             "other K/V")
+    log("tp_serve", f"all_gather_block_wire over the world of one: "
+                    f"{rows.shape[1]} words ({block.wire_bytes} B for "
+                    f"{block.dense_bytes} B of K/V) == the container, "
+                    "decoded through K4 bit-equal")
+
+
+def tp_serve_kernels(qf, ops, ref, flush, dev, coder=None):
+    """K2 (and K1) at a 1 x 4 rank's largest deepseek-coder-33b leaf,
+    the stacked ``w_in`` block [62, 7168, 19200 / 4] (normal values at
+    the init's scale), and K3-K6 at a 1 x 4 rank's KV block planes: rank
+    0's 2 of 8 KV heads of 16 tokens in each of 62 layers, from a prefill
+    of deepseek-coder-33b at full width, 4 layers, repeated over the
+    depth. Each bit-equal to its plain version, timed alone, beside its
+    HBM bound. ``coder``: another config in deepseek-coder's place."""
+    import dataclasses
+    from repro_torch.comm.calibrate import (byte_planes,
+                                            calibrate_kv_entries,
+                                            histogram_of_tree)
+    from repro_torch.comm.compressed import pad_to_multiple
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecRegistry
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_decode_states, init_params
+    from repro_torch.serving import compress_params_for_serving, prefill
+    coder = coder or get_config("deepseek-coder-33b")
+    g, d, ff = coder.num_layers, coder.d_model, coder.d_ff // CODER_ROW
+    gen = torch.Generator(device=dev).manual_seed(0)
+    leaf = torch.randn((g, d, ff), generator=gen, device=dev).mul_(d ** -0.5)
+    tree = {"groups": {"l0": {"ffn": {"w_in": leaf}}}}
+    reg = CodecRegistry()
+    reg.register("default", histogram_of_tree(tree))
+    wired, wc = compress_params_for_serving(tree, reg)
+    del tree, leaf
+    torch.cuda.empty_cache()
+    fused = wire_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in",
+                            flush, phase="tp_serve")
+    del wired
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(coder, num_layers=min(4, coder.num_layers))
+    params = init_params(small, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, small.vocab_size, (1, 32))).to(dev)
+    _, st = prefill(params, small, prompt,
+                    init_decode_states(small, 1, 40, dev))
+    del params
+    torch.cuda.empty_cache()
+    heads = attn.decode_kv_heads(coder, 0, CODER_ROW)
+    reps = -(-g // small.num_layers)
+
+    def rank_kv(t0, t1):
+        return [a.narrow(3, heads[0], len(heads)).narrow(2, t0, t1 - t0)
+                .repeat(reps, 1, 1, 1, 1)[:g].contiguous()
+                for a in (st["l0"].k, st["l0"].v)]
+    creg = CodecRegistry()
+    calibrate_kv_entries(creg, {"l0": rank_kv(0, 32)}, chunk_symbols=256)
+    kv = rank_kv(0, 16)
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
+    coded = None
+    for (isz, j), plane in byte_planes(kv).items():
+        entry = creg[f"kv/layer0/w{isz}b{j}"]
+        sym = pad_to_multiple(plane, 256)[0].reshape(-1, 256)
+        e, (w, s) = codes_checks(ops, ref, sym, entry.tables,
+                                 (entry.plan.capacity_words,))
+        for name in e:
+            err[name] = max(err[name], e[name])
+        err["K6"] = max(err["K6"], require_equal(
+            f"K6 plane w{isz}b{j}", [ops.histogram(plane)],
+            [ref.histogram256_ref(plane)]))
+        if coded is None or entry.plan.capacity_words < coded[3]:
+            coded = (sym, entry.tables, (w, s), entry.plan.capacity_words,
+                     plane)
+    sym, tables, (w, s), cap, plane = coded
+    times = time_codes(ops, ref, sym, tables, cap, w, s, flush, reps=10)
+    times["K6"] = {"shape": [plane.numel()],
+                   "ms": time_ms(lambda: ops.histogram(plane), 10, flush),
+                   "kernel_ms": time_ms(bare_k6(plane), 10, flush,
+                                        alone=True),
+                   "plain_ms": time_ms(lambda: ref.histogram256_ref(plane),
+                                       3, flush),
+                   "library_ms": time_ms(lambda: torch.bincount(
+                       plane, minlength=256), 10, flush),
+                   "bound_ms": bound_ms(plane.numel() + 256 * 4)}
+    for name, r in times.items():
+        r["err"] = err[name]
+        log("tp_serve", f"{name} at a 1 x {CODER_ROW} rank's deepseek-coder "
+                        f"KV block plane {r['shape']}"
+                        + (f" cap {r['cap']}" if "cap" in r else "")
+                        + f" ({len(heads)} of {coder.num_kv_heads} KV heads, "
+                        f"{g} layers, 16 tokens): bit-equal to plain; "
+                        f"{r['ms']:.4f} ms (kernel alone "
+                        f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.2f} "
+                        f"ms, HBM bound {r['bound_ms']:.4f} ms")
+    del st, kv
+    torch.cuda.empty_cache()
+    return fused, times
+
+
+def phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
+                   cfg=None, prompt_len=16, new_tokens=16, kv_block=16,
+                   coder=None):
+    """Serving over a model row on one card (inside the NCCL world of
+    one): phi3-mini-3.8b at ``TP_SERVE_LAYERS`` of 32 layers (``cfg``)
+    through ``launch.serve.serve`` from the QLC weight wire with no mesh
+    and under a 1 x 1 mesh (the same weight registry and opened tree),
+    then ``Engine(mesh=)`` paged sync and async with
+    ``KVCacheSpec(axis="model", exact_capacity=False)`` beside the same
+    engines with no mesh: tokens, pooled bytes, KV registry digests and
+    K3-K6 launches identical; ``all_gather_block_wire`` over the world;
+    K1-K6 at a 1 x 4 deepseek-coder-33b rank's shapes
+    (:func:`tp_serve_kernels`, ``coder`` in its place); with two or more
+    cards, ``tools/tp_cards.py --serve``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import tree_leaves
+    cfg = cfg or dataclasses.replace(get_config("phi3-mini-3.8b"),
+                                     num_layers=TP_SERVE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    mesh = make_test_mesh(model=1)
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode}
+    served = {}
+    for name, m in (("none", None), ("1 x 1", mesh)):
+        for fn in counters.values():
+            fn.launches = 0
+        with use_mesh(m):
+            res = serve_mod.serve(cfg, batch=4, requests=6,
+                                  prompt_len=prompt_len,
+                                  new_tokens=new_tokens, wire="qlc",
+                                  device=dev, params=params)
+        served[name] = (res, {k: fn.launches for k, fn in counters.items()})
+    (plain, k12_plain), (meshed, k12) = served["none"], served["1 x 1"]
+    for kname, c in k12.items():
+        if c <= 0 or c != k12_plain[kname]:
+            raise AssertionError(f"tp_serve: {kname} launches {c} under the "
+                                 f"1 x 1 mesh, {k12_plain[kname]} without")
+    if plain["wire_codec"].registry.to_json() != \
+            meshed["wire_codec"].registry.to_json():
+        raise AssertionError("tp_serve: the 1 x 1 weight registry differs")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(plain["params"]), tree_leaves(meshed["params"]))):
+        raise AssertionError("tp_serve: the 1 x 1 opened tree differs")
+    if [o.tokens.tolist() for o in plain["outs"]] != \
+            [o.tokens.tolist() for o in meshed["outs"]]:
+        raise AssertionError("tp_serve: the 1 x 1 dense engine's tokens "
+                             "differ")
+    opened, prompts = meshed["params"], meshed["prompts"]
+    dense = [o.tokens.tolist() for o in meshed["outs"]]
+    log("tp_serve", f"{cfg.name}, {cfg.num_layers} of 32 layers: served "
+                    f"from the QLC weight wire with no mesh and under a "
+                    f"1 x 1 mesh: weight registry "
+                    f"{_digest(meshed['wire_codec'].registry.to_json())}, "
+                    "opened tree and dense tokens identical; launches "
+                    f"{k12}")
+    del plain, served, params
+    torch.cuda.empty_cache()
+    runs = {name: tp_serve_engines(qc, h6, cfg, opened, prompts, m, dev,
+                                   new_tokens, kv_block)
+            for name, m in (("none", None), ("1 x 1", mesh))}
+    for paging in ("sync", "async"):
+        a, b = runs["none"][paging], runs["1 x 1"][paging]
+        for i, what in enumerate(("tokens", "pooled bytes",
+                                  "KV registry digest", "K3-K6 launches")):
+            if a[i] != b[i]:
+                raise AssertionError(f"tp_serve: {paging}: {what} under the "
+                                     f"1 x 1 mesh {b[i]} != {a[i]}")
+        if b[0] != dense:
+            raise AssertionError(f"tp_serve: {paging} paging is not "
+                                 "token-identical to the dense engine")
+        need = ("K3", "K4", "K6") if paging == "sync" else ("K3", "K5", "K6")
+        for kname in need:
+            if b[3][kname] <= 0:
+                raise AssertionError(f"{kname} was not launched on the "
+                                     f"tp_serve {paging} path")
+        st = b[4]
+        log("tp_serve", f"Engine(mesh=1 x 1) {paging}: tokens == no mesh "
+                        f"== dense; pool {b[1]} == no mesh; KV registry "
+                        f"{b[2]} == no mesh; launches {b[3]} == no mesh; "
+                        f"{st['ms_per_token_prefill']:.3f} / "
+                        f"{st['ms_per_token_decode']:.3f} ms/token "
+                        f"prefill / decode (no mesh "
+                        f"{a[4]['ms_per_token_prefill']:.3f} / "
+                        f"{a[4]['ms_per_token_decode']:.3f})")
+    tp_serve_migration(runs["1 x 1"]["sync"][5], cfg, opened, prompts[0],
+                       dev)
+    launches = {"K1": k12["K1"], "K2": k12["K2"]}
+    for kname in ("K3", "K4", "K5", "K6"):
+        launches[kname] = sum(runs["1 x 1"][p][3][kname]
+                              for p in ("sync", "async"))
+    del runs, opened, meshed
+    torch.cuda.empty_cache()
+    out = {"launches": launches}
+    out["fused"], out["kv"] = tp_serve_kernels(qf, ops, ref, flush, dev,
+                                               coder)
+
+    n_cards = torch.cuda.device_count() if dev == "cuda" else 1
+    ran = ["1 x 1"]
+    if n_cards >= 2:
+        cmd = [sys.executable, os.path.join(ROOT, "tools", "tp_cards.py"),
+               "--serve", "--cards", str(n_cards), "--model", str(n_cards),
+               "--layers", "8", "--requests", "6", "--new-tokens", "16"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        for line in r.stdout.splitlines():
+            log("tp_serve", f"cards: {line}")
+        if r.returncode:
+            raise AssertionError(f"tp_serve: tools/tp_cards.py --serve "
+                                 f"exited {r.returncode}:\n"
+                                 f"{r.stderr[-4000:]}")
+        ran.append(f"1 x {n_cards}")
+    log("tp_serve", f"layouts served: {', '.join(ran)} ({n_cards} card"
+                    f"{'s' if n_cards > 1 else ''}; rows of 2 and 4 on gloo "
+                    "CPU ranks in tests/test_torch_tp_serve.py and on 4 "
+                    "cards in tools/tp_cards.py --serve)")
+    out["layouts"] = ran
+    return out
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -4227,6 +4539,8 @@ def main(argv=None):
                     help="run only the build and the variants phase")
     ap.add_argument("--tp-only", action="store_true",
                     help="run only the build and the tp phase")
+    ap.add_argument("--tp-serve-only", action="store_true",
+                    help="run only the build and the tp_serve phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -4294,6 +4608,12 @@ def main(argv=None):
             phase_tp(qf, h6, ops, ref, flush)
         print(smi)
         return
+    if args.tp_serve_only:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with data_parallel("cuda"):
+            phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -4331,6 +4651,8 @@ def main(argv=None):
         tr = phase_train(qf, h6, ops, ref, flush)
         torch.cuda.empty_cache()
         tp = phase_tp(qf, h6, ops, ref, flush)
+        torch.cuda.empty_cache()
+        tps = phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         torch.cuda.empty_cache()
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
@@ -4378,9 +4700,12 @@ def main(argv=None):
                  "variants_path": var["fused"][kname],
                  "tp_launches": tp["launches"][kname],
                  "tp_moe_launches": tp["moe_launches"][kname],
-                 "tp_path": tp["fused"][kname]}
+                 "tp_path": tp["fused"][kname],
+                 "tp_serve_launches": tps["launches"][kname],
+                 "tp_serve_path": tps["fused"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    tp["fused"][kname]["max_abs_err"],
+                                   tps["fused"][kname]["max_abs_err"],
                                    adapt["err"],
                                    moe_res["fused"][kname]["max_abs_err"],
                                    moe_serve["fused"][kname]["max_abs_err"],
@@ -4404,10 +4729,13 @@ def main(argv=None):
         entry["ssm_path"] = ssm_res["kv"][kname]
         entry["variants_launches"] = var["launches"][kname]
         entry["variants_path"] = var["kv"][kname]
+        entry["tp_serve_launches"] = tps["launches"][kname]
+        entry["tp_serve_path"] = tps["kv"][kname]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    moe_serve["kv"][kname]["err"],
                                    ssm_res["kv"][kname]["err"],
-                                   var["kv"][kname]["err"])
+                                   var["kv"][kname]["err"],
+                                   tps["kv"][kname]["err"])
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -4442,9 +4770,12 @@ def main(argv=None):
         "variants_launches": var["launches"]["K6"],
         "variants_path": var["kv"]["K6"],
         "tp_launches": tp["launches"]["K6"],
-        "tp_moe_launches": tp["moe_launches"]["K6"]})
+        "tp_moe_launches": tp["moe_launches"]["K6"],
+        "tp_serve_launches": tps["launches"]["K6"],
+        "tp_serve_path": tps["kv"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
+                                     tps["kv"]["K6"]["err"],
                                      kv_times["K6"]["err"],
                                      moe_serve["kv"]["K6"]["err"],
                                      ssm_res["kv"]["K6"]["err"],

@@ -6,6 +6,11 @@ output, so on the card no plain quantizer runs: block-32 symbols do not
 depend on how the flat tensor is cut into chunk rows, so the bulk goes
 through K1 in rows of 1024 and a ragged tail in rows of 32.
 
+Over a model row (:func:`histogram_of_local_tree`) each rank counts its
+blocks of the split leaves, the row's first rank the whole ones, and the
+row sums the counts: every rank registers the codec the whole tree
+gives.
+
 Gradients (:func:`calibrate_for_gradients`, :func:`calibrate_for_tensor`):
 the flat tensor is quantized in pieces on its device and its symbols are
 counted there by the histogram kernel K6 (``kernels.ops.histogram``), in
@@ -26,6 +31,7 @@ block-32 e4m3 symbols counted by K6.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from typing import Dict, Optional, Tuple, Union
 
@@ -72,6 +78,50 @@ def histogram_of_tree(tree) -> np.ndarray:
     for leaf in tree_leaves(tree):
         counts += histogram_of_quantized(leaf)
     return counts
+
+
+def block32_aligned(local_shape, dim: Optional[int]) -> bool:
+    """Whether a leaf cut along ``dim`` into blocks of ``local_shape``
+    keeps the whole leaf's block-32 groups whole: each rank's contiguous
+    runs of the whole flat leaf (its ``local_shape[dim:]`` entries) are a
+    multiple of 32 long, so every group of 32, and its scale, lies in one
+    rank's block. A whole leaf (``dim`` None) is."""
+    return dim is None or math.prod(local_shape[dim:]) % e4m3.BLOCK == 0
+
+
+def histogram_of_local_tree(tree, cfg, mesh=None) -> np.ndarray:
+    """:func:`histogram_of_tree` of the whole model from ``tree``, this
+    rank's local tree (``convert.shard_params``) over the model row of
+    ``mesh`` (default: the mesh in scope), the same counts on every rank
+    of the row: a split leaf's block counted on its rank where its
+    block-32 groups stay whole (:func:`block32_aligned`), else gathered
+    over the row and counted on the row's first rank, as is a whole
+    (replicated) leaf; the counts summed over the row. Exact: the counts
+    are integers, summed in float64. With no row, the tree's own."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, model_row
+    from repro_torch.parallel import sharding
+    row = model_row(mesh)
+    if row is None:
+        return histogram_of_tree(tree)
+    layout = Mesh(data=1, model=row.size, rank=0, world_group=None,
+                  data_group=None, model_group=None)
+    specs = pytree_leaves(sharding.param_pspecs(cfg, layout))
+    counts = np.zeros(256, dtype=np.float64)
+    for leaf, spec in zip(pytree_leaves(tree), specs):
+        dim = sharding.model_dim(spec)
+        if block32_aligned(tuple(leaf.shape), dim):
+            if dim is not None or row.index == 0:
+                counts += histogram_of_quantized(leaf)
+            continue
+        parts = [torch.empty_like(leaf) for _ in range(row.size)]
+        dist.all_gather(parts, leaf.contiguous(), group=row.group)
+        if row.index == 0:
+            counts += histogram_of_quantized(torch.cat(parts, dim=dim))
+        del parts
+    total = torch.from_numpy(counts)
+    dist.all_reduce(total, group=row.group)
+    return total.numpy()
 
 
 def symbol_counts(syms: torch.Tensor) -> np.ndarray:

@@ -369,6 +369,7 @@ def _check_mode(mode: str):
 def compress_groups(groups, tables, mode: str = "qlc",
                     use_kernels: bool = False,
                     type_key_fn: Optional[Callable[[str], str]] = None,
+                    whole_shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
                     ) -> Tuple[Any, GroupWireCodec]:
     """Wire every eligible leaf of ``groups`` (serving launcher path).
 
@@ -381,13 +382,18 @@ def compress_groups(groups, tables, mode: str = "qlc",
     come from the plain block-32 quantize (the reference runs no kernel
     on this path either), equal to K1's. Scales are cast to bf16 with
     round-to-nearest-even. ``use_kernels`` is recorded, not routed on.
+    ``whole_shapes`` (leaf path -> shape): the whole model's shapes when
+    ``groups`` is one model rank's local tree, so that it wires the
+    leaves the whole tree's wire would (their blocks), not those its
+    own smaller blocks would.
     """
     _check_mode(mode)
     registry = registry_of(tables)
     meta: Dict[str, LeafMeta] = {}
 
     def wire(leaf, prefix):
-        if not _eligible(leaf.shape):
+        shape = leaf.shape if whole_shapes is None else whole_shapes[prefix]
+        if not _eligible(shape):
             return leaf
         entry = _entry_for(registry, prefix, type_key_fn)
         g, n, padded, n_chunks = _geometry(leaf.shape)

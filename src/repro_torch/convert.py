@@ -6,7 +6,9 @@ packages compute the same function on the same weights), a wired
 optimizer state into one rank's slice, and a model's tree cut to one
 model rank's tensor-parallel blocks and put back together
 (:func:`shard_params`, :func:`gather_params`), or drawn a leaf at a time
-straight into them (:func:`init_local_params`)."""
+straight into them (:func:`init_local_params`), and the decode states
+cut to a model rank's part and joined back (:func:`shard_decode_states`,
+:func:`gather_decode_states`)."""
 from __future__ import annotations
 
 import json
@@ -164,6 +166,22 @@ def init_local_params(cfg, generator, device, model_index: int,
     return init_params(cfg, generator, device, keep=keep)
 
 
+def whole_leaf_shapes(cfg):
+    """Every parameter leaf's whole shape by its path (``"a/b/c"``, the
+    weight wire's leaf names), with nothing allocated."""
+    from repro_torch.parallel.sharding import param_shapes
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            out[prefix] = node
+    walk(param_shapes(cfg), "")
+    return out
+
+
 def gather_params(local_trees, cfg):
     """Inverse of :func:`shard_params`: the local trees of model ranks
     ``0 .. M-1`` (tensors or numpy) -> the whole tree; a whole leaf is
@@ -185,3 +203,85 @@ def _gather_node(nodes, dims):
     if isinstance(nodes[0], torch.Tensor):
         return torch.cat(nodes, dim=dims)
     return np.concatenate([np.asarray(n) for n in nodes], axis=dims)
+
+
+def _state_shapes(states):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda a: tuple(a.shape), states)
+
+
+def _whole_state_shapes(local, cfg):
+    """The whole decode states' shapes from one rank's part: its batch,
+    and its KV caches' length."""
+    from repro_torch.models.transformer import _whole_decode_states
+    leaves = [a for st in local.values() for a in st]
+    batch = leaves[0].shape[1]
+    max_len = next((st.k.shape[2] for st in local.values()
+                    if hasattr(st, "k")), 1)
+    return _state_shapes(_whole_decode_states(cfg, batch, max_len, "meta"))
+
+
+def shard_decode_states(states, cfg, model_index: int, model_size: int):
+    """The part of the whole decode ``states`` (tensors or numpy, as
+    ``models.init_decode_states`` stacks them) that rank ``model_index``
+    of a model row of ``model_size`` holds: each leaf cut as
+    ``models.transformer.decode_state_cut`` says (the resolved
+    ``decode_states_specs``; a KV cache's ``kv_heads`` as
+    ``attention.decode_kv_heads``). Identity for ``model_size == 1``."""
+    from repro_torch.models.transformer import decode_state_cut
+    if model_size == 1:
+        return states
+    cut = decode_state_cut(cfg, model_index, model_size,
+                           _state_shapes(states))
+    out = {}
+    for key, st in states.items():
+        fields = []
+        for a, c in zip(st, cut[key]):
+            if c is None:
+                fields.append(a)
+            elif isinstance(a, torch.Tensor):
+                fields.append(a.narrow(c[0], c[1], c[2]).clone())
+            else:
+                fields.append(np.ascontiguousarray(np.take(
+                    np.asarray(a), np.arange(c[1], c[1] + c[2]), c[0])))
+        out[key] = type(st)(*fields)
+    return out
+
+
+def gather_decode_states(local_states, cfg):
+    """Inverse of :func:`shard_decode_states`: the parts of ranks ``0 ..
+    M-1`` of a model row -> the whole decode states, each entry of a cut
+    dim from the first rank that holds it (a KV head that several ranks'
+    query heads read is held by each of them); a whole leaf is rank
+    0's."""
+    from repro_torch.models.transformer import decode_state_cut
+    size = len(local_states)
+    if size == 1:
+        return local_states[0]
+    first = local_states[0]
+    whole = _whole_state_shapes(first, cfg)
+    cuts = [decode_state_cut(cfg, m, size, whole) for m in range(size)]
+    out = {}
+    for key, st in first.items():
+        fields = []
+        for f in range(len(st)):
+            parts = [local_states[m][key][f] for m in range(size)]
+            if cuts[0][key][f] is None:
+                fields.append(parts[0])
+                continue
+            dim = cuts[0][key][f][0]
+            pieces, filled = [], 0
+            for m in range(size):
+                _, start, count = cuts[m][key][f]
+                if start + count <= filled:
+                    continue
+                skip = filled - start
+                pieces.append(parts[m][(slice(None),) * dim
+                                       + (slice(skip, count),)])
+                filled = start + count
+            fields.append(torch.cat(pieces, dim=dim)
+                          if isinstance(parts[0], torch.Tensor)
+                          else np.concatenate(
+                              [np.asarray(p) for p in pieces], axis=dim))
+        out[key] = type(st)(*fields)
+    return out

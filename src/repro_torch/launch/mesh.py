@@ -18,7 +18,9 @@ collectives inside autograd are :func:`copy_to_model`,
 (:func:`model_row`), so a recomputed layer sees the same one. The
 ``"pod"`` axis for multi-node waits for ROADMAP queue 1, item 13.
 :func:`use_mesh` puts a mesh in scope for the code that reads it
-(:func:`current_mesh`).
+(:func:`current_mesh`). Host decisions that read rank-local numbers
+are agreed over the row (:func:`row_max`, :func:`row_all`), so that
+every rank of it takes the same branch.
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -225,6 +227,36 @@ def model_row(mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
     if mesh is None or mesh.model == 1:
         return None
     return ModelRow(mesh.model_group, mesh.model, mesh.coords[1])
+
+
+# --------------------------------------------------------------------------
+# Host decisions agreed over the model row
+# --------------------------------------------------------------------------
+
+def _row_reduce(value: float, op, mesh: Optional[Mesh]) -> float:
+    row = model_row(mesh)
+    if row is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.all_reduce(t, op=op, group=row.group)
+    return float(t.item())
+
+
+def row_max(x: float, mesh: Optional[Mesh] = None) -> float:
+    """The largest ``x`` over the model row of ``mesh`` (default: the
+    mesh in scope); ``x`` itself with no row. A host-side collective
+    (a CPU tensor, gloo), outside autograd: every rank of the row must
+    call it, in the same order."""
+    return _row_reduce(float(x), dist.ReduceOp.MAX, mesh)
+
+
+def row_all(b: bool, mesh: Optional[Mesh] = None) -> bool:
+    """Whether ``b`` holds on every rank of the model row, as
+    :func:`row_max`. A host branch on rank-local data (a pool's bytes, a
+    rank's own error) goes through this, so that every rank of the row
+    takes the same branch: a rank that branched alone would deadlock the
+    row's next collective."""
+    return _row_reduce(1.0 if b else 0.0, dist.ReduceOp.MIN, mesh) > 0
 
 
 def _all_reduce(t: torch.Tensor, row: ModelRow) -> torch.Tensor:

@@ -25,6 +25,16 @@ The random-init tree the launcher makes is freed once the wire holds
 it, before the wire is opened, so the peak is the wire plus one
 parameter tree rather than two.
 
+Under a mesh in scope (``launch.mesh.use_mesh``; ``data == 1``) every
+rank of its model row serves its local tree, as ``launch.train.train``
+trains it: drawn a leaf at a time (``convert.init_local_params``), the
+weight codec calibrated on the whole model's histogram summed over the
+row (``comm.calibrate.histogram_of_local_tree``: the same registry on
+every rank), the wire holding the rank's blocks, and ``Engine(mesh=)``,
+whose paged cache binds the row (``KVCacheSpec(axis="model")``). The
+dense-cache check runs on the same mesh. ``tools/tp_cards.py --serve``
+drives it on N cards.
+
 Example (one H100):
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --batch 4 --requests 6 --prompt-len 32 --new-tokens 32 --wire qlc \\
@@ -46,7 +56,9 @@ import torch
 
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import init_local_params, whole_leaf_shapes
 from repro_torch.core import CodecRegistry
+from repro_torch.launch.mesh import current_mesh, model_row
 from repro_torch.models import init_params
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
@@ -64,7 +76,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
           kv_paging: str = "sync", device="cuda", seed: int = 0,
           params=None, kv_monitor: bool = False) -> Dict[str, Any]:
     """Run the launcher's path and return what it produced: the request
-    statuses, engine stats, the served params, with ``wire="qlc"`` the
+    statuses, engine stats and events, the served params, the KV codecs'
+    registry (``kv_registry``, None without a paged cache), with
+    ``wire="qlc"`` the
     wire, its codec and the calibrate/compress/open seconds, and with
     ``kv_cache="qlc"`` the dense-cache check's tokens, which must equal
     the paged run's or this raises: ``solo_tokens`` (request 0 alone)
@@ -72,24 +86,32 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     for an MoE model. ``kv_monitor`` attaches a ``TrafficMonitor`` to the
     paged cache (``kv_monitor`` in the result: each KV codec's measured
     traffic). A tree made here (``params=None``) is freed before the
-    wire is opened."""
+    wire is opened. Under a mesh in scope, ``params`` (or the tree made
+    here) is this rank's local tree (module docstring)."""
     if kv_paging == "async" and kv_cache != "qlc":
         raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
     n_req = requests or batch + 2
+    mesh = current_mesh()
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(cfg, gen, dev)
+        if model_row(mesh) is not None:
+            params = init_local_params(cfg, gen, dev, mesh.coords[1],
+                                       mesh.model)
+        else:
+            params = init_params(cfg, gen, dev)
     out: Dict[str, Any] = {}
     if wire == "qlc":
-        from repro_torch.comm.calibrate import histogram_of_tree
+        from repro_torch.comm.calibrate import histogram_of_local_tree
         from repro_torch.serving import (compress_params_for_serving,
                                          open_params)
         t0 = time.perf_counter()
         reg = CodecRegistry()
-        reg.register("default", histogram_of_tree(params))
+        reg.register("default", histogram_of_local_tree(params, cfg, mesh))
         t1 = time.perf_counter()
-        wired, wc = compress_params_for_serving(params, reg)
+        wired, wc = compress_params_for_serving(
+            params, reg, whole_shapes=whole_leaf_shapes(cfg)
+            if model_row(mesh) is not None else None)
         _sync(dev)
         t2 = time.perf_counter()
         params = None       # frees a tree made here before the open
@@ -105,7 +127,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     if kv_cache != "none":
         # async paging frames blocks on the card: fixed plan geometry
         kv_spec = KVCacheSpec(block_tokens=kv_block, mode=kv_cache,
-                              exact_capacity=kv_paging != "async")
+                              exact_capacity=kv_paging != "async",
+                              axis="model" if mesh is not None else None)
         pool = BlockPool(1 << 30)
         if kv_monitor:
             from repro_torch.adaptive import TrafficMonitor
@@ -114,7 +137,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     max_seq_len = prompt_len + new_tokens + 8
     eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
                  kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
-                 registry=registry, monitor=monitor)
+                 registry=registry, monitor=monitor, mesh=mesh)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()
@@ -124,14 +147,16 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     eng.run()
     outs = [eng.poll(h) for h in handles]
     out.update(serve_s=time.perf_counter() - t0, outs=outs,
-               stats=eng.stats(), params=params, prompts=prompts)
+               stats=eng.stats(), params=params, prompts=prompts,
+               events=eng.events, kv_registry=eng.registry)
     if kv_cache == "qlc":
         # The lossless contract: pooled compressed paging is
         # token-identical to a dense cache. A dense model's rows are
         # independent, so request 0 alone decides; an MoE layer's capacity
         # is shared by the batch's rows, so the dense run gets every
         # request, in the same order, at the same batch.
-        dense = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch)
+        dense = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
+                       mesh=mesh)
         group = prompts if cfg.moe is not None else prompts[:1]
         hs = [dense.submit(GenerationRequest(prompt=p,
                                              max_new_tokens=new_tokens))
@@ -175,11 +200,16 @@ def main(argv=None):
                          "and decodes them through the prefetch kernel on "
                          "a side stream behind each decode window "
                          "(requires --kv-cache qlc)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.kv_paging == "async" and args.kv_cache != "qlc":
         ap.error("--kv-paging async requires --kv-cache qlc")
+    if args.multi_pod or args.pods != 1:
+        raise NotImplementedError("pods are not ported: ROADMAP queue 1, "
+                                  "item 13")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -26,7 +26,10 @@ filled prefix, within the sliding window when the config has one (the
 engine's prefill goes token by token through it, as the reference's
 ``serving.engine.prefill`` does). Padded heads (``pad_heads_multiple``)
 are zero slices of ``wq`` / ``wo`` held out of the gradient: training
-attends with all of them, decode with the real ones only.
+attends with all of them, decode with the real ones only. Over a model
+row the decode branch runs the rank's query heads against a cache of
+the KV heads they read (:func:`decode_kv_heads`), contracted per KV
+head, and sums the ``wo`` rows' partial outputs over the row.
 """
 from __future__ import annotations
 
@@ -252,6 +255,117 @@ def _tp_projections(params, x, cfg: ModelConfig, row):
     return q, k, v, wo, q_split
 
 
+def _row_heads(cfg: ModelConfig, index: int, size: int):
+    """This rank's query heads over a model row of ``size``: (whether
+    ``heads`` is split, the local heads ``hl``, the first one ``q0``),
+    as ``wq``'s resolved spec cuts its padded heads."""
+    hp = padded_heads(cfg)
+    q_split = size > 1 and hp % size == 0
+    hl = hp // size if q_split else hp
+    return q_split, hl, index * hl if q_split else 0
+
+
+def decode_kv_heads(cfg: ModelConfig, index: int = 0, size: int = 1
+                    ) -> Tuple[int, ...]:
+    """The KV heads the decode cache of rank ``index`` of a model row of
+    ``size`` holds, ascending: its ``kv_heads`` block where the KV heads
+    divide the row and its query heads read no other (the block
+    ``decode_states_specs`` resolves to), else the KV heads its real
+    query heads read through the GQA map, as :func:`_tp_projections`
+    picks them (a rank whose heads are all padding holds head 0).
+    Every KV head is held by at least one rank."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    groups = h // kv
+    _, hl, q0 = _row_heads(cfg, index, size)
+    need = sorted({(q0 + j) // groups for j in range(hl) if q0 + j < h})
+    if size > 1 and kv % size == 0:
+        kvl = kv // size
+        block = range(index * kvl, (index + 1) * kvl)
+        if all(n in block for n in need):
+            return tuple(block)
+    if size == 1:
+        return tuple(range(kv))
+    return tuple(need) or (0,)
+
+
+def _kv_gathered(cfg: ModelConfig, size: int) -> bool:
+    """Whether decode over a row of ``size`` that splits the KV heads
+    gathers the row's k / v: some rank's cache holds heads besides its
+    own block (every rank then takes part in the gather)."""
+    kvl = cfg.num_kv_heads // size
+    return any(decode_kv_heads(cfg, r, size)
+               != tuple(range(r * kvl, (r + 1) * kvl)) for r in range(size))
+
+
+def _decode_tp(params, x, cfg: ModelConfig, positions, cache: KVCache,
+               row):
+    """The decode branch over a model row: this rank's query heads (its
+    ``wq`` block, padded heads left out), the k / v of the KV heads its
+    cache holds (:func:`decode_kv_heads`: from its ``wk`` / ``wv`` block,
+    from the whole leaves, or, where the KV heads are split but its
+    query heads read another rank's, from the row's k / v gathered),
+    written into its cache; the grouped decode over those heads, and its
+    ``wo`` rows' partial output summed over the row."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    groups = h // kv
+    wq, wk, wv, wo = (params[k] for k in ("wq", "wk", "wv", "wo"))
+    q_split, hl, q0 = _row_heads(cfg, row.index, row.size)
+    if wq.shape[1] != hl:
+        raise ValueError(f"wq holds {wq.shape[1]} heads, the row's spec "
+                         f"gives a rank {hl}")
+    n_real = min(max(h - q0, 0), hl)
+    sel = decode_kv_heads(cfg, row.index, row.size)     # contiguous
+    kvl = wk.shape[1]
+    if kvl == kv:                               # whole: my heads' slices
+        wk, wv = (w.narrow(1, sel[0], len(sel)) for w in (wk, wv))
+        k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
+        v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
+    else:
+        k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
+        v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
+        if _kv_gathered(cfg, row.size):         # some rank reads others'
+            k, v = (gather_from_model(t, 2, row).narrow(2, sel[0], len(sel))
+                    for t in (k, v))
+    q = torch.einsum("bsd,dnh->bsnh", x, wq[:, :n_real].to(x.dtype))
+    q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    new_cache = _write_cache(cache, k, v)
+    # local query head j reads cache head need[j]
+    need = [(q0 + j) // groups - sel[0] for j in range(n_real)]
+    out = _grouped_decode(q, new_cache, positions, cfg, need)
+    out = torch.einsum("bsnh,nhd->bsd", out, wo[:n_real].to(out.dtype))
+    return (reduce_from_model(out, row) if q_split else out), new_cache
+
+
+def _grouped_decode(q, cache: KVCache, positions, cfg: ModelConfig,
+                    need) -> torch.Tensor:
+    """q [B, S, n, H] over the filled prefix of ``cache`` (and within the
+    sliding window), query head ``j`` reading cache head ``need[j]``:
+    contracted per KV head (GQA-grouped, no head expansion) where each
+    cache head serves the same number of consecutive query heads, else
+    against the cache expanded to the query heads. [B, S, n, H]."""
+    b, s_in, n, hd = q.shape
+    kc, vc = cache.k, cache.v
+    n_kv = kc.shape[2]
+    g = n // n_kv if n_kv and n % n_kv == 0 else 0
+    if not g or need != [j // g for j in range(n)]:
+        idx = torch.tensor(need, device=q.device, dtype=torch.long)
+        kc, vc = kc.index_select(2, idx), vc.index_select(2, idx)
+        n_kv, g = n, 1
+    qg = q.reshape(b, s_in, n_kv, g, hd)
+    k_pos = torch.arange(kc.shape[1], dtype=torch.int32,
+                         device=q.device)[None, None, None, None, :]
+    q_pos = positions[:, :, None, None, None]
+    scores = (torch.einsum("bqkgd,bskd->bqkgs", qg, kc).float()
+              * hd ** -0.5)                                 # [B,S,KV,G,Smax]
+    valid = k_pos <= q_pos
+    if cfg.sliding_window is not None:
+        valid &= k_pos > q_pos - cfg.sliding_window
+    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", probs.to(q.dtype), vc)
+    return out.reshape(b, s_in, n, hd)
+
+
 def attention_block(params, x, cfg: ModelConfig, positions,
                     cache: Optional[KVCache] = None, row=None):
     """Self-attention over the whole sequence (training), or, with
@@ -260,17 +374,17 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     x: [B, S, D]. With ``cache`` it writes the S tokens' k/v from
     position ``cache.length`` and attends over the filled prefix, each
     query causally at its own position (and within the sliding window).
-    ``row``: the model row the training branch's weights may be split
-    over (module docstring). Returns (out [B, S, D], new_cache or None).
+    ``row``: the model row the weights may be split over (module
+    docstring); decode over it holds the rank's KV heads in ``cache``
+    (:func:`decode_kv_heads`). Returns (out [B, S, D], new_cache or
+    None).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
     hp = padded_heads(cfg)
     if row is not None:
         if cache is not None:
-            raise NotImplementedError(
-                "decode over a model axis is not ported: ROADMAP queue 1, "
-                "item 10")
+            return _decode_tp(params, x, cfg, positions, cache, row)
         return _attention_tp(params, x, cfg, positions, row), None
 
     wq, wo = params["wq"], params["wo"]
@@ -299,25 +413,10 @@ def attention_block(params, x, cfg: ModelConfig, positions,
                 score_dtype=getattr(torch, cfg.attn_score_dtype))
         return torch.einsum("bsnh,nhd->bsd", out, wo.to(out.dtype)), None
 
-    b, s_in = x.shape[:2]
     new_cache = _write_cache(cache, k, v)
-    k_new, v_new = new_cache.k, new_cache.v
-
-    # GQA-grouped decode over the real heads: contract against the cache
-    # per KV head.
-    qg = q[:, :, :h].reshape(b, s_in, kv, groups, hd)
-    k_pos = torch.arange(k_new.shape[1], dtype=torch.int32,
-                         device=x.device)[None, None, None, None, :]
-    q_pos = positions[:, :, None, None, None]
-    scale = hd ** -0.5
-    scores = (torch.einsum("bqkgd,bskd->bqkgs", qg, k_new).float()
-              * scale)                                      # [B,S,KV,G,Smax]
-    valid = k_pos <= q_pos
-    if cfg.sliding_window is not None:
-        valid &= k_pos > q_pos - cfg.sliding_window
-    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
-    out = torch.einsum("bqkgs,bskd->bqkgd", probs.to(x.dtype), v_new)
-    out = out.reshape(b, s_in, h, hd)
+    # GQA-grouped decode over the real heads
+    out = _grouped_decode(q[:, :, :h], new_cache, positions, cfg,
+                          [j // groups for j in range(h)])
     return torch.einsum("bsnh,nhd->bsd", out,
                         wo[:h].to(out.dtype)), new_cache
 

@@ -27,6 +27,12 @@ and grouped impls route with the whole router (gathered over the row,
 so every rank routes alike, bit for bit as one rank does), run their
 part of the experts, and sum the row once; see :func:`moe_block`.
 
+A decode step over a row routes the step's ``B`` tokens, the same on
+every rank, alike on every rank; ``shardmap_a2a`` cuts them over the row
+as in training, and runs ``gspmd``'s dispatch where it cannot
+(:func:`_uncut`: fewer tokens than ranks, as the engine's prefill of
+one token of one sequence).
+
 Where the reference's ``moe_block`` sees the whole batch (the baseline
 step, jitted over the data axes), each port rank holds one shard of it:
 under :func:`batch_over` the impls take their capacity from the global
@@ -462,6 +468,19 @@ def _world(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _uncut(x: torch.Tensor, scope: MoEScope) -> bool:
+    """Whether ``shardmap_a2a`` meets a row's tokens it cannot cut into
+    one piece a rank: a serving step of fewer tokens than the model row
+    has ranks, or not a multiple of them (the engine's prefill feeds one
+    token of one sequence at a time). The layer then runs ``gspmd``'s
+    dispatch over the row, the same function on the same tokens
+    (``shardmap_a2a``'s routing and drops are ``gspmd``'s): its ranks'
+    expert blocks on every token, summed over the row."""
+    mesh = scope.mesh
+    return (mesh is not None and scope.batch_group is None
+            and x.shape[0] * x.shape[1] % mesh.model != 0)
+
+
 def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
               scope: Optional[MoEScope] = None, row=None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. Capacity-bounded top-k dispatch.
@@ -495,7 +514,7 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
         scope.capture.append((params, x))
     if impl == "grouped_local":
         return _moe_grouped(params, x, cfg, scope, row)
-    if impl == "shardmap_a2a":
+    if impl == "shardmap_a2a" and not _uncut(x, scope):
         return _moe_shardmap_a2a(params, x, cfg, scope, row)
     m = cfg.moe
     b, s, d = x.shape

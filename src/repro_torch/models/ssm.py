@@ -12,7 +12,8 @@ States are ``NamedTuple`` s of f32 tensors (:data:`STATE_TYPES`); the
 paged serving cache moves them whole (:func:`state_snapshot`,
 :func:`state_restore`).
 
-Tensor parallelism (training): given a ``launch.mesh.ModelRow``, each
+Tensor parallelism (training and decode): given a
+``launch.mesh.ModelRow``, each
 block takes its leaves as their resolved specs cut them
 (:func:`mamba_param_specs`, :func:`xlstm_param_specs`) and finds which
 are split from their shapes. The xLSTM blocks split on ``heads``: each
@@ -30,7 +31,10 @@ each rank's ``xz`` block is all-gathered over the row and each takes its
 own channels of both halves. The exchange moves ``B S 2 d_inner`` values
 in the compute dtype, where gathering the weight would move ``d 2
 d_inner`` in f32: fewer bytes for a data shard of fewer than ``2 d``
-tokens (jamba at 4 x 512: 2048 tokens against d 8192).
+tokens (jamba at 4 x 512: 2048 tokens against d 8192). Decode over a
+row carries each rank's part of the state: mamba's ``ssm`` / ``conv`` of
+its channels, an xLSTM block's of its heads (the ``"mlp"`` and
+``"heads"`` dims of ``models.transformer.decode_states_specs``).
 """
 from __future__ import annotations
 
@@ -43,10 +47,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
                                      reduce_from_model)
 from repro_torch.models import layers
-
-_NO_DECODE_TP = ("decode over a model axis is not ported: ROADMAP queue 1, "
-                 "item 10")
-
 
 def _normal(gen, shape, scale, dtype, device):
     return torch.randn(shape, generator=gen, dtype=dtype,
@@ -146,8 +146,6 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
     n, k = cfg.ssm_state_dim, cfg.conv_kernel
     in_split = row is not None and params["in_proj"].shape[-1] != 2 * di
     ch_split = row is not None and params["conv_w"].shape[-1] != di
-    if (in_split or ch_split) and state is not None:
-        raise NotImplementedError(_NO_DECODE_TP)
 
     xz = torch.einsum("bsd,de->bse", copy_to_model(x, row) if in_split
                       else x, params["in_proj"].to(x.dtype))
@@ -262,15 +260,13 @@ def _gates(params, x: torch.Tensor):
     return i_pre, f_pre, o_gate
 
 
-def _heads_split(params, x, cfg: ModelConfig, state, row):
+def _heads_split(params, x, cfg: ModelConfig, row):
     """An xLSTM block's heads here and its input: over a row that splits
     the heads, this rank's heads and ``x`` through ``copy_to_model``
     (its projections are this rank's part of the input's gradient)."""
     h = params["wq"].shape[-2]
     if row is None or h == cfg.num_heads:
         return h, x, None
-    if state is not None:
-        raise NotImplementedError(_NO_DECODE_TP)
     return h, copy_to_model(x, row), row
 
 
@@ -281,7 +277,7 @@ def mlstm_block(params, x: torch.Tensor, cfg: ModelConfig,
     docstring)."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    h, x, row = _heads_split(params, x, cfg, state, row)
+    h, x, row = _heads_split(params, x, cfg, row)
 
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(x.dtype)) \
         * hd ** -0.5
@@ -336,7 +332,7 @@ def slstm_block(params, x: torch.Tensor, cfg: ModelConfig,
     :func:`mlstm_block`."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    h, x, row = _heads_split(params, x, cfg, state, row)
+    h, x, row = _heads_split(params, x, cfg, row)
 
     zt = torch.tanh(torch.einsum("bsd,dnh->bsnh", x,
                                  params["wq"].to(x.dtype)))

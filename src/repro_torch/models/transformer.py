@@ -18,7 +18,11 @@ model axis is above 1, the training forward takes each
 rank's local tree (``convert.shard_params``: every leaf cut as its
 resolved spec says) and runs the model row's collectives inside its
 layers (``models.layers``, ``models.attention``, ``models.moe``,
-``models.ssm``): every block kind, dense, MoE and recurrent.
+``models.ssm``): every block kind, dense, MoE and recurrent. So does
+:func:`decode_step`, on the rank's part of the decode states
+(:func:`decode_states_specs`, :func:`init_decode_states` with the row),
+the embedding summed over the row and the logits gathered: every rank
+of the row returns the same logits.
 """
 from __future__ import annotations
 
@@ -254,14 +258,43 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # Decode
 # --------------------------------------------------------------------------
 
-def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
-                       device="cuda"):
-    """Fresh per-layer decode states, stacked over groups."""
-    dev = resolve_device(device)
+def decode_states_specs(cfg: ModelConfig):
+    """The logical axes of every decode-state leaf (the reference's
+    ``decode_states_specs``): per layer slot of a group, its state type
+    with a tuple of axis names per field, the leading (group) dim
+    unnamed. Over a model row a KV cache holds the rank's ``kv_heads``,
+    a mamba state its ``mlp`` channels and an xLSTM state its
+    ``heads``."""
+    def one(kind):
+        if kind == "attention":
+            return attn.KVCache(
+                k=(None, "batch", "kv_seq", "kv_heads", "head_dim"),
+                v=(None, "batch", "kv_seq", "kv_heads", "head_dim"),
+                length=(None, "batch"))
+        if kind == "mamba":
+            return ssm.MambaState(ssm=(None, "batch", "mlp", "state"),
+                                  conv=(None, "batch", "conv", "mlp"))
+        if kind == "mlstm":
+            return ssm.MLSTMState(c=(None, "batch", "heads", None, None),
+                                  n=(None, "batch", "heads", "head_dim"),
+                                  m=(None, "batch", "heads"))
+        if kind == "slstm":
+            return ssm.SLSTMState(c=(None, "batch", "heads", "head_dim"),
+                                  n=(None, "batch", "heads"),
+                                  m=(None, "batch", "heads"))
+        raise ValueError(kind)
+
+    return {f"l{i}": one(kind) for i, kind in enumerate(cfg.layer_kinds())}
+
+
+def _whole_decode_states(cfg: ModelConfig, batch: int, max_len: int,
+                         device):
+    """The whole model's fresh decode states on ``device`` (``"meta"``
+    for their shapes and dtypes alone), stacked over groups."""
     kinds = cfg.layer_kinds()
     n_groups = cfg.num_layers // len(kinds)
     dtype = getattr(torch, cfg.dtype)
-    like = torch.zeros((1,), device=dev)
+    like = torch.zeros((1,), device=device)
     init_state = {"mamba": ssm.mamba_init_state,
                   "mlstm": ssm.mlstm_init_state,
                   "slstm": ssm.slstm_init_state}
@@ -270,12 +303,71 @@ def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
         if kind == "attention":
             group[f"l{i}"] = attn.KVCache.init(
                 batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim,
-                dtype, dev)
+                dtype, device)
         else:
             group[f"l{i}"] = init_state[kind](like, batch, cfg)
     return tree_map(
         lambda a: a[None].expand((n_groups,) + tuple(a.shape)).clone(),
         group)
+
+
+def decode_state_cut(cfg: ModelConfig, index: int, size: int, shapes):
+    """How rank ``index`` of a model row of ``size`` holds each decode-state
+    leaf of the whole ``shapes`` (a tree of stacked shapes, as
+    :func:`init_decode_states` makes them): per leaf ``(dim, start,
+    count)``, the rank's ``count`` entries of ``dim`` from ``start``, or
+    None for a leaf it holds whole. A leaf is cut as its spec
+    (:func:`decode_states_specs`) resolves on the row, but for a KV
+    cache's ``kv_heads``, which holds ``attention.decode_kv_heads``: the
+    spec's block where the KV heads divide the row, else the heads the
+    rank's query heads read."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding
+    layout = Mesh(data=1, model=size, rank=0, world_group=None,
+                  data_group=None, model_group=None)
+    rules = sharding.get_rules()
+    specs = decode_states_specs(cfg)
+    out = {}
+    for key, st in specs.items():
+        fields = []
+        for name, spec in zip(st._fields, st):
+            shape = getattr(shapes[key], name)
+            dim = sharding.model_dim(rules.spec(spec, shape=shape,
+                                                mesh=layout))
+            if isinstance(st, attn.KVCache) and name != "length":
+                heads = attn.decode_kv_heads(cfg, index, size)
+                fields.append(None if size == 1 else
+                              (spec.index("kv_heads"), heads[0], len(heads)))
+            elif dim is None or size == 1:
+                fields.append(None)
+            else:
+                n = shape[dim] // size
+                fields.append((dim, index * n, n))
+        out[key] = type(st)(*fields)
+    return out
+
+
+def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
+                       device="cuda", row=None):
+    """Fresh per-layer decode states, stacked over groups; over a model
+    ``row`` (a ``launch.mesh.ModelRow``), the rank's part of each
+    (:func:`decode_state_cut`)."""
+    dev = resolve_device(device)
+    if row is None or row.size == 1:
+        return _whole_decode_states(cfg, batch, max_len, dev)
+    meta = _whole_decode_states(cfg, batch, max_len, "meta")
+    shapes = tree_map(lambda a: tuple(a.shape), meta)
+    cut = decode_state_cut(cfg, row.index, row.size, shapes)
+    out = {}
+    for key, st in meta.items():
+        fields = []
+        for a, c in zip(st, cut[key]):
+            shape = list(a.shape)
+            if c is not None:
+                shape[c[0]] = c[2]
+            fields.append(torch.zeros(shape, dtype=a.dtype, device=dev))
+        out[key] = type(st)(*fields)
+    return out
 
 
 _SSM_BLOCKS = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
@@ -328,15 +420,17 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     bindings (``moe.moe_scope``) once, here on the caller's thread, so a
     recomputed group sees the same ones; in a decode step the ``B``
     tokens of the step are an MoE layer's batch, its capacity theirs.
-    The training branch over a mesh in scope with a model axis above 1
-    runs ``params``, this rank's local tree, over its model row
-    (``launch.mesh.model_row``, read here likewise)."""
+    Over a mesh in scope with a model axis above 1 both branches run
+    ``params``, this rank's local tree, over its model row
+    (``launch.mesh.model_row``, read here likewise), and a decode step's
+    ``states`` are the rank's part of them (:func:`init_decode_states`
+    with the row)."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
     scope = moe.moe_scope() if cfg.moe is not None else None
+    row = model_row()
     if states is None:
-        row = model_row()
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
@@ -357,7 +451,7 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
         for i, kind in enumerate(kinds):
             x, new_sg[f"l{i}"] = _apply_block(pg[f"l{i}"], kind, x,
                                               positions, cfg, sg[f"l{i}"],
-                                              scope)
+                                              scope, row)
         outs.append(new_sg)
     new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
     return x, new_states
@@ -410,10 +504,11 @@ def prefill_logits(params, cfg: ModelConfig, tokens: torch.Tensor,
                    prefix_emb: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Inference prefill: logits of the last position only, [B, 1, V]
-    (the [B, S, V] logits are never made)."""
+    (the [B, S, V] logits are never made); over a model row whose vocab
+    is split, gathered as :func:`forward` gathers them."""
     x = _hidden(params, cfg, tokens, prefix_emb)
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return layers.unembed(head, x[:, -1:], cfg.tie_embeddings)
+    head, row = _head(params, cfg)
+    return layers.unembed(head, x[:, -1:], cfg.tie_embeddings, row)
 
 
 def next_token_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -447,12 +542,17 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,
     engine; an attention stack also takes S tokens at once, written into
     the cache together.
 
-    Returns (logits [B, S, V], new_states).
+    Over a mesh in scope with a model axis above 1, ``params`` is the
+    rank's local tree and ``states`` its part of the decode states: the
+    embedding is summed over the row and the logits gathered along the
+    vocab, so every rank of the row returns the same [B, S, V], bit for
+    bit. Returns (logits [B, S, V], new_states).
     """
     dtype = getattr(torch, cfg.dtype)
-    x = layers.embed(params["embed"], tokens).to(dtype)
+    x = layers.embed(params["embed"], tokens,
+                     _vocab_row(params["embed"], 0, cfg)).to(dtype)
     x, new_states = apply_stack(params, x, positions, cfg, states,
                                 weight_codec=weight_codec)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return layers.unembed(head, x, cfg.tie_embeddings), new_states
+    head, row = _head(params, cfg)
+    return layers.unembed(head, x, cfg.tie_embeddings, row), new_states

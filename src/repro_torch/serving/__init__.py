@@ -6,7 +6,9 @@ from repro_torch.serving.engine import (  # noqa: F401
     ServeConfig, codec_from_manifest, compress_params_for_serving,
     open_params, prefill, serving_manifest, window_step)
 from repro_torch.serving.kv_cache import (  # noqa: F401
-    KVBlock, KVCacheOverflowError, KVCacheSpec, PagedKVCache,
-    calibrate_cache, kv_cache_manifest, kv_spec_from_manifest)
+    BlockPrefetcher, DeviceBlock, KVBlock, KVCacheOverflowError,
+    KVCacheSpec, LayerFramePlan, PagedKVCache, SSMBoundaryTracker,
+    all_gather_block_wire, calibrate_cache, kv_cache_manifest,
+    kv_spec_from_manifest, open_kv_channels)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Engine, GenerationRequest, RequestStatus)

@@ -11,6 +11,11 @@ seed token and position per slot, runs the window, and reads the tokens
 back once (the counterpart of the reference's jitted window scan; no
 CUDA graph yet).
 
+Over a model row (a mesh in scope, ``serving.scheduler.Engine(mesh=)``)
+:func:`prefill` and :func:`window_step` run on the rank's local tree
+and its part of the decode states, and every rank gets the same tokens;
+:func:`compress_params_for_serving` wires the rank's blocks only.
+
 Compressed-weight serving stores the layer stack as block-32 e4m3 + QLC
 words (or raw e4m3 codes, ``mode="e4m3"``; ``repro_torch.comm.weights``),
 compressed through K1, and opens it through K2 before the engine starts,
@@ -81,7 +86,8 @@ def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def compress_params_for_serving(params, tables, mode: str = "qlc",
-                                use_kernels: bool = True, type_key_fn=None):
+                                use_kernels: bool = True, type_key_fn=None,
+                                whole_shapes=None):
     """Wire a parameter tree for compressed serving: large layer-stack
     leaves become block-32 e4m3 symbols, packed into QLC words with
     exactly measured capacity (``mode="qlc"``) or kept raw
@@ -89,11 +95,16 @@ def compress_params_for_serving(params, tables, mode: str = "qlc",
     ``tables`` is a ``CodecTables`` or a per-tensor-type
     ``CodecRegistry`` (with an optional ``type_key_fn(leaf_path) -> type
     name``). ``use_kernels`` is recorded in the manifest; the port
-    routes by device. Returns ``(wired_params, wire_codec)``; open with
-    :func:`open_params`."""
+    routes by device. ``params`` may be one model rank's local tree
+    (``convert.shard_params``), with ``whole_shapes`` (leaf path ->
+    the whole model's shape, ``convert.whole_leaf_shapes``): the wire
+    then holds the rank's
+    blocks of the leaves the whole tree's wire holds. Returns
+    ``(wired_params, wire_codec)``; open with :func:`open_params`."""
     from repro_torch.comm.weights import compress_groups
     return compress_groups(params, tables, mode=mode,
-                           use_kernels=use_kernels, type_key_fn=type_key_fn)
+                           use_kernels=use_kernels, type_key_fn=type_key_fn,
+                           whole_shapes=whole_shapes)
 
 
 def serving_manifest(wire_codec, *, kv_spec=None, kv_registry=None) -> dict:

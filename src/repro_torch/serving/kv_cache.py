@@ -42,6 +42,13 @@ Two halves:
   on a side CUDA stream, ordered after the arena write by an event and
   consumed after the next decode window through another.
 
+Over a model row (``PagedKVCache(mesh=)``) the channels bind the group
+of ``KVCacheSpec.axis``; the codecs are calibrated on the row's gathered
+first prefill (:func:`calibrate_cache` with the mesh: identical on every
+rank), each rank pages the blocks of its own part of the decode states,
+and a cold block's container words migrate over the axis
+(:meth:`PagedKVCache.block_wire`, :func:`all_gather_block_wire`).
+
 Escape-pool overflow never corrupts a block: an overflowing encode
 falls back to a raw container (``stats()["overflow_sections"]``), and a
 coded container whose pool overflowed raises
@@ -99,8 +106,9 @@ class KVCacheSpec:
     state (:class:`SSMBoundaryTracker`); lossless (``"qlc"``) mode only,
     forced off under ``"e4m3"``, where the live state must round-trip
     the quantizer to stay the serving path's single source of truth.
-    ``axis`` is kept for the reference's JSON (cache migration is not
-    ported).
+    ``axis``: the mesh axis whose group a mesh-bound cache's channels
+    bind (``PagedKVCache(mesh=)``), which cold blocks migrate over
+    (:func:`all_gather_block_wire`).
     """
     block_tokens: int = 128
     hot_blocks: int = 0
@@ -429,10 +437,37 @@ def codec_wins(entry) -> bool:
 def open_kv_channels(registry, mesh=None, *, prefix: str = "kv",
                      axis: Optional[str] = None,
                      use_kernels: Optional[bool] = None) -> Dict[str, Any]:
-    """One bound channel per ``f"{prefix}/..."`` registry entry."""
+    """One channel per ``f"{prefix}/..."`` registry entry, bound to the
+    group of ``mesh``'s ``axis`` (``comm.channel.axis_group``; with
+    ``axis`` alone, the mesh in scope's), or local with neither."""
     from repro_torch.comm.channel import open_channels
     chans = open_channels(registry, mesh, axis=axis, use_kernels=use_kernels)
     return {n: c for n, c in chans.items() if n.startswith(prefix + "/")}
+
+
+def all_gather_block_wire(words, channel) -> torch.Tensor:
+    """Cross-rank cache migration: one cold block's container words from
+    every rank of the channel's group, ``u32 [W] -> u32 [D, W]``, carried
+    as the int32 bit pattern (``PagedKVCache.block_wire``) on the words'
+    device. The compressed bytes are what cross the wire; each gathered
+    row decodes on the receiver from the registry alone
+    (:meth:`PagedKVCache.decode_block_arrays`).
+
+    Block geometry must be the same on every rank, for the gather's
+    shape: the same spec, the same calibrated plan, and
+    ``KVCacheSpec(exact_capacity=False)``, whose plan capacity does not
+    depend on the block."""
+    if channel.axis is None:
+        raise ValueError("cache migration needs a channel with a mesh "
+                         "axis; pass KVCacheSpec(axis=...)")
+    import torch.distributed as dist
+    w = torch.as_tensor(np.asarray(words).view(np.int32)
+                        if isinstance(words, np.ndarray) else words)
+    w = w.reshape(-1).contiguous()
+    rows = [torch.empty_like(w)
+            for _ in range(dist.get_world_size(channel.group))]
+    dist.all_gather(rows, w, group=channel.group)
+    return torch.stack(rows)
 
 
 class PagedKVCache:
@@ -441,6 +476,13 @@ class PagedKVCache:
     (:func:`calibrate_cache`); ``channels`` defaults to
     :func:`open_kv_channels` over them. Decoded tensors land on
     ``device``.
+
+    ``mesh`` (a ``launch.mesh.Mesh``): the channels bind the group of
+    its ``spec.axis``, over which :meth:`block_wire` payloads migrate
+    (:func:`all_gather_block_wire`); over a model row each rank pages
+    the blocks of its own part of the decode states with the row's
+    codecs (:func:`calibrate_cache` with the mesh). None: local
+    channels.
 
     ``monitor`` (a ``repro_torch.adaptive.TrafficMonitor``): every
     section that :meth:`encode_block_arrays` encodes files its symbol
@@ -453,17 +495,19 @@ class PagedKVCache:
     def __init__(self, spec: KVCacheSpec, cfg: ModelConfig, registry,
                  channels: Optional[Dict[str, Any]] = None,
                  arena: Optional[BlockArena] = None, device="cuda",
-                 monitor=None):
+                 monitor=None, mesh=None):
         self.spec = spec
         self.arena = arena
         self.cfg = cfg
         self.registry = registry
         self.monitor = monitor
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         if channels is None:
             channels = open_kv_channels(
-                registry, prefix=spec.codec_prefix, axis=spec.axis,
+                registry, mesh, prefix=spec.codec_prefix,
+                axis=spec.axis if mesh is not None else None,
                 use_kernels=spec.use_kernels)
         self.channels = channels
         for i in range(len(self.kinds)):
@@ -804,6 +848,13 @@ class PagedKVCache:
                 "raw_sections": self.raw_sections,
                 "prefetch": self.prefetcher.stats()}
 
+    def block_wire(self, block: KVBlock) -> torch.Tensor:
+        """A cold block's container words on the cache's device (the u32
+        bit pattern as int32): the migration payload of
+        :func:`all_gather_block_wire`."""
+        return torch.from_numpy(np.ascontiguousarray(
+            block.container).view(np.int32)).to(self.device)
+
 
 # --------------------------------------------------------------------------
 # Calibration glue (decode states -> per-layer registry entries)
@@ -825,10 +876,63 @@ def calibration_arrays(cfg: ModelConfig, states, tokens: int
     return out
 
 
+def gather_row_states(cfg: ModelConfig, states, tokens: int, row):
+    """The whole model's decode states over their first ``tokens``
+    positions, on every rank of the model ``row`` (None: ``states``
+    are whole), from each rank's part (``models.init_decode_states``
+    with the row): each cut leaf
+    all-gathered over the row (padded to the row's largest part, as the
+    ranks' KV heads may differ in number), then joined by
+    ``convert.gather_decode_states``, which takes each KV head once."""
+    import torch.distributed as dist
+    from repro_torch.convert import _whole_state_shapes, gather_decode_states
+    from repro_torch.models.transformer import decode_state_cut
+    trimmed = {key: st._replace(k=st.k.narrow(2, 0, tokens),
+                                v=st.v.narrow(2, 0, tokens))
+               if isinstance(st, attn.KVCache) else st
+               for key, st in states.items()}
+    if row is None:
+        return trimmed
+    whole = _whole_state_shapes(trimmed, cfg)
+    cuts = [decode_state_cut(cfg, m, row.size, whole)
+            for m in range(row.size)]
+    parts = [{} for _ in range(row.size)]
+    for key, st in trimmed.items():
+        fields = [[] for _ in range(row.size)]
+        for f, a in enumerate(st):
+            if cuts[0][key][f] is None:
+                for m in range(row.size):
+                    fields[m].append(a)
+                continue
+            dim = cuts[0][key][f][0]
+            most = max(c[key][f][2] for c in cuts)
+            pad = list(a.shape)
+            pad[dim] = most - a.shape[dim]
+            mine = torch.cat([a, a.new_zeros(pad)], dim=dim).contiguous()
+            mine = mine.view(torch.uint8)       # what every backend gathers
+            got = [torch.empty_like(mine) for _ in range(row.size)]
+            dist.all_gather(got, mine, group=row.group)
+            for m in range(row.size):
+                fields[m].append(got[m].view(a.dtype).narrow(
+                    dim, 0, cuts[m][key][f][2]))
+        for m in range(row.size):
+            parts[m][key] = type(st)(*fields[m])
+    return gather_decode_states(parts, cfg)
+
+
 def calibrate_cache(registry, cfg: ModelConfig, states, tokens: int,
-                    spec: KVCacheSpec, **kw):
+                    spec: KVCacheSpec, mesh=None, **kw):
     """Calibrate ``kv/layer{i}`` codecs for a model's decode states into
-    ``registry``. Returns ``{name: CodecEntry}``."""
+    ``registry``. Returns ``{name: CodecEntry}``. Over the model row of
+    ``mesh``, ``states`` is this rank's part: the row's parts are
+    gathered (:func:`gather_row_states`) and every rank calibrates the
+    whole model's arrays, so the row's registries are identical, entry
+    for entry (the symbol streams' chunks size each plan, which summed
+    histograms could not)."""
+    from repro_torch.launch.mesh import model_row
+    row = model_row(mesh) if mesh is not None else None
+    if row is not None:
+        states = gather_row_states(cfg, states, tokens, row)
     kw.setdefault("chunk_symbols", spec.chunk_symbols)
     return calibrate_kv_entries(
         registry, calibration_arrays(cfg, states, tokens),

@@ -51,7 +51,20 @@ it step by step:
   tenant's cap is skipped (a ``defer_fairness`` event) and later ones
   may take the free slot.
 
-Mesh-bound caches are not ported (ROADMAP).
+* **A model row** (``mesh``, a ``launch.mesh.Mesh`` of ``data == 1``)
+  — every rank of the row runs the same engine on its local tree
+  (``convert.shard_params``): decode states at its local shapes
+  (``models.init_decode_states`` with the row: its KV heads, mamba
+  channels, xLSTM heads), each step's collectives inside the layers, and
+  the same logits and tokens on every rank. The paged cache's channels
+  bind the group of ``KVCacheSpec.axis`` (cold blocks migrate over it,
+  ``all_gather_block_wire``); its codecs are calibrated on the row's
+  gathered first prefill, identical on every rank, and each rank pages
+  its own part's blocks. Every host branch on rank-local numbers (a
+  pool's bytes, a rank's own ``PoolExhausted``) is agreed over the row
+  (``launch.mesh.row_max`` / ``row_all``), so ``Engine.events`` is the
+  same on every rank. A mesh of model 1 runs exactly as no mesh; slots
+  split over the data column are ROADMAP queue 1, item 19.
 """
 from __future__ import annotations
 
@@ -67,6 +80,7 @@ import torch
 from repro_torch.comm.blockpool import (ArenaExhausted, BlockArena,
                                         BlockPool, PoolExhausted)
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import model_row, row_all, row_max, use_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import decode_step, init_decode_states, ssm
 from repro_torch.models.transformer import tree_map
@@ -154,15 +168,22 @@ class Engine:
     ``repro_torch.adaptive.TrafficMonitor`` over ``registry``) goes to the
     block codec (``PagedKVCache(monitor=)``). ``fairness_cap`` (0 < cap
     <= 1) bounds any one tenant to ``ceil(cap * max_batch)`` concurrent
-    slots.
+    slots. ``mesh`` (``data == 1``): ``params`` is this rank's local
+    tree over the mesh's model row, which every rank of the row serves
+    in step (module docstring).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
                  max_batch: int = 4, kv_spec: Optional[KVCacheSpec] = None,
                  registry=None, pool: Optional[BlockPool] = None,
-                 fairness_cap: Optional[float] = None,
+                 fairness_cap: Optional[float] = None, mesh=None,
                  kv_paging: str = "sync", arena_slots: int = 256,
                  monitor=None):
+        if mesh is not None and mesh.data > 1:
+            raise NotImplementedError(
+                f"Engine over a mesh of data {mesh.data}: serving slots "
+                "split over the data column are not ported (ROADMAP queue "
+                "1, item 19)")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if kv_paging not in ("sync", "async"):
@@ -176,6 +197,8 @@ class Engine:
                 "lets the card frame block containers itself")
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
+        self._row = model_row(mesh) if mesh is not None else None
         self.device = params["embed"].device
         self.max_seq_len = int(max_seq_len)
         self.max_batch = int(max_batch)
@@ -202,7 +225,8 @@ class Engine:
         self._waiting: List[str] = []
         self._slots: List[Optional[str]] = [None] * self.max_batch
         self._states = init_decode_states(cfg, self.max_batch,
-                                          self.max_seq_len, self.device)
+                                          self.max_seq_len, self.device,
+                                          row=self._row)
         #: prefetches scheduled at the last block boundary, consumed after
         #: the NEXT window: (rid, handle)
         self._pending: List[tuple] = []
@@ -263,7 +287,14 @@ class Engine:
         """Admit what fits, run ONE batched decode step over the padded
         active set (one window of steps under ``kv_paging="async"``),
         page completed blocks. Returns the number of requests still in
-        flight (waiting + running)."""
+        flight (waiting + running). With a mesh, inside
+        ``use_mesh(mesh)``."""
+        if self.mesh is None:
+            return self._step()
+        with use_mesh(self.mesh):
+            return self._step()
+
+    def _step(self) -> int:
         if self.kv_paging == "async":
             return self._step_async()
         self._step_idx += 1
@@ -332,11 +363,30 @@ class Engine:
                 self._page_and_maybe_finish(seq)
         return self._in_flight()
 
-    def _page_and_maybe_finish(self, seq: _Seq):
+    def _agree(self, err: Optional[PoolExhausted]
+               ) -> Optional[PoolExhausted]:
+        """``err``, or, over a model row, the ``PoolExhausted`` any rank
+        of the row met (each rank's pool holds its own blocks' bytes):
+        every rank then takes the same branch."""
+        if self._row is not None and not row_all(err is None, self.mesh) \
+                and err is None:
+            err = PoolExhausted("another rank of the model row ran out "
+                                "of pool")
+        return err
+
+    def _agreed(self, fn) -> Optional[PoolExhausted]:
+        """Run ``fn`` and return its ``PoolExhausted``, agreed over the
+        row (:meth:`_agree`)."""
         try:
-            self._page(seq)
+            fn()
         except PoolExhausted as e:
-            self._reject(seq, e)
+            return self._agree(e)
+        return self._agree(None)
+
+    def _page_and_maybe_finish(self, seq: _Seq):
+        err = self._agreed(lambda: self._page(seq))
+        if err is not None:
+            self._reject(seq, err)
             return
         if len(seq.toks) >= seq.req.max_new_tokens:
             self._finish(seq)
@@ -366,16 +416,14 @@ class Engine:
                 self._log("defer_fairness", rid)
                 continue
             self._waiting.remove(rid)
-            try:
-                if self.pool is not None and self.kv_spec is not None:
-                    try:
-                        self.pool.check_admission(self._projected_bytes(seq))
-                    except PoolExhausted as e:
-                        self._reject(seq, e, event="reject_admission")
-                        continue
-                self._start(seq)
-            except PoolExhausted as e:
-                self._reject(seq, e)
+            if self.pool is not None and self.kv_spec is not None:
+                projected = self._projected_bytes(seq)
+                err = self._agreed(
+                    lambda: self.pool.check_admission(projected))
+                if err is not None:
+                    self._reject(seq, err, event="reject_admission")
+                    continue
+            self._start(seq)
 
     def _tenant_active(self, tenant: str) -> int:
         return sum(1 for rid in self._slots if rid is not None
@@ -383,8 +431,14 @@ class Engine:
 
     def _projected_bytes(self, seq: _Seq) -> float:
         """Projected compressed footprint of a request, in the pool's
-        measured mean-block-bytes unit (0 before any block pooled)."""
+        measured mean-block-bytes unit (0 before any block pooled). Over
+        a model row each rank's pool measures its own blocks, so the
+        unit is the row's largest mean: the most any rank's part of the
+        request is projected to hold (its check is then agreed over the
+        row, :meth:`_agreed`)."""
         mean = self.pool.mean_block_bytes()
+        if self._row is not None:
+            mean = row_max(mean, self.mesh)
         if not mean:
             return 0.0
         bt = self.kv_spec.block_tokens
@@ -395,7 +449,8 @@ class Engine:
     def _start(self, seq: _Seq):
         b = self._slots.index(None)
         t0 = time.perf_counter()
-        row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device)
+        row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device,
+                                 row=self._row)
         prompt = self._tensor(seq.req.prompt[None, :])
         if self._rebase:
             # Segmented prefill: a block at a time, each recurrent
@@ -434,9 +489,10 @@ class Engine:
         if not any(n == base or n.startswith(base + "/")
                    for n in self.registry.names()):
             calibrate_cache(self.registry, self.cfg, row_states, tokens,
-                            self.kv_spec)
+                            self.kv_spec, mesh=self.mesh)
         self._codec = PagedKVCache(self.kv_spec, self.cfg, self.registry,
-                                   device=self.device, monitor=self.monitor)
+                                   device=self.device, monitor=self.monitor,
+                                   mesh=self.mesh)
 
     # ---- paging through the shared pool ---------------------------------
 
@@ -581,14 +637,26 @@ class Engine:
         """Restore consumed blocks and do their deferred pool accounting.
         Restoring one window late is exact: the ``"qlc"`` round trip is
         bit-identical, and the window never touches cache rows behind
-        the eviction horizon."""
+        the eviction horizon. Over a model row the ranks' pending blocks
+        may differ (a block whose escape pool overflowed went the sync
+        way on its rank), so each running sequence's outcome is agreed
+        in slot order."""
+        errs: Dict[str, PoolExhausted] = {}
         for seq, handle, arrays in ready:
-            if seq.state != "running":
+            if seq.state != "running" or seq.rid in errs:
                 continue
             try:
                 self._apply_consumed(seq, handle, arrays)
             except PoolExhausted as e:
-                self._reject(seq, e)
+                errs[seq.rid] = e
+                if self._row is None:
+                    self._reject(seq, e)
+        if self._row is None:
+            return
+        for _, rid in self._active():
+            err = self._agree(errs.get(rid))
+            if err is not None:
+                self._reject(self._seqs[rid], err)
 
     def _apply_consumed(self, seq: _Seq, handle, arrays):
         dev = handle.block
@@ -641,12 +709,10 @@ class Engine:
     # ---- completion / rejection -----------------------------------------
 
     def _finish(self, seq: _Seq):
-        if self._pending:
-            try:
-                self._flush_pending(seq)
-            except PoolExhausted as e:
-                self._reject(seq, e)
-                return
+        err = self._agreed(lambda: self._flush_pending(seq))
+        if err is not None:
+            self._reject(seq, err)
+            return
         seq.state = "finished"
         self._vacate(seq)
         self._log("finish", seq.rid)

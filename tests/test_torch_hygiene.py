@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports jax or the reference package, the package
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/`` imports jax or the
+reference package, the package
 imports with jax made unimportable, and entry points that allocate
 default to the card and raise without one instead of falling back."""
 import ast
@@ -18,6 +19,9 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    tools = os.path.join(ROOT, "tools")
+    files += [os.path.join(tools, n) for n in os.listdir(tools)
+              if n.endswith(".py")]
     return sorted(files)
 
 

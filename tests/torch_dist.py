@@ -627,5 +627,253 @@ def tp_layouts(ctx, cases):
     return out
 
 
+def _serve_cfg(arch, cfg_kw):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import MoEConfig
+    cfg_kw = dict(cfg_kw)
+    if "moe" in cfg_kw:
+        cfg_kw["moe"] = MoEConfig(**cfg_kw["moe"])
+    return reduced(get_config(arch), frontend=None, frontend_prefix_len=0,
+                   **cfg_kw)
+
+
+def tp_decode(ctx, cases):
+    """Teacher-forced decode over model rows of this world: per case
+    (``name``, ``arch``, ``cfg_kw``, ``model``, ``params``: the whole
+    tree as numpy, ``tokens`` [B, P + T]), the rank's local tree
+    (``convert.shard_params``) decodes the first P tokens in one
+    multi-token ``decode_step`` and the other T one at a time, from
+    ``init_decode_states`` with the row, under ``use_mesh`` -> {name:
+    (the logits of the prompt's last position and of each step, [T + 1,
+    B, V], the MoE layers' routing of each step on this rank: [(idx,
+    keep)], the final states gathered over the row, and with
+    ``prefill`` the prompt's ``prefill_logits``)}."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_test_mesh, model_row, use_mesh
+    from repro_torch.models import (decode_step, init_decode_states, moe,
+                                    prefill_logits)
+    from repro_torch.serving.kv_cache import gather_row_states
+    out = {}
+    meshes = {}
+    for case in cases:
+        cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+        model = case["model"]
+        if model not in meshes:
+            meshes[model] = make_test_mesh(model=model)
+        mesh = meshes[model]
+        if mesh.data > 1:
+            continue
+        whole = params_from_numpy(case["params"], "cpu")
+        local = shard_params(whole, cfg, mesh.coords[1], mesh.model)
+        toks = torch.from_numpy(np.asarray(case["tokens"])).long()
+        b, n = toks.shape
+        p = case["prompt"]
+        logits, routing = [], []
+        with torch.no_grad(), use_mesh(mesh), moe.capture_moe_routing(
+                routing):
+            st = init_decode_states(cfg, b, n, "cpu", row=model_row(mesh))
+            pos = torch.arange(p, dtype=torch.int32)[None].expand(b, p)
+            lg, st = decode_step(local, cfg, toks[:, :p], st, pos)
+            logits.append(lg[:, -1])
+            for t in range(p, n):
+                lg, st = decode_step(
+                    local, cfg, toks[:, t:t + 1], st,
+                    torch.full((b, 1), t, dtype=torch.int32))
+                logits.append(lg[:, 0])
+            states = gather_row_states(cfg, st, n, model_row(mesh))
+            head = (prefill_logits(local, cfg, toks[:, :p]).numpy()
+                    if case.get("prefill") else None)
+        out[case["name"]] = (
+            torch.stack(logits).numpy(),
+            [(r["idx"].numpy(), r["keep"].numpy()) for r in routing],
+            states, head)
+    return out
+
+
+def _margins(out: list):
+    """Wrap the decode step the engine and its prefill call so that each
+    call files the smallest top-1 margin (top-1 minus top-2 logit) of
+    its last position in ``out``."""
+    import torch
+    from repro_torch.serving import engine, scheduler
+    inner = scheduler.decode_step
+
+    def step(*args, **kw):
+        lg, st = inner(*args, **kw)
+        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+        out.append(float((top[:, 0] - top[:, 1]).min()))
+        return lg, st
+    scheduler.decode_step = engine.decode_step = step
+
+
+def tp_engine(ctx, cases):
+    """``Engine(mesh=)`` over a model row of this world, per case
+    (``name``, ``arch``, ``cfg_kw``, ``model``, ``params``: the whole
+    tree as numpy, ``prompts``, ``new_tokens``, ``kv_block``, optional
+    ``pool_bytes``): ``launch.serve.serve`` of the rank's local tree from
+    the QLC weight wire (its dense engine), then the paged engines, sync
+    and async, on the opened tree, and with ``pool_bytes`` a bounded
+    pool without host spill -> {name: {"dense" / "sync" / "async" /
+    "bounded": (tokens of each request, events, the KV registry's JSON
+    or None, pool stats or None), "weights": the weight registry's JSON,
+    "calibration": the first prefill's states gathered over the row,
+    "margin": the smallest top-1 margin of any decode step}}. A
+    case of ``data > 1`` records the engine's refusal instead."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_test_mesh, model_row, use_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_decode_states
+    from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
+                                     prefill)
+    from repro_torch.serving.kv_cache import gather_row_states
+    out = {}
+    for case in cases:
+        cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+        mesh = make_test_mesh(model=case["model"])
+        whole = params_from_numpy(case["params"], "cpu")
+        local = shard_params(whole, cfg, mesh.coords[1], mesh.model)
+        if mesh.data > 1:
+            try:
+                Engine(local, cfg, max_seq_len=8, mesh=mesh)
+            except NotImplementedError as e:
+                out[case["name"]] = {"refused": str(e)}
+            continue
+        prompts = np.asarray(case["prompts"])
+        n_new, bt = case["new_tokens"], case["kv_block"]
+        max_len = prompts.shape[1] + n_new + 8
+        margins: list = []
+        _margins(margins)
+        runs = {}
+
+        def engine_run(params, **kw):
+            eng = Engine(params, cfg, max_seq_len=max_len, max_batch=4,
+                         mesh=mesh, **kw)
+            hs = [eng.submit(GenerationRequest(prompt=p,
+                                               max_new_tokens=n_new))
+                  for p in prompts]
+            eng.run()
+            st = eng.stats()
+            return ([eng.poll(h).tokens for h in hs], eng.events,
+                    eng.registry.to_json() if eng.registry else None,
+                    st.get("pool"))
+        with torch.no_grad(), use_mesh(mesh):
+            res = serve(cfg, batch=4, requests=len(prompts),
+                        prompt_len=prompts.shape[1], new_tokens=n_new,
+                        wire="qlc", device="cpu", params=local)
+            opened = res["params"]
+            runs["weights"] = res["wire_codec"].registry.to_json()
+            runs["dense"] = ([o.tokens for o in res["outs"]], res["events"],
+                             None, None)
+            for paging in ("sync", "async"):
+                runs[paging] = engine_run(opened, kv_spec=KVCacheSpec(
+                    block_tokens=bt, exact_capacity=paging == "sync",
+                    axis="model"), pool=BlockPool(1 << 30),
+                    kv_paging=paging)
+            if case.get("pool_bytes"):
+                runs["bounded"] = engine_run(
+                    opened, kv_spec=KVCacheSpec(block_tokens=bt,
+                                                axis="model"),
+                    pool=BlockPool(case["pool_bytes"], spill_host=False))
+            row = model_row(mesh)
+            p0 = torch.from_numpy(prompts[:1].astype(np.int64))
+            _, st = prefill(opened, cfg, p0, init_decode_states(
+                cfg, 1, max_len, "cpu", row=row))
+            runs["calibration"] = gather_row_states(cfg, st,
+                                                    prompts.shape[1], row)
+        runs["margin"] = min(margins)
+        out[case["name"]] = runs
+    return out
+
+
+def kv_migration(ctx, layouts, cfg_kw, prompts):
+    """Cold-block migration over a mesh axis of this world, per layout
+    (``(axis, model)``: ``"model"`` at 1 x 4, ``"data"`` at 2 x 2): every
+    rank prefills the same ``prompts`` on reduced phi3 (whole, no mesh),
+    calibrates the same registry, perturbs the first 4-token block of
+    layer slot 0 by ``1 + r / 64`` (r: its rank on the axis), encodes it
+    through ``PagedKVCache(mesh=)`` with
+    ``KVCacheSpec(axis=..., exact_capacity=False)`` and all-gathers the
+    words (``block_wire``, ``all_gather_block_wire``); each gathered row
+    decoded on this rank -> {layout: (the rank's container, the gathered
+    rows as uint32, each row decoded and the rank's perturbed arrays, as
+    bit patterns (``tree_bits``), its index on the axis)}; plus ``"registry"``: the
+    registry's JSON, and ``"refused"``: the error of a channel with no
+    axis."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_decode_states, init_params
+    from repro_torch.serving import (KVCacheSpec, PagedKVCache,
+                                     all_gather_block_wire, calibrate_cache,
+                                     prefill)
+    from repro_torch.serving.kv_cache import calibration_arrays
+    cfg = _serve_cfg("phi3-mini-3.8b", cfg_kw)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = torch.from_numpy(np.asarray(prompts)).long()
+    _, states = prefill(params, cfg, p, init_decode_states(cfg, p.shape[0],
+                                                           32, "cpu"))
+    out = {}
+    for axis, model in layouts:
+        mesh = make_test_mesh(model=model)
+        reg = CodecRegistry()
+        spec = KVCacheSpec(block_tokens=4, axis=axis, exact_capacity=False)
+        calibrate_cache(reg, cfg, states, p.shape[1], spec)
+        cache = PagedKVCache(spec, cfg, reg, device="cpu", mesh=mesh)
+        me = mesh.coords[0 if axis == "data" else 1]
+        arrays = [a * (1.0 + me / 64.0)
+                  for a in calibration_arrays(cfg, states, 4)["l0"]]
+        block = cache.encode_block_arrays("kv/layer0", "l0", arrays,
+                                          start=0, tokens=4)
+        ch = cache.channels[sorted(cache.channels)[0]]
+        got = all_gather_block_wire(cache.block_wire(block), ch)
+        rows = got.numpy().view(np.uint32)
+        decoded = [[tree_bits(a) for a in cache.decode_block_arrays(
+            dataclasses.replace(block, container=rows[r]))]
+            for r in range(rows.shape[0])]
+        out[(axis, model)] = (block.container, rows, decoded,
+                              [tree_bits(a) for a in arrays], me)
+        out["registry"] = reg.to_json()
+        local = PagedKVCache(spec, cfg, reg, device="cpu")
+        try:
+            all_gather_block_wire(local.block_wire(block),
+                                  local.channels[sorted(local.channels)[0]])
+        except ValueError as e:
+            out["refused"] = str(e)
+    return out
+
+
+def row_histogram(ctx, arch, cfg_kw, params):
+    """``comm.calibrate.histogram_of_local_tree`` of the rank's cut of the
+    whole tree ``params`` (numpy) over a model row of the whole world."""
+    from repro_torch.comm.calibrate import histogram_of_local_tree
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = _serve_cfg(arch, cfg_kw)
+    mesh = make_test_mesh(model=ctx["world"])
+    local = shard_params(params_from_numpy(params, "cpu"), cfg,
+                         mesh.coords[1], mesh.model)
+    return histogram_of_local_tree(local, cfg, mesh)
+
+
+def tp_serve(ctx, decode=(), engine=(), migration=None, histogram=None):
+    """:func:`tp_decode`, :func:`tp_engine`, :func:`kv_migration` and
+    :func:`row_histogram` (with ``migration`` / ``histogram``, their
+    keywords) in one world -> {"decode": ..., "engine": ...,
+    "migration": ..., "histogram": ...}."""
+    return {"decode": tp_decode(ctx, list(decode)),
+            "engine": tp_engine(ctx, list(engine)),
+            "migration": None if migration is None
+            else kv_migration(ctx, **migration),
+            "histogram": None if histogram is None
+            else row_histogram(ctx, **histogram)}
+
+
 if __name__ == "__main__":
     _main()

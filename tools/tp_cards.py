@@ -33,6 +33,23 @@ Rank 0 prints one line per check and a JSON line per layout, then the
 card's name and power limit. Every rank runs the same code; a failed
 check raises on the rank that saw it and the run exits non-zero.
 
+``--serve`` serves the arch instead, over a model row of all N cards
+(layout 1 x N; the slots over a data column are ROADMAP queue 1, item
+19): ``launch.serve.serve`` under the mesh (each rank draws its blocks,
+the weight codec calibrated on the row's summed histogram, the QLC wire
+of its blocks, the dense engine), then ``Engine(mesh=)`` paged sync and
+async (``--kv-block`` tokens a block, ``KVCacheSpec(axis="model")``).
+Checks on every rank: the row's tokens, every step's logits (hashed) and
+every registry's digest the same on every rank; the paged runs'
+tokens equal to the dense engine's; no overflow fallback (async
+prefetch misses, blocks redone on the sync path, are reported), all
+checked once the row has gathered every rank's outcome. For phi3 rank 0 then serves the whole model alone, from the same
+seed, and reports (not gates) how many requests agree with the row and
+the first divergent step's top-1 margin. Rank 0 prints ms/token prefill
+and decode of each run, a decode step's kernel launches, all-reduces and
+all-gathers, the wire's B/symbol, pooled / dense KV and every rank's
+peak.
+
 Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --cards 4 --model 2 4
   python3 tools/tp_cards.py --arch deepseek-moe-16b --layers 8 --model 2 4
@@ -40,6 +57,8 @@ Run from the root of a checkout on a machine with N cards:
       --moe-impl shardmap_a2a
   python3 tools/tp_cards.py --arch xlstm-125m --seq-len 256 --model 2
   python3 tools/tp_cards.py --arch jamba-1.5-large-398b --model 4
+  python3 tools/tp_cards.py --serve --arch deepseek-coder-33b --model 4
+  python3 tools/tp_cards.py --serve --cards 2 --model 2
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
 ranks with a reduced config of the arch whose pools hold every chunk (a
 rehearsal of the control flow, without the kernel timings; its times
@@ -218,6 +237,305 @@ def _rank_main(rank, args, init):
             check=True).stdout.strip().splitlines()[0], flush=True)
 
 
+def _serve_rank(rank, args, init):
+    """``--serve``: the arch served over a model row of every card (layout
+    1 x N) for each ``--model`` size equal to ``--cards``; see the
+    module docstring."""
+    import hashlib
+    import time
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.configs import reduced
+    from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
+                                         model_row, use_mesh)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_decode_states
+    from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
+                                     engine as engine_mod, scheduler)
+
+    cuda = args.device == "cuda"
+    cfg = arch_config(args.arch, args.layers, args.moe_impl)
+    if not cuda:
+        # leaves wide enough for the weight wire
+        cfg = arch_config(args.arch, moe_impl=args.moe_impl, cfg=reduced(
+            cfg, dtype="float32", d_model=256, head_dim=32,
+            **({} if cfg.moe else {"d_ff": 512})))
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    digest = hashlib.sha256()
+    inner = scheduler.decode_step
+
+    def hashed_step(*a, **kw):
+        # every step's logits, hashed on this rank
+        lg, st = inner(*a, **kw)
+        digest.update(lg.float().cpu().numpy().tobytes())
+        return lg, st
+    scheduler.decode_step = engine_mod.decode_step = hashed_step
+    with data_parallel(args.device, rank=rank, world_size=args.cards,
+                       init_method=init):
+        dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+               else torch.device("cpu"))
+
+        def say(msg):
+            if rank == 0:
+                print(msg, flush=True)
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
+        n_params = sum(math.prod(v) for v in _leaf_shapes(cfg))
+        say(f"{cfg.name}: {cfg.num_layers} layers "
+            f"({'/'.join(cfg.layer_kinds())}), d_model {cfg.d_model}, "
+            f"{cfg.num_heads} / {cfg.num_kv_heads} heads x "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}"
+            + (f", {cfg.moe.num_experts} experts of {cfg.moe.d_expert} top-"
+               f"{cfg.moe.top_k} ({cfg.moe.impl})" if cfg.moe else "")
+            + f"; {n_params} parameters ({cfg.param_dtype}), compute "
+            f"{cfg.dtype}; batch {args.batch}, {args.requests} requests, "
+            f"prompt {args.prompt_len}, {args.new_tokens} new tokens, "
+            f"--wire qlc, --kv-cache qlc --kv-block {args.kv_block}; "
+            f"{args.cards} ranks ({args.device})")
+        for model in args.model:
+            if model != args.cards:
+                raise SystemExit(f"--serve lays the {args.cards} ranks out "
+                                 f"1 x {args.cards}; --model {model} would "
+                                 "split the slots over the data column "
+                                 "(ROADMAP queue 1, item 19)")
+            mesh = make_test_mesh(model=model)
+            tag = f"1 x {model}"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            max_len = args.prompt_len + args.new_tokens + 8
+            row_out = {"layout": tag, "rank": rank}
+            with use_mesh(mesh):
+                sync()
+                t0 = time.perf_counter()
+                res = serve(cfg, batch=args.batch, requests=args.requests,
+                            prompt_len=args.prompt_len,
+                            new_tokens=args.new_tokens, wire="qlc",
+                            device=args.device, seed=0)
+                sync()
+                row_out["serve_s"] = time.perf_counter() - t0
+                opened, prompts = res["params"], res["prompts"]
+                wc, wired = res["wire_codec"], res["wired"]
+                wire_b = sym = 0
+                for key, m in wc.meta.items():
+                    node = wired
+                    for part in key.split("/"):
+                        node = node[part]
+                    wire_b += sum(t.numel() * t.element_size()
+                                  for t in node.values())
+                    sym += m.n_symbols * node["words"].shape[0]
+                row_out["wire_bytes_per_symbol"] = wire_b / max(1, sym)
+                row_out["set_up_s"] = {k: res[k] for k in (
+                    "calibrate_s", "compress_s", "open_s")}
+                del wired, res["wired"]
+                dense = [o.tokens.tolist() for o in res["outs"]]
+                runs = {"dense": res["stats"]}
+                regs = {"weights": wc.registry.to_json()}
+                del res
+                for paging in ("sync", "async"):
+                    eng = Engine(opened, cfg, max_seq_len=max_len,
+                                 max_batch=args.batch,
+                                 kv_spec=KVCacheSpec(
+                                     block_tokens=args.kv_block,
+                                     exact_capacity=paging == "sync",
+                                     axis="model"),
+                                 pool=BlockPool(1 << 34), kv_paging=paging,
+                                 mesh=mesh)
+                    hs = [eng.submit(GenerationRequest(
+                        prompt=p, max_new_tokens=args.new_tokens))
+                        for p in prompts]
+                    eng.run()
+                    toks = [eng.poll(h).tokens.tolist() for h in hs]
+                    st = runs[paging] = eng.stats()
+                    # rank-local outcomes, checked once the row has
+                    # gathered them: a rank that raised alone would leave
+                    # the others in the row's next collective
+                    row_out[f"{paging}_equal_dense"] = toks == dense
+                    row_out[f"{paging}_overflow"] = \
+                        st["kv"]["overflow_sections"]
+                    if paging == "async":
+                        row_out["async_misses"] = st["prefetch"]["misses"]
+                    regs[paging] = eng.registry.to_json()
+                    del eng
+                row_out["steps"] = _step_counts(
+                    decode_step, opened, cfg, init_decode_states(
+                        cfg, args.batch, max_len, dev,
+                        row=model_row(mesh)), args.batch, dev, cuda)
+            row_out["ms_per_token"] = {
+                k: {"prefill": v["ms_per_token_prefill"],
+                    "decode": v["ms_per_token_decode"]}
+                for k, v in runs.items()}
+            row_out["pooled_over_dense"] = {
+                k: runs[k]["pool"]["peak_referenced_bytes"]
+                / max(1, runs[k]["peak_dense_logical_bytes"])
+                for k in ("sync", "async")}
+            row_out["registry_sha256"] = {
+                k: hashlib.sha256(v.encode()).hexdigest()[:16]
+                for k, v in regs.items()}
+            row_out["logits_sha256"] = digest.hexdigest()[:16]
+            row_out["tokens_sha256"] = hashlib.sha256(
+                json.dumps(dense).encode()).hexdigest()[:16]
+            row_out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                   if cuda else float("nan"))
+            gathered = [None] * args.cards
+            dist.all_gather_object(gathered, row_out)
+            failed = [f"{key} differs over the row: "
+                      f"{[g[key] for g in gathered]}"
+                      for key in ("registry_sha256", "logits_sha256",
+                                  "tokens_sha256")
+                      if any(g[key] != gathered[0][key] for g in gathered)]
+            failed += [f"{paging} paging is not token-identical to the "
+                       "dense engine" for paging in ("sync", "async")
+                       if not all(g[f"{paging}_equal_dense"]
+                                  for g in gathered)]
+            overflow = [[g["sync_overflow"], g["async_overflow"]]
+                        for g in gathered]
+            if any(a or b for a, b in overflow):
+                failed.append("overflow fallbacks to raw containers "
+                              f"(sync, async) by rank: {overflow}")
+            r0 = gathered[0]
+            say(f"[{tag}] tokens (sha256 {r0['tokens_sha256']}), logits of "
+                f"every step ({r0['logits_sha256']}), registries "
+                f"{r0['registry_sha256']}; async prefetch misses (blocks "
+                "redone on the sync path) by rank "
+                f"{[g['async_misses'] for g in gathered]}; "
+                + ("; ".join(f"FAILED: {f}" for f in failed) if failed
+                   else "the same on every rank, paged sync and async "
+                   "token-identical to the dense engine, no overflow "
+                   "fallback"))
+            say(f"[{tag}] ms/token prefill / decode: " + ", ".join(
+                f"{k} {v['prefill']:.3f} / {v['decode']:.3f}"
+                for k, v in r0["ms_per_token"].items())
+                + f"; a decode step (batch {args.batch}): "
+                f"{r0['steps']['launches']} kernel launches, "
+                f"{r0['steps']['all_reduces']} all-reduces and "
+                f"{r0['steps']['all_gathers']} all-gathers, "
+                f"{r0['steps']['wall_ms']:.3f} ms; wire "
+                f"{r0['wire_bytes_per_symbol']:.4f} B/symbol; pooled / "
+                "dense KV " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in
+                    r0["pooled_over_dense"].items())
+                + "; peak " + ", ".join(f"{g['peak_gib']:.2f}"
+                                        for g in gathered) + " GiB by rank")
+            if args.arch.startswith("phi3"):
+                agree = _against_one_card(rank, cfg, args, dense, prompts,
+                                          dev, cuda)
+                if rank == 0:
+                    say(f"[{tag}] against the 1 x 1 run on card 0 (reported, "
+                        f"not gated): {agree}")
+                    row_out["one_card"] = agree
+                dist.barrier()
+            say(json.dumps({"layout": tag, "ranks": gathered,
+                            "one_card": row_out.get("one_card")}))
+            if failed:
+                raise AssertionError(f"{tag}: " + "; ".join(failed))
+            del opened
+            if cuda:
+                torch.cuda.empty_cache()
+    if cuda and rank == 0:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0], flush=True)
+
+
+def _leaf_shapes(cfg):
+    from repro_torch.convert import whole_leaf_shapes
+    return list(whole_leaf_shapes(cfg).values())
+
+
+def _step_counts(decode_step, params, cfg, states, batch, dev, cuda):
+    """One decode step at ``batch`` over the row (the mesh in scope): its
+    wall time, the CUDA kernels it launched (``torch.profiler``; none
+    counted on the CPU) and the model row's all-reduces and all-gathers
+    it made."""
+    import time
+    import torch
+    import torch.distributed as dist
+    tok = torch.arange(1, batch + 1, dtype=torch.int32, device=dev)[:, None]
+    pos = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    decode_step(params, cfg, tok, states, pos)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_step(params, cfg, tok, states, pos)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = {"all_reduces": 0, "all_gathers": 0}
+    real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name + "s"] += 1
+            return fn(*a, **kw)
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        if cuda:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                decode_step(params, cfg, tok, states, pos)
+                torch.cuda.synchronize()
+            launches = sum(e.count for e in prof.key_averages()
+                           if getattr(e, "device_type", None)
+                           == DeviceType.CUDA)
+        else:
+            decode_step(params, cfg, tok, states, pos)
+            launches = 0
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return dict(counts, launches=launches, wall_ms=wall)
+
+
+def _against_one_card(rank, cfg, args, row_tokens, prompts, dev, cuda):
+    """Rank 0 serves the whole model from the same seed with no mesh, on
+    its card alone, and compares its tokens with the row's: requests
+    whose tokens agree, and the first divergent one's step and the
+    one-card model's top-1 margin there (teacher-forced)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_decode_states
+    from repro_torch.serving import prefill
+    if rank != 0:
+        return None
+    res = serve(cfg, batch=args.batch, requests=args.requests,
+                prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+                wire="qlc", device=args.device, seed=0)
+    one = [o.tokens.tolist() for o in res["outs"]]
+    same = sum(a == b for a, b in zip(one, row_tokens))
+    out = {"requests_equal": same, "requests": len(one)}
+    for i, (a, b) in enumerate(zip(one, row_tokens)):
+        if a == b:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([prompts[i], np.asarray(a[:t], np.int64)])
+        with torch.no_grad():
+            lg, _ = prefill(res["params"], cfg,
+                            torch.from_numpy(seq[None]).to(dev),
+                            init_decode_states(cfg, 1, len(seq) + 1, dev))
+        top = torch.topk(lg[0].float(), 2).values
+        out.update(first_request=i, first_step=t,
+                   one_card_margin=float(top[0] - top[1]))
+        break
+    del res
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def arch_config(arch: str, layers=None, moe_impl=None, cfg=None):
     """The full-width config this tool trains: ``arch`` at ``layers``
     layers (default: all), its MoE dispatch ``moe_impl`` (default: the
@@ -261,6 +579,14 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--serve", action="store_true",
+                    help="serve the arch over a model row of every card "
+                         "(1 x N) instead of training it")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--kv-block", type=int, default=16)
     args = ap.parse_args(argv)
     import torch
     import torch.multiprocessing as mp
@@ -276,7 +602,8 @@ def main(argv=None):
         qlc_fused.build_kernels()       # once, before the ranks load it
     from repro_torch.launch.mesh import free_port
     init = f"tcp://localhost:{free_port()}"
-    mp.start_processes(_rank_main, args=(args, init), nprocs=args.cards,
+    mp.start_processes(_serve_rank if args.serve else _rank_main,
+                       args=(args, init), nprocs=args.cards,
                        start_method="spawn")
 
 
