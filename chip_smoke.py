@@ -346,8 +346,12 @@ DEVICE = "cuda"                  # where the KV phase and codes checks run
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+#: the script's start, for each line's elapsed seconds
+START = time.perf_counter()
+
+
 def log(phase: str, msg: str):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - START:.1f}s] {msg}", flush=True)
 
 
 def smi_line() -> str:
@@ -1285,9 +1289,10 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
 
 
 def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
-                  phase="kv", layer="l0"):
+                  phase="kv", layer="l0", block=16, chunk=1):
     """K3-K6 at the KV path's own shapes and data: request 0's prompt
-    prefilled on the opened params, the first 16-token block of layer
+    prefilled on the opened params (``chunk`` tokens a step), the first
+    ``block``-token (default 16) block of layer
     slot ``layer`` (an attention slot's K/V: 2 byte planes of chunks of
     256, 12,288 chunks for phi3-mini; a recurrent slot's whole state
     snapshot: 4 f32 byte planes, zero-padded to whole chunks as the
@@ -1309,9 +1314,10 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
                                      calibrate_cache, prefill)
     from repro_torch.serving.kv_cache import calibration_arrays
     p = torch.from_numpy(np.asarray(prompt)[None, :]).to(dev)
-    _, st = prefill(opened, cfg, p, init_decode_states(cfg, 1, 72, dev))
+    _, st = prefill(opened, cfg, p, init_decode_states(
+        cfg, 1, max(72, p.shape[1] + 8), dev), chunk=chunk)
     reg = CodecRegistry()
-    spec = KVCacheSpec(block_tokens=16, exact_capacity=False)
+    spec = KVCacheSpec(block_tokens=block, exact_capacity=False)
     calibrate_cache(reg, cfg, st, p.shape[1], spec)
     err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0}
     li = int(layer[1:])
@@ -1329,7 +1335,7 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
                f"({len(hist)} byte planes of {hist[0].numel()} symbols): "
                "bit-equal to plain and np.bincount")
     if cfg.layer_kinds()[li] == "attention":
-        kv, what = attn.kv_block_slice(st[layer], 0, 16), "K/V"
+        kv, what = attn.kv_block_slice(st[layer], 0, block), "K/V"
     else:
         kv, what = list(ssm.state_snapshot(st[layer])), "state snapshot"
     coded = None
@@ -1347,8 +1353,9 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
         if coded is None or entry.plan.capacity_words < coded[3]:
             coded = (sym, entry.tables, (w, s), entry.plan.capacity_words)
     cache = PagedKVCache(spec, cfg, reg, device=dev)
-    host = cache.encode_block_arrays(base, layer, kv, start=0, tokens=16)
-    framed = cache.encode_block_device(base, layer, kv, start=0, tokens=16)
+    host = cache.encode_block_arrays(base, layer, kv, start=0, tokens=block)
+    framed = cache.encode_block_device(base, layer, kv, start=0,
+                                       tokens=block)
     if framed is None or not np.array_equal(
             host.container, framed.words.cpu().numpy().view(np.uint32)):
         raise AssertionError(f"{phase}: device framing != host container")
@@ -1362,7 +1369,7 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
                                  f"!= {what}")
     sections = [(h.coded, h.capacity_words)
                 for _, h in stream_headers(host.container)]
-    log(phase, f"block [0, 16) of request 0, layer slot {li}: "
+    log(phase, f"block [0, {block}) of request 0, layer slot {li}: "
                f"{host.wire_bytes} B container for {host.dense_bytes} B of "
                f"{what} (sections coded/cap {sections}); host path and "
                f"device path give back the {what} bit for bit, "
@@ -3536,8 +3543,9 @@ def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
 
 
 VARIANTS_ARCH = "musicgen-medium"
-#: depth of the variants phase's training cell (musicgen-medium has 48)
-VARIANTS_TRAIN_LAYERS = 48
+#: depth of the variants phase's serving and training cells
+#: (musicgen-medium has 48; cut to make room for the dp_serve phase)
+VARIANTS_TRAIN_LAYERS = 24
 
 
 def _fairness_run(opened, cfg, prompts, dense, max_seq_len, batch,
@@ -3646,7 +3654,8 @@ def phase_variants(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     from repro_torch.launch.train import train
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer
-    cfg = cfg or get_config(VARIANTS_ARCH)
+    cfg = cfg or dataclasses.replace(get_config(VARIANTS_ARCH),
+                                     num_layers=VARIANTS_TRAIN_LAYERS)
     log("variants", f"{cfg.name}: {cfg.num_layers} layers, d_model "
                     f"{cfg.d_model}, {cfg.num_heads} heads x "
                     f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
@@ -4163,6 +4172,19 @@ def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
 
 #: the tp_serve cell: phi3-mini-3.8b at this many of its 32 layers
 TP_SERVE_LAYERS = 8
+#: phi3-mini-3.8b layers the kv phase pages (of the slice's 32; cut to
+#: make room for the dp_serve phase)
+KV_LAYERS = 16
+
+
+def depth_cut(cfg, params, layers: int):
+    """The first ``layers`` layer groups of ``params`` (views) and the
+    config of that depth."""
+    import dataclasses
+    from repro_torch.models.transformer import tree_map
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, groups=tree_map(lambda a: a[:layers],
+                                         params["groups"])))
 #: deepseek-coder-33b (arXiv:2401.14196) over a model row of 4: a rank's
 #: largest leaf (the stacked ``w_in``, its ``mlp`` block) and its KV heads
 CODER_ROW = 4
@@ -4453,6 +4475,229 @@ def phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     return out
 
 
+#: the sequence split's full-width cell: chatglm3-6b (arXiv:2406.12793),
+#: its own 8k context, and the reference's DECODE_32K for the combine
+DP_SEQ_ARCH = "chatglm3-6b"
+DP_SEQ_PROMPT = 8192
+DP_COMBINE_POSITIONS = 32768
+
+
+def _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules, dev,
+                   **kw):
+    """``launch.serve.serve`` from the QLC weight wire with the paged
+    cache, under ``mesh`` and the sharding ``rules``, K1-K6 counted from
+    zero -> (tokens, pool stats, KV registry digest, launches, stats)."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.parallel.sharding import use_rules
+    for fn in counters.values():
+        fn.launches = 0
+    with use_mesh(mesh), use_rules(rules):
+        res = serve_mod.serve(cfg, wire="qlc", kv_cache="qlc", device=dev,
+                              params=params, **kw)
+    st = res["stats"]
+    return ([o.tokens.tolist() for o in res["outs"]],
+            {k: st["pool"][k] for k in ("unique_blocks",
+                                         "peak_referenced_bytes",
+                                         "resident_bytes", "dedup_hits")},
+            _digest(res["kv_registry"].to_json()),
+            {k: fn.launches for k, fn in counters.items()}, st)
+
+
+def dp_serve_combine(cfg, dev, flush, positions=DP_COMBINE_POSITIONS):
+    """One attention layer of ``cfg`` (its query and KV heads, f32) decoding
+    one token against ``positions`` cached ones, at batch 1 and 4: the
+    cache split into D = 2 and D = 4 shards in one process through the
+    sequence split's partial and combine functions
+    (``models.attention.decode_partial``, ``combine_partials``), held
+    against the unsharded decode within rtol 1e-5 / atol 1e-5 (the CPU
+    tests' tolerance) and timed beside it."""
+    import dataclasses
+    from repro_torch.models import attention as attn
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    need = [j // (h // kv) for j in range(h)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for batch in (1, 4):
+        q = torch.randn((batch, 1, h, hd), generator=gen, device=dev)
+        k, v = (torch.randn((batch, positions, kv, hd), generator=gen,
+                            device=dev) for _ in range(2))
+        # the last row attends over every position, the others over fewer
+        pos = torch.tensor([[positions - 1 - (positions // 8 + 1) * i]
+                            for i in range(batch)][::-1], dtype=torch.int32,
+                           device=dev)
+        whole = attn.KVCache(k=k, v=v, length=pos[:, 0])
+
+        def unsharded():
+            return attn._grouped_decode(q, whole, pos, cfg, need)
+
+        want = unsharded()
+        row = {"unsharded_ms": time_ms(unsharded, 10, flush)}
+        for d in (2, 4):
+            n = positions // d
+            shards = [attn.KVCache(k=k[:, i * n:(i + 1) * n],
+                                   v=v[:, i * n:(i + 1) * n],
+                                   length=pos[:, 0]) for i in range(d)]
+
+            def split(shards=shards, n=n):
+                return attn.combine_partials([
+                    attn.decode_partial(q, c, pos, cfg, need, i * n)
+                    for i, c in enumerate(shards)]).reshape(q.shape)
+            got = split()
+            err = max_abs_err(got, want)
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"dp_serve: the D = {d} combine at "
+                                     f"batch {batch} is {err} from the "
+                                     "unsharded decode")
+            row[f"D{d}"] = {"max_abs_err": err,
+                            "ms": time_ms(split, 10, flush)}
+        out[f"batch {batch}"] = row
+        log("dp_serve", f"combine, one {cfg.name} attention layer ({h} "
+                        f"heads over {kv} KV heads x {hd}, f32) at "
+                        f"{positions} cached positions, batch {batch}: "
+                        + "; ".join(f"D = {d}: max abs err "
+                                    f"{row[f'D{d}']['max_abs_err']:.3g}, "
+                                    f"partials + combine "
+                                    f"{row[f'D{d}']['ms']:.4f} ms"
+                                    for d in (2, 4))
+                        + f"; unsharded {row['unsharded_ms']:.4f} ms")
+        del q, k, v, whole, want
+    return out
+
+
+def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
+                   cfg=None, prompt_len=16, new_tokens=16, kv_block=16,
+                   glm=None, glm_prompt=DP_SEQ_PROMPT, glm_new=32,
+                   glm_block=128, glm_chunk=256,
+                   positions=DP_COMBINE_POSITIONS):
+    """Serving over the data column on one card (inside the NCCL world of
+    one). (a) phi3-mini-3.8b at ``TP_SERVE_LAYERS`` of 32 layers
+    (``cfg``) through ``launch.serve.serve`` from the QLC weight wire,
+    paged sync and async, with no mesh and under a 1 x 1 mesh, once
+    with the default rules and once with
+    ``make_rules(decode_seq_shard=True)``: tokens, pooled bytes, KV
+    registry digests and K1-K6 launches identical. (b) chatglm3-6b at
+    all 28 layers (``glm``), 2 requests at batch 1, a ``glm_prompt``
+    prompt prefilled ``glm_chunk`` tokens a step, ``glm_new`` new
+    tokens, ``glm_block``-token blocks, sync paging, under the
+    sequence-split rules on a 1 x 1 mesh: ms/token, peak, pooled /
+    dense, and K3-K6 against plain at its KV planes
+    (:func:`check_kv_path`). (c) :func:`dp_serve_combine` at
+    ``positions``. Split layouts over several ranks run on gloo CPU
+    ranks (tests/test_torch_dp_serve.py) and on four cards
+    (``tools/tp_cards.py --serve``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import get_rules, make_rules
+    cfg = cfg or dataclasses.replace(get_config("phi3-mini-3.8b"),
+                                     num_layers=TP_SERVE_LAYERS)
+    glm = glm or get_config(DP_SEQ_ARCH)
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode,
+                "K3": qc.encode, "K4": qc.decode, "K5": qc.prefetch_decode,
+                "K6": h6.histogram256}
+    mesh = make_test_mesh(model=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    launches = {k: 0 for k in counters}
+    for rname, rules in (("default", get_rules()),
+                         ("decode_seq_shard", make_rules(
+                             decode_seq_shard=True))):
+        for paging in ("sync", "async"):
+            kw = dict(batch=4, requests=6, prompt_len=prompt_len,
+                      new_tokens=new_tokens, kv_block=kv_block,
+                      kv_paging=paging)
+            a = _dp_serve_runs(serve_mod, counters, cfg, params, None, rules,
+                               dev, **kw)
+            b = _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules,
+                               dev, **kw)
+            for i, what in enumerate(("tokens", "pooled bytes",
+                                      "KV registry digest",
+                                      "K1-K6 launches")):
+                if a[i] != b[i]:
+                    raise AssertionError(
+                        f"dp_serve: {rname} rules, {paging}: {what} under "
+                        f"the 1 x 1 mesh {b[i]} != {a[i]} with no mesh")
+            need = ("K1", "K2", "K3", "K6") + (
+                ("K4",) if paging == "sync" else ("K5",))
+            for kname in need:
+                if b[3][kname] <= 0:
+                    raise AssertionError(f"{kname} was not launched on the "
+                                         f"dp_serve {paging} path")
+            for kname, c in b[3].items():
+                launches[kname] += c
+            log("dp_serve", f"{cfg.name}, {cfg.num_layers} of 32 layers, "
+                            f"{rname} rules, {paging}: the 1 x 1 mesh == no "
+                            f"mesh in tokens, pool {b[1]}, KV registry "
+                            f"{b[2]}, launches {b[3]}; "
+                            f"{b[4]['ms_per_token_prefill']:.3f} / "
+                            f"{b[4]['ms_per_token_decode']:.3f} ms/token "
+                            "prefill / decode (no mesh "
+                            f"{a[4]['ms_per_token_prefill']:.3f} / "
+                            f"{a[4]['ms_per_token_decode']:.3f})")
+    del params, a, b
+    torch.cuda.empty_cache()
+
+    # (b) chatglm3-6b at all 28 layers, the sequence-split rules, 8k
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.parallel.sharding import use_rules
+    with use_mesh(mesh), use_rules(make_rules(decode_seq_shard=True)):
+        res = serve_mod.serve(glm, batch=1, requests=2,
+                              prompt_len=glm_prompt, new_tokens=glm_new,
+                              wire="qlc", kv_cache="qlc", kv_block=glm_block,
+                              kv_paging="sync", device=dev, seed=0,
+                              prefill_chunk=glm_chunk)
+    run_s = time.perf_counter() - t0
+    glm_launches = {k: fn.launches for k, fn in counters.items()}
+    for kname in ("K1", "K2", "K3", "K4", "K6"):
+        if glm_launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on the dp_serve "
+                                 f"{glm.name} path")
+    for kname, c in glm_launches.items():
+        launches[kname] += c
+    outs, st = res["outs"], res["stats"]
+    if not all(o.state == "finished" and len(o.tokens) == glm_new
+               for o in outs):
+        raise AssertionError([(o.request_id, o.state) for o in outs])
+    ps = st["pool"]
+    pooled = ps["peak_referenced_bytes"] / max(
+        1, st["peak_dense_logical_bytes"])
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else float("nan"))
+    n_params = sum(t.numel() for t in _leaves(res["params"]))
+    log("dp_serve", f"{glm.name}: all {glm.num_layers} layers, d_model "
+                    f"{glm.d_model}, {glm.num_heads} heads over "
+                    f"{glm.num_kv_heads} KV heads x {glm.resolved_head_dim}, "
+                    f"d_ff {glm.d_ff}, vocab {glm.vocab_size}, {n_params} "
+                    f"parameters ({glm.param_dtype}), compute {glm.dtype}; "
+                    f"make_rules(decode_seq_shard=True) on a 1 x 1 mesh, "
+                    f"2 requests at batch 1, prompt {glm_prompt} "
+                    f"({glm_chunk} tokens a prefill step), {glm_new} new "
+                    f"tokens, --wire qlc --kv-cache qlc --kv-block "
+                    f"{glm_block} sync: the paged run == the dense one; "
+                    f"{st['ms_per_token_prefill']:.4f} ms/token prefill, "
+                    f"{st['ms_per_token_decode']:.3f} ms/token decode; "
+                    f"pooled / dense {pooled:.4f} ({ps['unique_blocks']} "
+                    f"blocks); peak {peak:.2f} GiB; launches "
+                    f"{glm_launches}; {run_s:.1f} s")
+    kv = check_kv_path(ops, ref, glm, res["params"],
+                       res["prompts"][0][:2 * glm_block], flush, dev,
+                       phase="dp_serve", block=glm_block, chunk=glm_block)
+    del res, outs
+    torch.cuda.empty_cache()
+    combine = dp_serve_combine(glm, dev, flush, positions)
+    return {"launches": launches, "kv": kv, "combine": combine,
+            "glm": {"prefill": st["ms_per_token_prefill"],
+                    "decode": st["ms_per_token_decode"],
+                    "pooled_over_dense": pooled, "peak_gib": peak}}
+
+
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
     """The kernels-line entries of K3-K5: parity-shape times, KV-path
     times (and K3's at ``K3_SHAPES``), and launches summed over the KV
@@ -4541,6 +4786,8 @@ def main(argv=None):
                     help="run only the build and the tp phase")
     ap.add_argument("--tp-serve-only", action="store_true",
                     help="run only the build and the tp_serve phase")
+    ap.add_argument("--dp-serve-only", action="store_true",
+                    help="run only the build and the dp_serve phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -4614,6 +4861,12 @@ def main(argv=None):
             phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         print(smi)
         return
+    if args.dp_serve_only:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with data_parallel("cuda"):
+            phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -4636,6 +4889,7 @@ def main(argv=None):
     phase_small(serve_mod, reduced, get_config)
     launches, main_shape, opened, cfg = phase_slice(qf, serve_mod, e4m3,
                                                     ref, flush)
+    cfg, opened = depth_cut(cfg, opened, KV_LAYERS)
     kv_runs, kv_times = phase_kv(qf, qc, serve_mod, cfg, opened, ops, ref,
                                  flush)
     kvmon = phase_kv_monitor(qc, h6, serve_mod, cfg, opened,
@@ -4653,6 +4907,8 @@ def main(argv=None):
         tp = phase_tp(qf, h6, ops, ref, flush)
         torch.cuda.empty_cache()
         tps = phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
+        torch.cuda.empty_cache()
+        dps = phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         torch.cuda.empty_cache()
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
@@ -4702,7 +4958,8 @@ def main(argv=None):
                  "tp_moe_launches": tp["moe_launches"][kname],
                  "tp_path": tp["fused"][kname],
                  "tp_serve_launches": tps["launches"][kname],
-                 "tp_serve_path": tps["fused"][kname]}
+                 "tp_serve_path": tps["fused"][kname],
+                 "dp_serve_launches": dps["launches"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    tp["fused"][kname]["max_abs_err"],
                                    tps["fused"][kname]["max_abs_err"],
@@ -4731,11 +4988,14 @@ def main(argv=None):
         entry["variants_path"] = var["kv"][kname]
         entry["tp_serve_launches"] = tps["launches"][kname]
         entry["tp_serve_path"] = tps["kv"][kname]
+        entry["dp_serve_launches"] = dps["launches"][kname]
+        entry["dp_serve_path"] = dps["kv"][kname]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    moe_serve["kv"][kname]["err"],
                                    ssm_res["kv"][kname]["err"],
                                    var["kv"][kname]["err"],
-                                   tps["kv"][kname]["err"])
+                                   tps["kv"][kname]["err"],
+                                   dps["kv"][kname]["err"])
     for entry in kernels[2:4]:
         kname = entry["name"].split()[0]
         entry["kv_monitor_launches"] = kvmon["launches"][kname]
@@ -4772,10 +5032,13 @@ def main(argv=None):
         "tp_launches": tp["launches"]["K6"],
         "tp_moe_launches": tp["moe_launches"]["K6"],
         "tp_serve_launches": tps["launches"]["K6"],
-        "tp_serve_path": tps["kv"]["K6"]})
+        "tp_serve_path": tps["kv"]["K6"],
+        "dp_serve_launches": dps["launches"]["K6"],
+        "dp_serve_path": dps["kv"]["K6"]})
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      ck["path"]["K6"]["err"],
                                      tps["kv"]["K6"]["err"],
+                                     dps["kv"]["K6"]["err"],
                                      kv_times["K6"]["err"],
                                      moe_serve["kv"]["K6"]["err"],
                                      ssm_res["kv"]["K6"]["err"],

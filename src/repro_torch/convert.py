@@ -221,18 +221,7 @@ def _whole_state_shapes(local, cfg):
     return _state_shapes(_whole_decode_states(cfg, batch, max_len, "meta"))
 
 
-def shard_decode_states(states, cfg, model_index: int, model_size: int):
-    """The part of the whole decode ``states`` (tensors or numpy, as
-    ``models.init_decode_states`` stacks them) that rank ``model_index``
-    of a model row of ``model_size`` holds: each leaf cut as
-    ``models.transformer.decode_state_cut`` says (the resolved
-    ``decode_states_specs``; a KV cache's ``kv_heads`` as
-    ``attention.decode_kv_heads``). Identity for ``model_size == 1``."""
-    from repro_torch.models.transformer import decode_state_cut
-    if model_size == 1:
-        return states
-    cut = decode_state_cut(cfg, model_index, model_size,
-                           _state_shapes(states))
+def _cut_states(states, cut):
     out = {}
     for key, st in states.items():
         fields = []
@@ -246,6 +235,29 @@ def shard_decode_states(states, cfg, model_index: int, model_size: int):
                     np.asarray(a), np.arange(c[1], c[1] + c[2]), c[0])))
         out[key] = type(st)(*fields)
     return out
+
+
+def shard_decode_states(states, cfg, model_index: int, model_size: int,
+                        data_index: int = 0, data_size: int = 1):
+    """The part of the whole decode ``states`` (tensors or numpy, as
+    ``models.init_decode_states`` stacks them) that rank ``model_index``
+    of a model row of ``model_size`` holds: each leaf cut as
+    ``models.transformer.decode_state_cut`` says (the resolved
+    ``decode_states_specs``; a KV cache's ``kv_heads`` as
+    ``attention.decode_kv_heads``). With ``data_size`` above 1, first
+    the block of data index ``data_index`` of the dim the rules in scope
+    put on ``data`` (``decode_state_data_cut``: the batch by default, a
+    KV cache's sequence under ``make_rules(decode_seq_shard=True)``).
+    Identity for a ``1 x 1`` layout."""
+    from repro_torch.models.transformer import (decode_state_cut,
+                                                decode_state_data_cut)
+    if data_size > 1:
+        states = _cut_states(states, decode_state_data_cut(
+            cfg, data_index, data_size, _state_shapes(states)))
+    if model_size == 1:
+        return states
+    return _cut_states(states, decode_state_cut(
+        cfg, model_index, model_size, _state_shapes(states)))
 
 
 def gather_decode_states(local_states, cfg):

@@ -19,8 +19,11 @@ collectives inside autograd are :func:`copy_to_model`,
 ``"pod"`` axis for multi-node waits for ROADMAP queue 1, item 13.
 :func:`use_mesh` puts a mesh in scope for the code that reads it
 (:func:`current_mesh`). Host decisions that read rank-local numbers
-are agreed over the row (:func:`row_max`, :func:`row_all`), so that
-every rank of it takes the same branch.
+are agreed over the mesh or one of its axes (:func:`mesh_max`,
+:func:`mesh_all`), so that every rank takes the same branch. Under
+sharding rules that put ``kv_seq`` on ``data`` a decode step's KV caches
+hold a range of positions on each rank of the data column
+(:func:`kv_seq_shard`).
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -230,33 +233,90 @@ def model_row(mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
 
 
 # --------------------------------------------------------------------------
-# Host decisions agreed over the model row
+# The data column's sequence shard
 # --------------------------------------------------------------------------
 
-def _row_reduce(value: float, op, mesh: Optional[Mesh]) -> float:
-    row = model_row(mesh)
-    if row is None:
+class DataShard(NamedTuple):
+    """This rank's shard of a KV cache's sequence over its data column
+    (the reference's ``kv_seq -> data`` rule): the column's process
+    group, its size and this rank's index in it, which holds positions
+    ``[index * S, (index + 1) * S)`` of a cache of ``S`` local
+    positions."""
+    group: Any
+    size: int
+    index: int
+
+
+def kv_seq_shard(mesh: Optional[Mesh] = None) -> Optional[DataShard]:
+    """The data column a decode step's KV caches are split over by
+    sequence, or None: no mesh (default: the mesh in scope), a data axis
+    of 1, or sharding rules in scope (``parallel.sharding.get_rules``)
+    that do not put ``kv_seq`` on ``data``
+    (``make_rules(decode_seq_shard=True)`` does)."""
+    from repro_torch.parallel.sharding import get_rules
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.data == 1:
+        return None
+    axes = get_rules().spec(("batch", "kv_seq"), mesh=mesh)[1]
+    if axes is None:
+        return None
+    if axes != "data":
+        raise NotImplementedError(
+            f"kv_seq over {axes!r}: a KV cache's sequence is split over the "
+            "data axis alone (ROADMAP queue 1, item 14)")
+    return DataShard(mesh.data_group, mesh.data, mesh.coords[0])
+
+
+def row_mesh(mesh: Mesh) -> Mesh:
+    """The ``1 x model`` mesh of this rank's model row alone, a world of
+    its own: its model group is the row's, and each rank is a data
+    column of one. Every rank of ``mesh`` calls this, in the same order,
+    since each creates every rank's one-rank group."""
+    ones = [dist.new_group([r]) for r in range(mesh.size)]
+    return Mesh(data=1, model=mesh.model, rank=mesh.coords[1],
+                world_group=mesh.model_group, data_group=ones[mesh.rank],
+                model_group=mesh.model_group)
+
+
+# --------------------------------------------------------------------------
+# Host decisions agreed over the mesh
+# --------------------------------------------------------------------------
+
+def _mesh_reduce(value: float, op, mesh: Optional[Mesh],
+                 axis: Optional[str]) -> float:
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return value
+    if axis is None:
+        group, size = mesh.world_group, mesh.size
+    else:
+        group, size = mesh.group(axis), mesh.shape[axis]
+    if size == 1:
         return value
     t = torch.tensor([value], dtype=torch.float64)
-    dist.all_reduce(t, op=op, group=row.group)
+    dist.all_reduce(t, op=op, group=group)
     return float(t.item())
 
 
-def row_max(x: float, mesh: Optional[Mesh] = None) -> float:
-    """The largest ``x`` over the model row of ``mesh`` (default: the
-    mesh in scope); ``x`` itself with no row. A host-side collective
-    (a CPU tensor, gloo), outside autograd: every rank of the row must
-    call it, in the same order."""
-    return _row_reduce(float(x), dist.ReduceOp.MAX, mesh)
+def mesh_max(x: float, mesh: Optional[Mesh] = None,
+             axis: Optional[str] = None) -> float:
+    """The largest ``x`` over the ranks of ``mesh`` (default: the mesh
+    in scope) along ``axis`` (``"model"``: the model row, ``"data"``:
+    the data column, None: every rank of the mesh); ``x`` itself with no
+    mesh or an axis of 1. A host-side collective (a CPU tensor, gloo),
+    outside autograd: every rank of the group must call it, in the same
+    order."""
+    return _mesh_reduce(float(x), dist.ReduceOp.MAX, mesh, axis)
 
 
-def row_all(b: bool, mesh: Optional[Mesh] = None) -> bool:
-    """Whether ``b`` holds on every rank of the model row, as
-    :func:`row_max`. A host branch on rank-local data (a pool's bytes, a
-    rank's own error) goes through this, so that every rank of the row
-    takes the same branch: a rank that branched alone would deadlock the
-    row's next collective."""
-    return _row_reduce(1.0 if b else 0.0, dist.ReduceOp.MIN, mesh) > 0
+def mesh_all(b: bool, mesh: Optional[Mesh] = None,
+             axis: Optional[str] = None) -> bool:
+    """Whether ``b`` holds on every rank of ``mesh`` along ``axis``, as
+    :func:`mesh_max`. A host branch on rank-local data (a pool's bytes,
+    a rank's own error) goes through this, so that every rank takes the
+    same branch: a rank that branched alone would deadlock the others'
+    next collective."""
+    return _mesh_reduce(1.0 if b else 0.0, dist.ReduceOp.MIN, mesh, axis) > 0
 
 
 def _all_reduce(t: torch.Tensor, row: ModelRow) -> torch.Tensor:

@@ -25,15 +25,18 @@ The random-init tree the launcher makes is freed once the wire holds
 it, before the wire is opened, so the peak is the wire plus one
 parameter tree rather than two.
 
-Under a mesh in scope (``launch.mesh.use_mesh``; ``data == 1``) every
-rank of its model row serves its local tree, as ``launch.train.train``
-trains it: drawn a leaf at a time (``convert.init_local_params``), the
-weight codec calibrated on the whole model's histogram summed over the
-row (``comm.calibrate.histogram_of_local_tree``: the same registry on
-every rank), the wire holding the rank's blocks, and ``Engine(mesh=)``,
-whose paged cache binds the row (``KVCacheSpec(axis="model")``). The
-dense-cache check runs on the same mesh. ``tools/tp_cards.py --serve``
-drives it on N cards.
+Under a mesh in scope (``launch.mesh.use_mesh``) every rank of its model
+row serves its local tree, as ``launch.train.train`` trains it: drawn a
+leaf at a time (``convert.init_local_params``), the weight codec
+calibrated on the whole model's histogram summed over the row
+(``comm.calibrate.histogram_of_local_tree``: the same registry on every
+rank), the wire holding the rank's blocks, and ``Engine(mesh=)``, whose
+paged cache binds the row (``KVCacheSpec(axis="model")``). Over a data
+column the engine splits the slots, or, under
+``make_rules(decode_seq_shard=True)`` in scope, the KV caches' sequence
+(``serving.scheduler``). The dense-cache check runs on the same mesh.
+``tools/tp_cards.py --serve`` drives it on N cards. ``--prefill-chunk``
+feeds a long prompt that many tokens a step (attention-only stacks).
 
 Example (one H100):
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
@@ -74,7 +77,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
           prompt_len: int = 16, new_tokens: int = 32, wire: str = "none",
           kv_cache: str = "none", kv_block: int = 128,
           kv_paging: str = "sync", device="cuda", seed: int = 0,
-          params=None, kv_monitor: bool = False) -> Dict[str, Any]:
+          params=None, kv_monitor: bool = False,
+          prefill_chunk: int = 1) -> Dict[str, Any]:
     """Run the launcher's path and return what it produced: the request
     statuses, engine stats and events, the served params, the KV codecs'
     registry (``kv_registry``, None without a paged cache), with
@@ -87,7 +91,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     paged cache (``kv_monitor`` in the result: each KV codec's measured
     traffic). A tree made here (``params=None``) is freed before the
     wire is opened. Under a mesh in scope, ``params`` (or the tree made
-    here) is this rank's local tree (module docstring)."""
+    here) is this rank's local tree (module docstring).
+    ``prefill_chunk``: tokens a prefill step (``Engine``)."""
     if kv_paging == "async" and kv_cache != "qlc":
         raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
@@ -137,7 +142,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     max_seq_len = prompt_len + new_tokens + 8
     eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
                  kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
-                 registry=registry, monitor=monitor, mesh=mesh)
+                 registry=registry, monitor=monitor, mesh=mesh,
+                 prefill_chunk=prefill_chunk)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()
@@ -156,7 +162,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
         # is shared by the batch's rows, so the dense run gets every
         # request, in the same order, at the same batch.
         dense = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
-                       mesh=mesh)
+                       mesh=mesh, prefill_chunk=prefill_chunk)
         group = prompts if cfg.moe is not None else prompts[:1]
         hs = [dense.submit(GenerationRequest(prompt=p,
                                              max_new_tokens=new_tokens))
@@ -200,6 +206,9 @@ def main(argv=None):
                          "and decodes them through the prefetch kernel on "
                          "a side stream behind each decode window "
                          "(requires --kv-cache qlc)")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="prompt tokens a prefill step (attention-only "
+                         "stacks; default 1, token by token)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--device", default="cuda")
@@ -217,7 +226,8 @@ def main(argv=None):
     res = serve(cfg, batch=args.batch, requests=args.requests,
                 prompt_len=args.prompt_len, new_tokens=args.new_tokens,
                 wire=args.wire, kv_cache=args.kv_cache, kv_block=args.kv_block,
-                kv_paging=args.kv_paging, device=args.device, seed=args.seed)
+                kv_paging=args.kv_paging, device=args.device, seed=args.seed,
+                prefill_chunk=args.prefill_chunk)
     outs = res["outs"]
     if not all(s.state == "finished" for s in outs):
         raise RuntimeError([(s.request_id, s.state, s.error) for s in outs])

@@ -193,18 +193,20 @@ def blocked_attention(q, k, v, q_pos, k_pos, window=None, q_block=512,
     return torch.cat(outs, dim=1)
 
 
-def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor
-                 ) -> KVCache:
+def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                 offset: int = 0) -> KVCache:
     """``k`` / ``v`` [B, S, KV, H] written at each row's ``cache.length``;
     the length advanced by S. One token is a masked select over the
     cache, as the reference's; S tokens a scatter at rows starting at
     ``length`` clamped to ``S_max - S`` (``dynamic_update_slice``'s
-    clamp)."""
+    clamp). ``offset``: the position of the cache's first row (a
+    sequence shard's, one token only): the token lands only on the
+    shard whose range holds it."""
     b, s_in = k.shape[:2]
     idx = cache.length                                       # [B]
     s_max = cache.k.shape[1]
     if s_in == 1:
-        pos_iota = torch.arange(s_max, dtype=torch.int32,
+        pos_iota = torch.arange(offset, offset + s_max, dtype=torch.int32,
                                 device=k.device)[None, :, None, None]
         writing = pos_iota == idx[:, None, None, None]       # [B,S,1,1]
         k_new = torch.where(writing, k.to(cache.k.dtype), cache.k)
@@ -298,7 +300,7 @@ def _kv_gathered(cfg: ModelConfig, size: int) -> bool:
 
 
 def _decode_tp(params, x, cfg: ModelConfig, positions, cache: KVCache,
-               row):
+               row, shard=None):
     """The decode branch over a model row: this rank's query heads (its
     ``wq`` block, padded heads left out), the k / v of the KV heads its
     cache holds (:func:`decode_kv_heads`: from its ``wk`` / ``wv`` block,
@@ -324,26 +326,35 @@ def _decode_tp(params, x, cfg: ModelConfig, positions, cache: KVCache,
         k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
         v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
         if _kv_gathered(cfg, row.size):         # some rank reads others'
+            if shard is not None:
+                raise NotImplementedError(
+                    "a sequence-split KV cache over a model row whose "
+                    "ranks read each other's KV heads is not ported "
+                    "(ROADMAP queue 1, item 21)")
             k, v = (gather_from_model(t, 2, row).narrow(2, sel[0], len(sel))
                     for t in (k, v))
     q = torch.einsum("bsd,dnh->bsnh", x, wq[:, :n_real].to(x.dtype))
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    new_cache = _write_cache(cache, k, v)
+    offset = 0 if shard is None else shard.index * cache.k.shape[1]
+    new_cache = _write_cache(cache, k, v, offset)
     # local query head j reads cache head need[j]
     need = [(q0 + j) // groups - sel[0] for j in range(n_real)]
-    out = _grouped_decode(q, new_cache, positions, cfg, need)
+    out = _decode_attend(q, new_cache, positions, cfg, need, shard)
     out = torch.einsum("bsnh,nhd->bsd", out, wo[:n_real].to(out.dtype))
     return (reduce_from_model(out, row) if q_split else out), new_cache
 
 
-def _grouped_decode(q, cache: KVCache, positions, cfg: ModelConfig,
-                    need) -> torch.Tensor:
-    """q [B, S, n, H] over the filled prefix of ``cache`` (and within the
-    sliding window), query head ``j`` reading cache head ``need[j]``:
-    contracted per KV head (GQA-grouped, no head expansion) where each
-    cache head serves the same number of consecutive query heads, else
-    against the cache expanded to the query heads. [B, S, n, H]."""
+def _decode_scores(q, cache: KVCache, positions, cfg: ModelConfig, need,
+                   offset: int = 0):
+    """The f32 scores of q [B, S, n, H] against ``cache``, whose first
+    row is position ``offset``, query head ``j`` reading cache head
+    ``need[j]``: contracted per KV head (GQA-grouped, no head expansion)
+    where each cache head serves the same number of consecutive query
+    heads, else against the cache expanded to the query heads. Positions
+    past the query's own, or outside the sliding window, hold
+    ``NEG_INF``. Returns (scores [B, S, KV, G, S_max], the valid mask,
+    the value cache it pairs with)."""
     b, s_in, n, hd = q.shape
     kc, vc = cache.k, cache.v
     n_kv = kc.shape[2]
@@ -353,7 +364,7 @@ def _grouped_decode(q, cache: KVCache, positions, cfg: ModelConfig,
         kc, vc = kc.index_select(2, idx), vc.index_select(2, idx)
         n_kv, g = n, 1
     qg = q.reshape(b, s_in, n_kv, g, hd)
-    k_pos = torch.arange(kc.shape[1], dtype=torch.int32,
+    k_pos = torch.arange(offset, offset + kc.shape[1], dtype=torch.int32,
                          device=q.device)[None, None, None, None, :]
     q_pos = positions[:, :, None, None, None]
     scores = (torch.einsum("bqkgd,bskd->bqkgs", qg, kc).float()
@@ -361,13 +372,93 @@ def _grouped_decode(q, cache: KVCache, positions, cfg: ModelConfig,
     valid = k_pos <= q_pos
     if cfg.sliding_window is not None:
         valid &= k_pos > q_pos - cfg.sliding_window
-    probs = torch.softmax(scores.masked_fill_(~valid, NEG_INF), dim=-1)
+    return scores.masked_fill_(~valid, NEG_INF), valid, vc
+
+
+def _grouped_decode(q, cache: KVCache, positions, cfg: ModelConfig,
+                    need) -> torch.Tensor:
+    """q [B, S, n, H] over the filled prefix of ``cache`` (and within the
+    sliding window), query head ``j`` reading cache head ``need[j]``
+    (:func:`_decode_scores`). [B, S, n, H]."""
+    scores, _, vc = _decode_scores(q, cache, positions, cfg, need)
+    probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd", probs.to(q.dtype), vc)
-    return out.reshape(b, s_in, n, hd)
+    return out.reshape(q.shape)
+
+
+class DecodePartial(NamedTuple):
+    """One sequence shard's part of a decode step's attention, in f32:
+    the row max of its valid scores (``NEG_INF`` where it has none), the
+    sum of their exponentials against it, and the unnormalised weighted
+    values."""
+    m: torch.Tensor        # [B, S, KV, G]
+    l: torch.Tensor        # [B, S, KV, G]
+    acc: torch.Tensor      # [B, S, KV, G, H]
+
+
+def decode_partial(q, cache: KVCache, positions, cfg: ModelConfig, need,
+                   offset: int) -> DecodePartial:
+    """The partial-statistics form of :func:`_grouped_decode` over a
+    cache that holds positions ``[offset, offset + S_max)``: a range with
+    no valid position (past the length, or outside the window) weighs
+    exactly zero, although ``NEG_INF`` keeps its max finite."""
+    scores, valid, vc = _decode_scores(q, cache, positions, cfg, need,
+                                       offset)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None]).masked_fill_(~valid, 0.0)
+    acc = torch.einsum("bqkgs,bskd->bqkgd", p, vc.float())
+    return DecodePartial(m=m, l=p.sum(dim=-1), acc=acc)
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The attention of the whole sequence from its shards' partials, in
+    shard order: each weighted by ``exp(m - max m)``, and by 0 where it
+    saw no valid position. The same bits wherever the same partials
+    come in the same order, on any rank. [B, S, KV, G, H] f32."""
+    top = parts[0].m
+    for p in parts[1:]:
+        top = torch.maximum(top, p.m)
+    total = out = None
+    for p in parts:
+        w = torch.where(p.l > 0, torch.exp(p.m - top),
+                        torch.zeros_like(p.m))
+        total = w * p.l if total is None else total + w * p.l
+        wa = w[..., None] * p.acc
+        out = wa if out is None else out + wa
+    return out / total[..., None]
+
+
+def _seq_sharded_decode(q, cache: KVCache, positions, cfg: ModelConfig,
+                        need, shard) -> torch.Tensor:
+    """:func:`_grouped_decode` over a cache split by sequence over the
+    data column ``shard`` (``launch.mesh.DataShard``): this rank's
+    partial (:func:`decode_partial`) all-gathered over the column and
+    combined in rank order (:func:`combine_partials`), so every rank of
+    the column gets the same bits. [B, S, n, H]."""
+    import torch.distributed as dist
+    part = decode_partial(q, cache, positions, cfg, need,
+                          shard.index * cache.k.shape[1])
+    flat = torch.cat([part.m[..., None], part.l[..., None], part.acc],
+                     dim=-1).contiguous()
+    got = [torch.empty_like(flat) for _ in range(shard.size)]
+    dist.all_gather(got, flat, group=shard.group)
+    out = combine_partials([DecodePartial(m=t[..., 0], l=t[..., 1],
+                                          acc=t[..., 2:]) for t in got])
+    return out.to(q.dtype).reshape(q.shape)
+
+
+def _decode_attend(q, cache: KVCache, positions, cfg: ModelConfig, need,
+                   shard) -> torch.Tensor:
+    if shard is None:
+        return _grouped_decode(q, cache, positions, cfg, need)
+    if q.shape[1] != 1:
+        raise ValueError(f"a decode step over a sequence-split cache "
+                         f"takes one token, got {q.shape[1]}")
+    return _seq_sharded_decode(q, cache, positions, cfg, need, shard)
 
 
 def attention_block(params, x, cfg: ModelConfig, positions,
-                    cache: Optional[KVCache] = None, row=None):
+                    cache: Optional[KVCache] = None, row=None, shard=None):
     """Self-attention over the whole sequence (training), or, with
     ``cache``, decode.
 
@@ -376,15 +467,19 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     query causally at its own position (and within the sliding window).
     ``row``: the model row the weights may be split over (module
     docstring); decode over it holds the rank's KV heads in ``cache``
-    (:func:`decode_kv_heads`). Returns (out [B, S, D], new_cache or
-    None).
+    (:func:`decode_kv_heads`). ``shard`` (a ``launch.mesh.DataShard``):
+    the cache holds the rank's range of positions of a sequence split
+    over the data column; a one-token decode step writes the token on
+    the rank whose range holds it and combines the column's partial
+    attentions (:func:`decode_partial`, :func:`combine_partials`).
+    Returns (out [B, S, D], new_cache or None).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
     hp = padded_heads(cfg)
     if row is not None:
         if cache is not None:
-            return _decode_tp(params, x, cfg, positions, cache, row)
+            return _decode_tp(params, x, cfg, positions, cache, row, shard)
         return _attention_tp(params, x, cfg, positions, row), None
 
     wq, wo = params["wq"], params["wo"]
@@ -413,10 +508,11 @@ def attention_block(params, x, cfg: ModelConfig, positions,
                 score_dtype=getattr(torch, cfg.attn_score_dtype))
         return torch.einsum("bsnh,nhd->bsd", out, wo.to(out.dtype)), None
 
-    new_cache = _write_cache(cache, k, v)
+    offset = 0 if shard is None else shard.index * cache.k.shape[1]
+    new_cache = _write_cache(cache, k, v, offset)
     # GQA-grouped decode over the real heads
-    out = _grouped_decode(q[:, :, :h], new_cache, positions, cfg,
-                          [j // groups for j in range(h)])
+    out = _decode_attend(q[:, :, :h], new_cache, positions, cfg,
+                         [j // groups for j in range(h)], shard)
     return torch.einsum("bsnh,nhd->bsd", out,
                         wo[:h].to(out.dtype)), new_cache
 

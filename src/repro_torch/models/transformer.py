@@ -32,7 +32,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import model_row
+from repro_torch.launch.mesh import kv_seq_shard, model_row
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 
@@ -347,6 +347,35 @@ def decode_state_cut(cfg: ModelConfig, index: int, size: int, shapes):
     return out
 
 
+def decode_state_data_cut(cfg: ModelConfig, index: int, size: int, shapes):
+    """How rank ``index`` of a data column of ``size`` holds each
+    decode-state leaf of the whole ``shapes``, as the sharding rules in
+    scope resolve its spec (:func:`decode_states_specs`) on a ``size x
+    1`` layout: per leaf ``(dim, start, count)``, the contiguous block of
+    the dim that resolves to ``data`` (the batch under the default
+    rules, a KV cache's sequence under ``make_rules(decode_seq_shard=
+    True)``), or None for a leaf the column holds whole."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding
+    layout = Mesh(data=size, model=1, rank=0, world_group=None,
+                  data_group=None, model_group=None)
+    rules = sharding.get_rules()
+    out = {}
+    for key, st in decode_states_specs(cfg).items():
+        fields = []
+        for name, spec in zip(st._fields, st):
+            shape = getattr(shapes[key], name)
+            resolved = rules.spec(spec, shape=shape, mesh=layout)
+            dims = [d for d, e in enumerate(resolved) if e == "data"]
+            if size == 1 or not dims:
+                fields.append(None)
+            else:
+                n = shape[dims[0]] // size
+                fields.append((dims[0], index * n, n))
+        out[key] = type(st)(*fields)
+    return out
+
+
 def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda", row=None):
     """Fresh per-layer decode states, stacked over groups; over a model
@@ -375,11 +404,12 @@ _SSM_BLOCKS = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
 
 
 def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
-                 scope=None, row=None):
+                 scope=None, row=None, shard=None):
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attention":
         out, new_state = attn.attention_block(p["mixer"], h, cfg, positions,
-                                              cache=state, row=row)
+                                              cache=state, row=row,
+                                              shard=shard)
     elif kind in _SSM_BLOCKS:
         out, new_state = _SSM_BLOCKS[kind](p["mixer"], h, cfg, state=state,
                                            row=row)
@@ -424,7 +454,10 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     ``params``, this rank's local tree, over its model row
     (``launch.mesh.model_row``, read here likewise), and a decode step's
     ``states`` are the rank's part of them (:func:`init_decode_states`
-    with the row)."""
+    with the row). Under sharding rules in scope that put ``kv_seq`` on
+    a data axis above 1 (``launch.mesh.kv_seq_shard``) a decode step's
+    KV caches hold the rank's range of positions, and each attention
+    layer combines the data column's partial attentions."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
@@ -441,6 +474,7 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
             else:
                 x = _apply_group(pg, x, positions, cfg, scope, row)
         return x, None
+    shard = kv_seq_shard()
     outs = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], groups)
@@ -451,7 +485,7 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
         for i, kind in enumerate(kinds):
             x, new_sg[f"l{i}"] = _apply_block(pg[f"l{i}"], kind, x,
                                               positions, cfg, sg[f"l{i}"],
-                                              scope, row)
+                                              scope, row, shard)
         outs.append(new_sg)
     new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
     return x, new_states

@@ -22,6 +22,7 @@ siblings) on the local blocks that :func:`local_shape` describes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -117,6 +118,18 @@ def set_rules(rules: Optional[ShardingRules]):
 def get_rules() -> ShardingRules:
     r = getattr(_STATE, "rules", None)
     return r if r is not None else ShardingRules(dict(DEFAULT_RULES))
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[ShardingRules]):
+    """Put ``rules`` in scope for this thread (:func:`get_rules`), and
+    the previous ones back on exit."""
+    old = getattr(_STATE, "rules", None)
+    set_rules(rules)
+    try:
+        yield rules
+    finally:
+        set_rules(old)
 
 
 def make_rules(fsdp_params: bool = True, decode_seq_shard: bool = False,

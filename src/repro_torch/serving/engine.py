@@ -42,21 +42,30 @@ class ServeConfig:
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
-            start_pos: int = 0):
+            start_pos: int = 0, chunk: int = 1):
     """Feed a prompt through the decode path token by token (the
     reference's implementation, correct for every block kind), token
-    ``t`` at position ``start_pos + t``.
+    ``t`` at position ``start_pos + t``. ``chunk`` above 1 feeds that
+    many tokens a decode step, written into the caches together and each
+    attending causally (an attention-only stack: a long prompt then
+    costs ``S / chunk`` steps, not ``S``).
 
     tokens: [B, S]. Returns (last_logits [B, V], states).
     """
+    if chunk > 1 and any(k != "attention" for k in cfg.layer_kinds()):
+        raise ValueError(f"a prefill of {chunk} tokens a step needs an "
+                         f"attention-only stack; {cfg.name} has "
+                         f"{sorted(set(cfg.layer_kinds()))}")
     b, s = tokens.shape
     logits = None
-    for t in range(s):
-        pos = torch.full((b, 1), start_pos + t, dtype=torch.int32,
-                         device=tokens.device)
-        logits, states = decode_step(params, cfg, tokens[:, t:t + 1], states,
+    for t in range(0, s, chunk):
+        n = min(chunk, s - t)
+        pos = torch.arange(start_pos + t, start_pos + t + n,
+                           dtype=torch.int32,
+                           device=tokens.device)[None].repeat(b, 1)
+        logits, states = decode_step(params, cfg, tokens[:, t:t + n], states,
                                      pos)
-    return logits[:, 0], states
+    return logits[:, -1], states
 
 
 def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,

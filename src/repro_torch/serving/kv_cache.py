@@ -939,6 +939,32 @@ def calibrate_cache(registry, cfg: ModelConfig, states, tokens: int,
         mode=spec.mode, prefix=spec.codec_prefix, **kw)
 
 
+def broadcast_kv_entries(registry, prefix: str, mesh, owner: int):
+    """Data replica ``owner``'s ``f"{prefix}/..."`` registry entries,
+    registered under the same scheme-ids in the registry of every rank
+    of its data column of ``mesh``, so the column's registries hold the
+    same codecs (the owner calibrated them from a prefill the others did
+    not run). A host-side broadcast of the owner's registry JSON; every
+    rank of the column calls it."""
+    import torch.distributed as dist
+    from repro_torch.core import CodecRegistry
+    src = owner * mesh.model + mesh.coords[1]
+    text = registry.to_json().encode() if mesh.rank == src else b""
+    n = torch.tensor([len(text)], dtype=torch.int64)
+    dist.broadcast(n, src=src, group=mesh.data_group)
+    buf = (torch.frombuffer(bytearray(text), dtype=torch.uint8)
+           if mesh.rank == src else torch.empty(int(n), dtype=torch.uint8))
+    dist.broadcast(buf, src=src, group=mesh.data_group)
+    if mesh.rank == src:
+        return
+    theirs = CodecRegistry.from_json(bytes(buf.numpy()).decode())
+    for name in sorted(theirs.names()):
+        if name.startswith(prefix + "/") and name not in registry:
+            e = theirs[name]
+            registry.register_tables(name, e.tables, e.plan, counts=e.counts,
+                                     scheme_id=e.scheme_id)
+
+
 # --------------------------------------------------------------------------
 # Manifest round-trip (serving handoff, next to the weight placement)
 # --------------------------------------------------------------------------

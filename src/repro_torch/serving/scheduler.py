@@ -51,8 +51,8 @@ it step by step:
   tenant's cap is skipped (a ``defer_fairness`` event) and later ones
   may take the free slot.
 
-* **A model row** (``mesh``, a ``launch.mesh.Mesh`` of ``data == 1``)
-  — every rank of the row runs the same engine on its local tree
+* **A model row** (``mesh``, a ``launch.mesh.Mesh``) — every rank of
+  the row runs the same engine on its local tree
   (``convert.shard_params``): decode states at its local shapes
   (``models.init_decode_states`` with the row: its KV heads, mamba
   channels, xLSTM heads), each step's collectives inside the layers, and
@@ -62,9 +62,36 @@ it step by step:
   gathered first prefill, identical on every rank, and each rank pages
   its own part's blocks. Every host branch on rank-local numbers (a
   pool's bytes, a rank's own ``PoolExhausted``) is agreed over the row
-  (``launch.mesh.row_max`` / ``row_all``), so ``Engine.events`` is the
-  same on every rank. A mesh of model 1 runs exactly as no mesh; slots
-  split over the data column are ROADMAP queue 1, item 19.
+  (``launch.mesh.mesh_max`` / ``mesh_all``, over every rank of the
+  mesh), so ``Engine.events`` is the same on every rank. A ``1 x 1``
+  mesh runs exactly as no mesh.
+
+* **The data column**, by the sharding rules in scope at construction
+  (``parallel.sharding``), as the reference's GSPMD lays the decode
+  states out:
+
+  - the default rules (``batch -> data``): the slots split over the
+    column. Every rank runs the same host schedule over all
+    ``max_batch`` slots (submit order, the lowest free slot first, the
+    fairness cap over all slots); slot ``s`` lives on data replica ``s //
+    (max_batch / data)``, whose ranks hold its decode states and run its
+    prefill, decode steps and paging, each replica over its own model
+    row. After every decode step (a window, async) the column
+    all-gathers the new tokens, and after every admission the first
+    ones, so ``poll()``, ``events`` and ``stats()``'s counts are the
+    same on every rank. The replica that runs the first admitted
+    prefill calibrates the KV codecs and broadcasts them over the
+    column;
+  - ``make_rules(decode_seq_shard=True)`` (``kv_seq -> data``, ``batch
+    -> None``): every rank serves every slot, and each attention
+    layer's cache holds positions ``[d * S/D, (d + 1) * S/D)`` on data
+    index ``d`` of ``D``, ``S`` (``max_seq_len``) rounded up to a
+    multiple of ``D`` blocks. A prompt prefills whole on every rank,
+    which keeps its range; a decode step writes each token on the rank
+    whose range holds it and combines the column's partial attentions
+    (``models.attention.combine_partials``). Recurrent states stay whole.
+    Each rank pages the blocks of its range (sync paging); the codecs
+    are calibrated on the whole first prefill, which every rank holds.
 """
 from __future__ import annotations
 
@@ -80,13 +107,16 @@ import torch
 from repro_torch.comm.blockpool import (ArenaExhausted, BlockArena,
                                         BlockPool, PoolExhausted)
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import model_row, row_all, row_max, use_mesh
+from repro_torch.launch.mesh import (kv_seq_shard, mesh_all, mesh_max,
+                                     model_row, use_mesh)
 from repro_torch.models import attention as attn
 from repro_torch.models import decode_step, init_decode_states, ssm
 from repro_torch.models.transformer import tree_map
+from repro_torch.parallel.sharding import ShardingRules, get_rules, use_rules
 from repro_torch.serving.engine import prefill, window_step
 from repro_torch.serving.kv_cache import (KVCacheSpec, PagedKVCache,
                                           SSMBoundaryTracker,
+                                          broadcast_kv_entries,
                                           calibrate_cache)
 
 _rid_counter = itertools.count()
@@ -155,6 +185,24 @@ def _slot_view(states, b: int):
     return tree_map(lambda a: a[:, b:b + 1], states)
 
 
+def replica_requests(events, max_batch: int, replicas: int
+                     ) -> List[List[str]]:
+    """Replay an engine's ``events`` (admissions take the lowest free
+    slot, a finish or rejection frees it) -> the request ids each of
+    ``replicas`` data replicas served, in admission order: slot ``s``
+    lives on replica ``s // (max_batch / replicas)``."""
+    slots: List[Optional[str]] = [None] * max_batch
+    out: List[List[str]] = [[] for _ in range(replicas)]
+    for _, event, rid in events:
+        if event == "admit":
+            b = slots.index(None)
+            slots[b] = rid
+            out[b // (max_batch // replicas)].append(rid)
+        elif event in ("finish", "reject") and rid in slots:
+            slots[slots.index(rid)] = None
+    return out
+
+
 class Engine:
     """Continuous-batching engine (see module docstring). Runs on the
     device of ``params["embed"]``.
@@ -168,9 +216,13 @@ class Engine:
     ``repro_torch.adaptive.TrafficMonitor`` over ``registry``) goes to the
     block codec (``PagedKVCache(monitor=)``). ``fairness_cap`` (0 < cap
     <= 1) bounds any one tenant to ``ceil(cap * max_batch)`` concurrent
-    slots. ``mesh`` (``data == 1``): ``params`` is this rank's local
-    tree over the mesh's model row, which every rank of the row serves
-    in step (module docstring).
+    slots. ``mesh``: ``params`` is this rank's local tree over the
+    mesh's model row, which every rank of the row serves in step; over
+    a data column the slots split, or, under
+    ``make_rules(decode_seq_shard=True)`` in scope, the KV caches'
+    sequence (module docstring). ``prefill_chunk``: tokens a prefill
+    feeds per decode step (``serving.engine.prefill``; attention-only
+    stacks); 1, the default, feeds them one at a time.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
@@ -178,12 +230,7 @@ class Engine:
                  registry=None, pool: Optional[BlockPool] = None,
                  fairness_cap: Optional[float] = None, mesh=None,
                  kv_paging: str = "sync", arena_slots: int = 256,
-                 monitor=None):
-        if mesh is not None and mesh.data > 1:
-            raise NotImplementedError(
-                f"Engine over a mesh of data {mesh.data}: serving slots "
-                "split over the data column are not ported (ROADMAP queue "
-                "1, item 19)")
+                 monitor=None, prefill_chunk: int = 1):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if kv_paging not in ("sync", "async"):
@@ -199,9 +246,28 @@ class Engine:
         self.cfg = cfg
         self.mesh = mesh
         self._row = model_row(mesh) if mesh is not None else None
+        #: host branches on rank-local numbers are agreed over the mesh
+        self._agreeing = mesh is not None and mesh.size > 1
+        self._rules = get_rules()
         self.device = params["embed"].device
         self.max_seq_len = int(max_seq_len)
         self.max_batch = int(max_batch)
+        self.prefill_chunk = int(prefill_chunk)
+        self._split, self._shard = self._data_layout(mesh, kv_paging)
+        #: this rank's slots: [first, first + local)
+        self._local = self.max_batch // self._split
+        self._first = (mesh.coords[0] * self._local if self._split > 1
+                       else 0)
+        state_len = self.max_seq_len
+        if self._shard is not None:
+            unit = self._shard.size * (kv_spec.block_tokens
+                                       if kv_spec is not None else 1)
+            self.max_seq_len = -(-self.max_seq_len // unit) * unit
+            state_len = self.max_seq_len // self._shard.size
+            #: a prompt prefills whole on every rank
+            self._whole_rules = ShardingRules(
+                rules=dict(self._rules.rules, kv_seq=None),
+                param_overrides=self._rules.param_overrides)
         self.kv_spec = kv_spec
         if kv_spec is not None and registry is None:
             from repro_torch.core.registry import CodecRegistry
@@ -222,11 +288,12 @@ class Engine:
         self._rebase = (kv_spec is not None and kv_spec.ssm_rebase
                         and any(k != "attention" for k in self._kinds))
         self._seqs: Dict[str, _Seq] = {}
+        #: requests this rank prefilled in the current admission
+        self._prefilled: set = set()
         self._waiting: List[str] = []
         self._slots: List[Optional[str]] = [None] * self.max_batch
-        self._states = init_decode_states(cfg, self.max_batch,
-                                          self.max_seq_len, self.device,
-                                          row=self._row)
+        self._states = init_decode_states(cfg, self._local, state_len,
+                                          self.device, row=self._row)
         #: prefetches scheduled at the last block boundary, consumed after
         #: the NEXT window: (rid, handle)
         self._pending: List[tuple] = []
@@ -243,6 +310,48 @@ class Engine:
         self._dense_of: Dict[str, int] = {}     # digest -> dense bytes
         self._dense_logical = 0
         self.peak_dense_logical_bytes = 0
+
+    def _data_layout(self, mesh, kv_paging):
+        """(slot replicas over the data column, the column's sequence
+        shard or None), as the rules in scope lay the decode states'
+        batch and ``kv_seq`` out over ``mesh``."""
+        if mesh is None or mesh.data == 1:
+            return 1, None
+        batch = self._rules.spec(("batch",), mesh=mesh)[0]
+        if batch == "data":
+            if self.max_batch % mesh.data:
+                raise ValueError(
+                    f"max_batch {self.max_batch} does not divide over the "
+                    f"data axis of {mesh.data}: its slots split over the "
+                    "data column")
+            return mesh.data, None
+        if batch is not None:
+            raise NotImplementedError(f"batch over {batch!r} (ROADMAP "
+                                      "queue 1, item 14)")
+        shard = kv_seq_shard(mesh)
+        if shard is not None and kv_paging == "async":
+            raise NotImplementedError(
+                "kv_paging='async' over a sequence-split KV cache is not "
+                "ported (ROADMAP queue 1, item 21)")
+        return 1, shard
+
+    def _mine(self, b: int) -> Optional[int]:
+        """Slot ``b``'s row of this rank's decode states, or None when it
+        lives on another data replica."""
+        i = b - self._first
+        return i if 0 <= i < self._local else None
+
+    def _gather_column(self, mine: np.ndarray) -> np.ndarray:
+        """This replica's rows of a per-slot int array, all-gathered over
+        the data column into every slot's, in slot order (one host-side
+        collective); unchanged when the slots do not split."""
+        if self._split == 1:
+            return mine
+        import torch.distributed as dist
+        t = torch.from_numpy(np.ascontiguousarray(mine, np.int64))
+        got = [torch.empty_like(t) for _ in range(self._split)]
+        dist.all_gather(got, t, group=self.mesh.data_group)
+        return torch.cat(got).numpy()
 
     # ---- request lifecycle ----------------------------------------------
 
@@ -274,12 +383,14 @@ class Engine:
                 if rid is not None]
 
     def _seed(self, active):
-        """Each slot's last token and its position, int32 [B, 1] each, in
-        one upload; a free slot's are token 0 at position 0."""
-        seed = np.zeros((self.max_batch, 2), np.int32)
+        """Each of this rank's slots' last token and its position, int32
+        [B, 1] each, in one upload; a free slot's are token 0 at position
+        0."""
+        seed = np.zeros((self._local, 2), np.int32)
         for b, rid in active:
             seq = self._seqs[rid]
-            seed[b] = seq.toks[-1], seq.prompt_len + len(seq.toks) - 1
+            seed[self._mine(b)] = (seq.toks[-1],
+                                   seq.prompt_len + len(seq.toks) - 1)
         seed = self._tensor(seed)
         return seed[:, :1].contiguous(), seed[:, 1:].contiguous()
 
@@ -291,7 +402,7 @@ class Engine:
         ``use_mesh(mesh)``."""
         if self.mesh is None:
             return self._step()
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh), use_rules(self._rules):
             return self._step()
 
     def _step(self) -> int:
@@ -301,12 +412,17 @@ class Engine:
         self._admit()
         active = self._active()
         if active:
-            tokens, pos = self._seed(active)
+            mine = [(b, rid) for b, rid in active
+                    if self._mine(b) is not None]
+            nxt = np.zeros(self._local, np.int64)
             t0 = time.perf_counter()
-            lg, self._states = decode_step(self.params, self.cfg, tokens,
-                                           self._states, pos)
-            nxt = torch.argmax(lg[:, 0], dim=-1).cpu().numpy()  # syncs
+            if mine:
+                tokens, pos = self._seed(mine)
+                lg, self._states = decode_step(self.params, self.cfg,
+                                               tokens, self._states, pos)
+                nxt = torch.argmax(lg[:, 0], dim=-1).cpu().numpy()  # syncs
             self._decode_s += time.perf_counter() - t0
+            nxt = self._gather_column(nxt)
             self._decode_tokens += len(active)
             for b, rid in active:
                 seq = self._seqs[rid]
@@ -339,19 +455,25 @@ class Engine:
                     bt - s.absorbed % bt if self._rebase else bt)
                 for s in (self._seqs[rid] for _, rid in active))
             window = max(1, window)
+            mine = [(b, rid) for b, rid in active
+                    if self._mine(b) is not None]
+            gen = np.zeros((self._local, window), np.int64)
             t0 = time.perf_counter()
-            tokens, pos = self._seed(active)
-            free = self._tensor(np.array([[rid is None]
-                                          for rid in self._slots]))
-            self._window_h2d += 2
-            gen_dev, self._states = window_step(
-                self.params, self.cfg, tokens, pos, self._states, window,
-                free=free)
-            gen = gen_dev.cpu().numpy()      # ONE read-back for the window
-            self._window_d2h += 1
+            if mine:
+                tokens, pos = self._seed(mine)
+                free = self._tensor(np.array(
+                    [[rid is None] for rid in self._slots[
+                        self._first:self._first + self._local]]))
+                self._window_h2d += 2
+                gen_dev, self._states = window_step(
+                    self.params, self.cfg, tokens, pos, self._states,
+                    window, free=free)
+                gen = gen_dev.cpu().numpy()  # ONE read-back for the window
+                self._window_d2h += 1
             self._windows += 1
             ready = self._consume_pending()
             self._decode_s += time.perf_counter() - t0
+            gen = self._gather_column(gen)
             self._decode_tokens += len(active) * window
             self._apply_pending(ready)
             for b, rid in active:
@@ -365,18 +487,17 @@ class Engine:
 
     def _agree(self, err: Optional[PoolExhausted]
                ) -> Optional[PoolExhausted]:
-        """``err``, or, over a model row, the ``PoolExhausted`` any rank
-        of the row met (each rank's pool holds its own blocks' bytes):
-        every rank then takes the same branch."""
-        if self._row is not None and not row_all(err is None, self.mesh) \
+        """``err``, or, over a mesh, the ``PoolExhausted`` any rank of it
+        met (each rank's pool holds its own blocks' bytes): every rank
+        then takes the same branch."""
+        if self._agreeing and not mesh_all(err is None, self.mesh) \
                 and err is None:
-            err = PoolExhausted("another rank of the model row ran out "
-                                "of pool")
+            err = PoolExhausted("another rank of the mesh ran out of pool")
         return err
 
     def _agreed(self, fn) -> Optional[PoolExhausted]:
         """Run ``fn`` and return its ``PoolExhausted``, agreed over the
-        row (:meth:`_agree`)."""
+        mesh (:meth:`_agree`)."""
         try:
             fn()
         except PoolExhausted as e:
@@ -407,6 +528,7 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     def _admit(self):
+        admitted = []
         for rid in list(self._waiting):
             if None not in self._slots:
                 break
@@ -424,6 +546,15 @@ class Engine:
                     self._reject(seq, err, event="reject_admission")
                     continue
             self._start(seq)
+            admitted.append(seq)
+        if self._split > 1 and admitted:
+            # each first token is known on its replica alone
+            first = self._gather_column(np.array(
+                [[s.toks[0] if s.rid in self._prefilled else 0
+                  for s in admitted]], np.int64))
+            for seq, tok in zip(admitted, first.sum(axis=0)):
+                seq.toks[0] = int(tok)
+        self._prefilled.clear()
 
     def _tenant_active(self, tenant: str) -> int:
         return sum(1 for rid in self._slots if rid is not None
@@ -432,13 +563,13 @@ class Engine:
     def _projected_bytes(self, seq: _Seq) -> float:
         """Projected compressed footprint of a request, in the pool's
         measured mean-block-bytes unit (0 before any block pooled). Over
-        a model row each rank's pool measures its own blocks, so the
-        unit is the row's largest mean: the most any rank's part of the
-        request is projected to hold (its check is then agreed over the
-        row, :meth:`_agreed`)."""
+        a mesh each rank's pool measures its own blocks, so the unit is
+        the mesh's largest mean: the most any rank's part of the request
+        is projected to hold (its check is then agreed over the mesh,
+        :meth:`_agreed`)."""
         mean = self.pool.mean_block_bytes()
-        if self._row is not None:
-            mean = row_max(mean, self.mesh)
+        if self._agreeing:
+            mean = mesh_max(mean, self.mesh)
         if not mean:
             return 0.0
         bt = self.kv_spec.block_tokens
@@ -448,33 +579,21 @@ class Engine:
 
     def _start(self, seq: _Seq):
         b = self._slots.index(None)
-        t0 = time.perf_counter()
-        row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device,
-                                 row=self._row)
-        prompt = self._tensor(seq.req.prompt[None, :])
-        if self._rebase:
-            # Segmented prefill: a block at a time, each recurrent
-            # layer's state recorded at every boundary. Prefill feeds
-            # token by token, so this is the whole prompt's states.
-            bt = self.kv_spec.block_tokens
-            pos = 0
-            while pos < seq.prompt_len:
-                end = min(seq.prompt_len, (pos // bt + 1) * bt)
-                logits, row = prefill(self.params, self.cfg,
-                                      prompt[:, pos:end], row, start_pos=pos)
-                pos = end
-                if pos % bt == 0:
-                    self._record_boundary_states(seq, row, pos)
-        else:
-            logits, row = prefill(self.params, self.cfg, prompt, row)
-        first = int(torch.argmax(logits[0]))              # syncs
-        self._prefill_s += time.perf_counter() - t0
+        local = self._mine(b)
+        row = None
+        first = 0
+        if local is not None:
+            first, row = self._prefill(seq)
         self._prefill_tokens += seq.prompt_len
         if self.kv_spec is not None and self._codec is None:
-            self._ensure_codec(row, seq.prompt_len)
-        # in place: the slot's rows of the engine-owned states
-        tree_map(lambda dst, src: dst.copy_(src),
-                 _slot_view(self._states, b), row)
+            self._ensure_codec(row, seq.prompt_len, b // self._local)
+        if row is not None:
+            if self._shard is not None:
+                row = self._my_range(row)
+            # in place: the slot's rows of the engine-owned states
+            tree_map(lambda dst, src: dst.copy_(src),
+                     _slot_view(self._states, local), row)
+            self._prefilled.add(seq.rid)
         self._slots[b] = seq.rid
         seq.slot = b
         seq.state = "running"
@@ -482,14 +601,72 @@ class Engine:
         self._log("admit", seq.rid)
         self._page_and_maybe_finish(seq)    # prompt blocks page out now
 
-    def _ensure_codec(self, row_states, tokens: int):
+    def _prefill(self, seq: _Seq):
+        """Prefill ``seq``'s prompt at batch 1 on fresh states, whole
+        (every position, under a sequence shard too) -> (its first token,
+        the states)."""
+        t0 = time.perf_counter()
+        row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device,
+                                 row=self._row)
+        prompt = self._tensor(seq.req.prompt[None, :])
+        rules = self._whole_rules if self._shard is not None else \
+            self._rules
+        with use_rules(rules):
+            if self._rebase:
+                # Segmented prefill: a block at a time, each recurrent
+                # layer's state recorded at every boundary. Prefill
+                # feeds token by token, so this is the whole prompt's
+                # states.
+                bt = self.kv_spec.block_tokens
+                pos = 0
+                while pos < seq.prompt_len:
+                    end = min(seq.prompt_len, (pos // bt + 1) * bt)
+                    logits, row = prefill(self.params, self.cfg,
+                                          prompt[:, pos:end], row,
+                                          start_pos=pos,
+                                          chunk=self.prefill_chunk)
+                    pos = end
+                    if pos % bt == 0:
+                        self._record_boundary_states(seq, row, pos)
+            else:
+                logits, row = prefill(self.params, self.cfg, prompt, row,
+                                      chunk=self.prefill_chunk)
+        first = int(torch.argmax(logits[0]))              # syncs
+        self._prefill_s += time.perf_counter() - t0
+        return first, row
+
+    def _states_len(self) -> int:
+        """Positions of this rank's KV caches (the engine's states)."""
+        for st in self._states.values():
+            if isinstance(st, attn.KVCache):
+                return st.k.shape[attn.KV_SEQ_AXIS]
+        return self.max_seq_len
+
+    def _my_range(self, states):
+        """This rank's range of positions of whole decode states'
+        attention caches (a sequence shard); other states as they are."""
+        n = self._states_len()
+        return {key: st._replace(
+            k=st.k.narrow(attn.KV_SEQ_AXIS, self._shard.index * n, n),
+            v=st.v.narrow(attn.KV_SEQ_AXIS, self._shard.index * n, n))
+            if isinstance(st, attn.KVCache) else st
+            for key, st in states.items()}
+
+    def _ensure_codec(self, row_states, tokens: int, owner: int = 0):
         """Build the shared block codec, calibrating the registry's
-        ``kv/layer{i}`` entries from the first prefill when absent."""
+        ``kv/layer{i}`` entries from the first prefill when absent. With
+        the slots split over the data column, data replica ``owner`` ran
+        that prefill: it calibrates, over its model row, and broadcasts
+        the entries over the column."""
         base = self.kv_spec.layer_codec(0)
         if not any(n == base or n.startswith(base + "/")
                    for n in self.registry.names()):
-            calibrate_cache(self.registry, self.cfg, row_states, tokens,
-                            self.kv_spec, mesh=self.mesh)
+            if row_states is not None:
+                calibrate_cache(self.registry, self.cfg, row_states, tokens,
+                                self.kv_spec, mesh=self.mesh)
+            if self._split > 1:
+                broadcast_kv_entries(self.registry, self.kv_spec.codec_prefix,
+                                     self.mesh, owner)
         self._codec = PagedKVCache(self.kv_spec, self.cfg, self.registry,
                                    device=self.device, monitor=self.monitor,
                                    mesh=self.mesh)
@@ -503,9 +680,11 @@ class Engine:
         hot = self.kv_spec.hot_blocks
         evict = (self._evict_slot_async if self.kv_paging == "async"
                  else self._evict_slot)
+        mine = self._mine(seq.slot) is not None
         while seq.evicted + (1 + hot) * bt <= seq.absorbed:
             t0 = seq.evicted
-            evict(seq, t0, t0 + bt)
+            if mine:
+                evict(seq, t0, t0 + bt)
             seq.evicted = t0 + bt
 
     def _record_boundary_states(self, seq: _Seq, row, t: int):
@@ -522,11 +701,13 @@ class Engine:
     def _note_boundary(self, seq: _Seq):
         """Record the boundary states the moment a running sequence's
         absorbed count lands on a block boundary (re-basing only)."""
-        if not self._rebase or seq.slot is None:
+        if not self._rebase or seq.slot is None or \
+                self._mine(seq.slot) is None:
             return
         if seq.absorbed > 0 and seq.absorbed % self.kv_spec.block_tokens == 0:
             self._record_boundary_states(
-                seq, _slot_view(self._states, seq.slot), seq.absorbed)
+                seq, _slot_view(self._states, self._mine(seq.slot)),
+                seq.absorbed)
 
     def _evict_slot(self, seq: _Seq, t0: int, t1: int):
         """Encode one completed block of ``seq``'s slot row into the pool
@@ -534,20 +715,26 @@ class Engine:
         layer's rows and a live recurrent state are restored from those
         shared (deduped) bytes; a re-based snapshot (the state at
         ``t1``) is decoded, so an overflowing container surfaces here,
-        but never restored."""
-        row = _slot_view(self._states, seq.slot)
+        but never restored. Under a sequence shard an attention layer's
+        block is paged by the rank whose range holds it."""
+        row = _slot_view(self._states, self._mine(seq.slot))
         bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
+        off = 0
+        if self._shard is not None:
+            off = self._shard.index * self._states_len()
         for i, kind in enumerate(self._kinds):
             key = f"l{i}"
             name = self.kv_spec.layer_codec(i)
             if kind == "attention":
-                k, v = attn.kv_block_slice(row[key], t0, t1)
+                if not off <= t0 < off + self._states_len():
+                    continue
+                k, v = attn.kv_block_slice(row[key], t0 - off, t1 - off)
                 block = self._codec.encode_block_arrays(
                     name, key, (k, v), start=t0, tokens=t1 - t0)
                 digest = self._pool_put(seq, block)
                 k2, v2 = self._codec.decode_block_arrays(
                     self.pool.get(digest))
-                attn.kv_block_restore(row[key], t0, t1, k2, v2)
+                attn.kv_block_restore(row[key], t0 - off, t1 - off, k2, v2)
                 continue
             rebased = bsnap is not None and key in bsnap
             arrays = bsnap[key] if rebased else ssm.state_snapshot(row[key])
@@ -585,7 +772,7 @@ class Engine:
         decode, consumed after the next window (:meth:`_consume_pending`).
         Escape overflow under the plan capacity redoes the boundary on
         the sync host path (counted as a prefetch miss)."""
-        row = _slot_view(self._states, seq.slot)
+        row = _slot_view(self._states, self._mine(seq.slot))
         bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
         devs = []
         for i, kind in enumerate(self._kinds):
@@ -637,10 +824,10 @@ class Engine:
         """Restore consumed blocks and do their deferred pool accounting.
         Restoring one window late is exact: the ``"qlc"`` round trip is
         bit-identical, and the window never touches cache rows behind
-        the eviction horizon. Over a model row the ranks' pending blocks
-        may differ (a block whose escape pool overflowed went the sync
-        way on its rank), so each running sequence's outcome is agreed
-        in slot order."""
+        the eviction horizon. Over a mesh the ranks' pending blocks may
+        differ (a block whose escape pool overflowed went the sync way on
+        its rank; a data replica pages its own slots only), so each
+        running sequence's outcome is agreed in slot order."""
         errs: Dict[str, PoolExhausted] = {}
         for seq, handle, arrays in ready:
             if seq.state != "running" or seq.rid in errs:
@@ -649,9 +836,9 @@ class Engine:
                 self._apply_consumed(seq, handle, arrays)
             except PoolExhausted as e:
                 errs[seq.rid] = e
-                if self._row is None:
+                if not self._agreeing:
                     self._reject(seq, e)
-        if self._row is None:
+        if not self._agreeing:
             return
         for _, rid in self._active():
             err = self._agree(errs.get(rid))
@@ -671,7 +858,8 @@ class Engine:
             self._supersede_snapshot(seq, dev.layer, digest)
             return
         k2, v2 = arrays
-        attn.kv_block_restore(_slot_view(self._states, seq.slot)[dev.layer],
+        attn.kv_block_restore(_slot_view(self._states,
+                                         self._mine(seq.slot))[dev.layer],
                               dev.start, dev.start + dev.tokens, k2, v2)
 
     def _flush_pending(self, seq: _Seq):

@@ -490,16 +490,6 @@ def test_bounded_pool_events_agree(engine_runs):
     assert _tokens_equal(runs[0][0], runs[1][0])
 
 
-def test_engine_refuses_a_data_column():
-    """Slots split over the data column are not ported (item 19)."""
-    cfg = _serve_cfg(ENGINE_ARCH, F32)
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    layout = tmesh.Mesh(data=2, model=2, rank=0, world_group=None,
-                        data_group=None, model_group=None)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Engine(params, cfg, max_seq_len=16, mesh=layout)
-
-
 def test_row_histogram_equals_whole(worlds):
     """``histogram_of_local_tree`` over a row of 4 gives every rank the
     whole tree's ``histogram_of_tree``, exactly, whether a leaf's blocks
@@ -561,15 +551,46 @@ def test_block32_alignment_of_served_configs(name, model):
 # Decode-state specs, cut and gather
 # --------------------------------------------------------------------------
 
+#: the reference's long-context decode shape (``DECODE_32K``): batch 1
+LONG_DECODE = (1, 32768)
+
+
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_decode_states_specs_match_reference(name):
-    """``decode_states_specs`` equals the reference's, leaf for leaf."""
-    ours = decode_states_specs(get_config(name))
+    """``decode_states_specs`` equals the reference's, leaf for leaf, and
+    under ``make_rules(decode_seq_shard=True)`` every leaf of the states
+    at batch 1 and 32,768 positions resolves as the reference's rules
+    resolve it (``ShardingRules._resolve``) on 4 x 1 and 2 x 2 layouts:
+    a KV cache's sequence over ``data``, its KV heads over ``model``
+    where they divide, the batch whole."""
+    import types
+    from repro.parallel import sharding as jsharding
+    from repro_torch.models.transformer import _whole_decode_states
+    cfg = get_config(name)
+    ours = decode_states_specs(cfg)
     theirs = jtransformer.decode_states_specs(JREGISTRY[name])
     assert sorted(ours) == sorted(theirs)
     for key in ours:
         assert type(ours[key]).__name__ == type(theirs[key]).__name__
         assert tuple(ours[key]) == tuple(theirs[key]), key
+    shapes = _whole_decode_states(cfg, *LONG_DECODE, "meta")
+    mine = sharding.make_rules(decode_seq_shard=True)
+    ref = jsharding.make_rules(decode_seq_shard=True)
+    for data, model in ((4, 1), (2, 2)):
+        layout = tmesh.Mesh(data=data, model=model, rank=0,
+                            world_group=None, data_group=None,
+                            model_group=None)
+        fake = types.SimpleNamespace(axis_names=("data", "model"),
+                                     shape=layout.shape)
+        for key, st in ours.items():
+            for field, spec, a in zip(st._fields, st, shapes[key]):
+                used: set = set()
+                want = tuple(ref._resolve(n, d, fake, False, used)
+                             for n, d in zip(spec, a.shape))
+                got = mine.spec(spec, shape=a.shape, mesh=layout)
+                assert got == want, (data, model, key, field)
+                if field == "k" and a.shape[2] % data == 0:
+                    assert got[2] == "data", (key, got)
 
 
 @pytest.mark.parametrize("name", sorted(REGISTRY))

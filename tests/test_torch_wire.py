@@ -403,25 +403,61 @@ print("REFERENCE OK")
 """
 
 
-def test_collectives_ring_oneshot_and_reference_agree():
+def _reference_run(script, **arrays):
+    """One of the reference scripts on 4 fake XLA devices, fed
+    ``arrays`` -> its outputs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "ref.npz")
+        np.savez(path, **arrays)
+        run_md(script.format(path=path, out=out, variants=VARIANTS),
+               n_devices=4, timeout=600)
+        return dict(np.load(out))
+
+
+#: the psum / all-to-all test's autotune size
+TUNE_BYTES = 4 * 65536
+
+
+@pytest.fixture(scope="module")
+def four_ranks():
+    """The two reference runs on 4 fake devices (RS and AG; psum and
+    all-to-all) and one world of 4 gloo ranks for the port's side of
+    both (``tests/torch_dist.wire_four``), started together in threads.
+    -> {"collectives": (xs, cfgs, reference, {name: per-rank results}),
+    "psum_a2a": (cfgs, reference, per-rank results)}."""
+    import concurrent.futures
+    xs = _grad_like((4, 6000), 11)
+    counts = _counts(xs)
+    cfgs = _cfgs(xs[:, :5888])
+    pxs = _grad_like((4, 6000), 21)
+    pys = _grad_like((4, 4, 1400), 22)
+    pcounts = _counts(pxs)
+    pcfgs = _cfgs(pxs[:, :5888])
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        ref = pool.submit(_reference_run, _REFERENCE, xs=xs, counts=counts,
+                          cfgs=np.array(cfgs, dtype=object))
+        pref = pool.submit(_reference_run, _REFERENCE_PSUM_A2A, xs=pxs,
+                           ys=pys, counts=pcounts,
+                           cfgs=np.array(pcfgs, dtype=object))
+        port = pool.submit(run_ranks, "wire_four", 4, collectives=dict(
+            xs=xs, counts=counts, cfgs=cfgs, variants=VARIANTS),
+            psum=dict(xs=pxs, ys=pys, counts=pcounts, cfgs=pcfgs,
+                      variants=VARIANTS, tune_bytes=TUNE_BYTES))
+        got = port.result()
+        return {"collectives": (xs, cfgs, ref.result(),
+                                {name: [g["collectives"][name] for g in got]
+                                 for name in cfgs}),
+                "psum_a2a": (pcfgs, pref.result(),
+                             [g["psum"] for g in got])}
+
+
+def test_collectives_ring_oneshot_and_reference_agree(four_ranks):
     """RS and AG under one-shot, ring and ring with 2 hop pieces: on 4
     gloo ranks every variant gives the same segment, valid length,
     gathered values and ok on every rank, and each equals the reference's
     collective on the same shards; with half the chunks escaping, and
     with an overflowing pool (ok False on both packages)."""
-    xs = _grad_like((4, 6000), 11)
-    counts = _counts(xs)
-    cfgs = _cfgs(xs[:, :5888])
-    with tempfile.TemporaryDirectory() as tmp:
-        path, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "ref.npz")
-        np.savez(path, xs=xs, counts=counts,
-                 cfgs=np.array(cfgs, dtype=object))
-        run_md(_REFERENCE.format(path=path, out=out, variants=VARIANTS),
-               n_devices=4, timeout=600)
-        ref = dict(np.load(out))
-    port = {name: run_ranks("collectives", 4, xs=xs, counts=counts,
-                            cfg_kw=kw, variants=VARIANTS)
-            for name, kw in cfgs.items()}
+    xs, cfgs, ref, port = four_ranks["collectives"]
     for name in cfgs:
         for v in VARIANTS:
             key = f"{name}|{v[0]}|{v[1]}"
@@ -492,7 +528,7 @@ print("REFERENCE OK")
 """
 
 
-def test_psum_all_to_all_and_autotune_on_four_ranks():
+def test_psum_all_to_all_and_autotune_on_four_ranks(four_ranks):
     """psum and all_to_all under one-shot, ring and ring with 2 hop
     pieces: on 4 gloo ranks every variant gives the same values and ok,
     and each equals the reference's on 4 devices; with an overflowing
@@ -504,21 +540,8 @@ def test_psum_all_to_all_and_autotune_on_four_ranks():
     from repro.comm.channel import Channel as JChannel
     from repro.comm.channel import ChannelSpec as JChannelSpec
     from repro_torch.core import CodecRegistry as TRegistry
-    xs = _grad_like((4, 6000), 21)
-    ys = _grad_like((4, 4, 1400), 22)
-    counts = _counts(xs)
-    cfgs = _cfgs(xs[:, :5888])
-    tune = 4 * 65536
-    with tempfile.TemporaryDirectory() as tmp:
-        path, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "ref.npz")
-        np.savez(path, xs=xs, ys=ys, counts=counts,
-                 cfgs=np.array(cfgs, dtype=object))
-        run_md(_REFERENCE_PSUM_A2A.format(path=path, out=out,
-                                          variants=VARIANTS),
-               n_devices=4, timeout=600)
-        ref = dict(np.load(out))
-    port = run_ranks("psum_a2a", 4, xs=xs, ys=ys, counts=counts, cfgs=cfgs,
-                     variants=VARIANTS, tune_bytes=tune)
+    cfgs, ref, port = four_ranks["psum_a2a"]
+    tune = TUNE_BYTES
     for name in cfgs:
         for kind, h in VARIANTS:
             key = f"{name}|{kind}|{h}"

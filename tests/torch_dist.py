@@ -107,7 +107,7 @@ def _main():
 # Targets
 # --------------------------------------------------------------------------
 
-def collectives(ctx, xs, counts, cfg_kw, variants):
+def collectives_of(ctx, xs, counts, cfg_kw, variants):
     """Compressed RS of ``xs[rank]`` and AG of its first ``n_ag`` values
     under each transport variant -> {variant: (segment, valid, rs_ok,
     gathered, ag_ok)} as numpy."""
@@ -178,6 +178,17 @@ def psum_a2a(ctx, xs, ys, counts, cfgs, variants, tune_bytes):
         resolved[name] = (r.kind, r.hop_chunks, got.model.wire_Bps)
     out["tuned"] = (reg.to_json(), tuned, resolved)
     return out
+
+
+def wire_four(ctx, collectives, psum):
+    """:func:`collectives_of` each of ``collectives["cfgs"]``, and
+    :func:`psum_a2a` (``psum``, its keywords) in one world -> {
+    "collectives": {name: ...}, "psum": ...}."""
+    c = dict(collectives)
+    cfgs = c.pop("cfgs")
+    return {"collectives": {name: collectives_of(ctx, cfg_kw=kw, **c)
+                            for name, kw in cfgs.items()},
+            "psum": psum_a2a(ctx, **psum)}
 
 
 def train_runs(ctx, cfg_kw, steps, global_batch, seq_len, lr, runs):
@@ -719,8 +730,7 @@ def tp_engine(ctx, cases):
     "bounded": (tokens of each request, events, the KV registry's JSON
     or None, pool stats or None), "weights": the weight registry's JSON,
     "calibration": the first prefill's states gathered over the row,
-    "margin": the smallest top-1 margin of any decode step}}. A
-    case of ``data > 1`` records the engine's refusal instead."""
+    "margin": the smallest top-1 margin of any decode step}}."""
     import numpy as np
     import torch
     from repro_torch.comm.blockpool import BlockPool
@@ -737,12 +747,6 @@ def tp_engine(ctx, cases):
         mesh = make_test_mesh(model=case["model"])
         whole = params_from_numpy(case["params"], "cpu")
         local = shard_params(whole, cfg, mesh.coords[1], mesh.model)
-        if mesh.data > 1:
-            try:
-                Engine(local, cfg, max_seq_len=8, mesh=mesh)
-            except NotImplementedError as e:
-                out[case["name"]] = {"refused": str(e)}
-            continue
         prompts = np.asarray(case["prompts"])
         n_new, bt = case["new_tokens"], case["kv_block"]
         max_len = prompts.shape[1] + n_new + 8
@@ -873,6 +877,234 @@ def tp_serve(ctx, decode=(), engine=(), migration=None, histogram=None):
             else kv_migration(ctx, **migration),
             "histogram": None if histogram is None
             else row_histogram(ctx, **histogram)}
+
+
+# --------------------------------------------------------------------------
+# Serving over the data column
+# --------------------------------------------------------------------------
+
+class _Logits:
+    """Wrap the decode step the engine and its prefill call so that each
+    call files its last position's logits (a numpy copy) in ``out``."""
+
+    def __init__(self):
+        self.out = []
+
+    def __enter__(self):
+        from repro_torch.serving import engine, scheduler
+        self._inner = inner = scheduler.decode_step
+        out = self.out
+
+        def step(*args, **kw):
+            lg, st = inner(*args, **kw)
+            out.append(lg[:, -1].float().numpy().copy())
+            return lg, st
+        scheduler.decode_step = engine.decode_step = step
+        return out
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine, scheduler
+        scheduler.decode_step = engine.decode_step = self._inner
+
+
+def _engine_run(params, cfg, prompts, new_tokens, max_seq_len, batch, mesh,
+                rids=None, **kw):
+    """An engine's run over ``prompts`` -> (tokens by request id,
+    events, the KV registry's JSON or None, stats' counts, the logits of
+    every decode step and prefill step)."""
+    from repro_torch.serving import Engine, GenerationRequest
+    with _Logits() as logits:
+        eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
+                     mesh=mesh, **kw)
+        ids = rids or [f"r{i}" for i in range(len(prompts))]
+        for rid, p in zip(ids, prompts):
+            eng.submit(GenerationRequest(prompt=p, max_new_tokens=new_tokens,
+                                         request_id=rid))
+        eng.run()
+    st = eng.stats()
+    counts = {k: st[k] for k in ("steps", "requests", "prefill_tokens",
+                                 "decode_tokens")}
+    return ({rid: eng.poll(rid).tokens for rid in ids}, eng.events,
+            eng.registry.to_json() if eng.registry is not None else None,
+            counts, logits)
+
+
+def dp_split(ctx, cases, new_tokens, kv_block):
+    """Slots split over the data column of a 2 x 2 mesh: per case
+    (``name``, ``arch``, ``cfg_kw``, ``params``: the whole tree as
+    numpy, ``prompts``, optional ``pool_bytes``, ``serve``): the engine
+    dense and paged sync and async on the rank's local tree, and the
+    ``1 x 2`` engine of this rank's row (``launch.mesh.row_mesh``,
+    ``max_batch`` 2) fed the requests the 2 x 2 schedule put on its
+    replica (``serving.scheduler.replica_requests``); with
+    ``pool_bytes`` a bounded pool without host spill; with ``serve``,
+    ``launch.serve.serve`` on the mesh from the QLC weight wire, dense
+    then paged (the launcher checks paged against dense) -> {name: {paging: (the 2 x 2 run, the
+    row's run, this replica's request ids)}, ...}."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_test_mesh, row_mesh, use_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import KVCacheSpec
+    from repro_torch.serving.scheduler import replica_requests
+    mesh = make_test_mesh(model=2)
+    sub = row_mesh(mesh)
+    out = {}
+    for case in cases:
+        cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+        local = shard_params(params_from_numpy(case["params"], "cpu"), cfg,
+                             mesh.coords[1], mesh.model)
+        prompts = np.asarray(case["prompts"])
+        max_len = prompts.shape[1] + new_tokens + 8
+        runs = {}
+        with torch.no_grad():
+            if case.get("serve"):
+                for paging in ("sync", "async"):
+                    with use_mesh(mesh):
+                        res = serve(cfg, batch=4, requests=len(prompts),
+                                    prompt_len=prompts.shape[1],
+                                    new_tokens=new_tokens, wire="qlc",
+                                    kv_cache="qlc", kv_block=kv_block,
+                                    kv_paging=paging, device="cpu",
+                                    params=local)
+                    runs[paging] = ([o.tokens for o in res["outs"]],
+                                    res["events"], res["dense_tokens"],
+                                    res["kv_registry"].to_json())
+                out[case["name"]] = runs
+                continue
+            kinds = {"dense": lambda: {}}
+            for paging in ("sync", "async"):
+                kinds[paging] = lambda paging=paging: dict(
+                    kv_paging=paging, pool=BlockPool(1 << 30),
+                    kv_spec=KVCacheSpec(block_tokens=kv_block,
+                                        exact_capacity=paging == "sync",
+                                        axis="model"))
+            if case.get("pool_bytes"):
+                kinds["bounded"] = lambda: dict(
+                    kv_spec=KVCacheSpec(block_tokens=kv_block, axis="model"),
+                    pool=BlockPool(case["pool_bytes"], spill_host=False))
+            by_id = {f"r{i}": p for i, p in enumerate(prompts)}
+            for kind, kw in kinds.items():
+                whole = _engine_run(local, cfg, prompts, new_tokens, max_len,
+                                    4, mesh, **kw())
+                mine = replica_requests(whole[1], 4, 2)[mesh.coords[0]]
+                row = _engine_run(local, cfg, [by_id[r] for r in mine],
+                                  new_tokens, max_len, 2, sub, rids=mine,
+                                  **kw())
+                runs[kind] = (whole, row, mine)
+        out[case["name"]] = runs
+    return out
+
+
+def seq_decode(ctx, cases, models):
+    """The sequence-split decode over the data column, per mesh layout
+    (``models``: the model axis of each, the data axis the rest of the
+    world) and case (``name``, ``arch``, ``cfg_kw``, ``params``: the
+    whole tree as numpy, ``tokens`` [B, P + T], ``prompt`` P, and one
+    attention layer's inputs ``layer``: q [B, 1, n, H], the whole k / v
+    caches [B, S, KV, H] and positions [B, 1]): the prompt in one
+    multi-token ``decode_step`` on whole states, the rank's range of
+    them (``convert.shard_decode_states`` under
+    ``make_rules(decode_seq_shard=True)``), then T one-token steps under
+    those rules; and the layer's decode over the rank's range and heads
+    -> {(model, name): (logits [T + 1, B, V], the layer's output)}."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import (params_from_numpy, shard_decode_states,
+                                     shard_params)
+    from repro_torch.launch.mesh import (kv_seq_shard, make_test_mesh,
+                                         model_row, use_mesh)
+    from repro_torch.models import attention as attn
+    from repro_torch.models import decode_step, init_decode_states
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    out = {}
+    for model in models:
+        mesh = make_test_mesh(model=model)
+        d, m = mesh.coords
+        row = model_row(mesh)
+        for case in cases:
+            cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+            local = shard_params(params_from_numpy(case["params"], "cpu"),
+                                 cfg, m, mesh.model)
+            toks = torch.from_numpy(np.asarray(case["tokens"])).long()
+            b, n = toks.shape
+            p = case["prompt"]
+            logits = []
+            with torch.no_grad(), use_mesh(mesh):
+                st = init_decode_states(cfg, b, n, "cpu", row=row)
+                pos = torch.arange(p, dtype=torch.int32)[None].expand(b, p)
+                lg, st = decode_step(local, cfg, toks[:, :p], st, pos)
+                logits.append(lg[:, -1])
+                with use_rules(make_rules(decode_seq_shard=True)):
+                    st = shard_decode_states(st, cfg, 0, 1, d, mesh.data)
+                    for t in range(p, n):
+                        lg, st = decode_step(
+                            local, cfg, toks[:, t:t + 1], st,
+                            torch.full((b, 1), t, dtype=torch.int32))
+                        logits.append(lg[:, 0])
+                    shard = kv_seq_shard(mesh)
+                q, k, v, qpos = (torch.from_numpy(np.asarray(a))
+                                 for a in case["layer"])
+                heads, kvh = q.shape[2] // mesh.model, \
+                    k.shape[2] // mesh.model
+                s_loc = k.shape[1] // mesh.data
+                cache = attn.KVCache(
+                    k=k[:, d * s_loc:(d + 1) * s_loc,
+                        m * kvh:(m + 1) * kvh].contiguous(),
+                    v=v[:, d * s_loc:(d + 1) * s_loc,
+                        m * kvh:(m + 1) * kvh].contiguous(),
+                    length=qpos[:, 0])
+                g = heads // kvh
+                layer = attn._seq_sharded_decode(
+                    q[:, :, m * heads:(m + 1) * heads].contiguous(), cache,
+                    qpos, cfg, [j // g for j in range(heads)], shard)
+            out[(model, case["name"])] = (torch.stack(logits).numpy(),
+                                          layer.numpy())
+        torch.distributed.barrier()
+    return out
+
+
+def seq_engine(ctx, arch, cfg_kw, params, prompts, new_tokens, kv_block):
+    """An engine under ``make_rules(decode_seq_shard=True)`` over a data
+    column of the whole world (model 1): dense and paged sync -> {kind:
+    (tokens by request id, events, KV registry JSON, counts)}, and the
+    caches' positions a rank holds."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    from repro_torch.serving import Engine, KVCacheSpec
+    cfg = _serve_cfg(arch, cfg_kw)
+    mesh = make_test_mesh(model=1)
+    whole = params_from_numpy(params, "cpu")
+    prompts = np.asarray(prompts)
+    max_len = prompts.shape[1] + new_tokens + 3
+    out = {}
+    with torch.no_grad(), use_rules(make_rules(decode_seq_shard=True)):
+        for kind, kw in (("dense", {}), ("sync", dict(
+                kv_spec=KVCacheSpec(block_tokens=kv_block, axis="model"),
+                pool=BlockPool(1 << 30)))):
+            run = _engine_run(whole, cfg, prompts, new_tokens, max_len, 4,
+                              mesh, **kw)
+            out[kind] = run[:4]
+        eng = Engine(whole, cfg, max_seq_len=max_len, max_batch=4, mesh=mesh,
+                     kv_spec=KVCacheSpec(block_tokens=kv_block))
+        out["positions"] = (eng.max_seq_len, eng._states_len())
+    return out
+
+
+def dp_serve(ctx, split=(), seq=(), models=(), engine=None, new_tokens=8,
+             kv_block=4):
+    """:func:`dp_split` (a world of 4), :func:`seq_decode` and
+    :func:`seq_engine` (with ``engine``, its keywords) in one world."""
+    return {"split": dp_split(ctx, list(split), new_tokens, kv_block)
+            if split else None,
+            "seq": seq_decode(ctx, list(seq), list(models)),
+            "engine": None if engine is None else seq_engine(ctx, **engine)}
 
 
 if __name__ == "__main__":

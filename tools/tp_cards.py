@@ -33,22 +33,33 @@ Rank 0 prints one line per check and a JSON line per layout, then the
 card's name and power limit. Every rank runs the same code; a failed
 check raises on the rank that saw it and the run exits non-zero.
 
-``--serve`` serves the arch instead, over a model row of all N cards
-(layout 1 x N; the slots over a data column are ROADMAP queue 1, item
-19): ``launch.serve.serve`` under the mesh (each rank draws its blocks,
-the weight codec calibrated on the row's summed histogram, the QLC wire
-of its blocks, the dense engine), then ``Engine(mesh=)`` paged sync and
-async (``--kv-block`` tokens a block, ``KVCacheSpec(axis="model")``).
-Checks on every rank: the row's tokens, every step's logits (hashed) and
-every registry's digest the same on every rank; the paged runs'
-tokens equal to the dense engine's; no overflow fallback (async
-prefetch misses, blocks redone on the sync path, are reported), all
-checked once the row has gathered every rank's outcome. For phi3 rank 0 then serves the whole model alone, from the same
-seed, and reports (not gates) how many requests agree with the row and
-the first divergent step's top-1 margin. Rank 0 prints ms/token prefill
-and decode of each run, a decode step's kernel launches, all-reduces and
-all-gathers, the wire's B/symbol, pooled / dense KV and every rank's
-peak.
+``--serve`` serves the arch instead, on the ``N / M x M`` layout of
+each ``--model`` size M: ``launch.serve.serve`` under the mesh (each
+rank draws its blocks, the weight codec calibrated on the row's summed
+histogram, the QLC wire of its blocks, the dense engine), then
+``Engine(mesh=)`` paged sync and async (``--kv-block`` tokens a block,
+``KVCacheSpec(axis="model")``). Over a data column (M < N) the slots
+split over it; with ``--decode-seq-shard``
+(``make_rules(decode_seq_shard=True)`` in scope) the KV caches'
+sequence does instead, and paging is sync only. ``--prefill-chunk``
+feeds long prompts that many tokens a step, ``--dtype`` sets the compute
+dtype. Checks on every rank, once the mesh has gathered every rank's
+outcome: tokens, events and every registry's digest the same on every
+rank, every step's logits (hashed) the same over each row (under the
+sequence split, on every rank); the paged runs' tokens equal to the
+dense engine's; no overflow fallback (async prefetch misses, blocks
+redone on the sync path, are reported). Over a data column of a dense
+model each row then serves its replica's requests alone (a ``1 x M``
+engine at ``batch / (N / M)``, fed in order the requests the split
+schedule put there; ``serving.scheduler.replica_requests``): tokens and
+every step's logits equal, for each run. Under the sequence split rank
+0 serves the requests alone with no mesh: tokens equal, every step's
+logits within rtol 1e-5 / atol 1e-5. For phi3 at ``1 x N`` rank 0 then
+serves the whole model alone, from the same seed, and reports (not
+gates) how many requests agree with the row and the first divergent
+step's top-1 margin. Rank 0 prints ms/token prefill and decode of each
+run, a decode step's kernel launches, all-reduces and all-gathers, the
+wire's B/symbol, pooled / dense KV and every rank's peak.
 
 Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --cards 4 --model 2 4
@@ -59,6 +70,10 @@ Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --arch jamba-1.5-large-398b --model 4
   python3 tools/tp_cards.py --serve --arch deepseek-coder-33b --model 4
   python3 tools/tp_cards.py --serve --cards 2 --model 2
+  python3 tools/tp_cards.py --serve --model 2
+  python3 tools/tp_cards.py --serve --decode-seq-shard --model 1 \
+      --arch chatglm3-6b --dtype float32 --batch 1 --requests 2 \
+      --prompt-len 32640 --new-tokens 64 --kv-block 128 --prefill-chunk 256
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
 ranks with a reduced config of the arch whose pools hold every chunk (a
 rehearsal of the control flow, without the kernel timings; its times
@@ -238,9 +253,8 @@ def _rank_main(rank, args, init):
 
 
 def _serve_rank(rank, args, init):
-    """``--serve``: the arch served over a model row of every card (layout
-    1 x N) for each ``--model`` size equal to ``--cards``; see the
-    module docstring."""
+    """``--serve``: the arch served on the ``cards / M x M`` layout of each
+    ``--model`` size M; see the module docstring."""
     import hashlib
     import time
     import torch
@@ -250,14 +264,18 @@ def _serve_rank(rank, args, init):
     from repro_torch.comm.blockpool import BlockPool
     from repro_torch.configs import reduced
     from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
-                                         model_row, use_mesh)
+                                         model_row, row_mesh, use_mesh)
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_decode_states
+    from repro_torch.parallel.sharding import get_rules, make_rules, use_rules
     from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                      engine as engine_mod, scheduler)
+    from repro_torch.serving.scheduler import replica_requests
 
     cuda = args.device == "cuda"
     cfg = arch_config(args.arch, args.layers, args.moe_impl)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if not cuda:
         # leaves wide enough for the weight wire
         cfg = arch_config(args.arch, moe_impl=args.moe_impl, cfg=reduced(
@@ -265,15 +283,25 @@ def _serve_rank(rank, args, init):
             **({} if cfg.moe else {"d_ff": 512})))
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    digest = hashlib.sha256()
+    seq = args.decode_seq_shard
+    #: the current run's logits: hashed on this rank, and kept on rank 0
+    #: under the sequence split (held against the one-rank engine)
+    logits = {"hash": hashlib.sha256(), "keep": None}
     inner = scheduler.decode_step
 
-    def hashed_step(*a, **kw):
-        # every step's logits, hashed on this rank
+    def logged_step(*a, **kw):
         lg, st = inner(*a, **kw)
-        digest.update(lg.float().cpu().numpy().tobytes())
+        last = lg[:, -1].float().cpu()
+        logits["hash"].update(last.numpy().tobytes())
+        if logits["keep"] is not None:
+            logits["keep"].append(last)
         return lg, st
-    scheduler.decode_step = engine_mod.decode_step = hashed_step
+    scheduler.decode_step = engine_mod.decode_step = logged_step
+
+    def fresh_logits(keep=False):
+        logits["hash"] = hashlib.sha256()
+        logits["keep"] = [] if keep else None
+
     with data_parallel(args.device, rank=rank, world_size=args.cards,
                        init_method=init):
         dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
@@ -288,6 +316,7 @@ def _serve_rank(rank, args, init):
                 torch.cuda.synchronize()
 
         n_params = sum(math.prod(v) for v in _leaf_shapes(cfg))
+        pagings = ("sync",) if seq else ("sync", "async")
         say(f"{cfg.name}: {cfg.num_layers} layers "
             f"({'/'.join(cfg.layer_kinds())}), d_model {cfg.d_model}, "
             f"{cfg.num_heads} / {cfg.num_kv_heads} heads x "
@@ -298,29 +327,36 @@ def _serve_rank(rank, args, init):
             + f"; {n_params} parameters ({cfg.param_dtype}), compute "
             f"{cfg.dtype}; batch {args.batch}, {args.requests} requests, "
             f"prompt {args.prompt_len}, {args.new_tokens} new tokens, "
-            f"--wire qlc, --kv-cache qlc --kv-block {args.kv_block}; "
-            f"{args.cards} ranks ({args.device})")
+            f"prefill {args.prefill_chunk} tokens a step, --wire qlc, "
+            f"--kv-cache qlc --kv-block {args.kv_block} "
+            f"({', '.join(pagings)}); {args.cards} ranks ({args.device})"
+            + ("; make_rules(decode_seq_shard=True)" if seq else ""))
         for model in args.model:
-            if model != args.cards:
-                raise SystemExit(f"--serve lays the {args.cards} ranks out "
-                                 f"1 x {args.cards}; --model {model} would "
-                                 "split the slots over the data column "
-                                 "(ROADMAP queue 1, item 19)")
             mesh = make_test_mesh(model=model)
-            tag = f"1 x {model}"
+            data = mesh.data
+            tag = f"{data} x {model}" + (" seq" if seq else "")
+            rules = make_rules(decode_seq_shard=True) if seq else get_rules()
+            # the replica-alone reference of a split (dense models)
+            sub = (row_mesh(mesh) if data > 1 and not seq
+                   and cfg.moe is None else None)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             max_len = args.prompt_len + args.new_tokens + 8
             row_out = {"layout": tag, "rank": rank}
-            with use_mesh(mesh):
+            runs, regs, toks, events, hashes = {}, {}, {}, {}, {}
+            with use_mesh(mesh), use_rules(rules):
+                fresh_logits(keep=seq and rank == 0)
                 sync()
                 t0 = time.perf_counter()
                 res = serve(cfg, batch=args.batch, requests=args.requests,
                             prompt_len=args.prompt_len,
                             new_tokens=args.new_tokens, wire="qlc",
-                            device=args.device, seed=0)
+                            device=args.device, seed=0,
+                            prefill_chunk=args.prefill_chunk)
                 sync()
                 row_out["serve_s"] = time.perf_counter() - t0
+                kept = logits["keep"]
+                hashes["dense"] = logits["hash"].hexdigest()[:16]
                 opened, prompts = res["params"], res["prompts"]
                 wc, wired = res["wire_codec"], res["wired"]
                 wire_b = sym = 0
@@ -335,39 +371,58 @@ def _serve_rank(rank, args, init):
                 row_out["set_up_s"] = {k: res[k] for k in (
                     "calibrate_s", "compress_s", "open_s")}
                 del wired, res["wired"]
-                dense = [o.tokens.tolist() for o in res["outs"]]
-                runs = {"dense": res["stats"]}
-                regs = {"weights": wc.registry.to_json()}
+                ids = [o.request_id for o in res["outs"]]
+                toks["dense"] = [o.tokens.tolist() for o in res["outs"]]
+                runs["dense"], events["dense"] = res["stats"], res["events"]
+                regs["weights"] = wc.registry.to_json()
                 del res
-                for paging in ("sync", "async"):
+                kv = {p: dict(kv_paging=p, kv_spec=KVCacheSpec(
+                    block_tokens=args.kv_block, exact_capacity=p == "sync",
+                    axis="model")) for p in pagings}
+                for paging in pagings:
+                    fresh_logits()
                     eng = Engine(opened, cfg, max_seq_len=max_len,
-                                 max_batch=args.batch,
-                                 kv_spec=KVCacheSpec(
-                                     block_tokens=args.kv_block,
-                                     exact_capacity=paging == "sync",
-                                     axis="model"),
-                                 pool=BlockPool(1 << 34), kv_paging=paging,
-                                 mesh=mesh)
-                    hs = [eng.submit(GenerationRequest(
-                        prompt=p, max_new_tokens=args.new_tokens))
-                        for p in prompts]
+                                 max_batch=args.batch, pool=BlockPool(1 << 34),
+                                 mesh=mesh, prefill_chunk=args.prefill_chunk,
+                                 **kv[paging])
+                    for rid, p in zip(ids, prompts):
+                        eng.submit(GenerationRequest(
+                            prompt=p, max_new_tokens=args.new_tokens,
+                            request_id=rid))
                     eng.run()
-                    toks = [eng.poll(h).tokens.tolist() for h in hs]
+                    hashes[paging] = logits["hash"].hexdigest()[:16]
+                    toks[paging] = [eng.poll(r).tokens.tolist() for r in ids]
                     st = runs[paging] = eng.stats()
-                    # rank-local outcomes, checked once the row has
+                    events[paging] = eng.events
+                    # rank-local outcomes, checked once the mesh has
                     # gathered them: a rank that raised alone would leave
-                    # the others in the row's next collective
-                    row_out[f"{paging}_equal_dense"] = toks == dense
+                    # the others in the next collective
+                    row_out[f"{paging}_equal_dense"] = \
+                        toks[paging] == toks["dense"]
                     row_out[f"{paging}_overflow"] = \
                         st["kv"]["overflow_sections"]
                     if paging == "async":
                         row_out["async_misses"] = st["prefetch"]["misses"]
                     regs[paging] = eng.registry.to_json()
+                    state_len = eng._states_len()
                     del eng
                 row_out["steps"] = _step_counts(
                     decode_step, opened, cfg, init_decode_states(
-                        cfg, args.batch, max_len, dev,
-                        row=model_row(mesh)), args.batch, dev, cuda)
+                        cfg, args.batch // (1 if seq else data), state_len,
+                        dev, row=model_row(mesh)), args.batch
+                    // (1 if seq else data), dev, cuda)
+                if sub is not None:
+                    row_out["replica"] = _replica_alone(
+                        Engine, GenerationRequest, BlockPool, opened, cfg,
+                        args, sub, mesh, dict(kv, dense={}), events, toks,
+                        hashes, ids, prompts, max_len, replica_requests,
+                        fresh_logits, logits)
+            if seq:
+                row_out["one_rank"] = _seq_against_one_rank(
+                    rank, Engine, GenerationRequest, opened, cfg, args, ids,
+                    prompts, max_len, toks["dense"], kept, fresh_logits,
+                    logits)
+            kept = None
             row_out["ms_per_token"] = {
                 k: {"prefill": v["ms_per_token_prefill"],
                     "decode": v["ms_per_token_decode"]}
@@ -375,46 +430,69 @@ def _serve_rank(rank, args, init):
             row_out["pooled_over_dense"] = {
                 k: runs[k]["pool"]["peak_referenced_bytes"]
                 / max(1, runs[k]["peak_dense_logical_bytes"])
-                for k in ("sync", "async")}
+                for k in pagings}
             row_out["registry_sha256"] = {
                 k: hashlib.sha256(v.encode()).hexdigest()[:16]
                 for k, v in regs.items()}
-            row_out["logits_sha256"] = digest.hexdigest()[:16]
+            row_out["logits_sha256"] = hashes
             row_out["tokens_sha256"] = hashlib.sha256(
-                json.dumps(dense).encode()).hexdigest()[:16]
+                json.dumps(toks).encode()).hexdigest()[:16]
+            row_out["events_sha256"] = hashlib.sha256(json.dumps(
+                events).encode()).hexdigest()[:16]
             row_out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                                    if cuda else float("nan"))
             gathered = [None] * args.cards
             dist.all_gather_object(gathered, row_out)
-            failed = [f"{key} differs over the row: "
+            failed = [f"{key} differs over the mesh: "
                       f"{[g[key] for g in gathered]}"
-                      for key in ("registry_sha256", "logits_sha256",
-                                  "tokens_sha256")
+                      for key in ("registry_sha256", "tokens_sha256",
+                                  "events_sha256")
                       if any(g[key] != gathered[0][key] for g in gathered)]
+            # a replica's logits are its own rows' (seq: every rank's)
+            rows = [gathered[r:r + model] for r in range(0, args.cards, model)]
+            if any(g["logits_sha256"] != r[0]["logits_sha256"]
+                   for r in ([gathered] if seq else rows) for g in r):
+                failed.append("logits differ over a row: "
+                              f"{[g['logits_sha256'] for g in gathered]}")
             failed += [f"{paging} paging is not token-identical to the "
-                       "dense engine" for paging in ("sync", "async")
+                       "dense engine" for paging in pagings
                        if not all(g[f"{paging}_equal_dense"]
                                   for g in gathered)]
-            overflow = [[g["sync_overflow"], g["async_overflow"]]
+            overflow = [[g[f"{p}_overflow"] for p in pagings]
                         for g in gathered]
-            if any(a or b for a, b in overflow):
+            if any(any(o) for o in overflow):
                 failed.append("overflow fallbacks to raw containers "
-                              f"(sync, async) by rank: {overflow}")
+                              f"({', '.join(pagings)}) by rank: {overflow}")
+            if sub is not None:
+                failed += [f"rank {g['rank']}: {f}" for g in gathered
+                           for f in g["replica"]["failed"]]
+            one = gathered[0].get("one_rank")
+            if one is not None and one["failed"]:
+                failed += one["failed"]
             r0 = gathered[0]
-            say(f"[{tag}] tokens (sha256 {r0['tokens_sha256']}), logits of "
-                f"every step ({r0['logits_sha256']}), registries "
-                f"{r0['registry_sha256']}; async prefetch misses (blocks "
-                "redone on the sync path) by rank "
-                f"{[g['async_misses'] for g in gathered]}; "
+            say(f"[{tag}] tokens (sha256 {r0['tokens_sha256']}), events "
+                f"({r0['events_sha256']}), registries "
+                f"{r0['registry_sha256']}, logits of every step by rank "
+                f"{[g['logits_sha256']['dense'] for g in gathered]} "
+                "(dense); "
+                + (f"async prefetch misses (blocks redone on the sync "
+                   f"path) by rank {[g['async_misses'] for g in gathered]}; "
+                   if not seq else "")
                 + ("; ".join(f"FAILED: {f}" for f in failed) if failed
-                   else "the same on every rank, paged sync and async "
-                   "token-identical to the dense engine, no overflow "
-                   "fallback"))
+                   else "the same on every rank, paged token-identical to "
+                   "the dense engine, no overflow fallback"))
+            if sub is not None:
+                say(f"[{tag}] each replica against its row alone (1 x "
+                    f"{model}, batch {args.batch // data}): " + "; ".join(
+                        f"rank {g['rank']} {g['replica']['requests']}: "
+                        f"{g['replica']['equal']}" for g in gathered))
+            if one is not None:
+                say(f"[{tag}] against the one-rank engine on card 0: {one}")
             say(f"[{tag}] ms/token prefill / decode: " + ", ".join(
                 f"{k} {v['prefill']:.3f} / {v['decode']:.3f}"
                 for k, v in r0["ms_per_token"].items())
-                + f"; a decode step (batch {args.batch}): "
-                f"{r0['steps']['launches']} kernel launches, "
+                + f"; a decode step (batch {args.batch // (1 if seq else data)}"
+                f" a rank): {r0['steps']['launches']} kernel launches, "
                 f"{r0['steps']['all_reduces']} all-reduces and "
                 f"{r0['steps']['all_gathers']} all-gathers, "
                 f"{r0['steps']['wall_ms']:.3f} ms; wire "
@@ -424,9 +502,9 @@ def _serve_rank(rank, args, init):
                     r0["pooled_over_dense"].items())
                 + "; peak " + ", ".join(f"{g['peak_gib']:.2f}"
                                         for g in gathered) + " GiB by rank")
-            if args.arch.startswith("phi3"):
-                agree = _against_one_card(rank, cfg, args, dense, prompts,
-                                          dev, cuda)
+            if args.arch.startswith("phi3") and data == 1:
+                agree = _against_one_card(rank, cfg, args, toks["dense"],
+                                          prompts, dev, cuda)
                 if rank == 0:
                     say(f"[{tag}] against the 1 x 1 run on card 0 (reported, "
                         f"not gated): {agree}")
@@ -444,6 +522,81 @@ def _serve_rank(rank, args, init):
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0], flush=True)
+
+
+def _replica_alone(Engine, GenerationRequest, BlockPool, opened, cfg, args,
+                   sub, mesh, kinds, events, toks, hashes, ids, prompts,
+                   max_len, replica_requests, fresh_logits, logits):
+    """This rank's row serving its replica's requests alone, for each
+    run: a ``1 x M`` engine at ``batch / data`` fed, in order, the
+    requests the split schedule put on the replica -> {"requests", "equal":
+    per run whether its tokens and every step's logits equal the split
+    run's, "failed"}."""
+    d = mesh.coords[0]
+    by_id = dict(zip(ids, prompts))
+    out = {"equal": {}, "failed": []}
+    for kind, kw in kinds.items():
+        mine = replica_requests(events[kind], args.batch, mesh.data)[d]
+        fresh_logits()
+        extra = {} if kind == "dense" else dict(pool=BlockPool(1 << 34))
+        eng = Engine(opened, cfg, max_seq_len=max_len,
+                     max_batch=args.batch // mesh.data, mesh=sub,
+                     prefill_chunk=args.prefill_chunk, **kw, **extra)
+        for rid in mine:
+            eng.submit(GenerationRequest(prompt=by_id[rid],
+                                         max_new_tokens=args.new_tokens,
+                                         request_id=rid))
+        eng.run()
+        same_t = all(eng.poll(rid).tokens.tolist() == toks[kind][ids.index(
+            rid)] for rid in mine)
+        same_l = logits["hash"].hexdigest()[:16] == hashes[kind]
+        out["equal"][kind] = {"tokens": same_t, "logits": same_l}
+        out["requests"] = mine
+        if not (same_t and same_l):
+            out["failed"].append(f"replica {d}'s {kind} run differs from "
+                                 "its row alone")
+        del eng
+    return out
+
+
+def _seq_against_one_rank(rank, Engine, GenerationRequest, opened, cfg,
+                          args, ids, prompts, max_len, tokens, kept,
+                          fresh_logits, logits):
+    """Rank 0 serves the same requests with no mesh on its card alone:
+    its tokens must equal the sequence-split dense run's and every
+    step's logits agree to rtol 1e-5 / atol 1e-5 (the partial softmax
+    sums the terms in another order) -> {"tokens_equal", "steps",
+    "max_abs_err", "failed"}, None on the other ranks (which wait)."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    if rank == 0:
+        fresh_logits(keep=True)
+        eng = Engine(opened, cfg, max_seq_len=max_len, max_batch=args.batch,
+                     prefill_chunk=args.prefill_chunk)
+        for rid, p in zip(ids, prompts):
+            eng.submit(GenerationRequest(prompt=p,
+                                         max_new_tokens=args.new_tokens,
+                                         request_id=rid))
+        eng.run()
+        mine = [eng.poll(r).tokens.tolist() for r in ids]
+        theirs = logits["keep"]
+        fresh_logits()
+        err = max(float((a - b).abs().max()) for a, b in zip(kept, theirs))
+        close = len(kept) == len(theirs) and all(
+            torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+            for a, b in zip(kept, theirs))
+        out = {"tokens_equal": mine == tokens, "steps": len(theirs),
+               "max_abs_err": err, "failed": []}
+        if mine != tokens:
+            out["failed"].append("the split run's tokens differ from the "
+                                 "one-rank engine's")
+        if not close:
+            out["failed"].append("a step's logits leave rtol 1e-5 / atol "
+                                 "1e-5 of the one-rank engine's")
+        del eng
+    dist.barrier()
+    return out
 
 
 def _leaf_shapes(cfg):
@@ -580,8 +733,17 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--serve", action="store_true",
-                    help="serve the arch over a model row of every card "
-                         "(1 x N) instead of training it")
+                    help="serve the arch on the N / M x M layout of each "
+                         "--model M instead of training it")
+    ap.add_argument("--decode-seq-shard", action="store_true",
+                    help="--serve under make_rules(decode_seq_shard=True): "
+                         "the KV caches' sequence over the data column")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="--serve: prompt tokens a prefill step "
+                         "(attention-only stacks)")
+    ap.add_argument("--dtype", default=None,
+                    help="--serve: the compute dtype (default: the "
+                         "config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=32)
