@@ -2072,9 +2072,11 @@ def phase_ckpt_resume(qf, h6, reduced, get_config, dev="cuda"):
     checkpoint_dir=..., checkpoint_every=3)``, 6 steps; then step 6 is
     removed, as if the run had died while saving it, and the same launch
     resumes from step 3 and runs 3 more: parameters and ZeRO-1 state
-    bit-equal to the straight run's. Both runs autotune the step's two
-    wires, whose "auto" channels resolve to the tuning. K1, K2 and K6
-    counted from zero around the two launches."""
+    bit-equal to the straight run's. The checkpoint is one directory of
+    whole leaves, ``1/m`` and ``1/v`` as ``[1, 1, seg]``; each save and
+    restore stage's seconds are logged. Both runs autotune the step's
+    two wires, whose "auto" channels resolve to the tuning. K1, K2 and
+    K6 counted from zero around the two launches."""
     import shutil
     import tempfile
     from repro_torch.checkpoint.manager import flatten_with_paths
@@ -2090,12 +2092,27 @@ def phase_ckpt_resume(qf, h6, reduced, get_config, dev="cuda"):
         fn.launches = 0
     with tempfile.TemporaryDirectory(prefix="qlc_resume_") as tmp:
         a = train(cfg, checkpoint_dir=tmp, **kw)
+        names = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "step_0000000006",
+                               "manifest.json")) as f:
+            leaves = json.load(f)["leaves"]
         shutil.rmtree(os.path.join(tmp, "step_0000000006"))
         b = train(cfg, checkpoint_dir=tmp, **kw)
     launches = {k: fn.launches for k, fn in counters.items()}
     if (a["start_step"], b["start_step"]) != (0, 3):
         raise AssertionError(f"resume: started at {a['start_step']} and "
                              f"{b['start_step']}, not 0 and 3")
+    seg = a["opt_state"]["m"].numel()
+    if any(n.startswith("rank_") for n in names) or any(
+            leaves[k]["shape"] != [1, 1, seg] for k in ("1/m", "1/v")):
+        raise AssertionError(f"resume: the checkpoint is not one directory "
+                             f"of whole leaves: {names}, 1/m "
+                             f"{leaves['1/m']['shape']} (want [1, 1, {seg}])")
+    for what, t in (("save (first run, step 6)", a["checkpoint"]["save"]),
+                    ("restore (step 3)", b["checkpoint"]["restore"]),
+                    ("save (resumed run, step 6)", b["checkpoint"]["save"])):
+        log("ckpt", f"resume {what}: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in t.items()))
     fa = flatten_with_paths((a["params"], a["opt_state"]))
     fb = flatten_with_paths((b["params"], b["opt_state"]))
     bad = [k for k in fa if not _same_bytes(fa[k], fb[k])]
@@ -2121,7 +2138,8 @@ def phase_ckpt_resume(qf, h6, reduced, get_config, dev="cuda"):
                 f"phi3, --comm qlc --transport auto --autotune "
                 f"--checkpoint-every 3): 6 steps straight == 3 steps + step "
                 f"6 removed + resume at step 3 + 3 steps, {len(fa)} leaves of "
-                f"params and ZeRO-1 state bit-equal; fallbacks "
+                f"params and ZeRO-1 state bit-equal; one directory {names}, "
+                f"1/m and 1/v [1, 1, {seg}]; fallbacks "
                 f"{a['comm_fallbacks']}, {b['comm_fallbacks']}; tuned (kind, "
                 f"hop pieces, decode B/s; both runs) {tuned}, the step's "
                 f"'auto' channels resolve to them; launches {launches}")

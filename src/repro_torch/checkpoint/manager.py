@@ -23,22 +23,45 @@ are saved as the reference saves its ``ml_dtypes`` arrays: the raw
 bytes under the void descr ``<V2`` or ``<V1``, with the dtype's name in
 the manifest. The reference's ``shardings`` argument of ``restore`` is
 ``device`` here.
+
+One checkpoint for any layout. Over the ranks of a ``data x model`` run
+(a :class:`Layout`) a save still writes one directory of whole leaves,
+the reference's global arrays: every rank writes its own part of a
+split leaf (its tensor-parallel block, or its row of a ``[data, model,
+*shape]`` leaf such as the compressed step's ZeRO-1 state) into the
+leaf's ``.npy`` through a shared memory map, in pieces of at most
+``_PIECE`` bytes, and rank 0 writes the leaves every rank holds whole.
+The md5 of each split leaf is then streamed from its file, the leaves
+dealt out over the ranks, and rank 0 commits the directory once every
+rank's part has arrived; a rank that fails makes every rank raise, and
+the previous checkpoint stays. A restore first agrees on the step and
+the manifest (rank 0's, sent to all), then checks every leaf's md5 (the
+leaves dealt out over the ranks) and agrees on the verdict, and only
+then cuts each rank's part out of the whole leaves through a memory
+map. Beyond its own state, a rank holds on the host one piece of a save
+or one leaf's part of a restore at a time, and one whole byte-width
+leaf where it frames or decodes a QLC container. The ranks share the
+checkpoint directory's file system (one host; more hosts are ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
 import shutil
 import tempfile
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, FrozenSet, List, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEP = "/"
 REGISTRY_FILE = "registry.json"
@@ -59,6 +82,8 @@ _BY_NAME = {name: (dt, as_int) for dt, (name, as_int, _) in
 _HIST_PIECE = 1 << 30
 #: chunks whose code lengths are summed at once when sizing the slot.
 _SIZING_CHUNKS = 1 << 16
+#: bytes of a split leaf moved to the host (and written) at once.
+_PIECE = 1 << 28
 
 
 # --------------------------------------------------------------------------
@@ -159,16 +184,16 @@ def _torch_dtype(name: str) -> torch.dtype:
     return _BY_NAME[name][0] if name in _BY_NAME else getattr(torch, name)
 
 
-def _to_tensor(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
-    """Host bytes with the manifest's dtype name -> a tensor on
-    ``device``."""
+def _host_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """Host bytes with the manifest's dtype name -> a CPU tensor of them
+    (a copy)."""
     if dtype_name in _BY_NAME:
         dt, as_int = _BY_NAME[dtype_name]
         raw = np.array(arr, order="C").view(
             np.int16 if as_int == torch.int16 else np.uint8)
-        return torch.from_numpy(raw).to(device).view(dt)
+        return torch.from_numpy(raw).view(dt)
     return torch.from_numpy(np.array(arr, dtype=np.dtype(dtype_name),
-                                     order="C")).to(device)
+                                     order="C"))
 
 
 def _checksum(arr: np.ndarray) -> str:
@@ -182,16 +207,131 @@ def _sync(device):
 
 
 # --------------------------------------------------------------------------
+# Where the ranks hold a tree that a checkpoint stores whole
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How the ranks of a ``data x model`` run hold the leaves of a tree
+    whose checkpoint stores each leaf whole (world rank ``d * model +
+    m``, ``rank`` this one's in ``group``, which every rank of the run
+    is in and which every save and restore runs over):
+
+    * ``cut``: {path key: dim}: the leaf is split along ``dim`` into
+      ``model`` contiguous blocks, model rank ``m`` holding block ``m``
+      (``convert.shard_params``; a data column holds the same blocks);
+    * ``rows``: the path keys of leaves each rank holds one row of: the
+      stored leaf is ``[data, model, *shape]``, row ``[d, m]`` world rank
+      ``d * model + m``'s (the compressed step's ``m`` and ``v``);
+    * any other leaf is whole and the same on every rank.
+
+    The default is one rank holding every leaf as it is."""
+    data: int = 1
+    model: int = 1
+    rank: int = 0
+    group: Any = None
+    cut: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    rows: FrozenSet[str] = frozenset()
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    def _dim(self, key: str) -> Optional[int]:
+        return self.cut.get(key) if self.model > 1 else None
+
+    def whole_shape(self, key: str, shape) -> List[int]:
+        """The stored shape of leaf ``key``, which this rank holds at
+        ``shape``."""
+        if key in self.rows:
+            return [self.data, self.model, *shape]
+        whole = list(shape)
+        dim = self._dim(key)
+        if dim is not None:
+            whole[dim] *= self.model
+        return whole
+
+    def part(self, key: str, whole) -> tuple:
+        """This rank's part of the stored leaf ``key`` of shape ``whole``,
+        as an index into it (``()``: all of it)."""
+        d, m = divmod(self.rank, self.model)
+        if key in self.rows:
+            return (d, m)
+        dim = self._dim(key)
+        if dim is None:
+            return ()
+        n = whole[dim] // self.model
+        return (slice(None),) * dim + (slice(m * n, (m + 1) * n),)
+
+    def split(self, key: str) -> bool:
+        """Whether several ranks write parts of leaf ``key``."""
+        return self.size > 1 and (key in self.rows
+                                  or self._dim(key) is not None)
+
+    def writes(self, key: str) -> bool:
+        """Whether this rank writes (a part of) leaf ``key`` on a save: its
+        row, its block from the first model row, or rank 0 a whole
+        leaf."""
+        if key in self.rows:
+            return True
+        if self.split(key):
+            return self.rank < self.model
+        return self.rank == 0
+
+
+def _agreed(layout: Layout, fn: Callable[[], Any]) -> List[Any]:
+    """``fn()`` on every rank of ``layout`` -> every rank's result, rank
+    by rank. If it raised on any rank, every rank raises: its own
+    exception where it raised, else the first failing rank's, rebuilt (a
+    rank that raised alone would leave the others waiting in their next
+    collective)."""
+    if layout.size == 1:
+        return [fn()]
+    try:
+        mine = (fn(), None)
+    except Exception as e:          # re-raised below, on every rank
+        err = e
+        mine = (None, (type(e), str(e)))
+    else:
+        err = None
+    every = [None] * layout.size
+    dist.all_gather_object(every, mine, group=layout.group)
+    if err is not None:
+        raise err
+    for r, (_, failed) in enumerate(every):
+        if failed is not None:
+            kind, msg = failed
+            try:
+                exc = kind(f"rank {r}: {msg}")
+            except Exception:       # a type that takes other arguments
+                exc = RuntimeError(f"rank {r}: {kind.__name__}: {msg}")
+            raise exc
+    return [res for res, _ in every]
+
+
+# --------------------------------------------------------------------------
 # Manager
 # --------------------------------------------------------------------------
 
 class CheckpointManager:
-    """Saves and restores trees of tensors under ``directory``.
+    """Saves and restores trees of tensors under ``directory``; over the
+    ranks of a :class:`Layout`, one checkpoint of whole leaves that every
+    rank writes its part of and cuts its part from.
 
     ``timings`` holds the seconds the last ``save`` or ``restore`` spent
-    in each stage (``counts``, ``encode``, ``d2h``, ``md5``, ``write``;
-    ``read``, ``decode``, ``h2d``), each stage's device work
-    synchronized at its end."""
+    in each stage, each stage's device work synchronized at its end. A
+    save: ``d2h``, ``md5``, ``write`` (the leaves rank 0 writes whole,
+    and this rank's parts of the split leaves), ``fsync`` (the parts),
+    ``counts``, ``encode`` (QLC), ``gather`` (the wait until every
+    rank's parts have arrived), ``commit`` (rank 0: the manifest, the
+    rename, ``latest``; the others wait). A restore:
+    ``agree`` (the step and manifest from rank 0, and the wait for the
+    md5 verdict), ``read``, ``decode`` (QLC), ``md5``, ``cut`` (this
+    rank's part copied out of the file), ``h2d``."""
 
     def __init__(self, directory: str, keep: int = 3,
                  qlc_codes: bool = True, qlc_min_bytes: int = QLC_MIN_BYTES):
@@ -210,49 +350,125 @@ class CheckpointManager:
         self.timings[name] = self.timings.get(name, 0.0) \
             + time.perf_counter() - t0
 
+    @contextlib.contextmanager
+    def _waiting(self, name: str):
+        """Adds to stage ``name`` the block's seconds that no stage inside
+        it counted (the wait for the other ranks)."""
+        t0, inner = time.perf_counter(), sum(self.timings.values())
+        try:
+            yield
+        finally:
+            rest = time.perf_counter() - t0 - (sum(self.timings.values())
+                                               - inner)
+            self.timings[name] = self.timings.get(name, 0.0) + rest
+
     # ---- save -----------------------------------------------------------
 
-    def save(self, step: int, state: Any, extra: Optional[Dict] = None):
-        """Atomically save the tree ``state`` as checkpoint ``step``."""
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None,
+             layout: Optional[Layout] = None):
+        """Atomically save the tree ``state`` as checkpoint ``step``. Over
+        a ``layout`` of several ranks every rank calls this with its own
+        tree, and the checkpoint holds the whole leaves; it is committed
+        only once every rank's part is written, and if any rank fails
+        every rank raises and the previous checkpoint stays."""
         from repro_torch.core.registry import CodecRegistry
+        layout = layout or Layout()
         self.timings = {}
         flat = flatten_with_paths(state)
-        tmp = tempfile.mkdtemp(dir=self.dir, prefix=f".tmp_{step}_")
-        manifest = {"step": int(step), "leaves": {}, "extra": extra or {}}
+        tmp = _agreed(layout, lambda: tempfile.mkdtemp(
+            dir=self.dir, prefix=f".tmp_{step}_")
+            if layout.rank == 0 else None)[0]
         registry = CodecRegistry()
+        metas: Dict[str, Dict] = {}
         try:
-            for key, leaf in flat.items():
-                dev = leaf.device if isinstance(leaf, torch.Tensor) else None
-                with self._stage("d2h"):
-                    arr, dtype_name = _host_array(leaf)
-                fname = hashlib.md5(key.encode()).hexdigest() + ".npy"
-                with self._stage("md5"):
-                    meta = {"file": fname, "shape": list(arr.shape),
-                            "dtype": dtype_name, "sum": _checksum(arr)}
-                blob, qlc_meta = self._maybe_qlc(_byte_symbols(leaf, arr),
-                                                 arr.nbytes, key, registry,
-                                                 dev)
-                if qlc_meta is not None:
-                    meta["qlc"] = qlc_meta
-                    arr = blob
-                with self._stage("write"):
-                    _write(os.path.join(tmp, fname),
-                           lambda f, a=arr: _save_npy(f, a))
-                manifest["leaves"][key] = meta
-            if len(registry):
-                _write(os.path.join(tmp, REGISTRY_FILE), lambda f: f.write(
-                    json.dumps(registry.to_json_dict()).encode()))
-            _write(os.path.join(tmp, "manifest.json"),
-                   lambda f: f.write(json.dumps(manifest).encode()))
-            final = os.path.join(self.dir, f"step_{step:010d}")
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.rename(tmp, final)                       # atomic commit
-            self._update_latest(step)
-            self._gc()
+            with self._waiting("gather"):
+                _agreed(layout, lambda: self._write_own(tmp, flat, layout,
+                                                        registry, metas))
+            split = {k: math.prod(layout.whole_shape(k, leaf.shape))
+                     * leaf.element_size()
+                     for k, leaf in flat.items() if layout.split(k)}
+            sums: Dict[str, str] = {}
+            if split:
+                with self._waiting("md5"):
+                    for part in _agreed(layout, lambda: {
+                            k: _checksum(_mapped(tmp, _leaf_file(k)))
+                            for k in _dealt(split, layout)}):
+                        sums.update(part)
+            with self._waiting("commit"):
+                _agreed(layout, lambda: self._commit(
+                    step, tmp, flat, metas, sums, registry, extra)
+                    if layout.rank == 0 else None)
         except Exception:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if layout.rank == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
+
+    def _write_own(self, tmp: str, flat: Dict[str, Any], layout: Layout,
+                   registry, metas: Dict[str, Dict]):
+        """Write this rank's leaves and parts of ``flat`` into ``tmp``, each
+        leaf's manifest entry into ``metas`` (a split leaf's without its
+        md5)."""
+        for key, leaf in flat.items():
+            if not layout.writes(key):
+                continue
+            fname = _leaf_file(key)
+            if layout.split(key):
+                metas[key] = _write_part(tmp, fname, leaf, layout, key,
+                                         self._stage)
+                continue
+            dev = leaf.device if isinstance(leaf, torch.Tensor) else None
+            with self._stage("d2h"):
+                arr, dtype_name = _host_array(leaf)
+                arr = arr.reshape(layout.whole_shape(key, arr.shape))
+            with self._stage("md5"):
+                meta = {"file": fname, "shape": list(arr.shape),
+                        "dtype": dtype_name, "sum": _checksum(arr)}
+            blob, qlc_meta = self._maybe_qlc(_byte_symbols(leaf, arr),
+                                             arr.nbytes, key, registry, dev)
+            if qlc_meta is not None:
+                meta["qlc"] = qlc_meta
+                arr = blob
+            with self._stage("write"):
+                _write(os.path.join(tmp, fname),
+                       lambda f, a=arr: _save_npy(f, a))
+            metas[key] = meta
+
+    def _commit(self, step: int, tmp: str, flat: Dict[str, Any],
+                metas: Dict[str, Dict], sums: Dict[str, str], registry,
+                extra: Optional[Dict]):
+        """Rank 0: the split leaves' md5s into their entries (a byte-width
+        one QLC'd from its whole file, on the device of this rank's part),
+        the registry and manifest written, the directory renamed into
+        place, ``latest`` and garbage collection."""
+        manifest = {"step": int(step), "leaves": {}, "extra": extra or {}}
+        for key, leaf in flat.items():
+            meta = metas[key]
+            if key in sums:
+                meta["sum"] = sums[key]
+                arr = _mapped(tmp, meta["file"])
+                if arr.dtype.itemsize == 1 and self.qlc_codes \
+                        and arr.nbytes >= self.qlc_min_bytes:
+                    arr = np.array(arr)
+                    blob, qlc_meta = self._maybe_qlc(
+                        _byte_symbols(arr, arr).to(leaf.device), arr.nbytes,
+                        key, registry, leaf.device)
+                    if qlc_meta is not None:
+                        meta["qlc"] = qlc_meta
+                        _write(os.path.join(tmp, meta["file"]),
+                               lambda f, a=blob: _save_npy(f, a))
+                del arr
+            manifest["leaves"][key] = meta
+        if len(registry):
+            _write(os.path.join(tmp, REGISTRY_FILE), lambda f: f.write(
+                json.dumps(registry.to_json_dict()).encode()))
+        _write(os.path.join(tmp, "manifest.json"),
+               lambda f: f.write(json.dumps(manifest).encode()))
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                       # atomic commit
+        self._update_latest(step)
+        self._gc()
 
     def _maybe_qlc(self, syms: Optional[torch.Tensor], nbytes: int, key: str,
                    registry, device):
@@ -348,26 +564,42 @@ class CheckpointManager:
         return sorted(int(name[5:]) for name in os.listdir(self.dir)
                       if name.startswith("step_"))
 
-    def latest_step(self) -> Optional[int]:
-        path = os.path.join(self.dir, "latest")
-        if not os.path.exists(path):
-            steps = self.all_steps()
-            return steps[-1] if steps else None
-        with open(path) as f:
-            return int(f.read().strip())
-
-    def restore(self, like: Any, step: Optional[int] = None,
-                device="cuda") -> Tuple[Any, Dict]:
-        """Restore checkpoint ``step`` (default: the latest) into the
-        structure of ``like``, every leaf a tensor on ``device`` ->
-        ``(tree, extra)``. A missing leaf raises ``KeyError``, a checksum
-        mismatch or a corrupt container ``IOError``, a shape mismatch
+    def latest_step(self, layout: Optional[Layout] = None) -> Optional[int]:
+        """The newest checkpoint's step (the ``latest`` pointer where its
+        directory is there, else the largest step directory), or None;
+        over a ``layout`` of several ranks, rank 0's, the same on every
+        rank. A directory of the per-rank layout that earlier versions of
+        the port wrote (``rank_<r>`` subdirectories) raises
         ``ValueError``."""
-        from repro_torch.models.transformer import resolve_device
-        device = resolve_device(device)
-        self.timings = {}
+        layout = layout or Layout()
+        return _agreed(layout, lambda: self._latest()
+                       if layout.rank == 0 else None)[0]
+
+    def _latest(self) -> Optional[int]:
+        old = sorted(n for n in os.listdir(self.dir)
+                     if n.startswith("rank_"))
+        if old:
+            raise ValueError(
+                f"{self.dir} holds checkpoints in the per-rank layout of "
+                f"earlier versions ({', '.join(old[:4])}"
+                f"{', ...' if len(old) > 4 else ''}), which is not read: a "
+                "checkpoint is now one directory of whole leaves for any "
+                "layout; start from a new directory")
+        path = os.path.join(self.dir, "latest")
+        if os.path.exists(path):
+            with open(path) as f:
+                step = int(f.read().strip())
+            if os.path.isdir(os.path.join(self.dir, f"step_{step:010d}")):
+                return step
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def _manifest(self, step: Optional[int]) -> Tuple[int, Dict, Any]:
+        """Rank 0: ``(step, manifest, registry JSON or None)`` of checkpoint
+        ``step`` (default: the latest)."""
+        latest = self._latest()
         if step is None:
-            step = self.latest_step()
+            step = latest
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         cdir = os.path.join(self.dir, f"step_{step:010d}")
@@ -376,41 +608,246 @@ class CheckpointManager:
         registry = None
         rpath = os.path.join(cdir, REGISTRY_FILE)
         if os.path.exists(rpath):
-            from repro_torch.core.registry import CodecRegistry
-            registry = CodecRegistry.load(rpath)
+            with open(rpath) as f:
+                registry = json.load(f)
+        return step, manifest, registry
 
-        out = {}
+    def restore(self, like: Any, step: Optional[int] = None,
+                device="cuda", layout: Optional[Layout] = None,
+                in_place: bool = False) -> Tuple[Any, Dict]:
+        """Restore checkpoint ``step`` (default: the latest) into the
+        structure of ``like``, every leaf a tensor on ``device`` ->
+        ``(tree, extra)``. A missing leaf raises ``KeyError``, a checksum
+        mismatch or a corrupt container ``IOError``, a shape mismatch
+        ``ValueError``.
+
+        Over a ``layout`` of several ranks every rank calls this with its
+        own ``like`` (its parts' shapes) and gets its parts of the whole
+        leaves. The ranks first take rank 0's step and manifest, so every
+        check above that reads them raises alike on every rank; then each
+        leaf's md5 is checked by one rank, and every rank raises if any
+        failed, before any rank cuts its parts. A leaf held whole or split
+        by the model axis restores on any layout; a ``rows`` leaf only on
+        the ``data x model`` it was saved on (the reference's shape
+        check, which does not re-cut a flat state), else ``ValueError``
+        naming both layouts.
+
+        ``in_place``: each leaf is copied into ``like``'s tensor where
+        that is on ``device`` with the saved dtype (the state that the
+        checkpoint replaces), so the device holds no second copy of the
+        state; ``like``'s tensors are then overwritten."""
+        from repro_torch.core.registry import CodecRegistry
+        from repro_torch.models.transformer import resolve_device
+        device = resolve_device(device)
+        layout = layout or Layout()
+        self.timings = {}
+        with self._waiting("agree"):
+            step, manifest, reg = _agreed(layout, lambda: self._manifest(
+                step) if layout.rank == 0 else None)[0]
+        cdir = os.path.join(self.dir, f"step_{step:010d}")
+        registry = (CodecRegistry.from_json_dict(reg) if reg is not None
+                    else None)
+        plan = {}
         for key, leaf in flatten_with_paths(like).items():
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key}")
+            local = list(leaf.shape) if isinstance(leaf, torch.Tensor) \
+                else list(np.shape(leaf))
+            want = layout.whole_shape(key, local)
+            if list(meta["shape"]) != want:
+                raise ValueError(_mismatch(key, meta["shape"], want, layout,
+                                           manifest))
+            if "qlc" in meta and registry is None \
+                    and "counts" not in meta["qlc"]:
+                raise IOError(
+                    f"checkpoint has QLC leaves but no {REGISTRY_FILE}")
+            plan[key] = (meta, local)
+        if layout.size > 1:
+            sizes = {key: math.prod(meta["shape"])
+                     * np.dtype(_np_name(meta["dtype"])).itemsize
+                     for key, (meta, _) in plan.items()}
+            with self._waiting("agree"):
+                _agreed(layout, lambda: self._verify(
+                    cdir, _dealt(sizes, layout), plan, registry, device))
+        flat_like = flatten_with_paths(like)
+        out = {key: self._load(cdir, key, meta, local, registry, device,
+                               layout, verify=layout.size == 1,
+                               into=flat_like[key] if in_place else None)
+               for key, (meta, local) in plan.items()}
+        return _unflatten(like, out), manifest.get("extra", {})
+
+    def _whole(self, cdir: str, key: str, meta: Dict, registry, device,
+               verify: bool):
+        """Leaf ``key``: its QLC symbols decoded on ``device``, else its
+        file mapped into memory; its md5 checked when ``verify``."""
+        if "qlc" in meta:
             with self._stage("read"):
-                arr = np.load(os.path.join(cdir, meta["file"]))
-            syms = None
-            if "qlc" in meta:
-                if registry is None and "counts" not in meta["qlc"]:
-                    raise IOError(
-                        f"checkpoint has QLC leaves but no {REGISTRY_FILE}")
-                with self._stage("decode", device):
-                    syms = self._decode_qlc(arr, meta["qlc"], registry,
-                                            device)
+                words = np.load(os.path.join(cdir, meta["file"]))
+            with self._stage("decode", device):
+                whole = self._decode_qlc(words, meta["qlc"], registry,
+                                         device)
+            if verify:
                 with self._stage("d2h"):
-                    arr = syms.cpu().numpy().reshape(meta["shape"])
+                    arr = whole.cpu().numpy()
+        else:
+            with self._stage("read"):
+                whole = arr = _mapped(cdir, meta["file"])
+        if verify:
             with self._stage("md5"):
                 if _checksum(arr) != meta["sum"]:
                     raise IOError(f"checksum mismatch for {key}")
-            want = list(np.shape(leaf)) if not isinstance(
-                leaf, torch.Tensor) else list(leaf.shape)
-            if list(arr.shape) != want:
-                raise ValueError(f"shape mismatch for {key}: {arr.shape} "
-                                 f"vs {tuple(want)}")
-            with self._stage("h2d", device):
-                if syms is not None:         # already on the device
-                    out[key] = syms.view(_torch_dtype(meta["dtype"])
-                                         ).reshape(want)
-                else:
-                    out[key] = _to_tensor(arr, meta["dtype"], device)
-        return _unflatten(like, out), manifest.get("extra", {})
+        return whole
+
+    def _verify(self, cdir: str, keys: List[str], plan: Dict, registry,
+                device):
+        """Check the md5 of each of ``keys``; ``IOError`` naming those that
+        fail."""
+        bad = []
+        for key in keys:
+            try:
+                self._whole(cdir, key, plan[key][0], registry, device, True)
+            except IOError:
+                bad.append(key)
+        if bad:
+            raise IOError(f"checksum mismatch for {', '.join(bad)}")
+
+    def _load(self, cdir: str, key: str, meta: Dict, local: List[int],
+              registry, device, layout: Layout, verify: bool, into=None
+              ) -> torch.Tensor:
+        """This rank's part of leaf ``key``, shaped ``local``, on
+        ``device``: copied into ``into`` where that is a tensor on
+        ``device`` of the saved dtype, else a new tensor."""
+        dtype = _torch_dtype(meta["dtype"])
+        if not (isinstance(into, torch.Tensor) and into.dtype == dtype
+                and into.device == device):
+            into = None
+        whole = self._whole(cdir, key, meta, registry, device, verify)
+        idx = layout.part(key, meta["shape"])
+        if isinstance(whole, torch.Tensor):         # decoded on the device
+            with self._stage("cut", device):
+                t = whole.view(dtype).reshape(meta["shape"])
+                if idx:
+                    t = t[idx].clone()
+                t = t.reshape(local)
+                if into is not None:
+                    with torch.no_grad():
+                        into.copy_(t)
+            return t if into is None else into
+        with self._stage("cut"):
+            host = _host_tensor(whole[idx], meta["dtype"]).reshape(local)
+        with self._stage("h2d", device):
+            if into is None:
+                return host.to(device)
+            with torch.no_grad():
+                into.copy_(host)
+            return into
+
+
+def _np_name(dtype_name: str) -> str:
+    """The numpy dtype of a manifest's dtype name (a void type for the
+    ``ml_dtypes`` ones)."""
+    if dtype_name in _BY_NAME:
+        return f"V{_BY_NAME[dtype_name][0].itemsize}"
+    return dtype_name
+
+
+def _dealt(nbytes: Dict[str, int], layout: Layout) -> List[str]:
+    """This rank's share of the leaves ``nbytes`` ({key: bytes}): the
+    largest first, each to the rank with the fewest bytes so far (the
+    lowest on a tie), the same deal on every rank."""
+    load = [0] * layout.size
+    mine = []
+    for key in sorted(nbytes, key=lambda k: (-nbytes[k], k)):
+        r = load.index(min(load))
+        load[r] += nbytes[key]
+        if r == layout.rank:
+            mine.append(key)
+    return mine
+
+
+def _mismatch(key: str, saved, want, layout: Layout, manifest: Dict) -> str:
+    msg = f"shape mismatch for {key}: {tuple(saved)} vs {tuple(want)}"
+    if key not in layout.rows:
+        return msg
+    held = manifest.get("extra", {}).get("layout")
+    if held is not None:
+        held = f"{held['data']} x {held['model']}"
+    elif len(saved) == len(want):
+        held = f"{saved[0]} x {saved[1]}"
+    else:
+        held = "one rank, unstacked"
+    return (f"{msg}: this flat state was saved on a {held} layout and this "
+            f"run is {layout.data} x {layout.model}; it restores only on "
+            "its own layout (the reference's shape check: a flat ZeRO-1 "
+            "state is not cut again for another layout)")
+
+
+def _leaf_file(key: str) -> str:
+    """The file name of leaf ``key``: the md5 of the key."""
+    return hashlib.md5(key.encode()).hexdigest() + ".npy"
+
+
+def _mapped(cdir: str, fname: str) -> np.ndarray:
+    """Leaf file ``fname`` of ``cdir`` mapped read-only."""
+    return np.load(os.path.join(cdir, fname), mmap_mode="r")
+
+
+def _npy_header(dtype: np.dtype, shape) -> bytes:
+    """The ``.npy`` header ``np.save`` writes for an array of ``dtype`` and
+    ``shape`` (a void dtype as ``<V{n}``, as for an ``ml_dtypes``
+    array)."""
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": (f"<V{dtype.itemsize}" if dtype.kind == "V"
+                  else np.lib.format.dtype_to_descr(dtype)),
+        "fortran_order": False, "shape": tuple(shape)})
+    return buf.getvalue()
+
+
+def _write_part(tmp: str, fname: str, leaf: torch.Tensor, layout: Layout,
+                key: str, stage=contextlib.nullcontext) -> Dict:
+    """Write this rank's part ``leaf`` of a split leaf into its file in
+    ``tmp`` (created at the whole leaf's size by whichever rank comes
+    first; rank 0 writes the header) through a shared memory map, at most
+    ``_PIECE`` bytes moved to the host at once -> the leaf's manifest
+    entry without its md5. ``stage(name)`` times the ``d2h``, ``write``
+    and ``fsync`` stages."""
+    t = leaf.detach()
+    probe, dtype_name = _host_array(t.reshape(-1)[:0])
+    whole = layout.whole_shape(key, t.shape)
+    header = _npy_header(probe.dtype, whole)
+    path = os.path.join(tmp, fname)
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        size = len(header) + math.prod(whole) * probe.dtype.itemsize
+        if os.fstat(fd).st_size < size:
+            os.ftruncate(fd, size)
+        if layout.rank == 0:
+            os.pwrite(fd, header, 0)
+        if t.numel():
+            mm = np.memmap(path, dtype=probe.dtype, mode="r+",
+                           offset=len(header), shape=tuple(whole))
+            dst = mm[layout.part(key, whole)]
+            if dst.ndim == 1:       # a row: pieces of the flat part
+                t, rows = t.reshape(-1), max(1, _PIECE // t.element_size())
+            else:
+                rows = max(1, _PIECE // max(1, t[0].numel()
+                                             * t.element_size()))
+            for i in range(0, t.shape[0], rows):
+                with stage("d2h"):
+                    host = _host_array(t[i:i + rows])[0]
+                with stage("write"):
+                    dst[i:i + rows] = host
+                del host
+            with stage("fsync"):
+                mm.flush()
+                del dst, mm
+        with stage("fsync"):
+            os.fsync(fd)
+    finally:
+        os.close(fd)
+    return {"file": fname, "shape": whole, "dtype": dtype_name}
 
 
 def _longest_chunk_bits(chunks: torch.Tensor, enc_len: np.ndarray) -> int:
@@ -432,9 +869,7 @@ def _save_npy(f, arr: np.ndarray):
     if arr.dtype.kind != "V":
         np.save(f, arr)
         return
-    np.lib.format.write_array_header_1_0(f, {
-        "descr": f"<V{arr.dtype.itemsize}", "fortran_order": False,
-        "shape": arr.shape})
+    f.write(_npy_header(arr.dtype, arr.shape))
     f.write(np.ascontiguousarray(arr).reshape(-1).view(np.uint8).data)
 
 

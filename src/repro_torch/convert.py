@@ -5,8 +5,9 @@ packages compute the same function on the same weights), a wired
 (:func:`wire_from_numpy`, :func:`wire_to_numpy`), the flat ZeRO-1
 optimizer state into one rank's slice, and a model's tree cut to one
 model rank's tensor-parallel blocks and put back together
-(:func:`shard_params`, :func:`gather_params`), or drawn a leaf at a time
-straight into them (:func:`init_local_params`), and the decode states
+(:func:`shard_params`, :func:`gather_params`, each leaf's split dim
+:func:`leaf_model_dims`), or drawn a leaf at a time straight into them
+(:func:`init_local_params`), and the decode states
 cut to a model rank's part and joined back (:func:`shard_decode_states`,
 :func:`gather_decode_states`)."""
 from __future__ import annotations
@@ -170,15 +171,26 @@ def whole_leaf_shapes(cfg):
     """Every parameter leaf's whole shape by its path (``"a/b/c"``, the
     weight wire's leaf names), with nothing allocated."""
     from repro_torch.parallel.sharding import param_shapes
-    out = {}
+    return _by_path(param_shapes(cfg))
 
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{prefix}/{k}" if prefix else k)
+
+def leaf_model_dims(cfg, model_size: int):
+    """Every parameter leaf's path (``"a/b/c"``) -> the dim that a model
+    axis of ``model_size`` splits, as :func:`shard_params` cuts it (None:
+    kept whole)."""
+    from repro_torch.parallel.sharding import param_shapes
+    return _by_path(_model_dims(cfg, model_size, param_shapes(cfg)))
+
+
+def _by_path(tree, prefix: str = "", out=None):
+    """A nested dict -> ``{"a/b/c": leaf}``."""
+    out = {} if out is None else out
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            _by_path(v, key, out)
         else:
-            out[prefix] = node
-    walk(param_shapes(cfg), "")
+            out[key] = v
     return out
 
 

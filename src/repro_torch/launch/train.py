@@ -18,10 +18,14 @@ the tuned transport of each wire in the registry, where the step's
 ``"auto"`` channels find it. ``--checkpoint-dir`` saves ``(params,
 opt_state)`` through ``CheckpointManager`` every ``--checkpoint-every``
 steps and after the last, and a launch that finds a checkpoint there
-resumes from its step. Each checkpoint carries the wire registry, so
-a resumed run encodes with the codecs the interrupted one had reached
-(the registry is calibrated from the initial parameters and batch 0
-where there is none); ``--autotune`` tunes after the restore.
+resumes from its step. Over any layout of ranks a checkpoint is one
+directory of whole leaves in the reference's format
+(:func:`checkpoint_layout`): a baseline one resumes on any ``data x
+model`` layout, a compressed one on its own. Each checkpoint carries
+the wire registry, so a resumed run encodes with the codecs the
+interrupted one had reached (the registry is calibrated from the
+initial parameters and batch 0 where there is none); ``--autotune``
+tunes after the restore.
 
 ``--adapt`` (with ``--comm qlc``) adapts the codecs online: the step
 counts both wires' symbols beside their encode (K1's histogram output),
@@ -67,20 +71,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-import os
 import time
 from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import Layout
 from repro_torch.comm.calibrate import (calibrate_for_gradients,
                                         calibrate_moe_entries,
                                         histogram_of_tree)
 from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
-from repro_torch.convert import init_local_params, shard_params
+from repro_torch.convert import (init_local_params, leaf_model_dims,
+                                 shard_params)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
@@ -201,29 +206,24 @@ def _autotune_transports(registry: CodecRegistry, n_padded: int, group,
     return tuned
 
 
-def rank_checkpoint_dir(root: str, group) -> str:
-    """The directory this rank of ``group`` checkpoints into: ``root``
-    for one rank, ``root/rank_<r>`` for each of several (every rank
-    keeps its own ZeRO-1 state). A ``root`` that holds the checkpoints of
-    a group of another size raises ``ValueError`` on every rank before
-    any of them writes there."""
-    d = dist.get_world_size(group)
-    names = os.listdir(root) if os.path.isdir(root) else []
-    ranks = sorted(n for n in names if n.startswith("rank_"))
-    want = [f"rank_{r:05d}" for r in range(d)] if d > 1 else []
-    flat = any(n.startswith("step_") for n in names)
-    if (ranks and ranks != want) or (d > 1 and flat):
-        held = f"{len(ranks)} ranks" if ranks else "one rank"
-        raise ValueError(f"{root} holds the checkpoints of {held}; this "
-                         f"group has {d}")
-    if d == 1:
-        return root
-    dist.barrier(group=group)
-    if dist.get_rank(group) == 0:
-        for name in want:
-            os.makedirs(os.path.join(root, name), exist_ok=True)
-    dist.barrier(group=group)
-    return os.path.join(root, want[dist.get_rank(group)])
+def checkpoint_layout(cfg: ModelConfig, mesh, group, compressed: bool
+                      ) -> Layout:
+    """How the ranks of :func:`train`'s run hold ``(params, opt_state)``
+    over ``mesh`` (None: ``group``'s ranks as a data axis): the
+    parameters, and the baseline step's AdamW moments, cut over the
+    model axis as ``convert.shard_params`` cuts them; the compressed
+    step's ``m`` and ``v`` a ``[seg]`` row a rank of the reference's
+    ``[data, model, seg]``."""
+    data, model = ((mesh.data, mesh.model) if mesh is not None
+                   else (dist.get_world_size(group), 1))
+    dims = {} if model == 1 else {
+        k: d for k, d in leaf_model_dims(cfg, model).items()
+        if d is not None}
+    trees = ("0",) if compressed else ("0", "1/m", "1/v")
+    return Layout(data=data, model=model, rank=dist.get_rank(group),
+                  group=group,
+                  cut={f"{t}/{k}": d for t in trees for k, d in dims.items()},
+                  rows=frozenset({"1/m", "1/v"} if compressed else ()))
 
 
 def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
@@ -241,15 +241,18 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     exists) and return what it produced: ``history`` (per step: loss,
     seconds, ok), ``comm_fallbacks``, the final ``params`` and
     ``opt_state``, ``start_step`` (past 0 when resumed from
-    ``checkpoint_dir``); with ``comm="qlc"`` also the ``registry``,
-    ``calibrate_s`` (nothing is calibrated when a registry is given), the
-    step and its channels, the modeled wire bytes per symbol of both
-    wires, and with ``autotune`` the tuned channels (``tuned``).
+    ``checkpoint_dir``), ``checkpoint`` (the stage seconds of the restore
+    and of the last save, ``Trainer.ckpt_seconds``); with ``comm="qlc"``
+    also the ``registry``, ``calibrate_s`` (nothing is calibrated when a
+    registry is given), the step and its channels, the modeled wire
+    bytes per symbol of both wires, and with ``autotune`` the tuned
+    channels (``tuned``).
     ``wire_enabled=False`` runs the raw e4m3 twin (the same step with
-    the codes uncompressed on the wire). Over several ranks each keeps
-    its checkpoints (its ZeRO-1 state is its own) in
-    ``checkpoint_dir/rank_<r>`` (:func:`rank_checkpoint_dir`), and all
-    resume from the newest step that they all hold. A checkpoint of a
+    the codes uncompressed on the wire). Every rank checkpoints into
+    the one ``checkpoint_dir``, which holds the whole state as the
+    reference saves it (:func:`checkpoint_layout`), and all resume from
+    its latest step, restored into the state the run built (a caller's
+    ``params`` tensors among it are overwritten). A checkpoint of a
     ``"qlc"`` run carries the wire registry, and a resumed run encodes
     with it.
 
@@ -281,7 +284,11 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     a time (``convert.init_local_params``: the same numbers, without the
     whole tree). The batch is split over the data axis, the wire (and its
     autotuning) runs over the rank's data column, and ``params`` and
-    ``opt_state`` come back local. A resume needs the same layout."""
+    ``opt_state`` come back local. A baseline checkpoint resumes on any
+    ``data x model`` layout whose specs resolve; a compressed one only on
+    the layout it was saved on (its flat state is ``[data, model, seg]``,
+    which the reference does not cut again either), else every rank
+    raises ``ValueError`` naming both layouts before the first step."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     cfg, moe_wire = resolve_moe_wire(cfg, moe_wire, comm)
@@ -346,12 +353,12 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                 return {"wire_registry": registry.to_json_dict()}
         else:
             opt_state = optm.init_state(params, opt_cfg)
-        if checkpoint_dir:
-            checkpoint_dir = rank_checkpoint_dir(checkpoint_dir, group)
         trainer = Trainer(TrainerConfig(total_steps=steps,
                                         checkpoint_dir=checkpoint_dir,
                                         checkpoint_every=checkpoint_every),
-                          baseline, group=group, save_extra=save_extra)
+                          baseline, save_extra=save_extra,
+                          layout=checkpoint_layout(cfg, mesh, group,
+                                                   comm == "qlc"))
         params, opt_state, start = trainer.restore_or(params, opt_state)
         if comm == "qlc":
             saved = trainer.restored_extra.get("wire_registry")
@@ -394,7 +401,7 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                                      global_batch * data.cfg.seq_len, comm)
     out.update(history=trainer.history, comm_fallbacks=trainer.comm_fallbacks,
                params=params, opt_state=opt_state, data=data,
-               start_step=start)
+               start_step=start, checkpoint=trainer.ckpt_seconds)
     return out
 
 

@@ -7,9 +7,7 @@ import logging
 import time
 from typing import Callable, Optional
 
-import torch.distributed as dist
-
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, Layout
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime.fault import StragglerWatchdog
 
@@ -44,15 +42,20 @@ class Trainer:
     launcher's wire registry), and :meth:`restore_or` leaves the restored
     checkpoint's ``extra`` in ``restored_extra``.
 
-    ``group``: the process group the step runs on, whose ranks each keep
-    their own ``checkpoint_dir`` (their ZeRO-1 state is their own). Each
-    save records the group's size, and :meth:`restore_or` resumes every
-    rank from the newest step that all of them hold.
+    ``layout`` (``checkpoint.Layout``): how the ranks of the run hold
+    ``(params, opt_state)``. Every rank saves into the one
+    ``checkpoint_dir``, which holds the whole tree as the reference
+    saves it, with ``extra["layout"] = {"data": D, "model": M}``; every
+    rank resumes from rank 0's latest step, cut to its own parts. None:
+    one rank, the tree saved as it is. ``ckpt_seconds`` holds the stage
+    seconds (``CheckpointManager.timings``, and ``total``) of the restore
+    and of the last save.
     """
 
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  fallback_step_fn: Optional[Callable] = None,
-                 on_step: Optional[Callable] = None, group=None,
+                 on_step: Optional[Callable] = None,
+                 layout: Optional[Layout] = None,
                  save_extra: Optional[Callable[[], dict]] = None):
         self.cfg = cfg
         self.step_fn = step_fn
@@ -60,41 +63,32 @@ class Trainer:
         self.on_step = on_step
         self.save_extra = save_extra
         self.restored_extra: dict = {}
-        self.group = group
-        self.world = 1 if group is None else dist.get_world_size(group)
+        self.layout = layout or Layout()
         self.watchdog = StragglerWatchdog()
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir,
                                        keep=cfg.keep_checkpoints)
                      if cfg.checkpoint_dir else None)
         self.history: list = []
         self.comm_fallbacks = 0
+        self.ckpt_seconds: dict = {}
 
     def restore_or(self, params, opt_state, start_step: int = 0):
-        """``(params, opt_state, start_step)`` from the newest checkpoint
-        that every rank of the group holds, placed on the device of
-        ``params``; the given ones when there is none. A checkpoint saved
-        by a group of another size raises ``ValueError``."""
+        """``(params, opt_state, start_step)`` from the latest checkpoint,
+        each rank's parts cut from it and copied into the given tensors
+        (the run's initial state, which it replaces, so the device holds
+        one copy of the state); the given ones when there is none."""
         if self.ckpt is None:
             return params, opt_state, start_step
-        held = set(self.ckpt.all_steps())
-        if self.world > 1:
-            lists = [None] * self.world
-            dist.all_gather_object(lists, sorted(held), group=self.group)
-            held = set.intersection(*map(set, lists))
-            if not held and any(lists):
-                log.warning("the ranks hold no checkpoint step in common "
-                            "(%s); starting from step %d", lists, start_step)
-        if not held:
+        step = self.ckpt.latest_step(self.layout)
+        if step is None:
             return params, opt_state, start_step
-        step = max(held)
         device = tree_leaves(params)[0].device
+        t0 = time.perf_counter()
         (params, opt_state), extra = self.ckpt.restore(
-            (params, opt_state), step=step, device=device)
-        world = int(extra.get("world_size", 1))
-        if world != self.world:
-            raise ValueError(f"checkpoint step {step} in {self.ckpt.dir} was "
-                             f"saved by {world} ranks; this group has "
-                             f"{self.world}")
+            (params, opt_state), step=step, device=device,
+            layout=self.layout, in_place=True)
+        self.ckpt_seconds["restore"] = dict(
+            self.ckpt.timings, total=time.perf_counter() - t0)
         start_step = int(extra.get("step", step))
         self.restored_extra = extra
         log.info("resumed from step %d", start_step)
@@ -139,6 +133,10 @@ class Trainer:
                     step % self.cfg.checkpoint_every == 0
                     or step == self.cfg.total_steps):
                 extra = self.save_extra() if self.save_extra else {}
-                extra.update(step=step, world_size=self.world)
-                self.ckpt.save(step, (params, opt_state), extra=extra)
+                extra.update(step=step, layout=self.layout.shape)
+                t0 = time.perf_counter()
+                self.ckpt.save(step, (params, opt_state), extra=extra,
+                               layout=self.layout)
+                self.ckpt_seconds["save"] = dict(
+                    self.ckpt.timings, total=time.perf_counter() - t0)
         return params, opt_state

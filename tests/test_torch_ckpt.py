@@ -7,9 +7,10 @@ and decide raw-or-QLC alike; corruption, missing leaves, shape
 mismatches, the opt-out, garbage collection, the ``latest`` pointer, a
 crash mid-save and the pre-container ``"counts"`` layout behave as the
 reference's. The port's ``Trainer`` resumes bit-exact from its own
-checkpoints on one gloo rank, compressed and baseline. Every comparison
-is exact.
+checkpoints on one gloo rank, compressed and baseline, and two ranks
+write and resume one checkpoint. Every comparison is exact.
 """
+import concurrent.futures
 import json
 import os
 
@@ -283,9 +284,10 @@ def test_legacy_counts_layout_restores_in_both(tmp_path):
 
 @pytest.mark.parametrize("comm", ["qlc", "baseline"])
 def test_trainer_resume_is_bit_exact(tmp_path, comm):
-    """Reduced phi3 on one gloo rank, ``checkpoint_every=3``: 6 steps
-    straight equal, bit for bit, 3 steps, a restore from the checkpoint
-    and 3 more (the reference's ``TestCheckpointResume``)."""
+    """Reduced phi3 (d_model 64) on one gloo rank,
+    ``checkpoint_every=3``: 6 steps straight equal, bit for bit, 3
+    steps, a restore from the checkpoint and 3 more (the reference's
+    ``TestCheckpointResume``)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.launch.mesh import data_parallel
@@ -298,8 +300,7 @@ def test_trainer_resume_is_bit_exact(tmp_path, comm):
                                       make_compressed_step,
                                       make_zero1_fallback)
     from repro_torch.training import optimizer as optm
-    cfg = reduced(get_config("phi3-mini-3.8b"), d_model=128,
-                  dtype="float32")
+    cfg = reduced(get_config("phi3-mini-3.8b"), dtype="float32")
     opt_cfg = OptConfig(lr=1e-3, total_steps=6, warmup_steps=2)
     data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=32, global_batch=4))
@@ -337,13 +338,13 @@ def test_trainer_resume_is_bit_exact(tmp_path, comm):
 
 
 def test_two_ranks_resume_from_their_own_checkpoints(tmp_path):
-    """Two gloo ranks through ``launch.train.train(checkpoint_dir=...)``:
-    each rank keeps its checkpoints (its ZeRO-1 segment is its own) in
-    ``rank_<r>``. After rank 1 alone lost its newest step (4 of 4), as if
-    killed during its save, both ranks resume at the step they both hold
-    (2) and end with the uninterrupted run's parameters, bit for bit. A
-    directory of a one-rank run is refused by two ranks, and the two
-    ranks' directory by one rank."""
+    """Two gloo ranks through ``launch.train.train(checkpoint_dir=...)``
+    write one directory (no ``rank_<r>``), the compressed state as one
+    ``[2, 1, seg]`` leaf. With the newest step (4 of 4) removed, as if
+    the run had died while committing it, both ranks resume at step 2
+    and end with the uninterrupted run's parameters, bit for bit. A
+    one-rank run's compressed checkpoint is refused by two ranks, and
+    the two ranks' by one rank: ValueError naming both layouts."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.train import train
     from tests.torch_dist import run_ranks
@@ -352,15 +353,24 @@ def test_two_ranks_resume_from_their_own_checkpoints(tmp_path):
     kw = dict(comm="qlc", steps=2, seq_len=16, global_batch=4,
               device="cpu", checkpoint_every=2)
     cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
-    train(cfg, checkpoint_dir=str(single), **kw)
-    out = run_ranks("train_resume", 2, cfg_kw=cfg_kw, steps=4, every=2,
-                    root=str(root), single_root=str(single))
-    assert sorted(os.listdir(root)) == ["rank_00000", "rank_00001"]
-    for start, first, second, refused in out:
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        world = pool.submit(run_ranks, "train_resume", 2, cfg_kw=cfg_kw,
+                            steps=4, every=2, root=str(root),
+                            single_root=str(single))
+        train(cfg, checkpoint_dir=str(single), **kw)
+        out = world.result()
+    assert sorted(os.listdir(root)) == ["latest", "step_0000000002",
+                                         "step_0000000004"]
+    for start, first, second, refused, names in out:
+        assert names == ["latest", "step_0000000002", "step_0000000004"]
         assert start == 2
         np.testing.assert_array_equal(first, second)
-        assert "holds the checkpoints of one rank; this group has 2" \
-            in refused
+        assert "saved on a 1 x 1 layout and this run is 2 x 1" in refused
     np.testing.assert_array_equal(out[0][1], out[1][1])
-    with pytest.raises(ValueError, match="of 2 ranks; this group has 1"):
+    with open(root / "step_0000000002" / "manifest.json") as f:
+        manifest = json.load(f)
+    assert manifest["leaves"]["1/m"]["shape"][:2] == [2, 1]
+    assert manifest["extra"]["layout"] == {"data": 2, "model": 1}
+    with pytest.raises(ValueError, match="saved on a 2 x 1 layout and this "
+                                         "run is 1 x 1"):
         train(cfg, checkpoint_dir=str(root), **kw)

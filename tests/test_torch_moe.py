@@ -230,8 +230,25 @@ def _grads(tp, x, tc):
     return [g.numpy() for g in torch.autograd.grad((y ** 2).sum(), live)]
 
 
+#: the 2 x 2 case's two training steps through ``launch.train.train``
+EP_TRAIN = {"cfg": {"dtype": "float32"},
+            "run": dict(steps=2, seq_len=16, global_batch=4)}
+
+
+@pytest.fixture(scope="module")
+def ep_layouts():
+    """Both layouts of :func:`test_expert_parallel_on_gloo_ranks` in one
+    world of 4 gloo ranks -> {model: every rank's result}."""
+    _, tc, jp, tp, x = _setup("tiny")
+    out = run_ranks("moe_layouts", 4, models=[4, 2], cfg_kw=TINY,
+                    params=jax.tree.map(np.asarray, jp), x=x,
+                    registry_json=_registry(tp, x, tc).to_json(),
+                    train_kw={2: EP_TRAIN})
+    return {model: [r[model] for r in out] for model in (4, 2)}
+
+
 @pytest.mark.parametrize("model", [4, 2], ids=["1x4", "2x2"])
-def test_expert_parallel_on_gloo_ranks(model):
+def test_expert_parallel_on_gloo_ranks(ep_layouts, model):
     """``shardmap_a2a`` over 4 gloo ranks laid out 1 x 4 and 2 x 2, each
     rank's FFN leaves cut by their specs (experts and router columns by
     experts, the shared expert by its mlp dim), each model row holding
@@ -252,14 +269,8 @@ def test_expert_parallel_on_gloo_ranks(model):
     y_g, r_g = _port(tp, x, tc)
     y_of, r_of = _port(tp, x, _cfgs("tiny", capacity_factor=0.25)[1])
     g_g = _grads(tp, x, tc)
-    train_kw = None
-    if model == 2:
-        train_kw = {"cfg": {"dtype": "float32"},
-                    "run": dict(steps=2, seq_len=16, global_batch=4)}
-    out = run_ranks("moe_layout", 4, model=model, cfg_kw=TINY,
-                    params=jax.tree.map(np.asarray, jp), x=x,
-                    registry_json=_registry(tp, x, tc).to_json(),
-                    train_kw=train_kw)
+    train_kw = EP_TRAIN if model == 2 else None
+    out = ep_layouts[model]
     cat = {k: np.concatenate([o[k] for o in out])
            for k in ("raw", "raw_cf025", "qlc", "ring", "twin", "idx",
                      "keep", "keep_cf025")}

@@ -1,8 +1,9 @@
 """Port parity, tensor-parallel slice: the sharding rules and every
 leaf's resolved spec, the flat ZeRO-1 geometry of a model rank, the
-compressed step over a 2 x 2 ``data x model`` layout, and the
-tensor-parallel baseline step, against the JAX reference or the port's
-own one-rank step.
+compressed step over a 2 x 2 ``data x model`` layout, the
+tensor-parallel baseline step, and checkpoints of both read by the
+other package, against the JAX reference or the port's own one-rank
+step.
 
 Reduced configs at f32 on gloo CPU ranks (``tests/torch_dist``): one
 world of 2 ranks (the 1 x 2 cases) and one of 4 (2 x 2 and 1 x 4),
@@ -27,6 +28,11 @@ tolerances and why:
   up to 1/8;
 * the QLC wire against its raw e4m3 twin, and the replicated leaves
   over each model row: bit for bit;
+* checkpoints across the packages, bit for bit: the port's 2 x 2
+  compressed state (written by all 4 ranks) in the reference's
+  ``restore``, and the reference's 2 x 2 compressed and (2, 1) baseline
+  states restored by port ranks at 2 x 2 (and 1 x 2); the reference's
+  subprocess and the worlds wait for each other's files;
 * the tensor-parallel baseline step against the one-rank step: losses
   to rtol 1e-5; parameters to rtol 1e-5 / atol 1e-6 on at least 99.9 %
   of entries and every entry within 2 x lr x steps. The split matmuls
@@ -37,6 +43,7 @@ tolerances and why:
 """
 import concurrent.futures
 import dataclasses
+import os
 import pickle
 import types
 
@@ -239,9 +246,10 @@ def test_moe_and_ssm_keep_their_layout():
 # --------------------------------------------------------------------------
 
 REFERENCE = """
-import pickle
+import os, pickle, time
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
+from repro.checkpoint import CheckpointManager
 from repro.comm import CommConfig
 from repro.configs import get_config, reduced
 from repro.core import CodecRegistry
@@ -285,7 +293,48 @@ with shd.use_mesh(mesh):
 out["losses"], out["oks"] = losses, oks
 out["params"] = jax.tree.map(np.asarray, params)
 out["state"] = jax.tree.map(np.asarray, o)
+CheckpointManager(args["ref_comp"]).save(t["steps"], (params, o),
+                                         extra={{"step": t["steps"]}})
+# the port's 2 x 2 checkpoint, once its world has written it
+end = time.monotonic() + 240
+while not os.path.exists(os.path.join(args["port_comp"], "latest")):
+    assert time.monotonic() < end, "the port's checkpoint did not appear"
+    time.sleep(0.2)
+got, extra = CheckpointManager(args["port_comp"]).restore((params, o))
+out["port_restored"] = (jax.tree.map(np.asarray, got), extra)
 pickle.dump(out, open({path!r} + ".out", "wb"))
+"""
+
+
+#: the reference's baseline step on a (2, 1) mesh, one step from the same
+#: tree, checkpointed (a subprocess of its own, beside ``REFERENCE``)
+REFERENCE_BASE = """
+import pickle
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.checkpoint import CheckpointManager
+from repro.configs import get_config, reduced
+from repro.data import DataConfig, SyntheticDataset
+from repro.parallel import sharding as shd
+from repro.training import TrainConfig, make_baseline_step
+from repro.training import optimizer as jopt
+args = pickle.load(open({path!r}, "rb"))
+cfg = reduced(get_config(args["arch"]), **args["cfg_kw"])
+t = args["train"]
+opt_cfg = jopt.OptConfig(lr=t["lr"], total_steps=t["steps"],
+                         warmup_steps=max(10, t["steps"] // 20))
+data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=t["seq_len"],
+                                   global_batch=t["global_batch"]))
+devs = np.array(jax.devices()[:2])
+with shd.use_mesh(Mesh(devs.reshape(2, 1), ("data", "model"))):
+    step = jax.jit(make_baseline_step(cfg, opt_cfg, TrainConfig()))
+    p0 = jax.tree.map(jnp.asarray, args["params"])
+    batch = {{k: jnp.asarray(v) for k, v in data.batch_at(0).items()}}
+    bp, bo, _ = step(p0, jopt.init_state(p0, opt_cfg), batch)
+CheckpointManager(args["ref_base"]).save(1, (bp, bo), extra={{"step": 1}})
+pickle.dump(jax.tree.map(np.asarray, (bp, bo)),
+            open({path!r} + ".base", "wb"))
 """
 
 
@@ -317,10 +366,32 @@ def _case(name, arch, cfg_kw, model, runs, params=None, registry=None,
 
 
 @pytest.fixture(scope="module")
-def two_by_two(gemma, tmp_path_factory):
-    """The reference's run (its subprocess in a thread) beside one world
-    of 4 gloo ranks: reduced gemma's compressed step at 2 x 2 (QLC and
-    its raw e4m3 twin) and chatglm3's baseline step at 1 x 4."""
+def ckpt_dirs(tmp_path_factory):
+    """Checkpoint directories the reference and the port write and read
+    each other's from: the reference's compressed 2 x 2 state
+    (``ref_comp``) and baseline (2, 1) state (``ref_base``), the port's
+    compressed 2 x 2 state (``port_comp``)."""
+    root = tmp_path_factory.mktemp("tp_ckpt")
+    return {k: str(root / k) for k in ("ref_comp", "ref_base", "port_comp")}
+
+
+def _restore_case(name, model, comm, ckpt, p, reg, steps):
+    """A launch that resumes from the checkpoint in ``ckpt`` (once it is
+    written) at its last step, so it runs no step."""
+    return _case(name, "gemma-2b-sft", F32, model, [
+        ("restored", comm, True, dict(checkpoint_dir=ckpt, wait_for=(
+            os.path.join(ckpt, "latest"))))], params=p, registry=reg,
+        steps=steps)
+
+
+@pytest.fixture(scope="module")
+def two_by_two(gemma, ckpt_dirs, tmp_path_factory):
+    """The reference's runs (two subprocesses in threads) beside one
+    world of 4 gloo ranks: reduced gemma's compressed step at 2 x 2 (QLC,
+    which checkpoints into ``port_comp``, and its raw e4m3 twin) and
+    chatglm3's baseline step at 1 x 4; then the reference's two
+    checkpoints restored at 2 x 2, while the reference restores the
+    port's."""
     cfg, p, reg = gemma
     path = str(tmp_path_factory.mktemp("tp") / "args.pkl")
     with open(path, "wb") as f:
@@ -329,20 +400,31 @@ def two_by_two(gemma, tmp_path_factory):
                          cfg_kw=F32, chunk=reg["grads"].config()
                          .chunk_symbols, arch="gemma-2b-sft",
                          registry_json=reg.to_json(), train=TRAIN,
-                         params=p), f)
+                         params=p, **ckpt_dirs), f)
     name, arch, kw, seq = BASE_1X4
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         ref = pool.submit(run_md, REFERENCE.format(path=path), n_devices=4,
                           timeout=300)
+        ref_base = pool.submit(run_md, REFERENCE_BASE.format(path=path),
+                               n_devices=2, timeout=300)
         world = run_ranks("tp_layouts", 4, cases=[
             _case("gemma", "gemma-2b-sft", F32, 2,
-                  [("qlc", "qlc", True), ("twin", "qlc", False)], params=p,
-                  registry=reg),
+                  [("qlc", "qlc", True,
+                    dict(checkpoint_dir=ckpt_dirs["port_comp"])),
+                   ("twin", "qlc", False)], params=p, registry=reg),
             _case(name, arch, kw, 4, [("base", "baseline", True)],
-                  seq_len=seq)])
+                  seq_len=seq),
+            _restore_case("ref_comp", 2, "qlc", ckpt_dirs["ref_comp"], p,
+                          reg, TRAIN["steps"]),
+            _restore_case("ref_base", 2, "baseline", ckpt_dirs["ref_base"],
+                          p, None, 1)])
         ref.result()
+        ref_base.result()
     with open(path + ".out", "rb") as f:
-        return pickle.load(f), world
+        out = pickle.load(f)
+    with open(path + ".base", "rb") as f:
+        out["base"] = pickle.load(f)
+    return out, world
 
 
 @pytest.fixture(scope="module")
@@ -356,17 +438,19 @@ def world4(two_by_two):
 
 
 @pytest.fixture(scope="module")
-def world2(gemma, tmp_path_factory):
-    """One world of 2 gloo ranks: the 1 x 2 baseline cases, and reduced
-    gemma's compressed step at 1 x 2 for 3 steps with ``rank_<r>``
-    checkpoints, resumed from step 2."""
+def world2(gemma, reference, ckpt_dirs, tmp_path_factory):
+    """One world of 2 gloo ranks: the 1 x 2 baseline cases, reduced
+    gemma's compressed step at 1 x 2 for 3 steps checkpointing into one
+    directory, resumed from step 2, and the reference's baseline (2, 1)
+    checkpoint restored at 1 x 2."""
     _, p, reg = gemma
     resume = _case("resume", "gemma-2b-sft", F32, 2,
                    [("qlc", "qlc", True)], params=p, registry=reg, steps=3)
     resume["resume_root"] = str(tmp_path_factory.mktemp("tp_resume"))
     return run_ranks("tp_layouts", 2, cases=[
         _case(name, arch, kw, 2, [("base", "baseline", True)], seq_len=seq)
-        for name, arch, kw, seq in BASE_1X2] + [resume])
+        for name, arch, kw, seq in BASE_1X2] + [resume, _restore_case(
+            "ref_base", 2, "baseline", ckpt_dirs["ref_base"], p, None, 1)])
 
 
 @pytest.mark.parametrize("arch", ("phi3-mini-3.8b", "gemma-2b-sft",
@@ -499,10 +583,10 @@ def test_baseline_1x4_tracks_one_rank(world4):
 
 
 def test_resume_on_the_same_layout(world2):
-    """``train(checkpoint_dir=...)`` at 1 x 2: each rank keeps its local
-    tree and ZeRO-1 segment in ``rank_<r>``; with the last checkpoint
-    gone, the same launch resumes at step 2 and ends bit-equal to the
-    straight run, on every rank."""
+    """``train(checkpoint_dir=...)`` at 1 x 2: both ranks write one
+    checkpoint of the whole tree and ``[1, 2, seg]`` state; with the last
+    checkpoint gone, the same launch resumes at step 2 and ends bit-equal
+    to the straight run, on every rank."""
     for straight, resumed in zip(_rank_trees(world2, "resume", "qlc"),
                                  _rank_trees(world2, "resume",
                                              "qlc/resumed")):
@@ -514,3 +598,68 @@ def test_resume_on_the_same_layout(world2):
         for k in ("m", "v"):
             np.testing.assert_array_equal(tree_bits(resumed[4][k]),
                                           tree_bits(straight[4][k]))
+
+
+# --------------------------------------------------------------------------
+# Checkpoints across the packages
+# --------------------------------------------------------------------------
+
+def test_port_checkpoint_restores_in_the_reference(world4, reference):
+    """The port's checkpoint of the 2 x 2 compressed run (every rank
+    writing its part), restored by the reference's ``CheckpointManager``
+    into its own tree and ``[2, 2, seg]`` state: every leaf bit-equal to
+    the port's ranks' state put together (checksums checked by the
+    reference on the way)."""
+    cfg = reduced(get_config("gemma-2b-sft"), **F32)
+    runs = _rank_trees(world4, "gemma", "qlc")
+    (params, state), extra = reference["port_restored"]
+    assert extra["step"] == 2 and extra["layout"] == {"data": 2, "model": 2}
+    whole = gather_params([runs[0][3], runs[1][3]], cfg)
+    for key, leaf in flat_tree(whole).items():
+        np.testing.assert_array_equal(tree_bits(flat_tree(params)[key]),
+                                      tree_bits(leaf), err_msg=key)
+    assert int(state["step"]) == 2
+    for rank, run in enumerate(runs):
+        d, m = divmod(rank, 2)
+        for k in ("m", "v"):
+            np.testing.assert_array_equal(tree_bits(state[k][d, m]),
+                                          tree_bits(run[4][k]))
+
+
+def test_reference_checkpoint_restores_in_the_port(world4, reference):
+    """The reference's checkpoint after its 2 x 2 compressed steps,
+    restored by 4 port ranks at 2 x 2 through ``train(checkpoint_dir=)``
+    (no step left to run): each rank's blocks and ``[seg]`` row
+    bit-equal to the cut of the reference's final tree and state."""
+    cfg = reduced(get_config("gemma-2b-sft"), **F32)
+    for rank, run in enumerate(_rank_trees(world4, "ref_comp", "restored")):
+        d, m = divmod(rank, 2)
+        assert run[0] == [] and run[4]["step"] == 2
+        want = shard_params(reference["params"], cfg, m, 2)
+        for key, leaf in flat_tree(want).items():
+            np.testing.assert_array_equal(tree_bits(flat_tree(run[3])[key]),
+                                          tree_bits(leaf), err_msg=key)
+        for k in ("m", "v"):
+            np.testing.assert_array_equal(
+                tree_bits(run[4][k]), tree_bits(reference["state"][k][d, m]))
+
+
+@pytest.mark.parametrize("layout", ["1x2", "2x2"])
+def test_reference_baseline_checkpoint_restores_in_the_port(
+        world4, world2, reference, layout):
+    """The reference's baseline checkpoint of a (2, 1) mesh (one step),
+    restored by port ranks at 1 x 2 and 2 x 2: each rank's parameters
+    and AdamW trees bit-equal to their cut of the reference's."""
+    cfg = reduced(get_config("gemma-2b-sft"), **F32)
+    world = world2 if layout == "1x2" else world4
+    params, opt = reference["base"]
+    for rank, run in enumerate(_rank_trees(world, "ref_base", "restored")):
+        m = rank % 2
+        assert run[0] == [] and run[4]["step"] == int(opt["step"]) == 1
+        for got, whole in ((run[3], params), (run[4]["m"], opt["m"]),
+                           (run[4]["v"], opt["v"])):
+            want = shard_params(whole, cfg, m, 2)
+            for key, leaf in flat_tree(want).items():
+                np.testing.assert_array_equal(
+                    tree_bits(flat_tree(got)[key]), tree_bits(leaf),
+                    err_msg=key)

@@ -228,19 +228,26 @@ def test_compressed_step_tracks_reference_step(model):
     assert int(res["opt_state"]["step"]) == int(o["step"]) == 3
 
 
-def test_four_ranks_ring_oneshot_raw_twin_and_baseline():
+@pytest.fixture(scope="module")
+def four_ranks():
+    """The two four-rank checks below in one world of 4 gloo ranks."""
+    runs = [("qlc", "qlc", "oneshot", True),
+            ("ring", "qlc", "ring", True),
+            ("raw", "qlc", "oneshot", False),
+            ("baseline", "baseline", "oneshot", True)]
+    return run_ranks("train_four", 4, runs=dict(
+        cfg_kw=CFG_KW, steps=2, global_batch=8, seq_len=32, lr=3e-4,
+        runs=runs), recipe_steps=8)
+
+
+def test_four_ranks_ring_oneshot_raw_twin_and_baseline(four_ranks):
     """4 gloo ranks, 2 steps each from the same start and registry: the
     compressed step over one-shot and over the ring (2 hop pieces) and
     the raw e4m3 twin give the same parameters bit for bit (the wire is
     lossless), every ``ok`` holds with no fallback, and the baseline
     step's losses track the compressed ones within 0.15 (the reference's
     bound) at the launcher's learning rate."""
-    runs = [("qlc", "qlc", "oneshot", True),
-            ("ring", "qlc", "ring", True),
-            ("raw", "qlc", "oneshot", False),
-            ("baseline", "baseline", "oneshot", True)]
-    out = run_ranks("train_runs", 4, cfg_kw=CFG_KW, steps=2,
-                    global_batch=8, seq_len=32, lr=3e-4, runs=runs)
+    out = [r["runs"] for r in four_ranks]
     for rank in range(4):
         r = out[rank]
         for name in ("qlc", "ring", "raw"):
@@ -253,12 +260,12 @@ def test_four_ranks_ring_oneshot_raw_twin_and_baseline():
         np.testing.assert_array_equal(r["qlc"][3], out[0]["qlc"][3])
 
 
-def test_reference_training_check_on_four_ranks():
+def test_reference_training_check_on_four_ranks(four_ranks):
     """The reference's own check (``test_train_integration.py``, its
     model, optimizer, microbatches and data) on 4 gloo ranks: both steps
     learn (the loss falls by more than 0.1 over 8 steps) and the
     compressed losses stay within 0.15 of the baseline's."""
-    out = run_ranks("reference_recipe", 4, steps=8)
+    out = [r["recipe"] for r in four_ranks]
     for lb, lc, oks in out:
         assert all(oks)
         assert lb[-1] < lb[0] - 0.1 and lc[-1] < lc[0] - 0.1, (lb, lc)

@@ -87,6 +87,32 @@ def assert_same_tree(a, b):
                                       err_msg=key)
 
 
+def numpy_tree(tree):
+    """A nested dict of tensors -> the same of numpy copies."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().numpy().copy()
+
+
+def opt_numpy(opt):
+    """An optimizer state as numpy: ``m`` and ``v`` (flat segments or
+    trees) and ``step`` as an int."""
+    out = {k: numpy_tree(opt[k]) for k in ("m", "v")}
+    out["step"] = int(opt["step"])
+    return out
+
+
+def wait_for(path: str, timeout: float = 240.0):
+    """Block until ``path``, which another process writes, exists (at most
+    ``timeout`` seconds, then ``TimeoutError``)."""
+    import time
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+
+
 def _main():
     target, rank, world, init, tmp = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -228,13 +254,14 @@ def train_runs(ctx, cfg_kw, steps, global_batch, seq_len, lr, runs):
 
 def train_resume(ctx, cfg_kw, steps, every, root, single_root):
     """Compressed training of the reduced config for ``steps`` with
-    checkpoints every ``every`` steps under ``root`` (one directory per
-    rank); then rank 1's newest checkpoint is deleted (its ``latest``
-    pointer left naming it), as if it had died while rank 0's save went
-    through, and the same launch runs again. Last, a launch into
-    ``single_root``, which holds a one-rank run's checkpoints -> (start
-    step of the second run, flat parameters after the first run, after
-    the second, the message of the third's ValueError)."""
+    checkpoints every ``every`` steps into the one directory ``root``;
+    then the newest step's directory is removed (its ``latest`` pointer
+    left naming it), as if the run had died while committing it, and the
+    same launch runs again. Last, a launch into ``single_root``, which
+    holds (once the caller's one-rank run has written them) that run's
+    checkpoints -> (start step of the second run,
+    flat parameters after the first run, after the second, the message
+    of the third's ValueError, the names in ``root``)."""
     import os
     import shutil
     import torch
@@ -250,18 +277,27 @@ def train_resume(ctx, cfg_kw, steps, every, root, single_root):
                           pytree_leaves(res["params"])]).numpy()
 
     first = flat(train(cfg, checkpoint_dir=root, **kw))
+    names = sorted(os.listdir(root))
     torch.distributed.barrier(group=ctx["group"])
-    if ctx["rank"] == 1:
-        shutil.rmtree(os.path.join(root, "rank_00001",
-                                   f"step_{steps:010d}"))
+    if ctx["rank"] == 0:
+        shutil.rmtree(os.path.join(root, f"step_{steps:010d}"))
     torch.distributed.barrier(group=ctx["group"])
     res = train(cfg, checkpoint_dir=root, **kw)
+    wait_for(os.path.join(single_root, "latest"))
     try:
         train(cfg, checkpoint_dir=single_root, **kw)
         refused = None
     except ValueError as e:
         refused = str(e)
-    return res["start_step"], first, flat(res), refused
+    return res["start_step"], first, flat(res), refused, names
+
+
+def train_four(ctx, runs, recipe_steps):
+    """:func:`train_runs` (``runs``, its keywords) and
+    :func:`reference_recipe` in one world -> {"runs": ..., "recipe":
+    ...}."""
+    return {"runs": train_runs(ctx, **runs),
+            "recipe": reference_recipe(ctx, recipe_steps)}
 
 
 def reference_recipe(ctx, steps):
@@ -375,6 +411,14 @@ def telemetry_runs(ctx, cfg_kw, steps, seq_len, global_batch):
             out[name] += (seen, local)
         out["n_padded"] = n
     return out
+
+
+def moe_layouts(ctx, models, train_kw, **kw):
+    """:func:`moe_layout` on each of ``models`` in one world, with
+    ``train_kw`` for those in it -> {model: result}."""
+    return {model: moe_layout(ctx, model=model,
+                              train_kw=train_kw.get(model), **kw)
+            for model in models}
 
 
 def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
@@ -556,15 +600,17 @@ def tp_layouts(ctx, cases):
     ``cfg_kw`` (its ``"moe"``, if any, a dict of ``MoEConfig`` fields),
     ``model``, ``params``, ``registry_json`` (None: calibrated),
     ``train_kw`` and ``runs``: (run name, comm, wire enabled[, more
-    ``train()`` keywords]). A case with ``routing`` also records, per
+    ``train()`` keywords, and ``wait_for``: a path that another process
+    writes, waited for before the run]). The optimizer state comes back
+    as :func:`opt_numpy` gives it. A case with ``routing`` also records, per
     compressed run, each MoE layer's routing (``idx``, ``keep``) and
     input on the first batch from the initial tree under
     ``"<run name>/routing"``: [(idx, keep, x)] in layer order. A case
-    with ``resume_root`` checkpoints each run there (``rank_<r>``
-    directories) every ``steps - 1`` steps; each rank then deletes its
-    last checkpoint and the run is launched again, which resumes one
-    step short and finishes: the second launch is ``"<run
-    name>/resumed"`` and its start step is appended."""
+    with ``resume_root`` checkpoints each run into one directory there
+    every ``steps - 1`` steps; rank 0 then deletes the last checkpoint
+    and the run is launched again, which resumes one step short and
+    finishes: the second launch is ``"<run name>/resumed"`` and its
+    start step is appended."""
     import os
     import shutil
     import torch
@@ -575,11 +621,6 @@ def tp_layouts(ctx, cases):
     from repro_torch.launch.mesh import make_test_mesh, use_mesh
     from repro_torch.launch.train import train
     from repro_torch.models import moe
-
-    def numpy_tree(tree):
-        if isinstance(tree, dict):
-            return {k: numpy_tree(v) for k, v in tree.items()}
-        return tree.detach().numpy().copy()
 
     out = {}
     for case in cases:
@@ -603,17 +644,19 @@ def tp_layouts(ctx, cases):
                 params = (None if case["params"] is None
                           else params_from_numpy(case["params"], "cpu"))
                 ckpt = None if root is None else os.path.join(root, name)
+                if "wait_for" in more:
+                    wait_for(more["wait_for"])
+                run_kw = dict(kw, checkpoint_dir=ckpt)
+                run_kw.update((k, v) for k, v in more.items()
+                              if k != "wait_for")
                 with use_mesh(mesh):
                     res = train(cfg, comm=comm, device="cpu", params=params,
-                                registry=reg, wire_enabled=enabled,
-                                checkpoint_dir=ckpt, **more, **kw)
+                                registry=reg, wire_enabled=enabled, **run_kw)
                 hist = res["history"]
-                opt = res["opt_state"]
                 runs[launch] = (
                     [h["loss"] for h in hist], [h["ok"] for h in hist],
                     res["comm_fallbacks"], numpy_tree(res["params"]),
-                    {k: opt[k].numpy().copy() for k in ("m", "v")}
-                    if comm == "qlc" else None)
+                    opt_numpy(res["opt_state"]))
                 if case.get("routing") and comm == "qlc":
                     local = shard_params(params_from_numpy(
                         case["params"], "cpu"), cfg, mesh.coords[1],
@@ -629,12 +672,167 @@ def tp_layouts(ctx, cases):
                     runs[launch] += (res["start_step"],)
                 elif root is not None:
                     torch.distributed.barrier()
-                    shutil.rmtree(os.path.join(
-                        ckpt, f"rank_{ctx['rank']:05d}",
-                        f"step_{kw['steps']:010d}"))
+                    if ctx["rank"] == 0:
+                        shutil.rmtree(os.path.join(
+                            ckpt, f"step_{kw['steps']:010d}"))
                     torch.distributed.barrier()
         out[case["name"]] = runs
         torch.distributed.barrier()
+    return out
+
+
+def _state(res):
+    """``train()``'s final state as numpy, and where it started."""
+    return (numpy_tree(res["params"]), opt_numpy(res["opt_state"]),
+            res["start_step"])
+
+
+def ckpt_world2(ctx, cfg_kw, train_kw, root, codes, codes_root):
+    """The baseline step of reduced phi3 at 2 x 1 for ``train_kw["steps"]``
+    steps, checkpointed at its end into ``root``; then the same launch
+    at 1 x 2, which restores each rank's blocks from it and runs no step
+    -> {"2x1": state (whole), "1x2": state (this rank's blocks)}, as
+    :func:`_state`. Then byte-width leaves split over the two ranks
+    (``codes`` u8 [n, k]: each rank its half of the rows as ``"codes"``
+    and of the columns as ``"fp8"``, a ``float8_e4m3fn`` view; its row of
+    ``codes[:2]`` as the ``[1, 2, k]`` leaf ``"rows"``), saved through
+    ``CheckpointManager`` into ``codes_root`` and restored on the same
+    layout -> out["codes"] = this rank's restored parts as u8."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, Layout
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.train import train
+    cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
+    out = {}
+    for tag, model in (("2x1", 1), ("1x2", 2)):
+        with use_mesh(make_test_mesh(model=model)):
+            out[tag] = _state(train(
+                cfg, comm="baseline", device="cpu", checkpoint_dir=root,
+                checkpoint_every=train_kw["steps"], **train_kw))
+    rank = ctx["rank"]
+    n, k = codes.shape
+    whole = torch.from_numpy(np.ascontiguousarray(codes))
+    mine = {"codes": whole[rank * n // 2:(rank + 1) * n // 2].clone(),
+            "fp8": whole[:, rank * k // 2:(rank + 1) * k // 2].contiguous()
+            .view(torch.float8_e4m3fn),
+            "rows": whole[rank].clone()}
+    layout = Layout(data=1, model=2, rank=rank, group=ctx["group"],
+                    cut={"codes": 0, "fp8": 1}, rows=frozenset({"rows"}))
+    mgr = CheckpointManager(codes_root)
+    mgr.save(1, mine, extra={"step": 1}, layout=layout)
+    got, _ = mgr.restore(mine, device="cpu", layout=layout)
+    out["codes"] = {key: t.view(torch.uint8).numpy()
+                    for key, t in got.items()}
+    return out
+
+
+class _FailsMidSave:
+    """A leaf whose save raises, as a rank that fails while it writes."""
+
+    def detach(self):
+        raise RuntimeError("simulated failure while writing a part")
+
+
+def ckpt_world4(ctx, cfg_kw, train_kw, root, base_root, base_kw):
+    """On 4 gloo ranks, reduced phi3 -> {name: result}:
+
+    * ``straight``: ``train_kw["steps"]`` compressed steps at 2 x 2 (on
+      the wire's raw e4m3 twin: the checkpoint does not depend on the
+      wire); ``resumed``: one step fewer, checkpointed into
+      ``root/comp``, then the same launch for all of them, which resumes
+      (both :func:`_state`);
+    * ``interrupted``: a save of the next step in which rank 2 fails
+      while writing its row -> (this rank's exception, the latest step
+      after it, the names in ``root/comp``); ``again``: the launch once
+      more, restoring the last good step and running none;
+    * ``refused 1x4`` / ``refused 4x1``: the compressed launch at 1 x 4
+      and 4 x 1 from ``root/comp`` -> the ValueError's message (None if
+      none);
+    * ``corrupt``: with one byte of the last step's ``0/embed`` flipped,
+      the launch at 2 x 2 -> the OSError's message (None if none);
+    * ``old``: a launch into a directory of the per-rank layout of
+      earlier versions -> the ValueError's message;
+    * ``4x1`` / ``2x2``: once ``base_root`` holds a checkpoint (written
+      by :func:`ckpt_world2`), the baseline launch of ``base_kw`` at
+      4 x 1 and 2 x 2, which restores each rank's part and runs no step
+      (:func:`_state`)."""
+    import os
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.train import checkpoint_layout, train
+    cfg = reduced(get_config("phi3-mini-3.8b"), **cfg_kw)
+    meshes = {"2x2": make_test_mesh(model=2), "1x4": make_test_mesh(model=4),
+              "4x1": make_test_mesh(model=1)}
+    rank, steps = ctx["rank"], train_kw["steps"]
+    comp = os.path.join(root, "comp")
+    kw = dict(train_kw, comm="qlc", device="cpu", wire_enabled=False)
+    out = {}
+    with use_mesh(meshes["2x2"]):
+        straight = train(cfg, **kw)
+        reg = straight["registry"]
+        out["straight"] = _state(straight)
+        train(cfg, registry=reg, checkpoint_dir=comp,
+              **dict(kw, steps=steps - 1))
+        resumed = train(cfg, registry=reg, checkpoint_dir=comp, **kw)
+        out["resumed"] = _state(resumed)
+    layout = checkpoint_layout(cfg, meshes["2x2"], ctx["group"], True)
+    mgr = CheckpointManager(comp)
+    opt = dict(resumed["opt_state"])
+    if rank == 2:
+        opt["m"] = _FailsMidSave()
+    try:
+        mgr.save(steps + 1, (resumed["params"], opt),
+                 extra={"step": steps + 1}, layout=layout)
+        failed = None
+    except RuntimeError as e:
+        failed = str(e)
+    out["interrupted"] = (failed, mgr.latest_step(layout),
+                          sorted(os.listdir(comp)))
+    with use_mesh(meshes["2x2"]):
+        out["again"] = _state(train(cfg, registry=reg, checkpoint_dir=comp,
+                                    **kw))
+    for tag in ("1x4", "4x1"):
+        with use_mesh(meshes[tag]):
+            try:
+                train(cfg, registry=reg, checkpoint_dir=comp, **kw)
+                out[f"refused {tag}"] = None
+            except ValueError as e:
+                out[f"refused {tag}"] = str(e)
+    if rank == 0:               # one flipped byte in the last step's embed
+        from repro_torch.checkpoint.manager import _leaf_file
+        path = os.path.join(comp, f"step_{steps:010d}", _leaf_file("0/embed"))
+        with open(path, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    torch.distributed.barrier()
+    with use_mesh(meshes["2x2"]):
+        try:
+            train(cfg, registry=reg, checkpoint_dir=comp, **kw)
+            out["corrupt"] = None
+        except OSError as e:
+            out["corrupt"] = str(e)
+    old = os.path.join(root, "old")
+    if rank == 0:
+        os.makedirs(os.path.join(old, "rank_00000", "step_0000000001"))
+    torch.distributed.barrier()
+    with use_mesh(meshes["2x2"]):
+        try:
+            train(cfg, checkpoint_dir=old, **dict(base_kw, comm="baseline",
+                                                  device="cpu"))
+            out["old"] = None
+        except ValueError as e:
+            out["old"] = str(e)
+    wait_for(os.path.join(base_root, "latest"))
+    for tag in ("4x1", "2x2"):
+        with use_mesh(meshes[tag]):
+            out[tag] = _state(train(cfg, comm="baseline", device="cpu",
+                                    checkpoint_dir=base_root, **base_kw))
     return out
 
 

@@ -61,6 +61,22 @@ step's top-1 margin. Rank 0 prints ms/token prefill and decode of each
 run, a decode step's kernel launches, all-reduces and all-gathers, the
 wire's B/symbol, pooled / dense KV and every rank's peak.
 
+``--ckpt`` checks one checkpoint for any layout (f32 parameters; use
+``--layers`` to keep the whole tree to what the disk holds: phi3 at 8
+layers is ~4.4 GB of parameters, ~13 GB with both moments, written
+whole). The baseline step runs ``--steps`` steps on the ``N / M x M``
+layout of the first ``--model`` M and checkpoints (every rank writes its
+part of the one directory); each rank's state must be its cut of the
+saved whole tree (read back through memory maps). Then the same launch
+resumes on ``N x 1``, ``1 x N`` and ``N / M x M``: every rank's restored
+state bit-equal to its cut of the saved tree, and one more step a finite
+loss. The compressed step: ``--steps`` steps, a checkpoint (its ``m``
+and ``v`` as ``[data, model, seg]``), a resumed launch of ``--steps``
+more, bit-equal on every rank to ``2 x --steps`` straight steps; a
+resume at ``1 x N`` must raise ``ValueError`` on every rank. Rank 0
+prints each save's and restore's seconds by stage, the bytes written
+and every rank's device and host peak (a JSON line per run).
+
 Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --cards 4 --model 2 4
   python3 tools/tp_cards.py --arch deepseek-moe-16b --layers 8 --model 2 4
@@ -74,6 +90,7 @@ Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --serve --decode-seq-shard --model 1 \
       --arch chatglm3-6b --dtype float32 --batch 1 --requests 2 \
       --prompt-len 32640 --new-tokens 64 --kv-block 128 --prefill-chunk 256
+  python3 tools/tp_cards.py --ckpt --layers 8 --model 2 --steps 2
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
 ranks with a reduced config of the arch whose pools hold every chunk (a
 rehearsal of the control flow, without the kernel timings; its times
@@ -245,6 +262,296 @@ def _rank_main(rank, args, init):
                           f"{w['modeled_wire_bytes_per_symbol']:.4f} modeled"
                           for name, w in (r0["moe_wire"] or {}).items()))
             say(json.dumps({"layout": tag, "ranks": gathered}))
+    if cuda and rank == 0:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0], flush=True)
+
+
+def _tree_of(flat):
+    """``{"a/b": leaf}`` -> ``{"a": {"b": leaf}}``."""
+    out = {}
+    for key, leaf in flat.items():
+        node = out
+        *parts, last = key.split("/")
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def _same_as_files(params, opt, cdir, cfg, mesh, compressed):
+    """Whether this rank's ``(params, opt)`` is, bit for bit, its cut of
+    the whole tree in checkpoint directory ``cdir``: its
+    ``convert.shard_params`` blocks (and the baseline moments'), or its
+    ``[d, m]`` row of the stored ``m`` and ``v``. The whole leaves are
+    read through memory maps, so a rank reads only its blocks."""
+    import numpy as np
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.convert import shard_params
+    with open(os.path.join(cdir, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    whole = {key: np.load(os.path.join(cdir, meta["file"]), mmap_mode="r")
+             for key, meta in leaves.items()}
+    d, m = mesh.coords
+    trees = {"0": params} if compressed else {"0": params, "1/m": opt["m"],
+                                              "1/v": opt["v"]}
+    for prefix, tree in trees.items():
+        saved = _tree_of({k[len(prefix) + 1:]: v for k, v in whole.items()
+                          if k.startswith(prefix + "/")})
+        want = flatten_with_paths(shard_params(saved, cfg, m, mesh.model))
+        for key, t in flatten_with_paths(tree).items():
+            if t.detach().cpu().numpy().tobytes() != \
+                    np.ascontiguousarray(want[key]).tobytes():
+                return False
+    rows = {"1/m": opt["m"], "1/v": opt["v"]} if compressed else {}
+    for key, t in rows.items():
+        if t.detach().cpu().numpy().tobytes() != \
+                np.ascontiguousarray(whole[key][d, m]).tobytes():
+            return False
+    return int(opt["step"]) == int(whole["1/step"])
+
+
+class _HostPeak:
+    """The peak of this process's resident memory not shared with files
+    (resident minus shared pages of ``/proc/self/statm``; where the
+    kernel reports no shared pages, all of it) and of its shared
+    (file-mapped) pages, GiB, sampled every 5 ms while the block runs,
+    and the first level at its start."""
+
+    def __enter__(self):
+        import threading
+        self.start = self._read()[0]
+        self.anon, self.file = self.start, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            anon, file = self._read()
+            self.anon, self.file = max(self.anon, anon), max(self.file, file)
+
+    @staticmethod
+    def _read():
+        with open("/proc/self/statm") as f:
+            resident, shared = map(int, f.read().split()[1:3])
+        page = os.sysconf("SC_PAGE_SIZE") / 2**30
+        return (resident - shared) * page, shared * page
+
+
+def _ckpt_rank(rank, args, init):
+    """``--ckpt``: one checkpoint for any layout; see the module
+    docstring."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from repro_torch.configs import reduced
+    from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
+                                         mesh_all, use_mesh)
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.parallel.sharding import param_shapes
+    from repro_torch.training import OptConfig, TrainConfig
+    from repro_torch.training import make_baseline_step
+
+    cuda = args.device == "cuda"
+    cfg = arch_config(args.arch, args.layers)
+    if not cuda:
+        cfg = reduced(cfg, dtype="float32", d_model=128)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with data_parallel(args.device, rank=rank, world_size=args.cards,
+                       init_method=init):
+        def say(msg):
+            if rank == 0:
+                print(msg, flush=True)
+
+        save_model = args.model[0]
+        meshes = {}
+        for model in dict.fromkeys((save_model, 1, args.cards)):
+            mesh = make_test_mesh(model=model)
+            meshes[f"{mesh.data}x{mesh.model}"] = mesh
+        saved_at = f"{args.cards // save_model}x{save_model}"
+        resumes = [t for t in meshes if t != saved_at] + [saved_at]
+        refuse_at = f"1x{args.cards}"
+        whole_bytes = sum(4 * math.prod(s) for s in
+                          pytree_leaves(param_shapes(cfg)))
+        box = [tempfile.mkdtemp(prefix="qlc_ckpt_cards_")
+               if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        root = box[0]
+        free = shutil.disk_usage(root).free
+        need = int(2.2 * 3 * whole_bytes)
+        say(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}; "
+            f"{whole_bytes} bytes of f32 parameters (x3 with the AdamW "
+            f"moments); {args.cards} ranks ({args.device}); checkpoints in "
+            f"{root}, {free} bytes free (need ~{need})")
+        if free < need:
+            raise SystemExit(f"{root}: {free} bytes free, need {need}")
+        kw = dict(seq_len=args.seq_len, global_batch=args.global_batch,
+                  device=args.device, transport="oneshot", seed=0)
+        steps = args.steps
+
+        def device_peak():
+            return (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                    else float("nan"))
+
+        def stats(tag, res, host, peak, cdir=None):
+            """Rank 0 prints the run's stage seconds, bytes written and
+            every rank's device peak (``peak``, GiB) and host peaks
+            (``host``: the run's ``_HostPeak``), and a JSON line of every
+            rank's."""
+            row = {"run": tag, "rank": rank, "seconds": res["checkpoint"],
+                   "peak_gib": peak,
+                   "host_anon_start_gib": host.start,
+                   "host_anon_peak_gib": host.anon,
+                   "host_file_peak_gib": host.file}
+            if cdir is not None and rank == 0:
+                row["bytes"] = sum(os.path.getsize(os.path.join(cdir, n))
+                                   for n in os.listdir(cdir))
+            every = [None] * args.cards
+            dist.all_gather_object(every, row)
+            r0 = every[0]
+            for what, t in r0["seconds"].items():
+                say(f"[{tag}] {what}: " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in t.items()))
+            say(f"[{tag}] " + (f"{r0['bytes']} bytes written; "
+                               if "bytes" in r0 else "")
+                + "device peak " + ", ".join(
+                    f"{g['peak_gib']:.2f}" for g in every)
+                + " GiB; host resident peak (from) " + ", ".join(
+                    f"{g['host_anon_peak_gib']:.2f} "
+                    f"({g['host_anon_start_gib']:.2f})" for g in every)
+                + " GiB, of it shared with files " + ", ".join(
+                    f"{g['host_file_peak_gib']:.2f}" for g in every)
+                + " GiB by rank")
+            say(json.dumps({"ckpt": tag, "ranks": every}))
+
+        def reset():
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+
+        def require(ok, what):
+            if not mesh_all(bool(ok), meshes[saved_at]):
+                raise AssertionError(f"{what}: failed on some rank")
+            say(f"  ok: {what}")
+
+        # the baseline step: saved at the first --model, restored on every
+        # layout, one more step from each
+        base = os.path.join(root, "baseline")
+        cdir = os.path.join(base, f"step_{steps:010d}")
+        reset()
+        with use_mesh(meshes[saved_at]), _HostPeak() as host:
+            res = train(cfg, comm="baseline", steps=steps,
+                        checkpoint_dir=base, checkpoint_every=steps, **kw)
+        stats(f"baseline {saved_at}: {steps} steps, save", res, host,
+              device_peak(), cdir)
+        require(_same_as_files(res["params"], res["opt_state"], cdir, cfg,
+                               meshes[saved_at], False),
+                f"baseline {saved_at}: every rank's state is its cut of the "
+                "saved whole tree")
+        del res
+        opt_cfg = OptConfig(lr=3e-4, total_steps=steps,
+                            warmup_steps=max(10, steps // 20))
+        for tag in resumes:
+            mesh = meshes[tag]
+            reset()
+            with use_mesh(mesh):
+                with _HostPeak() as host:
+                    res = train(cfg, comm="baseline", steps=steps,
+                                checkpoint_dir=base, **kw)
+                peak = device_peak()
+                require(res["start_step"] == steps and not res["history"],
+                        f"baseline {tag}: resumed at step {steps}")
+                require(_same_as_files(res["params"], res["opt_state"],
+                                       cdir, cfg, mesh, False),
+                        f"baseline {tag}: every rank's restored state is its "
+                        "cut of the saved whole tree, bit for bit")
+                step_fn = make_baseline_step(cfg, opt_cfg, TrainConfig(),
+                                             mesh=mesh)
+                _, _, met = step_fn(res["params"], res["opt_state"],
+                                    res["data"].batch_at(steps))
+                loss = float(met["loss"])
+            require(math.isfinite(loss),
+                    f"baseline {tag}: one more step, loss {loss:.4f}")
+            stats(f"baseline {tag}: restore", res, host, peak)
+            del res, step_fn, met
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(base)
+        dist.barrier()
+
+        # the compressed step: saved and resumed on its own layout, equal
+        # to the straight run; refused on another
+        comp = os.path.join(root, "compressed")
+        reset()
+        with use_mesh(meshes[saved_at]):
+            # on the CPU a pool slot for every chunk, as the train mode
+            reg = None if cuda else _wide_pools(train(
+                cfg, comm="qlc", **dict(kw, steps=0))["registry"])
+            straight = train(cfg, comm="qlc", steps=2 * steps, registry=reg,
+                             **kw)
+        reg = straight["registry"]
+        want = ([p.cpu() for p in pytree_leaves(straight["params"])],
+                [straight["opt_state"][k].cpu() for k in ("m", "v")])
+        del straight
+        reset()
+        with use_mesh(meshes[saved_at]), _HostPeak() as host:
+            res = train(cfg, comm="qlc", steps=steps, registry=reg,
+                        checkpoint_dir=comp, checkpoint_every=steps, **kw)
+        stats(f"compressed {saved_at}: {steps} steps, save", res, host,
+              device_peak(), os.path.join(comp, f"step_{steps:010d}"))
+        require(_same_as_files(res["params"], res["opt_state"], os.path.join(
+            comp, f"step_{steps:010d}"), cfg, meshes[saved_at], True),
+            f"compressed {saved_at}: every rank's blocks and [seg] row are "
+            "its cut of the saved tree and [data, model, seg] state")
+        del res
+        reset()
+        with use_mesh(meshes[saved_at]), _HostPeak() as host:
+            res = train(cfg, comm="qlc", steps=2 * steps, registry=reg,
+                        checkpoint_dir=comp, checkpoint_every=2 * steps, **kw)
+        stats(f"compressed {saved_at}: restore, {steps} more steps, save",
+              res, host, device_peak(),
+              os.path.join(comp, f"step_{2 * steps:010d}"))
+        got = ([p.cpu() for p in pytree_leaves(res["params"])],
+               [res["opt_state"][k].cpu() for k in ("m", "v")])
+        require(res["start_step"] == steps and all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got[0] + got[1], want[0] + want[1])),
+            f"compressed {saved_at}: {steps} steps + save + resume + {steps} "
+            f"steps == {2 * steps} straight, bit for bit (parameters, m, v)")
+        del res, got, want
+        reset()
+        with use_mesh(meshes[refuse_at]):
+            try:
+                train(cfg, comm="qlc", steps=2 * steps, registry=reg,
+                      checkpoint_dir=comp, **kw)
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+        every = [None] * args.cards
+        dist.all_gather_object(every, refused)
+        if not all(every):
+            raise AssertionError(f"compressed at {refuse_at}: not refused "
+                                 f"on every rank: {every}")
+        say(f"  ok: compressed at {refuse_at}: ValueError on every rank "
+            f"({every[0]})")
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root)
     if cuda and rank == 0:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -732,6 +1039,9 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt", action="store_true",
+                    help="one checkpoint for any layout: save at the first "
+                         "--model, restore on N x 1, 1 x N and it")
     ap.add_argument("--serve", action="store_true",
                     help="serve the arch on the N / M x M layout of each "
                          "--model M instead of training it")
@@ -764,7 +1074,8 @@ def main(argv=None):
         qlc_fused.build_kernels()       # once, before the ranks load it
     from repro_torch.launch.mesh import free_port
     init = f"tcp://localhost:{free_port()}"
-    mp.start_processes(_serve_rank if args.serve else _rank_main,
+    mp.start_processes(_ckpt_rank if args.ckpt else
+                       _serve_rank if args.serve else _rank_main,
                        args=(args, init), nprocs=args.cards,
                        start_method="spawn")
 
