@@ -330,6 +330,7 @@ line, and no result line.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import math
@@ -341,7 +342,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 DEVICE = "cuda"                  # where the KV phase and codes checks run
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -392,8 +392,12 @@ def time_ms(fn, reps: int, flush: torch.Tensor, alone: bool = False
     return float(np.median(times))
 
 
-def bound_ms(nbytes: int) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(entry: str, *args, **kwargs) -> float:
+    """The HBM bound of the kernel behind ``kernels.ops.<entry>`` called
+    with these arguments: ``roofline.kernel_bytes`` (its inputs read
+    once, its outputs written once) over ``roofline.hw.HBM_BW``."""
+    from repro_torch.roofline import hw, kernel_bytes
+    return hw.hbm_ms(kernel_bytes(entry, *args, **kwargs))
 
 
 def nbytes(*ts) -> int:
@@ -506,7 +510,7 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
                                     alone=True)
     res["K1"]["plain_ms"] = time_ms(
         lambda: ref.quantize_encode_ref(xf, t1, wc), 3, flush)
-    res["K1"]["bound_ms"] = bound_ms(nbytes(xf, words, nb, sc))
+    res["K1"]["bound_ms"] = bound_ms("quantize_encode", xf, t1, wc)
     log("parity", f"K1 f32 [{n}, {k}] cap {wc}: {res['K1']['ms']:.4f} ms "
                   f"(kernel alone {res['K1']['kernel_ms']:.4f}), plain "
                   f"{res['K1']['plain_ms']:.2f} ms, HBM bound "
@@ -525,23 +529,28 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
         "f32": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
                                               scheme_ids=sid),
                 lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k),
-                4, bare_k2(mix, s1, [t1, t2], k, sid)),
+                bound_ms("decode_dequantize", mix, s1, [t1, t2], k,
+                         scheme_ids=sid),
+                bare_k2(mix, s1, [t1, t2], k, sid)),
         "bf16": (lambda: ops.decode_dequantize(mix, s1, [t1, t2], k,
                                                scheme_ids=sid,
                                                out_dtype=torch.bfloat16),
                  lambda: ref.decode_dequantize_ref(
                      mix, s1, [t1, t2], sid, k, out_dtype=torch.bfloat16),
-                 2, bare_k2(mix, s1, [t1, t2], k, sid,
+                 bound_ms("decode_dequantize", mix, s1, [t1, t2], k,
+                          scheme_ids=sid, out_dtype=torch.bfloat16),
+                 bare_k2(mix, s1, [t1, t2], k, sid,
                             out_dtype=torch.bfloat16)),
         "acc": (lambda: ops.decode_dequantize_accumulate(
                     acc, mix, s1, [t1, t2], k, scheme_ids=sid),
                 lambda: ref.decode_dequantize_ref(mix, s1, [t1, t2], sid, k,
                                                   acc=acc),
-                8, bare_k2(mix, s1, [t1, t2], k, sid, acc=acc)),
+                bound_ms("decode_dequantize_accumulate", acc, mix, s1,
+                         [t1, t2], k, scheme_ids=sid),
+                bare_k2(mix, s1, [t1, t2], k, sid, acc=acc)),
     }
     res["K2"]["forms"] = {}
-    in_bytes = nbytes(mix, s1, sid)
-    for name, (kern, plain, out_b, bare) in forms.items():
+    for name, (kern, plain, bound, bare) in forms.items():
         a, b = kern(), plain()
         torch.cuda.synchronize()
         res["K2"]["err"] = max(res["K2"]["err"],
@@ -549,7 +558,7 @@ def phase_parity(qf, ops, ref, lut, schemes, flush):
         f = {"ms": time_ms(kern, 20, flush),
              "kernel_ms": time_ms(bare, 20, flush, alone=True),
              "plain_ms": time_ms(plain, 3, flush),
-             "bound_ms": bound_ms(in_bytes + n * k * out_b)}
+             "bound_ms": bound}
         res["K2"]["forms"][name] = f
         log("parity", f"K2 {name} [{n}, {k}] cap {cap}, 2 schemes: "
                       f"bit-equal; {f['ms']:.4f} ms (kernel alone "
@@ -707,24 +716,25 @@ def time_codes(ops, ref, sym, tables, cap, words, sid, flush, reps=20):
     n, k = sym.shape
     tl = tables if isinstance(tables, list) else [tables]
     out = {}
-    for name, fn, bare, plain, nb in (
+    for name, fn, bare, plain, bound in (
             ("K3", lambda: ops.encode(sym, tl[0], cap),
              bare_k3(sym, tl[0], cap),
              lambda: ref.encode_ref(sym, tl[0], cap),
-             n * k + n * cap * 4 + n * 4),
+             bound_ms("encode", sym, tl[0], cap)),
             ("K4", lambda: ops.decode(words, tl, k, scheme_ids=sid),
              bare_codes_decode("decode", words, tl, sid, k),
              lambda: ref.decode_ref(words, tl, sid, k),
-             nbytes(words, sid) + n * k),
+             bound_ms("decode", words, tl, k, scheme_ids=sid)),
             ("K5", lambda: ops.decode_block_async(words, tl, k,
                                                   scheme_ids=sid),
              bare_codes_decode("prefetch_decode", words, tl, sid, k),
              lambda: ref.decode_block_async_ref(words, tl, sid, k),
-             nbytes(words, sid) + n * k)):
+             bound_ms("decode_block_async", words, tl, k,
+                      scheme_ids=sid))):
         out[name] = {"ms": time_ms(fn, reps, flush),
                      "kernel_ms": time_ms(bare, reps, flush, alone=True),
                      "plain_ms": time_ms(plain, 3, flush),
-                     "bound_ms": bound_ms(nb), "shape": [n, k], "cap": cap}
+                     "bound_ms": bound, "shape": [n, k], "cap": cap}
     return out
 
 
@@ -963,7 +973,7 @@ def phase_k3_shapes(ops, ref, lut, schemes, flush):
                                   alone=True),
              "plain_ms": time_ms(lambda: ref.encode_ref(sym, t, cap), 3,
                                  flush),
-             "bound_ms": bound_ms(n * k + n * cap * 4 + n * 4)}
+             "bound_ms": bound_ms("encode", sym, t, cap)}
         log("parity", f"K3 {label} [{n}, {k}] cap {cap}: bit-equal; "
                       f"{r['ms']:.4f} ms (kernel alone "
                       f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.2f} "
@@ -1057,7 +1067,7 @@ def phase_hist_parity(ops, ref, flush):
            "plain_ms": time_ms(lambda: ref.histogram256_ref(x), 3, flush),
            "library_ms": time_ms(
                lambda: torch.bincount(flat, minlength=256), 20, flush),
-           "bound_ms": bound_ms(x.numel() + 256 * 4)}
+           "bound_ms": bound_ms("histogram", x)}
     log("parity", f"K6 [4096, 1024]: {res['ms']:.4f} ms (kernel alone "
                   f"{res['kernel_ms']:.4f}), plain "
                   f"{res['plain_ms']:.2f} ms, torch.bincount "
@@ -1266,7 +1276,7 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
     main = {"K1": {"shape": list(xw.shape), "ms": time_ms(enc, 3, flush),
                    "kernel_ms": time_ms(bare_k1(xw, tables, 353), 3, flush,
                                         alone=True),
-                   "bound_ms": bound_ms(nbytes(xw, words, nb, sc)),
+                   "bound_ms": bound_ms("quantize_encode", xw, tables, 353),
                    "max_abs_err": k1_err}}
     del words, nb, sc
     w = node["words"].reshape(-1, m.capacity_words)
@@ -1276,8 +1286,8 @@ def phase_slice(qf, serve_mod, e4m3, ref, flush):
                   "ms": time_ms(dec, 3, flush),
                   "kernel_ms": time_ms(bare_k2(w, s, tables, 1024), 3,
                                        flush, alone=True),
-                  "bound_ms": bound_ms(nbytes(w, s) + 4 * w.shape[0]
-                                       + xw.numel() * 4),
+                  "bound_ms": bound_ms("decode_dequantize", w, s, tables,
+                                       1024),
                   "max_abs_err": k2_err}
     for kname, v in main.items():
         log("slice", f"{kname} at the main path's w_in shape {v['shape']}: "
@@ -1385,8 +1395,7 @@ def check_kv_path(ops, ref, cfg, opened, prompt, flush, dev=DEVICE,
         "plain_ms": time_ms(lambda: ref.histogram256_ref(h), 3, flush),
         "library_ms": time_ms(lambda: torch.bincount(h, minlength=256),
                               reps, flush),
-        # the symbols read once, the 256 counts written once.
-        "bound_ms": bound_ms(h.numel() + 256 * 4)}
+        "bound_ms": bound_ms("histogram", h)}
     for name, r in times.items():
         r["err"] = err[name]
         log(phase, f"{name} at the KV shape {r['shape']}"
@@ -1685,7 +1694,7 @@ def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
             "kernel_ms": time_ms(bare_k6(syms), 5, flush, alone=True),
             "library_ms": time_ms(
                 lambda: torch.bincount(syms, minlength=256), 5, flush),
-            "bound_ms": bound_ms(syms.numel() + 256 * 4)}
+            "bound_ms": bound_ms("histogram", syms)}
     log("train", f"K6 on the path's {syms.numel()} gradient symbols (one "
                  f"launch): equal to torch.bincount; {path['ms']:.4f} ms "
                  f"(kernel alone {path['kernel_ms']:.4f}), "
@@ -1765,15 +1774,15 @@ def train_path_fused(ops, ref, entry, grad, flush, rows=4096,
                    x, t, cap, emit_codes=True), 5, flush),
                "kernel_ms": time_ms(bare_k1(x, t, cap, emit_codes=True), 5,
                                     flush, alone=True),
-               "bound_ms": bound_ms(nbytes(x, words, nb, sc, codes))},
+               "bound_ms": bound_ms("quantize_encode", x, t, cap,
+                                    emit_codes=True)},
         "K2": {"shape": [n, cap], "form": "acc", "max_abs_err": err["K2"],
                "ms": time_ms(lambda: ops.decode_dequantize_accumulate(
                    acc, words, sc, t, k), 5, flush),
                "kernel_ms": time_ms(bare_k2(words, sc, t, k, acc=acc), 5,
                                     flush, alone=True),
-               # words, scales, scheme ids and acc in; the sum out.
-               "bound_ms": bound_ms(nbytes(words, sc, acc) + 4 * n
-                                   + n * k * 4)}}
+               "bound_ms": bound_ms("decode_dequantize_accumulate", acc,
+                                    words, sc, t, k)}}
     for kname, v in res.items():
         log(phase, f"{kname} at the {phase} path's shape {v['shape']} (slot "
                      f"{cap} words{', codes' if kname == 'K1' else ', acc'}):"
@@ -2013,13 +2022,14 @@ def phase_ckpt(qc, h6, ops, ref, flush, dev="cuda", cfg=None,
                                         alone=True),
                    "plain_ms": time_ms(lambda: ref.encode_ref(part, t, cap),
                                        3, flush),
-                   "bound_ms": bound_ms(n * k + n * cap * 4 + n * 4)},
+                   "bound_ms": bound_ms("encode", sym, t, cap)},
             "K4": {"ms": time_ms(lambda: ops.decode(words, t, k), 5, flush),
                    "kernel_ms": time_ms(bare_codes_decode(
                        "decode", words, [t], sid, k), 5, flush, alone=True),
                    "plain_ms": time_ms(lambda: ref.decode_ref(
                        words[:rows], [t], sid[:rows], k), 3, flush),
-                   "bound_ms": bound_ms(nbytes(words, sid) + n * k)},
+                   "bound_ms": bound_ms("decode", words, [t], k,
+                                        scheme_ids=sid)},
             "K6": {"ms": time_ms(lambda: ops.histogram(flat_sym), 5, flush),
                    "kernel_ms": time_ms(bare_k6(flat_sym), 5, flush,
                                         alone=True),
@@ -2027,7 +2037,7 @@ def phase_ckpt(qc, h6, ops, ref, flush, dev="cuda", cfg=None,
                        flat_sym[:rows * k]), 3, flush),
                    "library_ms": time_ms(lambda: torch.bincount(
                        flat_sym, minlength=256), 5, flush),
-                   "bound_ms": bound_ms(n * k + 256 * 4)}}
+                   "bound_ms": bound_ms("histogram", flat_sym)}}
         checked = {
             "K3": f"bit-equal to plain on all {n} chunks ({rows} at a "
                   "time), and the stored container holds its words",
@@ -2333,7 +2343,8 @@ def adapt_k1_hist(ops, flush, entry, grad, smi):
     lib = torch.bincount(outs[3].reshape(-1), minlength=256).to(torch.int32)
     err = max(err, require_equal("K1's histogram vs torch.bincount of its "
                                  "codes, train shape", [outs[4]], [lib]))
-    bound = bound_ms(nbytes(x, *outs))
+    bound = bound_ms("quantize_encode", x, t, cap, emit_codes=True,
+                     emit_hist=True)
     del plain, lib
     times = [time_ms(bare_k1(x, t, cap, emit_codes=True, emit_hist=h), 5,
                      flush, alone=True) for h in (False, True, True, False)]
@@ -2647,14 +2658,13 @@ def moe_wire_fused(ops, ref, entry, vals, flush, rows=4096):
                              flush),
                "kernel_ms": time_ms(bare_k1(x, t, cap), 5, flush,
                                     alone=True),
-               "bound_ms": bound_ms(nbytes(x, words, nb, sc))},
+               "bound_ms": bound_ms("quantize_encode", x, t, cap)},
         "K2": {"shape": [n, cap], "form": "f32", "max_abs_err": err["K2"],
                "ms": time_ms(lambda: ops.decode_dequantize(words, sc, t, k),
                              5, flush),
                "kernel_ms": time_ms(bare_k2(words, sc, t, k), 5, flush,
                                     alone=True),
-               # words, scales and scheme ids in; the f32 values out.
-               "bound_ms": bound_ms(nbytes(words, sc, out) + 4 * n)}}
+               "bound_ms": bound_ms("decode_dequantize", words, sc, t, k)}}
     for kname, v in res.items():
         log("moe", f"{kname} at the expert wire's shape {v['shape']} (slot "
                    f"{cap} words, {entry.name}): bit-equal to plain on the "
@@ -2662,6 +2672,39 @@ def moe_wire_fused(ops, ref, entry, vals, flush, rows=4096):
                    f"alone {v['kernel_ms']:.3f}), HBM bound "
                    f"{v['bound_ms']:.3f} ms")
     return res
+
+
+def moe_wire_overflow(entry, buf, dev="cuda", chunks=256):
+    """The expert wire past an overflowing pool: ``chunks`` chunks of the
+    layer's real dispatch payload through ``Channel.all_to_all`` on the
+    card's one rank, at half the codec's slot and one pool slot a 1k, are
+    bit-equal to the plain route's decode of the same payload on the CPU
+    (the reference's values, the last pool row's past the pool) and
+    report ``ok`` False, as on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.comm.channel import Channel, ChannelSpec
+    from repro_torch.comm.compressed import CommConfig
+    cfg = CommConfig.from_plan(entry.plan,
+                               capacity_words=entry.plan.capacity_words // 2,
+                               pool_slots_per_1k=1)
+    ch = Channel(ChannelSpec(codec=entry.tables, cfg=cfg,
+                             group=dist.group.WORLD))
+    x = buf.reshape(1, -1)[:, :chunks * cfg.chunk_symbols].float()
+    got, ok = ch.all_to_all(x)
+    p, sc = ch.compress(x.cpu())
+    want, ok_cpu = ch.decompress(p, sc)
+    past = int(p.flags.sum()) - p.pool.shape[-2]
+    if past <= 0 or bool(ok.all()) or bool(ok_cpu.all()):
+        raise AssertionError(f"moe overflow check: {past} chunks past the "
+                             f"pool, ok {ok.tolist()} / {ok_cpu.tolist()}")
+    if not torch.equal(got.cpu(), want.reshape(got.shape)):
+        raise AssertionError("moe: the card's expert wire past an overflowed "
+                             "pool differs from the plain route's values")
+    log("moe", f"expert wire past an overflowing pool ({chunks} chunks of "
+               f"the dispatch payload, {cfg.capacity_words}-word slots, "
+               f"{p.pool.shape[-2]} pool slot(s), {past} chunks past it): "
+               f"the card's Channel.all_to_all == the plain decode on the "
+               f"CPU, bit-equal; ok False on both")
 
 
 def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
@@ -2793,6 +2836,8 @@ def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
         p, sc = ch.compress(buf.reshape(1, -1))
         wire_real[name] = ch.wire_bytes(p, sc) / buf.numel()
         del p, sc
+    moe_wire_overflow(reg[moe.MOE_DISPATCH], payloads[moe.MOE_DISPATCH],
+                      dev)
     for fn in counters.values():
         fn.launches = 0
     fused = moe_wire_fused(ops, ref, reg[moe.MOE_DISPATCH],
@@ -2956,14 +3001,14 @@ def wire_leaf_fused(ops, ref, wc, wired, key, flush, rows=4096,
                                                            1024), 3, flush),
                "kernel_ms": time_ms(bare_k2(w, sc, tables, 1024), 3, flush,
                                     alone=True),
-               # words, scales and scheme ids in; the f32 values out.
-               "bound_ms": bound_ms(nbytes(w, sc, vals) + 4 * n)},
+               "bound_ms": bound_ms("decode_dequantize", w, sc, tables,
+                                    1024)},
         "K1": {"shape": [n, 1024], "cap": cap, "max_abs_err": err["K1"],
                "ms": time_ms(lambda: ops.quantize_encode(vals, tables, cap),
                              3, flush),
                "kernel_ms": time_ms(bare_k1(vals, tables, cap), 3, flush,
                                     alone=True),
-               "bound_ms": bound_ms(nbytes(vals, *enc))}}
+               "bound_ms": bound_ms("quantize_encode", vals, tables, cap)}}
     for kname, v in res.items():
         log(phase, f"{kname} at the wired leaf {key} {v['shape']}: "
                    f"bit-equal to plain on the first and last {rows} "
@@ -3190,62 +3235,6 @@ SSM_ARCH = "xlstm-125m"
 SSM_TRAIN_SEQ = 256
 
 
-def count_kernels(fn) -> dict:
-    """``fn()`` timed once without the profiler (its wall time), then
-    once under torch.profiler: the kernels it launched on the device and
-    their summed time (one stream, so the device's busy time); ``None``
-    counts when the profiler recorded no kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not kernels:
-        return {"launches": None, "busy_ms": None, "wall_ms": wall_ms}
-    busy = sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in kernels) / 1e3
-    return {"launches": sum(e.count for e in kernels), "busy_ms": busy,
-            "wall_ms": wall_ms}
-
-
-def _launch_profile(cfg, params, dev, seq_len=64, batch=4):
-    """Kernel launches of one decode step (batch 4, every slot live) and
-    of one training forward and backward at ``batch x seq_len`` (the
-    recurrence is a Python loop over the sequence: launches grow with
-    it), on the card through torch.profiler."""
-    from repro_torch.models import (decode_step, init_decode_states,
-                                    next_token_loss)
-    from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
-                                                pytree_unflatten)
-    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-    pos = torch.full((batch, 1), 16, dtype=torch.int32, device=dev)
-    st = init_decode_states(cfg, batch, 64, dev)
-    decode_step(params, cfg, tok, st, pos)              # warm-up
-    dec = count_kernels(lambda: decode_step(params, cfg, tok, st, pos))
-    toks = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1),
-                         generator=torch.Generator(device=dev).manual_seed(5),
-                         device=dev)
-
-    def fwd_bwd():
-        live = [p.detach().requires_grad_(True)
-                for p in pytree_leaves(params)]
-        loss = next_token_loss(pytree_unflatten(params, live), cfg,
-                               toks[:, :-1], toks[:, 1:])
-        leaf_grads(loss, live)
-
-    fwd_bwd()                                           # warm-up
-    train = count_kernels(fwd_bwd)
-    return {"decode": dec, "train": train, "train_shape": [batch, seq_len]}
-
-
 def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
               batch=4, requests=6, prompt_len=16, new_tokens=16, kv_block=16,
               seq_len=SSM_TRAIN_SEQ, global_batch=4, mamba_cfg=None):
@@ -3273,6 +3262,7 @@ def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
     serve runs, the train runs and the mamba round trip; each must
     launch."""
     import dataclasses
+    from repro_torch.roofline.trace import launch_profile
     from repro_torch.comm.calibrate import calibrate_kv_entries
     from repro_torch.configs import get_config
     from repro_torch.core import CodecRegistry
@@ -3416,7 +3406,7 @@ def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
     fused = wire_leaf_fused(ops, ref, wc, wired,
                             f"groups/{mlstm}/mixer/wq", flush, phase="ssm")
     del wired, wc
-    prof = _launch_profile(cfg, opened, dev) if dev == "cuda" else None
+    prof = launch_profile(cfg, opened, dev) if dev == "cuda" else None
     if prof is not None:
         d, t = prof["decode"], prof["train"]
         log("ssm", f"one decode step (batch {batch}): {d['launches']} kernel "
@@ -3667,6 +3657,7 @@ def phase_variants(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     differ past the window. K1-K6 counted from zero around the serve and
     train runs, each non-zero."""
     import dataclasses
+    from repro_torch.roofline.trace import launch_profile
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import data_parallel
     from repro_torch.launch.train import train
@@ -3792,7 +3783,7 @@ def phase_variants(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     fused = wire_leaf_fused(ops, ref, wc, wired, "groups/l0/ffn/w_in", flush,
                             phase="variants")
     del wired, wc
-    prof = _launch_profile(cfg, opened, dev) if dev == "cuda" else None
+    prof = launch_profile(cfg, opened, dev) if dev == "cuda" else None
     if prof is not None:
         d, t = prof["decode"], prof["train"]
         idle = (None if d["busy_ms"] is None
@@ -4356,7 +4347,7 @@ def tp_serve_kernels(qf, ops, ref, flush, dev, coder=None):
                                        3, flush),
                    "library_ms": time_ms(lambda: torch.bincount(
                        plane, minlength=256), 10, flush),
-                   "bound_ms": bound_ms(plane.numel() + 256 * 4)}
+                   "bound_ms": bound_ms("histogram", plane)}
     for name, r in times.items():
         r["err"] = err[name]
         log("tp_serve", f"{name} at a 1 x {CODER_ROW} rank's deepseek-coder "
@@ -4749,11 +4740,12 @@ def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
 
 def profile_step(decode_step, params, cfg, states, tok, pos):
     """One engine-shaped decode step (batch 4): its wall time without the
-    profiler, then under torch.profiler the summed time of the kernels
-    it ran (one stream, so their sum is the device's busy time), the
-    device idle share, and the kernels that took the most time."""
-    from torch.autograd import DeviceType
+    profiler, then under torch.profiler the device's busy time
+    (``roofline.trace``: kernels and copies, not PyTorch's annotation
+    ranges), the device idle share, and the kernels that took the most
+    time."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline.trace import busy_us, device_events
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     decode_step(params, cfg, tok, states, pos)
@@ -4763,27 +4755,207 @@ def profile_step(decode_step, params, cfg, states, tok, pos):
                              ProfilerActivity.CUDA]) as prof:
         decode_step(params, cfg, tok, states, pos)
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not kernels:
+    events = device_events(prof)
+    if not events:
         log("profile", f"one decode step, batch 4: wall {wall_ms:.3f} ms; "
                        "device time not measured (the profiler recorded "
                        "no kernels)")
         return
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    busy_ms = busy_us(events) / 1e3
+    by_name = {}
+    for _, name, t0, t1 in events:
+        v = by_name.setdefault(name, [0, 0.0])
+        v[0] += 1
+        v[1] += (t1 - t0) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     log("profile", f"one decode step, batch 4: wall {wall_ms:.3f} ms, "
-                   f"kernel time {busy_ms:.3f} ms in "
-                   f"{sum(e.count for e in kernels)} launches, device idle "
-                   f"share {max(0.0, 1 - busy_ms / wall_ms):.3f}; top "
-                   "kernels: " + "; ".join(
-                       f"{e.key[:72]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
-                       for e in top))
+                   f"device busy {busy_ms:.3f} ms in {len(events)} "
+                   f"launches, device idle share {1 - busy_ms / wall_ms:.3f}"
+                   "; top kernels: " + "; ".join(
+                       f"{n[:72]} {ms:.3f} ms x{k}" for n, (k, ms) in top))
+
+
+#: The roofline phase's cells: (name, arch, shape, comm, layers, seq_len,
+#: global batch). The train cell at 8 of 32 layers, 4 x 512, compressed
+#: and baseline; the slice's decode step at all 32 layers, batch 4, on
+#: the QLC weight wire (a 64-position cache).
+ROOFLINE_CELLS = (
+    ("train_qlc", "phi3-mini-3.8b", "train_4k", "qlc", 8, 512, 4),
+    ("train_baseline", "phi3-mini-3.8b", "train_4k", "baseline", 8, 512, 4),
+    ("slice_decode", "phi3-mini-3.8b", "decode_32k", "qlc", 32, 64, 4),
+)
+#: the phase's tolerances: counted product FLOPs against the profiler's
+#: ``with_flops`` total, and the counted peak against the allocator's
+ROOFLINE_FLOP_TOL = 0.02
+ROOFLINE_PEAK_TOL = 0.15
+#: the profiled steps' data: parameters, the synthetic stream's batch and
+#: the decode's tokens drawn from it, the decode's weights on their wire
+ROOFLINE_SEED = 0
+
+
+def nccl_calls(record) -> int:
+    """The counted collectives that NCCL runs on the device: every call
+    over more than one rank; on one rank NCCL runs an in-place
+    all-reduce or broadcast as nothing at all, and a gather, scatter or
+    all-to-all as a copy inside the call's ``nccl:`` range, which
+    ``roofline.trace.device_events`` gives to NCCL."""
+    if sum(record.coll_ranks.values()):
+        return sum(record.coll_calls.values())
+    return sum(n for k, n in record.coll_calls.items()
+               if k not in ("all-reduce", "broadcast"))
+
+
+def _stop(procs):
+    for p, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _start_dryrun(out_dir: str, cell, wire_caps=None):
+    """Start the dry run of one roofline cell in a subprocess of its own
+    (a process holds one default process group; this one holds NCCL's),
+    on a fake world of 1 -> (Popen, json path). ``wire_caps``: a decode
+    cell's real weight wire slots by leaf."""
+    name, arch, shape, comm, layers, seq, batch = cell
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    out = os.path.join(out_dir, f"{name}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shape", shape, "--comm", comm, "--world", "1",
+           "--seq-len", str(seq), "--global-batch", str(batch),
+           "--override", f"num_layers={layers}",
+           "--no-checkpoint-early-stop", "--out", out]
+    if wire_caps is not None:
+        caps = os.path.join(out_dir, f"{name}.caps.json")
+        with open(caps, "w") as f:
+            json.dump(wire_caps, f)
+        cmd += ["--wire-caps", caps]
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), out)
+
+
+def start_roofline_dryruns(out_dir: str):
+    """Start the dry runs of the train cells while the card runs the other
+    phases (a decode cell's waits for its real wire's slots, in
+    :func:`phase_roofline`). -> {cell: (Popen, json path)}."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    atexit.register(_stop, procs)
+    for cell in ROOFLINE_CELLS:
+        if cell[2].startswith("train"):
+            procs[cell[0]] = _start_dryrun(out_dir, cell)
+    return procs
+
+
+def phase_roofline(procs, smi, dev="cuda", out_dir=None):
+    """Each roofline cell counted by its dry run and profiled once on the
+    card (``roofline.trace``) on real data (``ROOFLINE_SEED``: the
+    synthetic stream's batch; the decode's weights on their QLC wire,
+    whose slots its dry run takes): per class device ms against its
+    bound, idle share and mfu. Fails unless the counted product FLOPs
+    are within 2 % of the profiler's, each of K1-K6 was counted as often
+    as it launched, the collectives counted equal those NCCL ran on the
+    device (:func:`nccl_calls`), the counted peak is within 15 % of the
+    allocator's, and the device's busy time is within the step's wall
+    time. The dry run counts each checkpointed block's recompute whole,
+    as the profiled step runs it."""
+    import dataclasses
+    import gzip
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.comm.weights import wire_capacities
+    from repro_torch.roofline import analysis, trace
+    from repro_torch.roofline.op_count import OpRecord
+    res = {}
+    for cell in ROOFLINE_CELLS:
+        name, arch, shape_name, comm, layers, seq, batch = cell
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        shape = dryrun.cell_shape(cfg, shape_name,
+                                  {"seq_len": seq, "global_batch": batch})
+        mesh = make_test_mesh(model=1)
+        rules, _ = dryrun.cell_rules(cfg, shape, mesh, comm)
+        tables = dryrun.cell_tables(shape.kind)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with shd.use_rules(rules), use_mesh(mesh):
+            step, live = dryrun.build_cell(cfg, shape, mesh, comm, dev,
+                                           tables, seed=ROOFLINE_SEED)
+        if name not in procs:
+            procs[name] = _start_dryrun(
+                out_dir, cell, wire_capacities(live[0]["groups"]))
+        proc, path = procs[name]
+        out = proc.communicate(timeout=900)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"roofline: the dry run of {name} failed:\n"
+                                 + out[-3000:])
+        with gzip.open(path.replace(".json", ".ops.json.gz"), "rt") as f:
+            record = OpRecord.from_json(json.load(f))
+        with shd.use_rules(rules), use_mesh(mesh):
+            prof = trace.profile_step(
+                step, record=record,
+                model_flops=analysis.model_flops_for(cfg, shape))
+        del step, live
+        torch.cuda.empty_cache()
+        cls = prof["classes"]
+        counted = record.kernel_calls()
+        launched = {k: cls[k]["launches"] for k in counted}
+        flops, pflops = record.flops, prof["profiler_flops"]
+        peak = prof["peak_bytes"] - base
+        coll = nccl_calls(record)
+        coll_ranks = sum(record.coll_ranks.values())
+        nccl = cls["NCCL"]["launches"]
+        log("roofline", f"{name} ({arch}, {layers} layers, {batch} x {seq}, "
+                        f"{comm}, data from seed {ROOFLINE_SEED}; {smi}): wall {prof['wall_ms']:.3f} ms, "
+                        f"device busy {prof['busy_ms']:.3f} ms, idle share "
+                        f"{prof['idle_share']:.3f}, mfu {prof['mfu']:.4f}")
+        for c, v in cls.items():
+            if v["launches"] or v["bound_ms"]:
+                b = v["bound_ms"]
+                log("roofline", f"  {c}: {v['launches']} launches, "
+                                f"{v['ms']:.3f} ms, bound "
+                                f"{'-' if b is None else f'{b:.3f}'} ms; "
+                                + "; ".join(f"{n} x{k} {t:.3f} ms"
+                                            for n, k, t in v["top"]))
+        counted_products = {k: [o["calls"], sum(o["flops"].values())]
+                            for k, o in record.ops.items() if o["flops"]}
+        log("roofline", f"  products: profiler {prof['products']}; counted "
+                        f"{counted_products}")
+        log("roofline", f"  product FLOPs counted {flops:.6g}, profiler "
+                        f"{pflops:.6g}; kernels counted {counted}, launched "
+                        f"{launched}; collectives counted {record.coll_calls}"
+                        f" ({coll_ranks} over more than one rank; {coll} "
+                        f"with device work), NCCL on the device {nccl}; "
+                        f"peak counted {record.peak_bytes / 2**30:.3f} GiB, "
+                        f"allocated {peak / 2**30:.3f} GiB")
+        bad = []
+        if not pflops or abs(flops - pflops) > ROOFLINE_FLOP_TOL * pflops:
+            bad.append(f"FLOPs {flops:.6g} vs profiler {pflops:.6g}")
+        if counted != launched:
+            bad.append(f"kernels counted {counted} vs launched {launched}")
+        if nccl != coll:
+            bad.append(f"collectives counted {coll} vs NCCL kernels {nccl}")
+        if abs(record.peak_bytes - peak) > ROOFLINE_PEAK_TOL * peak:
+            bad.append(f"peak counted {record.peak_bytes} vs allocated {peak}")
+        if prof["idle_share"] < 0:
+            bad.append(f"device busy {prof['busy_ms']:.3f} ms over the "
+                       f"step's {prof['profiled_wall_ms']:.3f} ms")
+        if bad:
+            raise AssertionError(f"roofline {name}: " + "; ".join(bad))
+        res[name] = {"wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                     "idle_share": prof["idle_share"], "mfu": prof["mfu"],
+                     "classes": cls, "flops": flops,
+                     "profiler_flops": pflops, "peak_bytes": peak,
+                     "counted_peak_bytes": record.peak_bytes}
+        if out_dir:
+            with open(os.path.join(out_dir, f"{name}.trace.json"), "w") as f:
+                json.dump({"cell": name, "card": smi,
+                           "data_seed": ROOFLINE_SEED, **res[name]}, f,
+                          indent=1)
+    return res
 
 
 def _leaves(tree):
@@ -4806,6 +4978,8 @@ def main(argv=None):
                     help="run only the build and the tp_serve phase")
     ap.add_argument("--dp-serve-only", action="store_true",
                     help="run only the build and the dp_serve phase")
+    ap.add_argument("--roofline-only", action="store_true",
+                    help="run only the build and the roofline phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -4820,6 +4994,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    roof_dir = os.path.join(ROOT, "results", "roofline")
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import lut, schemes
     from repro_torch.kernels import histogram256 as h6
@@ -4885,6 +5060,12 @@ def main(argv=None):
             phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         print(smi)
         return
+    if args.roofline_only:
+        roof = start_roofline_dryruns(roof_dir)
+        with data_parallel("cuda"):
+            phase_roofline(roof, smi, out_dir=roof_dir)
+        print(smi)
+        return
     par = phase_parity(qf, ops, ref, lut, schemes, flush)
     t0 = time.perf_counter()
     bad = e4m3_exhaustive(qf, e4m3)
@@ -4916,11 +5097,17 @@ def main(argv=None):
     del opened
     torch.cuda.empty_cache()
 
+    # the roofline phase's dry runs count on the host's cores while the
+    # train phases run on the card (the earlier phases time plain
+    # versions on the CPU, which they would slow)
+    roof = start_roofline_dryruns(roof_dir)
     torch.use_deterministic_algorithms(True, warn_only=True)
     with data_parallel("cuda"):
         phase_train_small(reduced, get_config)
         phase_train_recipe()
         tr = phase_train(qf, h6, ops, ref, flush)
+        torch.cuda.empty_cache()
+        phase_roofline(roof, smi, out_dir=roof_dir)
         torch.cuda.empty_cache()
         tp = phase_tp(qf, h6, ops, ref, flush)
         torch.cuda.empty_cache()

@@ -24,11 +24,16 @@ reference leaves it False on its serving and training paths and so runs
 its pure codec, while on the card the port must run its kernels. The
 outputs are the same bit for bit either way.
 
-Escaped chunks are patched into the decoded values row by row (only the
-escaped rows are dequantized from the pool), where the reference selects
-between two full-size tensors: the same values, without a second
-full-size temporary. The collectives over these transforms live in
-``comm.transport`` and ``comm.channel``.
+Escaped chunks are patched into the decoded values on the device: each
+of the pool's fixed slots is dequantized and copied over its chunk's row
+(``_merge_pool``), where the reference selects between two full-size
+tensors: the same values, without a second full-size temporary and
+without a host read, so the compressed step traces on fake tensors.
+Chunks past an overflowed pool (``ok`` False) get the reference's values,
+the last pool row, by one full-size select on every device
+(``_overflow_rows``): the expert all-to-all uses them as the reference
+does. The collectives over these transforms live in ``comm.transport``
+and ``comm.channel``.
 """
 from __future__ import annotations
 
@@ -156,19 +161,23 @@ def _flat_lead(t: torch.Tensor, keep: int) -> torch.Tensor:
     return t.reshape((-1,) + tuple(t.shape[t.dim() - keep:]))
 
 
-def _scatter_pool_rows(rows: torch.Tensor, slot: torch.Tensor,
-                       pool_slots: int) -> torch.Tensor:
-    """[..., n_chunks, W] rows -> [..., pool_slots, W]; rows whose slot is
-    out of range (>= pool_slots) are dropped."""
-    *lead, n_chunks, w = rows.shape
-    r = _flat_lead(rows, 2)
-    s = _flat_lead(slot, 1)
-    out = torch.zeros((r.shape[0], pool_slots, w), dtype=rows.dtype,
-                      device=rows.device)
-    keep = s < pool_slots
-    b = torch.arange(r.shape[0], device=rows.device)[:, None].expand_as(s)
-    out[b[keep], s[keep]] = r[keep]
-    return out.reshape(*lead, pool_slots, w)
+def _slot_chunks(escape: torch.Tensor, pool_slots: int) -> torch.Tensor:
+    """Each pool slot's chunk, fixed-size: int64 [..., pool_slots], slot
+    ``p`` holding the ``p``-th escaped chunk, or ``n_chunks`` (a dummy
+    row) where fewer than ``p + 1`` chunks escaped. No host read."""
+    *lead, n_chunks = escape.shape
+    esc_c = torch.cumsum(escape.to(torch.int64), dim=-1)
+    want = torch.arange(1, pool_slots + 1, device=escape.device)
+    return torch.searchsorted(
+        esc_c, want.expand(*lead, pool_slots).contiguous())
+
+
+def _take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[..., n, W] rows + int64 [..., P] indices in [0, n] -> [..., P, W];
+    index ``n`` (the dummy row) gives zeros."""
+    n = rows.shape[-2]
+    got = _gather_pool_rows(rows, idx.clamp(max=n - 1))
+    return torch.where((idx < n)[..., None], got, torch.zeros_like(got))
 
 
 def _gather_pool_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -186,10 +195,9 @@ def _assemble_payload(chunks: torch.Tensor, words: torch.Tensor,
     n_chunks = chunks.shape[-2]
     escape = nbits > cfg.capacity_words * 32
     pool_slots = cfg.pool_slots(n_chunks)
-    # Escaped chunks scatter their raw form into the pool; non-escaped
-    # and pool-overflowing chunks are dropped.
-    _, slot = _escape_slots(escape, pool_slots)
-    pool = _scatter_pool_rows(_as_words(chunks), slot, pool_slots)
+    # Each pool slot takes its escaped chunk's raw form (zeros where no
+    # chunk is left); pool-overflowing chunks are dropped.
+    pool = _take_rows(_as_words(chunks), _slot_chunks(escape, pool_slots))
     pool_count = escape.to(torch.int32).sum(dim=-1, keepdim=True,
                                             dtype=torch.int32)
     return WirePayload(words=words, flags=escape.to(torch.uint8),
@@ -309,38 +317,64 @@ def _compress_values(x: torch.Tensor, tables: CodecTables, cfg: CommConfig,
     return payload, scales
 
 
-def _pool_values(payload: WirePayload, scales: torch.Tensor,
-                 cfg: CommConfig):
-    """Escape epilogue of the value decode: dequantize only the escaped
-    rows, from the pool.
-
-    Returns ``(escape bool [..., n_chunks], rows, ok bool [...])``:
-    ``rows(mask)`` gives f32 [n_selected, K], the raw values of the
-    chunks selected by ``mask`` (a subset of ``escape``): each chunk's
-    pool row (clamped to the last slot when the pool overflowed; ``ok``
-    is then False and the caller falls back) dequantized with the
-    chunk's own scales, as the reference's codec path does."""
-    k = cfg.chunk_symbols
-    *lead, n_chunks, _ = payload.words.shape
-    pool_slots = payload.pool.shape[-2]
-    escape = payload.flags.bool()
-    esc_idx, _ = _escape_slots(payload.flags, pool_slots)
-    src = esc_idx.clamp(max=pool_slots - 1)
+def _merge_pool(vals: torch.Tensor, payload: WirePayload,
+                scales: torch.Tensor, acc: Optional[torch.Tensor],
+                k: int) -> None:
+    """The value decode's escape epilogue on the device, in place and with
+    no host read: each of the pool's fixed slots maps to its escaped chunk
+    (:func:`_slot_chunks`), its row is dequantized with that chunk's own
+    scales (``acc +`` it in the accumulate form) and copied over the
+    chunk's row of ``vals`` [rows, K] by one ``index_copy_``. A slot with
+    no escaped chunk left targets a chunk that did not escape, one of its
+    own, and copies that row's value back unchanged, so the targets are
+    distinct and the copy deterministic. Chunks past an overflowed pool
+    are :func:`_overflow_rows`'s."""
+    flags = payload.flags.reshape(-1, payload.flags.shape[-1])
+    b, n_chunks = flags.shape
+    slots = min(payload.pool.shape[-2], n_chunks)   # at most n can escape
+    escape = flags.bool()
+    chunk = _slot_chunks(escape, slots)             # [b, slots] in [0, n]
+    used = chunk < n_chunks
+    # Free slots take, in order, the chunks that did not escape: at least
+    # ``slots - escapes`` of them exist, since slots <= n_chunks.
+    free_i = torch.cumsum((~used).to(torch.int64), dim=-1)
+    kept_c = torch.cumsum((~escape).to(torch.int64), dim=-1)
+    kept = torch.searchsorted(kept_c, free_i.contiguous())
+    target = torch.where(used, chunk, kept.clamp(max=n_chunks - 1))
+    rows = (target + n_chunks * torch.arange(
+        b, device=flags.device)[:, None]).reshape(-1)
     pool_u8 = payload.pool.contiguous().view(torch.uint8).reshape(
-        -1, pool_slots, k)
-    lead_idx = torch.arange(pool_u8.shape[0], device=escape.device
-                            ).reshape(*lead, 1).expand(*lead, n_chunks) \
-        if lead else torch.zeros(n_chunks, dtype=torch.int64,
-                                 device=escape.device)
-    chunk_scales = scales.float().reshape(*lead, n_chunks,
-                                          k // e4m3.BLOCK)
+        b, -1, k)[:, :slots].reshape(-1, k)
+    chunk_scales = scales.float().reshape(-1, k // e4m3.BLOCK)
+    raw = e4m3.dequantize_block32(pool_u8, chunk_scales[rows])
+    if acc is not None:
+        raw = acc.reshape(-1, k)[rows].float() + raw
+    src = torch.where(used.reshape(-1, 1), raw, vals[rows])
+    vals.index_copy_(0, rows, src)
 
-    def rows(mask: torch.Tensor) -> torch.Tensor:
-        return e4m3.dequantize_block32(pool_u8[lead_idx[mask], src[mask]],
-                                       chunk_scales[mask])
 
-    ok = payload.pool_count[..., 0] <= pool_slots
-    return escape, rows, ok
+def _overflow_rows(vals: torch.Tensor, payload: WirePayload,
+                   scales: torch.Tensor, acc: Optional[torch.Tensor],
+                   k: int) -> None:
+    """The reference's values for chunks past an overflowed pool, in
+    place: the last pool row dequantized with each chunk's own scales
+    (``acc +`` it in the accumulate form). ``ok`` is then False; the
+    train step falls back, and the expert all-to-all uses these values as
+    the reference's does. One full-size select with no host read, the
+    same on every device."""
+    flags = payload.flags.reshape(-1, payload.flags.shape[-1])
+    b, n_chunks = flags.shape
+    nb = k // e4m3.BLOCK
+    escape = flags.bool()
+    over = escape & (torch.cumsum(escape.to(torch.int64), dim=-1)
+                     > payload.pool.shape[-2])
+    last = payload.pool[..., -1:, :].contiguous().view(torch.uint8)
+    raw = (e4m3.e4m3_decode(last.reshape(b, 1, nb, e4m3.BLOCK))
+           * scales.float().reshape(b, n_chunks, nb, 1))
+    if acc is not None:
+        raw = acc.reshape(b, n_chunks, nb, e4m3.BLOCK).float() + raw
+    v = vals.view(b, n_chunks, nb, e4m3.BLOCK)
+    torch.where(over[:, :, None, None], raw, v, out=v)
 
 
 def _decode_values(payload: WirePayload, scales: torch.Tensor,
@@ -355,13 +389,9 @@ def _decode_values(payload: WirePayload, scales: torch.Tensor,
     else:
         vals = ops.decode_dequantize_accumulate(
             acc.reshape(-1, k).float(), flat_words, flat_scales, tables, k)
-    vals = vals.reshape(*lead, n_chunks, k)
-    escape, rows, ok = _pool_values(payload, scales, cfg)
-    if bool(escape.any()):
-        raw = rows(escape)
-        if acc is not None:
-            raw = acc.reshape(*lead, n_chunks, k)[escape].float() + raw
-        vals[escape] = raw
+    _merge_pool(vals, payload, scales, acc, k)
+    _overflow_rows(vals, payload, scales, acc, k)
+    ok = payload.pool_count[..., 0] <= payload.pool.shape[-2]
     return vals.reshape(*lead, n_chunks * k), ok
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -422,12 +422,14 @@ def compress_groups(groups, tables, mode: str = "qlc",
                                  use_kernels=use_kernels)
 
 
-def wire_shape_structs(group_shapes, tables, capacity_words: int,
+def wire_shape_structs(group_shapes, tables,
+                       capacity_words: Union[int, Dict[str, int]],
                        mode: str = "qlc",
                        type_key_fn: Optional[Callable[[str], str]] = None):
     """Dry-run path: the wired tree's shapes and dtypes as ``meta``
     tensors (no data), for a tree of anything with ``.shape`` and
-    ``.dtype``. ``capacity_words`` comes from the planner. The
+    ``.dtype``. ``capacity_words`` comes from the planner, or maps each
+    leaf's path to its slot (a real wire's, :func:`wire_capacities`). The
     reference's GSPMD sharding annotations have no counterpart here."""
     _check_mode(mode)
     registry = registry_of(tables)
@@ -442,7 +444,9 @@ def wire_shape_structs(group_shapes, tables, capacity_words: int,
         entry = _entry_for(registry, prefix, type_key_fn)
         g, n, padded, n_chunks = _geometry(tuple(leaf.shape))
         scales = empty((g, padded // e4m3.BLOCK), torch.bfloat16)
-        cap = 0 if mode == "e4m3" else capacity_words
+        cap = 0 if mode == "e4m3" else (
+            capacity_words[prefix] if isinstance(capacity_words, dict)
+            else capacity_words)
         meta[prefix] = LeafMeta(tuple(leaf.shape[1:]), leaf.dtype, n,
                                 n_chunks, cap, mode, entry.scheme_id)
         if mode == "e4m3":
@@ -453,3 +457,17 @@ def wire_shape_structs(group_shapes, tables, capacity_words: int,
 
     wired = _map_leaves(shape_struct, group_shapes)
     return wired, GroupWireCodec(meta=meta, registry=registry)
+
+
+def wire_capacities(wired) -> Dict[str, int]:
+    """Each QLC-wired leaf's slot in words, by path: the map
+    :func:`wire_shape_structs` takes to shape a real wire."""
+    caps: Dict[str, int] = {}
+
+    def visit(node, prefix):
+        if _main_key(node) == "words":
+            caps[prefix] = int(node["words"].shape[-1])
+        return node
+
+    _map_leaves(visit, wired)
+    return caps

@@ -9,15 +9,17 @@ The token stream is a mixture of Zipfian unigrams and short repeated
 motifs so models have actual structure to learn in the examples.
 
 The reference's numpy generator, unchanged: the same seed and step give
-the same batches in both packages. Its dry-run shape structs have no
-counterpart here.
+the same batches in both packages. The dry run's stand-ins for a batch
+are shapes and dtypes (:func:`input_shape_structs`), which the dry run
+makes into fake tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +70,25 @@ class SyntheticDataset:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+class ShapeDtype(NamedTuple):
+    """A tensor's shape and dtype, the stand-in for
+    ``jax.ShapeDtypeStruct``."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_shape_structs(vocab_size: int, seq_len: int, global_batch: int,
+                        prefix_len: int = 0, d_model: int = 0,
+                        dtype=torch.bfloat16) -> Dict[str, ShapeDtype]:
+    """Shapes and dtypes of a training batch (the dry run's stand-ins)."""
+    st = seq_len - prefix_len
+    out = {
+        "tokens": ShapeDtype((global_batch, st), torch.int32),
+        "labels": ShapeDtype((global_batch, st), torch.int32),
+    }
+    if prefix_len:
+        out["prefix_emb"] = ShapeDtype((global_batch, prefix_len, d_model),
+                                       dtype)
+    return out

@@ -32,6 +32,10 @@ padding, so the reference's TPU tile table has no counterpart here; the
 histogram counts exactly the symbols of the n input rows, which is what
 the reference returns after it takes its padding rows back out of bin 0.
 Words are int32 tensors holding u32 bit patterns, and bit counts int32.
+
+Inside ``roofline.op_count.count()`` each entry on fake tensors is one
+counted op with empty outputs (``counted_kernel``, the hook at its top);
+outside it the hook costs one look at the dispatch-mode stack.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from repro_torch.core.lut import CodecTables
 from repro_torch.kernels import histogram256 as _hist
 from repro_torch.kernels import qlc_codes, qlc_fused, ref
 from repro_torch.quant import e4m3
+from repro_torch.roofline.op_count import counted_kernel
 
 Tables = Union[CodecTables, Sequence[CodecTables]]
 
@@ -163,6 +168,10 @@ def quantize_encode(x: torch.Tensor, tables: CodecTables,
     Returns (words int32 [n, CW] (u32 bit patterns), nbits int32 [n],
     scales f32 [n, K/32] [, codes u8 [n, K]] [, hist int32 [256]]).
     """
+    counted = counted_kernel("quantize_encode", x, tables, capacity_words,
+                             emit_codes=emit_codes, emit_hist=emit_hist)
+    if counted is not None:
+        return counted
     if _route(x) == "cpu":
         return ref.quantize_encode_ref(x, tables, capacity_words,
                                        emit_codes=emit_codes,
@@ -205,6 +214,11 @@ def decode_dequantize(words: torch.Tensor, scales: torch.Tensor,
     """Fused QLC-decode + e4m3-dequantize: words int32 [n, CW] + scales
     f32 [n, K/32] -> [n, K] in ``out_dtype`` (f32 or bf16, cast with
     round-to-nearest-even)."""
+    counted = counted_kernel("decode_dequantize", words, scales, tables,
+                             chunk_symbols, scheme_ids=scheme_ids,
+                             out_dtype=out_dtype)
+    if counted is not None:
+        return counted
     return _decode(words, scales, tables, chunk_symbols, scheme_ids,
                    out_dtype, None)
 
@@ -218,6 +232,11 @@ def decode_dequantize_accumulate(acc: torch.Tensor, words: torch.Tensor,
     if tuple(acc.shape) != (words.shape[0], chunk_symbols):
         raise ValueError(f"acc shape {tuple(acc.shape)} != "
                          f"{(words.shape[0], chunk_symbols)}")
+    counted = counted_kernel("decode_dequantize_accumulate", acc, words,
+                             scales, tables, chunk_symbols,
+                             scheme_ids=scheme_ids)
+    if counted is not None:
+        return counted
     return _decode(words, scales, tables, chunk_symbols, scheme_ids,
                    torch.float32, acc)
 
@@ -228,6 +247,9 @@ def encode(symbols: torch.Tensor, tables: CodecTables, capacity_words: int):
     if symbols.dtype != torch.uint8 or symbols.dim() != 2:
         raise TypeError(f"symbols must be u8 [n, K], got {symbols.dtype}"
                         f"{tuple(symbols.shape)}")
+    counted = counted_kernel("encode", symbols, tables, capacity_words)
+    if counted is not None:
+        return counted
     if _route(symbols) == "cpu":
         return ref.encode_ref(symbols, tables, capacity_words)
     code, length, longest = _encode_luts(tables, symbols.device)
@@ -253,6 +275,10 @@ def decode(words: torch.Tensor, tables: Tables, chunk_symbols: int, *,
            scheme_ids=None) -> torch.Tensor:
     """QLC-decode words int32 [n, CW] -> u8 [n, K], multi-LUT by
     ``scheme_ids``, through K4 on the card."""
+    counted = counted_kernel("decode", words, tables, chunk_symbols,
+                             scheme_ids=scheme_ids)
+    if counted is not None:
+        return counted
     return _codes_decode(qlc_codes.decode, ref.decode_ref, words, tables,
                          chunk_symbols, scheme_ids)
 
@@ -263,6 +289,10 @@ def decode_block_async(words: torch.Tensor, tables: Tables,
     """:func:`decode`, bit for bit, with the words staged tile by tile
     through K5's double-buffered bulk copy into shared memory: the decode
     the async KV paging path issues ahead of a block's use."""
+    counted = counted_kernel("decode_block_async", words, tables,
+                             chunk_symbols, scheme_ids=scheme_ids)
+    if counted is not None:
+        return counted
     return _codes_decode(qlc_codes.prefetch_decode,
                          ref.decode_block_async_ref, words, tables,
                          chunk_symbols, scheme_ids)
@@ -275,6 +305,9 @@ def histogram(symbols: torch.Tensor) -> torch.Tensor:
     counts are those of exactly the symbols given."""
     if symbols.dtype != torch.uint8:
         raise TypeError(f"symbols must be u8, got {symbols.dtype}")
+    counted = counted_kernel("histogram", symbols)
+    if counted is not None:
+        return counted
     if _route(symbols) == "cpu":
         return ref.histogram256_ref(symbols)
     return _hist.histogram256(symbols.reshape(-1).contiguous())

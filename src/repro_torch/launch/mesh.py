@@ -263,7 +263,7 @@ def kv_seq_shard(mesh: Optional[Mesh] = None) -> Optional[DataShard]:
     if axes != "data":
         raise NotImplementedError(
             f"kv_seq over {axes!r}: a KV cache's sequence is split over the "
-            "data axis alone (ROADMAP queue 1, item 14)")
+            "data axis alone (ROADMAP queue 1, item 21)")
     return DataShard(mesh.data_group, mesh.data, mesh.coords[0])
 
 

@@ -8,7 +8,7 @@ of 32 along the last axis with ``scale = amax * (1/480)``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +42,28 @@ def decode_table() -> np.ndarray:
     return _DECODE_TABLE.copy()
 
 
+#: the value table on each device it was used on, uploaded once: a copy
+#: from host memory waits for the device's queued work, and the wire's
+#: value decode dequantizes its escape pool on every call
+_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _value_table(codes: torch.Tensor) -> torch.Tensor:
+    """The 256 values on ``codes``'s device; made anew for a fake tensor
+    (``FakeTensorMode``), whose table has no storage to keep."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(codes):
+        return torch.as_tensor(_DECODE_TABLE, device=codes.device)
+    table = _TABLES.get(codes.device)
+    if table is None:
+        table = _TABLES[codes.device] = torch.as_tensor(
+            _DECODE_TABLE, device=codes.device)
+    return table
+
+
 def e4m3_decode(codes: torch.Tensor) -> torch.Tensor:
     """uint8 codes -> float32 values."""
-    table = torch.as_tensor(_DECODE_TABLE, device=codes.device)
-    return table[codes.long()]
+    return _value_table(codes)[codes.long()]
 
 
 def e4m3_encode(x: torch.Tensor) -> torch.Tensor:

@@ -327,7 +327,7 @@ class Engine:
             return mesh.data, None
         if batch is not None:
             raise NotImplementedError(f"batch over {batch!r} (ROADMAP "
-                                      "queue 1, item 14)")
+                                      "queue 1, item 21)")
         shard = kv_seq_shard(mesh)
         if shard is not None and kv_paging == "async":
             raise NotImplementedError(

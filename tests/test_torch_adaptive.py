@@ -51,6 +51,9 @@ from repro_torch.training import (OptConfig, TrainConfig,
                                   init_compressed_opt_state,
                                   make_compressed_step)
 from tests.torch_dist import run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 CHUNK = 512
 ALL_CFGS = [dict(), dict(min_symbols=1024.0, cooldown=0),

@@ -24,6 +24,9 @@ from repro.checkpoint import CheckpointManager as JManager
 from repro.core import distributions
 from repro_torch.checkpoint import CheckpointManager as TManager
 from repro_torch.checkpoint.manager import flatten_with_paths
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 STEP_DIR = "step_0000000001"
 

@@ -37,6 +37,9 @@ from repro_torch.convert import shard_params
 from repro_torch.launch.train import train
 from tests.torch_dist import (assert_same_tree, numpy_tree, opt_numpy,
                               run_ranks)
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 CFG = dict(d_model=64, dtype="float32")
 BASE = dict(steps=1, seq_len=16, global_batch=4)

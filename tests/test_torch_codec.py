@@ -19,6 +19,9 @@ from repro_torch.core import codec as tcodec
 from repro_torch.core import lut as t_lut, schemes as t_schemes
 from repro_torch.kernels import ops as tops
 from repro_torch.quant import e4m3 as te
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _counts(seed: int) -> np.ndarray:

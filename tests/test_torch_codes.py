@@ -31,6 +31,9 @@ from repro_torch.core import CodecRegistry
 from repro_torch.core import codec as tcodec
 from repro_torch.core import lut as t_lut, schemes as t_schemes
 from repro_torch.kernels import ops as tops
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _syms(rows: int, k: int, seed: int) -> np.ndarray:

@@ -13,6 +13,9 @@ from repro_torch.configs import REGISTRY, reduced
 from repro_torch.launch import train as train_mod
 from repro_torch.models import (decode_step, forward, init_decode_states,
                                 init_params, multimodal)
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 
 @pytest.mark.parametrize("arch", sorted(REGISTRY))

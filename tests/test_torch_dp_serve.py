@@ -38,6 +38,9 @@ from repro_torch.models import attention as attn
 from repro_torch.serving import Engine, GenerationRequest
 from tests.test_torch_tp_serve import _reference_decode, _whole
 from tests.torch_dist import _serve_cfg, run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 F32 = dict(dtype="float32")

@@ -25,6 +25,9 @@ from repro_torch.comm.planner import plan_for_tables
 from repro_torch.core import lut as t_lut, schemes as t_schemes
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 
 @pytest.fixture

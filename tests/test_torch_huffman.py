@@ -28,6 +28,9 @@ from repro.core.lut import build_tables as jbuild_tables
 from repro_torch.core import TABLE1, TABLE2, build_tables
 from repro_torch.core import codec as tcodec
 from repro_torch.core import huffman as thuffman
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 #: ``BENCH_baseline.json``: (stream, qlc table, qlc %, huffman %).
 ROWS = [("ffn1", TABLE1, 15.61, 17.65), ("ffn2", TABLE2, 22.64, 26.86)]

@@ -10,6 +10,9 @@ import sys
 
 import pytest
 import torch
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")

@@ -32,6 +32,9 @@ from repro_torch.models import init_params
 from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                  KVCacheOverflowError, PagedKVCache,
                                  kv_cache_manifest, kv_spec_from_manifest)
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 KW = dict(d_model=128, d_ff=512)
 SHAPE = (2, 1, 12, 4, 16)          # [groups, batch, tokens, kv heads, hd]

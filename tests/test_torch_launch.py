@@ -13,6 +13,9 @@ import torch
 from repro_torch.core import codec, lut, schemes
 from repro_torch.kernels import ops, qlc_codes as qc, qlc_fused as qf
 from repro_torch.kernels import ref
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _encode(x, cap):

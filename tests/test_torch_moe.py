@@ -62,6 +62,9 @@ from repro_torch.models.transformer import pytree_leaves, pytree_unflatten
 from repro_torch.training import TrainConfig, make_compressed_step
 from repro_torch.training import optimizer as topt
 from tests.torch_dist import run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 TINY = {"model": dict(name="t", family="moe", num_layers=1, d_model=16,
                       num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=64),

@@ -57,6 +57,9 @@ from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                  compress_params_for_serving, open_params,
                                  serving_manifest)
 from tests.torch_dist import assert_same_tree
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 MOE = dict(num_experts=64, top_k=6, d_expert=16, num_shared_experts=2)
 TOL = dict(rtol=1e-4, atol=1e-5)

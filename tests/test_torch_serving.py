@@ -35,6 +35,9 @@ from repro_torch.models.transformer import tree_map
 from repro_torch.quant import e4m3
 from repro_torch.serving import (compress_params_for_serving, open_params,
                                  prefill)
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 KW = dict(d_model=128, d_ff=512, dtype="float32")
 

@@ -30,6 +30,9 @@ from repro_torch.launch.serve import serve
 from repro_torch.serving import KVCacheSpec, PagedKVCache
 from repro_torch.serving import kv_cache as tkv
 from repro_torch.serving import scheduler
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 KV_BLOCK, PROMPT, NEW_TOKENS = 8, 2, 40
 

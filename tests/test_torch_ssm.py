@@ -71,6 +71,9 @@ from repro_torch.models.transformer import (leaf_grads, pytree_leaves,
                                             pytree_unflatten, tree_leaves)
 from repro_torch.serving import prefill
 from tests.torch_dist import run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)

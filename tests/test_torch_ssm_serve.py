@@ -39,6 +39,9 @@ from repro_torch.launch import serve
 from repro_torch.models import init_decode_states, init_params, ssm
 from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
                                  KVCacheSpec, PagedKVCache, prefill)
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 XL = "xlstm-125m"
 

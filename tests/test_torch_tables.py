@@ -24,6 +24,9 @@ from repro_torch.core import CodecRegistry as TRegistry
 from repro_torch.core import lut as t_lut, schemes as t_schemes
 from repro_torch.core.adapt import select_scheme as t_select
 from repro_torch.quant import e4m3 as te
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 _POS = je.decode_table()[:128].astype(np.float64)
 

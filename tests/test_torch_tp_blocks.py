@@ -75,6 +75,9 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.train_step import flat_geometry, weight_vec
 from tests.md_util import run_md
 from tests.torch_dist import flat_tree, run_ranks, tree_bits
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 F32 = dict(dtype="float32")
 #: the reduced configs of this slice and their overrides

@@ -73,6 +73,9 @@ from repro_torch.parallel import sharding
 from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                  calibrate_cache)
 from tests.torch_dist import _serve_cfg, flat_tree, run_ranks, tree_bits
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: xLSTM's logits against the reference: the one-rank port already sits

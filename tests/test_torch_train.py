@@ -52,6 +52,9 @@ from repro_torch.models import init_params, next_token_loss
 from repro_torch.models.transformer import pytree_leaves, pytree_unflatten
 from repro_torch.training import optimizer as topt
 from tests.torch_dist import run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 CFG_KW = dict(d_model=128, dtype="float32")
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)

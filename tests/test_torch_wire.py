@@ -32,6 +32,9 @@ from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.core import lut as t_lut, schemes as t_schemes
 from tests.md_util import run_md
 from tests.torch_dist import run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 K = 256
 

@@ -34,6 +34,9 @@ from repro_torch.launch.mesh import data_parallel, make_test_mesh, use_mesh
 from repro_torch.serving import (KVCacheSpec, codec_from_manifest,
                                  open_params, serving_manifest)
 from tests.torch_dist import assert_same_tree, flat_tree, run_ranks
+from tests.torch_dist import one_cpu_thread
+
+one_cpu_thread()
 
 TYPES = ("ffn1", "ffn2", "kv/layer0")
 

@@ -53,6 +53,18 @@ def run_ranks(target: str, world: int, timeout: int = 300, **kwargs):
         return out
 
 
+def one_cpu_thread():
+    """One intra-op thread for this test process. The port's CPU tests run
+    many small ops, in several test processes at once (pytest-xdist) on a
+    few cores, where torch's default of one thread a core made every op
+    wait on threads the other processes had descheduled: an engine run of
+    ``test_torch_tp_serve`` took 23.9 s with 8 threads and 2.0 s with 1,
+    each einsum 7.2 ms against 0.06 ms. The ranks of :func:`run_ranks`
+    set the same."""
+    import torch
+    torch.set_num_threads(1)
+
+
 def flat_tree(tree, prefix=""):
     """A nested dict -> {"a/b/c": leaf}."""
     out = {}
@@ -116,8 +128,7 @@ def wait_for(path: str, timeout: float = 240.0):
 def _main():
     target, rank, world, init, tmp = sys.argv[1:6]
     rank, world = int(rank), int(world)
-    import torch
-    torch.set_num_threads(1)
+    one_cpu_thread()
     from repro_torch.launch.mesh import data_parallel
     with open(os.path.join(tmp, "args.pkl"), "rb") as f:
         kwargs = pickle.load(f)

@@ -18,8 +18,8 @@ Shapes (NVIDIA H100, one card):
 Each kernel of each checkout is timed in turns (other, this, this, other)
 with ``chip_smoke.time_ms(..., alone=True)`` (median of CUDA-event
 timings of the device's execution, L2 flushed before every launch),
-beside ``chip_smoke.bound_ms`` of the bytes it must
-move. The outputs of the two checkouts must be equal bit for bit. The
+beside ``chip_smoke.bound_ms`` (``roofline.kernel_bytes``: its inputs
+read once, its outputs written once, over HBM). The outputs of the two checkouts must be equal bit for bit. The
 other checkout's K1 is launched with ``--other-threads`` threads per
 CTA: by default the CTA size the wrapper passed before K1's launcher
 picked its own (``threads_for``); 0 lets a launcher that
@@ -84,7 +84,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-from chip_smoke import bound_ms, nbytes, smi_line, time_ms  # noqa: E402
+from chip_smoke import bound_ms, smi_line, time_ms  # noqa: E402
 
 NAMES = ("qlc_fused_encode", "qlc_fused_decode")
 CODES = ("qlc_decode", "qlc_prefetch", "qlc_encode", "histogram256")
@@ -191,7 +191,8 @@ def k3_shape(label, n, k, cap, fns_c, interfaces, flush, reps):
                          *(o.data_ptr() for o in outs[who]),
                          *k3_tail(interfaces[who], k, cap, longest))
            for who in ("other", "this")}
-    r = a_b(f"{label} K3", fns, outs, reps, flush, n * k + n * cap * 4 + n * 4)
+    r = a_b(f"{label} K3", fns, outs, reps, flush,
+            bound_ms("encode", sym, tables, cap))
     want = ref.encode_ref(sym, tables, cap)
     r["equal"] = r["equal"] and all(torch.equal(a, b)
                                     for a, b in zip(outs["this"], want))
@@ -214,7 +215,7 @@ def k6_shape(fns_c, flush, reps):
     fns = {who: launcher(fns_c[who], x.data_ptr(), n, outs[who][0].data_ptr(),
                          blocks) for who in ("other", "this")}
     return {"shape": [4096, 1024], **a_b("hist K6", fns, outs, reps, flush,
-                                         n + 256 * 4)}
+                                         bound_ms("histogram", x))}
 
 
 def build_other(qf, other: str, names=NAMES, argtypes=None):
@@ -250,7 +251,7 @@ def launcher(fn, *args):
     return run
 
 
-def a_b(name, fns, outs, reps, flush, nbytes_moved):
+def a_b(name, fns, outs, reps, flush, bound):
     """Both checkouts' launches once (outputs compared), then timed in
     turns other, this, this, other."""
     for fn in fns.values():
@@ -261,7 +262,7 @@ def a_b(name, fns, outs, reps, flush, nbytes_moved):
     for who in ("other", "this", "this", "other"):
         ms[who].append(time_ms(fns[who], reps, flush, alone=True))
     res = {"equal": equal, "other_ms": ms["other"], "this_ms": ms["this"],
-           "bound_ms": bound_ms(nbytes_moved)}
+           "bound_ms": bound}
     print(f"[ab] {name}: outputs equal {equal}, other {ms['other']} ms, this "
           f"{ms['this']} ms, HBM bound {res['bound_ms']:.4f} ms", flush=True)
     return res
@@ -293,7 +294,8 @@ def run_shape(label, x, tables, enc_cap, train, other, qf, ops, flush, reps,
              threads_for(k) if other_threads is None else other_threads),
             ("this", qf._lib("qlc_fused_encode").qlc_fused_encode, 0))}
     res = {"K1": {"shape": [n, k], "cap": enc_cap, "codes": train, **a_b(
-        f"{label} K1", fns, outs, reps, flush, nbytes(x, *outs["this"]))}}
+        f"{label} K1", fns, outs, reps, flush,
+        bound_ms("quantize_encode", x, tables, enc_cap, emit_codes=train))}}
     words, nb, sc = outs["this"][:3]
     del outs, fns
 
@@ -318,10 +320,12 @@ def run_shape(label, x, tables, enc_cap, train, other, qf, ops, flush, reps,
             for who, fn in (
                 ("other", other["qlc_fused_decode"]),
                 ("this", qf._lib("qlc_fused_decode").qlc_fused_decode))}
-        moved = nbytes(w, sc, sid, outs["this"][0]) + (
-            nbytes(acc) if train else 0)
+        bound = (bound_ms("decode_dequantize_accumulate", acc, w, sc,
+                          tables, k, scheme_ids=sid) if train else
+                 bound_ms("decode_dequantize", w, sc, tables, k,
+                          scheme_ids=sid, out_dtype=dt))
         res[f"K2_{form}"] = {"shape": [n, cap], "form": form, **a_b(
-            f"{label} K2 {form}", fns, outs, reps, flush, moved)}
+            f"{label} K2 {form}", fns, outs, reps, flush, bound)}
         del outs, fns
     return res
 
@@ -367,7 +371,8 @@ def codes_shape(label, sym, tables, sid, cap, other, interface, flush,
                                 *this_args, outs["this"][0].data_ptr(),
                                 *this_extra)}
         r = a_b(f"{label} {kname}", fns, outs, reps, flush,
-                nbytes(words, sid) + n * k)
+                bound_ms("decode" if kname == "K4" else "decode_block_async",
+                         words, tables, k, scheme_ids=sid))
         want = ref.decode_ref(words, tables, sid, k)
         r["equal"] = r["equal"] and torch.equal(outs["this"][0], want)
         res[kname] = {"shape": [n, k], "cap": cap, **r}
