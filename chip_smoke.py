@@ -239,7 +239,8 @@ non-zero (nothing is caught and carried on):
                frees are printed.
 
  14. variants — the block variants, after ssm. musicgen-medium (gelu
-               FFN without ``w_gate``): all 48 layers at full width
+               FFN without ``w_gate``): ``VARIANTS_TRAIN_LAYERS`` of its 48 layers
+               at full width
                (d_model 1536, 24 heads x 64, d_ff 6144, vocab 2048), f32
                parameters, bf16 compute, random weights from a seed,
                served through ``launch.serve.serve``: the weight wire
@@ -988,7 +989,9 @@ def phase_sync_free(ops, lut, schemes, codec):
     accumulate form) and the encode entries (K3, K1) run with
     device-resident scheme ids under torch's sync debug mode "error":
     none makes a synchronizing call. Host ids out of range still raise
-    ValueError."""
+    ValueError. The train steps' part (a compressed and a baseline step
+    under the same mode) runs in the one-rank world the train phases
+    set up: :func:`phase_sync_free_train`."""
     counts = np.bincount(_skewed_symbols(64, 256, 1).cpu().numpy()
                          .reshape(-1), minlength=256).astype(np.float64) + 1
     tl = [lut.build_tables(counts, schemes.TABLE1),
@@ -1616,6 +1619,70 @@ def phase_train_small(reduced, get_config, dev="cuda"):
                  f"({n} values) through the wire: words, flags, pool, "
                  "scales, reduced segment and gathered parameters "
                  "bit-equal card vs CPU")
+
+
+def phase_sync_free_train(reduced, get_config, dev="cuda"):
+    """The sync-free check of :func:`phase_sync_free` on the train path:
+    reduced phi3 (d_model 128, 2 layers, f32) builds a compressed and a
+    baseline step over the one-rank world, takes one warm step of each,
+    then one more of each under torch's sync debug mode "error": neither
+    step makes a synchronizing call (the optimizers keep their step
+    count on the host). ``dev="cpu"`` rehearses it without the debug
+    mode."""
+    import torch.distributed as dist
+    from repro_torch.comm import CommConfig
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch.train import calibrate_registry
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.training import (OptConfig, TrainConfig,
+                                      init_compressed_opt_state,
+                                      make_baseline_step,
+                                      make_compressed_step)
+    from repro_torch.training import optimizer as optm
+    cfg = reduced(get_config("phi3-mini-3.8b"), d_model=128,
+                  dtype="float32")
+    group = dist.group.WORLD
+    data = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=32, global_batch=4))
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    reg = calibrate_registry(cfg, p_cpu, data.batch_at(0), group)
+    opt_cfg, train_cfg = OptConfig(), TrainConfig()
+    steps = {"baseline": make_baseline_step(cfg, opt_cfg, train_cfg,
+                                            group=group),
+             "compressed": make_compressed_step(
+                 cfg, opt_cfg, train_cfg, group, reg, CommConfig(),
+                 transport="oneshot")}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         dev)
+    opts = {"baseline": optm.init_state(params, opt_cfg),
+            "compressed": init_compressed_opt_state(params, group, reg,
+                                                    opt_cfg)}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.batch_at(i).items()} for i in range(2)]
+    state = {}
+    for name, step in steps.items():
+        state[name] = step(params, opts[name], batches[0])[:2]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, step in steps.items():
+            state[name] = step(*state[name], batches[1])
+    finally:
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    for name, (p, o, metrics) in state.items():
+        if int(o["step"]) != 2 or o["step"].device.type != "cpu":
+            raise AssertionError(f"sync-free: the {name} step's count is "
+                                 f"{o['step']} on {o['step'].device}")
+        if not all(bool(torch.isfinite(t).all()) for t in pytree_leaves(p)):
+            raise AssertionError(f"sync-free: the {name} step's parameters "
+                                 "are not finite")
+    log("parity", f"{cfg.name} (d_model 128, 2 layers, f32): one "
+                  "compressed and one baseline train step after a warm "
+                  "step make no synchronizing call (sync debug mode "
+                  "\"error\"); the step count stays on the host")
 
 
 def phase_train(qf, h6, ops, ref, flush, cfg=None, dev="cuda",
@@ -2945,9 +3012,10 @@ def phase_moe(qf, qc, h6, ops, ref, flush, dev="cuda", cfg=None,
 
 
 #: deepseek-moe-16b layers the moe_serve phase keeps (of 28): 23 is the
-#: deepest that leaves over 8 GiB of the card free; 14 keeps the whole
-#: script under 900 s of its 1200 s limit since the tp phase grew.
-MOE_SERVE_LAYERS = 14
+#: deepest that leaves over 8 GiB of the card free; 14 kept the whole
+#: script under 900 s of its 1200 s limit once the tp phase grew, and 7
+#: keeps it within 1,000 s on a slow host.
+MOE_SERVE_LAYERS = 7
 
 
 def _nest(key: str, value):
@@ -3231,8 +3299,9 @@ def phase_moe_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
 
 SSM_ARCH = "xlstm-125m"
 #: 512 took 28.4-29.7 s a step (the eager recurrence), over the 15 s the
-#: phase allows a step, so the train cell is cut to 256
-SSM_TRAIN_SEQ = 256
+#: phase allows a step, so the train cell was cut to 256; on a slow host
+#: 256 took 16.5-17.3 s a step, so it is cut to 128
+SSM_TRAIN_SEQ = 128
 
 
 def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
@@ -3552,8 +3621,9 @@ def phase_ssm(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda", cfg=None,
 
 VARIANTS_ARCH = "musicgen-medium"
 #: depth of the variants phase's serving and training cells
-#: (musicgen-medium has 48; cut to make room for the dp_serve phase)
-VARIANTS_TRAIN_LAYERS = 24
+#: (musicgen-medium has 48; cut to make room for the dp_serve phase,
+#: then to keep the script within 1,000 s on a slow host)
+VARIANTS_TRAIN_LAYERS = 12
 
 
 def _fairness_run(opened, cfg, prompts, dense, max_seq_len, batch,
@@ -4182,8 +4252,9 @@ def phase_tp(qf, h6, ops, ref, flush, dev="cuda", cfg=None, train_cfg=None,
 #: the tp_serve cell: phi3-mini-3.8b at this many of its 32 layers
 TP_SERVE_LAYERS = 8
 #: phi3-mini-3.8b layers the kv phase pages (of the slice's 32; cut to
-#: make room for the dp_serve phase)
-KV_LAYERS = 16
+#: make room for the dp_serve phase, then to keep the script within
+#: 1,000 s on a slow host)
+KV_LAYERS = 8
 
 
 def depth_cut(cfg, params, layers: int):
@@ -4489,27 +4560,73 @@ def phase_tp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
 DP_SEQ_ARCH = "chatglm3-6b"
 DP_SEQ_PROMPT = 8192
 DP_COMBINE_POSITIONS = 32768
+#: the prompt and new tokens of the reference's decode rules' runs (sync
+#: and async, with no mesh and under each rule set)
+DP_RULES_PROMPT, DP_RULES_NEW = 1024, 8
+
+
+def _split_calls():
+    """Wrap the sequence split's decode functions to count their calls
+    -> (the counts, a function that puts the originals back): the
+    shard's combine (``models.attention._seq_sharded_decode``) and the
+    row's decode over every KV head of a range (``_decode_tp`` under a
+    shard over the model axis, over a row of one on a 1 x 1 mesh)."""
+    from repro_torch.models import attention as attn
+    n = {"combine": 0, "every_head": 0}
+    combine, row_decode = attn._seq_sharded_decode, attn._decode_tp
+
+    def counted_combine(*a, **kw):
+        n["combine"] += 1
+        return combine(*a, **kw)
+
+    def counted_row(params, x, cfg, positions, cache, row, shard=None):
+        if shard is not None and shard.over_model:
+            n["every_head"] += 1
+        return row_decode(params, x, cfg, positions, cache, row, shard)
+
+    def restore():
+        attn._seq_sharded_decode, attn._decode_tp = combine, row_decode
+    attn._seq_sharded_decode, attn._decode_tp = counted_combine, counted_row
+    return n, restore
 
 
 def _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules, dev,
-                   **kw):
-    """``launch.serve.serve`` from the QLC weight wire with the paged
-    cache, under ``mesh`` and the sharding ``rules``, K1-K6 counted from
-    zero -> (tokens, pool stats, KV registry digest, launches, stats)."""
+                   wire="qlc", **kw):
+    """``launch.serve.serve`` (from the QLC weight wire unless ``wire`` is
+    ``"none"``: ``params`` served as they are) with the paged cache,
+    under ``mesh`` and the sharding ``rules``, K1-K6 and the split's
+    decode calls (:func:`_split_calls`) counted from zero -> (tokens,
+    pool stats, KV registry digest, launches, stats, split calls)."""
     from repro_torch.launch.mesh import use_mesh
     from repro_torch.parallel.sharding import use_rules
     for fn in counters.values():
         fn.launches = 0
-    with use_mesh(mesh), use_rules(rules):
-        res = serve_mod.serve(cfg, wire="qlc", kv_cache="qlc", device=dev,
-                              params=params, **kw)
+    calls, restore = _split_calls()
+    try:
+        with use_mesh(mesh), use_rules(rules):
+            res = serve_mod.serve(cfg, wire=wire, kv_cache="qlc", device=dev,
+                                  params=params, **kw)
+    finally:
+        restore()
     st = res["stats"]
     return ([o.tokens.tolist() for o in res["outs"]],
             {k: st["pool"][k] for k in ("unique_blocks",
                                          "peak_referenced_bytes",
                                          "resident_bytes", "dedup_hits")},
             _digest(res["kv_registry"].to_json()),
-            {k: fn.launches for k, fn in counters.items()}, st)
+            {k: fn.launches for k, fn in counters.items()}, st, calls)
+
+
+def _check_split_calls(where, calls, split, over_model=False):
+    """Fail unless a run under a sequence split (``split``) combined the
+    shard's partials and, ``over_model``, decoded every KV head of its
+    range through the row's branch; and a run with no split did
+    neither."""
+    want = {"combine": split, "every_head": split and over_model}
+    for key, ran in want.items():
+        if (calls[key] > 0) != ran:
+            raise AssertionError(f"dp_serve: {where}: the split's {key} "
+                                 f"decode ran {calls[key]} times")
 
 
 def dp_serve_combine(cfg, dev, flush, positions=DP_COMBINE_POSITIONS):
@@ -4517,9 +4634,11 @@ def dp_serve_combine(cfg, dev, flush, positions=DP_COMBINE_POSITIONS):
     one token against ``positions`` cached ones, at batch 1 and 4: the
     cache split into D = 2 and D = 4 shards in one process through the
     sequence split's partial and combine functions
-    (``models.attention.decode_partial``, ``combine_partials``), held
-    against the unsharded decode within rtol 1e-5 / atol 1e-5 (the CPU
-    tests' tolerance) and timed beside it."""
+    (``models.attention.decode_partial``, ``combine_partials``; a shard
+    holds every KV head of its positions, as a range over the model row
+    or the mesh does), each held against the unsharded decode within
+    rtol 1e-5 / atol 1e-5 (the CPU tests' tolerance) and timed beside
+    it."""
     import dataclasses
     from repro_torch.models import attention as attn
     cfg = dataclasses.replace(cfg, dtype="float32")
@@ -4578,21 +4697,27 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                    cfg=None, prompt_len=16, new_tokens=16, kv_block=16,
                    glm=None, glm_prompt=DP_SEQ_PROMPT, glm_new=32,
                    glm_block=128, glm_chunk=256,
-                   positions=DP_COMBINE_POSITIONS):
+                   positions=DP_COMBINE_POSITIONS,
+                   rules_prompt=DP_RULES_PROMPT, rules_new=DP_RULES_NEW):
     """Serving over the data column on one card (inside the NCCL world of
     one). (a) phi3-mini-3.8b at ``TP_SERVE_LAYERS`` of 32 layers
     (``cfg``) through ``launch.serve.serve`` from the QLC weight wire,
     paged sync and async, with no mesh and under a 1 x 1 mesh, once
-    with the default rules and once with
-    ``make_rules(decode_seq_shard=True)``: tokens, pooled bytes, KV
-    registry digests and K1-K6 launches identical. (b) chatglm3-6b at
+    with the default rules (tokens, pool stats, KV registry digests and
+    K1-K6 launches identical) and once, in f32, with
+    ``make_rules(decode_seq_shard=True)``, whose shard of one rank
+    decodes by the split's combine (the same, but the pool's counts
+    for its bytes). (b) chatglm3-6b at
     all 28 layers (``glm``), 2 requests at batch 1, a ``glm_prompt``
     prompt prefilled ``glm_chunk`` tokens a step, ``glm_new`` new
     tokens, ``glm_block``-token blocks, sync paging, under the
     sequence-split rules on a 1 x 1 mesh: ms/token, peak, pooled /
     dense, and K3-K6 against plain at its KV planes
-    (:func:`check_kv_path`). (c) :func:`dp_serve_combine` at
-    ``positions``. Split layouts over several ranks run on gloo CPU
+    (:func:`check_kv_path`); then, from its served parameters,
+    :func:`dp_serve_rules` (the reference's decode rules, sync and
+    async, at a ``rules_prompt`` prompt and ``rules_new`` new tokens).
+    (c) :func:`dp_serve_combine`
+    at ``positions``. Split layouts over several ranks run on gloo CPU
     ranks (tests/test_torch_dp_serve.py) and on four cards
     (``tools/tp_cards.py --serve``)."""
     import dataclasses
@@ -4610,24 +4735,39 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     launches = {k: 0 for k in counters}
-    for rname, rules in (("default", get_rules()),
-                         ("decode_seq_shard", make_rules(
-                             decode_seq_shard=True))):
+    # the data column's split of one rank decodes by the shard's combine,
+    # in f32 where it and the unsplit softmax round alike
+    for rname, rules, run_cfg in (
+            ("default", get_rules(), cfg),
+            ("decode_seq_shard", make_rules(decode_seq_shard=True),
+             dataclasses.replace(cfg, dtype="float32"))):
+        split = rname != "default"
         for paging in ("sync", "async"):
             kw = dict(batch=4, requests=6, prompt_len=prompt_len,
                       new_tokens=new_tokens, kv_block=kv_block,
                       kv_paging=paging)
-            a = _dp_serve_runs(serve_mod, counters, cfg, params, None, rules,
-                               dev, **kw)
-            b = _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules,
-                               dev, **kw)
-            for i, what in enumerate(("tokens", "pooled bytes",
-                                      "KV registry digest",
-                                      "K1-K6 launches")):
-                if a[i] != b[i]:
+            a = _dp_serve_runs(serve_mod, counters, run_cfg, params, None,
+                               rules, dev, **kw)
+            b = _dp_serve_runs(serve_mod, counters, run_cfg, params, mesh,
+                               rules, dev, **kw)
+            _check_split_calls(f"{rname} rules, {paging}, no mesh", a[5],
+                               False)
+            _check_split_calls(f"{rname} rules, {paging}, 1 x 1", b[5],
+                               split)
+            # the split's decode writes the same blocks from other low
+            # bits: their count, not their compressed bytes, must match
+            pool_a, pool_b = ((p if not split else
+                               {k: p[k] for k in ("unique_blocks",
+                                                  "dedup_hits")})
+                              for p in (a[1], b[1]))
+            for what, x, y in (("tokens", a[0], b[0]),
+                               ("pool", pool_a, pool_b),
+                               ("KV registry digest", a[2], b[2]),
+                               ("K1-K6 launches", a[3], b[3])):
+                if x != y:
                     raise AssertionError(
                         f"dp_serve: {rname} rules, {paging}: {what} under "
-                        f"the 1 x 1 mesh {b[i]} != {a[i]} with no mesh")
+                        f"the 1 x 1 mesh {y} != {x} with no mesh")
             need = ("K1", "K2", "K3", "K6") + (
                 ("K4",) if paging == "sync" else ("K5",))
             for kname in need:
@@ -4637,9 +4777,11 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
             for kname, c in b[3].items():
                 launches[kname] += c
             log("dp_serve", f"{cfg.name}, {cfg.num_layers} of 32 layers, "
-                            f"{rname} rules, {paging}: the 1 x 1 mesh == no "
-                            f"mesh in tokens, pool {b[1]}, KV registry "
-                            f"{b[2]}, launches {b[3]}; "
+                            f"compute {run_cfg.dtype}, {rname} rules, "
+                            f"{paging}: the 1 x 1 mesh == no mesh in "
+                            f"tokens, pool {pool_b}, KV registry {b[2]}, "
+                            f"launches {b[3]}; pool {b[1]} (no mesh "
+                            f"{a[1]}); split decode calls {b[5]}; "
                             f"{b[4]['ms_per_token_prefill']:.3f} / "
                             f"{b[4]['ms_per_token_decode']:.3f} ms/token "
                             "prefill / decode (no mesh "
@@ -4656,13 +4798,19 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     t0 = time.perf_counter()
     from repro_torch.launch.mesh import use_mesh
     from repro_torch.parallel.sharding import use_rules
-    with use_mesh(mesh), use_rules(make_rules(decode_seq_shard=True)):
-        res = serve_mod.serve(glm, batch=1, requests=2,
-                              prompt_len=glm_prompt, new_tokens=glm_new,
-                              wire="qlc", kv_cache="qlc", kv_block=glm_block,
-                              kv_paging="sync", device=dev, seed=0,
-                              prefill_chunk=glm_chunk)
+    calls, restore = _split_calls()
+    try:
+        with use_mesh(mesh), use_rules(make_rules(decode_seq_shard=True)):
+            res = serve_mod.serve(glm, batch=1, requests=2,
+                                  prompt_len=glm_prompt, new_tokens=glm_new,
+                                  wire="qlc", kv_cache="qlc",
+                                  kv_block=glm_block, kv_paging="sync",
+                                  device=dev, seed=0,
+                                  prefill_chunk=glm_chunk)
+    finally:
+        restore()
     run_s = time.perf_counter() - t0
+    _check_split_calls(f"{glm.name} at {glm_prompt}", calls, True)
     glm_launches = {k: fn.launches for k, fn in counters.items()}
     for kname in ("K1", "K2", "K3", "K4", "K6"):
         if glm_launches[kname] <= 0:
@@ -4685,7 +4833,8 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                     f"{glm.num_kv_heads} KV heads x {glm.resolved_head_dim}, "
                     f"d_ff {glm.d_ff}, vocab {glm.vocab_size}, {n_params} "
                     f"parameters ({glm.param_dtype}), compute {glm.dtype}; "
-                    f"make_rules(decode_seq_shard=True) on a 1 x 1 mesh, "
+                    f"make_rules(decode_seq_shard=True) on a 1 x 1 mesh "
+                    f"(a shard of one rank: split decode calls {calls}), "
                     f"2 requests at batch 1, prompt {glm_prompt} "
                     f"({glm_chunk} tokens a prefill step), {glm_new} new "
                     f"tokens, --wire qlc --kv-cache qlc --kv-block "
@@ -4698,13 +4847,85 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     kv = check_kv_path(ops, ref, glm, res["params"],
                        res["prompts"][0][:2 * glm_block], flush, dev,
                        phase="dp_serve", block=glm_block, chunk=glm_block)
+    rules_runs = dp_serve_rules(serve_mod, counters, glm, res["params"],
+                                mesh, dev, rules_prompt, rules_new,
+                                glm_block, glm_chunk)
+    for kname, c in rules_runs.pop("launches").items():
+        launches[kname] += c
     del res, outs
     torch.cuda.empty_cache()
     combine = dp_serve_combine(glm, dev, flush, positions)
     return {"launches": launches, "kv": kv, "combine": combine,
             "glm": {"prefill": st["ms_per_token_prefill"],
                     "decode": st["ms_per_token_decode"],
-                    "pooled_over_dense": pooled, "peak_gib": peak}}
+                    "pooled_over_dense": pooled, "peak_gib": peak},
+            "rules": rules_runs}
+
+
+def dp_serve_rules(serve_mod, counters, glm, params, mesh, dev, prompt_len,
+                   new_tokens, kv_block, chunk):
+    """``glm`` (its served parameters ``params``, computing in f32, where
+    the split's combine and the unsplit softmax round alike) under the
+    reference's decode rules on the 1 x 1 ``mesh``: ``kv_seq -> model``,
+    and ``parallel.sharding.decode_rules`` at a batch of 1 (``kv_seq ->
+    ("data", "model")``, ``batch -> None``), paged sync and async, 2
+    requests at batch 1. Each rule gives a shard of one rank, whose
+    decode runs the split path (:func:`_check_split_calls`: the row's
+    branch over every KV head of its range, over a row of one, and the
+    shard's combine) and pages its range: tokens equal to the same
+    paging's run with no mesh, and K3 and K6 launched on every run, K4
+    on the sync ones, K5 on the async ones -> {rule: {paging:
+    ms/token}}, and ``launches``."""
+    import dataclasses
+    from repro_torch.parallel.sharding import (decode_rules, get_rules,
+                                               make_rules)
+    glm = dataclasses.replace(glm, dtype="float32")
+    rule_sets = {"kv_seq -> model": make_rules(extra={"kv_seq": "model"}),
+                 "kv_seq -> (data, model), batch -> None":
+                     decode_rules(glm, 1, mesh)}
+    launches = {k: 0 for k in counters}
+    out = {}
+    for paging in ("sync", "async"):
+        kw = dict(batch=1, requests=2, prompt_len=prompt_len,
+                  new_tokens=new_tokens, kv_block=kv_block,
+                  kv_paging=paging, prefill_chunk=chunk, seed=0)
+        alone = _dp_serve_runs(serve_mod, counters, glm, params, None,
+                               get_rules(), dev, wire="none", **kw)
+        _check_split_calls(f"{glm.name}, {paging}, no mesh", alone[5],
+                           False)
+        for rname, rules in rule_sets.items():
+            got = _dp_serve_runs(serve_mod, counters, glm, params, mesh,
+                                 rules, dev, wire="none", **kw)
+            _check_split_calls(f"{glm.name} under {rname}, {paging}",
+                               got[5], True, True)
+            if got[0] != alone[0]:
+                raise AssertionError(f"dp_serve: {glm.name} under {rname}, "
+                                     f"{paging}: tokens {got[0]} != "
+                                     f"{alone[0]} with no mesh")
+            need = ("K3", "K6") + (("K4",) if paging == "sync" else ("K5",))
+            for kname in need:
+                if got[3][kname] <= 0:
+                    raise AssertionError(f"{kname} was not launched on the "
+                                         f"dp_serve {rname} {paging} path")
+            for kname, c in got[3].items():
+                launches[kname] += c
+            st = got[4]
+            out.setdefault(rname, {})[paging] = {
+                "prefill": st["ms_per_token_prefill"],
+                "decode": st["ms_per_token_decode"]}
+            log("dp_serve", f"{glm.name}, all {glm.num_layers} layers, "
+                            f"{rname} on a 1 x 1 mesh (a shard of one "
+                            f"rank), f32, {paging}, prompt {prompt_len}, "
+                            f"{new_tokens} new tokens, 2 requests at batch "
+                            f"1: tokens == no mesh; split decode calls "
+                            f"{got[5]}; launches {got[3]}; "
+                            f"{st['ms_per_token_prefill']:.4f} / "
+                            f"{st['ms_per_token_decode']:.3f} ms/token "
+                            f"prefill / decode (no mesh "
+                            f"{alone[4]['ms_per_token_prefill']:.4f} / "
+                            f"{alone[4]['ms_per_token_decode']:.3f})")
+    out["launches"] = launches
+    return out
 
 
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
@@ -5104,6 +5325,7 @@ def main(argv=None):
     torch.use_deterministic_algorithms(True, warn_only=True)
     with data_parallel("cuda"):
         phase_train_small(reduced, get_config)
+        phase_sync_free_train(reduced, get_config)
         phase_train_recipe()
         tr = phase_train(qf, h6, ops, ref, flush)
         torch.cuda.empty_cache()

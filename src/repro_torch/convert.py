@@ -81,8 +81,10 @@ def wire_to_numpy(wired, wire_codec):
 def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     """The reference's global ZeRO-1 state (``m`` / ``v`` laid out
     ``[*data_axes, model, seg]``, ``step`` a scalar) -> the flat state
-    ``{"m": [seg], "v": [seg], "step": []}`` of world rank ``rank`` on
-    ``device``: the row ``[d, m]`` of rank ``d * model + m``, in
+    ``{"m": [seg], "v": [seg], "step": []}`` of world rank ``rank``,
+    ``m`` and ``v`` on ``device`` and ``step`` on the host (as
+    ``training.optimizer`` keeps it): the row ``[d, m]`` of rank ``d *
+    model + m``, in
     row-major order of the mesh's axes, the order of the reference's
     segments and of ``launch.mesh``'s ranks."""
     dev = resolve_device(device)
@@ -92,7 +94,7 @@ def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
         out[k] = torch.from_numpy(
             np.ascontiguousarray(a.reshape(-1, a.shape[-1])[rank])).to(dev)
     out["step"] = torch.tensor(int(np.array(state["step"])),
-                               dtype=torch.int32, device=dev)
+                               dtype=torch.int32)
     return out
 
 

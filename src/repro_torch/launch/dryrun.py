@@ -12,19 +12,16 @@ and one real step of the port runs on them under
 outputs there and the collectives move nothing, so every number is
 computed from shapes, not measured, and each output says so.
 
-Each cell runs as the port trains or serves it. Where that differs from
+Each cell runs as the port trains or serves it, a decode under the
+reference's decode rules (``parallel.sharding.decode_rules``: the KV
+cache's sequence over ``model`` where the KV heads do not divide it,
+over ``("data", "model")`` at a batch of 1). Where the port differs from
 the reference's ``cell_rules``, ``rules_differ`` says how:
 
 - FSDP: the reference cuts the parameters of the baseline step, the
   prefill and some decodes over ``data`` as well; no port step cuts by
   them (ROADMAP queue 1, item 22), so a rank holds its model block of
   every leaf, and ``fits`` is False where it then passes 80 GB.
-- KV heads that do not divide the model axis: the reference splits the
-  cache's sequence over ``model``; the port gathers the KV heads each
-  rank's query heads read (item 21).
-- A batch of 1 (``long_500k``): the reference splits the cache's
-  sequence over ``("data", "model")``; the port over ``data``
-  (``make_rules(decode_seq_shard=True)``; item 21).
 - ``--multi-pod`` raises ``NO_PODS`` (item 13).
 
 On a torch built without CUDA the fake tensors are on the CPU (autograd
@@ -72,18 +69,16 @@ CELL_TIMEOUT_S = 1800
 
 _FSDP = ("fsdp: the reference also cuts these parameters over data; no "
          "port step cuts by FSDP (ROADMAP queue 1, item 22)")
-_KV_MODEL = ("kv_seq -> model: the reference splits the cache's sequence "
-             "over model where {kv} KV heads do not divide {m}; the port "
-             "gathers the KV heads each rank reads (item 21)")
-_KV_BOTH = ("kv_seq -> (data, model), batch -> None: the reference splits "
-            "a batch-1 cache over both axes; the port over data "
-            "(make_rules(decode_seq_shard=True); item 21)")
 
 
 def cell_rules(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str
                ) -> Tuple[object, List[str]]:
     """``(the port's sharding rules for the cell, how the reference's
-    cell_rules differ)``."""
+    cell_rules differ)``: a decode takes the reference's decode rules
+    (``parallel.sharding.decode_rules``: the KV cache's sequence over
+    ``model`` where the KV heads do not divide it, over ``("data",
+    "model")`` at a batch of 1); every cell differs where the reference
+    cuts parameters by FSDP."""
     from repro_torch.parallel import sharding as shd
     differ = []
     ref_fsdp = not (shape.kind == "decode" and cfg.serve_params_tp_only)
@@ -91,16 +86,9 @@ def cell_rules(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str
         ref_fsdp = False            # the reference's compressed step: TP only
     if ref_fsdp:
         differ.append(_FSDP)
-    seq_split = False
     if shape.kind == "decode":
-        m = mesh.shape["model"]
-        if cfg.num_kv_heads % m and shape.global_batch != 1:
-            differ.append(_KV_MODEL.format(kv=cfg.num_kv_heads, m=m))
-        if shape.global_batch == 1:
-            differ.append(_KV_BOTH)
-            seq_split = mesh.shape["data"] > 1
-    return shd.make_rules(fsdp_params=False,
-                          decode_seq_shard=seq_split), differ
+        return shd.decode_rules(cfg, shape.global_batch, mesh), differ
+    return shd.make_rules(fsdp_params=False), differ
 
 
 def _microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
@@ -217,8 +205,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str,
         else:
             step = make_baseline_step(cfg, opt_cfg, train_cfg, mesh=mesh)
             opt_state = optm.init_state(params, opt_cfg)
-        # The optimizers read the step count on the host (ROADMAP queue 3):
-        # a fake tensor has no value, so the count is a host int here.
+        # The optimizers read the step count on the host; made under the
+        # fake mode it is a fake tensor, which has no value to read.
         opt_state["step"] = 0
         return (lambda: step(params, opt_state, batch),
                 (params, opt_state, batch))
@@ -340,6 +328,27 @@ def cell_shape(cfg: ModelConfig, shape_name: str,
     return dataclasses.replace(shape, **(shape_overrides or {}))
 
 
+def kv_cache_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                   comm: str) -> int:
+    """The bytes of one rank's attention KV caches in a decode cell, as
+    :func:`build_cell` cuts the decode states under the cell's rules (0
+    for a train or prefill cell); computed from shapes."""
+    if shape.kind != "decode":
+        return 0
+    from repro_torch import convert
+    from repro_torch.models import init_decode_states
+    from repro_torch.models.attention import KVCache
+    from repro_torch.parallel import sharding as shd
+    rules, _ = cell_rules(cfg, shape, mesh, comm)
+    d_i, m_i = mesh.coords
+    with shd.use_rules(rules):
+        local = convert.shard_decode_states(
+            init_decode_states(cfg, shape.global_batch, shape.seq_len,
+                               "meta"), cfg, m_i, mesh.model, d_i, mesh.data)
+    return sum(t.numel() * t.element_size() for st in local.values()
+               if isinstance(st, KVCache) for t in (st.k, st.v))
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              comm: str = "baseline", overrides: Optional[dict] = None,
              world: int = 256, ops_out: Optional[str] = None,
@@ -348,7 +357,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              wire_caps: Optional[Dict[str, int]] = None) -> dict:
     """Count one cell on a fake world of ``world`` ranks (256: the
     production 16 x 16 layout) and return the reference's JSON keys plus
-    ``fits``, ``rules_differ`` and ``counted``."""
+    ``fits``, ``rules_differ``, ``counted`` and, under ``memory``, a
+    decode's ``kv_cache_bytes`` a rank (:func:`kv_cache_bytes`)."""
     from repro_torch.launch.mesh import NO_PODS
     if multi_pod:
         raise NotImplementedError(NO_PODS)
@@ -361,6 +371,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         record, differ = count_cell(cfg, shape, mesh, comm,
                                     early_stop=early_stop,
                                     wire_caps=wire_caps)
+        kv_bytes = kv_cache_bytes(cfg, shape, mesh, comm)
     finally:
         dist.destroy_process_group()
     terms = analysis.from_counts(arch, shape, mesh_name, world, record, cfg)
@@ -374,7 +385,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                     f"{fake_device()} tensors in a fake world of {world} "
                     "(torch.distributed 'fake' backend), no card"),
         "memory": {"argument_size_in_bytes": int(record.arg_bytes),
-                   "peak_bytes": int(record.peak_bytes)},
+                   "peak_bytes": int(record.peak_bytes),
+                   "kv_cache_bytes": kv_bytes},
         "roofline": terms.to_dict(),
         "kernels": record.kernel_calls(),
         "fits": record.peak_bytes <= hw.HBM_BYTES,

@@ -21,9 +21,9 @@ collectives inside autograd are :func:`copy_to_model`,
 (:func:`current_mesh`). Host decisions that read rank-local numbers
 are agreed over the mesh or one of its axes (:func:`mesh_max`,
 :func:`mesh_all`), so that every rank takes the same branch. Under
-sharding rules that put ``kv_seq`` on ``data`` a decode step's KV caches
-hold a range of positions on each rank of the data column
-(:func:`kv_seq_shard`).
+sharding rules that put ``kv_seq`` on ``data``, ``model`` or both a
+decode step's KV caches hold a range of positions on each rank of the
+column, the row or the mesh (:func:`kv_seq_shard`).
 
 NCCL on the card, a world of one included, with gloo beside it for CPU
 tensors (backend ``"cpu:gloo,cuda:nccl"``: each collective goes to the
@@ -233,38 +233,58 @@ def model_row(mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
 
 
 # --------------------------------------------------------------------------
-# The data column's sequence shard
+# The KV cache's sequence shard
 # --------------------------------------------------------------------------
 
-class DataShard(NamedTuple):
-    """This rank's shard of a KV cache's sequence over its data column
-    (the reference's ``kv_seq -> data`` rule): the column's process
-    group, its size and this rank's index in it, which holds positions
-    ``[index * S, (index + 1) * S)`` of a cache of ``S`` local
-    positions."""
+class SeqShard(NamedTuple):
+    """This rank's shard of a KV cache's sequence, as the sharding rules
+    in scope put ``kv_seq`` on the mesh: over ``"data"`` (the data
+    column), ``"model"`` (the model row) or ``("data", "model")`` (every
+    rank, in the PartitionSpec's row-major order: index ``d * model +
+    m``). ``group`` holds the shard's ranks, ``size`` their number, and
+    this rank's ``index`` holds positions ``[index * S, (index + 1) *
+    S)`` of a cache of ``S`` local positions; ``axes`` are the mesh axes
+    it spans. A shard over the model axis holds every KV head of its
+    positions; one over the data column alone the heads its row's cut
+    gives it."""
     group: Any
     size: int
     index: int
+    axes: Tuple[str, ...] = ("data",)
+
+    @property
+    def over_model(self) -> bool:
+        return "model" in self.axes
 
 
-def kv_seq_shard(mesh: Optional[Mesh] = None) -> Optional[DataShard]:
-    """The data column a decode step's KV caches are split over by
-    sequence, or None: no mesh (default: the mesh in scope), a data axis
-    of 1, or sharding rules in scope (``parallel.sharding.get_rules``)
-    that do not put ``kv_seq`` on ``data``
-    (``make_rules(decode_seq_shard=True)`` does)."""
+def kv_seq_shard(mesh: Optional[Mesh] = None) -> Optional[SeqShard]:
+    """The sequence shard of a decode step's KV caches on ``mesh``
+    (default: the mesh in scope), as the sharding rules in scope
+    (``parallel.sharding.get_rules``) resolve ``kv_seq`` beside
+    ``batch``, or None: no mesh, or ``kv_seq`` on no axis
+    (``make_rules(decode_seq_shard=True)`` puts it on ``data``;
+    ``parallel.sharding.decode_rules``, the reference's, on ``model`` or
+    on ``("data", "model")``). Axes of size 1 give a shard of one rank,
+    which runs the split decode and paging over its whole range."""
     from repro_torch.parallel.sharding import get_rules
     mesh = current_mesh() if mesh is None else mesh
-    if mesh is None or mesh.data == 1:
+    if mesh is None:
         return None
-    axes = get_rules().spec(("batch", "kv_seq"), mesh=mesh)[1]
-    if axes is None:
+    entry = get_rules().spec(("batch", "kv_seq"), mesh=mesh)[1]
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    if not axes:
         return None
-    if axes != "data":
-        raise NotImplementedError(
-            f"kv_seq over {axes!r}: a KV cache's sequence is split over the "
-            "data axis alone (ROADMAP queue 1, item 21)")
-    return DataShard(mesh.data_group, mesh.data, mesh.coords[0])
+    d, m = mesh.coords
+    if axes == ("data",):
+        return SeqShard(mesh.data_group, mesh.data, d, axes)
+    if axes == ("model",):
+        return SeqShard(mesh.model_group, mesh.model, m, axes)
+    if axes == ("data", "model"):
+        return SeqShard(mesh.world_group, mesh.size, mesh.rank, axes)
+    raise ValueError(f"kv_seq over {axes!r}: a KV cache's sequence splits "
+                     "over 'data', 'model' or ('data', 'model'), in that "
+                     "order")
 
 
 def row_mesh(mesh: Mesh) -> Mesh:

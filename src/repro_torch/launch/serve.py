@@ -34,7 +34,11 @@ rank), the wire holding the rank's blocks, and ``Engine(mesh=)``, whose
 paged cache binds the row (``KVCacheSpec(axis="model")``). Over a data
 column the engine splits the slots, or, under
 ``make_rules(decode_seq_shard=True)`` in scope, the KV caches' sequence
-(``serving.scheduler``). The dense-cache check runs on the same mesh.
+(``serving.scheduler``); ``serve(..., reference_rules=True)`` takes the
+reference's decode rules for the model, the batch and the mesh instead
+(``parallel.sharding.decode_rules``: the sequence over the model row
+where the KV heads do not divide it, over the whole mesh at a batch of
+1). The dense-cache check runs on the same mesh, under the same rules.
 ``tools/tp_cards.py --serve`` drives it on N cards. ``--prefill-chunk``
 feeds a long prompt that many tokens a step (attention-only stacks).
 
@@ -64,6 +68,7 @@ from repro_torch.core import CodecRegistry
 from repro_torch.launch.mesh import current_mesh, model_row
 from repro_torch.models import init_params
 from repro_torch.models.transformer import resolve_device
+from repro_torch.parallel.sharding import decode_rules, get_rules, use_rules
 from repro_torch.serving import (BlockPool, Engine, GenerationRequest,
                                  KVCacheSpec)
 
@@ -78,7 +83,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
           kv_cache: str = "none", kv_block: int = 128,
           kv_paging: str = "sync", device="cuda", seed: int = 0,
           params=None, kv_monitor: bool = False,
-          prefill_chunk: int = 1) -> Dict[str, Any]:
+          prefill_chunk: int = 1,
+          reference_rules: bool = False) -> Dict[str, Any]:
     """Run the launcher's path and return what it produced: the request
     statuses, engine stats and events, the served params, the KV codecs'
     registry (``kv_registry``, None without a paged cache), with
@@ -92,7 +98,11 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     traffic). A tree made here (``params=None``) is freed before the
     wire is opened. Under a mesh in scope, ``params`` (or the tree made
     here) is this rank's local tree (module docstring).
-    ``prefill_chunk``: tokens a prefill step (``Engine``)."""
+    ``prefill_chunk``: tokens a prefill step (``Engine``).
+    ``reference_rules``: the engines run under the reference's decode
+    rules for ``cfg`` at a batch of ``batch`` on the mesh in scope
+    (``parallel.sharding.decode_rules``), in place of the rules in
+    scope."""
     if kv_paging == "async" and kv_cache != "qlc":
         raise ValueError("kv_paging='async' needs kv_cache='qlc'")
     dev = resolve_device(device)
@@ -140,10 +150,13 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
             registry = CodecRegistry()
             monitor = out["kv_monitor"] = TrafficMonitor(registry)
     max_seq_len = prompt_len + new_tokens + 8
-    eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
-                 kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
-                 registry=registry, monitor=monitor, mesh=mesh,
-                 prefill_chunk=prefill_chunk)
+    rules = (decode_rules(cfg, batch, mesh)
+             if reference_rules and mesh is not None else get_rules())
+    with use_rules(rules):
+        eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
+                     kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
+                     registry=registry, monitor=monitor, mesh=mesh,
+                     prefill_chunk=prefill_chunk)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()
@@ -160,9 +173,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
         # token-identical to a dense cache. A dense model's rows are
         # independent, so request 0 alone decides; an MoE layer's capacity
         # is shared by the batch's rows, so the dense run gets every
-        # request, in the same order, at the same batch.
-        dense = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
-                       mesh=mesh, prefill_chunk=prefill_chunk)
+        # request, in the same order, at the same batch. It takes the
+        # paged engine's length (under a sequence split rounded to whole
+        # blocks of every rank's range), so that both attend over caches
+        # of one geometry and sum alike.
+        with use_rules(rules):
+            dense = Engine(params, cfg, max_seq_len=eng.max_seq_len,
+                           max_batch=batch, mesh=mesh,
+                           prefill_chunk=prefill_chunk)
         group = prompts if cfg.moe is not None else prompts[:1]
         hs = [dense.submit(GenerationRequest(prompt=p,
                                              max_new_tokens=new_tokens))

@@ -29,7 +29,13 @@ are zero slices of ``wq`` / ``wo`` held out of the gradient: training
 attends with all of them, decode with the real ones only. Over a model
 row the decode branch runs the rank's query heads against a cache of
 the KV heads they read (:func:`decode_kv_heads`), contracted per KV
-head, and sums the ``wo`` rows' partial outputs over the row.
+head, and sums the ``wo`` rows' partial outputs over the row. Under a
+sequence split of the cache (``launch.mesh.SeqShard``) each rank holds a
+range of positions and the shard's partial softmax statistics are
+combined (:func:`decode_partial`, :func:`combine_partials`); over the
+model axis a rank's range holds every KV head, and every rank attends
+with the row's gathered query heads (:func:`_decode_tp`, over a row of
+one where the model axis has one rank).
 """
 from __future__ import annotations
 
@@ -38,8 +44,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import (copy_to_model, gather_from_model,
-                                     reduce_from_model)
+from repro_torch.launch.mesh import (ModelRow, copy_to_model,
+                                     gather_from_model, reduce_from_model)
 from repro_torch.models import layers
 
 NEG_INF = -2.0 ** 30
@@ -306,9 +312,16 @@ def _decode_tp(params, x, cfg: ModelConfig, positions, cache: KVCache,
     cache holds (:func:`decode_kv_heads`: from its ``wk`` / ``wv`` block,
     from the whole leaves, or, where the KV heads are split but its
     query heads read another rank's, from the row's k / v gathered),
-    written into its cache; the grouped decode over those heads, and its
-    ``wo`` rows' partial output summed over the row."""
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    written into its cache (under a sequence shard, on the rank whose
+    range holds the token); the grouped decode over those heads, and its
+    ``wo`` rows' partial output summed over the row. Under a shard over
+    the model axis (the reference's ``kv_seq -> model`` and ``("data",
+    "model")``) the cache holds every KV head of the rank's range: the
+    token's k / v of every head are written, the row's query heads
+    gathered, and every head's partials combined over the shard (so
+    every rank of it gets the same bits) before the rank keeps its own
+    heads for ``wo``."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
     groups = h // kv
     wq, wk, wv, wo = (params[k] for k in ("wq", "wk", "wv", "wo"))
     q_split, hl, q0 = _row_heads(cfg, row.index, row.size)
@@ -316,31 +329,36 @@ def _decode_tp(params, x, cfg: ModelConfig, positions, cache: KVCache,
         raise ValueError(f"wq holds {wq.shape[1]} heads, the row's spec "
                          f"gives a rank {hl}")
     n_real = min(max(h - q0, 0), hl)
-    sel = decode_kv_heads(cfg, row.index, row.size)     # contiguous
-    kvl = wk.shape[1]
-    if kvl == kv:                               # whole: my heads' slices
+    every = shard is not None and shard.over_model
+    sel = (tuple(range(kv)) if every
+           else decode_kv_heads(cfg, row.index, row.size))  # contiguous
+    kv_split = wk.shape[1] != kv
+    if not kv_split:                            # whole: my heads' slices
         wk, wv = (w.narrow(1, sel[0], len(sel)) for w in (wk, wv))
-        k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
-        v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
+    k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
+    if kv_split and (every or _kv_gathered(cfg, row.size)):
+        # this rank holds heads of other ranks' blocks
+        k, v = (gather_from_model(t, 2, row).narrow(2, sel[0], len(sel))
+                for t in (k, v))
+    if every:
+        # every query head (padded ones' rows dropped), the row's gathered
+        q = torch.einsum("bsd,dnh->bsnh", x, wq.to(x.dtype))
+        if q_split:
+            q = gather_from_model(q, 2, row)
+        q = q[:, :, :h]
+        need = [j // groups for j in range(h)]
     else:
-        k = torch.einsum("bsd,dnh->bsnh", x, wk.to(x.dtype))
-        v = torch.einsum("bsd,dnh->bsnh", x, wv.to(x.dtype))
-        if _kv_gathered(cfg, row.size):         # some rank reads others'
-            if shard is not None:
-                raise NotImplementedError(
-                    "a sequence-split KV cache over a model row whose "
-                    "ranks read each other's KV heads is not ported "
-                    "(ROADMAP queue 1, item 21)")
-            k, v = (gather_from_model(t, 2, row).narrow(2, sel[0], len(sel))
-                    for t in (k, v))
-    q = torch.einsum("bsd,dnh->bsnh", x, wq[:, :n_real].to(x.dtype))
+        q = torch.einsum("bsd,dnh->bsnh", x, wq[:, :n_real].to(x.dtype))
+        # local query head j reads cache head need[j]
+        need = [(q0 + j) // groups - sel[0] for j in range(n_real)]
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     offset = 0 if shard is None else shard.index * cache.k.shape[1]
     new_cache = _write_cache(cache, k, v, offset)
-    # local query head j reads cache head need[j]
-    need = [(q0 + j) // groups - sel[0] for j in range(n_real)]
     out = _decode_attend(q, new_cache, positions, cfg, need, shard)
+    if every:
+        out = out[:, :, q0:q0 + n_real]
     out = torch.einsum("bsnh,nhd->bsd", out, wo[:n_real].to(out.dtype))
     return (reduce_from_model(out, row) if q_split else out), new_cache
 
@@ -430,11 +448,12 @@ def combine_partials(parts) -> torch.Tensor:
 
 def _seq_sharded_decode(q, cache: KVCache, positions, cfg: ModelConfig,
                         need, shard) -> torch.Tensor:
-    """:func:`_grouped_decode` over a cache split by sequence over the
-    data column ``shard`` (``launch.mesh.DataShard``): this rank's
-    partial (:func:`decode_partial`) all-gathered over the column and
-    combined in rank order (:func:`combine_partials`), so every rank of
-    the column gets the same bits. [B, S, n, H]."""
+    """:func:`_grouped_decode` over a cache split by sequence over
+    ``shard`` (``launch.mesh.SeqShard``: the data column, the model row
+    or the mesh): this rank's partial (:func:`decode_partial`)
+    all-gathered over the shard and combined in rank order
+    (:func:`combine_partials`), so every rank of it gets the same bits.
+    [B, S, n, H]."""
     import torch.distributed as dist
     part = decode_partial(q, cache, positions, cfg, need,
                           shard.index * cache.k.shape[1])
@@ -467,19 +486,24 @@ def attention_block(params, x, cfg: ModelConfig, positions,
     query causally at its own position (and within the sliding window).
     ``row``: the model row the weights may be split over (module
     docstring); decode over it holds the rank's KV heads in ``cache``
-    (:func:`decode_kv_heads`). ``shard`` (a ``launch.mesh.DataShard``):
+    (:func:`decode_kv_heads`). ``shard`` (a ``launch.mesh.SeqShard``):
     the cache holds the rank's range of positions of a sequence split
-    over the data column; a one-token decode step writes the token on
-    the rank whose range holds it and combines the column's partial
-    attentions (:func:`decode_partial`, :func:`combine_partials`).
+    over the data column, the model row or the mesh (over the model
+    axis, of every KV head: :func:`_decode_tp`, over a row of one when
+    ``row`` is None); a one-token decode
+    step writes the token on the rank whose range holds it and combines
+    the shard's partial attentions (:func:`decode_partial`,
+    :func:`combine_partials`).
     Returns (out [B, S, D], new_cache or None).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = h // kv
     hp = padded_heads(cfg)
+    if cache is not None and (row is not None or (
+            shard is not None and shard.over_model)):
+        return _decode_tp(params, x, cfg, positions, cache,
+                          row or ModelRow(None, 1, 0), shard)
     if row is not None:
-        if cache is not None:
-            return _decode_tp(params, x, cfg, positions, cache, row, shard)
         return _attention_tp(params, x, cfg, positions, row), None
 
     wq, wo = params["wq"], params["wo"]

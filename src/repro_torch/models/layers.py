@@ -39,8 +39,9 @@ def rope_freqs(head_dim: int, theta: float, fraction: float = 1.0,
     """Inverse frequencies for the rotated sub-dimension."""
     rot = int(head_dim * fraction) // 2 * 2
     exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps), rot
+    # a fill on the device, not a copy of a host scalar (which waits)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps), rot
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,

@@ -76,12 +76,6 @@ SUPPORTED_IMPLS = ("gspmd", "grouped_local", "shardmap_a2a")
 #: the routed experts' leaves of an MoE FFN (leading dim: experts).
 EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
 
-_GROUPS_UNALIGNED = (
-    "grouped_local over {w} ranks needs its {g} dispatch groups to be a "
-    "multiple of the ranks (dispatch groups mapped to data ranks are not "
-    "ported: ROADMAP queue 1, item 17)")
-
-
 def _normal(gen, shape, scale, dtype, device):
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=device).mul_(scale)
@@ -553,52 +547,77 @@ def _moe_grouped(params, x: torch.Tensor, cfg: ModelConfig,
     """Grouped-local dispatch: tokens split into ``dispatch_groups``
     contiguous groups, capacity per (group, expert), scatters and
     gathers inside a group. Under :func:`batch_over` the groups are
-    those of the whole batch, and each rank runs the groups its token
-    shard holds (they must tile the ranks, ROADMAP queue 1, item 17).
+    those of the whole batch: this rank's tokens are the batch's
+    ``[r * n_local, (r + 1) * n_local)``, and it takes part in the groups
+    they touch. A group may straddle ranks: an assignment's position in
+    its group is its exclusive count among this rank's assignments of
+    the same group and expert plus those of lower ranks, from one int32
+    all-gather of the ``[groups, experts]`` counts (the per-group form of
+    :func:`global_positions`; none where every rank holds whole groups),
+    so the kept assignments are those of the whole batch's groups. The
+    expert FFN runs on this rank's rows of each touched group's buffer
+    (zero rows elsewhere), as ``gspmd`` does under :func:`batch_over`.
     Over a model row as :func:`moe_block`."""
     m = cfg.moe
     b, s, d = x.shape
     n_local = b * s
-    ranks = _world(scope.batch_group)
+    group = scope.batch_group
+    ranks = _world(group)
     n = n_local * ranks
     g = min(m.dispatch_groups, n)
     while n % g:
         g -= 1
-    if g % ranks:
-        raise NotImplementedError(_GROUPS_UNALIGNED.format(w=ranks, g=g))
-    g //= ranks                                         # this rank's groups
-    ng = n_local // g
+    ng = n // g
+    lo = (dist.get_rank(group) if ranks > 1 else 0) * n_local
+    j0 = lo // ng                                   # first touched group
+    t = (lo + n_local - 1) // ng - j0 + 1           # groups touched
     x_flat = x.reshape(n_local, d)
     e, k = m.num_experts, m.top_k
     split = _expert_split(params, m, row)
 
     idx, gates, _probs = _route(params, x_flat, m, row)  # [N,k]
     capacity = _capacity(ng, m)
-    flat_e = idx.reshape(g, ng * k)
+    flat_e = idx.reshape(-1)
+    # each assignment's touched group, in token order
+    tg = ((lo + torch.arange(n_local, device=x.device)) // ng
+          - j0).repeat_interleave(k)
+    # per-expert running counts, less those before each group's first
+    # assignment here: positions within (group, expert)
     onehot = F.one_hot(flat_e, e)
-    pos = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2,
-                       flat_e[..., None])[..., 0]       # [g, ng*k]
+    incl = torch.cumsum(onehot, dim=0)
+    edges = [min(max(0, (j0 + i) * ng - lo), n_local) * k
+             for i in range(t + 1)]
+    at_edge = torch.cat([incl.new_zeros((1, e)), incl])[edges]  # [t+1, E]
+    pos = (torch.gather(incl - onehot, 1, flat_e[:, None])[:, 0]
+           - at_edge[:-1][tg, flat_e])
+    if n_local % ng:                                    # groups straddle
+        counts = torch.zeros((g, e), dtype=torch.int32, device=x.device)
+        counts[j0:j0 + t] = (at_edge[1:] - at_edge[:-1]).to(torch.int32)
+        every = _gather_counts(counts.reshape(-1), group).reshape(
+            ranks, g, e)
+        below = every[:dist.get_rank(group)].sum(0, dtype=torch.int64)
+        pos = pos + below[j0:j0 + t][tg, flat_e]
     keep = pos < capacity
     slot = flat_e * capacity + torch.clamp(pos, max=capacity - 1)
     slot = torch.where(keep, slot, e * capacity)
     if scope.routing is not None:
         scope.routing.append({"impl": "grouped_local", "idx": idx,
-                              "keep": keep.reshape(-1)})
+                              "keep": keep})
     if split:
         x_flat, gates = copy_to_model(x_flat, row), copy_to_model(gates, row)
-    # One buffer of g blocks of E*C rows and a drop row each.
-    base = torch.arange(g, device=x.device)[:, None] * (e * capacity + 1)
-    bufs = _scatter_rows(_repeat_tokens(x_flat, k), (base + slot).reshape(-1),
-                         g * (e * capacity + 1))
-    bufs = bufs.reshape(g, e * capacity + 1, d)[:, :e * capacity]
-    # [g, E, C, D] -> [E, g*C, D]: one matmul per expert over every group.
-    per_e = bufs.reshape(g, e, capacity, d).transpose(0, 1).reshape(
-        e, g * capacity, d)
+    # One buffer of t blocks of E*C rows and a drop row each.
+    at = tg * (e * capacity + 1) + slot
+    bufs = _scatter_rows(_repeat_tokens(x_flat, k), at,
+                         t * (e * capacity + 1))
+    bufs = bufs.reshape(t, e * capacity + 1, d)[:, :e * capacity]
+    # [t, E, C, D] -> [E, t*C, D]: one matmul per expert over every group.
+    per_e = bufs.reshape(t, e, capacity, d).transpose(0, 1).reshape(
+        e, t * capacity, d)
     out_e = _experts_over_row(per_e, params, split, row)
-    out_e = out_e.reshape(e, g, capacity, d).transpose(0, 1).reshape(
-        g, e * capacity, d)
-    gathered = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
-    gathered = gathered.reshape(-1, d)[(base + slot).reshape(-1)]
+    out_e = out_e.reshape(e, t, capacity, d).transpose(0, 1).reshape(
+        t, e * capacity, d)
+    gathered = torch.cat([out_e, out_e.new_zeros((t, 1, d))], dim=1)
+    gathered = gathered.reshape(-1, d)[at]
     weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
     out = _sum_topk(weighted, n_local, k)
     return _finish(params, x, m, out, split is not None,

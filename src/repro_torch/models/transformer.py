@@ -262,9 +262,10 @@ def decode_states_specs(cfg: ModelConfig):
     """The logical axes of every decode-state leaf (the reference's
     ``decode_states_specs``): per layer slot of a group, its state type
     with a tuple of axis names per field, the leading (group) dim
-    unnamed. Over a model row a KV cache holds the rank's ``kv_heads``,
-    a mamba state its ``mlp`` channels and an xLSTM state its
-    ``heads``."""
+    unnamed. Over a model row a KV cache holds the rank's ``kv_heads``
+    (or, under a ``kv_seq`` rule over ``model``, its range of
+    positions), a mamba state its ``mlp`` channels and an xLSTM state
+    its ``heads``."""
     def one(kind):
         if kind == "attention":
             return attn.KVCache(
@@ -311,16 +312,27 @@ def _whole_decode_states(cfg: ModelConfig, batch: int, max_len: int,
         group)
 
 
+def _seq_dim(resolved, axis: str) -> Optional[int]:
+    """The dim of a resolved spec whose entry holds mesh ``axis``."""
+    for d, e in enumerate(resolved):
+        if e is not None and axis in ((e,) if isinstance(e, str) else e):
+            return d
+    return None
+
+
 def decode_state_cut(cfg: ModelConfig, index: int, size: int, shapes):
     """How rank ``index`` of a model row of ``size`` holds each decode-state
     leaf of the whole ``shapes`` (a tree of stacked shapes, as
     :func:`init_decode_states` makes them): per leaf ``(dim, start,
     count)``, the rank's ``count`` entries of ``dim`` from ``start``, or
     None for a leaf it holds whole. A leaf is cut as its spec
-    (:func:`decode_states_specs`) resolves on the row, but for a KV
-    cache's ``kv_heads``, which holds ``attention.decode_kv_heads``: the
-    spec's block where the KV heads divide the row, else the heads the
-    rank's query heads read."""
+    (:func:`decode_states_specs`) resolves on the row under the sharding
+    rules in scope. A KV cache whose ``kv_seq`` resolves onto ``model``
+    (the reference's ``kv_seq -> model`` or ``("data", "model")``) holds
+    the rank's range of positions of every KV head; any other holds, of
+    the whole sequence, ``attention.decode_kv_heads``: the spec's block
+    where the KV heads divide the row, else the heads the rank's query
+    heads read."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel import sharding
     layout = Mesh(data=1, model=size, rank=0, world_group=None,
@@ -332,14 +344,14 @@ def decode_state_cut(cfg: ModelConfig, index: int, size: int, shapes):
         fields = []
         for name, spec in zip(st._fields, st):
             shape = getattr(shapes[key], name)
-            dim = sharding.model_dim(rules.spec(spec, shape=shape,
-                                                mesh=layout))
-            if isinstance(st, attn.KVCache) and name != "length":
-                heads = attn.decode_kv_heads(cfg, index, size)
-                fields.append(None if size == 1 else
-                              (spec.index("kv_heads"), heads[0], len(heads)))
-            elif dim is None or size == 1:
+            resolved = rules.spec(spec, shape=shape, mesh=layout)
+            dim = _seq_dim(resolved, "model")
+            kv = isinstance(st, attn.KVCache) and name != "length"
+            if size == 1 or (dim is None and not kv):
                 fields.append(None)
+            elif kv and dim != spec.index("kv_seq"):
+                heads = attn.decode_kv_heads(cfg, index, size)
+                fields.append((spec.index("kv_heads"), heads[0], len(heads)))
             else:
                 n = shape[dim] // size
                 fields.append((dim, index * n, n))
@@ -352,9 +364,11 @@ def decode_state_data_cut(cfg: ModelConfig, index: int, size: int, shapes):
     decode-state leaf of the whole ``shapes``, as the sharding rules in
     scope resolve its spec (:func:`decode_states_specs`) on a ``size x
     1`` layout: per leaf ``(dim, start, count)``, the contiguous block of
-    the dim that resolves to ``data`` (the batch under the default
+    the dim whose entry holds ``data`` (the batch under the default
     rules, a KV cache's sequence under ``make_rules(decode_seq_shard=
-    True)``), or None for a leaf the column holds whole."""
+    True)`` or the reference's ``kv_seq -> ("data", "model")``, which
+    :func:`decode_state_cut` then cuts again over the row), or None for
+    a leaf the column holds whole."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel import sharding
     layout = Mesh(data=size, model=1, rank=0, world_group=None,
@@ -365,13 +379,13 @@ def decode_state_data_cut(cfg: ModelConfig, index: int, size: int, shapes):
         fields = []
         for name, spec in zip(st._fields, st):
             shape = getattr(shapes[key], name)
-            resolved = rules.spec(spec, shape=shape, mesh=layout)
-            dims = [d for d, e in enumerate(resolved) if e == "data"]
-            if size == 1 or not dims:
+            dim = _seq_dim(rules.spec(spec, shape=shape, mesh=layout),
+                           "data")
+            if size == 1 or dim is None:
                 fields.append(None)
             else:
-                n = shape[dims[0]] // size
-                fields.append((dims[0], index * n, n))
+                n = shape[dim] // size
+                fields.append((dim, index * n, n))
         out[key] = type(st)(*fields)
     return out
 
@@ -379,8 +393,10 @@ def decode_state_data_cut(cfg: ModelConfig, index: int, size: int, shapes):
 def init_decode_states(cfg: ModelConfig, batch: int, max_len: int,
                        device="cuda", row=None):
     """Fresh per-layer decode states, stacked over groups; over a model
-    ``row`` (a ``launch.mesh.ModelRow``), the rank's part of each
-    (:func:`decode_state_cut`)."""
+    ``row`` (a ``launch.mesh.ModelRow``), the rank's part of each as the
+    sharding rules in scope cut it (:func:`decode_state_cut`): where
+    they put ``kv_seq`` on ``model``, a KV cache's ``max_len / row.size``
+    positions of every KV head."""
     dev = resolve_device(device)
     if row is None or row.size == 1:
         return _whole_decode_states(cfg, batch, max_len, dev)
@@ -455,9 +471,10 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     (``launch.mesh.model_row``, read here likewise), and a decode step's
     ``states`` are the rank's part of them (:func:`init_decode_states`
     with the row). Under sharding rules in scope that put ``kv_seq`` on
-    a data axis above 1 (``launch.mesh.kv_seq_shard``) a decode step's
-    KV caches hold the rank's range of positions, and each attention
-    layer combines the data column's partial attentions."""
+    mesh axes (``launch.mesh.kv_seq_shard``: the data column, the model
+    row or the whole mesh, a shard of one rank on axes of 1) a decode
+    step's KV caches hold the rank's range of positions, and each
+    attention layer combines the shard's partial attentions."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]

@@ -146,6 +146,24 @@ def make_rules(fsdp_params: bool = True, decode_seq_shard: bool = False,
         param_overrides=dict(FSDP_PARAM_OVERRIDES) if fsdp_params else {})
 
 
+def decode_rules(cfg, global_batch: int, mesh) -> ShardingRules:
+    """The reference's sharding rules for a decode of ``global_batch``
+    sequences of ``cfg`` on ``mesh`` (its ``launch/dryrun.py``
+    ``cell_rules`` for a decode cell): where the KV heads do not divide
+    the model axis, the KV cache's sequence over ``model``; at a batch
+    of 1, over ``("data", "model")`` with the batch whole. The
+    reference's FSDP parameter overrides are left out: no port step cuts
+    by them (ROADMAP queue 1, item 22; the dry run's ``rules_differ``
+    names them)."""
+    extra: Dict[str, MeshAxes] = {}
+    if cfg.num_kv_heads % mesh.shape["model"]:
+        extra["kv_seq"] = "model"
+    if global_batch == 1:
+        extra["kv_seq"] = ("data", "model")
+        extra["batch"] = None
+    return make_rules(fsdp_params=False, extra=extra)
+
+
 # --------------------------------------------------------------------------
 # Parameter layouts
 # --------------------------------------------------------------------------

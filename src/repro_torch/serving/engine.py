@@ -13,7 +13,10 @@ CUDA graph yet).
 
 Over a model row (a mesh in scope, ``serving.scheduler.Engine(mesh=)``)
 :func:`prefill` and :func:`window_step` run on the rank's local tree
-and its part of the decode states, and every rank gets the same tokens;
+and its part of the decode states (under a sequence split, its range of
+positions: each step's token lands on the rank whose range holds it, and
+the engine pages and prefetches, through K5, that range's blocks between
+windows), and every rank gets the same tokens;
 :func:`compress_params_for_serving` wires the rank's blocks only.
 
 Compressed-weight serving stores the layer stack as block-32 e4m3 + QLC

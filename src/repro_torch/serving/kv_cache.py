@@ -45,9 +45,11 @@ Two halves:
 Over a model row (``PagedKVCache(mesh=)``) the channels bind the group
 of ``KVCacheSpec.axis``; the codecs are calibrated on the row's gathered
 first prefill (:func:`calibrate_cache` with the mesh: identical on every
-rank), each rank pages the blocks of its own part of the decode states,
-and a cold block's container words migrate over the axis
-(:meth:`PagedKVCache.block_wire`, :func:`all_gather_block_wire`).
+rank), each rank pages the blocks of its own part of the decode states
+(its KV heads, or under a sequence split its range of positions, in
+blocks whole on each rank: ``serving.scheduler.Engine`` rounds
+``max_seq_len`` so), and a cold block's container words migrate over
+the axis (:meth:`PagedKVCache.block_wire`, :func:`all_gather_block_wire`).
 
 Escape-pool overflow never corrupts a block: an overflowing encode
 falls back to a raw container (``stats()["overflow_sections"]``), and a

@@ -82,16 +82,26 @@ it step by step:
     same on every rank. The replica that runs the first admitted
     prefill calibrates the KV codecs and broadcasts them over the
     column;
-  - ``make_rules(decode_seq_shard=True)`` (``kv_seq -> data``, ``batch
-    -> None``): every rank serves every slot, and each attention
-    layer's cache holds positions ``[d * S/D, (d + 1) * S/D)`` on data
-    index ``d`` of ``D``, ``S`` (``max_seq_len``) rounded up to a
-    multiple of ``D`` blocks. A prompt prefills whole on every rank,
-    which keeps its range; a decode step writes each token on the rank
-    whose range holds it and combines the column's partial attentions
-    (``models.attention.combine_partials``). Recurrent states stay whole.
-    Each rank pages the blocks of its range (sync paging); the codecs
-    are calibrated on the whole first prefill, which every rank holds.
+  - a sequence split of the KV caches (``launch.mesh.kv_seq_shard``):
+    ``make_rules(decode_seq_shard=True)`` (``kv_seq -> data``, ``batch
+    -> None``), or the reference's decode rules
+    (``parallel.sharding.decode_rules``: ``kv_seq -> model`` with the
+    slots split as above, ``kv_seq -> ("data", "model")`` with ``batch
+    -> None``). Each attention layer's cache holds positions ``[i *
+    S/N, (i + 1) * S/N)`` on index ``i`` of the shard's ``N`` ranks
+    (``d * model + m`` over the mesh), ``S`` (``max_seq_len``) rounded up
+    to a multiple of ``N`` blocks; over the model axis every KV head of
+    them, over the data column alone the heads of the row's cut. A
+    prompt prefills whole, over its row's heads, on every rank that
+    serves its slot, which keeps its range (gathering the row's heads
+    when its range holds every head); a decode step writes each token on
+    the rank whose range holds it and combines the shard's partial
+    attentions (``models.attention.combine_partials``). Recurrent
+    states stay as the row cuts them. Each rank pages the blocks of its
+    range, sync or async (every rank computes the async window from the
+    same host state, every slot's, so it ends on the same block boundary
+    on every rank); the codecs are calibrated on the whole first
+    prefill.
 """
 from __future__ import annotations
 
@@ -117,7 +127,8 @@ from repro_torch.serving.engine import prefill, window_step
 from repro_torch.serving.kv_cache import (KVCacheSpec, PagedKVCache,
                                           SSMBoundaryTracker,
                                           broadcast_kv_entries,
-                                          calibrate_cache)
+                                          calibrate_cache,
+                                          gather_row_states)
 
 _rid_counter = itertools.count()
 
@@ -218,9 +229,9 @@ class Engine:
     <= 1) bounds any one tenant to ``ceil(cap * max_batch)`` concurrent
     slots. ``mesh``: ``params`` is this rank's local tree over the
     mesh's model row, which every rank of the row serves in step; over
-    a data column the slots split, or, under
-    ``make_rules(decode_seq_shard=True)`` in scope, the KV caches'
-    sequence (module docstring). ``prefill_chunk``: tokens a prefill
+    a data column the slots split, and, under rules in scope that put
+    ``kv_seq`` on mesh axes, the KV caches' sequence splits over them
+    (module docstring). ``prefill_chunk``: tokens a prefill
     feeds per decode step (``serving.engine.prefill``; attention-only
     stacks); 1, the default, feeds them one at a time.
     """
@@ -253,7 +264,7 @@ class Engine:
         self.max_seq_len = int(max_seq_len)
         self.max_batch = int(max_batch)
         self.prefill_chunk = int(prefill_chunk)
-        self._split, self._shard = self._data_layout(mesh, kv_paging)
+        self._split, self._shard = self._data_layout(mesh)
         #: this rank's slots: [first, first + local)
         self._local = self.max_batch // self._split
         self._first = (mesh.coords[0] * self._local if self._split > 1
@@ -264,6 +275,10 @@ class Engine:
                                        if kv_spec is not None else 1)
             self.max_seq_len = -(-self.max_seq_len // unit) * unit
             state_len = self.max_seq_len // self._shard.size
+            if self._gathers_row():
+                # the row's cut (models.decode_state_cut) takes each
+                # rank's range of the positions its data index holds
+                state_len *= self._row.size
             #: a prompt prefills whole on every rank
             self._whole_rules = ShardingRules(
                 rules=dict(self._rules.rules, kv_seq=None),
@@ -311,29 +326,35 @@ class Engine:
         self._dense_logical = 0
         self.peak_dense_logical_bytes = 0
 
-    def _data_layout(self, mesh, kv_paging):
-        """(slot replicas over the data column, the column's sequence
+    def _data_layout(self, mesh):
+        """(slot replicas over the data column, the KV caches' sequence
         shard or None), as the rules in scope lay the decode states'
-        batch and ``kv_seq`` out over ``mesh``."""
-        if mesh is None or mesh.data == 1:
+        batch and ``kv_seq`` out over ``mesh``: the batch over ``data``
+        or whole, ``kv_seq`` over ``data``, ``model``, both or none
+        (``launch.mesh.kv_seq_shard``)."""
+        if mesh is None:
             return 1, None
         batch = self._rules.spec(("batch",), mesh=mesh)[0]
+        split = 1
         if batch == "data":
             if self.max_batch % mesh.data:
                 raise ValueError(
                     f"max_batch {self.max_batch} does not divide over the "
                     f"data axis of {mesh.data}: its slots split over the "
                     "data column")
-            return mesh.data, None
-        if batch is not None:
-            raise NotImplementedError(f"batch over {batch!r} (ROADMAP "
-                                      "queue 1, item 21)")
-        shard = kv_seq_shard(mesh)
-        if shard is not None and kv_paging == "async":
-            raise NotImplementedError(
-                "kv_paging='async' over a sequence-split KV cache is not "
-                "ported (ROADMAP queue 1, item 21)")
-        return 1, shard
+            split = mesh.data
+        elif batch is not None:
+            raise ValueError(f"batch over {batch!r}: an engine's slots "
+                             "split over the data axis alone, or stay whole")
+        return split, kv_seq_shard(mesh)
+
+    def _gathers_row(self) -> bool:
+        """Whether a sequence shard over the model axis makes each rank of
+        a model row hold every KV head of its range, so that a prefill,
+        which holds the row's cut of the heads, is gathered over the
+        row."""
+        return (self._shard is not None and self._shard.over_model
+                and self._row is not None)
 
     def _mine(self, b: int) -> Optional[int]:
         """Slot ``b``'s row of this rank's decode states, or None when it
@@ -582,14 +603,21 @@ class Engine:
         local = self._mine(b)
         row = None
         first = 0
+        whole = None
         if local is not None:
             first, row = self._prefill(seq)
+            if self._gathers_row():
+                with use_rules(self._whole_rules):
+                    whole = gather_row_states(self.cfg, row, seq.prompt_len,
+                                              self._row)
         self._prefill_tokens += seq.prompt_len
         if self.kv_spec is not None and self._codec is None:
-            self._ensure_codec(row, seq.prompt_len, b // self._local)
+            self._ensure_codec(row if whole is None else whole,
+                               seq.prompt_len, b // self._local,
+                               gathered=whole is not None)
         if row is not None:
             if self._shard is not None:
-                row = self._my_range(row)
+                row = self._my_range(row, whole)
             # in place: the slot's rows of the engine-owned states
             tree_map(lambda dst, src: dst.copy_(src),
                      _slot_view(self._states, local), row)
@@ -606,12 +634,12 @@ class Engine:
         (every position, under a sequence shard too) -> (its first token,
         the states)."""
         t0 = time.perf_counter()
-        row = init_decode_states(self.cfg, 1, self.max_seq_len, self.device,
-                                 row=self._row)
         prompt = self._tensor(seq.req.prompt[None, :])
         rules = self._whole_rules if self._shard is not None else \
             self._rules
         with use_rules(rules):
+            row = init_decode_states(self.cfg, 1, self.max_seq_len,
+                                     self.device, row=self._row)
             if self._rebase:
                 # Segmented prefill: a block at a time, each recurrent
                 # layer's state recorded at every boundary. Prefill
@@ -642,28 +670,50 @@ class Engine:
                 return st.k.shape[attn.KV_SEQ_AXIS]
         return self.max_seq_len
 
-    def _my_range(self, states):
-        """This rank's range of positions of whole decode states'
-        attention caches (a sequence shard); other states as they are."""
-        n = self._states_len()
-        return {key: st._replace(
-            k=st.k.narrow(attn.KV_SEQ_AXIS, self._shard.index * n, n),
-            v=st.v.narrow(attn.KV_SEQ_AXIS, self._shard.index * n, n))
-            if isinstance(st, attn.KVCache) else st
-            for key, st in states.items()}
+    def _offset(self) -> int:
+        """The first position of this rank's range of the KV caches."""
+        return 0 if self._shard is None else \
+            self._shard.index * self._states_len()
 
-    def _ensure_codec(self, row_states, tokens: int, owner: int = 0):
+    def _my_range(self, states, whole=None):
+        """This rank's range of positions of a prefill's attention caches
+        (a sequence shard), taken from ``whole`` (the row's gathered
+        states over the prompt's positions, where each rank holds every
+        KV head) or from ``states``; other states as ``states`` holds
+        them."""
+        n, off = self._states_len(), self._offset()
+
+        def part(a):
+            have = max(0, min(off + n, a.shape[attn.KV_SEQ_AXIS]) - off)
+            if have == n:
+                return a.narrow(attn.KV_SEQ_AXIS, off, n)
+            shape = list(a.shape)
+            shape[attn.KV_SEQ_AXIS] = n
+            out = a.new_zeros(shape)
+            if have:
+                out.narrow(attn.KV_SEQ_AXIS, 0, have).copy_(
+                    a.narrow(attn.KV_SEQ_AXIS, off, have))
+            return out
+        src = states if whole is None else whole
+        return {key: src[key]._replace(k=part(src[key].k), v=part(src[key].v))
+                if isinstance(st, attn.KVCache) else st
+                for key, st in states.items()}
+
+    def _ensure_codec(self, row_states, tokens: int, owner: int = 0,
+                      gathered: bool = False):
         """Build the shared block codec, calibrating the registry's
-        ``kv/layer{i}`` entries from the first prefill when absent. With
-        the slots split over the data column, data replica ``owner`` ran
-        that prefill: it calibrates, over its model row, and broadcasts
-        the entries over the column."""
+        ``kv/layer{i}`` entries from the first prefill when absent
+        (``gathered``: ``row_states`` are already the whole model's).
+        With the slots split over the data column, data replica
+        ``owner`` ran that prefill: it calibrates, over its model row,
+        and broadcasts the entries over the column."""
         base = self.kv_spec.layer_codec(0)
         if not any(n == base or n.startswith(base + "/")
                    for n in self.registry.names()):
             if row_states is not None:
                 calibrate_cache(self.registry, self.cfg, row_states, tokens,
-                                self.kv_spec, mesh=self.mesh)
+                                self.kv_spec,
+                                mesh=None if gathered else self.mesh)
             if self._split > 1:
                 broadcast_kv_entries(self.registry, self.kv_spec.codec_prefix,
                                      self.mesh, owner)
@@ -719,9 +769,7 @@ class Engine:
         block is paged by the rank whose range holds it."""
         row = _slot_view(self._states, self._mine(seq.slot))
         bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
-        off = 0
-        if self._shard is not None:
-            off = self._shard.index * self._states_len()
+        off = self._offset()
         for i, kind in enumerate(self._kinds):
             key = f"l{i}"
             name = self.kv_spec.layer_codec(i)
@@ -774,11 +822,15 @@ class Engine:
         the sync host path (counted as a prefetch miss)."""
         row = _slot_view(self._states, self._mine(seq.slot))
         bsnap = self._snaps.take(seq.rid, t1) if self._rebase else None
+        off = self._offset()
         devs = []
         for i, kind in enumerate(self._kinds):
             key = f"l{i}"
             if kind == "attention":
-                arrays, start = attn.kv_block_slice(row[key], t0, t1), t0
+                if not off <= t0 < off + self._states_len():
+                    continue            # another rank's range holds it
+                arrays = attn.kv_block_slice(row[key], t0 - off, t1 - off)
+                start = t0
             elif bsnap is not None and key in bsnap:
                 arrays, start = bsnap[key], t1
             else:
@@ -793,6 +845,8 @@ class Engine:
                 self._evict_slot(seq, t0, t1)
                 return
             devs.append(dev)
+        if not devs:
+            return
         arena = self._ensure_arena(max(d.plan.total_words for d in devs))
         for dev in devs:
             try:
@@ -858,9 +912,10 @@ class Engine:
             self._supersede_snapshot(seq, dev.layer, digest)
             return
         k2, v2 = arrays
+        t0 = dev.start - self._offset()
         attn.kv_block_restore(_slot_view(self._states,
                                          self._mine(seq.slot))[dev.layer],
-                              dev.start, dev.start + dev.tokens, k2, v2)
+                              t0, t0 + dev.tokens, k2, v2)
 
     def _flush_pending(self, seq: _Seq):
         """Consume (or drop, if no longer running) every pending prefetch

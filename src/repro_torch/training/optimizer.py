@@ -6,8 +6,10 @@ Two state layouts:
     data-parallel rank updates its slice of the flat parameter vector.
 
 The schedule and bias-correction scalars are computed on the host in
-numpy float32 from the step count, so the update is the same bit for
-bit on the CPU and on the card (every per-element op is a single IEEE
+numpy float32 from the step count, which the state keeps on the host
+(an int32 scalar tensor beside moments on any device: reading it waits
+for nothing), so the update is the same bit for bit on the CPU and on
+the card (every per-element op is a single IEEE
 f32 operation, no fused multiply-add). The global gradient norm
 accumulates its squares in f64 and is rounded to f32 once, so it does
 not depend on the device's summation order either. The reference does
@@ -102,15 +104,22 @@ def _adamw(p, g, m, v, cfg: OptConfig, lr, bc1, bc2):
 
 # ---- tree-state AdamW (the baseline step) ---------------------------------
 
+def _host_step() -> torch.Tensor:
+    """A fresh step count: an int32 scalar on the host, whatever device
+    the moments are on, so that the update reads it (the f32 schedule
+    is computed on the host, bit-equal on every device) without waiting
+    for the device."""
+    return torch.zeros((), dtype=torch.int32)
+
+
 def init_state(params, cfg: OptConfig) -> Dict[str, Any]:
     dt = getattr(torch, cfg.moment_dtype)
-    leaf = tree_leaves(params)[0]
     return {
         "m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
                                             device=p.device), params),
         "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
                                             device=p.device), params),
-        "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+        "step": _host_step(),
     }
 
 
@@ -143,7 +152,7 @@ def init_flat_state(seg_len: int, cfg: OptConfig, device) -> Dict[str, Any]:
     return {
         "m": torch.zeros((seg_len,), dtype=dt, device=device),
         "v": torch.zeros((seg_len,), dtype=dt, device=device),
-        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "step": _host_step(),
     }
 
 

@@ -7,6 +7,8 @@ import logging
 import time
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch.checkpoint.manager import CheckpointManager, Layout
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime.fault import StragglerWatchdog
@@ -87,6 +89,10 @@ class Trainer:
         (params, opt_state), extra = self.ckpt.restore(
             (params, opt_state), step=step, device=device,
             layout=self.layout, in_place=True)
+        if isinstance(opt_state.get("step"), torch.Tensor):
+            # restored on the parameters' device; the update reads it on
+            # the host (training.optimizer)
+            opt_state["step"] = opt_state["step"].cpu()
         self.ckpt_seconds["restore"] = dict(
             self.ckpt.timings, total=time.perf_counter() - t0)
         start_step = int(extra.get("step", step))

@@ -304,7 +304,8 @@ def test_seq_split_engine_equals_one_rank(worlds):
 def test_engine_refuses_what_the_data_column_cannot_hold():
     """Slots that do not divide over the data column raise a
     ``ValueError`` naming both numbers; async paging over a
-    sequence-split cache is not ported (item 21)."""
+    sequence-split cache is served: the engine holds its rank's range of
+    the rounded positions."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import init_params
     from repro_torch.parallel.sharding import make_rules, use_rules
@@ -315,10 +316,13 @@ def test_engine_refuses_what_the_data_column_cannot_hold():
                   data_group=None, model_group=None)
     with pytest.raises(ValueError, match="max_batch 3 .* data axis of 2"):
         Engine(params, cfg, max_seq_len=16, max_batch=3, mesh=layout)
-    with use_rules(make_rules(decode_seq_shard=True)), \
-            pytest.raises(NotImplementedError, match="item 21"):
-        Engine(params, cfg, max_seq_len=16, mesh=layout, kv_paging="async",
-               kv_spec=KVCacheSpec(block_tokens=4, exact_capacity=False))
+    with use_rules(make_rules(decode_seq_shard=True)):
+        eng = Engine(params, cfg, max_seq_len=18, mesh=layout,
+                     kv_paging="async",
+                     kv_spec=KVCacheSpec(block_tokens=4,
+                                         exact_capacity=False))
+    assert eng.max_seq_len == 24 and eng._shard.size == 2
+    assert eng._states["l0"].k.shape[2] == 12 and eng._offset() == 0
 
 
 @pytest.mark.parametrize("chunk", [3, 8])

@@ -424,14 +424,21 @@ def test_run_cell_writes_the_reference_keys_and_reanalyzes(tmp_path):
 
 
 def test_cell_rules_name_what_the_port_does_differently():
+    """A decode cell runs under the reference's decode rules (the cache's
+    sequence over ``model`` where the KV heads do not divide it, over
+    ``("data", "model")`` at a batch of 1), so ``rules_differ`` names
+    FSDP alone (ROADMAP queue 1, item 22), and nothing of the KV cache."""
     mesh = dataclasses.make_dataclass("M", [("shape", dict)])(
         {"data": 16, "model": 16})
     coder = get_config("deepseek-coder-33b")
-    _, differ = dryrun.cell_rules(coder, DECODE_32K, mesh, "baseline")
-    assert any(d.startswith("kv_seq -> model") for d in differ)
-    _, differ = dryrun.cell_rules(get_config("jamba-1.5-large-398b"),
-                                  LONG_500K, mesh, "baseline")
-    assert any(d.startswith("kv_seq -> (data, model)") for d in differ)
+    rules, differ = dryrun.cell_rules(coder, DECODE_32K, mesh, "baseline")
+    assert rules.rules["kv_seq"] == "model" and not rules.param_overrides
+    rules, differ2 = dryrun.cell_rules(get_config("jamba-1.5-large-398b"),
+                                       LONG_500K, mesh, "baseline")
+    assert rules.rules["kv_seq"] == ("data", "model")
+    assert rules.rules["batch"] is None
+    for d in differ + differ2:
+        assert d.startswith("fsdp") and "kv" not in d and "21" not in d
     rules, differ = dryrun.cell_rules(
         get_config("phi3-mini-3.8b"), ShapeConfig("t", 8, 8, "train"), mesh,
         "baseline")
@@ -441,3 +448,49 @@ def test_cell_rules_name_what_the_port_does_differently():
         get_config("phi3-mini-3.8b"), ShapeConfig("t", 8, 8, "train"), mesh,
         "qlc")
     assert differ == []
+
+
+@pytest.mark.parametrize("batch", [8, 1], ids=["model", "data_model"])
+def test_decode_cell_holds_its_part_of_the_kv_cache(batch):
+    """A decode cell whose 3 KV heads do not divide the model axis, on a
+    fake 2 x 2 world: at batch 8 (``kv_seq -> model``, the batch over
+    ``data``) a rank's KV cache is ``1 / (data * model)`` of the whole,
+    its positions ``1 / model``; at batch 1 (``kv_seq -> ("data",
+    "model")``) ``1 / 4`` of the whole, in positions. The counted step
+    all-gathers the partial attentions once a layer over the sequence
+    shard's group: the model row, or the world. ``kv_cache_bytes``, which
+    the dry run writes, counts the same bytes."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import init_decode_states
+    from repro_torch.models.attention import KVCache
+    from repro_torch.parallel import sharding as shd
+    cfg = reduced(get_config("chatglm3-6b"), num_heads=6, num_kv_heads=3)
+    shape = ShapeConfig("d", SEQ, batch, "decode")
+
+    def kv_bytes(states):
+        return sum(t.numel() * t.element_size() for st in states.values()
+                   if isinstance(st, KVCache) for t in (st.k, st.v))
+    whole = kv_bytes(init_decode_states(cfg, batch, SEQ, "meta"))
+    dryrun._fake_world(4)
+    try:
+        mesh, _ = dryrun._mesh_for(4)
+        rules, differ = dryrun.cell_rules(cfg, shape, mesh, "baseline")
+        with shd.use_rules(rules), use_mesh(mesh), FakeTensorMode():
+            _, (_, states, _, _) = dryrun.build_cell(
+                cfg, shape, mesh, "baseline", "cpu", None)
+            local = kv_bytes(states)
+            k = states["l0"].k
+        assert dryrun.kv_cache_bytes(cfg, shape, mesh, "baseline") == local
+        rec, _ = dryrun.count_cell(cfg, shape, mesh, "baseline")
+        group = mesh.model_group if batch > 1 else mesh.world_group
+        gathers = rec.coll_groups[group.group_name]["shapes"]
+        size = group.size()
+    finally:
+        dist.destroy_process_group()
+    assert local * 4 == whole
+    assert k.shape[2] == SEQ // (2 if batch > 1 else 4)
+    assert k.shape[3] == cfg.num_kv_heads
+    # one result a rank of the group, each [b, 1, KV, G, head_dim + 2]
+    part = [n for key, n in gathers.items() if key.startswith("all-gather")
+            and key.endswith(f", {cfg.resolved_head_dim + 2}]")]
+    assert sum(part) == cfg.num_layers * size, gathers

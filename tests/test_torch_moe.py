@@ -311,6 +311,104 @@ def test_expert_parallel_on_gloo_ranks(ep_layouts, model):
                     r["modeled_wire_bytes_per_symbol"]
 
 
+#: ``grouped_local`` over 2 data ranks: 24 tokens, 12 a rank, in 1 group
+#: (both ranks' tokens) and in 3 groups of 8 (the middle one straddles
+#: the ranks); capacity factor 0.5, so that every group drops
+GROUPS = (1, 3)
+GROUPS_MOE = dict(TINY["moe"], capacity_factor=0.5)
+GROUPS_TRAIN = {"cfg": {"dtype": "float32"},
+                "run": dict(steps=2, seq_len=16, global_batch=4)}
+
+
+@pytest.fixture(scope="module")
+def straddling():
+    """``torch_dist.moe_groups`` on a world of 2 gloo ranks laid out
+    2 x 1 -> (the reference's config maker, its params, x, the ranks'
+    results)."""
+    jc = JModelConfig(moe=JMoEConfig(**GROUPS_MOE), **TINY["model"])
+    jp = jmoe.init_moe(jax.random.PRNGKey(3), jc, jnp.float32)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 12, jc.d_model)).astype(np.float32)
+    out = run_ranks("moe_groups", 2,
+                    cfg_kw={"model": TINY["model"], "moe": GROUPS_MOE},
+                    params=jax.tree.map(np.asarray, jp), x=x, groups=GROUPS,
+                    train_kw=GROUPS_TRAIN)
+    return jc, jp, x, out
+
+
+def _ref_grouped(jp, x, jc, g):
+    """The reference's unsharded ``grouped_local`` over ``g`` groups: its
+    output, the gradients of ``sum(y ** 2)`` and its kept assignments
+    (each group's arrival positions under its capacity)."""
+    jc = dataclasses.replace(jc, moe=dataclasses.replace(
+        jc.moe, impl="grouped_local", dispatch_groups=g))
+    m = jc.moe
+
+    def loss(p):
+        return (jmoe.moe_block(p, jnp.asarray(x), jc) ** 2).sum()
+
+    y = np.asarray(jmoe.moe_block(jp, jnp.asarray(x), jc))
+    grads = jax.grad(loss)(jp)
+    xf = jnp.asarray(x).reshape(-1, jc.d_model)
+    idx, _, _ = jmoe._route(jp, xf, m)
+    ng = xf.shape[0] // g
+    keep = [np.asarray(jmoe._positions_in_expert(e, m.num_experts)
+                       < jmoe._capacity(ng, m))
+            for e in np.asarray(idx).reshape(g, -1)]
+    return y, grads, np.concatenate(keep)
+
+
+def test_grouped_local_one_group_over_ranks_is_gspmd(straddling):
+    """``grouped_local`` at one dispatch group over 2 data ranks (the
+    group holds both ranks' tokens) is ``gspmd`` under ``batch_over``
+    on the same ranks, bit for bit: each rank's output, kept
+    assignments and the gradients summed over the column; and two
+    baseline training steps of reduced deepseek-moe-16b give the same
+    losses and parameters."""
+    _, _, _, out = straddling
+    for r in out:
+        for a, b in zip(r["grouped_local/1"][:2], r["gspmd/1"][:2]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(r["grouped_local/1"][2], r["gspmd/1"][2]):
+            np.testing.assert_array_equal(a, b)
+        (lg, pg), (ls, ps) = r["train"]["grouped_local"], r["train"]["gspmd"]
+        assert lg == ls and len(lg) == GROUPS_TRAIN["run"]["steps"]
+        for a, b in zip(pg, ps):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("g", GROUPS)
+def test_grouped_local_straddling_groups_match_reference(straddling, g):
+    """``grouped_local`` over 2 data ranks at each group count, the
+    middle of 3 groups straddling the ranks: the ranks' outputs in rank
+    order within the stated tolerance of the reference's unsharded
+    ``_moe_grouped`` on the whole batch, and the kept assignments
+    exactly the reference's (some are dropped); the gradients summed over
+    the column within the reference's tolerance of the port's own
+    unsharded ``grouped_local``, and within rtol 1e-5 of the
+    reference's, with an absolute 1e-6 of each leaf's largest entry:
+    the gradients' f32 sums of terms up to ~40 round differently in
+    each framework, and the port's one-process ``grouped_local`` itself
+    sits up to 2.3e-5 from the reference on leaves of magnitude 47."""
+    jc, jp, x, out = straddling
+    y, grads, keep = _ref_grouped(jp, x, jc, g)
+    got = np.concatenate([r[f"grouped_local/{g}"][0] for r in out])
+    np.testing.assert_allclose(got, y, **TOL)
+    kept = np.concatenate([r[f"grouped_local/{g}"][1] for r in out])
+    np.testing.assert_array_equal(kept, keep)
+    assert not keep.all()
+    tc = ModelConfig(moe=MoEConfig(**GROUPS_MOE, impl="grouped_local",
+                                   dispatch_groups=g), **TINY["model"])
+    one = _grads(params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"), x,
+                 tc)
+    want = [np.asarray(a) for a in jax.tree.leaves(grads)]
+    for r in out:
+        for a, b, w in zip(r[f"grouped_local/{g}"][2], one, want):
+            np.testing.assert_allclose(a, b, **TOL)
+            np.testing.assert_allclose(a, w, rtol=1e-5,
+                                       atol=1e-6 * np.abs(w).max())
+
+
 def test_calibrate_moe_entries_matches_reference(monkeypatch):
     """The same captured streams into both packages' calibration give
     the same registry (scheme-ids, tables, plans), which loads in both

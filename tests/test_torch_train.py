@@ -195,6 +195,49 @@ def test_tree_update_matches_reference(model):
                                    atol=1e-8)
 
 
+def test_step_count_is_read_on_the_host(model):
+    """The optimizers' step count lives on the host whatever device the
+    moments are on: over a ``"meta"`` parameter tree (no values) both
+    states' steps read as 0 with ``int()``; three updates from a host
+    step are bit-equal to three from a step on the parameters' device,
+    the way the state kept it before, and leave the count on the host
+    at 3."""
+    _, _, _, tp = model
+    cfg = topt.OptConfig(lr=1e-2, warmup_steps=2, total_steps=20)
+    meta = {"w": torch.zeros((4, 8), device="meta")}
+    for st in (topt.init_state(meta, cfg),
+               topt.init_flat_state(64, cfg, "meta")):
+        assert st["step"].device.type == "cpu" and int(st["step"]) == 0
+        assert pytree_leaves(st["m"])[0].device.type == "meta"
+    rng = np.random.default_rng(7)
+    tg = pytree_unflatten(tp, [torch.from_numpy(rng.standard_normal(
+        a.shape).astype(np.float32)) for a in pytree_leaves(tp)])
+    host = topt.init_state(tp, cfg)
+    old = dict(topt.init_state(tp, cfg), step=torch.zeros(
+        (), dtype=torch.int32, device=pytree_leaves(tp)[0].device))
+    flat_p, flat_g = pytree_leaves(tp)[0].reshape(-1), \
+        pytree_leaves(tg)[0].reshape(-1)
+    flat = topt.init_flat_state(flat_p.numel(), cfg, flat_p.device)
+    flat_old = dict(flat, step=torch.zeros((), dtype=torch.int32,
+                                           device=flat_p.device))
+    pa = pb = tp
+    fa = fb = flat_p
+    gnorm = torch.linalg.vector_norm(flat_g)
+    for _ in range(3):
+        pa, host, _ = topt.apply_update(pa, tg, host, cfg)
+        pb, old, _ = topt.apply_update(pb, tg, old, cfg)
+        fa, flat, _ = topt.apply_flat_update(fa, flat_g, flat, cfg, gnorm)
+        fb, flat_old, _ = topt.apply_flat_update(fb, flat_g, flat_old, cfg,
+                                                 gnorm)
+    def leaves(p, st, f):
+        return (pytree_leaves(p) + pytree_leaves(st["m"])
+                + pytree_leaves(st["v"]) + [f])
+    for a, b in zip(leaves(pa, host, fa), leaves(pb, old, fb)):
+        assert torch.equal(a, b)
+    for st in (host, flat):
+        assert st["step"].device.type == "cpu" and int(st["step"]) == 3
+
+
 def test_compressed_step_tracks_reference_step(model):
     """The port's compressed step (one gloo rank, K1/K2's plain versions)
     against the reference's (a 1 x 1 data x model mesh, its pure codec)

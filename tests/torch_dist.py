@@ -533,6 +533,64 @@ def moe_layout(ctx, model, cfg_kw, params, x, registry_json, train_kw):
     return out
 
 
+def moe_groups(ctx, cfg_kw, params, x, groups, train_kw):
+    """``grouped_local`` over the data column of this world (``W x 1``),
+    the batch declared over it (``moe.batch_over``): this rank takes its
+    rows of ``x`` [B, S, D] and runs one MoE FFN (``params``, numpy) as
+    ``gspmd`` and as ``grouped_local`` at each of ``groups`` dispatch
+    groups, keeping its output, its routing's kept assignments and the
+    gradients of ``sum(y ** 2)`` summed over the column; then
+    ``launch.train.train`` of reduced deepseek-moe-16b (``train_kw``:
+    ``cfg`` overrides and ``run`` keywords) as ``gspmd`` and as
+    ``grouped_local`` at one group -> {impl: (y, keep, grads)}, and
+    ``"train"``: {impl: (losses, the final parameters' leaves)}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (pytree_leaves,
+                                                pytree_unflatten)
+    mesh = make_test_mesh(model=1)
+    rows = x.shape[0] // mesh.data
+    d = mesh.coords[0]
+    xl = torch.from_numpy(np.ascontiguousarray(x[d * rows:(d + 1) * rows]))
+    p = params_from_numpy(params, "cpu")
+    out = {}
+    for impl, g in [("gspmd", 1)] + [("grouped_local", g) for g in groups]:
+        cfg = ModelConfig(moe=MoEConfig(**cfg_kw["moe"], impl=impl,
+                                        dispatch_groups=g),
+                          **cfg_kw["model"])
+        live = [t.clone().requires_grad_(True) for t in pytree_leaves(p)]
+        routing = []
+        with use_mesh(mesh), moe.batch_over(mesh.data_group), \
+                moe.capture_moe_routing(routing):
+            y = moe.moe_block(pytree_unflatten(p, live), xl, cfg)
+        grads = []
+        for gr in torch.autograd.grad((y ** 2).sum(), live):
+            gr = gr.clone()
+            torch.distributed.all_reduce(gr, group=mesh.data_group)
+            grads.append(gr.numpy())
+        out[f"{impl}/{g}"] = (y.detach().numpy(),
+                              routing[0]["keep"].numpy(), grads)
+    tcfg = reduced(get_config("deepseek-moe-16b"), **train_kw["cfg"])
+    runs = {}
+    with use_mesh(mesh):
+        for impl in ("gspmd", "grouped_local"):
+            c = dataclasses.replace(tcfg, moe=dataclasses.replace(
+                tcfg.moe, impl=impl, dispatch_groups=1))
+            res = train(c, comm="baseline", device="cpu", **train_kw["run"])
+            runs[impl] = ([h["loss"] for h in res["history"]],
+                          [t.detach().numpy().copy()
+                           for t in pytree_leaves(res["params"])])
+    out["train"] = runs
+    return out
+
+
 def wire_sharded(ctx, wires, variants):
     """The chunk-sharded weight-wire open: for each ``(wired, manifest)``
     of ``wires`` (the port's wired tree and its manifest), this rank
@@ -1117,10 +1175,11 @@ class _Logits:
 
 
 def _engine_run(params, cfg, prompts, new_tokens, max_seq_len, batch, mesh,
-                rids=None, **kw):
+                rids=None, stats=None, **kw):
     """An engine's run over ``prompts`` -> (tokens by request id,
     events, the KV registry's JSON or None, stats' counts, the logits of
-    every decode step and prefill step)."""
+    every decode step and prefill step). ``stats``: a dict that gets the
+    engine's ``stats()`` and, under ``"engine"``, the engine."""
     from repro_torch.serving import Engine, GenerationRequest
     with _Logits() as logits:
         eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
@@ -1131,6 +1190,8 @@ def _engine_run(params, cfg, prompts, new_tokens, max_seq_len, batch, mesh,
                                          request_id=rid))
         eng.run()
     st = eng.stats()
+    if stats is not None:
+        stats.update(st, engine=eng)
     counts = {k: st[k] for k in ("steps", "requests", "prefill_tokens",
                                  "decode_tokens")}
     return ({rid: eng.poll(rid).tokens for rid in ids}, eng.events,
@@ -1314,6 +1375,145 @@ def dp_serve(ctx, split=(), seq=(), models=(), engine=None, new_tokens=8,
             if split else None,
             "seq": seq_decode(ctx, list(seq), list(models)),
             "engine": None if engine is None else seq_engine(ctx, **engine)}
+
+
+#: rule id -> the sharding rules' extras of the reference's decode
+#: layouts (``parallel.sharding.make_rules(extra=...)``), and the data
+#: column's split (``decode_seq_shard=True``)
+SEQ_RULES = {"model": {"kv_seq": "model"},
+             "both": {"kv_seq": ("data", "model"), "batch": None},
+             "data": {"kv_seq": ("data",), "batch": None}}
+
+
+def seq_rules(rule: str):
+    from repro_torch.parallel.sharding import make_rules
+    return make_rules(extra=SEQ_RULES[rule])
+
+
+def seq_split_decode(ctx, cases):
+    """Teacher-forced decode under a sequence split of the KV caches, per
+    case (``name``, ``arch``, ``cfg_kw``, ``params``: the whole tree as
+    numpy, ``tokens`` [B, P + T], ``prompt`` P, ``model``: the model
+    axis, the data axis the rest of this world, ``rule``: a key of
+    :data:`SEQ_RULES`): the prompt in one multi-token ``decode_step`` on
+    the row's heads under the default rules, the whole states gathered
+    over the row and cut as the case's rules cut them
+    (``convert.shard_decode_states``), then T one-token steps under
+    those rules. Under ``"model"`` the batch splits over the data
+    column: this rank decodes its data index's rows -> {name: (logits
+    [T + 1, b, V], the first of the batch's rows this rank decoded, the
+    positions of its caches)}."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import (params_from_numpy, shard_decode_states,
+                                     shard_params)
+    from repro_torch.launch.mesh import make_test_mesh, model_row, use_mesh
+    from repro_torch.models import decode_step, init_decode_states
+    from repro_torch.models import attention as attn
+    from repro_torch.parallel.sharding import use_rules
+    from repro_torch.serving.kv_cache import gather_row_states
+    out, meshes = {}, {}
+    for case in cases:
+        model = case["model"]
+        if model not in meshes:
+            meshes[model] = make_test_mesh(model=model)
+        mesh = meshes[model]
+        d, m = mesh.coords
+        row = model_row(mesh)
+        cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+        local = shard_params(params_from_numpy(case["params"], "cpu"), cfg,
+                             m, mesh.model)
+        toks = torch.from_numpy(np.asarray(case["tokens"])).long()
+        first = 0
+        if case["rule"] == "model":
+            rows = toks.shape[0] // mesh.data
+            first = d * rows
+            toks = toks[first:first + rows]
+        b, n = toks.shape
+        p = case["prompt"]
+        logits = []
+        with torch.no_grad(), use_mesh(mesh):
+            st = init_decode_states(cfg, b, n, "cpu", row=row)
+            pos = torch.arange(p, dtype=torch.int32)[None].expand(b, p)
+            lg, st = decode_step(local, cfg, toks[:, :p], st, pos)
+            logits.append(lg[:, -1])
+            whole = gather_row_states(cfg, st, n, row)
+            with use_rules(seq_rules(case["rule"])):
+                st = shard_decode_states(
+                    whole, cfg, m, mesh.model,
+                    *((0, 1) if case["rule"] == "model" else (d, mesh.data)))
+                for t in range(p, n):
+                    lg, st = decode_step(
+                        local, cfg, toks[:, t:t + 1], st,
+                        torch.full((b, 1), t, dtype=torch.int32))
+                    logits.append(lg[:, 0])
+        cache = next(s for s in st.values() if isinstance(s, attn.KVCache))
+        out[case["name"]] = (torch.stack(logits).numpy(), first,
+                             tuple(cache.k.shape[2:4]))
+    return out
+
+
+def seq_split_engine(ctx, cases, new_tokens, kv_block):
+    """``Engine(mesh=)`` under a sequence split of the KV caches, per case
+    (``name``, ``arch``, ``cfg_kw``, ``params``: the whole tree as
+    numpy, ``prompts``, ``model``, ``rule``: a key of
+    :data:`SEQ_RULES`, ``batch``): the rank's local tree, dense and
+    paged sync and async -> {name: {kind: (tokens by request id, events,
+    KV registry JSON, counts)}, plus ``"<kind>_pages"``: this rank's
+    pooled blocks and prefetch decodes scheduled, ``"windows"``: its
+    async windows, and ``"positions"``:
+    the rounded ``max_seq_len``, this rank's first position, its cache
+    positions and KV heads}."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import use_rules
+    from repro_torch.serving import KVCacheSpec
+    out, meshes = {}, {}
+    for case in cases:
+        model = case["model"]
+        if model not in meshes:
+            meshes[model] = make_test_mesh(model=model)
+        mesh = meshes[model]
+        cfg = _serve_cfg(case["arch"], case["cfg_kw"])
+        local = shard_params(params_from_numpy(case["params"], "cpu"), cfg,
+                             mesh.coords[1], mesh.model)
+        prompts = np.asarray(case["prompts"])
+        max_len = prompts.shape[1] + new_tokens + 3
+        runs = {}
+        with torch.no_grad(), use_rules(seq_rules(case["rule"])):
+            for kind in ("dense", "sync", "async"):
+                kw = {} if kind == "dense" else dict(
+                    kv_paging=kind, pool=BlockPool(1 << 30),
+                    kv_spec=KVCacheSpec(block_tokens=kv_block,
+                                        exact_capacity=kind == "sync",
+                                        axis="model"))
+                stats = {}
+                res = _engine_run(local, cfg, prompts, new_tokens, max_len,
+                                  case["batch"], mesh, stats=stats, **kw)
+                runs[kind] = res[:4]
+                if kind != "dense":
+                    runs[kind + "_pages"] = (
+                        stats["pool"]["unique_blocks"],
+                        stats.get("prefetch", {}).get("scheduled", 0))
+                if kind == "async":
+                    runs["windows"] = stats["async"]["windows"]
+                    k = stats["engine"]._states["l0"].k
+                    runs["positions"] = (stats["engine"].max_seq_len,
+                                         stats["engine"]._offset(),
+                                         k.shape[2], k.shape[3])
+        out[case["name"]] = runs
+    return out
+
+
+def seq_serve(ctx, decode=(), engine=(), new_tokens=8, kv_block=4):
+    """:func:`seq_split_decode` and :func:`seq_split_engine` in one
+    world."""
+    return {"decode": seq_split_decode(ctx, list(decode)),
+            "engine": seq_split_engine(ctx, list(engine), new_tokens,
+                                       kv_block)}
 
 
 if __name__ == "__main__":

@@ -41,20 +41,28 @@ histogram, the QLC wire of its blocks, the dense engine), then
 ``KVCacheSpec(axis="model")``). Over a data column (M < N) the slots
 split over it; with ``--decode-seq-shard``
 (``make_rules(decode_seq_shard=True)`` in scope) the KV caches'
-sequence does instead, and paging is sync only. ``--prefill-chunk``
+sequence does instead; with ``--reference-rules`` the reference's decode
+rules for the arch, ``--batch`` and the mesh
+(``parallel.sharding.decode_rules``: the KV caches' sequence over the
+model row where the KV heads do not divide it, the slots over the data
+column; at ``--batch 1`` the sequence over every rank). ``--prefill-chunk``
 feeds long prompts that many tokens a step, ``--dtype`` sets the compute
 dtype. Checks on every rank, once the mesh has gathered every rank's
 outcome: tokens, events and every registry's digest the same on every
-rank, every step's logits (hashed) the same over each row (under the
-sequence split, on every rank); the paged runs' tokens equal to the
-dense engine's; no overflow fallback (async prefetch misses, blocks
-redone on the sync path, are reported). Over a data column of a dense
+rank, every step's logits (hashed) the same over each row (under a
+sequence split without a slot split, on every rank); the paged runs'
+tokens equal to the dense engine's; no overflow fallback (async
+prefetch misses, blocks redone on the sync path, are reported). Over a data column of a dense
 model each row then serves its replica's requests alone (a ``1 x M``
 engine at ``batch / (N / M)``, fed in order the requests the split
 schedule put there; ``serving.scheduler.replica_requests``): tokens and
 every step's logits equal, for each run. Under the sequence split rank
 0 serves the requests alone with no mesh: tokens equal, every step's
-logits within rtol 1e-5 / atol 1e-5. For phi3 at ``1 x N`` rank 0 then
+logits within rtol 1e-5 / atol 1e-5 (with the slots split too, the
+dense and paged runs are held against each other only); with
+``--against-one-rank`` a model row without a sequence split is held so
+too (the whole tree gathered on card 0). For phi3 at
+``1 x N`` rank 0 then
 serves the whole model alone, from the same seed, and reports (not
 gates) how many requests agree with the row and the first divergent
 step's top-1 margin. Rank 0 prints ms/token prefill and decode of each
@@ -90,6 +98,9 @@ Run from the root of a checkout on a machine with N cards:
   python3 tools/tp_cards.py --serve --decode-seq-shard --model 1 \
       --arch chatglm3-6b --dtype float32 --batch 1 --requests 2 \
       --prompt-len 32640 --new-tokens 64 --kv-block 128 --prefill-chunk 256
+  python3 tools/tp_cards.py --serve --reference-rules --model 4 \
+      --arch chatglm3-6b --dtype float32 --batch 4 --prompt-len 32640 \
+      --new-tokens 64 --kv-block 128 --prefill-chunk 256
   python3 tools/tp_cards.py --ckpt --layers 8 --model 2 --steps 2
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
 ranks with a reduced config of the arch whose pools hold every chunk (a
@@ -570,11 +581,13 @@ def _serve_rank(rank, args, init):
     sys.path.insert(0, ROOT)
     from repro_torch.comm.blockpool import BlockPool
     from repro_torch.configs import reduced
-    from repro_torch.launch.mesh import (data_parallel, make_test_mesh,
-                                         model_row, row_mesh, use_mesh)
+    from repro_torch.launch.mesh import (data_parallel, kv_seq_shard,
+                                         make_test_mesh, row_mesh, use_mesh)
     from repro_torch.launch.serve import serve
-    from repro_torch.models import decode_step, init_decode_states
-    from repro_torch.parallel.sharding import get_rules, make_rules, use_rules
+    from repro_torch.models import decode_step
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.parallel.sharding import (decode_rules, get_rules,
+                                               make_rules, use_rules)
     from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                      engine as engine_mod, scheduler)
     from repro_torch.serving.scheduler import replica_requests
@@ -590,9 +603,8 @@ def _serve_rank(rank, args, init):
             **({} if cfg.moe else {"d_ff": 512})))
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    seq = args.decode_seq_shard
     #: the current run's logits: hashed on this rank, and kept on rank 0
-    #: under the sequence split (held against the one-rank engine)
+    #: where the run is held against the one-rank engine
     logits = {"hash": hashlib.sha256(), "keep": None}
     inner = scheduler.decode_step
 
@@ -623,7 +635,7 @@ def _serve_rank(rank, args, init):
                 torch.cuda.synchronize()
 
         n_params = sum(math.prod(v) for v in _leaf_shapes(cfg))
-        pagings = ("sync",) if seq else ("sync", "async")
+        pagings = ("sync", "async")
         say(f"{cfg.name}: {cfg.num_layers} layers "
             f"({'/'.join(cfg.layer_kinds())}), d_model {cfg.d_model}, "
             f"{cfg.num_heads} / {cfg.num_kv_heads} heads x "
@@ -637,14 +649,32 @@ def _serve_rank(rank, args, init):
             f"prefill {args.prefill_chunk} tokens a step, --wire qlc, "
             f"--kv-cache qlc --kv-block {args.kv_block} "
             f"({', '.join(pagings)}); {args.cards} ranks ({args.device})"
-            + ("; make_rules(decode_seq_shard=True)" if seq else ""))
+            + ("; make_rules(decode_seq_shard=True)"
+               if args.decode_seq_shard else "")
+            + ("; the reference's decode rules" if args.reference_rules
+               else ""))
         for model in args.model:
             mesh = make_test_mesh(model=model)
             data = mesh.data
-            tag = f"{data} x {model}" + (" seq" if seq else "")
-            rules = make_rules(decode_seq_shard=True) if seq else get_rules()
+            rules = (decode_rules(cfg, args.batch, mesh)
+                     if args.reference_rules
+                     else make_rules(decode_seq_shard=True)
+                     if args.decode_seq_shard else get_rules())
+            with use_rules(rules):
+                shard = kv_seq_shard(mesh)
+            # the sequence split, and the slots split over the column
+            seq = shard is not None
+            split = data > 1 and rules.spec(("batch",), mesh=mesh)[0] \
+                == "data"
+            # a run held against the one-rank engine on card 0: every
+            # sequence split, and with --against-one-rank a model row
+            # without one
+            alone = not split and (seq or (model > 1
+                                           and args.against_one_rank))
+            tag = f"{data} x {model}" + (
+                f" kv_seq over {'/'.join(shard.axes)}" if seq else "")
             # the replica-alone reference of a split (dense models)
-            sub = (row_mesh(mesh) if data > 1 and not seq
+            sub = (row_mesh(mesh) if split and not seq
                    and cfg.moe is None else None)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
@@ -652,7 +682,7 @@ def _serve_rank(rank, args, init):
             row_out = {"layout": tag, "rank": rank}
             runs, regs, toks, events, hashes = {}, {}, {}, {}, {}
             with use_mesh(mesh), use_rules(rules):
-                fresh_logits(keep=seq and rank == 0)
+                fresh_logits(keep=alone and rank == 0)
                 sync()
                 t0 = time.perf_counter()
                 res = serve(cfg, batch=args.batch, requests=args.requests,
@@ -711,25 +741,28 @@ def _serve_rank(rank, args, init):
                     if paging == "async":
                         row_out["async_misses"] = st["prefetch"]["misses"]
                     regs[paging] = eng.registry.to_json()
-                    state_len = eng._states_len()
+                    states = tree_map(torch.zeros_like, eng._states)
+                    row_out["positions"] = (eng.max_seq_len, eng._offset(),
+                                            eng._states_len())
                     del eng
                 row_out["steps"] = _step_counts(
-                    decode_step, opened, cfg, init_decode_states(
-                        cfg, args.batch // (1 if seq else data), state_len,
-                        dev, row=model_row(mesh)), args.batch
-                    // (1 if seq else data), dev, cuda)
+                    decode_step, opened, cfg, states, args.batch
+                    // (data if split else 1), dev, cuda)
+                del states
                 if sub is not None:
                     row_out["replica"] = _replica_alone(
                         Engine, GenerationRequest, BlockPool, opened, cfg,
                         args, sub, mesh, dict(kv, dense={}), events, toks,
                         hashes, ids, prompts, max_len, replica_requests,
                         fresh_logits, logits)
-            if seq:
+            if alone:
+                whole = (_row_whole(opened, cfg, mesh) if model > 1
+                         else opened)
                 row_out["one_rank"] = _seq_against_one_rank(
-                    rank, Engine, GenerationRequest, opened, cfg, args, ids,
+                    rank, Engine, GenerationRequest, whole, cfg, args, ids,
                     prompts, max_len, toks["dense"], kept, fresh_logits,
                     logits)
-            kept = None
+            kept = whole = None
             row_out["ms_per_token"] = {
                 k: {"prefill": v["ms_per_token_prefill"],
                     "decode": v["ms_per_token_decode"]}
@@ -758,7 +791,7 @@ def _serve_rank(rank, args, init):
             # a replica's logits are its own rows' (seq: every rank's)
             rows = [gathered[r:r + model] for r in range(0, args.cards, model)]
             if any(g["logits_sha256"] != r[0]["logits_sha256"]
-                   for r in ([gathered] if seq else rows) for g in r):
+                   for r in (rows if split else [gathered]) for g in r):
                 failed.append("logits differ over a row: "
                               f"{[g['logits_sha256'] for g in gathered]}")
             failed += [f"{paging} paging is not token-identical to the "
@@ -784,7 +817,8 @@ def _serve_rank(rank, args, init):
                 "(dense); "
                 + (f"async prefetch misses (blocks redone on the sync "
                    f"path) by rank {[g['async_misses'] for g in gathered]}; "
-                   if not seq else "")
+                   f"positions (max_seq_len, first, held) by rank "
+                   f"{[g['positions'] for g in gathered]}; ")
                 + ("; ".join(f"FAILED: {f}" for f in failed) if failed
                    else "the same on every rank, paged token-identical to "
                    "the dense engine, no overflow fallback"))
@@ -798,7 +832,8 @@ def _serve_rank(rank, args, init):
             say(f"[{tag}] ms/token prefill / decode: " + ", ".join(
                 f"{k} {v['prefill']:.3f} / {v['decode']:.3f}"
                 for k, v in r0["ms_per_token"].items())
-                + f"; a decode step (batch {args.batch // (1 if seq else data)}"
+                + "; a decode step (batch "
+                f"{args.batch // (data if split else 1)}"
                 f" a rank): {r0['steps']['launches']} kernel launches, "
                 f"{r0['steps']['all_reduces']} all-reduces and "
                 f"{r0['steps']['all_gathers']} all-gathers, "
@@ -866,13 +901,36 @@ def _replica_alone(Engine, GenerationRequest, BlockPool, opened, cfg, args,
     return out
 
 
+def _row_whole(tree, cfg, mesh, prefix=""):
+    """The whole parameter tree from the model row's local trees (``tree``
+    this rank's): each split leaf all-gathered over the row and joined
+    along the dim it is split on. Every rank of the row calls this."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import leaf_model_dims
+    dims = leaf_model_dims(cfg, mesh.model)
+    out = {}
+    for key, leaf in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(leaf, dict):
+            out[key] = _row_whole(leaf, cfg, mesh, path)
+        elif dims.get(path) is None:
+            out[key] = leaf
+        else:
+            parts = [torch.empty_like(leaf) for _ in range(mesh.model)]
+            dist.all_gather(parts, leaf.contiguous(), group=mesh.model_group)
+            out[key] = torch.cat(parts, dim=dims[path])
+    return out
+
+
 def _seq_against_one_rank(rank, Engine, GenerationRequest, opened, cfg,
                           args, ids, prompts, max_len, tokens, kept,
                           fresh_logits, logits):
     """Rank 0 serves the same requests with no mesh on its card alone:
-    its tokens must equal the sequence-split dense run's and every
-    step's logits agree to rtol 1e-5 / atol 1e-5 (the partial softmax
-    sums the terms in another order) -> {"tokens_equal", "steps",
+    its tokens must equal the dense run's over the mesh (a sequence
+    split, or a model row) and every step's logits agree to rtol 1e-5 /
+    atol 1e-5 (the partial softmax, and the row's ``wo`` sums, add the
+    terms in another order) -> {"tokens_equal", "steps",
     "max_abs_err", "failed"}, None on the other ranks (which wait)."""
     import torch
     import torch.distributed as dist
@@ -896,7 +954,7 @@ def _seq_against_one_rank(rank, Engine, GenerationRequest, opened, cfg,
         out = {"tokens_equal": mine == tokens, "steps": len(theirs),
                "max_abs_err": err, "failed": []}
         if mine != tokens:
-            out["failed"].append("the split run's tokens differ from the "
+            out["failed"].append("the run's tokens differ from the "
                                  "one-rank engine's")
         if not close:
             out["failed"].append("a step's logits leave rtol 1e-5 / atol "
@@ -1048,6 +1106,15 @@ def main(argv=None):
     ap.add_argument("--decode-seq-shard", action="store_true",
                     help="--serve under make_rules(decode_seq_shard=True): "
                          "the KV caches' sequence over the data column")
+    ap.add_argument("--reference-rules", action="store_true",
+                    help="--serve under the reference's decode rules for "
+                         "the arch, --batch and the mesh: the KV caches' "
+                         "sequence over the model row where the KV heads "
+                         "do not divide it, over the whole mesh at batch 1")
+    ap.add_argument("--against-one-rank", action="store_true",
+                    help="--serve: hold a model row without a sequence "
+                         "split against the one-rank engine on card 0, "
+                         "as a split is held")
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="--serve: prompt tokens a prefill step "
                          "(attention-only stacks)")
