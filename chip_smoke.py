@@ -310,6 +310,17 @@ non-zero (nothing is caught and carried on):
                With two or more cards, ``tools/tp_cards.py --serve`` at 8
                layers over all of them.
 
+ 17. fsdp    — after dp_serve (whose runs under ``make_rules()`` and
+               the reference's decode rules now gather each layer group
+               over a data column of one, counted and required): the
+               train cell's baseline step as ZeRO-3 on a 1 x 1 mesh,
+               gathers and reduce-scatters counted, bit-equal to the
+               TP-only step; phi3-mini-3.8b at all 32 layers served under
+               the reference's decode rules from the QLC wire kept
+               compressed and opened a group at a time through the
+               sharded open of one rank (K2 each hop), token-equal to the
+               unsharded engine (``phase_fsdp``).
+
 Then a ``{"kernels": [...]}`` JSON line (each kernel's ``ms`` through
 ``ops`` and ``kernel_ms`` alone, at the parity shape and on its path),
 the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
@@ -318,8 +329,9 @@ the ``nvidia-smi`` name/power line, and, last, ``{"ok": true,
 Run from the root of a checkout:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ssm-only`` (``--variants-only``,
-``--tp-only``, ``--tp-serve-only``) runs only the build and the ssm
-(variants, tp, tp_serve) phase,
+``--tp-only``, ``--tp-serve-only``, ``--dp-serve-only``,
+``--fsdp-only``, ``--roofline-only``) runs only the build and the ssm
+(variants, tp, tp_serve, dp_serve, fsdp, roofline) phase,
 then the ``nvidia-smi`` line, and no result line.
 
 ``python3 chip_smoke.py --moe-serve-layers L`` runs only the build and
@@ -4594,13 +4606,17 @@ def _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules, dev,
                    wire="qlc", **kw):
     """``launch.serve.serve`` (from the QLC weight wire unless ``wire`` is
     ``"none"``: ``params`` served as they are) with the paged cache,
-    under ``mesh`` and the sharding ``rules``, K1-K6 and the split's
-    decode calls (:func:`_split_calls`) counted from zero -> (tokens,
-    pool stats, KV registry digest, launches, stats, split calls)."""
-    from repro_torch.launch.mesh import use_mesh
+    under ``mesh`` and the sharding ``rules``, K1-K6, the split's decode
+    calls (:func:`_split_calls`) and the FSDP gathers
+    (``launch.mesh.FSDP_COUNTS``) counted from zero -> (tokens, pool
+    stats, KV registry digest, launches, stats, split calls, FSDP
+    gathers)."""
+    from repro_torch.launch.mesh import (FSDP_COUNTS, reset_fsdp_counts,
+                                         use_mesh)
     from repro_torch.parallel.sharding import use_rules
     for fn in counters.values():
         fn.launches = 0
+    reset_fsdp_counts()
     calls, restore = _split_calls()
     try:
         with use_mesh(mesh), use_rules(rules):
@@ -4614,7 +4630,32 @@ def _dp_serve_runs(serve_mod, counters, cfg, params, mesh, rules, dev,
                                          "peak_referenced_bytes",
                                          "resident_bytes", "dedup_hits")},
             _digest(res["kv_registry"].to_json()),
-            {k: fn.launches for k, fn in counters.items()}, st, calls)
+            {k: fn.launches for k, fn in counters.items()}, st, calls,
+            FSDP_COUNTS["gathers"])
+
+
+def _check_fsdp_gathers(where, gathers, fsdp):
+    """Fail unless a run under rules that cut parameters by FSDP
+    (``fsdp``; on a 1 x 1 mesh a column of one) gathered layer groups
+    over the column, and a run without FSDP gathered none."""
+    if (gathers > 0) != fsdp:
+        raise AssertionError(f"dp_serve: {where}: {gathers} FSDP gathers")
+
+
+def _served_dense(res, mesh, rules):
+    """The dense tree a ``launch.serve.serve`` result served: under FSDP
+    its weight wire opened over the data column (here a column of one,
+    so the whole tree), else its ``params``."""
+    from repro_torch.launch.mesh import fsdp_column, use_mesh
+    from repro_torch.parallel.sharding import use_rules
+    from repro_torch.serving import open_params
+    params = res["params"]
+    if res.get("wired") is None or params["groups"] is not res["wired"]:
+        return params
+    with use_mesh(mesh), use_rules(rules):
+        groups = open_params(res["wired"], res["wire_codec"],
+                             column=fsdp_column(mesh))
+    return dict(params, groups=groups)
 
 
 def _check_split_calls(where, calls, split, over_model=False):
@@ -4724,7 +4765,8 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import init_params
-    from repro_torch.parallel.sharding import get_rules, make_rules
+    from repro_torch.parallel.sharding import (fsdp_params, get_rules,
+                                               make_rules)
     cfg = cfg or dataclasses.replace(get_config("phi3-mini-3.8b"),
                                      num_layers=TP_SERVE_LAYERS)
     glm = glm or get_config(DP_SEQ_ARCH)
@@ -4754,16 +4796,31 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                                False)
             _check_split_calls(f"{rname} rules, {paging}, 1 x 1", b[5],
                                split)
+            # make_rules() cuts parameters by FSDP: on a column of one
+            # every decode step gathers each group and opens its wire
+            fsdp = fsdp_params(rules)
+            _check_fsdp_gathers(f"{rname} rules, {paging}, no mesh", a[6],
+                                False)
+            _check_fsdp_gathers(f"{rname} rules, {paging}, 1 x 1", b[6],
+                                fsdp)
             # the split's decode writes the same blocks from other low
             # bits: their count, not their compressed bytes, must match
             pool_a, pool_b = ((p if not split else
                                {k: p[k] for k in ("unique_blocks",
                                                   "dedup_hits")})
                               for p in (a[1], b[1]))
+            # the wire opened once with no mesh, in every step under FSDP
+            same = [k for k in a[3] if not (fsdp and k == "K2")]
+            if fsdp and not b[3]["K2"] > a[3]["K2"]:
+                raise AssertionError(f"dp_serve: {rname} rules, {paging}: "
+                                     f"K2 {b[3]['K2']} launches under FSDP, "
+                                     f"{a[3]['K2']} with no mesh")
             for what, x, y in (("tokens", a[0], b[0]),
                                ("pool", pool_a, pool_b),
                                ("KV registry digest", a[2], b[2]),
-                               ("K1-K6 launches", a[3], b[3])):
+                               ("K1-K6 launches but an FSDP run's K2",
+                                {k: a[3][k] for k in same},
+                                {k: b[3][k] for k in same})):
                 if x != y:
                     raise AssertionError(
                         f"dp_serve: {rname} rules, {paging}: {what} under "
@@ -4781,7 +4838,8 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                             f"{paging}: the 1 x 1 mesh == no mesh in "
                             f"tokens, pool {pool_b}, KV registry {b[2]}, "
                             f"launches {b[3]}; pool {b[1]} (no mesh "
-                            f"{a[1]}); split decode calls {b[5]}; "
+                            f"{a[1]}); split decode calls {b[5]}; FSDP "
+                            f"gathers {b[6]}; "
                             f"{b[4]['ms_per_token_prefill']:.3f} / "
                             f"{b[4]['ms_per_token_decode']:.3f} ms/token "
                             "prefill / decode (no mesh "
@@ -4811,6 +4869,7 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
         restore()
     run_s = time.perf_counter() - t0
     _check_split_calls(f"{glm.name} at {glm_prompt}", calls, True)
+    glm_params = _served_dense(res, mesh, make_rules(decode_seq_shard=True))
     glm_launches = {k: fn.launches for k, fn in counters.items()}
     for kname in ("K1", "K2", "K3", "K4", "K6"):
         if glm_launches[kname] <= 0:
@@ -4827,7 +4886,7 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
         1, st["peak_dense_logical_bytes"])
     peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
             else float("nan"))
-    n_params = sum(t.numel() for t in _leaves(res["params"]))
+    n_params = sum(t.numel() for t in _leaves(glm_params))
     log("dp_serve", f"{glm.name}: all {glm.num_layers} layers, d_model "
                     f"{glm.d_model}, {glm.num_heads} heads over "
                     f"{glm.num_kv_heads} KV heads x {glm.resolved_head_dim}, "
@@ -4844,15 +4903,15 @@ def phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush, dev="cuda",
                     f"pooled / dense {pooled:.4f} ({ps['unique_blocks']} "
                     f"blocks); peak {peak:.2f} GiB; launches "
                     f"{glm_launches}; {run_s:.1f} s")
-    kv = check_kv_path(ops, ref, glm, res["params"],
+    kv = check_kv_path(ops, ref, glm, glm_params,
                        res["prompts"][0][:2 * glm_block], flush, dev,
                        phase="dp_serve", block=glm_block, chunk=glm_block)
-    rules_runs = dp_serve_rules(serve_mod, counters, glm, res["params"],
+    rules_runs = dp_serve_rules(serve_mod, counters, glm, glm_params,
                                 mesh, dev, rules_prompt, rules_new,
                                 glm_block, glm_chunk)
     for kname, c in rules_runs.pop("launches").items():
         launches[kname] += c
-    del res, outs
+    del res, outs, glm_params
     torch.cuda.empty_cache()
     combine = dp_serve_combine(glm, dev, flush, positions)
     return {"launches": launches, "kv": kv, "combine": combine,
@@ -4893,11 +4952,16 @@ def dp_serve_rules(serve_mod, counters, glm, params, mesh, dev, prompt_len,
                                get_rules(), dev, wire="none", **kw)
         _check_split_calls(f"{glm.name}, {paging}, no mesh", alone[5],
                            False)
+        _check_fsdp_gathers(f"{glm.name}, {paging}, no mesh", alone[6],
+                            False)
         for rname, rules in rule_sets.items():
             got = _dp_serve_runs(serve_mod, counters, glm, params, mesh,
                                  rules, dev, wire="none", **kw)
             _check_split_calls(f"{glm.name} under {rname}, {paging}",
                                got[5], True, True)
+            # both rule sets cut parameters by FSDP: a column of one
+            _check_fsdp_gathers(f"{glm.name} under {rname}, {paging}",
+                                got[6], True)
             if got[0] != alone[0]:
                 raise AssertionError(f"dp_serve: {glm.name} under {rname}, "
                                      f"{paging}: tokens {got[0]} != "
@@ -4918,7 +4982,8 @@ def dp_serve_rules(serve_mod, counters, glm, params, mesh, dev, prompt_len,
                             f"rank), f32, {paging}, prompt {prompt_len}, "
                             f"{new_tokens} new tokens, 2 requests at batch "
                             f"1: tokens == no mesh; split decode calls "
-                            f"{got[5]}; launches {got[3]}; "
+                            f"{got[5]}; FSDP gathers {got[6]}; launches "
+                            f"{got[3]}; "
                             f"{st['ms_per_token_prefill']:.4f} / "
                             f"{st['ms_per_token_decode']:.3f} ms/token "
                             f"prefill / decode (no mesh "
@@ -4926,6 +4991,130 @@ def dp_serve_rules(serve_mod, counters, glm, params, mesh, dev, prompt_len,
                             f"{alone[4]['ms_per_token_decode']:.3f})")
     out["launches"] = launches
     return out
+
+
+def phase_fsdp(qf, serve_mod, dev="cuda", cfg=None, seq_len=512,
+               global_batch=4, steps=2, serve_cfg=None, prompt_len=16,
+               new_tokens=8):
+    """FSDP on a data column of one (inside the NCCL world of one, a 1 x 1
+    mesh): (a) the train cell's baseline step (phi3-mini-3.8b, 8 of 32
+    layers, ``global_batch`` x ``seq_len``) under ``make_rules()``, each
+    layer group gathered over the column and its gradients
+    reduce-scattered (``launch.mesh.FSDP_COUNTS``; the phase fails
+    without them), bit-equal to the TP-only baseline step on the same
+    mesh (deterministic algorithms on, as around the train phases);
+    (b) the slice's decode (phi3-mini-3.8b, all 32 layers, the QLC
+    weight wire) under the reference's decode rules
+    (``serve(reference_rules=True)``: FSDP), the wire kept compressed and
+    opened a group at a time through the sharded open over the column of
+    one (K2 each hop), token-equal to the unsharded engine (the wire
+    opened once, no mesh) -> {"launches": K1 / K2 of (b), "train":
+    ms/step, gathers and reduce-scatters a step, "serve": ms/token}."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    cfg = _train_cell(cfg)
+    mesh = tmesh.make_test_mesh(model=1)
+    kw = dict(steps=steps, seq_len=seq_len, global_batch=global_batch,
+              device=dev, seed=0)
+    runs = {}
+    for name, rules in (("tp_only", None), ("fsdp", make_rules())):
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        tmesh.reset_fsdp_counts()
+        with tmesh.use_mesh(mesh), use_rules(rules):
+            res = train(cfg, comm="baseline", **kw)
+        runs[name] = {
+            "losses": [h["loss"] for h in res["history"]],
+            "step_ms": [h["dt"] * 1e3 for h in res["history"]],
+            "params": _flat_params(res["params"]),
+            "counts": dict(tmesh.FSDP_COUNTS),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if dev == "cuda" else float("nan"))}
+        del res
+    a, b = runs["tp_only"], runs["fsdp"]
+    if a["counts"]["gathers"] or a["counts"]["reduce_scatters"]:
+        raise AssertionError(f"fsdp: the TP-only step gathered: "
+                             f"{a['counts']}")
+    if not (b["counts"]["gathers"] and b["counts"]["reduce_scatters"]):
+        raise AssertionError(f"fsdp: the FSDP step did not gather and "
+                             f"reduce-scatter: {b['counts']}")
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"fsdp: losses {b['losses']} != TP-only "
+                             f"{a['losses']}")
+    require_equal("the FSDP baseline step's parameters vs the TP-only "
+                  "step's", [b["params"]], [a["params"]])
+    per_step = {k: v / steps for k, v in b["counts"].items()}
+    log("fsdp", f"{cfg.name}, {cfg.num_layers} of 32 layers, batch "
+                f"{global_batch} x {seq_len}, {steps} baseline steps on a "
+                f"1 x 1 mesh under make_rules() (a column of one): "
+                f"{per_step['gathers']:.0f} gathers and "
+                f"{per_step['reduce_scatters']:.0f} reduce-scatters a "
+                f"step; {b['params'].numel()} parameters and losses "
+                f"{b['losses']} bit-equal to the TP-only step; "
+                f"{[round(t, 3) for t in b['step_ms']]} ms/step (TP-only "
+                f"{[round(t, 3) for t in a['step_ms']]}); peak "
+                f"{b['peak_gib']:.2f} GiB (TP-only {a['peak_gib']:.2f})")
+    del runs, a, b
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    serve_cfg = serve_cfg or get_config("phi3-mini-3.8b")
+    skw = dict(batch=4, requests=4, prompt_len=prompt_len,
+               new_tokens=new_tokens, wire="qlc", device=dev, seed=0)
+    plain = serve_mod.serve(serve_cfg, **skw)
+    want = [o.tokens.tolist() for o in plain["outs"]]
+    plain_ms = plain["stats"]["ms_per_token_decode"]
+    del plain
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counters = {"K1": qf.fused_encode, "K2": qf.fused_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    tmesh.reset_fsdp_counts()
+    with tmesh.use_mesh(mesh):
+        res = serve_mod.serve(serve_cfg, reference_rules=True, **skw)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    counts = dict(tmesh.FSDP_COUNTS)
+    got = [o.tokens.tolist() for o in res["outs"]]
+    wc, wired = res["wire_codec"], res["wired"]
+    if res["params"]["groups"] is not wired:
+        raise AssertionError("fsdp: the engine did not serve the wire")
+    if got != want:
+        raise AssertionError(f"fsdp: tokens from the wire opened over the "
+                             f"column {got} != the unsharded engine's "
+                             f"{want}")
+    for kname, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{kname} was not launched on the fsdp "
+                                 "serving path")
+    if not counts["gathers"]:
+        raise AssertionError("fsdp: the decode gathered no FSDP block")
+    st = res["stats"]
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else float("nan"))
+    log("fsdp", f"{serve_cfg.name}, all {serve_cfg.num_layers} layers, "
+                f"--wire qlc under the reference's decode rules on a 1 x 1 "
+                f"mesh: {len(wc.meta)} leaves on the wire, kept compressed "
+                f"and opened a group at a time through the sharded open of "
+                f"one rank (K2 {launches['K2']} launches, K1 "
+                f"{launches['K1']}); {counts['gathers']} FSDP gathers of "
+                f"the dense leaves; tokens == the unsharded engine's; "
+                f"{st['ms_per_token_prefill']:.3f} / "
+                f"{st['ms_per_token_decode']:.3f} ms/token prefill / "
+                f"decode (the wire opened once, no mesh: {plain_ms:.3f} "
+                f"decode); peak {peak:.2f} GiB")
+    del res, wired
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "train": per_step,
+            "serve": {"decode": st["ms_per_token_decode"],
+                      "prefill": st["ms_per_token_prefill"],
+                      "plain_decode": plain_ms, "peak_gib": peak}}
 
 
 def codes_kernel_entries(src, codes_par, kv_runs, kv_times, k3_shapes):
@@ -5201,6 +5390,8 @@ def main(argv=None):
                     help="run only the build and the dp_serve phase")
     ap.add_argument("--roofline-only", action="store_true",
                     help="run only the build and the roofline phase")
+    ap.add_argument("--fsdp-only", action="store_true",
+                    help="run only the build and the fsdp phase")
     args = ap.parse_args(argv)
     # Both are read when CUDA first starts. cuBLAS reads this when it
     # first makes its handle; the train phase runs with deterministic
@@ -5281,6 +5472,12 @@ def main(argv=None):
             phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         print(smi)
         return
+    if args.fsdp_only:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with data_parallel("cuda"):
+            phase_fsdp(qf, serve_mod)
+        print(smi)
+        return
     if args.roofline_only:
         roof = start_roofline_dryruns(roof_dir)
         with data_parallel("cuda"):
@@ -5337,6 +5534,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         dps = phase_dp_serve(qf, qc, h6, ops, ref, serve_mod, flush)
         torch.cuda.empty_cache()
+        fsdp = phase_fsdp(qf, serve_mod)
+        torch.cuda.empty_cache()
         resume = phase_ckpt_resume(qf, h6, reduced, get_config)
         auto = phase_autotune(qf, tr, flush)
         adapt = phase_adapt(qf, h6, ops, flush, tr, smi)
@@ -5386,7 +5585,8 @@ def main(argv=None):
                  "tp_path": tp["fused"][kname],
                  "tp_serve_launches": tps["launches"][kname],
                  "tp_serve_path": tps["fused"][kname],
-                 "dp_serve_launches": dps["launches"][kname]}
+                 "dp_serve_launches": dps["launches"][kname],
+                 "fsdp_launches": fsdp["launches"][kname]}
         entry["max_abs_err"] = max(entry["max_abs_err"], auto["err"],
                                    tp["fused"][kname]["max_abs_err"],
                                    tps["fused"][kname]["max_abs_err"],

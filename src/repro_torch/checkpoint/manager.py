@@ -219,7 +219,13 @@ class Layout:
 
     * ``cut``: {path key: dim}: the leaf is split along ``dim`` into
       ``model`` contiguous blocks, model rank ``m`` holding block ``m``
-      (``convert.shard_params``; a data column holds the same blocks);
+      (``convert.shard_params``; a data column holds the same blocks,
+      unless ``data_cut`` cuts them again);
+    * ``data_cut``: {path key: dim}: the leaf (or its model block) is
+      split along ``dim`` into ``data`` contiguous blocks, data rank
+      ``d`` holding block ``d`` (FSDP: rank ``(d, m)`` holds its ``d x
+      m`` block; a model row holds the same blocks where ``cut`` does
+      not name the leaf);
     * ``rows``: the path keys of leaves each rank holds one row of: the
       stored leaf is ``[data, model, *shape]``, row ``[d, m]`` world rank
       ``d * model + m``'s (the compressed step's ``m`` and ``v``);
@@ -232,6 +238,7 @@ class Layout:
     group: Any = None
     cut: Mapping[str, int] = dataclasses.field(default_factory=dict)
     rows: FrozenSet[str] = frozenset()
+    data_cut: Mapping[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -244,15 +251,19 @@ class Layout:
     def _dim(self, key: str) -> Optional[int]:
         return self.cut.get(key) if self.model > 1 else None
 
+    def _ddim(self, key: str) -> Optional[int]:
+        return self.data_cut.get(key) if self.data > 1 else None
+
     def whole_shape(self, key: str, shape) -> List[int]:
         """The stored shape of leaf ``key``, which this rank holds at
         ``shape``."""
         if key in self.rows:
             return [self.data, self.model, *shape]
         whole = list(shape)
-        dim = self._dim(key)
-        if dim is not None:
-            whole[dim] *= self.model
+        for dim, n in ((self._dim(key), self.model),
+                       (self._ddim(key), self.data)):
+            if dim is not None:
+                whole[dim] *= n
         return whole
 
     def part(self, key: str, whole) -> tuple:
@@ -261,25 +272,33 @@ class Layout:
         d, m = divmod(self.rank, self.model)
         if key in self.rows:
             return (d, m)
-        dim = self._dim(key)
-        if dim is None:
-            return ()
-        n = whole[dim] // self.model
-        return (slice(None),) * dim + (slice(m * n, (m + 1) * n),)
+        idx = [slice(None)] * len(whole)
+        cut = False
+        for dim, i, n in ((self._dim(key), m, self.model),
+                          (self._ddim(key), d, self.data)):
+            if dim is not None:
+                size = whole[dim] // n
+                idx[dim] = slice(i * size, (i + 1) * size)
+                cut = True
+        return tuple(idx) if cut else ()
 
     def split(self, key: str) -> bool:
         """Whether several ranks write parts of leaf ``key``."""
         return self.size > 1 and (key in self.rows
-                                  or self._dim(key) is not None)
+                                  or self._dim(key) is not None
+                                  or self._ddim(key) is not None)
 
     def writes(self, key: str) -> bool:
         """Whether this rank writes (a part of) leaf ``key`` on a save: its
-        row, its block from the first model row, or rank 0 a whole
-        leaf."""
+        row, its block (from the first model row where the data column
+        holds it whole, from the first data rank's row where the model
+        row does), or rank 0 a whole leaf."""
         if key in self.rows:
             return True
         if self.split(key):
-            return self.rank < self.model
+            d, m = divmod(self.rank, self.model)
+            return ((d == 0 or self._ddim(key) is not None)
+                    and (m == 0 or self._dim(key) is not None))
         return self.rank == 0
 
 

@@ -6,10 +6,10 @@ output, so on the card no plain quantizer runs: block-32 symbols do not
 depend on how the flat tensor is cut into chunk rows, so the bulk goes
 through K1 in rows of 1024 and a ragged tail in rows of 32.
 
-Over a model row (:func:`histogram_of_local_tree`) each rank counts its
-blocks of the split leaves, the row's first rank the whole ones, and the
-row sums the counts: every rank registers the codec the whole tree
-gives.
+Over a mesh (:func:`histogram_of_local_tree`) each rank counts its
+blocks of the split leaves, the first rank along an axis the leaves that
+axis holds whole, and the mesh sums the counts: every rank registers the
+codec the whole tree gives.
 
 Gradients (:func:`calibrate_for_gradients`, :func:`calibrate_for_tensor`):
 the flat tensor is quantized in pieces on its device and its symbols are
@@ -91,36 +91,48 @@ def block32_aligned(local_shape, dim: Optional[int]) -> bool:
 
 def histogram_of_local_tree(tree, cfg, mesh=None) -> np.ndarray:
     """:func:`histogram_of_tree` of the whole model from ``tree``, this
-    rank's local tree (``convert.shard_params``) over the model row of
-    ``mesh`` (default: the mesh in scope), the same counts on every rank
-    of the row: a split leaf's block counted on its rank where its
-    block-32 groups stay whole (:func:`block32_aligned`), else gathered
-    over the row and counted on the row's first rank, as is a whole
-    (replicated) leaf; the counts summed over the row. Exact: the counts
-    are integers, summed in float64. With no row, the tree's own."""
+    rank's local tree (``convert.shard_params``: its model block of each
+    leaf, and under rules in scope that cut parameters by FSDP its ``data
+    x model`` block) on ``mesh`` (default: the mesh in scope), the same
+    counts on every rank: a block counted on its rank where the whole
+    leaf's block-32 groups stay whole in it (:func:`block32_aligned`), a
+    leaf the data column (or the model row) holds whole counted on its
+    first data (or model) index only; any other leaf gathered whole and
+    counted on rank ``(0, 0)``; the counts summed over the mesh. Exact:
+    the counts are integers, summed in float64. With no mesh, the
+    tree's own."""
     import torch.distributed as dist
-    from repro_torch.launch.mesh import Mesh, model_row
+    from repro_torch.launch.mesh import (DataColumn, current_mesh,
+                                         gather_blocks)
     from repro_torch.parallel import sharding
-    row = model_row(mesh)
-    if row is None:
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
         return histogram_of_tree(tree)
-    layout = Mesh(data=1, model=row.size, rank=0, world_group=None,
-                  data_group=None, model_group=None)
-    specs = pytree_leaves(sharding.param_pspecs(cfg, layout))
+    d_i, m_i = mesh.coords
+    dims = pytree_leaves(sharding.leaf_dims(cfg, mesh.data, mesh.model,
+                                            split=True))
     counts = np.zeros(256, dtype=np.float64)
-    for leaf, spec in zip(pytree_leaves(tree), specs):
-        dim = sharding.model_dim(spec)
-        if block32_aligned(tuple(leaf.shape), dim):
-            if dim is not None or row.index == 0:
+    for leaf, (ddim, mdim) in zip(pytree_leaves(tree), dims):
+        cut = [x for x in (ddim, mdim) if x is not None]
+        if block32_aligned(tuple(leaf.shape), max(cut) if cut else None):
+            if (ddim is not None or d_i == 0) and (mdim is not None
+                                                   or m_i == 0):
                 counts += histogram_of_quantized(leaf)
             continue
-        parts = [torch.empty_like(leaf) for _ in range(row.size)]
-        dist.all_gather(parts, leaf.contiguous(), group=row.group)
-        if row.index == 0:
-            counts += histogram_of_quantized(torch.cat(parts, dim=dim))
-        del parts
+        if ddim is not None:
+            leaf = gather_blocks(leaf, ddim, DataColumn(
+                mesh.data_group, mesh.data, d_i))
+        if mdim is not None:
+            parts = [torch.empty_like(leaf) for _ in range(mesh.model)]
+            dist.all_gather(parts, leaf.contiguous(), group=mesh.model_group)
+            leaf = torch.cat(parts, dim=mdim)
+            del parts
+        if d_i == 0 and m_i == 0:
+            counts += histogram_of_quantized(leaf)
+        del leaf
     total = torch.from_numpy(counts)
-    dist.all_reduce(total, group=row.group)
+    if mesh.size > 1:
+        dist.all_reduce(total, group=mesh.world_group)
     return total.numpy()
 
 

@@ -152,13 +152,16 @@ class GroupWireCodec:
 
     def open_group_sharded(self, pg, axis_name: Optional[str] = None,
                            axis_size: Optional[int] = None, transport=None,
-                           *, channel=None):
+                           *, channel=None, group=None):
         """Open a wired tree whose compressed leaves are SHARDED along
         the chunk dim over a process group (:func:`shard_chunks` gives a
-        rank its shard), on every rank of the group.
+        rank its shard), on every rank of the group; a leaf the group
+        holds whole (its chunks not divisible by the group's size) is
+        opened on each rank.
 
-        The group is the channel's, else that of mesh axis
-        ``axis_name`` on the mesh in scope. With the ring transport
+        The group is ``group``, else the channel's, else that of mesh
+        axis ``axis_name`` on the mesh in scope (the FSDP decode opens
+        each layer group's wire over the data column). With the ring transport
         (the default) hop *k*'s shard is decoded (K2 for QLC leaves on
         the card) while hop *k+1*'s words are in flight; ``"oneshot"``
         all-gathers the whole wire first and decodes after. Both give
@@ -167,7 +170,9 @@ class GroupWireCodec:
         ``"auto"`` policy resolves per leaf from the shard's geometry."""
         from repro_torch.comm.channel import axis_group
         from repro_torch.comm.planner import resolve_transport
-        if channel is not None:
+        if group is not None:
+            pass
+        elif channel is not None:
             group = channel.group
         else:
             group = None if axis_name is None else axis_group(axis_name)
@@ -193,6 +198,8 @@ class GroupWireCodec:
         key = _main_key(wire)
         main, scales = wire[key], wire["scales"]
         ncl = main.shape[-2]                     # local chunk shard
+        if ncl == m.n_chunks and d > 1:
+            return self._decode(wire, m)         # held whole (shard_chunks)
         if ncl * d != m.n_chunks:
             raise ValueError(f"leaf must be evenly chunk-sharded: {ncl} "
                              f"chunks x {d} ranks != {m.n_chunks}")
@@ -313,12 +320,15 @@ class GroupWireCodec:
 
 def shard_chunks(wired, index: int, count: int):
     """Rank ``index`` of ``count``'s shard of a wired tree: every wired
-    leaf cut to its ``index``-th contiguous run of chunks (words or
-    codes along the chunk dim, scales along their last dim), every other
-    leaf whole: the input of :meth:`GroupWireCodec.open_group_sharded`."""
+    leaf whose chunks ``count`` divides cut to its ``index``-th
+    contiguous run of chunks (words or codes along the chunk dim, scales
+    along their last dim), every other leaf whole, as the reference's
+    ``wire_axes`` cut a wire over the data axes: the input of
+    :meth:`GroupWireCodec.open_group_sharded`, which opens a whole leaf
+    on each rank."""
     def cut(node, _path):
         key = _main_key(node)
-        if key is None:
+        if key is None or node[key].shape[-2] % count:
             return node
         main, scales = node[key], node["scales"]
         ncl = main.shape[-2] // count
@@ -370,6 +380,7 @@ def compress_groups(groups, tables, mode: str = "qlc",
                     use_kernels: bool = False,
                     type_key_fn: Optional[Callable[[str], str]] = None,
                     whole_shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+                    column=None, data_dims: Optional[Dict[str, int]] = None,
                     ) -> Tuple[Any, GroupWireCodec]:
     """Wire every eligible leaf of ``groups`` (serving launcher path).
 
@@ -385,8 +396,15 @@ def compress_groups(groups, tables, mode: str = "qlc",
     ``whole_shapes`` (leaf path -> shape): the whole model's shapes when
     ``groups`` is one model rank's local tree, so that it wires the
     leaves the whole tree's wire would (their blocks), not those its
-    own smaller blocks would.
+    own smaller blocks would. ``column`` (a ``launch.mesh.DataColumn``)
+    with ``data_dims`` (leaf path -> FSDP dim): ``groups`` holds FSDP
+    blocks; each wired leaf's blocks are gathered over the column into
+    its model block, which is wired as above and cut by chunks to this
+    rank's shard (:func:`shard_chunks`) before the next leaf, so the
+    column holds the model-block wire once, as the reference's wire lies
+    over its data axes.
     """
+    from repro_torch.launch.mesh import gather_blocks
     _check_mode(mode)
     registry = registry_of(tables)
     meta: Dict[str, LeafMeta] = {}
@@ -395,6 +413,14 @@ def compress_groups(groups, tables, mode: str = "qlc",
         shape = leaf.shape if whole_shapes is None else whole_shapes[prefix]
         if not _eligible(shape):
             return leaf
+        if column is None:
+            return wire_block(leaf, prefix)
+        dim = (data_dims or {}).get(prefix)
+        block = leaf if dim is None else gather_blocks(leaf, dim, column)
+        return shard_chunks(wire_block(block, prefix), column.index,
+                            column.size)
+
+    def wire_block(leaf, prefix):
         entry = _entry_for(registry, prefix, type_key_fn)
         g, n, padded, n_chunks = _geometry(leaf.shape)
         flat = leaf.reshape(g, n)
@@ -425,12 +451,16 @@ def compress_groups(groups, tables, mode: str = "qlc",
 def wire_shape_structs(group_shapes, tables,
                        capacity_words: Union[int, Dict[str, int]],
                        mode: str = "qlc",
-                       type_key_fn: Optional[Callable[[str], str]] = None):
+                       type_key_fn: Optional[Callable[[str], str]] = None,
+                       whole_shapes: Optional[Dict[str, Tuple[int, ...]]]
+                       = None):
     """Dry-run path: the wired tree's shapes and dtypes as ``meta``
     tensors (no data), for a tree of anything with ``.shape`` and
     ``.dtype``. ``capacity_words`` comes from the planner, or maps each
-    leaf's path to its slot (a real wire's, :func:`wire_capacities`). The
-    reference's GSPMD sharding annotations have no counterpart here."""
+    leaf's path to its slot (a real wire's, :func:`wire_capacities`);
+    ``whole_shapes`` as :func:`compress_groups`. The reference's GSPMD
+    sharding annotations have no counterpart here: a rank's chunks of
+    the wire over the data axes are :func:`shard_chunks`'s."""
     _check_mode(mode)
     registry = registry_of(tables)
     meta: Dict[str, LeafMeta] = {}
@@ -439,7 +469,8 @@ def wire_shape_structs(group_shapes, tables,
         return torch.empty(shape, dtype=dtype, device="meta")
 
     def shape_struct(leaf, prefix):
-        if not _eligible(leaf.shape):
+        if not _eligible(leaf.shape if whole_shapes is None
+                         else whole_shapes[prefix]):
             return leaf
         entry = _entry_for(registry, prefix, type_key_fn)
         g, n, padded, n_chunks = _geometry(tuple(leaf.shape))

@@ -4,12 +4,13 @@ packages compute the same function on the same weights), a wired
 (compressed-weight) tree and its manifest in both directions
 (:func:`wire_from_numpy`, :func:`wire_to_numpy`), the flat ZeRO-1
 optimizer state into one rank's slice, and a model's tree cut to one
-model rank's tensor-parallel blocks and put back together
-(:func:`shard_params`, :func:`gather_params`, each leaf's split dim
-:func:`leaf_model_dims`), or drawn a leaf at a time straight into them
-(:func:`init_local_params`), and the decode states
-cut to a model rank's part and joined back (:func:`shard_decode_states`,
-:func:`gather_decode_states`)."""
+model rank's tensor-parallel blocks (and, under FSDP rules, each block
+cut again over the data column) and put back together
+(:func:`shard_params`, :func:`gather_params`, each leaf's split dims
+:func:`leaf_model_dims`, :func:`leaf_data_dims`), or drawn a leaf at
+a time straight into them (:func:`init_local_params`), and the decode
+states cut to a model rank's part and joined back
+(:func:`shard_decode_states`, :func:`gather_decode_states`)."""
 from __future__ import annotations
 
 import json
@@ -98,17 +99,16 @@ def flat_opt_state_from_numpy(state, rank: int = 0, device="cuda"):
     return out
 
 
-def _model_dims(cfg, model_size: int, shapes, specs=None):
-    """Per leaf, the dim the model axis splits (None: whole), as
-    ``cfg``'s specs (or ``specs``, a subtree's logical axes) resolve on a
-    model axis of ``model_size``."""
-    from repro_torch.launch.mesh import Mesh
+def _cut_dims(cfg, data_size: int, model_size: int, shapes=None,
+              specs=None):
+    """Per leaf, ``(data dim, model dim)``: the dims a ``data_size x
+    model_size`` layout splits under the rules in scope
+    (``parallel.sharding.leaf_dims``; the data dim None without FSDP
+    overrides, or where the column does not divide the leaf's FSDP
+    dim); ``specs`` / ``shapes``: a subtree's."""
     from repro_torch.parallel import sharding
-    layout = Mesh(data=1, model=model_size, rank=0, world_group=None,
-                  data_group=None, model_group=None)
-    return _zip_dict(lambda spec, _: sharding.model_dim(spec),
-                     sharding.param_pspecs(cfg, layout, shapes, specs),
-                     shapes)
+    return sharding.leaf_dims(cfg, data_size, model_size, shapes=shapes,
+                              specs=specs, split=True)
 
 
 def _zip_dict(fn, tree, other):
@@ -119,16 +119,23 @@ def _zip_dict(fn, tree, other):
     return fn(tree, other)
 
 
-def _block(t, dim: int, index: int, size: int):
-    n = t.shape[dim] // size
+def _cut(t, dims, model_index: int, model_size: int, data_index: int,
+         data_size: int):
+    """Rank ``(data_index, model_index)``'s block of ``t``, copied once
+    (a leaf's model block is never made whole beside it)."""
+    idx = [slice(None)] * len(t.shape)
+    for dim, i, size in ((dims[1], model_index, model_size),
+                         (dims[0], data_index, data_size)):
+        if dim is not None:
+            n = t.shape[dim] // size
+            idx[dim] = slice(i * n, (i + 1) * n)
     if isinstance(t, torch.Tensor):
-        return t.narrow(dim, index * n, n).clone()
-    return np.ascontiguousarray(
-        np.take(np.asarray(t), np.arange(index * n, (index + 1) * n), dim))
+        return t[tuple(idx)].clone()
+    return np.ascontiguousarray(np.asarray(t)[tuple(idx)])
 
 
 def shard_params(params, cfg, model_index: int, model_size: int,
-                 specs=None):
+                 specs=None, data_index: int = 0, data_size: int = 1):
     """The local tree of model rank ``model_index`` of ``model_size``: each
     leaf of ``params`` (a whole tree: the reference's numpy parameters or
     the port's tensors) cut to the contiguous block that the reference's
@@ -139,49 +146,77 @@ def shard_params(params, cfg, model_index: int, model_size: int,
     expert's ``mlp`` dim) and its router by expert columns, mamba's
     ``mlp`` channels, xLSTM's heads. ``specs``: the logical axes when
     ``params`` is a subtree (one MoE FFN: ``models.moe.moe_param_specs``).
-    Tensors in, tensors out (new storage for a cut leaf); numpy in, numpy
-    out. Identity for ``model_size == 1``."""
-    if model_size == 1:
+    With ``data_size`` above 1, under rules in scope that cut parameters
+    by FSDP (``parallel.sharding.make_rules()``), each such leaf's model
+    block is cut again along its FSDP dim: data rank ``data_index``'s
+    block, so rank ``(d, m)`` holds its ``d x m`` block. Tensors in,
+    tensors out (new storage for a cut leaf); numpy in, numpy out.
+    Identity for a ``1 x 1`` layout."""
+    if model_size == 1 and data_size == 1:
         return params
-    shapes = _map_dict(lambda t, _: tuple(t.shape), params)
-    return _zip_dict(lambda t, dim: t if dim is None
-                     else _block(t, dim, model_index, model_size),
-                     params, _model_dims(cfg, model_size, shapes, specs))
+    shapes = (None if specs is None
+              else _map_dict(lambda t, _: tuple(t.shape), params))
+    return _zip_dict(lambda t, dims: t if dims == (None, None)
+                     else _cut(t, dims, model_index, model_size, data_index,
+                               data_size),
+                     params, _cut_dims(cfg, data_size, model_size, shapes,
+                                       specs))
 
 
 def init_local_params(cfg, generator, device, model_index: int,
-                      model_size: int):
+                      model_size: int, data_index: int = 0,
+                      data_size: int = 1):
     """``shard_params(init_params(cfg, generator, device), cfg,
-    model_index, model_size)``, bit for bit, without the whole tree: each
-    leaf is cut to the rank's block as soon as it is drawn
-    (``init_params(keep=...)``), so the peak is the largest whole leaf
-    beside the blocks kept so far."""
-    from repro_torch.parallel.sharding import param_shapes
-    if model_size == 1:
+    model_index, model_size, data_index=data_index, data_size=
+    data_size)``, bit for bit, without the whole tree: each leaf is cut
+    to the rank's block as soon as it is drawn (``init_params(keep=
+    ...)``), so the peak is the largest whole leaf beside the blocks kept
+    so far."""
+    if model_size == 1 and data_size == 1:
         return init_params(cfg, generator, device)
-    dims = _model_dims(cfg, model_size, param_shapes(cfg))
+    dims = _cut_dims(cfg, data_size, model_size)
 
     def keep(path, t):
-        dim = dims
+        d = dims
         for key in path:
-            dim = dim[key]
-        return t if dim is None else _block(t, dim, model_index, model_size)
+            d = d[key]
+        return t if d == (None, None) else _cut(
+            t, d, model_index, model_size, data_index, data_size)
     return init_params(cfg, generator, device, keep=keep)
 
 
-def whole_leaf_shapes(cfg):
+def whole_leaf_shapes(cfg, under: str = ""):
     """Every parameter leaf's whole shape by its path (``"a/b/c"``, the
-    weight wire's leaf names), with nothing allocated."""
+    weight wire's leaf names), with nothing allocated; ``under``: only
+    the leaves of that subtree (``"groups"``), by their paths in it."""
     from repro_torch.parallel.sharding import param_shapes
-    return _by_path(param_shapes(cfg))
+    return _under(_by_path(param_shapes(cfg)), under)
+
+
+def _under(by_path, under: str):
+    if not under:
+        return by_path
+    pre = under + "/"
+    return {k[len(pre):]: v for k, v in by_path.items()
+            if k.startswith(pre)}
 
 
 def leaf_model_dims(cfg, model_size: int):
     """Every parameter leaf's path (``"a/b/c"``) -> the dim that a model
     axis of ``model_size`` splits, as :func:`shard_params` cuts it (None:
     kept whole)."""
-    from repro_torch.parallel.sharding import param_shapes
-    return _by_path(_model_dims(cfg, model_size, param_shapes(cfg)))
+    return {k: v[1] for k, v in _by_path(_cut_dims(
+        cfg, 1, model_size)).items()}
+
+
+def leaf_data_dims(cfg, data_size: int, model_size: int = 1,
+                   under: str = ""):
+    """Every parameter leaf's path -> the dim that a data column of
+    ``data_size`` splits under the rules in scope (its FSDP dim), as
+    :func:`shard_params` cuts it (None: kept whole over the column);
+    ``under`` as :func:`whole_leaf_shapes`."""
+    return _under({k: v[0] for k, v in _by_path(_cut_dims(
+        cfg, data_size, model_size)).items()}, under)
 
 
 def _by_path(tree, prefix: str = "", out=None):
@@ -196,27 +231,33 @@ def _by_path(tree, prefix: str = "", out=None):
     return out
 
 
-def gather_params(local_trees, cfg):
-    """Inverse of :func:`shard_params`: the local trees of model ranks
-    ``0 .. M-1`` (tensors or numpy) -> the whole tree; a whole leaf is
+def gather_params(local_trees, cfg, data_size: int = 1):
+    """Inverse of :func:`shard_params`: the local trees of ranks ``0 ..
+    D * M - 1`` (rank ``d * M + m`` holding block ``(d, m)``, ``D`` =
+    ``data_size``; tensors or numpy) -> the whole tree; a whole leaf is
     rank 0's."""
-    from repro_torch.parallel.sharding import param_shapes
-    size = len(local_trees)
-    if size == 1:
+    model = len(local_trees) // data_size
+    if model * data_size != len(local_trees):
+        raise ValueError(f"{len(local_trees)} local trees are not "
+                         f"{data_size} data ranks' rows")
+    if model == 1 and data_size == 1:
         return local_trees[0]
-    dims = _model_dims(cfg, size, param_shapes(cfg))
-    return _gather_node(local_trees, dims)
+    dims = _cut_dims(cfg, data_size, model)
+    rows = [_gather_node(local_trees[d * model:(d + 1) * model], dims, 1)
+            for d in range(data_size)]
+    return _gather_node(rows, dims, 0)
 
 
-def _gather_node(nodes, dims):
+def _gather_node(nodes, dims, which: int):
     if isinstance(dims, dict):
-        return {k: _gather_node([n[k] for n in nodes], dims[k])
+        return {k: _gather_node([n[k] for n in nodes], dims[k], which)
                 for k in nodes[0]}
-    if dims is None:
+    dim = dims[which]
+    if dim is None or len(nodes) == 1:
         return nodes[0]
     if isinstance(nodes[0], torch.Tensor):
-        return torch.cat(nodes, dim=dims)
-    return np.concatenate([np.asarray(n) for n in nodes], axis=dims)
+        return torch.cat(nodes, dim=dim)
+    return np.concatenate([np.asarray(n) for n in nodes], axis=dim)
 
 
 def _state_shapes(states):

@@ -18,11 +18,13 @@ cache's sequence over ``model`` where the KV heads do not divide it,
 over ``("data", "model")`` at a batch of 1). Where the port differs from
 the reference's ``cell_rules``, ``rules_differ`` says how:
 
-- FSDP: the reference cuts the parameters of the baseline step, the
-  prefill and some decodes over ``data`` as well; no port step cuts by
-  them (ROADMAP queue 1, item 22), so a rank holds its model block of
-  every leaf, and ``fits`` is False where it then passes 80 GB.
 - ``--multi-pod`` raises ``NO_PODS`` (item 13).
+
+The baseline train step, the prefill and a decode cut parameters by FSDP
+as the reference's do (a rank holds its ``data x model`` block of each
+FSDP leaf and gathers a layer group's blocks over the data column as it
+runs; a decode's weight wire lies by chunks over the column); the
+compressed train step is TP only, as the reference's.
 
 On a torch built without CUDA the fake tensors are on the CPU (autograd
 needs the CUDA device guard, which such a build lacks); the counts are
@@ -67,28 +69,23 @@ from repro_torch.roofline.op_count import OpRecord, count
 #: runs an op set a position and does not finish a 4k or 32k cell
 CELL_TIMEOUT_S = 1800
 
-_FSDP = ("fsdp: the reference also cuts these parameters over data; no "
-         "port step cuts by FSDP (ROADMAP queue 1, item 22)")
-
-
 def cell_rules(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str
                ) -> Tuple[object, List[str]]:
     """``(the port's sharding rules for the cell, how the reference's
-    cell_rules differ)``: a decode takes the reference's decode rules
+    cell_rules differ)``: the reference's rules, so the list is empty.
+    Parameters are cut by FSDP (``make_rules()``) in the baseline train
+    step, the prefill and a decode (unless ``cfg.serve_params_tp_only``),
+    not in the compressed train step (TP only, as the reference's); a
+    decode takes the reference's decode rules
     (``parallel.sharding.decode_rules``: the KV cache's sequence over
     ``model`` where the KV heads do not divide it, over ``("data",
-    "model")`` at a batch of 1); every cell differs where the reference
-    cuts parameters by FSDP."""
+    "model")`` at a batch of 1)."""
     from repro_torch.parallel import sharding as shd
-    differ = []
-    ref_fsdp = not (shape.kind == "decode" and cfg.serve_params_tp_only)
-    if shape.kind == "train" and comm != "baseline":
-        ref_fsdp = False            # the reference's compressed step: TP only
-    if ref_fsdp:
-        differ.append(_FSDP)
     if shape.kind == "decode":
-        return shd.decode_rules(cfg, shape.global_batch, mesh), differ
-    return shd.make_rules(fsdp_params=False), differ
+        return shd.decode_rules(cfg, shape.global_batch, mesh), []
+    if shape.kind == "train" and comm != "baseline":
+        return shd.make_rules(fsdp_params=False), []
+    return shd.make_rules(), []
 
 
 def _microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
@@ -176,12 +173,20 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str,
     (each leaf at its own exact slot, as the serving launcher wires
     them); the decode's cache stays as a new one, zeros."""
     from repro_torch import convert
+    from repro_torch.launch.mesh import fsdp_column
     from repro_torch.models import decode_step, prefill_logits
     d_i, m_i = mesh.coords
+    col = fsdp_column(mesh)
     gen = torch.Generator(device=dev)
     if seed is not None:
         gen.manual_seed(seed)
-    params = convert.init_local_params(cfg, gen, dev, m_i, mesh.model)
+    params = convert.init_local_params(
+        cfg, gen, dev, m_i, mesh.model, *((col.index, col.size)
+                                          if col is not None else (0, 1)))
+    if col is not None:
+        # resolved (from the whole tree's shapes) before the counted step
+        from repro_torch.parallel.sharding import fsdp_dims
+        fsdp_dims(cfg, mesh)
     if shape.kind == "train":
         from repro_torch.comm import CommConfig
         from repro_torch.training import (OptConfig, TrainConfig,
@@ -225,17 +230,22 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, comm: str,
     if comm in ("qlc", "e4m3"):
         from repro_torch.comm.weights import compress_groups, \
             wire_shape_structs
+        from repro_torch.serving.engine import place_wire
         t, plan = tables
+        whole = convert.whole_leaf_shapes(cfg, "groups")
         if seed is None:
+            # the model blocks' shapes: the wire is cut from them
+            blocks = convert.init_local_params(cfg, None, "meta", m_i,
+                                               mesh.model)["groups"]
             wired, weight_codec = wire_shape_structs(
-                params["groups"], t, wire_caps or plan.capacity_words,
-                mode=comm)
-            wired = _fake_like(wired, dev)
+                blocks, t, wire_caps or plan.capacity_words, mode=comm,
+                whole_shapes=whole)
+            wired = place_wire(_fake_like(wired, dev), col)
         else:
-            whole = (convert.whole_leaf_shapes(cfg) if mesh.model > 1
-                     else None)
             wired, weight_codec = compress_groups(
-                params["groups"], t, mode=comm, whole_shapes=whole)
+                params["groups"], t, mode=comm, whole_shapes=whole,
+                column=col, data_dims=convert.leaf_data_dims(
+                    cfg, mesh.data, mesh.model, "groups"))
         params = dict(params, groups=wired)
     from repro_torch.models import init_decode_states
     whole = init_decode_states(cfg, shape.global_batch, shape.seq_len,

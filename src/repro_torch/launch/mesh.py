@@ -47,6 +47,10 @@ import torch.distributed as dist
 NO_PODS = "the pod axis is not ported: ROADMAP queue 1, item 13 (multi-node)"
 
 
+#: Ports a one-rank world tries in turn when the one it chose was taken.
+_PORT_ATTEMPTS = 5
+
+
 def free_port() -> int:
     """A TCP port on localhost that is free right now."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
@@ -77,11 +81,19 @@ def init_data_parallel(device, *, rank: int = 0, world_size: int = 1,
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index if dev.index is not None
                               else rank % torch.cuda.device_count())
-    dist.init_process_group(
-        backend_for(dev),
-        init_method=init_method or f"tcp://localhost:{free_port()}",
-        world_size=world_size, rank=rank)
-    return True
+    for attempt in range(_PORT_ATTEMPTS):
+        try:
+            dist.init_process_group(
+                backend_for(dev),
+                init_method=init_method or f"tcp://localhost:{free_port()}",
+                world_size=world_size, rank=rank)
+            return True
+        except RuntimeError as e:
+            # a port that was free when chosen can be taken by another
+            # process before the store listens on it: choose again
+            if init_method is not None or "EADDRINUSE" not in str(e) \
+                    or attempt == _PORT_ATTEMPTS - 1:
+                raise
 
 
 def teardown_data_parallel():
@@ -230,6 +242,99 @@ def model_row(mesh: Optional[Mesh] = None) -> Optional[ModelRow]:
     if mesh is None or mesh.model == 1:
         return None
     return ModelRow(mesh.model_group, mesh.model, mesh.coords[1])
+
+
+# --------------------------------------------------------------------------
+# FSDP: parameter blocks gathered over the data column
+# --------------------------------------------------------------------------
+
+class DataColumn(NamedTuple):
+    """This rank's data column, over which FSDP parameter blocks are
+    gathered: its process group, its size and this rank's index in it."""
+    group: Any
+    size: int
+    index: int
+
+
+def fsdp_column(mesh: Optional[Mesh] = None) -> Optional[DataColumn]:
+    """The data column of ``mesh`` (default: the mesh in scope) that
+    parameter blocks are gathered over, where the sharding rules in scope
+    cut parameters by FSDP (``parallel.sharding.fsdp_params``), else
+    None. A column of one is a column all the same: it gathers over one
+    rank, on the same path."""
+    from repro_torch.parallel.sharding import fsdp_params
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or not fsdp_params():
+        return None
+    return DataColumn(mesh.data_group, mesh.data, mesh.coords[0])
+
+
+#: FSDP collectives issued in this process since the last reset
+#: (:func:`reset_fsdp_counts`): ``"gathers"`` (a leaf's blocks gathered
+#: over the column, forward or again for the backward pass) and
+#: ``"reduce_scatters"`` (a gathered leaf's gradient).
+FSDP_COUNTS = {"gathers": 0, "reduce_scatters": 0}
+
+
+def reset_fsdp_counts():
+    for k in FSDP_COUNTS:
+        FSDP_COUNTS[k] = 0
+
+
+def gather_blocks(x: torch.Tensor, dim: int, col: DataColumn
+                  ) -> torch.Tensor:
+    """The column's blocks of ``x`` concatenated along ``dim`` in rank
+    order, outside autograd (counted in :data:`FSDP_COUNTS`): one
+    all-gather along dim 0, which is the result for ``dim`` 0 and is
+    copied into it for another dim."""
+    from repro_torch.comm.transport import all_gather_flat
+    FSDP_COUNTS["gathers"] += 1
+    x = x.contiguous()
+    shape = list(x.shape)
+    out = torch.empty([col.size * shape[0]] + shape[1:], dtype=x.dtype,
+                      device=x.device)
+    all_gather_flat(out, x, group=col.group)
+    if dim == 0:
+        return out
+    shape[dim] *= col.size
+    return out.view([col.size] + list(x.shape)).movedim(0, dim).reshape(
+        shape)
+
+
+#: ``reduce_scatter_tensor`` under the name newer releases give it.
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, col):
+        ctx.dim, ctx.col = dim, col
+        return gather_blocks(x, dim, col)
+
+    @staticmethod
+    def backward(ctx, g):
+        FSDP_COUNTS["reduce_scatters"] += 1
+        col, dim = ctx.col, ctx.dim
+        full = g.movedim(dim, 0).contiguous()
+        out = torch.empty((full.shape[0] // col.size,) + full.shape[1:],
+                          dtype=full.dtype, device=full.device)
+        _reduce_scatter_flat(out, full, group=col.group)
+        if col.size > 1:
+            out = out / col.size
+        return out.movedim(0, dim).contiguous(), None, None
+
+
+def gather_from_data(x: torch.Tensor, dim: int, col: Optional[DataColumn]
+                     ) -> torch.Tensor:
+    """The data column's blocks of a parameter concatenated along ``dim``
+    in rank order forward; backward, the gradient reduce-scattered over
+    the column and divided by its size (the mean over the batch's ranks,
+    as the baseline step averages the other leaves), so this rank's
+    block of the mean gradient. ``col`` None: ``x`` itself."""
+    if col is None:
+        return x
+    return _GatherFromData.apply(x, dim % x.dim(), col)
 
 
 # --------------------------------------------------------------------------

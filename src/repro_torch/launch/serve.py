@@ -39,6 +39,12 @@ reference's decode rules for the model, the batch and the mesh instead
 (``parallel.sharding.decode_rules``: the sequence over the model row
 where the KV heads do not divide it, over the whole mesh at a batch of
 1). The dense-cache check runs on the same mesh, under the same rules.
+Under rules that cut parameters by FSDP (the reference's decode rules
+do, unless ``serve_params_tp_only``) each rank draws its ``data x
+model`` blocks, and with ``--wire qlc`` keeps the layer stack on the
+wire: each compressed leaf's model-block wire cut by chunks over the
+data column, opened a group at a time inside every decode step
+(``Engine(weight_codec=)``), K2 decoding each hop.
 ``tools/tp_cards.py --serve`` drives it on N cards. ``--prefill-chunk``
 feeds a long prompt that many tokens a step (attention-only stacks).
 
@@ -63,9 +69,10 @@ import torch
 
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.convert import init_local_params, whole_leaf_shapes
+from repro_torch.convert import (init_local_params, leaf_data_dims,
+                                 whole_leaf_shapes)
 from repro_torch.core import CodecRegistry
-from repro_torch.launch.mesh import current_mesh, model_row
+from repro_torch.launch.mesh import current_mesh, fsdp_column, model_row
 from repro_torch.models import init_params
 from repro_torch.models.transformer import resolve_device
 from repro_torch.parallel.sharding import decode_rules, get_rules, use_rules
@@ -108,35 +115,27 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
     dev = resolve_device(device)
     n_req = requests or batch + 2
     mesh = current_mesh()
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if model_row(mesh) is not None:
-            params = init_local_params(cfg, gen, dev, mesh.coords[1],
-                                       mesh.model)
-        else:
-            params = init_params(cfg, gen, dev)
-    out: Dict[str, Any] = {}
-    if wire == "qlc":
-        from repro_torch.comm.calibrate import histogram_of_local_tree
-        from repro_torch.serving import (compress_params_for_serving,
-                                         open_params)
-        t0 = time.perf_counter()
-        reg = CodecRegistry()
-        reg.register("default", histogram_of_local_tree(params, cfg, mesh))
-        t1 = time.perf_counter()
-        wired, wc = compress_params_for_serving(
-            params, reg, whole_shapes=whole_leaf_shapes(cfg)
-            if model_row(mesh) is not None else None)
-        _sync(dev)
-        t2 = time.perf_counter()
-        params = None       # frees a tree made here before the open
-        params = open_params(wired, wc)
-        _sync(dev)
-        t3 = time.perf_counter()
-        out.update(wired=wired, wire_codec=wc, calibrate_s=t1 - t0,
-                   compress_s=t2 - t1, open_s=t3 - t2)
-    elif wire != "none":
-        raise ValueError(f"wire must be 'none' or 'qlc', got {wire!r}")
+    rules = (decode_rules(cfg, batch, mesh)
+             if reference_rules and mesh is not None else get_rules())
+    with use_rules(rules):
+        col = fsdp_column(mesh)
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            if col is not None:
+                params = init_local_params(cfg, gen, dev, mesh.coords[1],
+                                           mesh.model, col.index, col.size)
+            elif model_row(mesh) is not None:
+                params = init_local_params(cfg, gen, dev, mesh.coords[1],
+                                           mesh.model)
+            else:
+                params = init_params(cfg, gen, dev)
+        out: Dict[str, Any] = {}
+        weight_codec = None
+        if wire == "qlc":
+            held, params = [params], None    # _wire frees a tree made here
+            params, weight_codec = _wire(held, cfg, mesh, col, dev, out)
+        elif wire != "none":
+            raise ValueError(f"wire must be 'none' or 'qlc', got {wire!r}")
 
     kv_spec = pool = registry = monitor = None
     if kv_cache != "none":
@@ -150,13 +149,11 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
             registry = CodecRegistry()
             monitor = out["kv_monitor"] = TrafficMonitor(registry)
     max_seq_len = prompt_len + new_tokens + 8
-    rules = (decode_rules(cfg, batch, mesh)
-             if reference_rules and mesh is not None else get_rules())
     with use_rules(rules):
         eng = Engine(params, cfg, max_seq_len=max_seq_len, max_batch=batch,
                      kv_spec=kv_spec, pool=pool, kv_paging=kv_paging,
                      registry=registry, monitor=monitor, mesh=mesh,
-                     prefill_chunk=prefill_chunk)
+                     prefill_chunk=prefill_chunk, weight_codec=weight_codec)
     prompts = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (n_req, prompt_len), dtype=np.int64)
     t0 = time.perf_counter()
@@ -180,7 +177,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
         with use_rules(rules):
             dense = Engine(params, cfg, max_seq_len=eng.max_seq_len,
                            max_batch=batch, mesh=mesh,
-                           prefill_chunk=prefill_chunk)
+                           prefill_chunk=prefill_chunk,
+                           weight_codec=weight_codec)
         group = prompts if cfg.moe is not None else prompts[:1]
         hs = [dense.submit(GenerationRequest(prompt=p,
                                              max_new_tokens=new_tokens))
@@ -198,6 +196,48 @@ def serve(cfg: ModelConfig, *, batch: int = 4, requests: Optional[int] = None,
                     f"run: request {i} {outs[i].tokens.tolist()} vs "
                     f"{w.tolist()}")
     return out
+
+
+def _wire(held, cfg: ModelConfig, mesh, col, dev, out):
+    """``held[0]`` on the QLC weight wire: a codec calibrated on the whole
+    model's histogram (K1's, summed over the mesh), every large
+    layer-stack leaf compressed through K1. Without FSDP the wire is
+    opened again through K2 and the dense tree served (the tree made
+    here freed first: ``held`` is its only reference); under FSDP
+    (``col``) each rank keeps its chunks of
+    the model-block wire of the layer stack, opened a group at a time in
+    each decode step (``Engine(weight_codec=)``). -> (the served tree,
+    the wire's codec or None); the wire, its codec and the seconds go
+    into ``out``."""
+    from repro_torch.comm.calibrate import histogram_of_local_tree
+    from repro_torch.serving import (compress_params_for_serving,
+                                     open_params)
+    params = held.pop()
+    t0 = time.perf_counter()
+    reg = CodecRegistry()
+    reg.register("default", histogram_of_local_tree(params, cfg, mesh))
+    t1 = time.perf_counter()
+    if col is not None:
+        wired, wc = compress_params_for_serving(
+            params["groups"], reg,
+            whole_shapes=whole_leaf_shapes(cfg, "groups"), column=col,
+            data_dims=leaf_data_dims(cfg, mesh.data, mesh.model, "groups"))
+        params = dict(params, groups=wired)
+        _sync(dev)
+        out.update(wired=wired, wire_codec=wc, calibrate_s=t1 - t0,
+                   compress_s=time.perf_counter() - t1, open_s=0.0)
+        return params, wc
+    wired, wc = compress_params_for_serving(
+        params, reg, whole_shapes=whole_leaf_shapes(cfg)
+        if model_row(mesh) is not None else None)
+    _sync(dev)
+    t2 = time.perf_counter()
+    params = None       # frees a tree made here before the open
+    params = open_params(wired, wc)
+    _sync(dev)
+    out.update(wired=wired, wire_codec=wc, calibrate_s=t1 - t0,
+               compress_s=t2 - t1, open_s=time.perf_counter() - t2)
+    return params, None
 
 
 def main(argv=None):

@@ -84,13 +84,13 @@ from repro_torch.comm.calibrate import (calibrate_for_gradients,
 from repro_torch.comm.channel import Channel, ChannelSpec
 from repro_torch.comm.compressed import CommConfig
 from repro_torch.configs import get_config, reduced as make_reduced
-from repro_torch.convert import (init_local_params, leaf_model_dims,
-                                 shard_params)
+from repro_torch.convert import (init_local_params, leaf_data_dims,
+                                 leaf_model_dims, shard_params)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CodecRegistry
 from repro_torch.data import DataConfig, SyntheticDataset
 from repro_torch.launch.mesh import current_mesh, data_parallel, \
-    make_test_mesh
+    fsdp_column, make_test_mesh
 from repro_torch.models import init_params, moe
 from repro_torch.models.transformer import resolve_device
 from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
@@ -98,6 +98,7 @@ from repro_torch.training import (OptConfig, Trainer, TrainerConfig,
                                   make_baseline_step, make_compressed_step,
                                   make_zero1_fallback)
 from repro_torch.training import optimizer as optm
+from repro_torch.parallel.sharding import get_rules, tp_only, use_rules
 from repro_torch.training.train_step import flat_geometry
 
 
@@ -211,18 +212,25 @@ def checkpoint_layout(cfg: ModelConfig, mesh, group, compressed: bool
     """How the ranks of :func:`train`'s run hold ``(params, opt_state)``
     over ``mesh`` (None: ``group``'s ranks as a data axis): the
     parameters, and the baseline step's AdamW moments, cut over the
-    model axis as ``convert.shard_params`` cuts them; the compressed
-    step's ``m`` and ``v`` a ``[seg]`` row a rank of the reference's
-    ``[data, model, seg]``."""
+    model axis as ``convert.shard_params`` cuts them, and, under rules in
+    scope that cut parameters by FSDP, over the data column too; the
+    compressed step's ``m`` and ``v`` a ``[seg]`` row a rank of the
+    reference's ``[data, model, seg]``."""
     data, model = ((mesh.data, mesh.model) if mesh is not None
                    else (dist.get_world_size(group), 1))
     dims = {} if model == 1 else {
         k: d for k, d in leaf_model_dims(cfg, model).items()
         if d is not None}
+    ddims = {}
+    if not compressed and fsdp_column(mesh) is not None and data > 1:
+        ddims = {k: d for k, d in leaf_data_dims(cfg, data, model).items()
+                 if d is not None}
     trees = ("0",) if compressed else ("0", "1/m", "1/v")
     return Layout(data=data, model=model, rank=dist.get_rank(group),
                   group=group,
                   cut={f"{t}/{k}": d for t in trees for k, d in dims.items()},
+                  data_cut={f"{t}/{k}": d for t in trees
+                            for k, d in ddims.items()},
                   rows=frozenset({"1/m", "1/v"} if compressed else ()))
 
 
@@ -288,17 +296,30 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
     ``data x model`` layout whose specs resolve; a compressed one only on
     the layout it was saved on (its flat state is ``[data, model, seg]``,
     which the reference does not cut again either), else every rank
-    raises ``ValueError`` naming both layouts before the first step."""
+    raises ``ValueError`` naming both layouts before the first step.
+
+    Under rules in scope that cut parameters by FSDP (``parallel.
+    sharding.make_rules()``, as the reference's launcher honours its
+    rules) a ``"baseline"`` run over a mesh is ZeRO-3: each rank holds
+    its ``data x model`` block of the parameters and the moments (drawn
+    a leaf at a time, or cut from ``params``), and its checkpoints cut
+    the same way. A ``"qlc"`` run keeps TP-only parameters
+    (``parallel.sharding.tp_only``), as the reference's compressed step
+    does."""
     if comm not in ("baseline", "qlc"):
         raise ValueError(f"comm must be 'baseline' or 'qlc', got {comm!r}")
     cfg, moe_wire = resolve_moe_wire(cfg, moe_wire, comm)
     dev = resolve_device(device)
-    with data_parallel(dev) as group:
+    rules = get_rules() if comm == "baseline" else tp_only(get_rules())
+    with data_parallel(dev) as group, use_rules(rules):
         mesh = current_mesh()
         if mesh is None and cfg.moe is not None \
                 and cfg.moe.impl == "shardmap_a2a":
             mesh = make_test_mesh(model=1)
+        col = fsdp_column(mesh)
+        d_i, d_n = (col.index, col.size) if col is not None else (0, 1)
         tp = mesh is not None and mesh.model > 1
+        cut = tp or col is not None
         wire_group = mesh.data_group if tp else group
         calibrates = (comm == "qlc" and registry is None) or (
             moe_wire == "qlc" and (registry is None or any(
@@ -307,9 +328,9 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
         local = False
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            if tp and not (calibrates and dist.get_rank(group) == 0):
+            if cut and not (calibrates and dist.get_rank(group) == 0):
                 params = init_local_params(cfg, gen, dev, mesh.coords[1],
-                                           mesh.model)
+                                           mesh.model, d_i, d_n)
                 local = True
             else:
                 params = init_params(cfg, gen, dev)
@@ -339,8 +360,9 @@ def train(cfg: ModelConfig, *, comm: str = "qlc", steps: int = 4,
                 enabled=None if wire_enabled else False), registry=registry)
                 for name in (moe.MOE_DISPATCH, moe.MOE_COMBINE)}
             out["registry"] = registry
-        if tp and not local:
-            params = shard_params(params, cfg, mesh.coords[1], mesh.model)
+        if cut and not local:
+            params = shard_params(params, cfg, mesh.coords[1], mesh.model,
+                                  data_index=d_i, data_size=d_n)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         baseline = make_baseline_step(cfg, opt_cfg, train_cfg, group=group,

@@ -23,6 +23,19 @@ layers (``models.layers``, ``models.attention``, ``models.moe``,
 (:func:`decode_states_specs`, :func:`init_decode_states` with the row),
 the embedding summed over the row and the logits gathered: every rank
 of the row returns the same logits.
+
+Under sharding rules in scope that cut parameters by FSDP
+(``parallel.sharding.make_rules()``; ``launch.mesh.fsdp_column``) the
+tree holds each FSDP leaf as the rank's ``data x model`` block
+(``convert.shard_params`` with the data cut): :func:`apply_stack`
+gathers a layer group's blocks over the data column right before the
+group runs and drops them after it (inside the group's checkpoint, which
+FSDP puts on every group whatever ``cfg.remat`` says, so the backward
+pass gathers them again), the gathers' backward reduce-scatters the
+gradients, and the embedding, the head and the final norm are gathered
+where they are read. A weight wire under FSDP holds each compressed leaf's model-block
+wire cut by chunks over the column, opened a group at a time through
+the column (``GroupWireCodec.open_group_sharded``).
 """
 from __future__ import annotations
 
@@ -32,7 +45,9 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import kv_seq_shard, model_row
+from repro_torch.launch.mesh import (current_mesh, fsdp_column,
+                                     gather_from_data, kv_seq_shard,
+                                     model_row)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 
@@ -445,18 +460,46 @@ def _apply_block(p, kind: str, x, positions, cfg: ModelConfig, state,
     return x, new_state
 
 
-def _apply_group(pg, x, positions, cfg: ModelConfig, scope, row):
+def _gather_group(pg, dims, col, shift: int = 0):
+    """``pg`` with each tensor leaf that has an FSDP dim in ``dims`` (the
+    stacked tree's, ``shift`` leading dims indexed away) gathered over
+    the column ``col``; a wired leaf, or one the column holds whole, as
+    it is."""
+    if isinstance(dims, dict):
+        return {k: _gather_group(pg[k], dims[k], col, shift) for k in pg}
+    if dims is None or not isinstance(pg, torch.Tensor):
+        return pg
+    return gather_from_data(pg, dims - shift, col)
+
+
+def _apply_group(pg, x, positions, cfg: ModelConfig, scope, row, col=None,
+                 dims=None):
+    """One layer group of the training forward; over an FSDP column its
+    blocks are gathered first."""
+    if col is not None:
+        pg = _gather_group(pg, dims, col, 1)
     for i, kind in enumerate(cfg.layer_kinds()):
         x, _ = _apply_block(pg[f"l{i}"], kind, x, positions, cfg, None,
                             scope, row)
     return x
 
 
+def _fsdp_state(cfg: ModelConfig):
+    """The FSDP column and every leaf's FSDP dim (``parallel.sharding.
+    fsdp_dims``) under the mesh and rules in scope, or ``(None, None)``."""
+    col = fsdp_column()
+    if col is None:
+        return None, None
+    from repro_torch.parallel.sharding import fsdp_dims
+    return col, fsdp_dims(cfg, current_mesh())
+
+
 def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
                 weight_codec=None):
     """Run every layer group in order. ``states=None`` (training): the
     whole sequence through each group, each group recomputed in the
-    backward pass when ``cfg.remat`` is not ``"none"`` (a per-group
+    backward pass when ``cfg.remat`` is not ``"none"``, or under FSDP
+    whatever ``cfg.remat`` says (a per-group
     ``torch.utils.checkpoint``; ``"dots"``, which keeps the matmul
     outputs in the reference, recomputes the whole group here, with the
     same values). Returns (x, None). With decode states, each group runs
@@ -474,29 +517,41 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
     mesh axes (``launch.mesh.kv_seq_shard``: the data column, the model
     row or the whole mesh, a shard of one rank on axes of 1) a decode
     step's KV caches hold the rank's range of positions, and each
-    attention layer combines the shard's partial attentions."""
+    attention layer combines the shard's partial attentions. Under rules
+    that cut parameters by FSDP each group's blocks are gathered over
+    the data column before it runs (module docstring), and a wire's
+    chunk shards opened over the column."""
     groups = params["groups"]
     kinds = cfg.layer_kinds()
     n_groups = tree_leaves(groups)[0].shape[0]
     scope = moe.moe_scope() if cfg.moe is not None else None
     row = model_row()
+    col, dims = _fsdp_state(cfg)
+    gdims = dims["groups"] if col is not None else None
     if states is None:
-        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        # under FSDP every group is recomputed, so that the backward pass
+        # gathers its blocks again instead of keeping them
+        remat = (cfg.remat != "none" or col is not None) \
+            and torch.is_grad_enabled()
         for g in range(n_groups):
             pg = tree_map(lambda a: a[g], groups)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _apply_group, pg, x, positions, cfg, scope, row,
-                    use_reentrant=False)
+                    _apply_group, pg, x, positions, cfg, scope, row, col,
+                    gdims, use_reentrant=False)
             else:
-                x = _apply_group(pg, x, positions, cfg, scope, row)
+                x = _apply_group(pg, x, positions, cfg, scope, row, col,
+                                 gdims)
         return x, None
     shard = kv_seq_shard()
     outs = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], groups)
+        if col is not None:
+            pg = _gather_group(pg, gdims, col, 1)
         if weight_codec is not None:
-            pg = weight_codec.open_group(pg)
+            pg = (weight_codec.open_group(pg) if col is None
+                  else weight_codec.open_group_sharded(pg, group=col.group))
         sg = tree_map(lambda a: a[g], states)
         new_sg = {}
         for i, kind in enumerate(kinds):
@@ -506,6 +561,16 @@ def apply_stack(params, x, positions, cfg: ModelConfig, states=None,
         outs.append(new_sg)
     new_states = tree_map(lambda *xs: torch.stack(xs), *outs)
     return x, new_states
+
+
+def _top(params, key: str, cfg: ModelConfig) -> torch.Tensor:
+    """Top-level leaf ``key`` (the embedding, the head, the final norm)
+    as the layers read it: gathered over the FSDP column where the rules
+    in scope cut it."""
+    col, dims = _fsdp_state(cfg)
+    if col is None or dims[key] is None:
+        return params[key]
+    return gather_from_data(params[key], dims[key], col)
 
 
 def _vocab_row(table: torch.Tensor, dim: int, cfg: ModelConfig):
@@ -519,16 +584,23 @@ def _vocab_row(table: torch.Tensor, dim: int, cfg: ModelConfig):
 def _head(params, cfg: ModelConfig):
     """The unembedding weight and the row its vocab is split over."""
     if cfg.tie_embeddings:
-        return params["embed"], _vocab_row(params["embed"], 0, cfg)
-    return params["head"], _vocab_row(params["head"], 1, cfg)
+        table = _top(params, "embed", cfg)
+        return table, _vocab_row(table, 0, cfg)
+    table = _top(params, "head", cfg)
+    return table, _vocab_row(table, 1, cfg)
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    table = _top(params, "embed", cfg)
+    return layers.embed(table, tokens, _vocab_row(table, 0, cfg)).to(
+        getattr(torch, cfg.dtype))
 
 
 def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_emb: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    x = layers.embed(params["embed"], tokens,
-                     _vocab_row(params["embed"], 0, cfg)).to(dtype)
+    x = _embed(params, cfg, tokens)
     if prefix_emb is not None:
         x = torch.cat([prefix_emb.to(dtype), x], dim=1)
     b, s, _ = x.shape
@@ -536,7 +608,7 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     x, _ = apply_stack(params, x, positions, cfg, states=None)
-    return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.rms_norm(x, _top(params, "final_norm", cfg), cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -599,11 +671,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,
     vocab, so every rank of the row returns the same [B, S, V], bit for
     bit. Returns (logits [B, S, V], new_states).
     """
-    dtype = getattr(torch, cfg.dtype)
-    x = layers.embed(params["embed"], tokens,
-                     _vocab_row(params["embed"], 0, cfg)).to(dtype)
+    x = _embed(params, cfg, tokens)
     x, new_states = apply_stack(params, x, positions, cfg, states,
                                 weight_codec=weight_codec)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = layers.rms_norm(x, _top(params, "final_norm", cfg), cfg.norm_eps)
     head, row = _head(params, cfg)
     return layers.unembed(head, x, cfg.tie_embeddings, row), new_states

@@ -4,7 +4,7 @@ from repro_torch.comm.blockpool import (  # noqa: F401
     ArenaExhausted, ArenaStale, BlockArena, BlockPool, PoolExhausted)
 from repro_torch.serving.engine import (  # noqa: F401
     ServeConfig, codec_from_manifest, compress_params_for_serving,
-    open_params, prefill, serving_manifest, window_step)
+    open_params, place_wire, prefill, serving_manifest, window_step)
 from repro_torch.serving.kv_cache import (  # noqa: F401
     BlockPrefetcher, DeviceBlock, KVBlock, KVCacheOverflowError,
     KVCacheSpec, LayerFramePlan, PagedKVCache, SSMBoundaryTracker,

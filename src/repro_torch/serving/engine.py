@@ -23,6 +23,11 @@ Compressed-weight serving stores the layer stack as block-32 e4m3 + QLC
 words (or raw e4m3 codes, ``mode="e4m3"``; ``repro_torch.comm.weights``),
 compressed through K1, and opens it through K2 before the engine starts,
 locally or chunk-sharded over a process group (:func:`open_params`).
+Under FSDP the wire stays compressed: each rank holds its chunks of
+every compressed leaf's model-block wire (:func:`place_wire`), and the
+engine opens a layer group's wire over the data column inside each
+decode step (``Engine(weight_codec=)``), the reference's FSDP serving
+gather.
 :func:`serving_manifest` / :func:`codec_from_manifest` carry the wire's
 recipe (and the KV cache's) through JSON in the reference's format.
 """
@@ -45,7 +50,7 @@ class ServeConfig:
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
-            start_pos: int = 0, chunk: int = 1):
+            start_pos: int = 0, chunk: int = 1, weight_codec=None):
     """Feed a prompt through the decode path token by token (the
     reference's implementation, correct for every block kind), token
     ``t`` at position ``start_pos + t``. ``chunk`` above 1 feeds that
@@ -53,7 +58,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
     attending causally (an attention-only stack: a long prompt then
     costs ``S / chunk`` steps, not ``S``).
 
-    tokens: [B, S]. Returns (last_logits [B, V], states).
+    tokens: [B, S]. ``weight_codec``: ``params["groups"]`` is a weight
+    wire, opened a group at a time in each step (``models.decode_step``).
+    Returns (last_logits [B, V], states).
     """
     if chunk > 1 and any(k != "attention" for k in cfg.layer_kinds()):
         raise ValueError(f"a prefill of {chunk} tokens a step needs an "
@@ -67,13 +74,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, states,
                            dtype=torch.int32,
                            device=tokens.device)[None].repeat(b, 1)
         logits, states = decode_step(params, cfg, tokens[:, t:t + n], states,
-                                     pos)
+                                     pos, weight_codec=weight_codec)
     return logits[:, -1], states
 
 
 def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, states, window: int,
-                free: Optional[torch.Tensor] = None):
+                free: Optional[torch.Tensor] = None, weight_codec=None):
     """``window`` greedy decode steps from seed ``tokens`` [B, 1] at
     ``positions`` [B, 1]: each step's argmax is the next step's token,
     on the device. Returns (generated tokens int32 [B, window], states);
@@ -86,7 +93,8 @@ def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     gen = []
     tok, pos = tokens, positions
     for _ in range(window):
-        lg, states = decode_step(params, cfg, tok, states, pos)
+        lg, states = decode_step(params, cfg, tok, states, pos,
+                                 weight_codec=weight_codec)
         nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
         gen.append(nxt)
         if free is None:
@@ -99,7 +107,8 @@ def window_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def compress_params_for_serving(params, tables, mode: str = "qlc",
                                 use_kernels: bool = True, type_key_fn=None,
-                                whole_shapes=None):
+                                whole_shapes=None, column=None,
+                                data_dims=None):
     """Wire a parameter tree for compressed serving: large layer-stack
     leaves become block-32 e4m3 symbols, packed into QLC words with
     exactly measured capacity (``mode="qlc"``) or kept raw
@@ -111,12 +120,17 @@ def compress_params_for_serving(params, tables, mode: str = "qlc",
     (``convert.shard_params``), with ``whole_shapes`` (leaf path ->
     the whole model's shape, ``convert.whole_leaf_shapes``): the wire
     then holds the rank's
-    blocks of the leaves the whole tree's wire holds. Returns
-    ``(wired_params, wire_codec)``; open with :func:`open_params`."""
+    blocks of the leaves the whole tree's wire holds. ``column`` (a
+    ``launch.mesh.DataColumn``) with ``data_dims`` (leaf path -> FSDP
+    dim): ``params`` holds FSDP blocks, and each wired leaf comes out as
+    this rank's chunks of its model-block wire (:func:`place_wire`),
+    wired a leaf at a time. Returns ``(wired_params, wire_codec)``; open
+    with :func:`open_params`."""
     from repro_torch.comm.weights import compress_groups
     return compress_groups(params, tables, mode=mode,
                            use_kernels=use_kernels, type_key_fn=type_key_fn,
-                           whole_shapes=whole_shapes)
+                           whole_shapes=whole_shapes, column=column,
+                           data_dims=data_dims)
 
 
 def serving_manifest(wire_codec, *, kv_spec=None, kv_registry=None) -> dict:
@@ -146,8 +160,21 @@ def codec_from_manifest(manifest: dict, use_kernels=None):
     return GroupWireCodec.from_manifest(manifest, use_kernels=use_kernels)
 
 
+def place_wire(wired_params, column):
+    """The rank's place of a weight wire under FSDP: each compressed
+    leaf's chunks cut over the data ``column`` (a
+    ``launch.mesh.DataColumn``; ``comm.weights.shard_chunks``; a leaf
+    whose chunks the column does not divide stays whole), as the
+    reference's wire lies over its data axes. ``column`` None: the wire
+    as it is."""
+    if column is None:
+        return wired_params
+    from repro_torch.comm.weights import shard_chunks
+    return shard_chunks(wired_params, column.index, column.size)
+
+
 def open_params(wired_params, wire_codec, *, channel=None, axis_name=None,
-                axis_size=None, transport=None):
+                axis_size=None, transport=None, column=None):
     """Decode a wired parameter tree back to dense tensors (K2 for QLC
     leaves on the card, the plain version on the CPU).
 
@@ -157,7 +184,13 @@ def open_params(wired_params, wire_codec, *, channel=None, axis_name=None,
     ``transport``, every compressed leaf is a chunk shard
     (``comm.weights.shard_chunks``) and the wire streams over the group
     (:meth:`GroupWireCodec.open_group_sharded`); the values are
-    bit-identical to the whole open."""
+    bit-identical to the whole open. ``column`` (a
+    ``launch.mesh.DataColumn``): the wire is placed over the FSDP data
+    column (:func:`place_wire`) and opened over it."""
+    if column is not None:
+        return wire_codec.open_group_sharded(wired_params,
+                                             transport=transport,
+                                             group=column.group)
     if channel is not None:
         if channel.axis is None:          # local placement: plain open
             return wire_codec.open_group(wired_params)

@@ -122,7 +122,8 @@ from repro_torch.launch.mesh import (kv_seq_shard, mesh_all, mesh_max,
 from repro_torch.models import attention as attn
 from repro_torch.models import decode_step, init_decode_states, ssm
 from repro_torch.models.transformer import tree_map
-from repro_torch.parallel.sharding import ShardingRules, get_rules, use_rules
+from repro_torch.parallel.sharding import (ShardingRules, fsdp_params,
+                                           get_rules, use_rules)
 from repro_torch.serving.engine import prefill, window_step
 from repro_torch.serving.kv_cache import (KVCacheSpec, PagedKVCache,
                                           SSMBoundaryTracker,
@@ -233,7 +234,14 @@ class Engine:
     ``kv_seq`` on mesh axes, the KV caches' sequence splits over them
     (module docstring). ``prefill_chunk``: tokens a prefill
     feeds per decode step (``serving.engine.prefill``; attention-only
-    stacks); 1, the default, feeds them one at a time.
+    stacks); 1, the default, feeds them one at a time. Under rules in
+    scope that cut parameters by FSDP, ``params`` holds each FSDP leaf as
+    the rank's ``data x model`` block (and, with ``weight_codec``, the
+    layer stack as its wire, each compressed leaf's chunks cut over the
+    data column: ``serving.engine.place_wire``); each decode and prefill
+    step gathers a group's blocks over the column as it runs, every rank
+    in step. ``weight_codec``: ``params["groups"]`` is a weight wire,
+    opened a group at a time inside each decode step.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_seq_len: int,
@@ -241,7 +249,7 @@ class Engine:
                  registry=None, pool: Optional[BlockPool] = None,
                  fairness_cap: Optional[float] = None, mesh=None,
                  kv_paging: str = "sync", arena_slots: int = 256,
-                 monitor=None, prefill_chunk: int = 1):
+                 monitor=None, prefill_chunk: int = 1, weight_codec=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if kv_paging not in ("sync", "async"):
@@ -254,6 +262,7 @@ class Engine:
                 "exact_capacity=False): the fixed plan geometry is what "
                 "lets the card frame block containers itself")
         self.params = params
+        self.weight_codec = weight_codec
         self.cfg = cfg
         self.mesh = mesh
         self._row = model_row(mesh) if mesh is not None else None
@@ -265,6 +274,12 @@ class Engine:
         self.max_batch = int(max_batch)
         self.prefill_chunk = int(prefill_chunk)
         self._split, self._shard = self._data_layout(mesh)
+        #: under FSDP every rank of a column gathers each group's blocks
+        #: in every decode step and prefill step, so the replicas of a
+        #: data split step together: a rank with no slot of its own
+        #: decodes its free slots, and each prefills every admitted
+        #: request, keeping its own
+        self._lockstep = self._split > 1 and fsdp_params(self._rules)
         #: this rank's slots: [first, first + local)
         self._local = self.max_batch // self._split
         self._first = (mesh.coords[0] * self._local if self._split > 1
@@ -437,10 +452,11 @@ class Engine:
                     if self._mine(b) is not None]
             nxt = np.zeros(self._local, np.int64)
             t0 = time.perf_counter()
-            if mine:
+            if mine or self._lockstep:
                 tokens, pos = self._seed(mine)
-                lg, self._states = decode_step(self.params, self.cfg,
-                                               tokens, self._states, pos)
+                lg, self._states = decode_step(
+                    self.params, self.cfg, tokens, self._states, pos,
+                    weight_codec=self.weight_codec)
                 nxt = torch.argmax(lg[:, 0], dim=-1).cpu().numpy()  # syncs
             self._decode_s += time.perf_counter() - t0
             nxt = self._gather_column(nxt)
@@ -480,7 +496,7 @@ class Engine:
                     if self._mine(b) is not None]
             gen = np.zeros((self._local, window), np.int64)
             t0 = time.perf_counter()
-            if mine:
+            if mine or self._lockstep:
                 tokens, pos = self._seed(mine)
                 free = self._tensor(np.array(
                     [[rid is None] for rid in self._slots[
@@ -488,7 +504,7 @@ class Engine:
                 self._window_h2d += 2
                 gen_dev, self._states = window_step(
                     self.params, self.cfg, tokens, pos, self._states,
-                    window, free=free)
+                    window, free=free, weight_codec=self.weight_codec)
                 gen = gen_dev.cpu().numpy()  # ONE read-back for the window
                 self._window_d2h += 1
             self._windows += 1
@@ -604,6 +620,8 @@ class Engine:
         row = None
         first = 0
         whole = None
+        if local is None and self._lockstep:
+            self._prefill(seq, owned=False)    # in step with its replica's
         if local is not None:
             first, row = self._prefill(seq)
             if self._gathers_row():
@@ -629,10 +647,12 @@ class Engine:
         self._log("admit", seq.rid)
         self._page_and_maybe_finish(seq)    # prompt blocks page out now
 
-    def _prefill(self, seq: _Seq):
+    def _prefill(self, seq: _Seq, owned: bool = True):
         """Prefill ``seq``'s prompt at batch 1 on fresh states, whole
         (every position, under a sequence shard too) -> (its first token,
-        the states)."""
+        the states). ``owned=False``: a rank that only keeps its
+        replica's FSDP gathers in step records no boundary states and no
+        prefill time for it."""
         t0 = time.perf_counter()
         prompt = self._tensor(seq.req.prompt[None, :])
         rules = self._whole_rules if self._shard is not None else \
@@ -652,15 +672,18 @@ class Engine:
                     logits, row = prefill(self.params, self.cfg,
                                           prompt[:, pos:end], row,
                                           start_pos=pos,
-                                          chunk=self.prefill_chunk)
+                                          chunk=self.prefill_chunk,
+                                          weight_codec=self.weight_codec)
                     pos = end
-                    if pos % bt == 0:
+                    if owned and pos % bt == 0:
                         self._record_boundary_states(seq, row, pos)
             else:
                 logits, row = prefill(self.params, self.cfg, prompt, row,
-                                      chunk=self.prefill_chunk)
+                                      chunk=self.prefill_chunk,
+                                      weight_codec=self.weight_codec)
         first = int(torch.argmax(logits[0]))              # syncs
-        self._prefill_s += time.perf_counter() - t0
+        if owned:
+            self._prefill_s += time.perf_counter() - t0
         return first, row
 
     def _states_len(self) -> int:

@@ -22,6 +22,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.transformer import tree_leaves, tree_map
 
@@ -68,6 +69,26 @@ def global_norm(tree) -> torch.Tensor:
     """f32 scalar: the l2 norm of every leaf's values."""
     sq = torch.stack([sum_of_squares(g) for g in tree_leaves(tree)]).sum()
     return torch.sqrt(sq).float()
+
+
+def split_global_norm(leaves, leaf_axes, mesh) -> torch.Tensor:
+    """f32 scalar: the l2 norm of a tree held in parts over ``mesh``
+    (a ``launch.mesh.Mesh``): each of ``leaves`` is this rank's part of a
+    leaf split over the mesh axes ``leaf_axes[i]`` (``()``: held whole
+    by every rank, counted once; ``("model",)``, ``("data",)`` or both:
+    its squares summed over the model row, the data column or every
+    rank), the squares summed in f64 in the leaves' order."""
+    sq = [sum_of_squares(g) for g in leaves]
+    groups = {("model",): mesh.model_group, ("data",): mesh.data_group,
+              ("data", "model"): mesh.world_group}
+    for axes, group in groups.items():
+        idx = [i for i, a in enumerate(leaf_axes) if tuple(a) == axes]
+        if idx:
+            tot = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(tot, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+    return torch.sqrt(torch.stack(sq).sum()).float()
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -11,7 +11,13 @@ Two implementations, as in the reference:
   data axis (a model row shares its shard; ``shardmap_a2a`` cuts it
   over the row inside each MoE layer), gradients are averaged over the
   data column, and the clip norm sums the split leaves' squares over the
-  model row and counts the replicated ones once.
+  model row and counts the replicated ones once. Under rules that cut
+  parameters by FSDP (``parallel.sharding.make_rules()``) the step is
+  ZeRO-3: each rank holds its ``data x model`` block of every FSDP leaf,
+  a layer group's blocks are gathered over the data column as it runs
+  (``models.apply_stack``), their gradients come back reduce-scattered,
+  and the clip norm sums each leaf's squares over the ranks that split
+  it.
 
 * **compressed** — the paper's technique: each rank flattens its local
   gradients, a QLC-compressed reduce-scatter (K1 encode, then K2
@@ -179,12 +185,14 @@ def _step_mesh(model_cfg: ModelConfig, mesh):
 # Baseline step
 # --------------------------------------------------------------------------
 
-def _split_mask(model_cfg: ModelConfig, mesh) -> List[bool]:
-    """Per parameter leaf in pytree order: True where ``mesh``'s model
-    axis splits it (its spec resolves a dim to ``"model"``)."""
-    specs = sharding.param_pspecs(model_cfg, mesh)
-    return [sharding.replication_factor(s, mesh) == 1
-            for s in pytree_leaves(specs)]
+def _leaf_axes(model_cfg: ModelConfig, mesh) -> List[Tuple[str, ...]]:
+    """Per parameter leaf in pytree order: the mesh axes above 1 that
+    split it under the rules in scope (``"data"`` for an FSDP dim,
+    ``"model"`` for a model dim), in mesh order."""
+    return [tuple(axis for axis, d in zip(("data", "model"), dims)
+                  if d is not None)
+            for dims in pytree_leaves(sharding.leaf_dims(
+                model_cfg, mesh.data, mesh.model, split=True))]
 
 
 def _tp_mesh(mesh) -> bool:
@@ -210,41 +218,50 @@ def make_baseline_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     gradient wire stays dense. MoE layers see the whole batch, as in the
     reference. With ``train_cfg.microbatches > 1`` microbatch *i* on a
     rank is its shard of the global batch's microbatch *i*, as the
-    reference splits it (:func:`local_batch`)."""
+    reference splits it (:func:`local_batch`).
+
+    The step runs under the sharding rules in scope at its construction.
+    Where they cut parameters by FSDP (``parallel.sharding.make_rules()``)
+    over a mesh, the step is ZeRO-3: ``params`` and the state hold each
+    FSDP leaf as the rank's ``data x model`` block (``convert.
+    shard_params`` with the data cut), each layer group's blocks are
+    gathered over the data column as it runs and again in the backward
+    pass (``models.apply_stack``), an FSDP leaf's gradient arrives
+    reduce-scattered and averaged over the column from the gathers'
+    backward, the other leaves' are averaged over the column as without
+    FSDP, and the clip norm sums each leaf's squares over the ranks that
+    split it (``optimizer.split_global_norm``)."""
     mesh = _step_mesh(model_cfg, mesh)
+    rules = sharding.get_rules()
     tp = _tp_mesh(mesh)
     if mesh is not None:
         group = mesh.world_group
     group = dist.group.WORLD if group is None else group
     batch_group = mesh.data_group if mesh is not None else group
-    split = _split_mask(model_cfg, mesh) if tp else None
-
-    def norm_over_row(leaves, row_summed):
-        """The global norm of ``leaves``: the squares of those flagged
-        ``row_summed`` summed over the model row, the rest counted
-        once."""
-        sq = [opt.sum_of_squares(g) for g in leaves]
-        idx = [i for i, f in enumerate(row_summed) if f]
-        if idx and mesh.model > 1:
-            tot = torch.stack([sq[i] for i in idx])
-            dist.all_reduce(tot, group=mesh.model_group)
-            for j, i in enumerate(idx):
-                sq[i] = tot[j]
-        return torch.sqrt(torch.stack(sq).sum()).float()
+    fsdp = mesh is not None and sharding.fsdp_params(rules)
+    axes = (_leaf_axes(model_cfg, mesh) if tp or fsdp else None)
+    gathered = None
+    if fsdp:
+        gathered = [d is not None for d in pytree_leaves(
+            sharding.fsdp_dims(model_cfg, mesh))]
+    split_norm = tp or (axes is not None and any(axes))
 
     def reduce_grads(grads):
-        """Mean gradient tree and, with leaves split over the model axis,
-        the global norm of it (else None: the tree's own)."""
-        if tp:
-            leaves = [_mean_over(g.float(), mesh.data_group)
-                      for g in pytree_leaves(grads)]
+        """Mean gradient tree and, with leaves split over the mesh, the
+        global norm of it (else None: the tree's own)."""
+        if axes is not None:
+            leaves = [g.float() if gathered is not None and gathered[i]
+                      else _mean_over(g.float(), mesh.data_group)
+                      for i, g in enumerate(pytree_leaves(grads))]
             return (pytree_unflatten(grads, leaves),
-                    norm_over_row(leaves, split))
+                    opt.split_global_norm(leaves, axes, mesh)
+                    if split_norm else None)
         return tree_map(lambda g: _mean_over(g.float(), group), grads), None
 
     def train_step(params, opt_state, batch):
         dev = pytree_leaves(params)[0].device
-        with _moe_bindings(mesh, moe_channels, batch_group):
+        with _moe_bindings(mesh, moe_channels, batch_group), \
+                sharding.use_rules(rules):
             loss, grads = _microbatched_grads(
                 params, model_cfg,
                 local_batch(batch, batch_group, dev,
@@ -480,9 +497,14 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
     ranks whose escape pool overflowed on each wire
     (``"adapt/grads_overflow"`` / ``"adapt/params_overflow"``): the
     inputs of ``repro_torch.adaptive.TrainingAdapter``. The payloads are
-    untouched, so a telemetry step is bit-identical to a plain one."""
+    untouched, so a telemetry step is bit-identical to a plain one.
+
+    Its parameters are cut over the model axis alone, whatever the rules
+    in scope (``parallel.sharding.tp_only``: the reference's compressed
+    step resolves them without its FSDP overrides)."""
     if hierarchical_wire:
         raise NotImplementedError(_NO_PODS)
+    rules = sharding.tp_only(sharding.get_rules())
     mesh = _step_mesh(model_cfg, mesh)
     tp = _tp_mesh(mesh)
     group = mesh.data_group if tp else (
@@ -505,7 +527,7 @@ def make_compressed_step(model_cfg: ModelConfig, opt_cfg: opt.OptConfig,
         # The reference's stage 1 cuts its microbatches from the rank's
         # own data shard, so here the shard comes first too.
         dev = pytree_leaves(params)[0].device
-        with _moe_bindings(mesh, moe_channels):
+        with _moe_bindings(mesh, moe_channels), sharding.use_rules(rules):
             return _microbatched_grads(params, model_cfg,
                                        local_batch(batch, group, dev),
                                        train_cfg.microbatches)
@@ -579,7 +601,8 @@ def make_zero1_fallback(baseline_step: Callable, compressed_step: Callable,
     segments are all-gathered (dense f32) over ``group`` (default: the
     compressed step's, its data column over a mesh) into trees, the
     baseline step runs, and each rank keeps its segment of the new
-    moments."""
+    moments. ``baseline_step`` is built under TP-only rules
+    (``parallel.sharding.tp_only``), the compressed step's layout."""
     group = compressed_step.group if group is None else group
     d, rank = _world(group)
 

@@ -48,7 +48,9 @@ class Trainer:
     ``(params, opt_state)``. Every rank saves into the one
     ``checkpoint_dir``, which holds the whole tree as the reference
     saves it, with ``extra["layout"] = {"data": D, "model": M}``; every
-    rank resumes from rank 0's latest step, cut to its own parts. None:
+    rank resumes from rank 0's latest step, cut to its own parts (under
+    FSDP, ``Layout.data_cut``: each rank's ``data x model`` block of the
+    parameters and moments it was given, restored in place). None:
     one rank, the tree saved as it is. ``ckpt_seconds`` holds the stage
     seconds (``CheckpointManager.timings``, and ``total``) of the restore
     and of the last save.

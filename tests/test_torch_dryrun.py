@@ -426,28 +426,32 @@ def test_run_cell_writes_the_reference_keys_and_reanalyzes(tmp_path):
 def test_cell_rules_name_what_the_port_does_differently():
     """A decode cell runs under the reference's decode rules (the cache's
     sequence over ``model`` where the KV heads do not divide it, over
-    ``("data", "model")`` at a batch of 1), so ``rules_differ`` names
-    FSDP alone (ROADMAP queue 1, item 22), and nothing of the KV cache."""
+    ``("data", "model")`` at a batch of 1), and a baseline or decode
+    cell's rules carry the reference's FSDP parameter overrides, so
+    ``rules_differ`` is empty; the compressed train cell keeps TP-only
+    parameters (no overrides), as the reference's does."""
+    from repro_torch.parallel.sharding import FSDP_PARAM_OVERRIDES
     mesh = dataclasses.make_dataclass("M", [("shape", dict)])(
         {"data": 16, "model": 16})
     coder = get_config("deepseek-coder-33b")
     rules, differ = dryrun.cell_rules(coder, DECODE_32K, mesh, "baseline")
-    assert rules.rules["kv_seq"] == "model" and not rules.param_overrides
+    assert rules.rules["kv_seq"] == "model"
+    assert rules.param_overrides == FSDP_PARAM_OVERRIDES
     rules, differ2 = dryrun.cell_rules(get_config("jamba-1.5-large-398b"),
                                        LONG_500K, mesh, "baseline")
     assert rules.rules["kv_seq"] == ("data", "model")
     assert rules.rules["batch"] is None
-    for d in differ + differ2:
-        assert d.startswith("fsdp") and "kv" not in d and "21" not in d
+    assert rules.param_overrides == FSDP_PARAM_OVERRIDES
+    assert differ == [] and differ2 == []
     rules, differ = dryrun.cell_rules(
         get_config("phi3-mini-3.8b"), ShapeConfig("t", 8, 8, "train"), mesh,
         "baseline")
-    assert any(d.startswith("fsdp") for d in differ)
-    assert not rules.param_overrides
-    _, differ = dryrun.cell_rules(
+    assert differ == []
+    assert rules.param_overrides == FSDP_PARAM_OVERRIDES
+    rules, differ = dryrun.cell_rules(
         get_config("phi3-mini-3.8b"), ShapeConfig("t", 8, 8, "train"), mesh,
         "qlc")
-    assert differ == []
+    assert differ == [] and not rules.param_overrides
 
 
 @pytest.mark.parametrize("batch", [8, 1], ids=["model", "data_model"])

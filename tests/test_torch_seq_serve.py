@@ -257,10 +257,10 @@ def test_decode_rules_match_reference_cell_rules():
     """``parallel.sharding.decode_rules`` gives the rules of the
     reference's decode ``cell_rules`` for every assigned config on the
     production 16 x 16 layout and on 2 x 2, 1 x 4 and 4 x 1, at a batch
-    of 1 and of 128, without its FSDP parameter overrides, which the dry
-    run's ``rules_differ`` names exactly where the reference has them;
-    and ``launch.mesh.kv_seq_shard`` resolves them to the model row or
-    every rank (a shard of one rank on an axis of 1), or to none."""
+    of 1 and of 128, its FSDP parameter overrides included, so that the
+    dry run's ``rules_differ`` is empty for every decode cell; and
+    ``launch.mesh.kv_seq_shard`` resolves them to the model row or every
+    rank (a shard of one rank on an axis of 1), or to none."""
     out = run_md(REFERENCE_RULES.format(meshes=MESHES), n_devices=1)
     want = json.loads(out.split("RULES", 1)[1])
     from repro_torch.configs.base import ShapeConfig
@@ -277,12 +277,12 @@ def test_decode_rules_match_reference_cell_rules():
                 rules, over = want[f"{arch}/{data}x{model}/{batch}"]
                 assert json.loads(json.dumps(got.rules)) == rules, \
                     (arch, data, model, batch)
-                assert got.param_overrides == {}
+                assert json.loads(json.dumps(got.param_overrides)) == \
+                    over, (arch, data, model, batch)
                 _, differ = dryrun.cell_rules(
                     cfg, ShapeConfig("d", 64, batch, "decode"), layout,
                     "baseline")
-                assert (dryrun._FSDP in differ) == bool(over), \
-                    (arch, data, model, batch)
+                assert differ == [], (arch, data, model, batch)
                 with sharding.use_rules(got), use_mesh(layout):
                     shard = kv_seq_shard()
                 seq = got.rules["kv_seq"]

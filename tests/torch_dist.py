@@ -675,6 +675,8 @@ def tp_layouts(ctx, cases):
     compressed run, each MoE layer's routing (``idx``, ``keep``) and
     input on the first batch from the initial tree under
     ``"<run name>/routing"``: [(idx, keep, x)] in layer order. A case
+    with ``fsdp`` runs under ``parallel.sharding.make_rules()`` (ZeRO-3:
+    its local tree and state are the rank's ``data x model`` blocks). A case
     with ``resume_root`` checkpoints each run into one directory there
     every ``steps - 1`` steps; rank 0 then deletes the last checkpoint
     and the run is launched again, which resumes one step short and
@@ -690,6 +692,7 @@ def tp_layouts(ctx, cases):
     from repro_torch.launch.mesh import make_test_mesh, use_mesh
     from repro_torch.launch.train import train
     from repro_torch.models import moe
+    from repro_torch.parallel.sharding import make_rules, use_rules
 
     out = {}
     for case in cases:
@@ -718,7 +721,8 @@ def tp_layouts(ctx, cases):
                 run_kw = dict(kw, checkpoint_dir=ckpt)
                 run_kw.update((k, v) for k, v in more.items()
                               if k != "wait_for")
-                with use_mesh(mesh):
+                with use_mesh(mesh), use_rules(
+                        make_rules() if case.get("fsdp") else None):
                     res = train(cfg, comm=comm, device="cpu", params=params,
                                 registry=reg, wire_enabled=enabled, **run_kw)
                 hist = res["history"]
@@ -903,6 +907,18 @@ def ckpt_world4(ctx, cfg_kw, train_kw, root, base_root, base_kw):
             out[tag] = _state(train(cfg, comm="baseline", device="cpu",
                                     checkpoint_dir=base_root, **base_kw))
     return out
+
+
+def local_tree(params, cfg, mesh, rules=None):
+    """This rank's local tree of the whole ``params`` (numpy) on ``mesh``
+    as ``rules`` (default: the rules in scope) cut it: its model block,
+    cut again over the data column where they cut parameters by FSDP."""
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.parallel.sharding import get_rules, use_rules
+    d, m = mesh.coords
+    with use_rules(get_rules() if rules is None else rules):
+        return shard_params(params_from_numpy(params, "cpu"), cfg, m,
+                            mesh.model, data_index=d, data_size=mesh.data)
 
 
 def _serve_cfg(arch, cfg_kw):
@@ -1298,6 +1314,8 @@ def seq_decode(ctx, cases, models):
             cfg = _serve_cfg(case["arch"], case["cfg_kw"])
             local = shard_params(params_from_numpy(case["params"], "cpu"),
                                  cfg, m, mesh.model)
+            split_rules = make_rules(decode_seq_shard=True)
+            blocks = local_tree(case["params"], cfg, mesh, split_rules)
             toks = torch.from_numpy(np.asarray(case["tokens"])).long()
             b, n = toks.shape
             p = case["prompt"]
@@ -1307,11 +1325,11 @@ def seq_decode(ctx, cases, models):
                 pos = torch.arange(p, dtype=torch.int32)[None].expand(b, p)
                 lg, st = decode_step(local, cfg, toks[:, :p], st, pos)
                 logits.append(lg[:, -1])
-                with use_rules(make_rules(decode_seq_shard=True)):
+                with use_rules(split_rules):
                     st = shard_decode_states(st, cfg, 0, 1, d, mesh.data)
                     for t in range(p, n):
                         lg, st = decode_step(
-                            local, cfg, toks[:, t:t + 1], st,
+                            blocks, cfg, toks[:, t:t + 1], st,
                             torch.full((b, 1), t, dtype=torch.int32))
                         logits.append(lg[:, 0])
                     shard = kv_seq_shard(mesh)
@@ -1350,7 +1368,7 @@ def seq_engine(ctx, arch, cfg_kw, params, prompts, new_tokens, kv_block):
     from repro_torch.serving import Engine, KVCacheSpec
     cfg = _serve_cfg(arch, cfg_kw)
     mesh = make_test_mesh(model=1)
-    whole = params_from_numpy(params, "cpu")
+    whole = local_tree(params, cfg, mesh, make_rules(decode_seq_shard=True))
     prompts = np.asarray(prompts)
     max_len = prompts.shape[1] + new_tokens + 3
     out = {}
@@ -1438,13 +1456,15 @@ def seq_split_decode(ctx, cases):
             lg, st = decode_step(local, cfg, toks[:, :p], st, pos)
             logits.append(lg[:, -1])
             whole = gather_row_states(cfg, st, n, row)
+            blocks = local_tree(case["params"], cfg, mesh,
+                                seq_rules(case["rule"]))
             with use_rules(seq_rules(case["rule"])):
                 st = shard_decode_states(
                     whole, cfg, m, mesh.model,
                     *((0, 1) if case["rule"] == "model" else (d, mesh.data)))
                 for t in range(p, n):
                     lg, st = decode_step(
-                        local, cfg, toks[:, t:t + 1], st,
+                        blocks, cfg, toks[:, t:t + 1], st,
                         torch.full((b, 1), t, dtype=torch.int32))
                     logits.append(lg[:, 0])
         cache = next(s for s in st.values() if isinstance(s, attn.KVCache))
@@ -1478,8 +1498,8 @@ def seq_split_engine(ctx, cases, new_tokens, kv_block):
             meshes[model] = make_test_mesh(model=model)
         mesh = meshes[model]
         cfg = _serve_cfg(case["arch"], case["cfg_kw"])
-        local = shard_params(params_from_numpy(case["params"], "cpu"), cfg,
-                             mesh.coords[1], mesh.model)
+        local = local_tree(case["params"], cfg, mesh,
+                           seq_rules(case["rule"]))
         prompts = np.asarray(case["prompts"])
         max_len = prompts.shape[1] + new_tokens + 3
         runs = {}
@@ -1514,6 +1534,133 @@ def seq_serve(ctx, decode=(), engine=(), new_tokens=8, kv_block=4):
     return {"decode": seq_split_decode(ctx, list(decode)),
             "engine": seq_split_engine(ctx, list(engine), new_tokens,
                                        kv_block)}
+
+
+def fsdp_serving(ctx, arch, cfg_kw, params, tokens, prompt, prompts,
+                 new_tokens, kv_block, model, serve_kw):
+    """Serving under ``make_rules()`` (FSDP) on a ``data x model`` mesh of
+    this world (``model``: its model axis) from the rank's blocks
+    (:func:`local_tree`): ``prefill_logits`` of ``tokens[:, :prompt]``;
+    a teacher-forced decode (the prompt in one multi-token step, then
+    one token a step) on the dense blocks and on the QLC weight wire cut
+    by chunks over the data column, the wire's open over the column
+    against ``open_group`` of the whole model-block wire; the FSDP
+    histogram against the model's; ``Engine(mesh=)`` dense and paged sync
+    and async; ``launch.serve.serve(reference_rules=True, **serve_kw)``
+    from the wire, paged sync (checked against the dense engine inside)
+    -> a dict of those (numpy) and the FSDP collectives counted."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.blockpool import BlockPool
+    from repro_torch.comm.calibrate import (histogram_of_local_tree,
+                                            histogram_of_tree)
+    from repro_torch.convert import (leaf_data_dims, params_from_numpy,
+                                     shard_params, whole_leaf_shapes)
+    from repro_torch.core import CodecRegistry
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (decode_step, init_decode_states,
+                                    prefill_logits)
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    from repro_torch.serving import (KVCacheSpec, compress_params_for_serving,
+                                     open_params)
+    cfg = _serve_cfg(arch, cfg_kw)
+    mesh = tmesh.make_test_mesh(model=model)
+    d, m = mesh.coords
+    row = tmesh.model_row(mesh)
+    rules = make_rules()
+    blocks = local_tree(params, cfg, mesh, rules)
+    tp_local = shard_params(params_from_numpy(params, "cpu"), cfg, m,
+                            mesh.model)
+    toks = torch.from_numpy(np.asarray(tokens)).long()
+    b, n = toks.shape
+    out = {}
+
+    def decode(tree, codec, scope_rules):
+        logits = []
+        with use_mesh_rules(mesh, scope_rules):
+            st = init_decode_states(cfg, b, n, "cpu", row=row)
+            pos = torch.arange(prompt, dtype=torch.int32)[None].expand(
+                b, prompt)
+            lg, st = decode_step(tree, cfg, toks[:, :prompt], st, pos,
+                                 weight_codec=codec)
+            logits.append(lg[:, -1])
+            for t in range(prompt, n):
+                lg, st = decode_step(tree, cfg, toks[:, t:t + 1], st,
+                                     torch.full((b, 1), t, dtype=torch.int32),
+                                     weight_codec=codec)
+                logits.append(lg[:, 0])
+        return torch.stack(logits).numpy()
+
+    with torch.no_grad():
+        tmesh.reset_fsdp_counts()
+        with use_mesh_rules(mesh, rules):
+            out["prefill"] = prefill_logits(blocks, cfg,
+                                            toks[:, :prompt]).numpy()
+        out["decode"] = decode(blocks, None, rules)
+        out["gathers"] = dict(tmesh.FSDP_COUNTS)
+        with use_mesh_rules(mesh, rules):
+            col = tmesh.fsdp_column(mesh)
+            hist = histogram_of_local_tree(blocks, cfg, mesh)
+            out["hist_equal"] = np.array_equal(hist, histogram_of_tree(
+                params_from_numpy(params, "cpu")))
+            reg = CodecRegistry()
+            reg.register("default", hist)
+            whole = whole_leaf_shapes(cfg, "groups")
+            wired, wc = compress_params_for_serving(
+                blocks["groups"], reg, whole_shapes=whole, column=col,
+                data_dims=leaf_data_dims(cfg, mesh.data, mesh.model,
+                                         "groups"))
+            full, fc = compress_params_for_serving(
+                tp_local["groups"], reg, whole_shapes=whole)
+            fw = flat_tree(wired)
+            out["chunks"] = {k: (int(fw[k + "/words"].shape[-2]),
+                                 fc.meta[k].n_chunks) for k in fc.meta}
+            opened = open_params(wired, wc, column=col)
+        want = fc.open_group(full)
+        fo, fwant = flat_tree(opened), flat_tree(want)
+        out["wire_open_equal"] = sorted(wc.meta) == sorted(fc.meta) and all(
+            torch.equal(fo[k], fwant[k]) for k in fc.meta)
+        out["wire_decode"] = decode(dict(blocks, groups=wired), wc, rules)
+        out["opened_decode"] = decode(dict(tp_local, groups=want), None,
+                                      None)
+        prompts = np.asarray(prompts)
+        max_len = prompts.shape[1] + new_tokens + 8
+        engines = {}
+        with use_rules(rules):
+            for kind in ("dense", "sync", "async"):
+                kw = {} if kind == "dense" else dict(
+                    kv_paging=kind, pool=BlockPool(1 << 30),
+                    kv_spec=KVCacheSpec(block_tokens=kv_block,
+                                        exact_capacity=kind == "sync",
+                                        axis="model"))
+                engines[kind] = _engine_run(blocks, cfg, prompts, new_tokens,
+                                            max_len, 4, mesh, **kw)[0]
+        out["engine"] = engines
+        with tmesh.use_mesh(mesh):
+            res = serve(cfg, wire="qlc", kv_cache="qlc", kv_block=kv_block,
+                        device="cpu", reference_rules=True, **serve_kw)
+        out["serve"] = ([o.tokens for o in res["outs"]], res["solo_tokens"])
+    return out
+
+
+def use_mesh_rules(mesh, rules):
+    """``use_mesh(mesh)`` and ``use_rules(rules)`` in one context."""
+    import contextlib
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.parallel.sharding import use_rules
+    stack = contextlib.ExitStack()
+    stack.enter_context(use_mesh(mesh))
+    stack.enter_context(use_rules(rules))
+    return stack
+
+
+def fsdp_world(ctx, train=(), serving=None):
+    """:func:`tp_layouts` of ``train`` and, with ``serving`` (its
+    keywords), :func:`fsdp_serving`, in one world."""
+    return {"train": tp_layouts(ctx, list(train)) if train else None,
+            "serving": None if serving is None
+            else fsdp_serving(ctx, **serving)}
 
 
 if __name__ == "__main__":

@@ -69,6 +69,23 @@ step's top-1 margin. Rank 0 prints ms/token prefill and decode of each
 run, a decode step's kernel launches, all-reduces and all-gathers, the
 wire's B/symbol, pooled / dense KV and every rank's peak.
 
+``--fsdp`` trains with the baseline step as ZeRO-3 instead
+(``train(comm="baseline")`` under ``parallel.sharding.make_rules()``):
+each rank holds its ``data x model`` block of the parameters and of the
+f32 moments, gathers a layer group's blocks over the data column as it
+runs and reduce-scatters their gradients. Per layout rank 0 prints
+ms/step, the losses (every rank's the same, finite; against the first
+layout's), the gathers and reduce-scatters a step, a rank's parameter
+and moment GiB and every rank's peak.
+
+Under ``--reference-rules`` the serving runs cut by FSDP too, as the
+reference's decode rules do (unless the config serves TP only): each
+rank draws its blocks, keeps its chunks of the model-block wire, and
+the engines open a group's wire over the data column in every decode
+step (the replica-alone check is not run there: a row alone would hold
+every model block). Each layout's tokens are compared with the first
+layout's.
+
 ``--ckpt`` checks one checkpoint for any layout (f32 parameters; use
 ``--layers`` to keep the whole tree to what the disk holds: phi3 at 8
 layers is ~4.4 GB of parameters, ~13 GB with both moments, written
@@ -102,6 +119,9 @@ Run from the root of a checkout on a machine with N cards:
       --arch chatglm3-6b --dtype float32 --batch 4 --prompt-len 32640 \
       --new-tokens 64 --kv-block 128 --prefill-chunk 256
   python3 tools/tp_cards.py --ckpt --layers 8 --model 2 --steps 2
+  python3 tools/tp_cards.py --fsdp --model 1 2
+  python3 tools/tp_cards.py --serve --reference-rules --model 4 2 \
+      --arch deepseek-coder-33b
 ``--layers L`` cuts the depth. ``--device cpu`` runs the same on N gloo
 ranks with a reduced config of the arch whose pools hold every chunk (a
 rehearsal of the control flow, without the kernel timings; its times
@@ -273,6 +293,111 @@ def _rank_main(rank, args, init):
                           f"{w['modeled_wire_bytes_per_symbol']:.4f} modeled"
                           for name, w in (r0["moe_wire"] or {}).items()))
             say(json.dumps({"layout": tag, "ranks": gathered}))
+    if cuda and rank == 0:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0], flush=True)
+
+
+def _fsdp_rank(rank, args, init):
+    """``--fsdp``: the baseline step as ZeRO-3 (``launch.train.train(comm=
+    "baseline")`` under ``parallel.sharding.make_rules()``) on the
+    ``cards / M x M`` layout of each ``--model`` size M; see the module
+    docstring."""
+    import time
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from repro_torch.configs import reduced
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import pytree_leaves
+    from repro_torch.parallel.sharding import make_rules, use_rules
+
+    cuda = args.device == "cuda"
+    cfg = arch_config(args.arch, args.layers, args.moe_impl)
+    if not cuda:
+        cfg = arch_config(args.arch, moe_impl=args.moe_impl, cfg=reduced(
+            cfg, dtype="float32", **({} if cfg.moe else {"d_model": 128})))
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with tmesh.data_parallel(args.device, rank=rank, world_size=args.cards,
+                             init_method=init):
+        def say(msg):
+            if rank == 0:
+                print(msg, flush=True)
+
+        say(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; params "
+            f"{cfg.param_dtype}, compute {cfg.dtype}, remat {cfg.remat}; "
+            f"batch {args.global_batch} x {args.seq_len}; the baseline step "
+            f"under make_rules() (FSDP); {args.cards} ranks ({args.device})")
+        first = None
+        for model in args.model:
+            mesh = tmesh.make_test_mesh(model=model)
+            tag = f"{mesh.data} x {mesh.model}"
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            tmesh.reset_fsdp_counts()
+            t0 = time.perf_counter()
+            with tmesh.use_mesh(mesh), use_rules(make_rules()):
+                res = train(cfg, comm="baseline", steps=args.steps,
+                            seq_len=args.seq_len,
+                            global_batch=args.global_batch,
+                            device=args.device, seed=0)
+            wall = time.perf_counter() - t0
+            counts = dict(tmesh.FSDP_COUNTS)
+            hist = res["history"]
+            losses = [h["loss"] for h in hist]
+            local = sum(p.numel() * p.element_size()
+                        for p in pytree_leaves(res["params"]))
+            state = sum(t.numel() * t.element_size() for k in ("m", "v")
+                        for t in pytree_leaves(res["opt_state"][k]))
+            del res
+            row_out = {
+                "layout": tag, "rank": rank,
+                "step_ms": [round(h["dt"] * 1e3, 3) for h in hist],
+                "losses": losses, "wall_s": wall,
+                "gathers_a_step": counts["gathers"] / args.steps,
+                "reduce_scatters_a_step":
+                    counts["reduce_scatters"] / args.steps,
+                "local_param_gib": local / 2**30,
+                "local_moments_gib": state / 2**30,
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                             if cuda else float("nan"))}
+            gathered = [None] * args.cards
+            dist.all_gather_object(gathered, row_out)
+            failed = []
+            if not all(math.isfinite(v) for g in gathered
+                       for v in g["losses"]):
+                failed.append("a loss is not finite")
+            if any(g["losses"] != gathered[0]["losses"] for g in gathered):
+                failed.append("the ranks' losses differ")
+            if not all(g["reduce_scatters_a_step"] > 0 for g in gathered):
+                failed.append("no reduce-scatter: the step did not run "
+                              "FSDP")
+            if first is None:
+                first = losses
+            agree = max(abs(a - b) / max(abs(b), 1e-12)
+                        for a, b in zip(losses, first))
+            r0 = gathered[0]
+            say(f"[{tag}] {args.steps} FSDP baseline steps {r0['step_ms']} "
+                f"ms, losses {losses} (largest relative difference from "
+                f"the first layout's {agree:.3e}); {r0['gathers_a_step']:.0f}"
+                f" gathers and {r0['reduce_scatters_a_step']:.0f} "
+                f"reduce-scatters a step; a rank's parameters "
+                f"{r0['local_param_gib']:.2f} GiB, moments "
+                f"{r0['local_moments_gib']:.2f} GiB; peak "
+                + ", ".join(f"{g['peak_gib']:.2f}" for g in gathered)
+                + " GiB by rank"
+                + "".join(f"; FAILED: {f}" for f in failed))
+            say(json.dumps({"layout": tag, "ranks": gathered,
+                            "rel_loss_diff_first_layout": agree}))
+            if failed:
+                raise AssertionError(f"{tag}: " + "; ".join(failed))
     if cuda and rank == 0:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -586,8 +711,9 @@ def _serve_rank(rank, args, init):
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step
     from repro_torch.models.transformer import tree_map
-    from repro_torch.parallel.sharding import (decode_rules, get_rules,
-                                               make_rules, use_rules)
+    from repro_torch.parallel.sharding import (decode_rules, fsdp_params,
+                                               get_rules, make_rules,
+                                               use_rules)
     from repro_torch.serving import (Engine, GenerationRequest, KVCacheSpec,
                                      engine as engine_mod, scheduler)
     from repro_torch.serving.scheduler import replica_requests
@@ -653,6 +779,7 @@ def _serve_rank(rank, args, init):
                if args.decode_seq_shard else "")
             + ("; the reference's decode rules" if args.reference_rules
                else ""))
+        first_tokens = None
         for model in args.model:
             mesh = make_test_mesh(model=model)
             data = mesh.data
@@ -673,8 +800,12 @@ def _serve_rank(rank, args, init):
                                            and args.against_one_rank))
             tag = f"{data} x {model}" + (
                 f" kv_seq over {'/'.join(shard.axes)}" if seq else "")
-            # the replica-alone reference of a split (dense models)
-            sub = (row_mesh(mesh) if split and not seq
+            # under FSDP the engines hold the rank's blocks and its chunks
+            # of the wire, opened a group at a time in each decode step
+            fsdp = fsdp_params(rules)
+            # the replica-alone reference of a split (dense models): not
+            # under FSDP, where a row alone would hold every model block
+            sub = (row_mesh(mesh) if split and not seq and not fsdp
                    and cfg.moe is None else None)
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
@@ -696,13 +827,16 @@ def _serve_rank(rank, args, init):
                 hashes["dense"] = logits["hash"].hexdigest()[:16]
                 opened, prompts = res["params"], res["prompts"]
                 wc, wired = res["wire_codec"], res["wired"]
+                served_wc = wc if fsdp else None
                 wire_b = sym = 0
                 for key, m in wc.meta.items():
                     node = wired
                     for part in key.split("/"):
                         node = node[part]
+                    # a rank's chunks of a leaf cut over the column
                     wire_b += sum(t.numel() * t.element_size()
-                                  for t in node.values())
+                                  for t in node.values()) * (
+                        m.n_chunks / node["words"].shape[-2])
                     sym += m.n_symbols * node["words"].shape[0]
                 row_out["wire_bytes_per_symbol"] = wire_b / max(1, sym)
                 row_out["set_up_s"] = {k: res[k] for k in (
@@ -721,7 +855,7 @@ def _serve_rank(rank, args, init):
                     eng = Engine(opened, cfg, max_seq_len=max_len,
                                  max_batch=args.batch, pool=BlockPool(1 << 34),
                                  mesh=mesh, prefill_chunk=args.prefill_chunk,
-                                 **kv[paging])
+                                 weight_codec=served_wc, **kv[paging])
                     for rid, p in zip(ids, prompts):
                         eng.submit(GenerationRequest(
                             prompt=p, max_new_tokens=args.new_tokens,
@@ -747,7 +881,7 @@ def _serve_rank(rank, args, init):
                     del eng
                 row_out["steps"] = _step_counts(
                     decode_step, opened, cfg, states, args.batch
-                    // (data if split else 1), dev, cuda)
+                    // (data if split else 1), dev, cuda, served_wc)
                 del states
                 if sub is not None:
                     row_out["replica"] = _replica_alone(
@@ -756,6 +890,9 @@ def _serve_rank(rank, args, init):
                         hashes, ids, prompts, max_len, replica_requests,
                         fresh_logits, logits)
             if alone:
+                if fsdp:
+                    with use_mesh(mesh), use_rules(rules):
+                        opened = _column_whole(opened, served_wc, cfg, mesh)
                 whole = (_row_whole(opened, cfg, mesh) if model > 1
                          else opened)
                 row_out["one_rank"] = _seq_against_one_rank(
@@ -781,6 +918,10 @@ def _serve_rank(rank, args, init):
                 events).encode()).hexdigest()[:16]
             row_out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                                    if cuda else float("nan"))
+            if first_tokens is None:
+                first_tokens = toks["dense"]
+            row_out["requests_equal_first_layout"] = sum(
+                a == b for a, b in zip(toks["dense"], first_tokens))
             gathered = [None] * args.cards
             dist.all_gather_object(gathered, row_out)
             failed = [f"{key} differs over the mesh: "
@@ -843,7 +984,12 @@ def _serve_rank(rank, args, init):
                     f"{k} {v:.4f}" for k, v in
                     r0["pooled_over_dense"].items())
                 + "; peak " + ", ".join(f"{g['peak_gib']:.2f}"
-                                        for g in gathered) + " GiB by rank")
+                                        for g in gathered) + " GiB by rank"
+                + (f"; FSDP (the wire's chunks over the column), "
+                   f"{r0['steps']['fsdp_gathers']} gathers a decode step"
+                   if fsdp else "")
+                + f"; requests equal to the first layout's "
+                f"{r0['requests_equal_first_layout']} of {len(ids)}")
             if args.arch.startswith("phi3") and data == 1:
                 agree = _against_one_card(rank, cfg, args, toks["dense"],
                                           prompts, dev, cuda)
@@ -923,6 +1069,40 @@ def _row_whole(tree, cfg, mesh, prefix=""):
     return out
 
 
+def _column_whole(tree, weight_codec, cfg, mesh):
+    """This rank's model blocks from its FSDP blocks and its chunks of the
+    wire: the wire opened over the data column, every other FSDP leaf
+    gathered over it. Every rank of the column calls this, under the
+    rules of the run."""
+    from repro_torch.convert import leaf_data_dims
+    from repro_torch.launch.mesh import fsdp_column, gather_blocks
+    from repro_torch.serving import open_params
+    col = fsdp_column(mesh)
+    dims = leaf_data_dims(cfg, mesh.data, mesh.model)
+    groups = open_params(tree["groups"], weight_codec, column=col)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        dim = dims.get(path)
+        return node if dim is None else gather_blocks(node, dim, col)
+    out = walk({k: v for k, v in tree.items() if k != "groups"}, "")
+    gd = {k[len("groups/"):]: v for k, v in dims.items()
+          if k.startswith("groups/")}
+
+    def walk_groups(node, path):
+        if isinstance(node, dict):
+            return {k: walk_groups(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        wired = path in weight_codec.meta
+        dim = gd.get(path)
+        return node if wired or dim is None else gather_blocks(node, dim,
+                                                               col)
+    out["groups"] = walk_groups(groups, "")
+    return out
+
+
 def _seq_against_one_rank(rank, Engine, GenerationRequest, opened, cfg,
                           args, ids, prompts, max_len, tokens, kept,
                           fresh_logits, logits):
@@ -969,24 +1149,32 @@ def _leaf_shapes(cfg):
     return list(whole_leaf_shapes(cfg).values())
 
 
-def _step_counts(decode_step, params, cfg, states, batch, dev, cuda):
+def _step_counts(decode_step, params, cfg, states, batch, dev, cuda,
+                 weight_codec=None):
     """One decode step at ``batch`` over the row (the mesh in scope): its
     wall time, the CUDA kernels it launched (``torch.profiler``; none
-    counted on the CPU) and the model row's all-reduces and all-gathers
-    it made."""
+    counted on the CPU), the model row's all-reduces and all-gathers it
+    made and the FSDP gathers (``launch.mesh.FSDP_COUNTS``, the dense
+    leaves' gathers over the column; a wire's hops are among the
+    all-gathers or its ring's sends)."""
+    import functools
     import time
     import torch
     import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    decode_step = functools.partial(decode_step, weight_codec=weight_codec)
     tok = torch.arange(1, batch + 1, dtype=torch.int32, device=dev)[:, None]
     pos = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
     decode_step(params, cfg, tok, states, pos)
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
+    tmesh.reset_fsdp_counts()
     decode_step(params, cfg, tok, states, pos)
     if cuda:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    gathers = tmesh.FSDP_COUNTS["gathers"]
     counts = {"all_reduces": 0, "all_gathers": 0}
     real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
 
@@ -1014,7 +1202,8 @@ def _step_counts(decode_step, params, cfg, states, batch, dev, cuda):
     finally:
         for name, fn in real.items():
             setattr(dist, name, fn)
-    return dict(counts, launches=launches, wall_ms=wall)
+    return dict(counts, launches=launches, wall_ms=wall,
+                fsdp_gathers=gathers)
 
 
 def _against_one_card(rank, cfg, args, row_tokens, prompts, dev, cuda):
@@ -1100,6 +1289,11 @@ def main(argv=None):
     ap.add_argument("--ckpt", action="store_true",
                     help="one checkpoint for any layout: save at the first "
                          "--model, restore on N x 1, 1 x N and it")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="the baseline step as ZeRO-3 (make_rules(): "
+                         "parameters and moments cut over the data column "
+                         "as well) on the N / M x M layout of each --model "
+                         "M, instead of the compressed step")
     ap.add_argument("--serve", action="store_true",
                     help="serve the arch on the N / M x M layout of each "
                          "--model M instead of training it")
@@ -1142,7 +1336,8 @@ def main(argv=None):
     from repro_torch.launch.mesh import free_port
     init = f"tcp://localhost:{free_port()}"
     mp.start_processes(_ckpt_rank if args.ckpt else
-                       _serve_rank if args.serve else _rank_main,
+                       _serve_rank if args.serve else
+                       _fsdp_rank if args.fsdp else _rank_main,
                        args=(args, init), nprocs=args.cards,
                        start_method="spawn")
 
